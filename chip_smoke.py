@@ -12,21 +12,30 @@ prints no result):
    versions; build every kernel from csrc/ (one nvcc per source, all
    started together);
 2. each kernel against its plain torch version on the card, at the main
-   path's shape and at a small odd shape with two panels: max abs/rel
-   error within rtol 1e-6 + atol 1e-5 (both compute the same f32
-   operations in the same order; the bound allows for nothing else),
-   two kernel runs bit-identical, the launch count rising; kernel,
-   plain and index_add_ times by CUDA events;
-3. the main path, dense: counters made from --seed with numpy, ingested
-   through TimeSeriesShard.ingest_columns in slabs, then
-   `sum by (_ns_) (rate(request_total[5m]))` through
-   QueryEngine.query_range once cold and --warm times warm; every query
-   must launch K1; the answer must match a numpy f64 oracle of
-   Prometheus rate + group sum within rtol 2e-4, atol 1e-3, and two warm
-   answers must be bit-identical;
-4. the main path, ragged: 65,536 series with ~1% of samples NaN (scrape
-   gaps); the query must launch K3 and match the oracle (NaN = absent)
-   within rtol 5e-4, atol 1e-4.
+   path's shape and at a small odd shape with two panels: K1/K3 (rate
+   family), K4 (last_over_time), K5 (sum/avg/count_over_time), each in
+   group-sum mode and in its per-series mode K6.  Max abs/rel error
+   within rtol 1e-6 + atol 1e-5 (both compute the same f32 operations in
+   the same order; the bound allows for nothing else), two kernel runs
+   bit-identical, the launch count rising; kernel, plain and one-call
+   PyTorch yardstick times by CUDA events;
+3. dense counters: made from --seed with numpy, ingested through
+   TimeSeriesShard.ingest_columns in slabs, then
+   `sum by (_ns_) (rate(request_total[5m]))` (K1) and
+   `max by (_ns_) (rate(request_total[5m]))` (K1's per-series mode)
+   through QueryEngine.query_range, each once cold and --warm times warm;
+4. ragged counters: 65,536 series with ~1% of samples NaN (scrape gaps),
+   the same two queries through K3;
+5. dense gauges, --series x 720: the gauge and min/max dashboard panels
+   (instant selector = K4, sum/avg_over_time = K5, count_over_time = host
+   math, min/max_over_time = windowed torch reductions, max by = K6);
+6. ragged gauges: 65,536 series with ~1% NaN, the same panels, with
+   count_over_time through K5.
+In phases 3-6 every query's answer must match a numpy f64 oracle within
+rtol 2e-4, atol 1e-3 (ragged rtol 5e-4, atol 1e-4), each warm query must
+launch the kernel named for it, and two warm answers must be
+bit-identical.  The launch counts are set to 0 just before each phase
+and read just after it.
 
 Then one JSON line with the kernel table, and as the last line
 {"ok": true, "device": {...}}.
@@ -42,6 +51,7 @@ import pstats
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -51,14 +61,39 @@ T = 720
 NUM_NS = 1000
 SLAB = 65_536
 RAGGED_SERIES = 65_536
-HEADLINE = "sum by (_ns_) (rate(request_total[5m]))"
 RANGE_MS = 300_000
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, published
 F32_OPS_PER_S = 67e12              # H100 SXM FP32 outside the tensor cores
+SECTOR = 32                        # bytes per DRAM sector
 # f32 operations per (series, window) in the rate epilogue (rate_one in
 # csrc/fused_rate.cu: 25 arithmetic/compare/select ops) plus the add of
 # the group sum; K3 adds a compare and a count per slot it scans
 RATE_OPS = 26
+
+COUNTER_QUERIES = [
+    # (PromQL, oracle key, aggregate, kernel launched: dense, ragged)
+    ("sum by (_ns_) (rate(request_total[5m]))", "rate", "sum",
+     "fused_rate_dense", "fused_rate_ragged"),
+    ("max by (_ns_) (rate(request_total[5m]))", "rate", "max",
+     "fused_rate_dense_series", "fused_rate_ragged_series"),
+]
+GAUGE_QUERIES = [
+    ("sum by (_ns_) (heap_usage)", "last", "sum",
+     "fused_last_dense", "fused_last_ragged"),
+    ("max by (_ns_) (heap_usage)", "last", "max",
+     "fused_last_dense_series", "fused_last_ragged_series"),
+    ("sum(sum_over_time(heap_usage[5m]))", "sum", "sum_all",
+     "fused_over_time_dense", "fused_over_time_ragged"),
+    ("avg by (_ns_) (avg_over_time(heap_usage[5m]))", "avg", "avg",
+     "fused_over_time_dense", "fused_over_time_ragged"),
+    ("sum(count_over_time(heap_usage[5m]))", "count", "sum_all",
+     None, "fused_over_time_ragged"),
+    ("min by (_ns_) (min_over_time(heap_usage[5m]))", "min", "min",
+     None, None),
+    ("max(max_over_time(heap_usage[5m]))", "max", "max_all", None, None),
+    ("max by (_ns_) (avg_over_time(heap_usage[5m]))", "avg", "max",
+     "fused_over_time_dense_series", "fused_over_time_ragged_series"),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -82,7 +117,7 @@ def window_bounds(ts_row, wends):
     return first, last
 
 
-def make_slab(rng, i0, n, hole_frac):
+def make_counter_slab(rng, n, hole_frac):
     """Counters like ingest/generator.counter_batch: exponential
     increments, one reset per series in the second half; optional NaN
     scrape gaps."""
@@ -93,8 +128,18 @@ def make_slab(rng, i0, n, hole_frac):
     vals = np.where(np.arange(T)[None, :] >= r[:, None], vals - before, vals)
     if hole_frac:
         vals[rng.random((n, T)) < hole_frac] = np.nan
-    gids = (np.arange(i0, i0 + n) % NUM_NS).astype(np.int64)
-    return vals, gids
+    return vals
+
+
+def make_gauge_slab(rng, n, hole_frac):
+    """Gauges like ingest/generator.gauge_batch: a sinusoid around 100
+    with a random phase per series plus noise; optional NaN gaps."""
+    phase = rng.uniform(0, 2 * np.pi, size=(n, 1))
+    vals = 100.0 + 50.0 * np.sin(np.arange(T)[None, :] / 20.0 + phase) \
+        + rng.normal(0, 2.0, size=(n, T))
+    if hole_frac:
+        vals[rng.random((n, T)) < hole_frac] = np.nan
+    return vals
 
 
 def oracle_rates(vals, ts_row, wends):
@@ -135,12 +180,70 @@ def oracle_rates(vals, ts_row, wends):
         extrap = (sampled + np.where(dur_start < thr, dur_start, avg / 2)
                   + np.where(dur_end < thr, dur_end, avg / 2))
         out = delta * (extrap / sampled) / (we - ws) * 1000.0
-    return np.where(nv >= 2, out, np.nan)
+    return {"rate": np.where(nv >= 2, out, np.nan)}
 
 
-def build_store(num_series, seed, hole_frac):
-    """Ingest the counters through the port's shard; return the memstore,
-    timings and the oracle's group sums [NUM_NS, W]."""
+def oracle_over_time(vals, ts_row, wends):
+    """Per (series, window) in f64, NaN samples absent: the value in the
+    window's newest slot (the instant selector, slot semantics),
+    sum/avg/count/min/max_over_time."""
+    first, last = window_bounds(ts_row, wends)
+    valid = ~np.isnan(vals)
+    z = np.where(valid, vals, 0.0)
+    cs = np.concatenate([np.zeros((vals.shape[0], 1)), np.cumsum(z, 1)], 1)
+    cc = np.concatenate([np.zeros((vals.shape[0], 1)),
+                         np.cumsum(valid, 1)], 1)
+    s = cs[:, last + 1] - cs[:, first]
+    n = cc[:, last + 1] - cc[:, first]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        avg = s / n
+    lo = np.where(valid, vals, np.inf)
+    hi = np.where(valid, vals, -np.inf)
+    mn = np.stack([lo[:, a:b + 1].min(1) for a, b in zip(first, last)], 1)
+    mx = np.stack([hi[:, a:b + 1].max(1) for a, b in zip(first, last)], 1)
+    some = n > 0
+    nan = np.nan
+    return {"last": vals[:, last], "sum": np.where(some, s, nan),
+            "avg": np.where(some, avg, nan), "count": n,
+            "min": np.where(some, mn, nan), "max": np.where(some, mx, nan)}
+
+
+class GroupOracle:
+    """f64 group aggregates of per-series values [n, W] (NaN = absent),
+    accumulated slab by slab."""
+
+    def __init__(self, groups, W):
+        self.sum = np.zeros((groups, W))
+        self.cnt = np.zeros((groups, W))
+        self.min = np.full((groups, W), np.inf)
+        self.max = np.full((groups, W), -np.inf)
+
+    def add(self, per, gids):
+        order = np.argsort(gids, kind="stable")
+        g = gids[order]
+        starts = np.flatnonzero(np.r_[True, g[1:] != g[:-1]])
+        x = per[order]
+        ok = ~np.isnan(x)
+        at = g[starts]
+        self.sum[at] += np.add.reduceat(np.where(ok, x, 0.0), starts, 0)
+        self.cnt[at] += np.add.reduceat(ok.astype(np.float64), starts, 0)
+        self.min[at] = np.minimum(self.min[at], np.minimum.reduceat(
+            np.where(ok, x, np.inf), starts, 0))
+        self.max[at] = np.maximum(self.max[at], np.maximum.reduceat(
+            np.where(ok, x, -np.inf), starts, 0))
+
+    def result(self, op):
+        present = self.cnt > 0
+        with np.errstate(invalid="ignore", divide="ignore"):
+            val = {"sum": self.sum, "avg": self.sum / self.cnt,
+                   "min": self.min, "max": self.max}[op]
+        return np.where(present, val, np.nan)
+
+
+def build_store(kind, num_series, seed, hole_frac, queries):
+    """Ingest counters or gauges through the port's shard; return the
+    memstore, the oracle's answer [G, W] per query, the windows and
+    timings."""
     from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
     from filodb_tpu_torch.core.partkey import PartKey
     rng = np.random.default_rng(seed)
@@ -148,29 +251,41 @@ def build_store(num_series, seed, hole_frac):
     shard = ms.setup("prometheus", 0)
     ts_row = START_MS + np.arange(T, dtype=np.int64) * STEP_MS
     wends = np.arange(START_MS + 600_000, int(ts_row[-1]) + 1, 60_000)
-    sums = np.zeros((NUM_NS, len(wends)))
-    cnts = np.zeros((NUM_NS, len(wends)))
+    W = len(wends)
+    accs = {}                          # oracle key -> (by _ns_, all)
     gen_s = ingest_s = oracle_s = 0.0
+    metric, schema, col = (("request_total", "prom-counter", "count")
+                           if kind == "counter"
+                           else ("heap_usage", "gauge", "value"))
     for i0 in range(0, num_series, SLAB):
         n = min(SLAB, num_series - i0)
         t0 = time.perf_counter()
-        vals, gids = make_slab(rng, i0, n, hole_frac)
-        keys = [PartKey.make("request_total", {
+        vals = (make_counter_slab(rng, n, hole_frac) if kind == "counter"
+                else make_gauge_slab(rng, n, hole_frac))
+        gids = (np.arange(i0, i0 + n) % NUM_NS).astype(np.int64)
+        keys = [PartKey.make(metric, {
             "_ws_": "demo", "_ns_": f"App-{i % NUM_NS}",
             "instance": f"Instance-{i}", "dc": f"DC{i % 2}"})
             for i in range(i0, i0 + n)]
         ts = np.broadcast_to(ts_row, (n, T))
         t1 = time.perf_counter()
-        shard.ingest_columns("prom-counter", keys, ts, {"count": vals})
+        shard.ingest_columns(schema, keys, ts, {col: vals})
         t2 = time.perf_counter()
-        per = oracle_rates(vals, ts_row, wends)
-        ok = ~np.isnan(per)
-        np.add.at(sums, gids, np.where(ok, per, 0.0))
-        np.add.at(cnts, gids, ok.astype(np.float64))
+        per_all = (oracle_rates(vals, ts_row, wends) if kind == "counter"
+                   else oracle_over_time(vals, ts_row, wends))
+        for okey in {q[1] for q in queries}:
+            a = accs.setdefault(okey, (GroupOracle(NUM_NS, W),
+                                       GroupOracle(1, W)))
+            a[0].add(per_all[okey], gids)
+            a[1].add(per_all[okey], np.zeros(n, np.int64))
         gen_s += t1 - t0
         ingest_s += t2 - t1
         oracle_s += time.perf_counter() - t2
-    want = np.where(cnts > 0, sums, np.nan)
+    want = {}
+    for q, okey, op, _, _ in queries:
+        grouped, total = accs[okey]
+        want[q] = (total.result(op[:-4]) if op.endswith("_all")
+                   else grouped.result(op))
     return ms, want, wends, dict(gen_s=gen_s, ingest_s=ingest_s,
                                  oracle_s=oracle_s)
 
@@ -179,8 +294,9 @@ def compare(got_res, want, rtol, atol, what):
     check(got_res.error is None, f"{what}: query error {got_res.error}")
     got = np.full_like(want, np.nan)
     for key, _, row in got_res.series():
-        ns = dict(key.labels)["_ns_"]
-        got[int(ns.split("-")[1])] = row
+        labels = dict(key.labels)
+        got[int(labels["_ns_"].split("-")[1]) if "_ns_" in labels else 0] = \
+            row
     check((np.isnan(got) == np.isnan(want)).all(),
           f"{what}: NaN pattern differs from the oracle")
     m = ~np.isnan(want)
@@ -207,20 +323,40 @@ def cuda_ms(fn, reps, warm=2):
     return a.elapsed_time(b) / reps
 
 
-def bound(num_rows, plan, Gp, ragged):
+def slots_read(kind, ragged, plan):
+    """Columns of the shared grid one row's windows read."""
+    if kind == "rate_family" and not ragged:
+        ok = plan.wvalid
+        return np.union1d(plan.idx1[ok], plan.idx2[ok])
+    ok = plan.wvalid1
+    if kind == "last_over_time":
+        return np.unique(plan.idx2[ok])
+    return np.unique(np.concatenate([np.arange(a, b + 1) for a, b in
+                                     zip(plan.idx1[ok], plan.idx2[ok])]))
+
+
+def bound(kind, ragged, series_mode, num_rows, plan, Gp):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and f32
-    operations over the FP32 rate.  Bytes: the span of columns the
-    windows touch in every row (DRAM moves 32-byte sectors, and window
-    slots a few columns apart touch every sector of the span), the
-    per-row base and CSR entry, and the outputs written once."""
-    valid = plan.wvalid1
-    span = int(plan.idx2[valid].max() - plan.idx1[valid].min() + 1)
-    outs = 2 if ragged else 1
-    nbytes = num_rows * (span * 4 + 4 + 4) + outs * Gp * plan.W * 4
-    per_window = RATE_OPS
-    if ragged:
-        slots = (plan.idx2 - plan.idx1 + 1)[valid].mean()
-        per_window += 2 * slots + 1
+    operations over the FP32 rate.  Bytes: the 32-byte sectors holding
+    the columns a row's windows read (DRAM moves whole sectors), the
+    per-row base (and CSR entry in group mode), and the outputs written
+    once ([Gp, W] sums, or [rows, W] per series; a second plane for the
+    ragged presence).  Operations per (row, window): the epilogue's
+    arithmetic plus, for the kinds that scan a window, per-slot adds
+    (and a compare and a count per slot when ragged)."""
+    sectors = np.unique(slots_read(kind, ragged, plan) * 4 // SECTOR).size
+    planes = 2 if ragged else 1
+    per_row = sectors * SECTOR + 4 + (0 if series_mode else 4)
+    outs = (num_rows if series_mode else Gp) * plan.W * 4 * planes
+    nbytes = num_rows * per_row + outs
+    ok = plan.wvalid1
+    slots = float((plan.idx2 - plan.idx1 + 1)[ok].mean())
+    if kind == "rate_family":
+        per_window = RATE_OPS + ((2 * slots + 1) if ragged else 0)
+    elif kind == "last_over_time":
+        per_window = 7 if ragged else 5
+    else:
+        per_window = (3 * slots + 5) if ragged else (slots + 4)
     ops = num_rows * plan.W * per_window
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
@@ -228,6 +364,19 @@ def bound(num_rows, plan, Gp, ragged):
 
 
 # -------------------------------------------------------- phase 2: kernels
+
+# (table name, kind, per-series mode); every kind is checked in its dense
+# and ragged variants, named <name>_dense / <name>_ragged (+ _series)
+KERNELS = [
+    ("fused_rate", "rate_family", "filodb_tpu_torch/csrc/fused_rate.cu"),
+    ("fused_last", "last_over_time",
+     "filodb_tpu_torch/csrc/fused_over_time.cu"),
+    ("fused_over_time", "avg_over_time",
+     "filodb_tpu_torch/csrc/fused_over_time.cu"),
+]
+CHECK_KINDS = {"fused_over_time": ("sum_over_time", "avg_over_time",
+                                   "count_over_time")}
+
 
 def kernel_inputs(S, T_, panels, ragged, gen, device):
     import torch
@@ -249,162 +398,228 @@ def kernel_inputs(S, T_, panels, ragged, gen, device):
     csr, _, total = fused.merge_groups(groups, panels)
     Gp = fused.pad_group_count(total)
     chunks = fused.chunk_plan(csr.offsets, Gp, device)
-    return plan, vals, csr, chunks, plan.device_rows(device), Gp
+    return dict(plan=plan, vals=vals, csr=csr, chunks=chunks,
+                rows=plan.device_rows(device), Gp=Gp, S=S)
 
 
-def check_kernel(name, S, T_, panels, seed, device, timed):
+def check_kernel(inp, base, kind, ragged, series_mode, gen, timed):
+    """Hold one kernel wrapper against its plain version on `inp`;
+    returns the table row when `timed`."""
     import torch
     from filodb_tpu_torch.ops import fused, kernels
-    ragged = name == "fused_rate_ragged"
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    plan, vals, csr, chunks, rows, Gp = kernel_inputs(S, T_, panels, ragged,
-                                                      gen, device)
-    wrap = fused.fused_rate_ragged if ragged else fused.fused_rate_dense
-    plain = (fused.fused_rate_ragged_plain if ragged
-             else fused.fused_rate_dense_plain)
-    args = (vals.vals_p, vals.vbase_p, csr, chunks, rows, Gp, True, True)
+    vals, rows, S = inp["vals"], inp["rows"], inp["S"]
+    name = f"{base}_{'ragged' if ragged else 'dense'}" + \
+        ("_series" if series_mode else "")
+    flags = (True, True)                  # rate: is_counter, is_rate
+    if series_mode:
+        def wrap():
+            return fused.fused_per_series(vals.vals_p, vals.vbase_p, rows, S,
+                                          kind, ragged, *flags)
 
-    def as_tuple(x):
-        return x if isinstance(x, tuple) else (x,)
+        def plain():
+            return fused.fused_per_series_plain(vals.vals_p, vals.vbase_p,
+                                                rows, S, kind, ragged, *flags)
+    else:
+        args = (vals.vals_p, vals.vbase_p, inp["csr"], inp["chunks"], rows,
+                inp["Gp"])
+
+        def wrap():
+            return fused.group_launch(kind, ragged, *args, *flags)
+
+        def plain():
+            return fused.group_plain(kind, ragged, *args, *flags)
+
+    def planes(x):
+        x = x if isinstance(x, tuple) else (x,)
+        return [p for p in x if p is not None]
 
     n0 = kernels.LAUNCHES[name]
-    k1 = as_tuple(wrap(*args))
-    k2 = as_tuple(wrap(*args))
+    k1, k2 = planes(wrap()), planes(wrap())
     torch.cuda.synchronize()
     check(kernels.LAUNCHES[name] == n0 + 2,
-          f"{name}: launch count did not rise")
+          f"{name} ({kind}): launch count did not rise")
     check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
-          f"{name}: two kernel runs differ")
-    p = as_tuple(plain(*args))
+          f"{name} ({kind}): two kernel runs differ")
+    p = planes(plain())
+    check(len(p) == len(k1), f"{name}: kernel and plain planes differ")
     max_abs = max_rel = 0.0
     for a, b in zip(k1, p):
         err = (a.double() - b.double()).abs()
         lim = 1e-5 + 1e-6 * b.double().abs()
         check(bool((err <= lim).all()),
-              f"{name}: kernel vs plain max abs err {err.max().item()}")
+              f"{name} ({kind}): kernel vs plain max abs err "
+              f"{err.max().item()}")
         max_abs = max(max_abs, err.max().item())
         max_rel = max(max_rel, (err / b.double().abs().clamp(min=1e-30))
                       .max().item())
-    log(f"check {name} S={S} T={T_} W={plan.W} panels={list(panels)}: "
+    plan = inp["plan"]
+    log(f"check {name} ({kind}) S={S} W={plan.W} Gp={inp['Gp']}: "
         f"max_abs_err={max_abs} max_rel_err={max_rel} "
         f"bit_identical_repeat=True rtol=1e-6 atol=1e-5")
     if not timed:
-        return None
-    ms = cuda_ms(lambda: wrap(*args), reps=20)
-    plain_ms = cuda_ms(lambda: plain(*args), reps=2, warm=1)
-    # the nearest one-call yardstick: index_add_ of per-series rates
-    # into their groups (the group-sum step alone, same S x W operands)
-    gids = torch.from_numpy(np.arange(S) % panels[0]).to(device)
-    rates = torch.rand((S, plan.W), generator=gen, device=device)
-    acc = torch.zeros((Gp, plan.W), device=device)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, gids, rates), reps=20)
-    bound_ms, bound_by = bound(S, plan, Gp, ragged)
-    log(f"time {name} S={S} W={plan.W} G={Gp}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by})")
+        return max_abs
+    ms = cuda_ms(wrap, reps=20)
+    plain_ms = cuda_ms(plain, reps=2, warm=1)
+    # the nearest one-call yardstick on the same S x W operands: the
+    # group sum alone (index_add_), or for the per-series mode the
+    # min/max grouping that finishes it (scatter_reduce amax)
+    gids = torch.from_numpy(np.arange(S) % NUM_NS).to(vals.vals_p.device)
+    cells = torch.rand((S, plan.W), generator=gen,
+                       device=vals.vals_p.device)
+    if series_mode:
+        idx = gids[:, None].expand(-1, plan.W)
+        acc = torch.full((NUM_NS, plan.W), float("-inf"),
+                         device=cells.device)
+        library_ms = cuda_ms(lambda: acc.scatter_reduce_(
+            0, idx, cells, "amax", include_self=True), reps=20)
+        yard = "scatter_reduce amax"
+    else:
+        acc = torch.zeros((inp["Gp"], plan.W), device=cells.device)
+        library_ms = cuda_ms(lambda: acc.index_add_(0, gids, cells), reps=20)
+        yard = "index_add_"
+    bound_ms, bound_by = bound(kind, ragged, series_mode, S, plan,
+                               inp["Gp"])
+    log(f"time {name} ({kind}) S={S} W={plan.W} G={inp['Gp']}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {yard} {library_ms:.4f} "
+        f"ms, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-# ------------------------------------------------------- phases 3 and 4
+def run_kernel_checks(num_series, seed, device):
+    import torch
+    table = {}
+    for ragged in (False, True):
+        for S, T_, panels, timed in ((1001, 333, (7, 3), False),
+                                     (num_series, T, (NUM_NS,), True)):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            inp = kernel_inputs(S, T_, panels, ragged, gen, device)
+            for base, kind, source in KERNELS:
+                for series_mode in (False, True):
+                    name = f"{base}_{'ragged' if ragged else 'dense'}" + \
+                        ("_series" if series_mode else "")
+                    errs = [check_kernel(inp, base, k, ragged, series_mode,
+                                         gen, False)
+                            for k in CHECK_KINDS.get(base, ())
+                            if k != kind]
+                    row = check_kernel(inp, base, kind, ragged, series_mode,
+                                       gen, timed)
+                    if timed:
+                        row["max_abs_err"] = max([row["max_abs_err"]]
+                                                 + errs)
+                        row["source"] = source
+                        table[name] = row
+            del inp
+            gc.collect()
+            torch.cuda.empty_cache()
+    return table
 
-def run_main_path(num_series, seed, hole_frac, warm, kernel, tol):
+
+# --------------------------------------------------------- phases 3 to 6
+
+def run_path(kind, num_series, seed, hole_frac, warm, queries, tol):
+    """Ingest, then drive each query once cold and `warm` times warm
+    through QueryEngine.query_range; the launch counts are set to 0 just
+    before the first query and read just after the last."""
     import torch
     from filodb_tpu_torch.ops import kernels
     from filodb_tpu_torch.query import execbase
     from filodb_tpu_torch.query.engine import QueryEngine
-    what = "ragged" if hole_frac else "dense"
-    ms, want, wends, t = build_store(num_series, seed, hole_frac)
+    ragged = bool(hole_frac)
+    what = f"{kind} {'ragged' if ragged else 'dense'}"
+    ms, want, wends, t = build_store(kind, num_series, seed, hole_frac,
+                                     queries)
     log(f"{what}: {num_series} series x {T} samples: generate "
         f"{t['gen_s']:.3f} s, ingest_columns {t['ingest_s']:.3f} s, oracle "
         f"{t['oracle_s']:.3f} s")
     eng = QueryEngine("prometheus", ms)
     start_s = START_MS // 1000
     end_s = start_s + (T - 1) * STEP_MS // 1000
+    schema = "prom-counter" if kind == "counter" else "gauge"
 
-    def query():
+    def query(q):
         t0 = time.perf_counter()
-        res = eng.query_range(HEADLINE, start_s + 600, 60, end_s)
+        res = eng.query_range(q, start_s + 600, 60, end_s)
         return res, time.perf_counter() - t0
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    res, cold_s = query()
-    check(kernels.LAUNCHES[kernel] == 1, f"{what}: cold query did not "
-          f"launch {kernel} ({kernels.LAUNCHES})")
-    mirror = ms.get_shard("prometheus", 0).stores["prom-counter"].device_mirror
-    warm_s, answers = [], [res]
-    for i in range(warm):
-        n0 = kernels.LAUNCHES[kernel]
-        r, s = query()
-        check(kernels.LAUNCHES[kernel] > n0,
-              f"{what}: warm query {i} did not launch {kernel}")
-        warm_s.append(s)
-        answers.append(r)
+    rows_out = []
+    for qi, (q, _, op, k_dense, k_ragged) in enumerate(queries):
+        kernel = k_ragged if ragged else k_dense
+        n0 = dict(kernels.LAUNCHES)
+        res, cold_s = query(q)
+        if kernel is not None:
+            check(kernels.LAUNCHES[kernel] == n0[kernel] + 1,
+                  f"{what}: cold `{q}` did not launch {kernel}")
+        else:
+            check(kernels.LAUNCHES == n0,
+                  f"{what}: `{q}` launched a kernel, expected none")
+        warm_s, answers = [], [res]
+        for i in range(warm):
+            n0 = kernels.LAUNCHES[kernel] if kernel else 0
+            r, s = query(q)
+            if kernel is not None:
+                check(kernels.LAUNCHES[kernel] > n0,
+                      f"{what}: warm `{q}` {i} did not launch {kernel}")
+            warm_s.append(s)
+            answers.append(r)
+        rtol, atol = tol
+        checked = [compare(r, want[q], rtol, atol, f"{what} `{q}`")
+                   for r in answers]
+        _, err, rel = checked[-1]
+        check(np.array_equal(checked[-2][0], checked[-1][0], equal_nan=True),
+              f"{what}: two warm answers of `{q}` differ")
+        groups = want[q].shape[0]
+        payload = QueryEngine.to_prom_matrix(answers[-1])
+        check(payload["status"] == "success"
+              and len(payload["data"]["result"]) == groups,
+              f"{what}: Prometheus matrix of `{q}` has "
+              f"{len(payload['data']['result'])} series, expected {groups}")
+        p50, p99 = np.percentile(warm_s, 50), np.percentile(warm_s, 99)
+        log(f"{what}: `{q}` via {kernel or 'no kernel'}: cold {cold_s:.4f} s; "
+            f"warm x{warm} p50 {p50:.4f} s p99 {p99:.4f} s; oracle max_abs_err "
+            f"{err} max_rel_err {rel} (rtol {rtol}, atol {atol}); warm "
+            f"answers bit-identical")
+        rows_out.append(dict(query=q, kernel=kernel, cold_s=cold_s, p50=p50,
+                             p99=p99, err=err))
+        if qi == 0:
+            # where a warm query's host time goes: one more warm query
+            # under cProfile (host calls that wait on the card show it)
+            prof = cProfile.Profile()
+            prof.enable()
+            query(q)
+            prof.disable()
+            buf = io.StringIO()
+            pstats.Stats(prof, stream=buf).sort_stats("tottime") \
+                .print_stats(6)
+            top = [ln for ln in buf.getvalue().splitlines()
+                   if ln.strip() and ln.lstrip()[0].isdigit()]
+            log(f"{what}: cProfile of one warm `{q}`, top 6 by own time "
+                f"(ncalls tottime percall cumtime percall function):")
+            for ln in top[-6:]:
+                log(f"{what}:   {ln.strip()}")
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    rtol, atol = tol
-    checked = [compare(r, want, rtol, atol, what) for r in answers]
-    _, err, rel = checked[-1]
-    check(np.array_equal(checked[-2][0], checked[-1][0], equal_nan=True),
-          f"{what}: two warm answers differ")
-    payload = QueryEngine.to_prom_matrix(answers[-1])
-    check(payload["status"] == "success"
-          and len(payload["data"]["result"]) == NUM_NS,
-          f"{what}: Prometheus matrix has "
-          f"{len(payload['data']['result'])} series, expected {NUM_NS}")
-    p50, p99 = np.percentile(warm_s, 50), np.percentile(warm_s, 99)
-    samples = answers[-1].stats.samples_scanned
-    # per-layer times on the main path's own cached inputs
+    mirror = ms.get_shard("prometheus", 0).stores[schema].device_mirror
     snap = mirror.snapshot()
-    rows = np.arange(num_series)
-    gather_ms = cuda_ms(lambda: mirror.gather_cached(rows, snap), reps=5)
-    (plan,) = execbase._FUSED_PLAN_CACHE.values()
-    (vals,) = execbase._FUSED_VALS_CACHE.values()
-    (groups, gkeys) = next(iter(execbase._FUSED_GROUP_CACHE.values()))
-    from filodb_tpu_torch.ops import fused
-    Gp = fused.pad_group_count(len(gkeys))
-    chunks = fused.chunk_plan(groups.csr.offsets, Gp, vals.vals_p.device)
-    wrap = (fused.fused_rate_ragged if hole_frac else fused.fused_rate_dense)
-    kernel_ms = cuda_ms(lambda: wrap(vals.vals_p, vals.vbase_p, groups.csr,
-                                     chunks, plan.device_rows(
-                                         vals.vals_p.device),
-                                     Gp, True, True), reps=10)
-    # where a warm query's host time goes: one more warm query under
-    # cProfile (host calls that wait on the card show the wait)
-    prof = cProfile.Profile()
-    prof.enable()
-    query()
-    prof.disable()
-    buf = io.StringIO()
-    pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(8)
-    top = [ln for ln in buf.getvalue().splitlines()
-           if ln.strip() and ln.lstrip()[0].isdigit()]
-    log(f"{what}: cProfile of one warm query, top 8 by own time "
-        f"(ncalls tottime percall cumtime percall function):")
-    for ln in top[-8:]:
-        log(f"{what}:   {ln.strip()}")
-    log(f"{what}: windows={len(wends)} groups={NUM_NS} "
-        f"oracle max_abs_err={err} max_rel_err={rel} (rtol {rtol}, "
-        f"atol {atol}); warm answers bit-identical")
-    log(f"{what}: mirror upload {mirror.last_upload_s:.4f} s; cold query "
-        f"{cold_s:.4f} s; warm x{warm} p50 {p50:.4f} s p99 {p99:.4f} s; "
-        f"leaf gather {gather_ms:.3f} ms; {kernel} {kernel_ms:.4f} ms "
-        f"(CUDA events); samples scanned/query {samples}, "
-        f"{samples / p50:.4g} samples/s at warm p50; "
-        f"max_memory_allocated {peak} B; launches {launches}")
-    out = dict(launches=launches, cold_s=cold_s, p50=p50, p99=p99,
-               upload_s=mirror.last_upload_s, gather_ms=gather_ms,
-               kernel_ms=kernel_ms, peak=peak)
-    del eng, ms, mirror, snap, vals, groups, plan, answers, res
+    idx = np.arange(num_series)
+    gather_ms = cuda_ms(lambda: mirror.gather_cached(idx, snap), reps=5)
+    samples = answers[-1].stats.samples_scanned
+    log(f"{what}: windows={len(wends)} mirror upload "
+        f"{mirror.last_upload_s:.4f} s; leaf gather {gather_ms:.3f} ms; "
+        f"samples scanned/query {samples}; max_memory_allocated {peak} B; "
+        f"launches {({k: v for k, v in launches.items() if v})}")
+    del eng, ms, mirror, snap, answers, res
     for cache in (execbase._FUSED_PLAN_CACHE, execbase._FUSED_VALS_CACHE,
-                  execbase._FUSED_GROUP_CACHE):
+                  execbase._FUSED_GROUP_CACHE,
+                  execbase._FUSED_MINMAX_PAD_CACHE):
         cache.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+    return launches, rows_out
 
 
 # ------------------------------------------------------------------ main
@@ -426,6 +641,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
+    warnings.simplefilter("ignore", RuntimeWarning)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -441,31 +657,28 @@ def main(argv=None) -> int:
         f"({', '.join(kernels.SOURCES)})")
     dev = torch.device("cuda", 0)
 
-    table = {}
-    for name in ("fused_rate_dense", "fused_rate_ragged"):
-        check_kernel(name, 1001, 333, (7, 3), args.seed, dev, timed=False)
-        table[name] = check_kernel(name, args.series, T, (NUM_NS,),
-                                   args.seed, dev, timed=True)
-        gc.collect()
-        torch.cuda.empty_cache()
+    table = run_kernel_checks(args.series, args.seed, dev)
 
-    dense = run_main_path(args.series, args.seed, 0.0, args.warm,
-                          "fused_rate_dense", (2e-4, 1e-3))
-    ragged = run_main_path(RAGGED_SERIES, args.seed + 1, 0.01,
-                           max(3, args.warm // 3), "fused_rate_ragged",
-                           (5e-4, 1e-4))
-    table["fused_rate_dense"]["launches"] = \
-        dense["launches"]["fused_rate_dense"]
-    table["fused_rate_ragged"]["launches"] = \
-        ragged["launches"]["fused_rate_ragged"]
-    check(table["fused_rate_dense"]["launches"] > 0
-          and table["fused_rate_ragged"]["launches"] > 0,
-          "a kernel of the main path was not launched")
+    launches = {name: 0 for name in table}
+    small_warm = max(3, args.warm // 3)
+    for kind, n, seed, hole, warm, queries, tol in (
+            ("counter", args.series, args.seed, 0.0, args.warm,
+             COUNTER_QUERIES, (2e-4, 1e-3)),
+            ("counter", RAGGED_SERIES, args.seed + 1, 0.01, small_warm,
+             COUNTER_QUERIES, (5e-4, 1e-4)),
+            ("gauge", args.series, args.seed + 2, 0.0, args.warm,
+             GAUGE_QUERIES, (2e-4, 1e-3)),
+            ("gauge", RAGGED_SERIES, args.seed + 3, 0.01, small_warm,
+             GAUGE_QUERIES, (5e-4, 1e-4))):
+        got, _ = run_path(kind, n, seed, hole, warm, queries, tol)
+        for name in launches:
+            launches[name] += got.get(name, 0)
+    missing = [name for name, k in launches.items() if k == 0]
+    check(not missing, f"kernels of the main path never launched: {missing}")
     replaces = "filodb_tpu/ops/pallas_fused.py:466"
     kernels_json = [
-        dict(name=name, route="cuda",
-             source="filodb_tpu_torch/csrc/fused_rate.cu",
-             replaces=replaces, launches=row["launches"],
+        dict(name=name, route="cuda", source=row["source"],
+             replaces=replaces, launches=launches[name],
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"])

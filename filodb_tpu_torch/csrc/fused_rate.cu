@@ -5,7 +5,8 @@
 // branches with gather selections and no in-kernel drops — the dense
 // gather branch (:595-609, _gather_cols :443) and the ragged branch
 // (:544-593 without with_drops), each followed by the extrapolation
-// (:626-646) and the group-mode _epilogue (:666-684).
+// (:626-646) and the _epilogue (:652) in both modes: group sums
+// (:666-684) and per-series output (K6, :661-665).
 //
 // Bound on the H100: memory.  Per (series, window) the kernel reads two
 // values (K1) or the window's slots (K3) and does ~30 f32 operations.
@@ -30,10 +31,19 @@
 // to the last bit of each per-series rate.  FP32 throughout, no tensor
 // cores.  What is left for later: reading each row once for all its
 // windows (shared-memory staging or TMA), and one pass with no partials.
+//
+// Per-series mode (K6, the min/max aggregates): dense_series /
+// ragged_series run one thread per (series, window) cell, neighbouring
+// threads on neighbouring windows of one row, and store the rate (and
+// the presence, ragged) at out[row, w]; ops/agg.map_phase finishes the
+// groups in torch.  The bytes are the same row spans plus the [S, W]
+// output written once.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "fused_common.cuh"
 
 namespace {
 
@@ -125,6 +135,29 @@ __global__ void dense_chunks(const float* __restrict__ vals,
   }
 }
 
+// The rate over a row's first and last VALID (non-NaN) sample inside
+// the window slots i1..i2, and whether it has at least two (the
+// reference's fill scans select the same samples).
+__device__ __forceinline__ bool ragged_rate(const float* row, int i1, int i2,
+                                            const float* tsrow, float ws,
+                                            float we, float vb,
+                                            int is_counter, int is_rate,
+                                            float* rate) {
+  int nv = 0, j1 = -1, j2 = -1;
+  for (int j = i1; j <= i2; ++j) {
+    const float x = row[j];
+    if (x == x) {
+      if (j1 < 0) j1 = j;
+      j2 = j;
+      ++nv;
+    }
+  }
+  if (nv < 2) return false;
+  *rate = rate_one(row[j1], row[j2], tsrow[j1], tsrow[j2], (float)nv, ws,
+                   we, vb, is_counter, is_rate);
+  return true;
+}
+
 __global__ void ragged_chunks(const float* __restrict__ vals,
                               long long stride,
                               const float* __restrict__ vbase,
@@ -145,21 +178,10 @@ __global__ void ragged_chunks(const float* __restrict__ vals,
     float cnt = 0.0f;
     for (int i = lo; i < hi; ++i) {
       const long long r = order[i];
-      const float* row = vals + r * stride;
-      // first and last VALID (non-NaN) sample inside the window, and how
-      // many there are: what the reference's fill scans select
-      int nv = 0, j1 = -1, j2 = -1;
-      for (int j = i1; j <= i2; ++j) {
-        const float x = row[j];
-        if (x == x) {
-          if (j1 < 0) j1 = j;
-          j2 = j;
-          ++nv;
-        }
-      }
-      if (nv >= 2) {
-        acc += rate_one(row[j1], row[j2], wr.tsrow[j1], wr.tsrow[j2],
-                        (float)nv, ws, we, vbase[r], is_counter, is_rate);
+      float rate;
+      if (ragged_rate(vals + r * stride, i1, i2, wr.tsrow, ws, we, vbase[r],
+                      is_counter, is_rate, &rate)) {
+        acc += rate;
         cnt += 1.0f;
       }
     }
@@ -168,41 +190,41 @@ __global__ void ragged_chunks(const float* __restrict__ vals,
   }
 }
 
-// out[p][g, w] = sum over g's chunks, in chunk order, of partial[p][c, w]
-__global__ void group_reduce(const float* __restrict__ partial,
-                             long long n_chunks,
-                             const int* __restrict__ gco, int Gp, int W,
-                             int planes, float* __restrict__ out) {
+// K6 over K1: out[r, w] for rows 0..num_rows-1
+__global__ void dense_series(const float* __restrict__ vals,
+                             long long stride,
+                             const float* __restrict__ vbase,
+                             long long num_rows, WindowRows wr, int W,
+                             int is_counter, int is_rate,
+                             float* __restrict__ out) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long cells = (long long)Gp * W;
-  if (t >= cells * planes) return;
-  const int p = (int)(t / cells);
-  const long long gw = t - (long long)p * cells;
-  const int g = (int)(gw / W);
-  const int w = (int)(gw - (long long)g * W);
-  const float* src = partial + (long long)p * n_chunks * W;
-  float acc = 0.0f;
-  for (int c = gco[g]; c < gco[g + 1]; ++c) {
-    acc += src[(long long)c * W + w];
-  }
-  out[t] = acc;
+  if (t >= num_rows * W) return;
+  const long long r = t / W;
+  const int w = (int)(t - r * W);
+  const float* row = vals + r * stride;
+  out[t] = rate_one(row[wr.idx1[w]], row[wr.idx2[w]], wr.t1[w], wr.t2[w],
+                    wr.n[w], wr.ws[w], wr.we[w], vbase[r], is_counter,
+                    is_rate);
 }
 
-int block_for(int W) {
-  int b = ((W + 31) / 32) * 32;
-  return b > 256 ? 256 : b;
-}
-
-int launch_reduce(const float* partial, long long n_chunks, const int* gco,
-                  int Gp, int W, int planes, float* out,
-                  cudaStream_t stream) {
-  const long long total = (long long)Gp * W * planes;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  group_reduce<<<(unsigned)blocks, threads, 0, stream>>>(
-      partial, n_chunks, gco, Gp, W, planes, out);
-  return (int)cudaGetLastError();
+// K6 over K3: out[r, w] (0 where absent) and pres[r, w]
+__global__ void ragged_series(const float* __restrict__ vals,
+                              long long stride,
+                              const float* __restrict__ vbase,
+                              long long num_rows, WindowRows wr, int W,
+                              int is_counter, int is_rate,
+                              float* __restrict__ out,
+                              float* __restrict__ pres) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= num_rows * W) return;
+  const long long r = t / W;
+  const int w = (int)(t - r * W);
+  float rate = 0.0f;
+  const bool ok = ragged_rate(vals + r * stride, wr.idx1[w], wr.idx2[w],
+                              wr.tsrow, wr.ws[w], wr.we[w], vbase[r],
+                              is_counter, is_rate, &rate);
+  out[t] = ok ? rate : 0.0f;
+  pres[t] = ok ? 1.0f : 0.0f;
 }
 
 }  // namespace
@@ -256,6 +278,38 @@ int fused_rate_ragged_launch(const float* vals, long long stride,
     if (err) return err;
   }
   return launch_reduce(partial, n_chunks, gco, Gp, W, 2, out, s);
+}
+
+// K6 over K1.  out [num_rows, W] f32; the other operands as K1.
+int fused_rate_dense_series_launch(const float* vals, long long stride,
+                                   const float* vbase, long long num_rows,
+                                   const int* idx1, const int* idx2,
+                                   const float* t1, const float* t2,
+                                   const float* n, const float* ws,
+                                   const float* we, int W, int is_counter,
+                                   int is_rate, float* out, void* stream) {
+  WindowRows wr{idx1, idx2, t1, t2, n, ws, we, nullptr};
+  const long long cells = num_rows * W;
+  if (cells == 0) return 0;
+  dense_series<<<series_blocks(cells), 256, 0, (cudaStream_t)stream>>>(
+      vals, stride, vbase, num_rows, wr, W, is_counter, is_rate, out);
+  return (int)cudaGetLastError();
+}
+
+// K6 over K3.  out and pres [num_rows, W] f32; the other operands as K3.
+int fused_rate_ragged_series_launch(const float* vals, long long stride,
+                                    const float* vbase, long long num_rows,
+                                    const int* idx1, const int* idx2,
+                                    const float* ws, const float* we,
+                                    const float* tsrow, int W,
+                                    int is_counter, int is_rate, float* out,
+                                    float* pres, void* stream) {
+  WindowRows wr{idx1, idx2, nullptr, nullptr, nullptr, ws, we, tsrow};
+  const long long cells = num_rows * W;
+  if (cells == 0) return 0;
+  ragged_series<<<series_blocks(cells), 256, 0, (cudaStream_t)stream>>>(
+      vals, stride, vbase, num_rows, wr, W, is_counter, is_rate, out, pres);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,22 +1,32 @@
-"""Fused windowed rate + group sum over one shared scrape grid.
+"""Fused windowed range functions + cross-series aggregation over one
+shared scrape grid.
 
-Port of filodb_tpu/ops/pallas_fused.py for the rate family
-(rate/increase/delta) and the sum/avg/count aggregates.  The headline
-query `sum by (...) (rate(counter[5m]))` runs here: a host-built plan
+Port of filodb_tpu/ops/pallas_fused.py for the kernel kinds a leaf
+reaches: the rate family (rate/increase/delta over reset-corrected
+values), last_over_time (instant selectors too) and sum/avg/
+count_over_time, each under sum/avg/count/min/max.  A host-built plan
 holds the window boundaries once (one shared grid, so one row of slot
-indices serves every series), and one kernel launch computes each
-series' Prometheus-extrapolated rate at those slots and sums it into its
-group.
+indices serves every series); one kernel launch computes each series'
+value per window and either sums it into its group or writes it out per
+series.
 
-Two kernels, both in csrc/fused_rate.cu (ops/kernels.py builds and binds
-them), each with a plain torch version here that computes the same
-function in the same f32 operation order:
+The kernels (csrc/fused_rate.cu, csrc/fused_over_time.cu; ops/kernels.py
+builds and binds them) each have a plain torch version here that
+computes the same function in the same f32 operation order:
 
-- K1, dense: the counted region has no NaN; the boundary values are read
-  at the plan's idx1/idx2 slots directly.
-- K3, ragged: NaN holes are absent samples; each (series, window) finds
-  its first and last VALID sample inside the window and counts them, and
-  a second output sums the presence (valid count >= 2) per group.
+- K1 rate family, dense: the boundary values are read at the plan's
+  idx1/idx2 slots directly.
+- K3 rate family, ragged: NaN holes are absent samples; each (series,
+  window) finds its first and last VALID sample inside the window, and a
+  second output sums the presence (valid count >= 2) per group.
+- K4 last_over_time: the slot at idx2; ragged keeps slot semantics (a
+  NaN there is a staleness marker: the series is absent).
+- K5 sum/avg/count_over_time: each window's slots idx1..idx2 summed in
+  ascending slot order; ragged zeroes NaN slots and counts the valid
+  ones.
+- K6, the per-series output mode of all four: [S, W] values (+ presence
+  when ragged) instead of group sums, finished by ops/agg.map_phase —
+  the min/max aggregates, whose semiring is not a sum.
 
 The group sum is deterministic: rows are visited in a stable CSR order
 (rows by group id, ascending row within a group), cut into chunks of
@@ -25,13 +35,14 @@ partials are summed in chunk order.  The plain versions sum in the same
 order, so kernel and plain agree to f32 rounding of identical operations.
 
 What the TPU kernel needed and this port drops: the one-hot selection
-matrices (o1/o2/l1/l2), the VMEM block-size model (replaced by
-check_kernel_shape) and the MXU precision split.
+and band matrices (o1/o2/l1/l2 — K5's band matmul becomes an ordered
+slot loop), the VMEM block-size model (replaced by check_kernel_shape)
+and the MXU precision split.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -84,6 +95,7 @@ class PlanRows(NamedTuple):
     ws: torch.Tensor         # [W] f32 window start boundary (wend - range)
     we: torch.Tensor         # [W] f32 window end
     tsrow: torch.Tensor      # [Tp] f32 shared-grid ts offsets (0 pad tail)
+    n1: torch.Tensor         # [W] f32 true samples in window (0 empty)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -96,7 +108,7 @@ class FusedPlan:
     wstart_x: np.ndarray     # [W] window start boundary (exclusive - 1)
     wend_x: np.ndarray       # [W]
     wvalid: np.ndarray       # [W] bool  n >= 2 (rate family)
-    wvalid1: np.ndarray      # [W] bool  n >= 1
+    wvalid1: np.ndarray      # [W] bool  n >= 1 (*_over_time family)
     n1: np.ndarray           # [W] TRUE samples in window (0 empty)
     W: int
     Tp: int
@@ -115,7 +127,7 @@ class FusedPlan:
                 return torch.from_numpy(np.ascontiguousarray(a)).to(device)
             rows = PlanRows(put(self.idx1), put(self.idx2), put(self.t1),
                             put(self.t2), put(self.n), put(self.wstart_x),
-                            put(self.wend_x), put(self.tsrow))
+                            put(self.wend_x), put(self.tsrow), put(self.n1))
             self._rows[key] = rows
         return rows
 
@@ -162,16 +174,25 @@ def window_counts(ts_row: np.ndarray, wends: np.ndarray,
     return np.maximum(last - first + 1, 0)
 
 
-FUSABLE_FNS = ("rate", "increase", "delta")
-FUSABLE_AGGS = ("sum", "avg", "count")
-
+# the reference's eligibility sets (pallas_fused.py:836-846)
+FUSABLE_FNS = ("rate", "increase", "delta", "sum_over_time",
+               "avg_over_time", "last_over_time", "count_over_time",
+               "min_over_time", "max_over_time")
+OVER_TIME_FNS = ("sum_over_time", "avg_over_time", "last_over_time",
+                 "count_over_time")
+# kinds whose validity-weighted variant handles NaN-holed (ragged) rows
+RAGGED_FNS = ("sum_over_time", "avg_over_time", "count_over_time")
+# kinds served by the windowed min/max path (ops/minmax.py), not a kernel
+MINMAX_FNS = ("min_over_time", "max_over_time")
+FUSABLE_AGGS = ("sum", "avg", "count", "min", "max")
+RATE_FNS = ("rate", "increase", "delta")
 
 def can_fuse(fn_name: str, agg_op: str, shared_grid: bool,
              dense: bool) -> bool:
-    """Leaf fused-path eligibility for what this package ports: the rate
-    family under sum/avg/count on one shared grid, dense (K1) or ragged
-    (K3).  `dense` gates nothing; it stays in the signature as the
-    contract callers route on."""
+    """Leaf fused-path eligibility: a fusable function under a fusable
+    aggregate on one shared scrape grid.  Every kind takes ragged rows;
+    `dense` gates nothing and stays in the signature as the contract
+    callers route on (kernel variant selection)."""
     del dense
     return (shared_grid and agg_op in FUSABLE_AGGS
             and fn_name in FUSABLE_FNS)
@@ -302,18 +323,20 @@ def chunk_plan(offsets: np.ndarray, Gp: int, device,
 
 # ------------------------------------------------------- plain versions
 
+def _consts(dev):
+    """f32 constants as tensors on `dev`: a CUDA divide by a host scalar
+    is computed as a multiply by its reciprocal, which the kernels do not
+    do."""
+    def c(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+    return c
+
+
 def _extrapolate(v1, v2, t1, t2, n, ws, we, vb, is_counter: bool,
                  is_rate: bool) -> torch.Tensor:
     """Prometheus extrapolated rate/increase/delta in f32, in the
-    reference kernel's operation order (ref: RateFunctions.scala:37-76).
-    Constants are tensors on the operands' device: a CUDA divide by a
-    host scalar is computed as a multiply by its reciprocal, which the
-    kernel does not do."""
-    dev = v1.device
-
-    def c(x):
-        return torch.tensor(x, dtype=torch.float32, device=dev)
-
+    reference kernel's operation order (ref: RateFunctions.scala:37-76)."""
+    c = _consts(v1.device)
     k1000 = c(1000.0)
     dur_start = (t1 - ws) / k1000
     dur_end = (we - t2) / k1000
@@ -338,21 +361,21 @@ def _extrapolate(v1, v2, t1, t2, n, ws, we, vb, is_counter: bool,
 
 def _chunked_group_sum(planes: List[torch.Tensor], chunks: ChunkPlan,
                        Gp: int) -> List[torch.Tensor]:
-    """planes: [N, W] f32 per-entry values in CSR order -> [Gp, W] group
-    sums, in the kernels' order: each chunk in entry order, then each
-    group's chunks in chunk order."""
+    """planes: [N, W] per-entry values in CSR order -> [Gp, W] group sums
+    (in the planes' dtype), in the kernels' order: each chunk in entry
+    order, then each group's chunks in chunk order."""
     N, W = planes[0].shape
     dev = planes[0].device
     C = chunks.lo.numel()
     outs = []
     for x in planes:
-        out = torch.zeros((Gp, W), dtype=torch.float32, device=dev)
+        out = torch.zeros((Gp, W), dtype=x.dtype, device=dev)
         if C == 0:
             outs.append(out)
             continue
         lo, hi, gco = chunks.lo.long(), chunks.hi.long(), chunks.gco.long()
-        part = torch.zeros((C, W), dtype=torch.float32, device=dev)
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        part = torch.zeros((C, W), dtype=x.dtype, device=dev)
+        zero = torch.zeros((), dtype=x.dtype, device=dev)
         for j in range(chunks.max_len):
             e = lo + j
             part = part + torch.where((e < hi)[:, None],
@@ -365,19 +388,27 @@ def _chunked_group_sum(planes: List[torch.Tensor], chunks: ChunkPlan,
     return outs
 
 
-def fused_rate_dense_plain(vals_p: torch.Tensor, vbase_p: torch.Tensor,
-                           csr: GroupCSR, chunks: ChunkPlan, rows: PlanRows,
-                           Gp: int, is_counter: bool,
-                           is_rate: bool) -> torch.Tensor:
-    """K1's function in torch ops -> sums [Gp, W]."""
-    order = csr.order.long()
-    i1, i2 = rows.idx1.long(), rows.idx2.long()
-    v1 = vals_p[order[:, None], i1[None, :]]
-    v2 = vals_p[order[:, None], i2[None, :]]
-    vb = vbase_p[order][:, None]
-    r = _extrapolate(v1, v2, rows.t1, rows.t2, rows.n, rows.ws, rows.we, vb,
-                     is_counter, is_rate)
-    return _chunked_group_sum([r], chunks, Gp)[0]
+def segment_sum(x: torch.Tensor, csr: GroupCSR,
+                num_groups: int) -> torch.Tensor:
+    """[S, W] -> [G, W] group sums in the fixed CSR chunk order (the same
+    deterministic order as the kernels' group sums, in x's dtype)."""
+    chunks = chunk_plan(csr.offsets, num_groups, x.device)
+    return _chunked_group_sum([x[csr.order.long()]], chunks, num_groups)[0]
+
+
+def _at(vals_p: torch.Tensor, ridx: torch.Tensor,
+        j: torch.Tensor) -> torch.Tensor:
+    """vals_p[ridx[r], j[w]] -> [R, W] without copying whole rows."""
+    return vals_p[ridx[:, None], j[None, :]]
+
+
+def _rate_dense_cells(vals_p, vbase_p, ridx, rows: PlanRows,
+                      is_counter: bool, is_rate: bool) -> torch.Tensor:
+    """K1's per-(row, window) rates for the rows ridx."""
+    v1 = _at(vals_p, ridx, rows.idx1.long())
+    v2 = _at(vals_p, ridx, rows.idx2.long())
+    return _extrapolate(v1, v2, rows.t1, rows.t2, rows.n, rows.ws, rows.we,
+                        vbase_p[ridx][:, None], is_counter, is_rate)
 
 
 def _ragged_rates(v: torch.Tensor, vb: torch.Tensor, rows: PlanRows,
@@ -407,28 +438,151 @@ def _ragged_rates(v: torch.Tensor, vb: torch.Tensor, rows: PlanRows,
     return r, pres.to(torch.float32)
 
 
+def _rate_ragged_cells(vals_p, vbase_p, ridx, rows: PlanRows,
+                       is_counter: bool, is_rate: bool,
+                       block_rows: int = 131_072):
+    """K3's per-(row, window) (rates, presence) for the rows ridx, in row
+    blocks (each row is independent), so the scan temporaries stay a few
+    GB at a million series."""
+    parts = [_ragged_rates(vals_p[blk], vbase_p[blk], rows, is_counter,
+                           is_rate)
+             for blk in torch.split(ridx, block_rows)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _last_cells(vals_p, vbase_p, ridx, rows: PlanRows, ragged: bool):
+    """K4's per-(row, window) value at idx2 -> (out, presence or None).
+    Dense: v*m + vb*m with m = min(n1, 1).  Ragged keeps slot semantics:
+    (valid ? v : 0) + vb, times presence valid(v) * m."""
+    c = _consts(vals_p.device)
+    x = _at(vals_p, ridx, rows.idx2.long())
+    vb = vbase_p[ridx][:, None]
+    m = torch.minimum(rows.n1, c(1.0))
+    if not ragged:
+        return x * m + vb * m, None
+    ok = x == x
+    sel = torch.where(ok, x, c(0.0))
+    pres = ok.to(torch.float32) * m
+    return (sel + vb) * pres, pres
+
+
+def _over_time_cells(vals_p, vbase_p, ridx, rows: PlanRows, kind: str,
+                     ragged: bool):
+    """K5's per-(row, window) sum/avg/count_over_time -> (out, presence or
+    None).  Each window's slots idx1..idx2 are added in ascending slot
+    order, one slot column at a time; slots past idx2 (and every slot of
+    an empty window) add +0.0, which leaves the sum's bits unchanged — the
+    kernel's loop, not a cumsum difference (that rounds differently)."""
+    c = _consts(vals_p.device)
+    i1, i2 = rows.idx1.long(), rows.idx2.long()
+    live = rows.n1 > 0
+    width = int(((i2 - i1 + 1) * live).max().item()) if live.numel() else 0
+    Tp = vals_p.shape[1]
+    zero = c(0.0)
+    s = torch.zeros((ridx.numel(), i1.numel()), dtype=torch.float32,
+                    device=vals_p.device)
+    cnt = torch.zeros_like(s) if ragged else None
+    for k in range(width):
+        j = i1 + k
+        take = live & (j <= i2)
+        x = _at(vals_p, ridx, j.clamp(max=Tp - 1))
+        if ragged:
+            ok = take[None, :] & (x == x)
+            s = s + torch.where(ok, x, zero)
+            cnt = cnt + ok.to(torch.float32)
+        else:
+            s = s + torch.where(take[None, :], x, zero)
+    vb = vbase_p[ridx][:, None]
+    n = cnt if ragged else rows.n1
+    if kind == "sum_over_time":
+        out = s + vb * n
+    elif kind == "avg_over_time":
+        out = s / torch.maximum(n, c(1.0)) + vb
+    elif kind == "count_over_time":
+        out = n * torch.ones_like(s)
+    else:
+        raise ValueError(f"not an over_time band kind: {kind}")
+    if not ragged:
+        return out, None
+    if kind == "count_over_time":
+        # count's presence is SLOT-based: a window whose grid slots exist
+        # but hold only NaN emits 0, not absent (pallas_fused.py:533-539)
+        pres = (rows.n1 > 0).to(torch.float32) * torch.ones_like(s)
+    else:
+        pres = (cnt > 0).to(torch.float32)
+        if kind == "avg_over_time":
+            out = out * pres          # no vbase leak into absent cells
+    return out, pres
+
+
+def _cells(kind: str, ragged: bool, vals_p, vbase_p, ridx, rows,
+           is_counter=False, is_rate=False):
+    """Per-(row, window) (values, presence or None) of any kernel kind."""
+    if kind == "rate_family":
+        if ragged:
+            return _rate_ragged_cells(vals_p, vbase_p, ridx, rows,
+                                      is_counter, is_rate)
+        return _rate_dense_cells(vals_p, vbase_p, ridx, rows, is_counter,
+                                 is_rate), None
+    if kind == "last_over_time":
+        return _last_cells(vals_p, vbase_p, ridx, rows, ragged)
+    return _over_time_cells(vals_p, vbase_p, ridx, rows, kind, ragged)
+
+
+def group_plain(kind, ragged, vals_p, vbase_p, csr, chunks, rows, Gp,
+                is_counter=False, is_rate=False):
+    """The plain version of any kind's group-mode kernel -> sums [Gp, W]
+    (dense) or (sums, presence) (ragged)."""
+    out, pres = _cells(kind, ragged, vals_p, vbase_p, csr.order.long(),
+                       rows, is_counter, is_rate)
+    planes = [out] if pres is None else [out, pres]
+    sums = _chunked_group_sum(planes, chunks, Gp)
+    return sums[0] if pres is None else tuple(sums)
+
+
+def fused_rate_dense_plain(vals_p: torch.Tensor, vbase_p: torch.Tensor,
+                           csr: GroupCSR, chunks: ChunkPlan, rows: PlanRows,
+                           Gp: int, is_counter: bool,
+                           is_rate: bool) -> torch.Tensor:
+    """K1's function in torch ops -> sums [Gp, W]."""
+    return group_plain("rate_family", False, vals_p, vbase_p, csr, chunks,
+                       rows, Gp, is_counter, is_rate)
+
+
 def fused_rate_ragged_plain(vals_p: torch.Tensor, vbase_p: torch.Tensor,
                             csr: GroupCSR, chunks: ChunkPlan,
                             rows: PlanRows, Gp: int, is_counter: bool,
-                            is_rate: bool, block_rows: int = 131_072):
-    """K3's function in torch ops -> (sums [Gp, W], presence [Gp, W]).
-    Rows are evaluated in blocks (each row's rates are independent), so
-    the scan temporaries stay a few GB at a million series."""
-    order = csr.order.long()
-    parts = [_ragged_rates(vals_p[blk], vbase_p[blk], rows, is_counter,
-                           is_rate)
-             for blk in torch.split(order, block_rows)]
-    r = torch.cat([p[0] for p in parts])
-    pres = torch.cat([p[1] for p in parts])
-    return tuple(_chunked_group_sum([r, pres], chunks, Gp))
+                            is_rate: bool):
+    """K3's function in torch ops -> (sums [Gp, W], presence [Gp, W])."""
+    return group_plain("rate_family", True, vals_p, vbase_p, csr, chunks,
+                       rows, Gp, is_counter, is_rate)
+
+
+def fused_over_time_plain(vals_p, vbase_p, csr, chunks, rows, Gp,
+                          kind: str, ragged: bool):
+    """K4's (kind last_over_time) or K5's (sum/avg/count_over_time)
+    function in torch ops -> sums [Gp, W] (dense) or (sums, presence)
+    (ragged)."""
+    return group_plain(kind, ragged, vals_p, vbase_p, csr, chunks, rows, Gp)
+
+
+def fused_per_series_plain(vals_p, vbase_p, rows, num_rows: int, kind: str,
+                           ragged: bool, is_counter: bool = False,
+                           is_rate: bool = False):
+    """K6's function in torch ops: rows 0..num_rows-1 of any kind ->
+    (values [num_rows, W], presence [num_rows, W] or None when dense)."""
+    ridx = torch.arange(num_rows, device=vals_p.device)
+    return _cells(kind, ragged, vals_p, vbase_p, ridx, rows, is_counter,
+                  is_rate)
 
 
 # ------------------------------------------------------------ wrappers
+# A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+# or raises.
 
 def fused_rate_dense(vals_p, vbase_p, csr, chunks, rows, Gp, is_counter,
                      is_rate) -> torch.Tensor:
-    """K1 -> sums [Gp, W].  A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
+    """K1 -> sums [Gp, W]."""
     if vals_p.device.type == "cpu":
         return fused_rate_dense_plain(vals_p, vbase_p, csr, chunks, rows, Gp,
                                       is_counter, is_rate)
@@ -439,7 +593,7 @@ def fused_rate_dense(vals_p, vbase_p, csr, chunks, rows, Gp, is_counter,
 
 def fused_rate_ragged(vals_p, vbase_p, csr, chunks, rows, Gp, is_counter,
                       is_rate):
-    """K3 -> (sums, presence) [Gp, W].  Device dispatch as fused_rate_dense."""
+    """K3 -> (sums, presence) [Gp, W]."""
     if vals_p.device.type == "cpu":
         return fused_rate_ragged_plain(vals_p, vbase_p, csr, chunks, rows,
                                        Gp, is_counter, is_rate)
@@ -448,23 +602,64 @@ def fused_rate_ragged(vals_p, vbase_p, csr, chunks, rows, Gp, is_counter,
                                           rows, Gp, is_counter, is_rate)
 
 
+def fused_over_time(vals_p, vbase_p, csr, chunks, rows, Gp, kind: str,
+                    ragged: bool):
+    """K4 (kind last_over_time) or K5 (sum/avg/count_over_time) -> sums
+    [Gp, W] (dense) or (sums, presence) (ragged)."""
+    if vals_p.device.type == "cpu":
+        return fused_over_time_plain(vals_p, vbase_p, csr, chunks, rows, Gp,
+                                     kind, ragged)
+    from filodb_tpu_torch.ops import kernels
+    return kernels.fused_over_time_cuda(vals_p, vbase_p, csr.order, chunks,
+                                        rows, Gp, kind, ragged)
+
+
+def fused_per_series(vals_p, vbase_p, rows, num_rows: int, kind: str,
+                     ragged: bool, is_counter: bool = False,
+                     is_rate: bool = False):
+    """K6 -> (values [num_rows, W], presence or None)."""
+    if vals_p.device.type == "cpu":
+        return fused_per_series_plain(vals_p, vbase_p, rows, num_rows, kind,
+                                      ragged, is_counter, is_rate)
+    from filodb_tpu_torch.ops import kernels
+    return kernels.fused_per_series_cuda(vals_p, vbase_p, rows, num_rows,
+                                         kind, ragged, is_counter, is_rate)
+
+
+def group_launch(kind: str, ragged: bool, vals_p, vbase_p, csr, chunks,
+                 rows, Gp, is_counter=False, is_rate=False):
+    """The group-mode wrapper of a kind -> (sums,) or (sums, presence)."""
+    if kind == "rate_family":
+        res = (fused_rate_ragged if ragged else fused_rate_dense)(
+            vals_p, vbase_p, csr, chunks, rows, Gp, is_counter, is_rate)
+    else:
+        res = fused_over_time(vals_p, vbase_p, csr, chunks, rows, Gp, kind,
+                              ragged)
+    return res if isinstance(res, tuple) else (res,)
+
+
 # ---------------------------------------------------------- leaf entry
 
 def fused_leaf_agg_batch(plan: FusedPlan, values: PaddedValues, panels,
                          fn_name: str, precorrected: bool = False,
-                         ragged: bool = False, lazy: bool = False):
-    """Evaluate P aggregation panels over ONE working set in at most one
-    kernel launch — the dashboard case (same metric + window grid,
+                         ragged: bool = False,
+                         num_series: Optional[int] = None,
+                         lazy: bool = False):
+    """Evaluate P aggregation panels over ONE working set in at most two
+    kernel launches — the dashboard case (same metric + window grid,
     different `by (...)` groupings / agg ops).
 
     panels: [(PaddedGroups, num_groups, agg_op)].  sum/avg panels (and
-    count panels on ragged data) merge into one launch over disjoint
-    group ranges; dense count panels are host math.  Returns per-panel
-    [G, W, C] float64 components in input order (ops/agg.AGGREGATORS
-    layout).  lazy=True returns a zero-arg finisher: the launch is issued
-    before returning and the synchronizing readback waits for the call."""
-    if fn_name not in FUSABLE_FNS:
-        raise ValueError(f"not_ported: fused range function {fn_name}")
+    count panels on ragged data) merge into one group-mode launch over
+    disjoint group ranges; min/max panels share one per-series launch
+    (K6) finished by a map_phase each; dense count panels are host math.
+    Returns per-panel [G, W, C] float64 components in input order
+    (ops/agg.AGGREGATORS layout).  lazy=True returns a zero-arg finisher:
+    every launch is issued before returning and the synchronizing
+    readback waits for the call."""
+    from filodb_tpu_torch.ops import agg as agg_ops
+    if fn_name in MINMAX_FNS or fn_name not in FUSABLE_FNS:
+        raise ValueError(f"not_ported: fused kernel kind {fn_name}")
     is_counter = fn_name in ("rate", "increase")
     is_rate = fn_name == "rate"
     if is_counter and not precorrected:
@@ -472,28 +667,46 @@ def fused_leaf_agg_batch(plan: FusedPlan, values: PaddedValues, panels,
                          "pass reset-corrected values")
     bad = [op for _, _, op in panels if op not in FUSABLE_AGGS]
     if bad:
-        raise ValueError(f"not_ported: fused aggregate {bad[0]}")
-    wvalid = plan.wvalid
+        raise ValueError(f"unsupported fused agg {bad[0]}")
+    over_time = fn_name in OVER_TIME_FNS
+    kind = fn_name if over_time else "rate_family"
+    wvalid = plan.wvalid1 if over_time else plan.wvalid
+    vals_p, vbase_p = values
+    dev = vals_p.device
+    rows = plan.device_rows(dev)
     mm_idx = [i for i, (_, _, op) in enumerate(panels)
               if op in ("sum", "avg") or (op == "count" and ragged)]
+    ps_idx = [i for i, (_, _, op) in enumerate(panels)
+              if op in ("min", "max")]
     out: list = [None] * len(panels)
     res = offsets = None
     if mm_idx:
         csr, offsets, total = merge_groups(
             [panels[i][0] for i in mm_idx], [panels[i][1] for i in mm_idx])
         Gp = pad_group_count(total)
-        vals_p, vbase_p = values
         check_kernel_shape(vals_p.shape[0], plan.Tp, plan.W, Gp,
                            panels=len(mm_idx))
-        dev = vals_p.device
         chunks = chunk_plan(csr.offsets, Gp, dev)
-        rows = plan.device_rows(dev)
+        res = group_launch(kind, ragged, vals_p, vbase_p, csr, chunks, rows,
+                           Gp, is_counter, is_rate)
+    ps_comps: dict = {}
+    if ps_idx:
+        S = num_series
+        if S is None:
+            S = int((panels[ps_idx[0]][0].gids_p >= 0).sum())
+        check_kernel_shape(S, plan.Tp, plan.W, 8)
+        # one shared per-series run: the [S, W] output is group-agnostic
+        vals, pres = fused_per_series(vals_p, vbase_p, rows, S, kind, ragged,
+                                      is_counter, is_rate)
+        nan = torch.full((), float("nan"), dtype=vals.dtype, device=dev)
         if ragged:
-            res = fused_rate_ragged(vals_p, vbase_p, csr, chunks, rows, Gp,
-                                    is_counter, is_rate)
+            per = torch.where(pres > 0, vals, nan)
         else:
-            res = (fused_rate_dense(vals_p, vbase_p, csr, chunks, rows, Gp,
-                                    is_counter, is_rate),)
+            keep = torch.from_numpy(np.asarray(wvalid, bool)).to(dev)
+            per = torch.where(keep[None, :], vals, nan)
+        for i in ps_idx:
+            groups, G, op = panels[i]
+            ps_comps[i] = agg_ops.map_phase(op, per, groups.gids_p[:S], G)
 
     def dense_counts(groups):
         return groups.gsize[:, None].astype(np.float64) * \
@@ -513,6 +726,8 @@ def fused_leaf_agg_batch(plan: FusedPlan, values: PaddedValues, panels,
                     out[i] = counts[..., None]
                 else:
                     out[i] = np.stack([sums * (counts > 0), counts], axis=-1)
+        for i in ps_idx:
+            out[i] = ps_comps[i].cpu().numpy()
         for i, (groups, G, op) in enumerate(panels):
             if out[i] is None:          # dense count: pure host math
                 out[i] = dense_counts(groups)[..., None]

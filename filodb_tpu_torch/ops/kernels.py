@@ -2,8 +2,9 @@
 
 Each source is compiled at first use by nvcc into a plain-C shared
 library under filodb_tpu_torch/build/ (git-ignored), named by the hash
-of the source so an edited source rebuilds, and loaded with ctypes.
-Nothing is built or loaded when this module is imported.
+of the source and the shared headers (csrc/*.cuh) so an edited source
+rebuilds, and loaded with ctypes.  Nothing is built or loaded when this
+module is imported.
 
 The launch functions below are the only places the kernels are launched:
 they check device, dtype, shape and contiguity, allocate the outputs and
@@ -26,12 +27,24 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = {"fused_rate": CSRC / "fused_rate.cu"}
+SOURCES = {"fused_rate": CSRC / "fused_rate.cu",
+           "fused_over_time": CSRC / "fused_over_time.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-LAUNCHES: Dict[str, int] = {"fused_rate_dense": 0, "fused_rate_ragged": 0}
-"""Kernel launches per wrapper since process start (or the last reset)."""
+LAUNCHES: Dict[str, int] = {
+    name + suffix: 0
+    for name in ("fused_rate_dense", "fused_rate_ragged", "fused_last_dense",
+                 "fused_last_ragged", "fused_over_time_dense",
+                 "fused_over_time_ragged")
+    for suffix in ("", "_series")}
+"""Kernel launches per wrapper since process start (or the last reset).
+`<kernel>` is the group-sum mode (K1, K3, K4, K5), `<kernel>_series` the
+per-series mode (K6) of the same kernel."""
+
+# kind codes of csrc/fused_over_time.cu
+_SLOT_KIND = {"last_over_time": 0, "sum_over_time": 1, "avg_over_time": 2,
+              "count_over_time": 3}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -55,7 +68,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -100,6 +116,30 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp, i,                  # idx1, idx2, ws, we, tsrow, W
         i, i, vp, vp, vp]
     lib.fused_rate_ragged_launch.restype = i
+    lib.fused_rate_dense_series_launch.argtypes = [
+        vp, ll, vp, ll,                         # vals, stride, vbase, rows
+        vp, vp, vp, vp, vp, vp, vp, i,          # idx1..we, W
+        i, i, vp, vp]                           # flags, out, stream
+    lib.fused_rate_dense_series_launch.restype = i
+    lib.fused_rate_ragged_series_launch.argtypes = [
+        vp, ll, vp, ll,
+        vp, vp, vp, vp, vp, i,                  # idx1, idx2, ws, we, tsrow, W
+        i, i, vp, vp, vp]                       # flags, out, pres, stream
+    lib.fused_rate_ragged_series_launch.restype = i
+
+
+def _bind_over_time(lib: ctypes.CDLL) -> None:
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.fused_over_time_launch.argtypes = [
+        vp, ll, vp, vp, vp, vp, ll, vp, i,      # vals..Gp
+        vp, vp, vp, i,                          # idx1, idx2, n1, W
+        i, i, vp, vp, vp]                       # kind, ragged, partial, out,
+    lib.fused_over_time_launch.restype = i      # stream
+    lib.fused_over_time_series_launch.argtypes = [
+        vp, ll, vp, ll,                         # vals, stride, vbase, rows
+        vp, vp, vp, i,                          # idx1, idx2, n1, W
+        i, i, vp, vp, vp]                       # kind, ragged, out, pres,
+    lib.fused_over_time_series_launch.restype = i  # stream
 
 
 def library(name: str = "fused_rate") -> ctypes.CDLL:
@@ -113,7 +153,7 @@ def library(name: str = "fused_rate") -> ctypes.CDLL:
             if not library_path(name).exists():
                 finish_builds(start_builds([name]))
             lib = ctypes.CDLL(str(library_path(name)))
-            _bind(lib)
+            (_bind_over_time if name == "fused_over_time" else _bind)(lib)
             _libs[name] = lib
     return lib
 
@@ -134,7 +174,9 @@ def _check(t: torch.Tensor, what: str, dtype, device, shape=None) -> None:
                          f"expected {tuple(shape)}")
 
 
-def _check_common(vals_p, vbase_p, order, chunks, rows, Gp):
+def _check_values(vals_p, vbase_p, rows):
+    """Device, dtype, shape and contiguity of the values and the window
+    rows every kernel reads -> (device, Tp, W)."""
     dev = vals_p.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {dev}")
@@ -144,19 +186,30 @@ def _check_common(vals_p, vbase_p, order, chunks, rows, Gp):
     W = rows.idx1.numel()
     _check(vals_p, "vals_p", torch.float32, dev)
     _check(vbase_p, "vbase_p", torch.float32, dev, (Sp,))
+    for name in ("idx1", "idx2"):
+        _check(getattr(rows, name), name, torch.int32, dev, (W,))
+    for name in ("t1", "t2", "n", "ws", "we", "n1"):
+        _check(getattr(rows, name), name, torch.float32, dev, (W,))
+    _check(rows.tsrow, "tsrow", torch.float32, dev, (Tp,))
+    if W < 1:
+        raise ValueError("fused kernel needs at least one window")
+    return dev, Tp, W
+
+
+def _check_common(vals_p, vbase_p, order, chunks, rows, Gp):
+    """_check_values plus the CSR order and its chunk plan (group mode)."""
+    dev, Tp, W = _check_values(vals_p, vbase_p, rows)
     _check(order, "order", torch.int32, dev)
     C = chunks.lo.numel()
     _check(chunks.lo, "chunk lo", torch.int32, dev, (C,))
     _check(chunks.hi, "chunk hi", torch.int32, dev, (C,))
     _check(chunks.gco, "group chunk offsets", torch.int32, dev, (Gp + 1,))
-    for name in ("idx1", "idx2"):
-        _check(getattr(rows, name), name, torch.int32, dev, (W,))
-    for name in ("t1", "t2", "n", "ws", "we"):
-        _check(getattr(rows, name), name, torch.float32, dev, (W,))
-    _check(rows.tsrow, "tsrow", torch.float32, dev, (Tp,))
-    if W < 1:
-        raise ValueError("fused kernel needs at least one window")
     return dev, Tp, W, C
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def fused_rate_dense_cuda(vals_p, vbase_p, order, chunks, rows, Gp: int,
@@ -173,8 +226,7 @@ def fused_rate_dense_cuda(vals_p, vbase_p, order, chunks, rows, Gp: int,
         _ptr(rows.idx1), _ptr(rows.idx2), _ptr(rows.t1), _ptr(rows.t2),
         _ptr(rows.n), _ptr(rows.ws), _ptr(rows.we), W,
         int(is_counter), int(is_rate), _ptr(partial), _ptr(out), stream)
-    if err:
-        raise RuntimeError(f"fused_rate_dense launch failed: CUDA error {err}")
+    _raise_on(err, "fused_rate_dense")
     LAUNCHES["fused_rate_dense"] += 1
     return out
 
@@ -193,8 +245,77 @@ def fused_rate_ragged_cuda(vals_p, vbase_p, order, chunks, rows, Gp: int,
         _ptr(rows.idx1), _ptr(rows.idx2), _ptr(rows.ws), _ptr(rows.we),
         _ptr(rows.tsrow), W, int(is_counter), int(is_rate),
         _ptr(partial), _ptr(out), stream)
-    if err:
-        raise RuntimeError(
-            f"fused_rate_ragged launch failed: CUDA error {err}")
+    _raise_on(err, "fused_rate_ragged")
     LAUNCHES["fused_rate_ragged"] += 1
     return out[0], out[1]
+
+
+def _kernel_name(kind: str, ragged: bool) -> str:
+    base = {"rate_family": "fused_rate",
+            "last_over_time": "fused_last"}.get(kind, "fused_over_time")
+    return f"{base}_{'ragged' if ragged else 'dense'}"
+
+
+def fused_over_time_cuda(vals_p, vbase_p, order, chunks, rows, Gp: int,
+                         kind: str, ragged: bool):
+    """Launch K4 (kind last_over_time) or K5 (sum/avg/count_over_time) in
+    group mode -> sums [Gp, W] f32 (dense) or (sums, presence) (ragged);
+    see csrc/fused_over_time.cu."""
+    dev, Tp, W, C = _check_common(vals_p, vbase_p, order, chunks, rows, Gp)
+    code = _SLOT_KIND[kind]
+    lib = library("fused_over_time")
+    planes = 2 if ragged else 1
+    partial = torch.empty((planes, max(C, 1), W), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((planes, Gp, W), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.fused_over_time_launch(
+        _ptr(vals_p), Tp, _ptr(vbase_p), _ptr(order), _ptr(chunks.lo),
+        _ptr(chunks.hi), C, _ptr(chunks.gco), Gp,
+        _ptr(rows.idx1), _ptr(rows.idx2), _ptr(rows.n1), W, code,
+        int(ragged), _ptr(partial), _ptr(out), stream)
+    name = _kernel_name(kind, ragged)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return (out[0], out[1]) if ragged else out[0]
+
+
+def fused_per_series_cuda(vals_p, vbase_p, rows, num_rows: int, kind: str,
+                          ragged: bool, is_counter: bool = False,
+                          is_rate: bool = False):
+    """Launch the per-series mode (K6) of K1/K3 (kind rate_family) or
+    K4/K5 -> (values [num_rows, W] f32, presence [num_rows, W] f32 when
+    ragged, else None)."""
+    dev, Tp, W = _check_values(vals_p, vbase_p, rows)
+    if not 0 <= num_rows <= vals_p.shape[0]:
+        raise ValueError(f"num_rows={num_rows} outside the {vals_p.shape[0]} "
+                         f"rows of vals_p")
+    out = torch.empty((num_rows, W), dtype=torch.float32, device=dev)
+    pres = (torch.empty((num_rows, W), dtype=torch.float32, device=dev)
+            if ragged else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kind == "rate_family":
+        lib = library("fused_rate")
+        if ragged:
+            err = lib.fused_rate_ragged_series_launch(
+                _ptr(vals_p), Tp, _ptr(vbase_p), num_rows,
+                _ptr(rows.idx1), _ptr(rows.idx2), _ptr(rows.ws),
+                _ptr(rows.we), _ptr(rows.tsrow), W, int(is_counter),
+                int(is_rate), _ptr(out), _ptr(pres), stream)
+        else:
+            err = lib.fused_rate_dense_series_launch(
+                _ptr(vals_p), Tp, _ptr(vbase_p), num_rows,
+                _ptr(rows.idx1), _ptr(rows.idx2), _ptr(rows.t1),
+                _ptr(rows.t2), _ptr(rows.n), _ptr(rows.ws), _ptr(rows.we),
+                W, int(is_counter), int(is_rate), _ptr(out), stream)
+    else:
+        code = _SLOT_KIND[kind]
+        lib = library("fused_over_time")
+        err = lib.fused_over_time_series_launch(
+            _ptr(vals_p), Tp, _ptr(vbase_p), num_rows, _ptr(rows.idx1),
+            _ptr(rows.idx2), _ptr(rows.n1), W, code, int(ragged), _ptr(out),
+            _ptr(pres) if ragged else None, stream)
+    name = _kernel_name(kind, ragged) + "_series"
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out, pres

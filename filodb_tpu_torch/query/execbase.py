@@ -80,6 +80,9 @@ class RawBlock:
 _FUSED_PLAN_CACHE: Dict[Tuple, object] = {}
 _FUSED_VALS_CACHE: Dict[Tuple, object] = {}
 _FUSED_GROUP_CACHE: Dict[Tuple, Tuple] = {}
+# NaN-padded device copies for the min/max path's end=now shape, keyed
+# (working set, t_needed); a small cap: each entry pins a full copy
+_FUSED_MINMAX_PAD_CACHE: Dict[Tuple, object] = {}
 FUSED_VALS_CACHE_BYTES = 16 << 30
 """Device bytes the padded-values cache may hold (the newest entry is
 always kept)."""
@@ -215,7 +218,9 @@ def reduce_partials(parts: List[AggPartial]) -> Optional[AggPartial]:
                 gmap[k] = len(gkeys)
                 gkeys.append(k)
     W, C = parts[0].comp.shape[1:]
-    out = torch.zeros((len(gkeys), W, C), dtype=torch.float64)
+    # each component starts from its combiner's identity (+inf for min,
+    # -inf for max): starting a max from 0 would beat negative values
+    out = agg_ops.identity_partial(op, len(gkeys), W, C)
     for p in parts:
         idx = torch.tensor([gmap[k] for k in p.group_keys], dtype=torch.long)
         # group keys are unique within one partial: a plain indexed

@@ -1,6 +1,8 @@
 """Batched fused-leaf dispatch: merge compatible panels into single
 kernel launches (port of filodb_tpu/query/fusedbatch.py, scalar series
-only).
+only).  Calls of one working set, window grid and function share a
+launch: sum/avg/count panels one group-mode launch, min/max panels one
+per-series launch (ops/fused.fused_leaf_agg_batch).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ class FusedCall:
     op: str
     precorrected: bool
     ragged: bool
+    num_series: Optional[int] = None   # real rows (per-series launches)
     # semantic identity (mirror serial + snapshot gen + column + row
     # subset + window params): lets equal-but-distinct plan/values
     # objects merge when the caches declined to share them
@@ -65,7 +68,8 @@ def finish_fused_calls(calls: List[FusedCall]) -> List[AggPartial]:
                   for i in take]
         finisher = fused.fused_leaf_agg_batch(
             fc0.plan, fc0.values, panels, fc0.fn,
-            precorrected=fc0.precorrected, ragged=fc0.ragged, lazy=True)
+            precorrected=fc0.precorrected, ragged=fc0.ragged,
+            num_series=fc0.num_series, lazy=True)
         pending.append((take, finisher))
     for take, finisher in pending:
         for i, comp in zip(take, finisher()):

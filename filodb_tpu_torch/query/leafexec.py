@@ -1,6 +1,15 @@
 """The shard-local leaf: index lookup, device-mirror gather and the fused
-rate/group-sum peephole (port of filodb_tpu/query/leafexec.py, the
-mirror branch and the rate family only).
+peephole (port of filodb_tpu/query/leafexec.py, the mirror branch and
+scalar columns only).
+
+A range function followed by an aggregate over one shared scrape grid
+is answered in one of four ways, as in the reference (:174-214):
+
+- an instant selector is last_over_time over the stale lookback;
+- on dense data, count_over_time and the count aggregate are host math
+  (every series has the same samples per window);
+- min/max_over_time run as windowed torch reductions (ops/minmax.py);
+- everything else is one fused kernel launch (ops/fused.py).
 
 Not carried over, on purpose: the reference's broad `except` that
 degrades a failed fused evaluation to the general path, the
@@ -10,17 +19,19 @@ answering some other way.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from filodb_tpu_torch.core.index import ColumnFilter
-from filodb_tpu_torch.ops import fused
-from filodb_tpu_torch.ops.timewindow import make_window_ends
+from filodb_tpu_torch.ops import fused, minmax
+from filodb_tpu_torch.ops.timewindow import PAD_TS, make_window_ends
 from filodb_tpu_torch.query.execbase import (
     AggPartial, GroupCardinalityError, LazyKeys, LeafExecPlan, RawBlock,
-    _FUSED_CACHE_LOCK, _FUSED_PLAN_CACHE, _FUSED_VALS_CACHE,
-    _group_cache_insert, _group_cache_lookup, _lru_touch,
+    _FUSED_CACHE_LOCK, _FUSED_MINMAX_PAD_CACHE, _FUSED_PLAN_CACHE,
+    _FUSED_VALS_CACHE, _group_cache_insert, _group_cache_lookup, _lru_touch,
     _vals_cache_insert, agg_token, not_ported)
 from filodb_tpu_torch.query.fusedbatch import FusedCall, finish_fused_calls
 from filodb_tpu_torch.query.rangevector import QueryContext, QueryStats
@@ -36,21 +47,19 @@ COUNTER_FNS = ("rate", "increase", "irate")
 
 
 def _fusion_gap(t0, t1, shared: bool, dense: bool) -> Optional[str]:
-    """What the ported fused path lacks for this leaf, or None."""
+    """What the ported fused path lacks for this leaf, or None.  t0 is
+    the range-function transformer after the instant-selector rewrite."""
     fn = t0.function or ""
-    if t0.window_ms is not None and not t0.function_args \
-            and not t1.params and fused.can_fuse(fn, t1.op, shared, dense):
+    if not t0.function_args and not t1.params \
+            and fused.can_fuse(fn, t1.op, shared, dense):
         return None
-    if t0.window_ms is None:
-        return "instant-vector selector (fused last_over_time, K4)"
     if fn not in fused.FUSABLE_FNS:
-        return (f"range function {fn} (fused kinds K4/K5, "
-                f"min/max_over_time or the general path)")
+        return f"range function {fn} (the general path, ops/rangefns.py)"
     if t1.op not in fused.FUSABLE_AGGS:
-        return f"aggregate {t1.op} (per-series epilogue K6 or the general path)"
+        return f"aggregate {t1.op} (the general path, ops/agg.py)"
     if not shared:
         return "series without one shared scrape grid (general path)"
-    return "range function or aggregate parameters"
+    return "range function or aggregate parameters (general path)"
 
 
 class MultiSchemaPartitionsExec(LeafExecPlan):
@@ -82,12 +91,12 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         return data, stats
 
     def _try_fused(self, data):
-        """Peephole: PeriodicSamplesMapper(rate|increase|delta) followed by
-        AggregateMapReduce(sum|avg|count) over a shared-grid working set
-        collapses into one fused kernel launch (ops/fused.py).  Returns
-        the AggPartial, None when there is nothing to fuse (no data, or
-        not that transformer pair), and raises not_ported for a leaf of
-        that pair the port cannot take."""
+        """Peephole: PeriodicSamplesMapper (a fusable range function, or
+        an instant selector) followed by AggregateMapReduce (sum, avg,
+        count, min or max) over a shared-grid working set collapses into
+        one fused evaluation.  Returns the AggPartial, None when there is
+        nothing to fuse (no data, or not that transformer pair), and
+        raises not_ported for a leaf of that pair the port cannot take."""
         if len(self.transformers) < 2 or not isinstance(data, RawBlock) \
                 or not data.keys:
             return None
@@ -95,21 +104,36 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         if not isinstance(t0, PeriodicSamplesMapper) \
                 or not isinstance(t1, AggregateMapReduce):
             return None
+        if t0.window_ms is None:
+            # instant-vector selector (`sum by (x) (metric)`): lookback
+            # sampling IS last_over_time over the stale-lookback window
+            if t0.function is not None:
+                raise not_ported(f"instant function {t0.function} "
+                                 f"(the general path)")
+            t0 = dataclasses.replace(t0, window_ms=t0.lookback_ms,
+                                     function="last_over_time")
         fn = t0.function or ""
         dense = data.dense
         gap = _fusion_gap(t0, t1, data.shared_ts_row is not None, dense)
         if gap is not None:
             raise not_ported(gap)
+        # host-only answers: under the dense shared grid every series has
+        # the same samples per window, so count_over_time and the count
+        # aggregate never need the values
+        if dense and fn == "count_over_time":
+            return self._fused_count_over_time(data, t0, t1)
         if dense and t1.op == "count":
             return self._fused_count_agg(data, t0, t1)
-        if fn in ("rate", "increase") and not data.precorrected:
-            raise not_ported("rate over values the mirror did not "
-                             "reset-correct (in-kernel drops, K2)")
         wends = make_window_ends(t0.start_ms, t0.end_ms, t0.step_ms)
         eval_wends = wends - t0.offset_ms - data.base_ms
         if eval_wends.size == 0 or abs(eval_wends).max() >= (1 << 30):
             raise not_ported("query windows beyond the int32 offset range "
                              "of one mirror upload")
+        if fn in fused.MINMAX_FNS:
+            return self._fused_minmax(data, t0, t1, wends, eval_wends)
+        if fn in ("rate", "increase") and not data.precorrected:
+            raise not_ported("rate over values the mirror did not "
+                             "reset-correct (in-kernel drops, K2)")
         # plan + padded-values + group caches: a repeat query over an
         # unchanged snapshot skips the plan build, the padded device copy
         # and the per-series grouping
@@ -160,29 +184,128 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         fc = FusedCall(
             plan=plan, values=padded_vals, groups=groups, gkeys=gkeys,
             wends=wends, fn=fn, op=t1.op, precorrected=data.precorrected,
-            ragged=not dense, cache_key=ck,
+            ragged=not dense, num_series=vals.shape[0], cache_key=ck,
             cache_token=agg_token(t1.op, t1.by, t1.without,
                                   data.cache_token))
         return finish_fused_calls([fc])[0]
 
-    def _fused_count_agg(self, data, t0, t1):
-        """count by (fn(...)) on a dense shared grid: the count of series
-        emitting a value at window w is gsize * 1{n[w] >= 2} — host math,
-        no device work (the values never matter)."""
+    def _window_counts_groups(self, data, t0, t1):
+        """Host math shared by the no-device answers: per-window sample
+        counts on the dense shared grid, group keys and group sizes."""
         wends = make_window_ends(t0.start_ms, t0.end_ms, t0.step_ms)
         eval_wends = wends - t0.offset_ms - data.base_ms
         gids, gkeys = _group_ids_cached(data.cache_token, data.keys,
                                         t1.by, t1.without)
         self._check_group_limit(gkeys)
         n = fused.window_counts(data.shared_ts_row.astype(np.int64),
-                                eval_wends, t0.window_ms)
+                                eval_wends, t0.window_ms).astype(np.float64)
         gsize = np.bincount(np.asarray(gids),
                             minlength=len(gkeys))[:len(gkeys)]
-        valid = (n >= 2).astype(np.float64)
+        return wends, gkeys, n, gsize.astype(np.float64)
+
+    def _fused_count_over_time(self, data, t0, t1):
+        """agg (count_over_time(...)) on a dense shared grid: each series'
+        value at window w is n[w], so the whole result is host math over
+        (gsize, n), for all five aggregates."""
+        wends, gkeys, n, gsize = self._window_counts_groups(data, t0, t1)
+        valid = (n >= 1).astype(np.float64)
+        op = t1.op
+        if op in ("sum", "avg"):
+            comp = np.stack([gsize[:, None] * n[None, :] * valid,
+                             gsize[:, None] * valid[None, :]], axis=-1)
+        elif op == "count":
+            comp = (gsize[:, None] * valid[None, :])[..., None]
+        else:                            # min/max: every series agrees on n
+            absent = np.inf if op == "min" else -np.inf
+            per = np.where(valid > 0, n, absent)
+            comp = np.stack(
+                [np.broadcast_to(per[None, :], (len(gkeys), len(n))),
+                 gsize[:, None] * valid[None, :]], axis=-1)
         counters.inc("leaf_fused_count_host")
-        comp = (gsize[:, None].astype(np.float64) * valid[None, :])[..., None]
+        return AggPartial(op, gkeys, wends, comp=comp,
+                          cache_token=agg_token(op, t1.by, t1.without,
+                                                data.cache_token))
+
+    def _fused_count_agg(self, data, t0, t1):
+        """count by (fn(...)) on a dense shared grid: the count of series
+        emitting a value at window w is gsize * 1{n[w] >= minsamp} (two
+        samples for the rate family, one otherwise) — host math, no
+        device work (the values never matter)."""
+        wends, gkeys, n, gsize = self._window_counts_groups(data, t0, t1)
+        minsamp = 2 if t0.function in fused.RATE_FNS else 1
+        valid = (n >= minsamp).astype(np.float64)
+        counters.inc("leaf_fused_count_host")
+        comp = (gsize[:, None] * valid[None, :])[..., None]
         return AggPartial("count", gkeys, wends, comp=comp,
                           cache_token=agg_token("count", t1.by, t1.without,
+                                                data.cache_token))
+
+    def _fused_minmax(self, data, t0, t1, wends, eval_wends):
+        """min/max_over_time + any aggregate as windowed torch reductions
+        on the mirror's device (ops/minmax.py).  Needs windows that are a
+        uniform stride of the grid reaching at most one grid length past
+        its right edge; anything else is the general path."""
+        ts_row0 = np.asarray(data.shared_ts_row)
+        real = ts_row0[ts_row0 < PAD_TS]
+        geom = minmax.uniform_window_geometry(real.astype(np.int64),
+                                              eval_wends, t0.window_ms)
+        if geom is None:
+            raise not_ported(f"{t0.function} over windows that are not a "
+                             f"uniform stride of the scrape grid (the "
+                             f"general path)")
+        f0, stride, width, t_needed = geom
+        if t_needed > 2 * real.size:
+            raise not_ported(f"{t0.function} over windows reaching more "
+                             f"than one grid length past the data (the "
+                             f"general path)")
+        key = self._fused_cache_key
+        groups, gkeys = _group_cache_lookup(key, t1.by, t1.without)
+        vals = data.values
+        S = vals.shape[0]
+        if gkeys is None:
+            gids, gkeys = _group_ids_cached(data.cache_token, data.keys,
+                                            t1.by, t1.without)
+            self._check_group_limit(gkeys)      # reject BEFORE caching
+            groups = fused.pad_groups(gids, S, len(gkeys),
+                                      device=vals.device)
+            _group_cache_insert(key, t1.by, t1.without, groups, gkeys)
+        else:
+            self._check_group_limit(gkeys)
+        ragged = not data.dense
+        if t_needed > real.size:
+            # windows hang past the data's right edge (end=now queries):
+            # NaN columns extend the grid and the ragged variant masks
+            # them; cached per (working set, t_needed), or each dashboard
+            # poll would copy the whole working set again
+            pad_key = None if key is None else key + ("minmax_pad",
+                                                      t_needed)
+            padded = None
+            if pad_key is not None:
+                with _FUSED_CACHE_LOCK:
+                    padded = _lru_touch(_FUSED_MINMAX_PAD_CACHE, pad_key)
+            if padded is None:
+                padded = torch.full((S, t_needed), float("nan"),
+                                    dtype=vals.dtype, device=vals.device)
+                padded[:, :real.size] = vals[:, :real.size]
+                if pad_key is not None:
+                    with _FUSED_CACHE_LOCK:
+                        for k in [k for k in _FUSED_MINMAX_PAD_CACHE
+                                  if k[0] == pad_key[0]
+                                  and k[1] != pad_key[1]]:
+                            del _FUSED_MINMAX_PAD_CACHE[k]
+                        _FUSED_MINMAX_PAD_CACHE[pad_key] = padded
+                        while len(_FUSED_MINMAX_PAD_CACHE) > 2:
+                            _FUSED_MINMAX_PAD_CACHE.pop(
+                                next(iter(_FUSED_MINMAX_PAD_CACHE)))
+            vals = padded
+            ragged = True
+        comp = minmax.fused_minmax_agg(
+            vals, data.vbase, groups.gids_p[:S], f0, stride, width,
+            int(eval_wends.size), t0.function, t1.op, len(gkeys), ragged,
+            csr=groups.csr)
+        counters.inc("leaf_fused_minmax")
+        return AggPartial(t1.op, gkeys, wends, comp=comp.cpu().numpy(),
+                          cache_token=agg_token(t1.op, t1.by, t1.without,
                                                 data.cache_token))
 
     def _check_group_limit(self, gkeys) -> None:

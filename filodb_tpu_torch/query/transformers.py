@@ -51,8 +51,9 @@ class PeriodicSamplesMapper(RangeVectorTransformer):
         raise not_ported(
             f"general range-function path for "
             f"{self.function or 'an instant selector'} (ops/rangefns.py): "
-            f"only a fused rate/increase/delta leaf under sum/avg/count "
-            f"on one shared scrape grid is ported")
+            f"only a fused leaf (rate family, last/sum/avg/count/min/"
+            f"max_over_time or an instant selector, under sum/avg/count/"
+            f"min/max) on one shared scrape grid is ported")
 
 
 def _group_ids(keys: Sequence[RangeVectorKey], by: Tuple[str, ...],

@@ -1,5 +1,6 @@
-"""filodb_tpu_torch's CUDA kernels (K1 dense, K3 ragged) against their
-plain torch versions, on the card.  Marked `cuda`: without a card they
+"""filodb_tpu_torch's CUDA kernels (K1 dense and K3 ragged rate, K4
+last_over_time, K5 sum/avg/count_over_time, each also in its per-series
+mode K6) against their plain torch versions, on the card.  Marked `cuda`: without a card they
 skip.  This file imports neither jax nor filodb_tpu, so it also runs on
 a machine with only the port's dependencies:
 
@@ -61,6 +62,52 @@ def test_kernel_matches_plain_and_repeats_bit_identically(card, ragged, fn):
         torch.testing.assert_close(x, z, rtol=1e-6, atol=1e-5)
 
 
+@pytest.mark.parametrize("kind", ["last_over_time", "sum_over_time",
+                                  "avg_over_time", "count_over_time"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_slot_kernels_match_plain_and_repeat(card, ragged, kind):
+    vals_p, vbase_p, csr, chunks, rows, Gp = _inputs(
+        card, 3001, 257, (11, 4), 0.05 if ragged else 0.0, 3)
+    args = (vals_p, vbase_p, csr, chunks, rows, Gp)
+    name = kernels._kernel_name(kind, ragged)
+    n0 = kernels.LAUNCHES[name]
+    a = fused.fused_over_time(*args, kind, ragged)
+    b = fused.fused_over_time(*args, kind, ragged)
+    p = fused.fused_over_time_plain(*args, kind, ragged)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 2
+    a, b, p = [x if isinstance(x, tuple) else (x,) for x in (a, b, p)]
+    for x, y, z in zip(a, b, p):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, z, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["rate_family", "last_over_time",
+                                  "sum_over_time", "avg_over_time",
+                                  "count_over_time"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_per_series_kernels_match_plain(card, ragged, kind):
+    vals_p, vbase_p, _, _, rows, _ = _inputs(
+        card, 2049, 300, (5,), 0.05 if ragged else 0.0, 4)
+    name = kernels._kernel_name(kind, ragged) + "_series"
+    n0 = kernels.LAUNCHES[name]
+    a = fused.fused_per_series(vals_p, vbase_p, rows, 2001, kind, ragged,
+                               True, True)
+    b = fused.fused_per_series(vals_p, vbase_p, rows, 2001, kind, ragged,
+                               True, True)
+    p = fused.fused_per_series_plain(vals_p, vbase_p, rows, 2001, kind,
+                                     ragged, True, True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 2
+    assert (a[1] is None) == (not ragged) == (p[1] is None)
+    for x, y, z in zip(a, b, p):
+        if x is None:
+            continue
+        assert x.shape == (2001, rows.idx1.numel())
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, z, rtol=1e-6, atol=1e-5)
+
+
 def test_kernel_rejects_bad_inputs(card):
     vals_p, vbase_p, csr, chunks, rows, Gp = _inputs(card, 64, 100, (3,),
                                                       0.0, 2)
@@ -70,3 +117,7 @@ def test_kernel_rejects_bad_inputs(card):
     with pytest.raises(ValueError, match="contiguous"):
         kernels.fused_rate_dense_cuda(vals_p.t().contiguous().t(), vbase_p,
                                       csr.order, chunks, rows, Gp, True, True)
+    with pytest.raises(ValueError, match="num_rows"):
+        kernels.fused_per_series_cuda(vals_p, vbase_p, rows,
+                                      vals_p.shape[0] + 1, "sum_over_time",
+                                      False)

@@ -1,5 +1,5 @@
-"""The headline query end to end: filodb_tpu_torch's QueryEngine vs the JAX
-package's over the same seeded counters.
+"""The port's query slices end to end: filodb_tpu_torch's QueryEngine vs
+the JAX package's over the same seeded counters and gauges.
 
 The JAX memstore ingests the counters (routed to 1 or 2 shards by the
 reference shard math); each shard's arrays are then handed to the port's
@@ -8,13 +8,17 @@ state.  `sum by (_ns_) (rate(request_total[5m]))` must agree within the
 reference's tolerance against the general path (rtol 2e-4, atol 1e-3,
 __graft_entry__.py:221), with the JAX engine run once with its Pallas
 kernel in interpret mode and once on its general XLA path, dense and
-ragged (NaN scrape gaps).
+ragged (NaN scrape gaps).  The gauge and min/max panels (last_over_time
+via the instant selector, sum/avg/count/min/max_over_time, min/max
+aggregates) are held against the JAX engine with its Pallas kernel in
+interpret mode and against the f64 oracle tests/oracle.py, dense (rtol
+2e-4, atol 1e-3) and ragged (rtol 5e-4, atol 1e-4).
 """
 import numpy as np
 import pytest
 
 from filodb_tpu.core.records import RecordBatch
-from filodb_tpu.ingest.generator import counter_batch
+from filodb_tpu.ingest.generator import counter_batch, gauge_batch
 from filodb_tpu_torch.core.convert import load_reference_arrays
 from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
 from filodb_tpu_torch.parallel.shardmapper import ShardEvent, ShardMapper
@@ -41,7 +45,18 @@ def _batch(ragged: bool):
                        batch.timestamps, {"count": vals}, batch.bucket_les)
 
 
-def _port_engine(jax_engine, num_shards):
+def _gauges(ragged: bool, shift: float = 0.0):
+    batch = gauge_batch(48, T, start_ms=START_MS, seed=5)
+    vals = batch.columns["value"] + shift
+    if ragged:
+        vals = vals.copy()
+        vals[np.random.default_rng(4).random(vals.shape) < 0.1] = np.nan
+    return RecordBatch(batch.schema, batch.part_keys, batch.part_idx,
+                       batch.timestamps, {"value": vals}, batch.bucket_les)
+
+
+def _port_engine(jax_engine, num_shards, schema="prom-counter",
+                 col="count"):
     """A port engine over the same per-shard series as the JAX engine."""
     ms = TimeSeriesMemStore(device="cpu")
     mapper = ShardMapper(num_shards)
@@ -49,7 +64,7 @@ def _port_engine(jax_engine, num_shards):
         mapper.update_from_event(
             ShardEvent("IngestionStarted", "prometheus", s, "local"))
         sh = jax_engine.source.get_shard("prometheus", s)
-        store = sh.stores.get("prom-counter")
+        store = sh.stores.get(schema)
         if store is None:
             ms.setup("prometheus", s)
             continue
@@ -61,8 +76,8 @@ def _port_engine(jax_engine, num_shards):
             part_key_labels=[{**p.part_key.tags_dict,
                               "_metric_": p.part_key.metric} for p in parts],
             ts=store.ts[rows, :t],
-            columns={"count": store.cols["count"][rows, :t]},
-            counts=store.counts[rows])
+            columns={col: store.cols[col][rows, :t]},
+            counts=store.counts[rows], schema=schema)
     return QueryEngine("prometheus", ms, mapper, device="cpu")
 
 
@@ -106,12 +121,13 @@ def test_headline_query_matches_jax_engine(num_shards, ragged, jax_mode):
 
 
 @pytest.mark.parametrize("promql", [
-    "max by (_ns_) (rate(request_total[5m]))",
+    "stddev by (_ns_) (rate(request_total[5m]))",
     "sum by (_ns_) (max_over_time(request_total[5m]))",
     "sum by (_ns_) (request_total)",
     "rate(request_total[5m])",
     "sum by (_ns_) (rate(request_total[5m])) / 2",
     "topk(2, sum by (_ns_) (rate(request_total[5m])))",
+    "histogram_quantile(0.9, sum by (le) (rate(request_total[5m])))",
 ])
 def test_out_of_slice_query_raises_not_ported(promql):
     je = _mk_engine([_batch(False)])
@@ -154,3 +170,147 @@ def test_load_reference_arrays_keeps_order_and_ragged_lengths():
         np.testing.assert_array_equal(store.ts[info.row, :k], ts[pid, :k])
         np.testing.assert_array_equal(store.cols["count"][info.row, :k],
                                       vals[pid, :k])
+
+
+# ---------------------------------------------------------------- gauges
+
+# query -> (range function, range ms, aggregate, grouped by _ns_) for the
+# oracle; the instant selector is last_over_time over the 5 m lookback
+GAUGE_QUERIES = {
+    "sum by (_ns_) (heap_usage)": ("last_over_time", 300_000, "sum", True),
+    "sum(sum_over_time(heap_usage[5m]))":
+        ("sum_over_time", 300_000, "sum", False),
+    "avg by (_ns_) (avg_over_time(heap_usage[5m]))":
+        ("avg_over_time", 300_000, "avg", True),
+    "sum(count_over_time(heap_usage[5m]))":
+        ("count_over_time", 300_000, "sum", False),
+    "min by (_ns_) (min_over_time(heap_usage[5m]))":
+        ("min_over_time", 300_000, "min", True),
+    "max(max_over_time(heap_usage[5m]))":
+        ("max_over_time", 300_000, "max", False),
+    "max by (_ns_) (avg_over_time(heap_usage[5m]))":
+        ("avg_over_time", 300_000, "max", True),
+}
+
+_ENGINES = {}
+
+
+def _gauge_engines(ragged, num_shards, shift=0.0):
+    """(JAX engine, port engine, batch), built once per data set."""
+    key = (ragged, num_shards, shift)
+    if key not in _ENGINES:
+        batch = _gauges(ragged, shift)
+        je = _mk_engine([batch], num_shards=num_shards)
+        _ENGINES[key] = (je, _port_engine(je, num_shards, "gauge", "value"),
+                         batch)
+    return _ENGINES[key]
+
+
+def _oracle(batch, fn, range_ms, op, by_ns):
+    """{labels: [W] f64} per tests/oracle.py, NaN = absent."""
+    from oracle import eval_series
+    S = len(batch.part_keys)
+    ts_row = batch.timestamps[:T]
+    vals = batch.columns["value"].reshape(S, T)
+    wends = np.arange(START_MS + 600_000, END_S * 1000 + 1, 60_000)
+    per = np.stack([eval_series(ts_row, vals[s], wends, range_ms, fn)
+                    for s in range(S)])
+    groups = {}
+    for s, pk in enumerate(batch.part_keys):
+        labels = ((("_ns_", pk.tags_dict["_ns_"]),) if by_ns else ())
+        groups.setdefault(labels, []).append(s)
+    out = {}
+    reduce = {"sum": np.nansum, "avg": np.nanmean, "min": np.nanmin,
+              "max": np.nanmax}[op]
+    for labels, rows in groups.items():
+        x = per[rows]
+        present = (~np.isnan(x)).any(axis=0)
+        with np.errstate(all="ignore"):
+            import warnings
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                out[labels] = np.where(present, reduce(x, axis=0), np.nan)
+    return out
+
+
+def _assert_close(got, want, ragged):
+    rtol, atol = (5e-4, 1e-4) if ragged else (2e-4, 1e-3)
+    assert set(got) == set(want)
+    for k in want:
+        assert (np.isnan(got[k]) == np.isnan(want[k])).all(), k
+        np.testing.assert_allclose(got[k], want[k], rtol=rtol, atol=atol,
+                                   equal_nan=True, err_msg=str(k))
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("num_shards", [1, 2])
+@pytest.mark.parametrize("promql", list(GAUGE_QUERIES))
+def test_gauge_panel_matches_jax_engine_and_oracle(promql, num_shards,
+                                                   ragged, monkeypatch):
+    monkeypatch.setenv("FILODB_TPU_FUSED_INTERPRET", "1")
+    je, pe, batch = _gauge_engines(ragged, num_shards)
+    want = _series(je.query_range(promql, START_S + 600, 60, END_S))
+    res = pe.query_range(promql, START_S + 600, 60, END_S)
+    got = _series(res)
+    assert got
+    _assert_close(got, want, ragged)
+    _assert_close(got, {k: v for k, v in
+                        _oracle(batch, *GAUGE_QUERIES[promql]).items()
+                        if not np.isnan(v).all()}, ragged)
+    again = _series(pe.query_range(promql, START_S + 600, 60, END_S))
+    for k in got:
+        np.testing.assert_array_equal(again[k], got[k])
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("num_shards", [1, 2])
+def test_max_by_rate_matches_jax_engine(num_shards, ragged, monkeypatch):
+    """max by (_ns_) (rate(...)): the rate kernels' per-series mode (K6
+    over K1 and K3) under the min/max aggregate."""
+    monkeypatch.setenv("FILODB_TPU_FUSED_INTERPRET", "1")
+    q = "max by (_ns_) (rate(request_total[5m]))"
+    je = _mk_engine([_batch(ragged)], num_shards=num_shards)
+    pe = _port_engine(je, num_shards)
+    want = _series(je.query_range(q, START_S + 600, 60, END_S))
+    got = _series(pe.query_range(q, START_S + 600, 60, END_S))
+    assert len(got) == 10
+    _assert_close(got, want, ragged)
+
+
+def test_count_agg_counts_single_sample_windows():
+    """Trap 2: the dense count aggregate counts a series present in a
+    window of ONE sample for the over_time kinds (minsamp 1; only the
+    rate family needs two)."""
+    je, pe, _ = _gauge_engines(False, 1)
+    q = "count by (_ns_) (sum_over_time(heap_usage[10s]))"
+    before = counters.get("leaf_fused_count_host")
+    got = _series(pe.query_range(q, START_S + 600, 60, END_S))
+    assert counters.get("leaf_fused_count_host") > before
+    want = _series(je.query_range(q, START_S + 600, 60, END_S))
+    assert len(got) == 10
+    _assert_close(got, want, False)
+    # every window but the last (past the final sample) holds one sample
+    for v in got.values():
+        assert not np.isnan(v[:-1]).any() and (v[:-1] >= 4).all()
+
+
+def test_max_by_over_negative_gauges_across_two_shards(monkeypatch):
+    """Trap 3: the inter-shard merge of a max over negative values starts
+    from -inf, so the answer is the largest negative value, not 0."""
+    monkeypatch.setenv("FILODB_TPU_FUSED_INTERPRET", "1")
+    je, pe, _ = _gauge_engines(False, 2, shift=-1000.0)
+    q = "max by (_ns_) (avg_over_time(heap_usage[5m]))"
+    got = _series(pe.query_range(q, START_S + 600, 60, END_S))
+    want = _series(je.query_range(q, START_S + 600, 60, END_S))
+    assert len(got) == 10 and all((v < -800).all() for v in got.values())
+    _assert_close(got, want, False)
+
+
+def test_rate_over_values_not_reset_corrected_raises_not_ported():
+    """rate over a gauge column (values the mirror did not reset-correct)
+    needs the in-kernel drops variant K2, which the port does not carry."""
+    _, pe, _ = _gauge_engines(False, 1)
+    with pytest.raises(QueryError) as e:
+        pe.query_range("sum by (_ns_) (rate(heap_usage[5m]))",
+                       START_S + 600, 60, END_S)
+    assert e.value.code == "not_ported" and "K2" in str(e.value)

@@ -38,6 +38,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         filodb_tpu_torch.__path__, "filodb_tpu_torch."))
     assert res["imported"] == expected
     for mod in ("filodb_tpu_torch.ops.fused", "filodb_tpu_torch.ops.kernels",
+                "filodb_tpu_torch.ops.minmax", "filodb_tpu_torch.ops.agg",
                 "filodb_tpu_torch.core.devicecache",
                 "filodb_tpu_torch.query.engine"):
         assert mod in res["imported"]
