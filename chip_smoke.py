@@ -13,12 +13,15 @@ prints no result):
    started together);
 2. each kernel against its plain torch version on the card, at the main
    path's shape and at a small odd shape with two panels: K1/K3 (rate
-   family), K4 (last_over_time), K5 (sum/avg/count_over_time), each in
-   group-sum mode and in its per-series mode K6.  Max abs/rel error
-   within rtol 1e-6 + atol 1e-5 (both compute the same f32 operations in
-   the same order; the bound allows for nothing else), two kernel runs
-   bit-identical, the launch count rising; kernel, plain and one-call
-   PyTorch yardstick times by CUDA events;
+   family), K2 (rate family over raw counters with two resets a row,
+   in-kernel correction), K4 (last_over_time), K5 (sum/avg/count_over_
+   time), each in group-sum mode and in its per-series mode K6.  Max
+   abs/rel error within rtol 1e-6 + atol 1e-5 (both compute the same f32
+   operations in the same order; the bound allows for nothing else), two
+   kernel runs bit-identical, the launch count rising, and for the rate
+   family and last_over_time the gather=False launch (the reference's
+   matmul selections, K7) the same kernel with the same bits; kernel,
+   plain and one-call PyTorch yardstick times by CUDA events;
 3. dense counters: made from --seed with numpy, ingested through
    TimeSeriesShard.ingest_columns in slabs, then
    `sum by (_ns_) (rate(request_total[5m]))` (K1) and
@@ -30,12 +33,19 @@ prints no result):
    (instant selector = K4, sum/avg_over_time = K5, count_over_time = host
    math, min/max_over_time = windowed torch reductions, max by = K6);
 6. ragged gauges: 65,536 series with ~1% NaN, the same panels, with
-   count_over_time through K5.
-In phases 3-6 every query's answer must match a numpy f64 oracle within
-rtol 2e-4, atol 1e-3 (ragged rtol 5e-4, atol 1e-4), each warm query must
-launch the kernel named for it, and two warm answers must be
-bit-identical.  The launch counts are set to 0 just before each phase
-and read just after it.
+   count_over_time through K5;
+7. raw counters, --series x 720 with two resets each, made and rebased
+   WITHOUT correction on the card, through the kernel-level API:
+   fused_rate_groupsum(precorrected=False) for rate and increase (K2) and
+   fused_leaf_agg_batch(precorrected=False) with sum, avg and max panels
+   by _ns_ (K2 and K2's per-series mode), each call once cold and --warm
+   times warm, against an f64 oracle computed on the card;
+8. ragged raw counters: 65,536 series with ~1% NaN, the same calls.
+In phases 3-8 every answer must match an f64 oracle within rtol 2e-4,
+atol 1e-3 (ragged rtol 5e-4, atol 1e-4), each warm query must launch the
+kernel named for it, and two warm answers must be bit-identical.  The
+launch counts are set to 0 just before each phase and read just after
+it.
 
 Then one JSON line with the kernel table, and as the last line
 {"ok": true, "device": {...}}.
@@ -69,6 +79,10 @@ SECTOR = 32                        # bytes per DRAM sector
 # csrc/fused_rate.cu: 25 arithmetic/compare/select ops) plus the add of
 # the group sum; K3 adds a compare and a count per slot it scans
 RATE_OPS = 26
+# f32 operations per slot of the in-kernel reset correction (K2): the
+# compare with the previous sample, the select of the drop, the prefix add
+DROP_OPS = 3
+RESETS = 2                         # counter restarts per raw series
 
 COUNTER_QUERIES = [
     # (PromQL, oracle key, aggregate, kernel launched: dense, ragged)
@@ -335,16 +349,20 @@ def slots_read(kind, ragged, plan):
                                      zip(plan.idx1[ok], plan.idx2[ok])]))
 
 
-def bound(kind, ragged, series_mode, num_rows, plan, Gp):
+def bound(kind, ragged, series_mode, num_rows, plan, Gp, with_drops=False):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and f32
     operations over the FP32 rate.  Bytes: the 32-byte sectors holding
-    the columns a row's windows read (DRAM moves whole sectors), the
+    the columns a row's windows read (DRAM moves whole sectors; K2 reads
+    every slot from 0 to the last window's last slot, plan.span), the
     per-row base (and CSR entry in group mode), and the outputs written
     once ([Gp, W] sums, or [rows, W] per series; a second plane for the
     ragged presence).  Operations per (row, window): the epilogue's
     arithmetic plus, for the kinds that scan a window, per-slot adds
-    (and a compare and a count per slot when ragged)."""
-    sectors = np.unique(slots_read(kind, ragged, plan) * 4 // SECTOR).size
+    (and a compare and a count per slot when ragged); K2 adds a compare,
+    a select and an add per slot of its span."""
+    cols = (np.arange(plan.span) if with_drops
+            else slots_read(kind, ragged, plan))
+    sectors = np.unique(cols * 4 // SECTOR).size
     planes = 2 if ragged else 1
     per_row = sectors * SECTOR + 4 + (0 if series_mode else 4)
     outs = (num_rows if series_mode else Gp) * plan.W * 4 * planes
@@ -358,6 +376,8 @@ def bound(kind, ragged, series_mode, num_rows, plan, Gp):
     else:
         per_window = (3 * slots + 5) if ragged else (slots + 4)
     ops = num_rows * plan.W * per_window
+    if with_drops:
+        ops += num_rows * plan.span * DROP_OPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
@@ -374,11 +394,21 @@ KERNELS = [
     ("fused_over_time", "avg_over_time",
      "filodb_tpu_torch/csrc/fused_over_time.cu"),
 ]
+DROPS_KERNELS = [
+    ("fused_rate_drops", "rate_family",
+     "filodb_tpu_torch/csrc/fused_drops.cu"),
+]
 CHECK_KINDS = {"fused_over_time": ("sum_over_time", "avg_over_time",
                                    "count_over_time")}
+# the TPU kernel variant each table entry replaces
+# (filodb_tpu/ops/pallas_fused.py::_kernel, :466)
+REPLACES = {"fused_rate_dense": 595, "fused_rate_ragged": 544,
+            "fused_last_dense": 502, "fused_last_ragged": 485,
+            "fused_over_time_dense": 510, "fused_over_time_ragged": 518,
+            "fused_rate_drops_dense": 598, "fused_rate_drops_ragged": 554}
 
 
-def kernel_inputs(S, T_, panels, ragged, gen, device):
+def kernel_inputs(S, T_, panels, ragged, gen, device, resets=0):
     import torch
     from filodb_tpu_torch.ops import fused
     ts_row = np.arange(T_, dtype=np.int64) * STEP_MS
@@ -386,6 +416,13 @@ def kernel_inputs(S, T_, panels, ragged, gen, device):
     plan = fused.build_plan(ts_row, wends, RANGE_MS)
     v = torch.cumsum(torch.rand((S, T_), generator=gen, device=device)
                      * 20.0, dim=1)
+    pos = torch.arange(T_, device=device)[None, :]
+    for k in range(resets):             # raw counter restarts, in order
+        r = torch.randint(max(1, k * T_ // resets), (k + 1) * T_ // resets,
+                          (S, 1), generator=gen, device=device)
+        restart = torch.rand((S, 1), generator=gen, device=device) * 5.0
+        v = torch.where(pos >= r, v - v.gather(1, r - 1) + restart, v)
+    del pos
     if ragged:
         v[torch.rand((S, T_), generator=gen, device=device) < 0.01] = \
             float("nan")
@@ -402,15 +439,18 @@ def kernel_inputs(S, T_, panels, ragged, gen, device):
                 rows=plan.device_rows(device), Gp=Gp, S=S)
 
 
-def check_kernel(inp, base, kind, ragged, series_mode, gen, timed):
-    """Hold one kernel wrapper against its plain version on `inp`;
-    returns the table row when `timed`."""
+def check_kernel(inp, base, kind, ragged, series_mode, gen, timed,
+                 with_drops=False):
+    """Hold one kernel wrapper against its plain version on `inp`, and
+    (rate family, last_over_time) its gather=False launch, the reference's
+    matmul selections (K7), against its default one; returns the table
+    row when `timed`."""
     import torch
     from filodb_tpu_torch.ops import fused, kernels
     vals, rows, S = inp["vals"], inp["rows"], inp["S"]
     name = f"{base}_{'ragged' if ragged else 'dense'}" + \
         ("_series" if series_mode else "")
-    flags = (True, True)                  # rate: is_counter, is_rate
+    flags = (True, True, with_drops)      # is_counter, is_rate, drops
     if series_mode:
         def wrap():
             return fused.fused_per_series(vals.vals_p, vals.vbase_p, rows, S,
@@ -440,6 +480,17 @@ def check_kernel(inp, base, kind, ragged, series_mode, gen, timed):
           f"{name} ({kind}): launch count did not rise")
     check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
           f"{name} ({kind}): two kernel runs differ")
+    if kind in ("rate_family", "last_over_time"):
+        g = planes(fused.run_kernel(
+            vals.vals_p, vals.vbase_p, inp["csr"], rows,
+            num_groups=inp["Gp"], is_counter=True, is_rate=True,
+            with_drops=with_drops, kind=kind, ragged=ragged,
+            per_series=series_mode, gather=False, num_rows=S))
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES[name] == n0 + 3
+              and all(torch.equal(a, b) for a, b in zip(k1, g)),
+              f"{name} ({kind}): gather=False did not launch the same "
+              f"kernel to the same bits")
     p = planes(plain())
     check(len(p) == len(k1), f"{name}: kernel and plain planes differ")
     max_abs = max_rel = 0.0
@@ -455,7 +506,9 @@ def check_kernel(inp, base, kind, ragged, series_mode, gen, timed):
     plan = inp["plan"]
     log(f"check {name} ({kind}) S={S} W={plan.W} Gp={inp['Gp']}: "
         f"max_abs_err={max_abs} max_rel_err={max_rel} "
-        f"bit_identical_repeat=True rtol=1e-6 atol=1e-5")
+        f"bit_identical_repeat=True rtol=1e-6 atol=1e-5"
+        + (" gather=False same kernel, same bits"
+           if kind in ("rate_family", "last_over_time") else ""))
     if not timed:
         return max_abs
     ms = cuda_ms(wrap, reps=20)
@@ -477,42 +530,60 @@ def check_kernel(inp, base, kind, ragged, series_mode, gen, timed):
         acc = torch.zeros((inp["Gp"], plan.W), device=cells.device)
         library_ms = cuda_ms(lambda: acc.index_add_(0, gids, cells), reps=20)
         yard = "index_add_"
+    yardsticks = {yard: library_ms}
+    del cells, acc
+    if with_drops:
+        # the one PyTorch call that computes K2's added work: the prefix
+        # sum of an [S, Tp] drops matrix
+        drops = torch.rand(vals.vals_p.shape, generator=gen,
+                           device=vals.vals_p.device)
+        library_ms = cuda_ms(lambda: torch.cumsum(drops, dim=1), reps=10)
+        yardsticks["cumsum [S, Tp]"] = library_ms
+        del drops
     bound_ms, bound_by = bound(kind, ragged, series_mode, S, plan,
-                               inp["Gp"])
+                               inp["Gp"], with_drops)
     log(f"time {name} ({kind}) S={S} W={plan.W} G={inp['Gp']}: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {yard} {library_ms:.4f} "
-        f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in yardsticks.items())
+        + f", bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                yardsticks=yardsticks)
 
 
 def run_kernel_checks(num_series, seed, device):
+    """Every kernel at a small odd shape and at the main path's shape,
+    dense and ragged; K2's inputs are raw counters with RESETS restarts a
+    row."""
     import torch
     table = {}
     for ragged in (False, True):
         for S, T_, panels, timed in ((1001, 333, (7, 3), False),
                                      (num_series, T, (NUM_NS,), True)):
-            gen = torch.Generator(device=device)
-            gen.manual_seed(seed)
-            inp = kernel_inputs(S, T_, panels, ragged, gen, device)
-            for base, kind, source in KERNELS:
-                for series_mode in (False, True):
-                    name = f"{base}_{'ragged' if ragged else 'dense'}" + \
-                        ("_series" if series_mode else "")
-                    errs = [check_kernel(inp, base, k, ragged, series_mode,
-                                         gen, False)
-                            for k in CHECK_KINDS.get(base, ())
-                            if k != kind]
-                    row = check_kernel(inp, base, kind, ragged, series_mode,
-                                       gen, timed)
-                    if timed:
-                        row["max_abs_err"] = max([row["max_abs_err"]]
-                                                 + errs)
-                        row["source"] = source
-                        table[name] = row
-            del inp
-            gc.collect()
-            torch.cuda.empty_cache()
+            for drops, kernel_list in ((False, KERNELS),
+                                       (True, DROPS_KERNELS)):
+                gen = torch.Generator(device=device)
+                gen.manual_seed(seed)
+                inp = kernel_inputs(S, T_, panels, ragged, gen, device,
+                                    resets=RESETS if drops else 0)
+                for base, kind, source in kernel_list:
+                    for series_mode in (False, True):
+                        name = f"{base}_{'ragged' if ragged else 'dense'}" \
+                            + ("_series" if series_mode else "")
+                        errs = [check_kernel(inp, base, k, ragged,
+                                             series_mode, gen, False)
+                                for k in CHECK_KINDS.get(base, ())
+                                if k != kind]
+                        row = check_kernel(inp, base, kind, ragged,
+                                           series_mode, gen, timed, drops)
+                        if timed:
+                            row["max_abs_err"] = max([row["max_abs_err"]]
+                                                     + errs)
+                            row["source"] = source
+                            table[name] = row
+                del inp
+                gc.collect()
+                torch.cuda.empty_cache()
     return table
 
 
@@ -622,6 +693,237 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol):
     return launches, rows_out
 
 
+# ------------------------------------------------ phases 7 and 8: raw
+
+def make_raw_counters_t(gen, n, hole_frac, device):
+    """[n, T] f64 raw counters on the card, like make_counter_slab but with
+    RESETS restarts a series (one in each of RESETS equal spans of the
+    row, so they never coincide) and optional NaN scrape gaps."""
+    import torch
+    v = torch.empty((n, T), dtype=torch.float64, device=device)
+    v.exponential_(0.1, generator=gen)          # mean increment 10
+    v = torch.cumsum(v, dim=1)
+    pos = torch.arange(T, device=device)[None, :]
+    for k in range(RESETS):
+        r = torch.randint(max(6, k * T // RESETS), (k + 1) * T // RESETS,
+                          (n, 1), generator=gen, device=device)
+        restart = torch.empty((n, 1), dtype=torch.float64, device=device)
+        restart.exponential_(0.2, generator=gen)
+        v = torch.where(pos >= r, v - v.gather(1, r - 1) + restart, v)
+    if hole_frac:
+        v[torch.rand((n, T), generator=gen, device=device) < hole_frac] = \
+            float("nan")
+    return v
+
+
+def oracle_rates_t(vals, ts_row, wends):
+    """oracle_rates in f64 torch on the card, for rate and increase: the
+    counters corrected against the previous valid sample, then the
+    extrapolated increase between each window's first and last valid
+    sample (NaN where fewer than two)."""
+    import torch
+    dev = vals.device
+    n_s = vals.shape[0]
+    valid = ~torch.isnan(vals)
+    pos = torch.arange(T, device=dev).expand(n_s, T)
+    last_v = torch.cummax(torch.where(valid, pos, torch.full_like(pos, -1)),
+                          dim=1).values
+    prev_idx = torch.cat([torch.full_like(last_v[:, :1], -1),
+                          last_v[:, :-1]], dim=1)
+    prev = vals.gather(1, prev_idx.clamp(min=0))
+    drop = torch.where(valid & (prev_idx >= 0) & (prev > vals), prev,
+                       torch.zeros_like(vals))
+    corr = vals + torch.cumsum(drop, dim=1)
+    nxt = torch.flip(torch.cummin(torch.flip(
+        torch.where(valid, pos, torch.full_like(pos, T)), [1]), dim=1)
+        .values, [1])
+    cnt = torch.cumsum(valid.to(torch.int32), dim=1)
+    first, last = (torch.from_numpy(x).to(dev)
+                   for x in window_bounds(ts_row, wends))
+    nv = cnt[:, last] - cnt[:, first] + valid[:, first].to(torch.int32)
+    j1 = nxt[:, first].clamp(max=T - 1)
+    j2 = last_v[:, last].clamp(min=0)
+    v1, v2 = corr.gather(1, j1), corr.gather(1, j2)
+    ts = torch.from_numpy(ts_row.astype(np.float64)).to(dev)
+    t1, t2 = ts[j1], ts[j2]
+    we = torch.from_numpy(wends.astype(np.float64)).to(dev)[None, :]
+    ws = we - RANGE_MS
+    dur_start = (t1 - ws) / 1000.0
+    dur_end = (we - t2) / 1000.0
+    sampled = (t2 - t1) / 1000.0
+    avg = sampled / (nv - 1)
+    delta = v2 - v1
+    dur_zero = sampled * (v1 / delta)
+    dur_start = torch.where((delta > 0) & (v1 >= 0) & (dur_zero < dur_start),
+                            dur_zero, dur_start)
+    thr = avg * 1.1
+    extrap = (sampled + torch.where(dur_start < thr, dur_start, avg / 2)
+              + torch.where(dur_end < thr, dur_end, avg / 2))
+    inc = delta * (extrap / sampled)
+    nan = torch.full_like(inc, float("nan"))
+    ok = nv >= 2
+    return {"increase": torch.where(ok, inc, nan),
+            "rate": torch.where(ok, inc / (we - ws) * 1000.0, nan)}
+
+
+def check_close(got, want, rtol, atol, what):
+    """got and want [G, W] f64 numpy, NaN = absent -> (max abs err, max
+    rel err); fails on a NaN pattern or a value off the tolerance."""
+    check(got.shape == want.shape,
+          f"{what}: shape {got.shape}, expected {want.shape}")
+    check((np.isnan(got) == np.isnan(want)).all(),
+          f"{what}: NaN pattern differs from the oracle")
+    m = ~np.isnan(want)
+    check(m.any(), f"{what}: the oracle has no present cell")
+    err = np.abs(got[m] - want[m])
+    check((err <= atol + rtol * np.abs(want[m])).all(),
+          f"{what}: max abs err {err.max()} over rtol {rtol} atol {atol}")
+    return (float(err.max()),
+            float((err / np.maximum(np.abs(want[m]), 1e-300)).max()))
+
+
+def run_raw_counter_path(num_series, seed, hole_frac, warm, tol, dev):
+    """Raw request_total counters (RESETS restarts each, `_ns_ =
+    App-{i % NUM_NS}`) made on the card, rebased WITHOUT correction on the
+    card (ops/counter.rebase_rows_t) in slabs, then through the port's
+    kernel-level API: fused_rate_groupsum(precorrected=False) for rate and
+    increase (K2, group mode) and fused_leaf_agg_batch(precorrected=False)
+    with sum, avg and max panels by _ns_ (K2 group + K2 per-series).  Each
+    call once cold and `warm` times warm, against an f64 oracle; the
+    launch counts are set to 0 just before the first call and read just
+    after the last."""
+    import torch
+    from filodb_tpu_torch.ops import agg, counter, fused, kernels
+    ragged = bool(hole_frac)
+    what = f"raw-counter {'ragged' if ragged else 'dense'}"
+    ts_row = np.arange(T, dtype=np.int64) * STEP_MS     # offsets from START
+    wends = np.arange(600_000, int(ts_row[-1]) + 1, 60_000)
+    W = len(wends)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    gids = np.arange(num_series) % NUM_NS
+    gids_t = torch.from_numpy(gids).to(dev)
+    o_sum = {k: torch.zeros((NUM_NS, W), dtype=torch.float64, device=dev)
+             for k in ("rate", "increase")}
+    o_cnt = torch.zeros((NUM_NS, W), dtype=torch.float64, device=dev)
+    o_max = torch.full((NUM_NS, W), float("-inf"), dtype=torch.float64,
+                       device=dev)
+    reb32 = torch.empty((num_series, T), dtype=torch.float32, device=dev)
+    vb32 = torch.empty((num_series,), dtype=torch.float32, device=dev)
+    gen_s = prep_s = oracle_s = 0.0
+    for i0 in range(0, num_series, SLAB):
+        n = min(SLAB, num_series - i0)
+        t0 = time.perf_counter()
+        v = make_raw_counters_t(gen, n, hole_frac, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        per = oracle_rates_t(v, ts_row, wends)
+        g = gids_t[i0:i0 + n]
+        for k, x in per.items():
+            o_sum[k].index_add_(0, g, torch.nan_to_num(x, nan=0.0))
+        ok = ~torch.isnan(per["rate"])
+        o_cnt.index_add_(0, g, ok.to(torch.float64))
+        o_max.scatter_reduce_(
+            0, g[:, None].expand(-1, W),
+            torch.where(ok, per["rate"], torch.full_like(per["rate"],
+                                                         float("-inf"))),
+            "amax")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        reb, vb, _ = counter.rebase_rows_t(v, correct_counter=False)
+        reb32[i0:i0 + n] = reb
+        vb32[i0:i0 + n] = vb
+        torch.cuda.synchronize()
+        gen_s += t1 - t0
+        oracle_s += t2 - t1
+        prep_s += time.perf_counter() - t2
+        del v, per, reb, vb
+    t0 = time.perf_counter()
+    plan = fused.build_plan(ts_row, wends, RANGE_MS)
+    prepared = fused.pad_inputs(reb32, vb32, gids, plan, NUM_NS, device=dev)
+    torch.cuda.synchronize()
+    pad_s = time.perf_counter() - t0
+    del reb32, vb32
+    log(f"{what}: {num_series} series x {T} samples, {RESETS} resets each: "
+        f"generate on the card {gen_s:.3f} s, f64 oracle {oracle_s:.3f} s, "
+        f"rebase without correction {prep_s:.3f} s, pad_inputs "
+        f"{pad_s:.3f} s")
+    present = (o_cnt > 0).cpu().numpy()
+
+    def oracle(x):
+        return np.where(present, x.cpu().numpy(), np.nan)
+
+    want = {"rate": oracle(o_sum["rate"]),
+            "increase": oracle(o_sum["increase"]),
+            "avg": oracle(o_sum["rate"] / o_cnt.clamp(min=1.0)),
+            "max": oracle(o_max)}
+    del o_sum, o_cnt, o_max
+    groups = prepared.groups
+    panels = [(groups, NUM_NS, "sum"), (groups, NUM_NS, "avg"),
+              (groups, NUM_NS, "max")]
+    mode = "ragged" if ragged else "dense"
+    calls = [
+        ("fused_rate_groupsum(rate, precorrected=False)",
+         [f"fused_rate_drops_{mode}"],
+         lambda: [fused.present_sum(*fused.fused_rate_groupsum(
+             None, None, None, plan, NUM_NS, "rate", precorrected=False,
+             prepared=prepared, ragged=ragged))], ["rate"]),
+        ("fused_rate_groupsum(increase, precorrected=False)",
+         [f"fused_rate_drops_{mode}"],
+         lambda: [fused.present_sum(*fused.fused_rate_groupsum(
+             None, None, None, plan, NUM_NS, "increase", precorrected=False,
+             prepared=prepared, ragged=ragged))], ["increase"]),
+        ("fused_leaf_agg_batch(rate, [sum, avg, max] by _ns_, "
+         "precorrected=False)",
+         [f"fused_rate_drops_{mode}", f"fused_rate_drops_{mode}_series"],
+         lambda: [agg.present(op, torch.from_numpy(c)).numpy()
+                  for c, (_, _, op) in zip(fused.fused_leaf_agg_batch(
+                      plan, prepared.values, panels, "rate",
+                      precorrected=False, ragged=ragged,
+                      num_series=num_series), panels)],
+         ["rate", "avg", "max"]),
+    ]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rows_out = []
+    for label, names, fn, keys in calls:
+        answers, times = [], []
+        for i in range(warm + 1):
+            n0 = {k: kernels.LAUNCHES[k] for k in names}
+            t0 = time.perf_counter()
+            answers.append(fn())
+            times.append(time.perf_counter() - t0)
+            for k in names:
+                check(kernels.LAUNCHES[k] == n0[k] + 1,
+                      f"{what}: {label} call {i} did not launch {k} once")
+        errs = [check_close(np.asarray(g, np.float64), want[k], *tol,
+                            f"{what} {label} [{k}]")
+                for g, k in zip(answers[-1], keys)]
+        for g, k in zip(answers[0], keys):
+            check_close(np.asarray(g, np.float64), want[k], *tol,
+                        f"{what} {label} [{k}] cold")
+        check(all(np.array_equal(a, b, equal_nan=True)
+                  for a, b in zip(answers[-2], answers[-1])),
+              f"{what}: two warm answers of {label} differ")
+        warm_s = times[1:]
+        p50, p99 = np.percentile(warm_s, 50), np.percentile(warm_s, 99)
+        log(f"{what}: {label} via {'+'.join(names)}: cold {times[0]:.4f} s; "
+            f"warm x{warm} p50 {p50:.4f} s p99 {p99:.4f} s; oracle "
+            + ", ".join(f"[{k}] max_abs_err {e} max_rel_err {r}"
+                        for k, (e, r) in zip(keys, errs))
+            + f" (rtol {tol[0]}, atol {tol[1]}); warm answers bit-identical")
+        rows_out.append(dict(call=label, cold_s=times[0], p50=p50, p99=p99))
+    launches = dict(kernels.LAUNCHES)
+    log(f"{what}: windows={W} max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    del prepared, groups, panels, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rows_out
+
+
 # ------------------------------------------------------------------ main
 
 def main(argv=None) -> int:
@@ -673,15 +975,25 @@ def main(argv=None) -> int:
         got, _ = run_path(kind, n, seed, hole, warm, queries, tol)
         for name in launches:
             launches[name] += got.get(name, 0)
+    for n, seed, hole, warm, tol in (
+            (args.series, args.seed + 4, 0.0, args.warm, (2e-4, 1e-3)),
+            (RAGGED_SERIES, args.seed + 5, 0.01, small_warm, (5e-4, 1e-4))):
+        got, _ = run_raw_counter_path(n, seed, hole, warm, tol, dev)
+        for name in launches:
+            launches[name] += got.get(name, 0)
     missing = [name for name, k in launches.items() if k == 0]
     check(not missing, f"kernels of the main path never launched: {missing}")
-    replaces = "filodb_tpu/ops/pallas_fused.py:466"
+    # a group-mode entry replaces its variant's branch of _kernel; a
+    # per-series one the _epilogue's per-series mode (:661)
     kernels_json = [
         dict(name=name, route="cuda", source=row["source"],
-             replaces=replaces, launches=launches[name],
+             replaces="filodb_tpu/ops/pallas_fused.py:"
+             + str(661 if name.endswith("_series") else REPLACES[name]),
+             launches=launches[name],
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-             bound_by=row["bound_by"], library_ms=row["library_ms"])
+             bound_by=row["bound_by"], library_ms=row["library_ms"],
+             yardsticks=row["yardsticks"])
         for name, row in table.items()]
     log(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """Fused windowed range functions + cross-series aggregation over one
 shared scrape grid.
 
-Port of filodb_tpu/ops/pallas_fused.py for the kernel kinds a leaf
-reaches: the rate family (rate/increase/delta over reset-corrected
-values), last_over_time (instant selectors too) and sum/avg/
-count_over_time, each under sum/avg/count/min/max.  A host-built plan
+Port of filodb_tpu/ops/pallas_fused.py: the rate family (rate/increase/
+delta, over reset-corrected values or raw counters), last_over_time
+(instant selectors too) and sum/avg/count_over_time, each under
+sum/avg/count/min/max, through the leaf's entry (fused_leaf_agg_batch)
+and the kernel-level API (fused_rate_groupsum, fused_leaf_agg,
+run_kernel, pad_inputs, warmup_compile).  A host-built plan
 holds the window boundaries once (one shared grid, so one row of slot
 indices serves every series); one kernel launch computes each series'
 value per window and either sums it into its group or writes it out per
@@ -16,6 +18,10 @@ computes the same function in the same f32 operation order:
 
 - K1 rate family, dense: the boundary values are read at the plan's
   idx1/idx2 slots directly.
+- K2 rate family over raw counters (csrc/fused_drops.cu): each row's
+  resets are corrected inside the launch (v + the prefix sum of the
+  drops, in a fixed lane-blocked association, _drop_corrected), then K1
+  (dense) or K3 (ragged) on the corrected row.
 - K3 rate family, ragged: NaN holes are absent samples; each (series,
   window) finds its first and last VALID sample inside the window, and a
   second output sums the presence (valid count >= 2) per group.
@@ -37,7 +43,10 @@ order, so kernel and plain agree to f32 rounding of identical operations.
 What the TPU kernel needed and this port drops: the one-hot selection
 and band matrices (o1/o2/l1/l2 — K5's band matmul becomes an ordered
 slot loop), the VMEM block-size model (replaced by check_kernel_shape)
-and the MXU precision split.
+and the MXU precision split.  K7, the reference's one-hot/step matmul
+selections (gather=False, FILODB_FUSED_GATHER=0), selects the same slots
+as its gathers; here `gather` is accepted and both values launch the
+same kernels (K1-K4), whose selections are plain indexed loads.
 """
 from __future__ import annotations
 
@@ -96,6 +105,7 @@ class PlanRows(NamedTuple):
     we: torch.Tensor         # [W] f32 window end
     tsrow: torch.Tensor      # [Tp] f32 shared-grid ts offsets (0 pad tail)
     n1: torch.Tensor         # [W] f32 true samples in window (0 empty)
+    span: int                # slots 0..span-1 hold every window (K2 reads)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -118,6 +128,12 @@ class FusedPlan:
     _rows: Dict[str, PlanRows] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
+    @property
+    def span(self) -> int:
+        """Slots from column 0 through the last slot any window selects:
+        what the in-kernel reset correction (K2) reads of each row."""
+        return int(self.idx2.max()) + 1 if self.idx2.size else 1
+
     def device_rows(self, device) -> PlanRows:
         """The plan's rows on `device`, uploaded once per (plan, device)."""
         key = str(device)
@@ -127,7 +143,8 @@ class FusedPlan:
                 return torch.from_numpy(np.ascontiguousarray(a)).to(device)
             rows = PlanRows(put(self.idx1), put(self.idx2), put(self.t1),
                             put(self.t2), put(self.n), put(self.wstart_x),
-                            put(self.wend_x), put(self.tsrow), put(self.n1))
+                            put(self.wend_x), put(self.tsrow), put(self.n1),
+                            self.span)
             self._rows[key] = rows
         return rows
 
@@ -450,6 +467,82 @@ def _rate_ragged_cells(vals_p, vbase_p, ridx, rows: PlanRows,
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
+LANES = 32
+"""Lanes of the warp that corrects one row in K2: lane l owns the slots
+[l*L, (l+1)*L), L = ceil(span / LANES) — the association of the drops'
+prefix sum, which kernel and plain version share."""
+
+
+def _drop_corrected(v: torch.Tensor, vb: torch.Tensor, span: int,
+                    ragged: bool) -> torch.Tensor:
+    """K2's reset correction: rows v [R, >= span] f32 with bases vb [R] ->
+    the corrected rows [R, span], c[j] = v[j] + (d[0] + ... + d[j]).
+
+    d[j] = prev + vb where v[j] < prev, the previous sample (ragged: the
+    previous VALID one, carried across NaN holes), else 0; 0 where no
+    previous sample exists (pallas_fused.py:598-605, :554-562).  The prefix
+    sum is taken in the kernel's association (csrc/fused_drops.cu): each
+    lane's drops in slot order from +0, the lanes' exclusive prefix in
+    lane order, then each slot's running sum from its lane's prefix.
+    NaN samples stay NaN."""
+    x = v[:, :span]
+    R = x.shape[0]
+    dev = x.device
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    if ragged:
+        pos = torch.arange(span, device=dev).expand(R, span)
+        last = torch.cummax(torch.where(x == x, pos, torch.full_like(pos, -1)),
+                            dim=1).values
+        pidx = torch.cat([torch.full_like(last[:, :1], -1), last[:, :-1]],
+                         dim=1)
+        has = pidx >= 0
+        prev = x.gather(1, pidx.clamp(min=0))
+    else:
+        prev = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+        has = torch.ones_like(x, dtype=torch.bool)
+        has[:, 0] = False
+    d = torch.where(has & (x < prev), prev + vb[:, None], zero)
+    L = -(-span // LANES)
+    dp = torch.zeros((R, LANES * L), dtype=x.dtype, device=dev)
+    dp[:, :span] = d
+    dp = dp.view(R, LANES, L)
+    total = torch.zeros((R, LANES), dtype=x.dtype, device=dev)
+    for k in range(L):
+        total = total + dp[:, :, k]
+    run = torch.zeros_like(total)
+    acc = torch.zeros((R,), dtype=x.dtype, device=dev)
+    for lane in range(1, LANES):
+        acc = acc + total[:, lane - 1]
+        run[:, lane] = acc
+    cum = torch.empty_like(dp)
+    for k in range(L):
+        run = run + dp[:, :, k]
+        cum[:, :, k] = run
+    return x + cum.view(R, LANES * L)[:, :span]
+
+
+def _rate_drops_cells(vals_p, vbase_p, ridx, rows: PlanRows,
+                      is_counter: bool, is_rate: bool, ragged: bool,
+                      block_rows: int = 131_072):
+    """K2's per-(row, window) rates for the rows ridx over their
+    reset-corrected values -> (rates, presence or None); in row blocks,
+    like K3's, so the temporaries stay a few GB at a million series."""
+    outs, pres = [], []
+    for blk in torch.split(ridx, block_rows):
+        vb = vbase_p[blk]
+        c = _drop_corrected(vals_p[blk], vb, rows.span, ragged)
+        if ragged:
+            r, p = _ragged_rates(c, vb, rows, is_counter, is_rate)
+            outs.append(r)
+            pres.append(p)
+        else:
+            outs.append(_extrapolate(
+                c[:, rows.idx1.long()], c[:, rows.idx2.long()], rows.t1,
+                rows.t2, rows.n, rows.ws, rows.we, vb[:, None], is_counter,
+                is_rate))
+    return torch.cat(outs), (torch.cat(pres) if ragged else None)
+
+
 def _last_cells(vals_p, vbase_p, ridx, rows: PlanRows, ragged: bool):
     """K4's per-(row, window) value at idx2 -> (out, presence or None).
     Dense: v*m + vb*m with m = min(n1, 1).  Ragged keeps slot semantics:
@@ -516,8 +609,14 @@ def _over_time_cells(vals_p, vbase_p, ridx, rows: PlanRows, kind: str,
 
 
 def _cells(kind: str, ragged: bool, vals_p, vbase_p, ridx, rows,
-           is_counter=False, is_rate=False):
+           is_counter=False, is_rate=False, with_drops=False):
     """Per-(row, window) (values, presence or None) of any kernel kind."""
+    if with_drops:
+        if kind != "rate_family":
+            raise ValueError(f"in-kernel drops apply to the rate family, "
+                             f"not {kind}")
+        return _rate_drops_cells(vals_p, vbase_p, ridx, rows, is_counter,
+                                 is_rate, ragged)
     if kind == "rate_family":
         if ragged:
             return _rate_ragged_cells(vals_p, vbase_p, ridx, rows,
@@ -530,11 +629,11 @@ def _cells(kind: str, ragged: bool, vals_p, vbase_p, ridx, rows,
 
 
 def group_plain(kind, ragged, vals_p, vbase_p, csr, chunks, rows, Gp,
-                is_counter=False, is_rate=False):
+                is_counter=False, is_rate=False, with_drops=False):
     """The plain version of any kind's group-mode kernel -> sums [Gp, W]
     (dense) or (sums, presence) (ragged)."""
     out, pres = _cells(kind, ragged, vals_p, vbase_p, csr.order.long(),
-                       rows, is_counter, is_rate)
+                       rows, is_counter, is_rate, with_drops)
     planes = [out] if pres is None else [out, pres]
     sums = _chunked_group_sum(planes, chunks, Gp)
     return sums[0] if pres is None else tuple(sums)
@@ -558,6 +657,14 @@ def fused_rate_ragged_plain(vals_p: torch.Tensor, vbase_p: torch.Tensor,
                        rows, Gp, is_counter, is_rate)
 
 
+def fused_rate_drops_plain(vals_p, vbase_p, csr, chunks, rows, Gp,
+                           is_counter: bool, is_rate: bool, ragged: bool):
+    """K2's function in torch ops -> sums [Gp, W] (dense) or (sums,
+    presence) (ragged)."""
+    return group_plain("rate_family", ragged, vals_p, vbase_p, csr, chunks,
+                       rows, Gp, is_counter, is_rate, with_drops=True)
+
+
 def fused_over_time_plain(vals_p, vbase_p, csr, chunks, rows, Gp,
                           kind: str, ragged: bool):
     """K4's (kind last_over_time) or K5's (sum/avg/count_over_time)
@@ -568,12 +675,12 @@ def fused_over_time_plain(vals_p, vbase_p, csr, chunks, rows, Gp,
 
 def fused_per_series_plain(vals_p, vbase_p, rows, num_rows: int, kind: str,
                            ragged: bool, is_counter: bool = False,
-                           is_rate: bool = False):
+                           is_rate: bool = False, with_drops: bool = False):
     """K6's function in torch ops: rows 0..num_rows-1 of any kind ->
     (values [num_rows, W], presence [num_rows, W] or None when dense)."""
     ridx = torch.arange(num_rows, device=vals_p.device)
     return _cells(kind, ragged, vals_p, vbase_p, ridx, rows, is_counter,
-                  is_rate)
+                  is_rate, with_drops)
 
 
 # ------------------------------------------------------------ wrappers
@@ -602,6 +709,18 @@ def fused_rate_ragged(vals_p, vbase_p, csr, chunks, rows, Gp, is_counter,
                                           rows, Gp, is_counter, is_rate)
 
 
+def fused_rate_drops(vals_p, vbase_p, csr, chunks, rows, Gp, is_counter,
+                     is_rate, ragged: bool):
+    """K2 -> sums [Gp, W] (dense) or (sums, presence) (ragged)."""
+    if vals_p.device.type == "cpu":
+        return fused_rate_drops_plain(vals_p, vbase_p, csr, chunks, rows, Gp,
+                                      is_counter, is_rate, ragged)
+    from filodb_tpu_torch.ops import kernels
+    return kernels.fused_rate_drops_cuda(vals_p, vbase_p, csr.order, chunks,
+                                         rows, Gp, is_counter, is_rate,
+                                         ragged)
+
+
 def fused_over_time(vals_p, vbase_p, csr, chunks, rows, Gp, kind: str,
                     ragged: bool):
     """K4 (kind last_over_time) or K5 (sum/avg/count_over_time) -> sums
@@ -616,20 +735,28 @@ def fused_over_time(vals_p, vbase_p, csr, chunks, rows, Gp, kind: str,
 
 def fused_per_series(vals_p, vbase_p, rows, num_rows: int, kind: str,
                      ragged: bool, is_counter: bool = False,
-                     is_rate: bool = False):
-    """K6 -> (values [num_rows, W], presence or None)."""
+                     is_rate: bool = False, with_drops: bool = False):
+    """K6 (over K2 when with_drops) -> (values [num_rows, W], presence or
+    None)."""
     if vals_p.device.type == "cpu":
         return fused_per_series_plain(vals_p, vbase_p, rows, num_rows, kind,
-                                      ragged, is_counter, is_rate)
+                                      ragged, is_counter, is_rate, with_drops)
     from filodb_tpu_torch.ops import kernels
     return kernels.fused_per_series_cuda(vals_p, vbase_p, rows, num_rows,
-                                         kind, ragged, is_counter, is_rate)
+                                         kind, ragged, is_counter, is_rate,
+                                         with_drops)
 
 
 def group_launch(kind: str, ragged: bool, vals_p, vbase_p, csr, chunks,
-                 rows, Gp, is_counter=False, is_rate=False):
+                 rows, Gp, is_counter=False, is_rate=False, with_drops=False):
     """The group-mode wrapper of a kind -> (sums,) or (sums, presence)."""
-    if kind == "rate_family":
+    if with_drops:
+        if kind != "rate_family":
+            raise ValueError(f"in-kernel drops apply to the rate family, "
+                             f"not {kind}")
+        res = fused_rate_drops(vals_p, vbase_p, csr, chunks, rows, Gp,
+                               is_counter, is_rate, ragged)
+    elif kind == "rate_family":
         res = (fused_rate_ragged if ragged else fused_rate_dense)(
             vals_p, vbase_p, csr, chunks, rows, Gp, is_counter, is_rate)
     else:
@@ -653,6 +780,8 @@ def fused_leaf_agg_batch(plan: FusedPlan, values: PaddedValues, panels,
     count panels on ragged data) merge into one group-mode launch over
     disjoint group ranges; min/max panels share one per-series launch
     (K6) finished by a map_phase each; dense count panels are host math.
+    rate/increase over values that are not precorrected run K2 (the
+    reset correction inside the launch).
     Returns per-panel [G, W, C] float64 components in input order
     (ops/agg.AGGREGATORS layout).  lazy=True returns a zero-arg finisher:
     every launch is issued before returning and the synchronizing
@@ -662,9 +791,8 @@ def fused_leaf_agg_batch(plan: FusedPlan, values: PaddedValues, panels,
         raise ValueError(f"not_ported: fused kernel kind {fn_name}")
     is_counter = fn_name in ("rate", "increase")
     is_rate = fn_name == "rate"
-    if is_counter and not precorrected:
-        raise ValueError("not_ported: in-kernel counter correction (K2); "
-                         "pass reset-corrected values")
+    # delta never corrects (pallas_fused.py:966-968)
+    with_drops = is_counter and not precorrected
     bad = [op for _, _, op in panels if op not in FUSABLE_AGGS]
     if bad:
         raise ValueError(f"unsupported fused agg {bad[0]}")
@@ -688,7 +816,7 @@ def fused_leaf_agg_batch(plan: FusedPlan, values: PaddedValues, panels,
                            panels=len(mm_idx))
         chunks = chunk_plan(csr.offsets, Gp, dev)
         res = group_launch(kind, ragged, vals_p, vbase_p, csr, chunks, rows,
-                           Gp, is_counter, is_rate)
+                           Gp, is_counter, is_rate, with_drops)
     ps_comps: dict = {}
     if ps_idx:
         S = num_series
@@ -697,7 +825,7 @@ def fused_leaf_agg_batch(plan: FusedPlan, values: PaddedValues, panels,
         check_kernel_shape(S, plan.Tp, plan.W, 8)
         # one shared per-series run: the [S, W] output is group-agnostic
         vals, pres = fused_per_series(vals_p, vbase_p, rows, S, kind, ragged,
-                                      is_counter, is_rate)
+                                      is_counter, is_rate, with_drops)
         nan = torch.full((), float("nan"), dtype=vals.dtype, device=dev)
         if ragged:
             per = torch.where(pres > 0, vals, nan)
@@ -736,7 +864,183 @@ def fused_leaf_agg_batch(plan: FusedPlan, values: PaddedValues, panels,
     return finish if lazy else finish()
 
 
+def fused_leaf_agg(plan: FusedPlan, prepared: "PreparedInputs",
+                   gids, num_groups: int, fn_name: str, agg_op: str,
+                   precorrected: bool = False,
+                   ragged: bool = False) -> np.ndarray:
+    """One fused leaf evaluation -> partial components [G, W, C] float64
+    (ops/agg.AGGREGATORS layout) for any fusable (fn, agg) pair: the
+    single-panel form of fused_leaf_agg_batch (pallas_fused.py:1171)."""
+    return fused_leaf_agg_batch(
+        plan, prepared.values, [(prepared.groups, num_groups, agg_op)],
+        fn_name, precorrected=precorrected, ragged=ragged,
+        num_series=len(gids))[0]
+
+
+# ----------------------------------------------------- kernel-level API
+# The entry points of pallas_fused.py that callers outside the leaf use
+# (its tests and benches, the mesh's per-device unit): raw or corrected
+# counters straight in, one launch out.
+
+def gather_default(kind: str) -> bool:
+    """Whether the reference selects window boundaries by gather (True) or
+    by one-hot matmul (False, K7) for a kernel kind (pallas_fused.py:73).
+    The reference reads FILODB_FUSED_GATHER here; the port does not: on
+    the card both selections are the same indexed loads of the same
+    kernels, so the knob's default is fixed."""
+    return kind in ("rate_family", "last_over_time")
+
+
+def run_kernel(vals_p, vbase_p, groups, rows: PlanRows, *, num_groups: int,
+               is_counter: bool = False, is_rate: bool = False,
+               with_drops: bool = False, kind: str = "rate_family",
+               ragged: bool = False, per_series: bool = False,
+               gather: bool = False, num_rows: Optional[int] = None):
+    """The one dispatch by variant flags (pallas_fused.run_kernel :869),
+    taking the plan's rows where the reference takes its o1/o2/l1/l2
+    selection matrices.
+
+    groups: a PaddedGroups or its GroupCSR (group mode; ignored per
+    series).  num_groups: the padded group count Gp of the output.
+    gather: the reference's choice between gathered and one-hot matmul
+    selections (K7); both values launch the same kernel here, the
+    selections being plain indexed loads either way.  Returns, in group
+    mode, sums [Gp, W] (dense) or (sums, presence) (ragged); per series,
+    values [num_rows, W] (dense) or (values, presence) (ragged)."""
+    del gather
+    if per_series:
+        n = vals_p.shape[0] if num_rows is None else num_rows
+        vals, pres = fused_per_series(vals_p, vbase_p, rows, n, kind, ragged,
+                                      is_counter, is_rate, with_drops)
+        return vals if pres is None else (vals, pres)
+    csr = groups.csr if isinstance(groups, PaddedGroups) else groups
+    chunks = chunk_plan(csr.offsets, num_groups, vals_p.device)
+    res = group_launch(kind, ragged, vals_p, vbase_p, csr, chunks, rows,
+                       num_groups, is_counter, is_rate, with_drops)
+    return res[0] if len(res) == 1 else res
+
+
+class PreparedInputs(NamedTuple):
+    """Padded device-resident query inputs, built once per working set
+    (the pad is a full [S, T] device copy; never pay it per query)."""
+    vals_p: torch.Tensor     # [Sp, Tp] f32
+    vbase_p: torch.Tensor    # [Sp] f32
+    gids_p: torch.Tensor     # [Sp] int32 (-1 pad rows)
+    gsize: np.ndarray        # [num_groups] series per group
+    csr: GroupCSR            # rows by group (the kernels' sum order)
+
+    @property
+    def values(self) -> PaddedValues:
+        return PaddedValues(self.vals_p, self.vbase_p)
+
+    @property
+    def groups(self) -> PaddedGroups:
+        return PaddedGroups(self.gids_p, self.gsize, self.csr)
+
+
+def _input_device(vals, device) -> torch.device:
+    """The device rule for the kernel-level entry points: an explicit
+    `device`, else the device of a tensor argument, else the card (which
+    raises without one)."""
+    from filodb_tpu_torch.utils.device import resolve_device
+    if device is not None:
+        return resolve_device(device)
+    if isinstance(vals, torch.Tensor):
+        return vals.device
+    return resolve_device("cuda")
+
+
+def pad_inputs(vals, vbase, gids, plan: FusedPlan, num_groups: int,
+               device=None) -> PreparedInputs:
+    """pad_values + pad_groups in one (pallas_fused.py:935)."""
+    dev = _input_device(vals, device)
+    v = pad_values(vals, vbase, plan, device=dev)
+    g = pad_groups(gids, int(vals.shape[0]), num_groups, device=dev)
+    return PreparedInputs(v.vals_p, v.vbase_p, g.gids_p, g.gsize, g.csr)
+
+
+def fused_rate_groupsum(vals, vbase, gids, plan: FusedPlan, num_groups: int,
+                        fn_name: str = "rate", precorrected: bool = False,
+                        prepared: Optional[PreparedInputs] = None,
+                        ragged: bool = False, gather: Optional[bool] = None,
+                        device=None):
+    """-> (sums [G, W] f32 tensor, counts [G, W] float64 numpy), the
+    reference's contract (pallas_fused.py:942-1001).
+
+    vals: [S, T] f32 rebased values on one shared grid (ignored when
+    `prepared` is given); vbase [S] the per-series base (absolute = rebased
+    + vbase).  rate/increase over values that are not `precorrected` run
+    K2, which corrects counter resets inside the launch; delta never
+    corrects.  Dense counts are |group| x 1{window valid}; ragged=True
+    runs the NaN-aware variant and counts come from its presence output.
+    `device` follows the device rule (an explicit device, else the
+    tensor's, else the card); with `prepared` it must match the inputs'."""
+    if fn_name in MINMAX_FNS or fn_name not in FUSABLE_FNS:
+        raise ValueError(f"not_ported: fused kernel kind {fn_name}")
+    is_counter = fn_name in ("rate", "increase")
+    is_rate = fn_name == "rate"
+    over_time = fn_name in OVER_TIME_FNS
+    kind = fn_name if over_time else "rate_family"
+    if prepared is None:
+        prepared = pad_inputs(vals, vbase, gids, plan, num_groups,
+                              device=device)
+    elif device is not None and \
+            _input_device(None, device) != prepared.vals_p.device:
+        raise ValueError(f"prepared inputs are on {prepared.vals_p.device}, "
+                         f"not {device}")
+    dev = prepared.vals_p.device
+    Gp = pad_group_count(num_groups)
+    check_kernel_shape(prepared.vals_p.shape[0], plan.Tp, plan.W, Gp)
+    res = run_kernel(prepared.vals_p, prepared.vbase_p, prepared.csr,
+                     plan.device_rows(dev), num_groups=Gp,
+                     is_counter=is_counter, is_rate=is_rate,
+                     with_drops=is_counter and not precorrected, kind=kind,
+                     ragged=ragged,
+                     gather=gather_default(kind) if gather is None else gather)
+    if ragged:
+        sums, cnts = res
+        counts = cnts[:num_groups].double().cpu().numpy()
+    else:
+        sums = res
+        wvalid = plan.wvalid1 if over_time else plan.wvalid
+        counts = prepared.gsize[:, None].astype(np.float64) * \
+            wvalid[None, :].astype(np.float64)
+    return sums[:num_groups], counts
+
+
+def warmup_compile(S: int, T: int, W: int, G: int, fn_name: str = "rate",
+                   device=None) -> float:
+    """Build the CUDA libraries (on the card) and make one launch at the
+    canonical padded shape of (S series, T samples, W windows, G groups)
+    over zeros -> wall seconds (pallas_fused.py:1004).  The reference also
+    warms its general XLA path here; the port's general path is not
+    ported yet, and it compiles nothing at query time."""
+    import time
+    t0 = time.perf_counter()
+    dev = _input_device(None, device)
+    if dev.type == "cuda":
+        from filodb_tpu_torch.ops import kernels
+        kernels.finish_builds(kernels.start_builds())
+        for name in kernels.SOURCES:
+            kernels.library(name)
+    step = 10_000
+    W = max(min(W, T), 1)
+    ts_row = np.arange(T, dtype=np.int64) * step
+    wends = ts_row[-1] - np.arange(W, dtype=np.int64)[::-1] * step
+    plan = build_plan(ts_row, wends, 300_000)
+    vals = torch.zeros((S, T), dtype=torch.float32, device=dev)
+    vbase = torch.zeros((S,), dtype=torch.float32, device=dev)
+    gids = (np.arange(S) % max(G, 1)).astype(np.int32)
+    fused_rate_groupsum(vals, vbase, gids, plan, max(G, 1), fn_name,
+                        precorrected=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
 def present_sum(sums, counts) -> np.ndarray:
     """Finish the 3-phase contract host-side: NaN where no contributors."""
+    if isinstance(sums, torch.Tensor):
+        sums = sums.double().cpu().numpy()
     s = np.asarray(sums, np.float64)
     return np.where(counts > 0, s, np.nan)

@@ -28,7 +28,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = {"fused_rate": CSRC / "fused_rate.cu",
-           "fused_over_time": CSRC / "fused_over_time.cu"}
+           "fused_over_time": CSRC / "fused_over_time.cu",
+           "fused_drops": CSRC / "fused_drops.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -36,11 +37,17 @@ LAUNCHES: Dict[str, int] = {
     name + suffix: 0
     for name in ("fused_rate_dense", "fused_rate_ragged", "fused_last_dense",
                  "fused_last_ragged", "fused_over_time_dense",
-                 "fused_over_time_ragged")
+                 "fused_over_time_ragged", "fused_rate_drops_dense",
+                 "fused_rate_drops_ragged")
     for suffix in ("", "_series")}
 """Kernel launches per wrapper since process start (or the last reset).
-`<kernel>` is the group-sum mode (K1, K3, K4, K5), `<kernel>_series` the
-per-series mode (K6) of the same kernel."""
+`<kernel>` is the group-sum mode (K1, K3, K4, K5, and K2 as
+`fused_rate_drops_*`), `<kernel>_series` the per-series mode (K6) of the
+same kernel."""
+
+SMEM_BYTES = 232_448
+"""Shared memory one block may use on sm_90: K2 stages a row's first
+`span` slots there, so a row longer than this / 4 slots is refused."""
 
 # kind codes of csrc/fused_over_time.cu
 _SLOT_KIND = {"last_over_time": 0, "sum_over_time": 1, "avg_over_time": 2,
@@ -142,6 +149,24 @@ def _bind_over_time(lib: ctypes.CDLL) -> None:
     lib.fused_over_time_series_launch.restype = i  # stream
 
 
+def _bind_drops(lib: ctypes.CDLL) -> None:
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    rows = [vp] * 8 + [i, i]                    # idx1..tsrow, W, span
+    for mode in ("dense", "ragged"):
+        f = getattr(lib, f"fused_rate_drops_{mode}_launch")
+        f.argtypes = [vp, ll, vp, vp, vp, vp, ll, vp, i,   # vals..Gp
+                      *rows, i, i, vp, vp, vp]  # flags, partial, out, stream
+        f.restype = i
+        f = getattr(lib, f"fused_rate_drops_{mode}_series_launch")
+        f.argtypes = [vp, ll, vp, ll,           # vals, stride, vbase, rows
+                      *rows, i, i, vp, vp, vp]  # flags, out, pres, stream
+        f.restype = i
+
+
+_BINDERS = {"fused_rate": _bind, "fused_over_time": _bind_over_time,
+            "fused_drops": _bind_drops}
+
+
 def library(name: str = "fused_rate") -> ctypes.CDLL:
     """The loaded library, built first if missing."""
     lib = _libs.get(name)
@@ -153,7 +178,7 @@ def library(name: str = "fused_rate") -> ctypes.CDLL:
             if not library_path(name).exists():
                 finish_builds(start_builds([name]))
             lib = ctypes.CDLL(str(library_path(name)))
-            (_bind_over_time if name == "fused_over_time" else _bind)(lib)
+            _BINDERS[name](lib)
             _libs[name] = lib
     return lib
 
@@ -250,10 +275,58 @@ def fused_rate_ragged_cuda(vals_p, vbase_p, order, chunks, rows, Gp: int,
     return out[0], out[1]
 
 
-def _kernel_name(kind: str, ragged: bool) -> str:
+def _kernel_name(kind: str, ragged: bool, with_drops: bool = False) -> str:
     base = {"rate_family": "fused_rate",
             "last_over_time": "fused_last"}.get(kind, "fused_over_time")
+    if with_drops:
+        if kind != "rate_family":
+            raise ValueError(f"in-kernel drops apply to the rate family, "
+                             f"not {kind}")
+        base = "fused_rate_drops"
     return f"{base}_{'ragged' if ragged else 'dense'}"
+
+
+def _check_span(rows, Tp: int) -> int:
+    """The slots K2 reads from each row (rows.span), checked against the
+    row width and the shared memory one row is staged in."""
+    span = int(rows.span)
+    if not 1 <= span <= Tp:
+        raise ValueError(f"plan span {span} outside the row width {Tp}")
+    if span * 4 > SMEM_BYTES:
+        raise ValueError(f"rows of {span} slots exceed the {SMEM_BYTES} B "
+                         f"of shared memory K2 stages a row in")
+    return span
+
+
+def _drops_args(rows, W: int, span: int):
+    """The operands every K2 entry point takes after (vals..Gp) or (vals,
+    stride, vbase, num_rows): the window rows, W and span."""
+    return (_ptr(rows.idx1), _ptr(rows.idx2), _ptr(rows.t1), _ptr(rows.t2),
+            _ptr(rows.n), _ptr(rows.ws), _ptr(rows.we), _ptr(rows.tsrow), W,
+            span)
+
+
+def fused_rate_drops_cuda(vals_p, vbase_p, order, chunks, rows, Gp: int,
+                          is_counter: bool, is_rate: bool, ragged: bool):
+    """Launch K2 in group mode -> sums [Gp, W] f32 (dense) or (sums,
+    presence) (ragged); see csrc/fused_drops.cu."""
+    dev, Tp, W, C = _check_common(vals_p, vbase_p, order, chunks, rows, Gp)
+    span = _check_span(rows, Tp)
+    lib = library("fused_drops")
+    planes = 2 if ragged else 1
+    partial = torch.empty((planes, max(C, 1), W), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((planes, Gp, W), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    name = _kernel_name("rate_family", ragged, with_drops=True)
+    err = getattr(lib, name + "_launch")(
+        _ptr(vals_p), Tp, _ptr(vbase_p), _ptr(order), _ptr(chunks.lo),
+        _ptr(chunks.hi), C, _ptr(chunks.gco), Gp,
+        *_drops_args(rows, W, span), int(is_counter),
+        int(is_rate), _ptr(partial), _ptr(out), stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return (out[0], out[1]) if ragged else out[0]
 
 
 def fused_over_time_cuda(vals_p, vbase_p, order, chunks, rows, Gp: int,
@@ -282,10 +355,10 @@ def fused_over_time_cuda(vals_p, vbase_p, order, chunks, rows, Gp: int,
 
 def fused_per_series_cuda(vals_p, vbase_p, rows, num_rows: int, kind: str,
                           ragged: bool, is_counter: bool = False,
-                          is_rate: bool = False):
-    """Launch the per-series mode (K6) of K1/K3 (kind rate_family) or
-    K4/K5 -> (values [num_rows, W] f32, presence [num_rows, W] f32 when
-    ragged, else None)."""
+                          is_rate: bool = False, with_drops: bool = False):
+    """Launch the per-series mode (K6) of K1/K3 (kind rate_family), K2
+    (rate_family with_drops) or K4/K5 -> (values [num_rows, W] f32,
+    presence [num_rows, W] f32 when ragged, else None)."""
     dev, Tp, W = _check_values(vals_p, vbase_p, rows)
     if not 0 <= num_rows <= vals_p.shape[0]:
         raise ValueError(f"num_rows={num_rows} outside the {vals_p.shape[0]} "
@@ -294,7 +367,15 @@ def fused_per_series_cuda(vals_p, vbase_p, rows, num_rows: int, kind: str,
     pres = (torch.empty((num_rows, W), dtype=torch.float32, device=dev)
             if ragged else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if kind == "rate_family":
+    name = _kernel_name(kind, ragged, with_drops) + "_series"
+    if with_drops:
+        span = _check_span(rows, Tp)
+        err = getattr(library("fused_drops"), name + "_launch")(
+            _ptr(vals_p), Tp, _ptr(vbase_p), num_rows,
+            *_drops_args(rows, W, span),
+            int(is_counter), int(is_rate), _ptr(out),
+            _ptr(pres) if ragged else None, stream)
+    elif kind == "rate_family":
         lib = library("fused_rate")
         if ragged:
             err = lib.fused_rate_ragged_series_launch(
@@ -315,7 +396,6 @@ def fused_per_series_cuda(vals_p, vbase_p, rows, num_rows: int, kind: str,
             _ptr(vals_p), Tp, _ptr(vbase_p), num_rows, _ptr(rows.idx1),
             _ptr(rows.idx2), _ptr(rows.n1), W, code, int(ragged), _ptr(out),
             _ptr(pres) if ragged else None, stream)
-    name = _kernel_name(kind, ragged) + "_series"
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out, pres

@@ -132,8 +132,11 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         if fn in fused.MINMAX_FNS:
             return self._fused_minmax(data, t0, t1, wends, eval_wends)
         if fn in ("rate", "increase") and not data.precorrected:
+            # the reference leaf sends these to its general path too
+            # (filodb_tpu/query/leafexec.py:220), never to in-kernel drops
             raise not_ported("rate over values the mirror did not "
-                             "reset-correct (in-kernel drops, K2)")
+                             "reset-correct (the general path, "
+                             "ops/rangefns.py)")
         # plan + padded-values + group caches: a repeat query over an
         # unchanged snapshot skips the plan build, the padded device copy
         # and the per-series grouping

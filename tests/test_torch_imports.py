@@ -56,3 +56,29 @@ def test_port_sources_name_no_reference_import():
             if mod.split(".")[0] in ("jax", "jaxlib", "filodb_tpu"):
                 offenders.append(f"{path.relative_to(ROOT)}:{i}: {s}")
     assert offenders == []
+
+
+def test_kernel_level_api_stands_alone():
+    """The kernel-level API and its CUDA source list import in a
+    fresh interpreter without jax or the reference package."""
+    probe = (
+        "import json, sys\n"
+        "from filodb_tpu_torch.ops.fused import (PreparedInputs, pad_inputs,"
+        " fused_rate_groupsum, fused_leaf_agg, run_kernel, gather_default,"
+        " warmup_compile)\n"
+        "from filodb_tpu_torch.ops import kernels\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'filodb_tpu'))\n"
+        "print(json.dumps({'bad': bad, 'sources': sorted(kernels.SOURCES),"
+        " 'drops': sorted(k for k in kernels.LAUNCHES if 'drops' in k)}))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    assert res["sources"] == ["fused_drops", "fused_over_time", "fused_rate"]
+    assert res["drops"] == ["fused_rate_drops_dense",
+                            "fused_rate_drops_dense_series",
+                            "fused_rate_drops_ragged",
+                            "fused_rate_drops_ragged_series"]
+    assert (ROOT / "filodb_tpu_torch" / "csrc" / "fused_drops.cu").exists()
