@@ -10,12 +10,16 @@ prints no result):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA
    versions; build every kernel from csrc/ (one nvcc per source, all
-   started together);
+   started together) and print each kernel's registers, static shared
+   memory and spills as `-Xptxas -v` reports them;
 2. each kernel against its plain torch version on the card, at the main
    path's shape and at a small odd shape with two panels: K1/K3 (rate
    family), K2 (rate family over raw counters with two resets a row,
    in-kernel correction), K4 (last_over_time), K5 (sum/avg/count_over_
-   time), each in group-sum mode and in its per-series mode K6.  Max
+   time), each in group-sum mode and in its per-series mode K6; and the
+   four ragged rate entries (K3, K2 ragged, each per series too) at an
+   adversarial shape, 65,536 x 720 with ~30% of slots NaN in runs and
+   rows with no, one or two valid samples, to the bit.  Max
    abs/rel error within rtol 1e-6 + atol 1e-5 (both compute the same f32
    operations in the same order; the bound allows for nothing else), two
    kernel runs bit-identical, the launch count rising, and for the rate
@@ -49,6 +53,11 @@ it.
 
 Then one JSON line with the kernel table, and as the last line
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --ab CHECKOUT [CHECKOUT ...] [--rounds R]
+
+instead times this checkout against others (e.g. the parent commit
+unpacked with git archive) on one card in alternating rounds (run_ab).
 """
 from __future__ import annotations
 
@@ -71,6 +80,7 @@ T = 720
 NUM_NS = 1000
 SLAB = 65_536
 RAGGED_SERIES = 65_536
+ADVERSARIAL_SERIES = 65_536        # phase 2's ragged rows with NaN runs
 RANGE_MS = 300_000
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, published
 F32_OPS_PER_S = 67e12              # H100 SXM FP32 outside the tensor cores
@@ -408,7 +418,29 @@ REPLACES = {"fused_rate_dense": 595, "fused_rate_ragged": 544,
             "fused_rate_drops_dense": 598, "fused_rate_drops_ragged": 554}
 
 
-def kernel_inputs(S, T_, panels, ragged, gen, device, resets=0):
+def nan_runs(v, gen, frac=0.3, longest=48):
+    """Set about `frac` of v's slots NaN in runs of 1..longest-1 slots
+    that start anywhere (so they cross 32-slot tiles, lane runs and window
+    edges), every 1000th row wholly, and leave every 1000th row + 1 one
+    valid sample and + 2 two."""
+    import torch
+    S, T_ = v.shape
+    pos = torch.arange(T_, device=v.device)[None, :]
+    starts = torch.rand((S, T_), generator=gen, device=v.device) < \
+        -np.log1p(-frac) / (longest / 2)
+    lens = torch.randint(1, longest, (S, T_), generator=gen, device=v.device)
+    ends = torch.where(starts, pos + lens - 1, torch.full_like(lens, -1))
+    v[torch.cummax(ends, dim=1).values >= pos] = float("nan")
+    v[::1000] = float("nan")
+    for k, keep in ((1, [T_ // 2]), (2, [T_ // 2 - 3, T_ // 2 + 4])):
+        row = v[k::1000, keep].clone()
+        v[k::1000] = float("nan")
+        v[k::1000, keep] = row
+    return v
+
+
+def kernel_inputs(S, T_, panels, ragged, gen, device, resets=0,
+                  holes="scatter"):
     import torch
     from filodb_tpu_torch.ops import fused
     ts_row = np.arange(T_, dtype=np.int64) * STEP_MS
@@ -423,7 +455,9 @@ def kernel_inputs(S, T_, panels, ragged, gen, device, resets=0):
         restart = torch.rand((S, 1), generator=gen, device=device) * 5.0
         v = torch.where(pos >= r, v - v.gather(1, r - 1) + restart, v)
     del pos
-    if ragged:
+    if ragged and holes == "runs":
+        nan_runs(v, gen)
+    elif ragged:
         v[torch.rand((S, T_), generator=gen, device=device) < 0.01] = \
             float("nan")
     vb = torch.rand(S, generator=gen, device=device,
@@ -439,35 +473,50 @@ def kernel_inputs(S, T_, panels, ragged, gen, device, resets=0):
                 rows=plan.device_rows(device), Gp=Gp, S=S)
 
 
+def same_bits(a, b):
+    """Equal to the bit, with NaN in the same cells."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a.masked_fill(na, 0).view(torch.int32),
+        b.masked_fill(nb, 0).view(torch.int32)))
+
+
+def kernel_call(inp, kind, ragged, series_mode, with_drops):
+    """One launch of a kernel wrapper on phase 2's inputs `inp`."""
+    from filodb_tpu_torch.ops import fused
+    vals, rows, S = inp["vals"], inp["rows"], inp["S"]
+    flags = (True, True, with_drops)      # is_counter, is_rate, drops
+    if series_mode:
+        return lambda: fused.fused_per_series(
+            vals.vals_p, vals.vbase_p, rows, S, kind, ragged, *flags)
+    args = (vals.vals_p, vals.vbase_p, inp["csr"], inp["chunks"], rows,
+            inp["Gp"])
+    return lambda: fused.group_launch(kind, ragged, *args, *flags)
+
+
 def check_kernel(inp, base, kind, ragged, series_mode, gen, timed,
-                 with_drops=False):
-    """Hold one kernel wrapper against its plain version on `inp`, and
-    (rate family, last_over_time) its gather=False launch, the reference's
-    matmul selections (K7), against its default one; returns the table
-    row when `timed`."""
+                 with_drops=False, exact=False):
+    """Hold one kernel wrapper against its plain version on `inp` (to the
+    bit when `exact`), and (rate family, last_over_time) its gather=False
+    launch, the reference's matmul selections (K7), against its default
+    one; returns the table row when `timed`, else the max abs err."""
     import torch
     from filodb_tpu_torch.ops import fused, kernels
     vals, rows, S = inp["vals"], inp["rows"], inp["S"]
     name = f"{base}_{'ragged' if ragged else 'dense'}" + \
         ("_series" if series_mode else "")
     flags = (True, True, with_drops)      # is_counter, is_rate, drops
+    wrap = kernel_call(inp, kind, ragged, series_mode, with_drops)
     if series_mode:
-        def wrap():
-            return fused.fused_per_series(vals.vals_p, vals.vbase_p, rows, S,
-                                          kind, ragged, *flags)
-
         def plain():
             return fused.fused_per_series_plain(vals.vals_p, vals.vbase_p,
                                                 rows, S, kind, ragged, *flags)
     else:
-        args = (vals.vals_p, vals.vbase_p, inp["csr"], inp["chunks"], rows,
-                inp["Gp"])
-
-        def wrap():
-            return fused.group_launch(kind, ragged, *args, *flags)
-
         def plain():
-            return fused.group_plain(kind, ragged, *args, *flags)
+            return fused.group_plain(kind, ragged, vals.vals_p, vals.vbase_p,
+                                     inp["csr"], inp["chunks"], rows,
+                                     inp["Gp"], *flags)
 
     def planes(x):
         x = x if isinstance(x, tuple) else (x,)
@@ -493,6 +542,8 @@ def check_kernel(inp, base, kind, ragged, series_mode, gen, timed,
               f"kernel to the same bits")
     p = planes(plain())
     check(len(p) == len(k1), f"{name}: kernel and plain planes differ")
+    check(not exact or all(same_bits(a, b) for a, b in zip(k1, p)),
+          f"{name} ({kind}): kernel and plain differ in some bit")
     max_abs = max_rel = 0.0
     for a, b in zip(k1, p):
         err = (a.double() - b.double()).abs()
@@ -506,10 +557,14 @@ def check_kernel(inp, base, kind, ragged, series_mode, gen, timed,
     plan = inp["plan"]
     log(f"check {name} ({kind}) S={S} W={plan.W} Gp={inp['Gp']}: "
         f"max_abs_err={max_abs} max_rel_err={max_rel} "
-        f"bit_identical_repeat=True rtol=1e-6 atol=1e-5"
+        f"bit_identical_repeat=True "
+        + ("bit_identical_to_plain=True" if exact else "rtol=1e-6 atol=1e-5")
         + (" gather=False same kernel, same bits"
            if kind in ("rate_family", "last_over_time") else ""))
     if not timed:
+        if exact:
+            log(f"time {name} ({kind}) S={S} adversarial: kernel "
+                f"{cuda_ms(wrap, reps=10):.4f} ms")
         return max_abs
     ms = cuda_ms(wrap, reps=20)
     plain_ms = cuda_ms(plain, reps=2, warm=1)
@@ -554,18 +609,27 @@ def check_kernel(inp, base, kind, ragged, series_mode, gen, timed,
 def run_kernel_checks(num_series, seed, device):
     """Every kernel at a small odd shape and at the main path's shape,
     dense and ragged; K2's inputs are raw counters with RESETS restarts a
-    row."""
+    row.  The ragged rate entries (K3, K2 ragged and their per-series
+    modes) also at ADVERSARIAL_SERIES x T with ~30% NaN in runs, to the
+    bit."""
     import torch
     table = {}
+    shapes = [(1001, 333, (7, 3), False, "scatter"),
+              (num_series, T, (NUM_NS,), True, "scatter")]
     for ragged in (False, True):
-        for S, T_, panels, timed in ((1001, 333, (7, 3), False),
-                                     (num_series, T, (NUM_NS,), True)):
+        for S, T_, panels, timed, holes in shapes + (
+                [(ADVERSARIAL_SERIES, T, (NUM_NS,), False, "runs")]
+                if ragged else []):
             for drops, kernel_list in ((False, KERNELS),
                                        (True, DROPS_KERNELS)):
                 gen = torch.Generator(device=device)
                 gen.manual_seed(seed)
+                if holes == "runs":
+                    kernel_list = [k for k in kernel_list
+                                   if k[1] == "rate_family"]
                 inp = kernel_inputs(S, T_, panels, ragged, gen, device,
-                                    resets=RESETS if drops else 0)
+                                    resets=RESETS if drops else 0,
+                                    holes=holes)
                 for base, kind, source in kernel_list:
                     for series_mode in (False, True):
                         name = f"{base}_{'ragged' if ragged else 'dense'}" \
@@ -575,7 +639,8 @@ def run_kernel_checks(num_series, seed, device):
                                 for k in CHECK_KINDS.get(base, ())
                                 if k != kind]
                         row = check_kernel(inp, base, kind, ragged,
-                                           series_mode, gen, timed, drops)
+                                           series_mode, gen, timed, drops,
+                                           exact=holes == "runs")
                         if timed:
                             row["max_abs_err"] = max([row["max_abs_err"]]
                                                      + errs)
@@ -595,7 +660,6 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol):
     before the first query and read just after the last."""
     import torch
     from filodb_tpu_torch.ops import kernels
-    from filodb_tpu_torch.query import execbase
     from filodb_tpu_torch.query.engine import QueryEngine
     ragged = bool(hole_frac)
     what = f"{kind} {'ragged' if ragged else 'dense'}"
@@ -684,13 +748,21 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol):
         f"samples scanned/query {samples}; max_memory_allocated {peak} B; "
         f"launches {({k: v for k, v in launches.items() if v})}")
     del eng, ms, mirror, snap, answers, res
+    free_device_memory()
+    return launches, rows_out
+
+
+def free_device_memory():
+    """Drop the engine's fused-path caches and return the card's freed
+    memory, between cells."""
+    import torch
+    from filodb_tpu_torch.query import execbase
     for cache in (execbase._FUSED_PLAN_CACHE, execbase._FUSED_VALS_CACHE,
                   execbase._FUSED_GROUP_CACHE,
                   execbase._FUSED_MINMAX_PAD_CACHE):
         cache.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, rows_out
 
 
 # ------------------------------------------------ phases 7 and 8: raw
@@ -782,20 +854,14 @@ def check_close(got, want, rtol, atol, what):
             float((err / np.maximum(np.abs(want[m]), 1e-300)).max()))
 
 
-def run_raw_counter_path(num_series, seed, hole_frac, warm, tol, dev):
+def raw_counter_inputs(num_series, seed, hole_frac, dev):
     """Raw request_total counters (RESETS restarts each, `_ns_ =
     App-{i % NUM_NS}`) made on the card, rebased WITHOUT correction on the
-    card (ops/counter.rebase_rows_t) in slabs, then through the port's
-    kernel-level API: fused_rate_groupsum(precorrected=False) for rate and
-    increase (K2, group mode) and fused_leaf_agg_batch(precorrected=False)
-    with sum, avg and max panels by _ns_ (K2 group + K2 per-series).  Each
-    call once cold and `warm` times warm, against an f64 oracle; the
-    launch counts are set to 0 just before the first call and read just
-    after the last."""
+    card (ops/counter.rebase_rows_t) in slabs and padded for the
+    kernel-level API -> (plan, prepared inputs, the f64 oracle's answers,
+    set-up timings)."""
     import torch
-    from filodb_tpu_torch.ops import agg, counter, fused, kernels
-    ragged = bool(hole_frac)
-    what = f"raw-counter {'ragged' if ragged else 'dense'}"
+    from filodb_tpu_torch.ops import counter, fused
     ts_row = np.arange(T, dtype=np.int64) * STEP_MS     # offsets from START
     wends = np.arange(600_000, int(ts_row[-1]) + 1, 60_000)
     W = len(wends)
@@ -844,10 +910,6 @@ def run_raw_counter_path(num_series, seed, hole_frac, warm, tol, dev):
     torch.cuda.synchronize()
     pad_s = time.perf_counter() - t0
     del reb32, vb32
-    log(f"{what}: {num_series} series x {T} samples, {RESETS} resets each: "
-        f"generate on the card {gen_s:.3f} s, f64 oracle {oracle_s:.3f} s, "
-        f"rebase without correction {prep_s:.3f} s, pad_inputs "
-        f"{pad_s:.3f} s")
     present = (o_cnt > 0).cpu().numpy()
 
     def oracle(x):
@@ -857,12 +919,20 @@ def run_raw_counter_path(num_series, seed, hole_frac, warm, tol, dev):
             "increase": oracle(o_sum["increase"]),
             "avg": oracle(o_sum["rate"] / o_cnt.clamp(min=1.0)),
             "max": oracle(o_max)}
-    del o_sum, o_cnt, o_max
+    return plan, prepared, want, dict(gen_s=gen_s, oracle_s=oracle_s,
+                                      prep_s=prep_s, pad_s=pad_s)
+
+
+def raw_counter_calls(plan, prepared, ragged, num_series):
+    """[(label, kernels it launches, call, oracle keys)]: the kernel-level
+    API calls of phases 7 and 8."""
+    import torch
+    from filodb_tpu_torch.ops import agg, fused
     groups = prepared.groups
     panels = [(groups, NUM_NS, "sum"), (groups, NUM_NS, "avg"),
               (groups, NUM_NS, "max")]
     mode = "ragged" if ragged else "dense"
-    calls = [
+    return [
         ("fused_rate_groupsum(rate, precorrected=False)",
          [f"fused_rate_drops_{mode}"],
          lambda: [fused.present_sum(*fused.fused_rate_groupsum(
@@ -883,6 +953,28 @@ def run_raw_counter_path(num_series, seed, hole_frac, warm, tol, dev):
                       num_series=num_series), panels)],
          ["rate", "avg", "max"]),
     ]
+
+
+def run_raw_counter_path(num_series, seed, hole_frac, warm, tol, dev):
+    """The raw counters of raw_counter_inputs through the port's
+    kernel-level API: fused_rate_groupsum(precorrected=False) for rate and
+    increase (K2, group mode) and fused_leaf_agg_batch(precorrected=False)
+    with sum, avg and max panels by _ns_ (K2 group + K2 per-series).  Each
+    call once cold and `warm` times warm, against an f64 oracle; the
+    launch counts are set to 0 just before the first call and read just
+    after the last."""
+    import torch
+    from filodb_tpu_torch.ops import kernels
+    ragged = bool(hole_frac)
+    what = f"raw-counter {'ragged' if ragged else 'dense'}"
+    plan, prepared, want, t = raw_counter_inputs(num_series, seed,
+                                                 hole_frac, dev)
+    log(f"{what}: {num_series} series x {T} samples, {RESETS} resets each: "
+        f"generate on the card {t['gen_s']:.3f} s, f64 oracle "
+        f"{t['oracle_s']:.3f} s, rebase without correction "
+        f"{t['prep_s']:.3f} s, pad_inputs {t['pad_s']:.3f} s")
+    W = plan.W
+    calls = raw_counter_calls(plan, prepared, ragged, num_series)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -918,25 +1010,223 @@ def run_raw_counter_path(num_series, seed, hole_frac, warm, tol, dev):
     log(f"{what}: windows={W} max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B; launches "
         f"{({k: v for k, v in launches.items() if v})}")
-    del prepared, groups, panels, calls
+    del prepared, calls
     gc.collect()
     torch.cuda.empty_cache()
     return launches, rows_out
 
 
+# ------------------------------------------ same-card A/B of two checkouts
+
+AB_CELLS = ("kernels", "counter", "gauge", "raw")
+# phase 2's K2 and K3 entries: (name, ragged, in-kernel drops, per series)
+AB_KERNELS = [("fused_rate_drops_dense", False, True, False),
+              ("fused_rate_drops_dense_series", False, True, True),
+              ("fused_rate_drops_ragged", True, True, False),
+              ("fused_rate_drops_ragged_series", True, True, True),
+              ("fused_rate_ragged", True, False, False),
+              ("fused_rate_ragged_series", True, False, True)]
+
+
+def ab_setup(cell, num_series, seed, dev):
+    """One A/B cell in this process -> {panel: (clock, call)}: "kernels"
+    the K2/K3 entries at phase 2's shape (CUDA events), "counter" and
+    "gauge" the first panel of phases 3 and 5 through
+    QueryEngine.query_range (after its cold query), "raw" phase 7's
+    fused_rate_groupsum(rate) and fused_leaf_agg_batch (host clock)."""
+    import torch
+    if cell == "kernels":
+        fns = {}
+        for drops, ragged in ((True, False), (True, True), (False, True)):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            inp = kernel_inputs(num_series, T, (NUM_NS,), ragged, gen, dev,
+                                resets=RESETS if drops else 0)
+            for name, r, d, series in AB_KERNELS:
+                if (r, d) == (ragged, drops):
+                    fns[name] = ("cuda", kernel_call(inp, "rate_family",
+                                                     ragged, series, drops))
+        return fns
+    if cell == "raw":
+        plan, prepared, _, _ = raw_counter_inputs(num_series, seed, 0.0, dev)
+        return {label: ("host", fn) for label, _, fn, _ in
+                raw_counter_calls(plan, prepared, False, num_series)
+                if "increase" not in label}
+    from filodb_tpu_torch.query.engine import QueryEngine
+    ms, _, _, _ = build_store(cell, num_series, seed, 0.0, [])
+    eng = QueryEngine("prometheus", ms)
+    q = (COUNTER_QUERIES if cell == "counter" else GAUGE_QUERIES)[0][0]
+    start_s = START_MS // 1000
+    end_s = start_s + (T - 1) * STEP_MS // 1000
+
+    def call():
+        return eng.query_range(q, start_s + 600, 60, end_s)
+
+    call()
+    return {q: ("host", call)}
+
+
+def ab_turn(fns, reps):
+    """{panel: [ms, ...]}: `reps` host-clock calls each, or one CUDA-event
+    mean over `reps` launches."""
+    out = {}
+    for name, (clock, fn) in fns.items():
+        if clock == "cuda":
+            out[name] = [cuda_ms(fn, reps=reps)]
+        else:
+            out[name] = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                out[name].append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def ab_worker(tree, num_series, seed) -> int:
+    """One arm of run_ab: the port of checkout `tree`, built from its own
+    sources, driven by JSON lines on stdin ({"op": "setup", "cell": c},
+    {"op": "turn", "reps": k}, {"op": "quit"}), each answered by one JSON
+    line on stdout; logs go to stderr."""
+    sys.path.insert(0, tree)
+    reply, sys.stdout = sys.stdout, sys.stderr
+    import torch
+    from filodb_tpu_torch.ops import kernels
+    check(kernels.__file__.startswith(tree),
+          f"A/B worker loaded {kernels.__file__}, not {tree}")
+    warnings.simplefilter("ignore", RuntimeWarning)
+    kernels.finish_builds(kernels.start_builds())
+    dev = torch.device("cuda", 0)
+    fns = {}
+    print(json.dumps({"ready": tree}), file=reply, flush=True)
+    for line in sys.stdin:
+        cmd = json.loads(line)
+        if cmd["op"] == "setup":
+            fns = {}
+            free_device_memory()
+            t0 = time.perf_counter()
+            fns = ab_setup(cmd["cell"], num_series, seed, dev)
+            ans = {"setup_s": time.perf_counter() - t0}
+        elif cmd["op"] == "turn":
+            ans = ab_turn(fns, cmd["reps"])
+        else:
+            break
+        print(json.dumps(ans), file=reply, flush=True)
+    return 0
+
+
+def run_ab(others, rounds, cells, num_series, seed, reps) -> int:
+    """This checkout against `others` (checkouts of the repo, e.g. the
+    parent commit unpacked with git archive) on one card: one worker
+    process per checkout; per cell, every worker sets it up, then
+    `rounds` rounds each give every checkout one turn, in forward order
+    and then backward (A B, B A, ...), so slow spells of the shared host
+    fall on both; prints each panel's per-turn p50s, their median, and
+    each other checkout's per-round ratio to this one."""
+    from pathlib import Path
+    here = Path(__file__).resolve().parent
+    trees = [str(here)] + [str(Path(o).resolve()) for o in others]
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60).stdout.strip())
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--ab-worker", t,
+         "--series", str(num_series), "--seed", str(seed)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        for t in trees]
+
+    def send(i, **cmd):
+        procs[i].stdin.write(json.dumps(cmd) + "\n")
+        procs[i].stdin.flush()
+
+    def recv(i):
+        line = procs[i].stdout.readline()
+        check(line, f"A/B worker for {trees[i]} ended")
+        return json.loads(line)
+
+    try:
+        for i in range(len(trees)):
+            recv(i)
+        for cell in cells:
+            for i in range(len(trees)):
+                send(i, op="setup", cell=cell)
+            setup = [recv(i)["setup_s"] for i in range(len(trees))]
+            turns = [[] for _ in trees]
+            for k in range(rounds):
+                order = range(len(trees))
+                for i in (order if k % 2 == 0 else reversed(order)):
+                    send(i, op="turn", reps=reps)
+                    turns[i].append(recv(i))
+            for panel in turns[0][0]:
+                p50 = [[float(np.median(t[panel])) for t in arm]
+                       for arm in turns]
+                rows = [dict(tree=t, setup_s=s, turn_p50_ms=x,
+                             median_ms=float(np.median(x)))
+                        for t, s, x in zip(trees, setup, p50)]
+                for row, x in zip(rows[1:], p50[1:]):
+                    r = np.asarray(x) / np.asarray(p50[0])
+                    row["ratio_to_this"] = dict(
+                        median=float(np.median(r)), min=float(r.min()),
+                        max=float(r.max()))
+                log(json.dumps({"ab": cell, "panel": panel, "rounds": rounds,
+                                "reps": reps, "arms": rows}))
+    finally:
+        for i, pr in enumerate(procs):
+            if pr.poll() is None:
+                try:
+                    send(i, op="quit")
+                    pr.wait(timeout=60)
+                except (OSError, subprocess.TimeoutExpired):
+                    pr.kill()
+    return 0
+
+
 # ------------------------------------------------------------------ main
+
+def log_ptxas(kernels):
+    """Each kernel's registers, static shared memory and spills as ptxas
+    reported them (-Xptxas -v), and the warps an SM its registers allow
+    (65,536 registers an SM; the staged kernels run 4 warps a block)."""
+    for lib in kernels.SOURCES:
+        for r in kernels.ptxas_report(lib):
+            try:
+                name = subprocess.run(["c++filt", r["kernel"]],
+                                      capture_output=True, text=True,
+                                      timeout=10).stdout.strip()
+                name = name.replace("(anonymous namespace)::", "")
+                name = name.removeprefix("void ").split("(")[0]
+            except (OSError, subprocess.SubprocessError):
+                name = r["kernel"]
+            regs = r["registers"]
+            log(f"ptxas {lib} {name}: {regs} registers, {r['smem']} B "
+                f"static smem, spill stores {r['spill_stores']} B loads "
+                f"{r['spill_loads']} B; warps an SM by registers "
+                f"{65536 // (regs * 32) if regs else 'n/a'}")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--series", type=int, default=1_048_576)
     ap.add_argument("--warm", type=int, default=10)
+    ap.add_argument("--ab", nargs="+", metavar="CHECKOUT",
+                    help="instead of the smoke, time this checkout against "
+                    "these on one card, alternately (run_ab)")
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--cells", default=",".join(AB_CELLS))
+    ap.add_argument("--ab-worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.ab_worker:
+        return ab_worker(args.ab_worker, args.series, args.seed)
+    if args.ab:
+        cells = args.cells.split(",")
+        check(set(cells) <= set(AB_CELLS), f"--cells: one of {AB_CELLS}")
+        return run_ab(args.ab, args.rounds, cells, args.series, args.seed,
+                      args.warm)
     try:
         from filodb_tpu_torch.ops import kernels
     except ImportError as e:
@@ -957,6 +1247,7 @@ def main(argv=None) -> int:
         kernels.library(name)
     log(f"build {time.perf_counter() - t0:.2f} s "
         f"({', '.join(kernels.SOURCES)})")
+    log_ptxas(kernels)
     dev = torch.device("cuda", 0)
 
     table = run_kernel_checks(args.series, args.seed, dev)

@@ -23,30 +23,36 @@
 // compare, a select and an add per slot (three passes over the row in
 // shared memory) plus the ~26 of the rate epilogue per window.
 //
-// Design.  One warp per row.  The warp copies the row's first span slots
-// into shared memory with coalesced loads.  Lane l owns the contiguous
-// slots [l*L, (l+1)*L), L = ceil(span / 32): it sums its drops in slot
-// order, takes the exclusive prefix of the 32 lane totals in lane order
-// (shuffles), and rewrites its slots in place with v + (prefix + its
-// drops so far).  So the prefix is computed once per row for all its
-// windows, and the windows then read the corrected row from shared
-// memory.  The association is fixed — per-lane sequential sums from +0,
-// the lanes' prefix in lane order — and the plain torch version in
-// ops/fused.py (_drop_corrected) repeats it, so, built with --fmad=false,
-// kernel and plain agree to the last bit.  Ragged rows carry the previous
-// valid value across lanes too: each lane first finds its last valid
-// value, and lane l starts from that of the nearest earlier lane that has
-// one (a lane of NaN only passes the carry through).
-//
-// Group mode: one block per CSR chunk (at most 256 rows of one group),
-// one warp per row, the block's warps staging rows_per_block rows at a
-// time; thread w then adds those rows' rates for window w in row order,
-// so each chunk partial has K1's order, and group_reduce
-// (fused_common.cuh) adds each group's chunk partials in chunk order.
-// Per-series mode: one warp per row writes out[row, w] (and the presence,
-// ragged).  FP32 throughout, no tensor cores, no atomics.  What is left
-// for later: TMA copies of the row into shared memory overlapped with the
-// previous row's windows, and all 256 threads busy in the window phase.
+// Design (rate_stage.cuh).  A block of 128 threads stages 4 rows at a
+// time, one warp a row, with 16-byte cp.async copies of slots [0,
+// ceil4(span)) into a ring of two row batches, so the next batch's copies
+// are in flight while this batch computes.  Each warp rewrites its row in
+// place as the corrected row: lane l owns L = ceil(span / 32) slots, sums
+// its drops in slot order from +0 (only the drops: adding a zero leaves
+// the sum's bits), and the lanes' totals are prefixed in lane order by
+// shuffles — the association the plain version ops/fused._drop_corrected
+// repeats, so built with --fmad=false the two agree to the bit.  A
+// ragged row is
+// indexed first, per 32-slot tile (valid mask, count before, last valid
+// before, first valid after; the correction leaves NaN slots NaN, so they
+// are the corrected row's too): a lane's carry is then one table lookup,
+// and each window three O(1) lookups instead of a scan of its ~31 slots.
+// Every thread of the block then takes one window (110 of 128 at the main
+// path's W) over the batch's rows, with the window's plan rows and the
+// window part of its rate in registers, adding each row's cell into its
+// sum in row order (group mode; group_reduce in fused_common.cuh adds each
+// group's chunk partials in chunk order) or storing out[r, w] and pres[r,
+// w], neighbouring threads on neighbouring windows (per series).  Matching
+// the block to W measured faster than 256 threads filling a shared (row,
+// window) tile; ptxas gives 64 registers dense (8 blocks an SM) and 80 for
+// the ragged group kernel (6 an SM), per `-Xptxas -v` as chip_smoke.py
+// prints it.  FP32 throughout, no tensor cores, no atomics.  Rows whose
+// span does not fit stage fewer per block, then one per block with one
+// stage; beyond one row of 58,112 slots dense (51,648 ragged, whose tile
+// tables take 0.5 B a slot) the launcher returns kNoFit and the wrapper
+// raises ValueError.  What is left
+// for later: TMA bulk copies in place of cp.async, and the lanes' prefix
+// (31 shuffles, the bit contract) overlapped with the window phase.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,206 +60,9 @@
 
 #include "fused_common.cuh"
 #include "rate_common.cuh"
+#include "rate_stage.cuh"
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxRowsPerBlock = 8;
-constexpr long long kMaxSmem = 232448;  // bytes a block may use on sm_90
-
-// The drop at one sample, advancing the previous-sample state: dense rows
-// take every sample as the next `prev`, ragged rows only valid ones.  A
-// NaN sample compares false, so it never drops.
-template <bool RAGGED>
-__device__ __forceinline__ float next_drop(float x, float vb, float& prev,
-                                           bool& has) {
-  const float d = (has && x < prev) ? prev + vb : 0.0f;
-  if (!RAGGED || x == x) {
-    prev = x;
-    has = true;
-  }
-  return d;
-}
-
-// Copy row[0, span) into s and rewrite it as the reset-corrected row.
-// Called by all 32 lanes of one warp; s holds span floats.
-template <bool RAGGED>
-__device__ void stage_corrected(const float* __restrict__ row, int span,
-                                float vb, float* s) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll 4
-  for (int j = lane; j < span; j += 32) s[j] = row[j];
-  __syncwarp();
-  const int L = (span + 31) / 32;
-  const int lo = min(lane * L, span);
-  const int hi = min(lo + L, span);
-  // the previous (valid) sample before this lane's first slot
-  float carry = 0.0f;
-  bool has = false;
-  if (RAGGED) {
-    float last = 0.0f;
-    int found = 0;
-    for (int j = lo; j < hi; ++j) {
-      const float x = s[j];
-      if (x == x) {
-        last = x;
-        found = 1;
-      }
-    }
-    for (int k = 0; k < 31; ++k) {
-      const float lk = __shfl_sync(kFull, last, k);
-      const int fk = __shfl_sync(kFull, found, k);
-      if (k < lane && fk) {
-        carry = lk;
-        has = true;
-      }
-    }
-  } else if (lo > 0) {
-    carry = s[lo - 1];
-    has = true;
-  }
-  // pass 1: this lane's drop total, in slot order
-  float total = 0.0f;
-  {
-    float prev = carry;
-    bool h = has;
-    for (int j = lo; j < hi; ++j) total += next_drop<RAGGED>(s[j], vb, prev, h);
-  }
-  // the lanes before this one, in lane order
-  float run = 0.0f;
-  for (int k = 0; k < 31; ++k) {
-    const float tk = __shfl_sync(kFull, total, k);
-    if (k < lane) run += tk;
-  }
-  __syncwarp();  // every lane has read its carry before any slot changes
-  // pass 2: c[j] = v[j] + (prefix + d[lo] + ... + d[j]), in place
-  {
-    float prev = carry;
-    bool h = has;
-    for (int j = lo; j < hi; ++j) {
-      const float x = s[j];
-      run += next_drop<RAGGED>(x, vb, prev, h);
-      s[j] = x + run;
-    }
-  }
-  __syncwarp();
-}
-
-template <bool RAGGED>
-__global__ void drops_chunks(const float* __restrict__ vals, long long stride,
-                             const float* __restrict__ vbase,
-                             const int* __restrict__ order,
-                             const int* __restrict__ chunk_lo,
-                             const int* __restrict__ chunk_hi, WindowRows wr,
-                             int W, int span, int is_counter, int is_rate,
-                             long long n_chunks, float* __restrict__ partial) {
-  extern __shared__ float sh[];
-  const int rpb = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x;
-  const int lo = chunk_lo[c];
-  const int hi = chunk_hi[c];
-  float* mine = sh + (long long)warp * span;
-  for (int w0 = 0; w0 < W; w0 += blockDim.x) {
-    const int w = w0 + threadIdx.x;
-    const bool live = w < W;
-    const int i1 = live ? wr.idx1[w] : 0;
-    const int i2 = live ? wr.idx2[w] : 0;
-    const float ws = live ? wr.ws[w] : 0.0f;
-    const float we = live ? wr.we[w] : 0.0f;
-    float t1 = 0.0f, t2 = 0.0f, n = 0.0f;
-    if (!RAGGED && live) {
-      t1 = wr.t1[w];
-      t2 = wr.t2[w];
-      n = wr.n[w];
-    }
-    float acc = 0.0f;
-    float cnt = 0.0f;
-    for (int b = lo; b < hi; b += rpb) {
-      __syncthreads();  // the previous rows' readers are done
-      if (b + warp < hi) {
-        const long long r = order[b + warp];
-        stage_corrected<RAGGED>(vals + r * stride, span, vbase[r], mine);
-      }
-      __syncthreads();
-      if (!live) continue;
-      const int nb = min(rpb, hi - b);
-      for (int k = 0; k < nb; ++k) {
-        const float* row = sh + (long long)k * span;
-        const float vb = vbase[order[b + k]];
-        if (RAGGED) {
-          float rate;
-          if (ragged_rate(row, i1, i2, wr.tsrow, ws, we, vb, is_counter,
-                          is_rate, &rate)) {
-            acc += rate;
-            cnt += 1.0f;
-          }
-        } else {
-          acc += rate_one(row[i1], row[i2], t1, t2, n, ws, we, vb,
-                          is_counter, is_rate);
-        }
-      }
-    }
-    if (live) {
-      partial[(long long)c * W + w] = acc;
-      if (RAGGED) partial[(n_chunks + c) * W + w] = cnt;
-    }
-  }
-}
-
-// K6 over K2: out[r, w] (and pres[r, w], ragged) for rows 0..num_rows-1
-template <bool RAGGED>
-__global__ void drops_series(const float* __restrict__ vals, long long stride,
-                             const float* __restrict__ vbase,
-                             long long num_rows, WindowRows wr, int W,
-                             int span, int is_counter, int is_rate,
-                             float* __restrict__ out,
-                             float* __restrict__ pres) {
-  extern __shared__ float sh[];
-  const int rpb = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * rpb + warp;
-  if (r >= num_rows) return;  // the whole warp: no block-wide sync below
-  float* mine = sh + (long long)warp * span;
-  const float vb = vbase[r];
-  stage_corrected<RAGGED>(vals + r * stride, span, vb, mine);
-  for (int w = lane; w < W; w += 32) {
-    const long long t = r * W + w;
-    if (RAGGED) {
-      float rate = 0.0f;
-      const bool ok = ragged_rate(mine, wr.idx1[w], wr.idx2[w], wr.tsrow,
-                                  wr.ws[w], wr.we[w], vb, is_counter,
-                                  is_rate, &rate);
-      out[t] = ok ? rate : 0.0f;
-      pres[t] = ok ? 1.0f : 0.0f;
-    } else {
-      out[t] = rate_one(mine[wr.idx1[w]], mine[wr.idx2[w]], wr.t1[w],
-                        wr.t2[w], wr.n[w], wr.ws[w], wr.we[w], vb,
-                        is_counter, is_rate);
-    }
-  }
-}
-
-// Rows staged per block: up to 8, fewer when span slots of 8 rows exceed
-// the shared memory a block may use; 0 when one row does not fit.
-int rows_per_block(int span) {
-  const long long r = kMaxSmem / ((long long)span * 4);
-  return r > kMaxRowsPerBlock ? kMaxRowsPerBlock : (int)r;
-}
-
-template <typename Kernel>
-int prepare(Kernel kernel, int span, int* rpb, size_t* smem) {
-  if (span < 1) return (int)cudaErrorInvalidValue;
-  *rpb = rows_per_block(span);
-  if (*rpb < 1) return (int)cudaErrorInvalidValue;
-  *smem = (size_t)(*rpb) * span * sizeof(float);
-  if (*smem > 48 * 1024) {
-    return (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-  }
-  return 0;
-}
 
 template <bool RAGGED>
 int launch_chunks(const float* vals, long long stride, const float* vbase,
@@ -261,19 +70,13 @@ int launch_chunks(const float* vals, long long stride, const float* vbase,
                   long long n_chunks, const int* gco, int Gp, WindowRows wr,
                   int W, int span, int is_counter, int is_rate,
                   float* partial, float* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n_chunks > 0) {
-    int rpb;
-    size_t smem;
-    int err = prepare(drops_chunks<RAGGED>, span, &rpb, &smem);
-    if (err) return err;
-    drops_chunks<RAGGED><<<(unsigned)n_chunks, rpb * 32, smem, s>>>(
-        vals, stride, vbase, order, chunk_lo, chunk_hi, wr, W, span,
-        is_counter, is_rate, n_chunks, partial);
-    err = (int)cudaGetLastError();
-    if (err) return err;
+  StagePlan p;
+  if (!plan_drops(span, RAGGED, &p)) {
+    return kNoFit;
   }
-  return launch_reduce(partial, n_chunks, gco, Gp, W, RAGGED ? 2 : 1, out, s);
+  return launch_staged_chunks<true, RAGGED>(
+      vals, stride, vbase, order, chunk_lo, chunk_hi, n_chunks, gco, Gp, wr,
+      W, p, is_counter, is_rate, partial, out, (cudaStream_t)stream);
 }
 
 template <bool RAGGED>
@@ -281,30 +84,27 @@ int launch_series(const float* vals, long long stride, const float* vbase,
                   long long num_rows, WindowRows wr, int W, int span,
                   int is_counter, int is_rate, float* out, float* pres,
                   void* stream) {
-  if (num_rows == 0) return 0;
-  int rpb;
-  size_t smem;
-  int err = prepare(drops_series<RAGGED>, span, &rpb, &smem);
-  if (err) return err;
-  const long long blocks = (num_rows + rpb - 1) / rpb;
-  drops_series<RAGGED><<<(unsigned)blocks, rpb * 32, smem,
-                         (cudaStream_t)stream>>>(
-      vals, stride, vbase, num_rows, wr, W, span, is_counter, is_rate, out,
-      pres);
-  return (int)cudaGetLastError();
+  StagePlan p;
+  if (!plan_drops(span, RAGGED, &p)) {
+    return kNoFit;
+  }
+  return launch_staged_series<true, RAGGED>(vals, stride, vbase, num_rows,
+                                            wr, W, p, is_counter, is_rate,
+                                            out, pres, (cudaStream_t)stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K2 dense, group mode.  vals [rows, stride] f32, vbase [rows] f32, order
+// K2 dense, group mode.  vals [rows, stride] f32 (stride a multiple of 4,
+// vals 16-byte aligned), vbase [rows] f32, order
 // [N] int32 CSR rows, chunk_lo/chunk_hi [n_chunks] int32, gco [Gp + 1]
 // int32, the window rows [W] (idx int32, the rest f32; tsrow [stride] is
 // not read), span = the slots read from each row (max idx2 + 1, at most
 // stride), partial [n_chunks, W] f32 scratch, out [Gp, W] f32.  Returns
-// cudaGetLastError() (cudaErrorInvalidValue when one row's span does not
-// fit in shared memory).
+// cudaGetLastError(), or kNoFit (-1) when one row's span, with its tables
+// when ragged, does not fit in shared memory.
 int fused_rate_drops_dense_launch(
     const float* vals, long long stride, const float* vbase,
     const int* order, const int* chunk_lo, const int* chunk_hi,

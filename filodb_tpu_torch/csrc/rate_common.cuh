@@ -1,7 +1,7 @@
 // Shared by the rate-family kernels (fused_rate.cu: K1, K3; fused_drops.cu:
-// K2): the Prometheus extrapolation of one (series, window) cell, the
-// ragged boundary search, and the window rows they read.  Each source
-// includes it into its own anonymous namespace.
+// K2): the Prometheus extrapolation of one (series, window) cell and the
+// window rows they read.  Each source includes it into its own anonymous
+// namespace.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,36 +10,66 @@
 namespace {
 
 // Prometheus extrapolated rate/increase/delta (ref: RateFunctions.scala
-// 37-76) in the TPU kernel's f32 operation order.
-__device__ __forceinline__ float rate_one(float v1, float v2, float t1,
-                                          float t2, float n, float ws,
-                                          float we, float vb, int is_counter,
-                                          int is_rate) {
-  float dur_start = (t1 - ws) / 1000.0f;
-  float dur_end = (we - t2) / 1000.0f;
-  float sampled = (t2 - t1) / 1000.0f;
-  sampled = (sampled < 1e-9f) ? 1e-9f : sampled;  // max, NaN propagates
-  float avg_between = sampled / (n - 1.0f);
-  float delta = v2 - v1;
+// 37-76) in the TPU kernel's f32 operation order, in two parts: what the
+// window's sample times and count decide (rate_window), and what the
+// row's values add (rate_finish).  A kernel that holds one window over
+// many rows computes the first part once and reuses whatever of it a row
+// shares.
+struct RateWin {
+  float dur_start;  // (t1 - ws) / 1000
+  float dur_end;    // (we - t2) / 1000
+  float sampled;    // max((t2 - t1) / 1000, 1e-9)
+  float threshold;  // avg_between * 1.1, avg_between = sampled / (n - 1)
+  float half;       // avg_between / 2
+  float span;       // max(we - ws, 1)
+};
+
+// threshold and half from avg_between = sampled / (n - 1)
+__device__ __forceinline__ void rate_spacing(RateWin& k, float n) {
+  const float avg_between = k.sampled / (n - 1.0f);
+  k.threshold = avg_between * 1.1f;
+  k.half = avg_between / 2.0f;
+}
+
+__device__ __forceinline__ RateWin rate_window(float t1, float t2, float n,
+                                               float ws, float we) {
+  RateWin k;
+  k.dur_start = (t1 - ws) / 1000.0f;
+  k.dur_end = (we - t2) / 1000.0f;
+  const float sampled = (t2 - t1) / 1000.0f;
+  k.sampled = (sampled < 1e-9f) ? 1e-9f : sampled;  // max, NaN propagates
+  rate_spacing(k, n);
+  const float span = we - ws;
+  k.span = (span < 1.0f) ? 1.0f : span;
+  return k;
+}
+
+__device__ __forceinline__ float rate_finish(const RateWin& k, float v1,
+                                             float v2, float vb,
+                                             int is_counter, int is_rate) {
+  float dur_start = k.dur_start;
+  const float delta = v2 - v1;
   if (is_counter) {
-    float va = v1 + vb;  // absolute first value
-    float den = (delta == 0.0f) ? INFINITY : delta;
-    float dur_zero = sampled * (va / den);
+    const float va = v1 + vb;  // absolute first value
+    const float den = (delta == 0.0f) ? INFINITY : delta;
+    const float dur_zero = k.sampled * (va / den);
     if (delta > 0.0f && va >= 0.0f && dur_zero < dur_start) {
       dur_start = dur_zero;
     }
   }
-  float threshold = avg_between * 1.1f;
-  float half = avg_between / 2.0f;
-  float extrap = sampled + ((dur_start < threshold) ? dur_start : half);
-  extrap = extrap + ((dur_end < threshold) ? dur_end : half);
-  float out = delta * (extrap / sampled);
-  if (is_rate) {
-    float span = we - ws;
-    span = (span < 1.0f) ? 1.0f : span;
-    out = out / span * 1000.0f;
-  }
+  float extrap = k.sampled + ((dur_start < k.threshold) ? dur_start : k.half);
+  extrap = extrap + ((k.dur_end < k.threshold) ? k.dur_end : k.half);
+  float out = delta * (extrap / k.sampled);
+  if (is_rate) out = out / k.span * 1000.0f;
   return out;
+}
+
+__device__ __forceinline__ float rate_one(float v1, float v2, float t1,
+                                          float t2, float n, float ws,
+                                          float we, float vb, int is_counter,
+                                          int is_rate) {
+  return rate_finish(rate_window(t1, t2, n, ws, we), v1, v2, vb, is_counter,
+                     is_rate);
 }
 
 struct WindowRows {
@@ -52,29 +82,5 @@ struct WindowRows {
   const float* we;
   const float* tsrow;
 };
-
-// The rate over a row's first and last VALID (non-NaN) sample inside
-// the window slots i1..i2, and whether it has at least two (the
-// reference's fill scans select the same samples).  `row` may point to
-// device or shared memory.
-__device__ __forceinline__ bool ragged_rate(const float* row, int i1, int i2,
-                                            const float* tsrow, float ws,
-                                            float we, float vb,
-                                            int is_counter, int is_rate,
-                                            float* rate) {
-  int nv = 0, j1 = -1, j2 = -1;
-  for (int j = i1; j <= i2; ++j) {
-    const float x = row[j];
-    if (x == x) {
-      if (j1 < 0) j1 = j;
-      j2 = j;
-      ++nv;
-    }
-  }
-  if (nv < 2) return false;
-  *rate = rate_one(row[j1], row[j2], tsrow[j1], tsrow[j2], (float)nv, ws,
-                   we, vb, is_counter, is_rate);
-  return true;
-}
 
 }  // namespace

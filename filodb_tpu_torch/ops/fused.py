@@ -106,6 +106,9 @@ class PlanRows(NamedTuple):
     tsrow: torch.Tensor      # [Tp] f32 shared-grid ts offsets (0 pad tail)
     n1: torch.Tensor         # [W] f32 true samples in window (0 empty)
     span: int                # slots 0..span-1 hold every window (K2 reads)
+    stage_lo: int            # K3 stages slots [stage_lo, stage_hi) of a
+    stage_hi: int            #   row (multiples of 4; see ragged_stage)
+    width: int               # most slots one window of >= 2 slots spans
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -134,6 +137,20 @@ class FusedPlan:
         what the in-kernel reset correction (K2) reads of each row."""
         return int(self.idx2.max()) + 1 if self.idx2.size else 1
 
+    @property
+    def ragged_stage(self):
+        """(lo, hi, width) of the windows that span two slots or more —
+        the others are absent in the ragged kernels and read nothing: the
+        smallest idx1 rounded down to 4, the largest idx2 + 1 rounded up
+        to 4 (the slots K3 stages of each row) and the most slots one of
+        them spans; (0, 0, 0) when there is none."""
+        live = self.idx2 > self.idx1
+        if not live.any():
+            return 0, 0, 0
+        lo = int(self.idx1[live].min()) // 4 * 4
+        hi = _pad_to(int(self.idx2[live].max()) + 1, 4)
+        return lo, hi, int((self.idx2 - self.idx1)[live].max()) + 1
+
     def device_rows(self, device) -> PlanRows:
         """The plan's rows on `device`, uploaded once per (plan, device)."""
         key = str(device)
@@ -144,7 +161,7 @@ class FusedPlan:
             rows = PlanRows(put(self.idx1), put(self.idx2), put(self.t1),
                             put(self.t2), put(self.n), put(self.wstart_x),
                             put(self.wend_x), put(self.tsrow), put(self.n1),
-                            self.span)
+                            self.span, *self.ragged_stage)
             self._rows[key] = rows
         return rows
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,7 +32,8 @@ SOURCES = {"fused_rate": CSRC / "fused_rate.cu",
            "fused_over_time": CSRC / "fused_over_time.cu",
            "fused_drops": CSRC / "fused_drops.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC"]
 
 LAUNCHES: Dict[str, int] = {
     name + suffix: 0
@@ -45,9 +47,11 @@ LAUNCHES: Dict[str, int] = {
 `fused_rate_drops_*`), `<kernel>_series` the per-series mode (K6) of the
 same kernel."""
 
-SMEM_BYTES = 232_448
-"""Shared memory one block may use on sm_90: K2 stages a row's first
-`span` slots there, so a row longer than this / 4 slots is refused."""
+NO_FIT = -1
+"""What a staged launcher (K2, K3) returns when a row's staged slots do
+not fit in one block's shared memory: K2's span (with its index tables
+when ragged) or K3's widest window; csrc/rate_stage.cuh decides it
+(kNoFit), and the wrappers raise ValueError for it."""
 
 # kind codes of csrc/fused_over_time.cu
 _SLOT_KIND = {"last_over_time": 0, "sum_over_time": 1, "avg_over_time": 2,
@@ -100,15 +104,53 @@ def start_builds(names=None) -> Dict[str, Tuple[subprocess.Popen, Path]]:
 
 
 def finish_builds(procs) -> None:
+    """Wait for the builds; each library's nvcc output (with ptxas's
+    resource lines, -Xptxas -v) is kept beside it as <library>.log."""
     errors = []
     for name, (p, tmp) in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
             errors.append(f"{name}: nvcc exit {p.returncode}\n{log}")
             continue
+        library_path(name).with_suffix(".log").write_text(log)
         os.replace(tmp, library_path(name))
     if errors:
         raise KernelBuildError("\n".join(errors))
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_report(name: str):
+    """[{kernel, registers, smem, spill_stores, spill_loads}] of one
+    library's kernels from its build log (static shared memory only: the
+    staged kernels' rows are dynamic), or [] when the library was built
+    by another process."""
+    path = library_path(name).with_suffix(".log")
+    if not path.exists():
+        return []
+    out, cur = [], None
+    for line in path.read_text().splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = dict(kernel=m.group(1), registers=None, smem=0,
+                       spill_stores=0, spill_loads=0)
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = _PTXAS_USED.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = _PTXAS_SMEM.search(line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -121,6 +163,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fused_rate_ragged_launch.argtypes = [
         vp, ll, vp, vp, vp, vp, ll, vp, i,
         vp, vp, vp, vp, vp, i,                  # idx1, idx2, ws, we, tsrow, W
+        i, i, i,                                # lo, hi, width
         i, i, vp, vp, vp]
     lib.fused_rate_ragged_launch.restype = i
     lib.fused_rate_dense_series_launch.argtypes = [
@@ -131,6 +174,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fused_rate_ragged_series_launch.argtypes = [
         vp, ll, vp, ll,
         vp, vp, vp, vp, vp, i,                  # idx1, idx2, ws, we, tsrow, W
+        i, i, i,                                # lo, hi, width
         i, i, vp, vp, vp]                       # flags, out, pres, stream
     lib.fused_rate_ragged_series_launch.restype = i
 
@@ -232,7 +276,32 @@ def _check_common(vals_p, vbase_p, order, chunks, rows, Gp):
     return dev, Tp, W, C
 
 
+def _check_staged(vals_p) -> None:
+    """The staged kernels (K2, K3) copy rows 16 bytes at a time: the row
+    stride must be a multiple of 4 slots and the base 16-byte aligned."""
+    if vals_p.shape[1] % 4:
+        raise ValueError(f"staged kernel needs a row stride that is a "
+                         f"multiple of 4 slots, got {vals_p.shape[1]}")
+    if vals_p.data_ptr() % 16:
+        raise ValueError("staged kernel needs vals_p 16-byte aligned")
+
+
+def _ragged_stage(vals_p, rows):
+    """K3's staged slot range (rows.stage_lo, rows.stage_hi, rows.width),
+    checked against the row width."""
+    _check_staged(vals_p)
+    lo, hi, width = int(rows.stage_lo), int(rows.stage_hi), int(rows.width)
+    if not 0 <= lo <= hi <= vals_p.shape[1] or lo % 4 or hi % 4:
+        raise ValueError(f"plan stage [{lo}, {hi}) outside the row width "
+                         f"{vals_p.shape[1]} or not a multiple of 4")
+    return lo, hi, width
+
+
 def _raise_on(err: int, name: str) -> None:
+    if err == NO_FIT:
+        raise ValueError(f"{name}: a row's staged slots do not fit in one "
+                         f"block's shared memory (K2: the plan's span, K3: "
+                         f"its widest window)")
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -260,6 +329,7 @@ def fused_rate_ragged_cuda(vals_p, vbase_p, order, chunks, rows, Gp: int,
                            is_counter: bool, is_rate: bool):
     """Launch K3 -> (sums, presence) [Gp, W] f32."""
     dev, Tp, W, C = _check_common(vals_p, vbase_p, order, chunks, rows, Gp)
+    stage = _ragged_stage(vals_p, rows)
     lib = library()
     partial = torch.empty((2, max(C, 1), W), dtype=torch.float32, device=dev)
     out = torch.empty((2, Gp, W), dtype=torch.float32, device=dev)
@@ -268,7 +338,7 @@ def fused_rate_ragged_cuda(vals_p, vbase_p, order, chunks, rows, Gp: int,
         _ptr(vals_p), Tp, _ptr(vbase_p), _ptr(order), _ptr(chunks.lo),
         _ptr(chunks.hi), C, _ptr(chunks.gco), Gp,
         _ptr(rows.idx1), _ptr(rows.idx2), _ptr(rows.ws), _ptr(rows.we),
-        _ptr(rows.tsrow), W, int(is_counter), int(is_rate),
+        _ptr(rows.tsrow), W, *stage, int(is_counter), int(is_rate),
         _ptr(partial), _ptr(out), stream)
     _raise_on(err, "fused_rate_ragged")
     LAUNCHES["fused_rate_ragged"] += 1
@@ -286,15 +356,13 @@ def _kernel_name(kind: str, ragged: bool, with_drops: bool = False) -> str:
     return f"{base}_{'ragged' if ragged else 'dense'}"
 
 
-def _check_span(rows, Tp: int) -> int:
+def _check_span(vals_p, rows) -> int:
     """The slots K2 reads from each row (rows.span), checked against the
-    row width and the shared memory one row is staged in."""
-    span = int(rows.span)
+    row width."""
+    _check_staged(vals_p)
+    span, Tp = int(rows.span), vals_p.shape[1]
     if not 1 <= span <= Tp:
         raise ValueError(f"plan span {span} outside the row width {Tp}")
-    if span * 4 > SMEM_BYTES:
-        raise ValueError(f"rows of {span} slots exceed the {SMEM_BYTES} B "
-                         f"of shared memory K2 stages a row in")
     return span
 
 
@@ -311,7 +379,7 @@ def fused_rate_drops_cuda(vals_p, vbase_p, order, chunks, rows, Gp: int,
     """Launch K2 in group mode -> sums [Gp, W] f32 (dense) or (sums,
     presence) (ragged); see csrc/fused_drops.cu."""
     dev, Tp, W, C = _check_common(vals_p, vbase_p, order, chunks, rows, Gp)
-    span = _check_span(rows, Tp)
+    span = _check_span(vals_p, rows)
     lib = library("fused_drops")
     planes = 2 if ragged else 1
     partial = torch.empty((planes, max(C, 1), W), dtype=torch.float32,
@@ -369,7 +437,7 @@ def fused_per_series_cuda(vals_p, vbase_p, rows, num_rows: int, kind: str,
     stream = torch.cuda.current_stream(dev).cuda_stream
     name = _kernel_name(kind, ragged, with_drops) + "_series"
     if with_drops:
-        span = _check_span(rows, Tp)
+        span = _check_span(vals_p, rows)
         err = getattr(library("fused_drops"), name + "_launch")(
             _ptr(vals_p), Tp, _ptr(vbase_p), num_rows,
             *_drops_args(rows, W, span),
@@ -381,7 +449,8 @@ def fused_per_series_cuda(vals_p, vbase_p, rows, num_rows: int, kind: str,
             err = lib.fused_rate_ragged_series_launch(
                 _ptr(vals_p), Tp, _ptr(vbase_p), num_rows,
                 _ptr(rows.idx1), _ptr(rows.idx2), _ptr(rows.ws),
-                _ptr(rows.we), _ptr(rows.tsrow), W, int(is_counter),
+                _ptr(rows.we), _ptr(rows.tsrow), W,
+                *_ragged_stage(vals_p, rows), int(is_counter),
                 int(is_rate), _ptr(out), _ptr(pres), stream)
         else:
             err = lib.fused_rate_dense_series_launch(

@@ -15,6 +15,8 @@ from filodb_tpu_torch.ops import fused, kernels
 
 pytestmark = pytest.mark.cuda
 
+SMEM = 232_448          # bytes of shared memory one block may use on sm_90
+
 
 @pytest.fixture
 def card():
@@ -177,10 +179,10 @@ def test_drops_per_series_kernel_matches_plain(card, ragged):
 
 
 def test_drops_kernel_long_rows_stage_fewer_per_block(card):
-    """Rows too long for eight in shared memory stage fewer per block
-    (12,000 slots: 48 KB each, four per block), still bit-identical."""
+    """Rows too long for two stages of four in shared memory stage fewer
+    per block (12,000 slots: 48 KB each), still bit-identical."""
     args = _inputs(card, 300, 12_000, (3,), 0.0, 7, resets=5)
-    assert args[4].span * 4 * 8 > kernels.SMEM_BYTES
+    assert args[4].span * 4 * 8 > SMEM
     a = fused.fused_rate_drops(*args, True, True, False)
     p = fused.fused_rate_drops_plain(*args, True, True, False)
     torch.cuda.synchronize()
@@ -207,3 +209,251 @@ def test_drops_api_on_the_card(card):
     assert s.device.type == "cuda"
     torch.testing.assert_close(s.cpu(), h, rtol=1e-6, atol=1e-5)
     np.testing.assert_array_equal(c, hc)
+
+
+# ------------------------------------------- K2 ragged and K3 redesigned:
+# staged rows, per-tile index tables, O(1) windows
+
+def _adversarial(device, S=600, T=301, wset="edges", seed=9):
+    """Raw counters with resets and NaN runs (~30%) plus rows built to
+    trip the index tables: an all-NaN row, rows with one and two valid
+    samples, ±Inf samples, NaN runs across 32-slot tiles, lane runs and
+    window edges.  wset "edges": windows from before the grid to past
+    its end, one slot apart (W = 351 > 256; empty and one-sample windows
+    at both ends; span = T, not a multiple of 4); "late": windows over
+    the last third only (the staged range starts past slot 0).  Groups:
+    group 0 holds one row, group 1 holds 257 (a one-row second chunk)."""
+    rng = np.random.default_rng(seed)
+    ts = np.arange(T, dtype=np.int64) * 10_000
+    if wset == "edges":
+        wends = np.arange(-50, T + 20, dtype=np.int64) * 10_000
+        rng_ms = 300_000
+    else:
+        wends = np.arange(2 * T // 3, T, 2, dtype=np.int64) * 10_000
+        rng_ms = 50_000
+    plan = fused.build_plan(ts, wends, rng_ms)
+    raw = np.cumsum(rng.exponential(10.0, size=(S, T)), axis=1)
+    for _ in range(3):
+        at = rng.integers(1, T, size=S)
+        after = np.arange(T)[None, :] >= at[:, None]
+        raw = np.where(after, raw - raw[np.arange(S), at - 1][:, None]
+                       + rng.exponential(5.0, size=(S, 1)), raw)
+    starts = rng.random((S, T)) < 0.0146
+    ends = np.where(starts, np.arange(T)[None, :]
+                    + rng.integers(1, 48, size=(S, T)) - 1, -1)
+    raw[np.maximum.accumulate(ends, axis=1) >= np.arange(T)[None, :]] = \
+        np.nan
+    raw[0] = np.nan                          # all-NaN row
+    raw[1] = np.nan
+    raw[1, 150] = 7.0                        # one valid sample
+    raw[2] = np.nan
+    raw[2, [149, 152]] = [3.0, 9.0]          # two valid samples
+    raw[3, 77] = np.inf
+    raw[4, 200] = -np.inf
+    raw[5, 28:70] = np.nan                   # across tiles 0-2
+    raw[6, 31:33] = np.nan                   # one tile edge
+    raw[7, 9:40] = np.nan                    # a lane run (L = 10)
+    raw[8, :] = np.where(np.arange(T) % 31 == 0, raw[8], np.nan)
+    vals = fused.pad_values(torch.from_numpy(raw.astype(np.float32)),
+                            torch.from_numpy(rng.random(S) * 1e3), plan,
+                            device=device)
+    gids = np.concatenate([[0], np.ones(257, np.int64),
+                           rng.integers(2, 9, size=S - 258)])
+    pg = fused.pad_groups(gids, S, 9, device=device)
+    Gp = fused.pad_group_count(9)
+    return (vals.vals_p, vals.vbase_p, pg.csr,
+            fused.chunk_plan(pg.csr.offsets, Gp, device),
+            plan.device_rows(device), Gp)
+
+
+def _same_bits(x, y):
+    """Equal to the bit, every NaN where the other has one."""
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return bool(torch.equal(nx, ny)) and bool(torch.equal(
+        x.masked_fill(nx, 0).view(torch.int32),
+        y.masked_fill(ny, 0).view(torch.int32)))
+
+
+@pytest.mark.parametrize("wset", ["edges", "late"])
+@pytest.mark.parametrize("series", [False, True])
+@pytest.mark.parametrize("drops", [False, True])
+def test_ragged_staged_kernels_match_plain_on_adversarial_rows(card, drops,
+                                                               series, wset):
+    vals_p, vbase_p, csr, chunks, rows, Gp = _adversarial(card, wset=wset)
+    name = kernels._kernel_name("rate_family", True, drops) + \
+        ("_series" if series else "")
+    n0 = kernels.LAUNCHES[name]
+    if series:
+        S = vals_p.shape[0] - 7
+        args = (vals_p, vbase_p, rows, S, "rate_family", True, True, True,
+                drops)
+        a = fused.fused_per_series(*args)
+        b = fused.fused_per_series(*args)
+        p = fused.fused_per_series_plain(*args)
+    else:
+        args = (vals_p, vbase_p, csr, chunks, rows, Gp)
+        a = fused.group_launch("rate_family", True, *args, True, True, drops)
+        b = fused.group_launch("rate_family", True, *args, True, True, drops)
+        p = fused.group_plain("rate_family", True, *args, True, True, drops)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 2
+    assert len(a) == len(p) == 2
+    assert rows.idx1.numel() > 256 or wset == "late"
+    for x, y, z in zip(a, b, p):
+        assert _same_bits(x, y) and _same_bits(x, z)
+    assert (p[1] > 0).any() and (p[1] == 0).any()
+
+
+@pytest.mark.parametrize("series", [False, True])
+def test_ragged_rate_long_rows_take_the_tiled_path(card, series):
+    """K3 has no row-length limit: a row of 70,000 slots does not fit in
+    shared memory, so its windows are walked in slot tiles."""
+    rng = np.random.default_rng(10)
+    S, T = 64, 70_000
+    ts = np.arange(T, dtype=np.int64) * 10_000
+    plan = fused.build_plan(ts, np.arange(2000, T + 1, 60) * 10_000,
+                            20_000_000)
+    lo, hi, _ = plan.ragged_stage
+    assert (hi - lo) * 4 * 2 > SMEM
+    raw = np.cumsum(rng.exponential(10.0, size=(S, T)), axis=1)
+    raw[rng.random((S, T)) < 0.3] = np.nan
+    raw[0, 30_000:45_000] = np.nan
+    vals = fused.pad_values(torch.from_numpy(raw.astype(np.float32)),
+                            torch.from_numpy(rng.random(S) * 1e3), plan,
+                            device=card)
+    rows = plan.device_rows(card)
+    if series:
+        args = (vals.vals_p, vals.vbase_p, rows, S, "rate_family", True,
+                True, True)
+        a, p = fused.fused_per_series(*args), fused.fused_per_series_plain(
+            *args)
+    else:
+        pg = fused.pad_groups(rng.integers(0, 5, size=S), S, 5, device=card)
+        Gp = fused.pad_group_count(5)
+        args = (vals.vals_p, vals.vbase_p, pg.csr,
+                fused.chunk_plan(pg.csr.offsets, Gp, card), rows, Gp, True,
+                True)
+        a, p = fused.fused_rate_ragged(*args), fused.fused_rate_ragged_plain(
+            *args)
+    torch.cuda.synchronize()
+    for x, z in zip(a, p):
+        assert _same_bits(x, z)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_drops_kernel_one_row_per_block(card, ragged):
+    """Rows of 40,000 slots: one staged row per block and one stage, each
+    lane's window straight into its sum."""
+    args = _inputs(card, 70, 40_000, (3,), 0.1 if ragged else 0.0, 12,
+                   resets=6)
+    a = fused.fused_rate_drops(*args, True, True, ragged)
+    p = fused.fused_rate_drops_plain(*args, True, True, ragged)
+    torch.cuda.synchronize()
+    for x, z in zip(a if ragged else (a,), p if ragged else (p,)):
+        assert _same_bits(x, z)
+
+
+@pytest.mark.parametrize("drops", [False, True])
+def test_staged_kernels_refuse_misaligned_rows(card, drops):
+    """The staged kernels copy 16 bytes at a time: a row stride that is not
+    a multiple of 4 slots, or a base that is not 16-byte aligned, raises
+    (never another path)."""
+    vals_p, vbase_p, csr, chunks, rows, Gp = _inputs(card, 64, 100, (3,),
+                                                      0.1, 2)
+    call = (fused.fused_rate_drops if drops else fused.fused_rate_ragged)
+    extra = (True,) if drops else ()
+    odd = vals_p[:, :126].contiguous()
+    odd_rows = rows._replace(tsrow=rows.tsrow[:126].contiguous())
+    with pytest.raises(ValueError, match="multiple of 4"):
+        call(odd, vbase_p, csr, chunks, odd_rows, Gp, True, True, *extra)
+    flat = torch.empty(vals_p.numel() + 1, device=card)
+    shifted = flat[1:].view(vals_p.shape)
+    shifted.copy_(vals_p)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(shifted, vbase_p, csr, chunks, rows, Gp, True, True, *extra)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused.fused_per_series(shifted, vbase_p, rows, 10, "rate_family",
+                               True, True, True, drops)
+
+
+@pytest.mark.parametrize("series", [False, True])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_drops_kernel_many_drops_a_lane(card, ragged, series):
+    """Samples in random order drop at about every other slot, so K2's
+    lanes carry many drops each — still to the plain version's bits."""
+    rng = np.random.default_rng(13)
+    S, T = 500, 300
+    ts = np.arange(T, dtype=np.int64) * 10_000
+    plan = fused.build_plan(ts, np.arange(300_000, int(ts[-1]) + 1, 60_000),
+                            300_000)
+    raw = rng.random((S, T)) * 100.0
+    raw[::3, :] = np.cumsum(rng.exponential(1.0, size=(len(raw[::3]), T)),
+                            axis=1)
+    if ragged:
+        raw[rng.random((S, T)) < 0.2] = np.nan
+    vals = fused.pad_values(torch.from_numpy(raw.astype(np.float32)),
+                            torch.from_numpy(rng.random(S) * 1e3), plan,
+                            device=card)
+    rows = plan.device_rows(card)
+    if series:
+        args = (vals.vals_p, vals.vbase_p, rows, S, "rate_family", ragged,
+                True, True, True)
+        a, p = fused.fused_per_series(*args), \
+            fused.fused_per_series_plain(*args)
+    else:
+        pg = fused.pad_groups(rng.integers(0, 6, size=S), S, 6, device=card)
+        Gp = fused.pad_group_count(6)
+        args = (vals.vals_p, vals.vbase_p, pg.csr,
+                fused.chunk_plan(pg.csr.offsets, Gp, card), rows, Gp, True,
+                True, ragged)
+        a, p = fused.fused_rate_drops(*args), \
+            fused.fused_rate_drops_plain(*args)
+    torch.cuda.synchronize()
+    a = a if isinstance(a, tuple) else (a,)
+    p = p if isinstance(p, tuple) else (p,)
+    for x, z in zip(a, p):
+        if x is not None:
+            assert _same_bits(x, z)
+
+
+@pytest.mark.parametrize("case", ["k2_dense", "k2_ragged", "k3_window"])
+def test_staged_kernels_refuse_rows_too_long_for_shared_memory(card, case):
+    """K2 keeps its limit (one row of 58,112 slots dense, 51,648 ragged,
+    whose tables take 0.5 B a slot) and K3 refuses only a window wider than
+    shared memory: the launcher returns kNoFit and the wrapper raises
+    ValueError, counting no launch.  Dense K2 still runs a 55,000-slot
+    row."""
+    rng = np.random.default_rng(14)
+    S, T = 6, (61_000 if case == "k3_window" else 55_000)
+    ts = np.arange(T, dtype=np.int64) * 10_000
+    range_ms = 600_000_000 if case == "k3_window" else 300_000
+    plan = fused.build_plan(ts, np.array([T - 1], np.int64) * 10_000,
+                            range_ms)
+    raw = np.cumsum(rng.exponential(10.0, size=(S, T)), axis=1)
+    raw[:, ::7] = np.nan
+    vals = fused.pad_values(torch.from_numpy(raw.astype(np.float32)),
+                            torch.from_numpy(rng.random(S) * 1e3), plan,
+                            device=card)
+    pg = fused.pad_groups(np.arange(S) % 2, S, 2, device=card)
+    Gp = fused.pad_group_count(2)
+    args = (vals.vals_p, vals.vbase_p, pg.csr,
+            fused.chunk_plan(pg.csr.offsets, Gp, card),
+            plan.device_rows(card), Gp, True, True)
+    if case == "k3_window":
+        call, name = fused.fused_rate_ragged, "fused_rate_ragged"
+    else:
+        ragged = case == "k2_ragged"
+        args = args + (ragged,)
+        call = fused.fused_rate_drops
+        name = kernels._kernel_name("rate_family", ragged, True)
+        assert 51_648 < plan.span <= 58_112
+    n0 = kernels.LAUNCHES[name]
+    if case == "k2_dense":
+        a = call(*args)
+        p = fused.fused_rate_drops_plain(*args)
+        torch.cuda.synchronize()
+        assert _same_bits(a, p) and kernels.LAUNCHES[name] == n0 + 1
+        return
+    with pytest.raises(ValueError, match="shared memory"):
+        call(*args)
+    assert kernels.LAUNCHES[name] == n0

@@ -502,3 +502,70 @@ def test_ctypes_bindings_match_the_c_entry_points():
                         ctypes.c_int)
                 assert ct is want, (fn, decl, ct)
             assert ns.restype is ctypes.c_int
+
+
+# ---------------- adversarial ragged layouts (K2's plain version vs JAX)
+
+@pytest.mark.parametrize("fn", ["rate", "increase"])
+def test_groupsum_raw_counters_adversarial_ragged_matches_jax(fn):
+    """NaN runs across tiles, lane runs and window edges, an all-NaN row,
+    rows with one and two valid samples, W > 256, a span that is not a
+    multiple of 4 and a one-row group, raw counters with resets: the plain
+    K2 against the reference's ragged Pallas kernel (no ±Inf here: the
+    reference's one-hot group sum spreads a NaN rate to every group; see
+    test_ragged_plain_matches_jax_on_adversarial_rows)."""
+    from test_torch_fused import _adversarial_ragged
+    raw, ts_row, wends, range_ms = _adversarial_ragged(seed=22, inf=False)
+    S, G = raw.shape[0], 4
+    gids = np.concatenate([[0], 1 + np.arange(S - 1) % (G - 1)]).astype(
+        np.int32)
+    reb, vbase = rebase_values(raw, False)
+    v32, vb32 = reb.astype(np.float32), vbase.astype(np.float32)
+    jplan = pf.build_plan(ts_row, wends, range_ms)
+    js, jc = pf.fused_rate_groupsum(v32, vb32, gids, jplan, G, fn_name=fn,
+                                    precorrected=False, interpret=True,
+                                    ragged=True)
+    tplan = tf.build_plan(ts_row, wends, range_ms)
+    assert tplan.W > 256 and tplan.span % 4
+    ts_, tc = tf.fused_rate_groupsum(v32, vb32, gids, tplan, G, fn_name=fn,
+                                     precorrected=False, ragged=True,
+                                     device="cpu")
+    np.testing.assert_array_equal(tc, np.asarray(jc))
+    _assert_match(tf.present_sum(ts_, tc), pf.present_sum(js, jc),
+                  **RAGGED_TOL)
+
+
+def test_ptxas_report_reads_the_build_log(tmp_path, monkeypatch):
+    """The build keeps nvcc's -Xptxas -v output beside each library;
+    ptxas_report turns it into one row per kernel (what chip_smoke.py
+    prints), and [] when there is no log."""
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    assert kernels.ptxas_report("fused_drops") == []
+    kernels.library_path("fused_drops").with_suffix(".log").write_text(
+        "ptxas info    : Compiling entry function '_Z4kernPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z4kernPf\n"
+        "    24 bytes stack frame, 12 bytes spill stores, 20 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 80 registers, 16 bytes smem, 400 bytes "
+        "cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'\n"
+        "ptxas info    : Used 32 registers, 400 bytes cmem[0]\n")
+    assert kernels.ptxas_report("fused_drops") == [
+        dict(kernel="_Z4kernPf", registers=80, smem=16, spill_stores=12,
+             spill_loads=20),
+        dict(kernel="_Z5otherv", registers=32, smem=0, spill_stores=0,
+             spill_loads=0)]
+
+
+def test_no_fit_code_raises_value_error():
+    """csrc/rate_stage.cuh alone decides whether a staged launch fits in
+    shared memory: its launchers return kNoFit, which the wrappers turn
+    into a ValueError (any other non-zero code is a CUDA error)."""
+    src = (kernels.CSRC / "rate_stage.cuh").read_text()
+    m = re.search(r"constexpr int kNoFit = (-?\d+);", src)
+    assert m and int(m.group(1)) == kernels.NO_FIT
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels._raise_on(kernels.NO_FIT, "fused_rate_drops_ragged")
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        kernels._raise_on(700, "fused_rate_ragged")
+    kernels._raise_on(0, "fused_rate_ragged")

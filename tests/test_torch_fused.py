@@ -189,3 +189,185 @@ def test_chunk_plan_covers_every_row_once(chunk_rows):
                               or [np.zeros(0, np.int64)])
         np.testing.assert_array_equal(rows, np.flatnonzero(gids == grp))
     assert gco[9] == gco[-1] == lo.size
+
+
+# ---------------- adversarial ragged layouts (K3's plain version vs JAX)
+
+def _adversarial_ragged(seed=21, S=70, T=301, inf=True, jitter=True):
+    """Counters with NaN runs across 32-slot tiles, lane runs and window
+    edges, an all-NaN row, rows with one and two valid samples and (inf)
+    ±Inf samples; windows one slot apart from before the grid to past its
+    end (W = 371 > 256, empty and one-sample windows at both ends, span =
+    T, not a multiple of 4).  The scrapes are jittered by up to 1 s off
+    the 10 s grid, as real scrapes are: on an exact grid (jitter=False) a
+    window's trailing gap can equal 1.1 x the average spacing exactly,
+    where f32 and f64 pick different sides of the extrapolation's
+    threshold (test_exact_grid_threshold_tie_is_the_open_queue3_fault)."""
+    rng = np.random.default_rng(seed)
+    raw = np.cumsum(rng.exponential(10.0, size=(S, T)), axis=1)
+    for s in range(S):
+        for r in rng.choice(np.arange(6, T), size=2, replace=False):
+            raw[s, r:] = raw[s, r:] - raw[s, r - 1] + rng.exponential(5.0)
+    starts = rng.random((S, T)) < 0.0146
+    ends = np.where(starts, np.arange(T)[None, :]
+                    + rng.integers(1, 48, size=(S, T)) - 1, -1)
+    raw[np.maximum.accumulate(ends, axis=1) >= np.arange(T)[None, :]] = \
+        np.nan
+    raw[0] = np.nan
+    raw[1] = np.nan
+    raw[1, 150] = 7.0
+    raw[2] = np.nan
+    raw[2, [149, 152]] = [3.0, 9.0]
+    if inf:
+        raw[3, 77] = np.inf
+        raw[4, 200] = -np.inf
+    raw[5, 28:70] = np.nan
+    raw[6, 31:33] = np.nan
+    raw[7, 9:40] = np.nan
+    ts_row = np.arange(T, dtype=np.int64) * STEP + rng.integers(0, 997, T) \
+        * jitter
+    wends = np.arange(-50, T + 20, dtype=np.int64) * STEP
+    return raw, ts_row, wends, 30 * STEP
+
+
+@pytest.mark.parametrize("fn", ["rate", "increase", "delta"])
+@pytest.mark.parametrize("op", ["sum", "count", "max"])
+def test_ragged_plain_matches_jax_on_adversarial_rows(fn, op):
+    """±Inf samples ride the count and max panels only: the reference sums
+    groups by a one-hot matmul, in which a row's NaN rate (Inf - Inf)
+    times the zeros of the other groups turns every group NaN — the
+    recorded matmul difference (ROADMAP Queue 3); the port sums each group
+    on its own."""
+    raw, ts_row, wends, range_ms = _adversarial_ragged(inf=op != "sum")
+    S, G = raw.shape[0], 5
+    gids = np.concatenate([[0], 1 + np.arange(S - 1) % (G - 1)]).astype(
+        np.int32)                            # group 0: a one-row chunk
+    precor = fn != "delta"
+    reb, vbase = rebase_values(raw, precor)
+    v32, vb32 = reb.astype(np.float32), vbase.astype(np.float32)
+    plan = pf.build_plan(ts_row, wends, range_ms)
+    assert plan.W > 256 and int(plan.idx2.max() + 1) % 4
+    want = pf.fused_leaf_agg_batch(
+        plan, pf.pad_values(v32, vb32, plan),
+        [(pf.pad_groups(gids, S, G), G, op)], fn, precorrected=precor,
+        interpret=True, ragged=True, num_series=S)[0]
+    tplan = tf.build_plan(ts_row, wends, range_ms)
+    got = tf.fused_leaf_agg_batch(
+        tplan, tf.pad_values(torch.from_numpy(v32), torch.from_numpy(vb32),
+                             tplan),
+        [(tf.pad_groups(gids, S, G), G, op)], fn, precorrected=precor,
+        ragged=True)[0]
+    w = np.asarray(tagg.present(op, torch.from_numpy(np.asarray(want))))
+    g = tagg.present(op, torch.from_numpy(got)).numpy()
+    assert (np.isnan(g) == np.isnan(w)).all()
+    np.testing.assert_allclose(g, w, rtol=5e-4, atol=1e-4, equal_nan=True)
+    if op == "sum":
+        ref = _oracle_agg(raw, ts_row, wends, range_ms, fn, gids, G, op)
+        assert (np.isnan(g) == np.isnan(ref)).all()
+        np.testing.assert_allclose(g, ref, rtol=5e-4, atol=1e-4,
+                                   equal_nan=True)
+
+
+def test_exact_grid_threshold_tie_is_the_open_queue3_fault():
+    """Pins the open fault of ROADMAP Queue 3 ("an exact tie"): on the
+    exact 10 s grid, row 9 of seed 21 has 12 valid samples 200 s apart
+    and a 20 s trailing gap in windows 342 and 348.  In f32, 200 / 11 x
+    1.1 rounds to 20.0 exactly, so `dur_end < threshold` is false and the
+    port's plain rate (ops/fused._ragged_rates, and K3 with it) takes
+    half a spacing; the f64 oracle's threshold is 20.000000000000004, and
+    the reference (interpret mode) lands on the oracle's side.  The fix
+    that clears the fault makes this test fail: then turn it into a test
+    that the three agree, and take the entry off the queue."""
+    from oracle import eval_series
+    raw, ts_row, wends, range_ms = _adversarial_ragged(inf=False,
+                                                       jitter=False)
+    raw = raw[9:10]
+    reb, vbase = rebase_values(raw, True)
+    v32, vb32 = reb.astype(np.float32), vbase.astype(np.float32)
+    gids = np.zeros(1, np.int32)
+    plan = pf.build_plan(ts_row, wends, range_ms)
+    want = pf.fused_leaf_agg_batch(
+        plan, pf.pad_values(v32, vb32, plan),
+        [(pf.pad_groups(gids, 1, 1), 1, "sum")], "rate", precorrected=True,
+        interpret=True, ragged=True, num_series=1)[0]
+    tplan = tf.build_plan(ts_row, wends, range_ms)
+    got = tf.fused_leaf_agg_batch(
+        tplan, tf.pad_values(torch.from_numpy(v32), torch.from_numpy(vb32),
+                             tplan),
+        [(tf.pad_groups(gids, 1, 1), 1, "sum")], "rate", precorrected=True,
+        ragged=True)[0]
+    jax_rate = np.asarray(tagg.present("sum", torch.from_numpy(
+        np.asarray(want))))[0]
+    port = tagg.present("sum", torch.from_numpy(got)).numpy()[0]
+    ref = eval_series(ts_row, raw[0], wends, range_ms, "rate")
+    tie = [342, 348]
+    rest = np.setdiff1d(np.arange(len(wends)), tie)
+    np.testing.assert_allclose(port[rest], ref[rest], rtol=5e-4, atol=1e-4,
+                               equal_nan=True)
+    np.testing.assert_allclose(jax_rate, ref, rtol=5e-4, atol=1e-4,
+                               equal_nan=True)
+    # the tie: 12 samples over 200 s, so the port takes 200 + 2 x 100 / 11
+    # s of extrapolated span where the oracle takes 200 + 100 / 11 + 20
+    ratio = (200.0 + 100.0 / 11.0 + 20.0) / (200.0 + 200.0 / 11.0)
+    np.testing.assert_allclose(ref[tie] / port[tie], ratio, rtol=1e-5)
+    assert np.float32(np.float32(200.0) / np.float32(11.0)) \
+        * np.float32(1.1) == np.float32(20.0)
+    assert 200.0 / 11.0 * 1.1 > 20.0
+
+
+# ------------- the O(1) ragged window of csrc/rate_stage.cuh, modelled
+
+def _tile_tables(valid):
+    """Per 32-slot tile: (mask, valid slots before, last valid slot before
+    or -1, first valid slot after or None) — what build_tables stores."""
+    n = valid.size
+    nt = -(-n // 32)
+    out, cnt, last = [], 0, -1
+    for t in range(nt):
+        bits = valid[32 * t:32 * t + 32]
+        mask = sum(1 << int(b) for b in np.flatnonzero(bits))
+        out.append([mask, cnt, last, None])
+        cnt += int(bits.sum())
+        if bits.any():
+            last = 32 * t + int(np.flatnonzero(bits)[-1])
+    nxt = None
+    for t in range(nt - 1, -1, -1):
+        out[t][3] = nxt
+        bits = valid[32 * t:32 * t + 32]
+        if bits.any():
+            nxt = 32 * t + int(np.flatnonzero(bits)[0])
+    return out
+
+
+def _window(tab, i1, i2):
+    """ragged_window: (valid count in [i1, i2], first valid >= i1, last
+    valid <= i2) from two tile entries."""
+    a, b = tab[i1 >> 5], tab[i2 >> 5]
+    before1 = (1 << (i1 & 31)) - 1
+    upto2 = b[0] & ((2 << (i2 & 31)) - 1)
+    from1 = a[0] & ~before1
+    j1 = (i1 & ~31) + (from1 & -from1).bit_length() - 1 if from1 else a[3]
+    j2 = (i2 & ~31) + upto2.bit_length() - 1 if upto2 else b[2]
+    nv = b[1] + bin(upto2).count("1") - a[1] - bin(a[0] & before1).count("1")
+    return nv, j1, j2
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_tile_tables_select_what_the_scan_selects(seed):
+    """Two table lookups give the valid count and the first and last valid
+    slot of any window — the operands the plain version's prefix scans
+    (ops/fused._ragged_rates) and the old slot-by-slot scan select."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(33, 700))
+    v = rng.random(n)
+    v[rng.random(n) < [0.0, 0.3, 0.9, 1.0][seed]] = np.nan
+    v[int(rng.integers(0, n)):][:int(rng.integers(1, 80))] = np.nan
+    tab = _tile_tables(~np.isnan(v))
+    for _ in range(400):
+        i1 = int(rng.integers(0, n - 1))
+        i2 = int(rng.integers(i1 + 1, n))
+        nv, j1, j2 = _window(tab, i1, i2)
+        ok = np.flatnonzero(~np.isnan(v[i1:i2 + 1])) + i1
+        assert nv == ok.size
+        if ok.size:
+            assert (j1, j2) == (ok[0], ok[-1])
