@@ -49,9 +49,36 @@ In phases 3-8 every answer must match an f64 oracle within rtol 2e-4,
 atol 1e-3 (ragged rtol 5e-4, atol 1e-4), each warm query must launch the
 kernel named for it, and two warm answers must be bit-identical.  The
 launch counts are set to 0 just before each phase and read just after
-it.
+it.  Three more phases:
 
-Then one JSON line with the kernel table, and as the last line
+K8.  the column-selection probe (csrc/probe_select.cu) through its own
+   entry point, python -m filodb_tpu_torch.tools.probe_slice's main, at
+   the probe's shape (262,144 x 768 f32, 110 of 128 columns); then each
+   of its three kernels against its plain version to the bit, timed
+   beside one library call (index_select; matmul with TF32 off, by the
+   one-hot matrix or by a +1/-1 difference matrix) and its bound;
+general-1M.  over the dense 1M counter and gauge stores of phases 3 and
+   5, the general path (ops/rangefns.py, ops/agg.py, the binary join):
+   G1 sum by (_ns_) (irate(...)), G5 increase / on (_ns_) rate (two K1
+   leaves), G2 avg by (_ns_) (deriv(...)), G3 stddev by (_ns_) of the
+   instant selector, G4 max by (_ns_) (quantile_over_time(0.9, ...)),
+   each once cold and max(3, --warm // 3) times warm (G4 at most
+   twice), against an f64 oracle this script computes on the card slab
+   by slab (oracle_general_t): rtol 2e-5 / atol 1e-4 for irate, 2e-4 /
+   1e-3 for the rate ratio, 5e-4 / 2e-4 for deriv (set at the default
+   width, 1,049 series a group, from its f32 error there, 7.3e-5, and
+   the size of its answers, which each query's line prints; a narrower
+   --series averages fewer series a group and may exceed it), 5e-4 /
+   5e-3 for the others;
+hist-classic-1M.  65,536 classic histograms x 16 `le` buckets
+   (1,048,576 cumulative http_latency_bucket counters, _ns_ =
+   App-{h % 1000}) made on the card: G6 histogram_quantile(0.9, sum by
+   (le, _ns_) (rate(...))), K1 over 16,000 groups then the classic
+   quantile, against an f64 oracle (rtol 2e-4, atol 1e-3).
+Every phase prints its seconds; general-1M and hist-classic-1M print
+each query's cold time, warm p50/p99 and the peak device memory.
+
+Then one JSON line with the kernel table (K1-K8), and as the last line
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab CHECKOUT [CHECKOUT ...] [--rounds R]
@@ -166,110 +193,206 @@ def make_gauge_slab(rng, n, hole_frac):
     return vals
 
 
-def oracle_rates(vals, ts_row, wends):
-    """Prometheus extrapolated rate per (series, window) in f64, with NaN
-    samples absent (tests/oracle.py semantics, vectorized over series):
-    reset correction against the previous valid sample, then the first
-    and last valid sample of each window."""
-    n_s = vals.shape[0]
-    valid = ~np.isnan(vals)
-    pos = np.arange(T)[None, :]
-    last_v = np.maximum.accumulate(np.where(valid, pos, -1), axis=1)
-    prev_idx = np.concatenate([np.full((n_s, 1), -1), last_v[:, :-1]], 1)
-    prev = np.take_along_axis(vals, np.maximum(prev_idx, 0), axis=1)
-    drop = np.where(valid & (prev_idx >= 0) & (prev > vals), prev, 0.0)
-    corr = vals + np.cumsum(drop, axis=1)
-    nxt = np.minimum.accumulate(np.where(valid, pos, T)[:, ::-1],
-                                axis=1)[:, ::-1]
-    cnt = np.cumsum(valid, axis=1)
-    first, last = window_bounds(ts_row, wends)
-    nv = cnt[:, last] - cnt[:, first] + valid[:, first]
-    j1 = np.minimum(nxt[:, first], T - 1)
-    j2 = np.maximum(last_v[:, last], 0)
-    rows = np.arange(n_s)[:, None]
-    v1, v2 = corr[rows, j1], corr[rows, j2]
-    t1, t2 = ts_row[j1].astype(np.float64), ts_row[j2].astype(np.float64)
-    ws = (wends - RANGE_MS).astype(np.float64)[None, :]
-    we = wends.astype(np.float64)[None, :]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        dur_start = (t1 - ws) / 1000.0
-        dur_end = (we - t2) / 1000.0
-        sampled = (t2 - t1) / 1000.0
-        avg = sampled / (nv - 1)
-        delta = v2 - v1
-        dur_zero = sampled * (v1 / delta)
-        dur_start = np.where((delta > 0) & (v1 >= 0) & (dur_zero < dur_start),
-                             dur_zero, dur_start)
-        thr = avg * 1.1
-        extrap = (sampled + np.where(dur_start < thr, dur_start, avg / 2)
-                  + np.where(dur_end < thr, dur_end, avg / 2))
-        out = delta * (extrap / sampled) / (we - ws) * 1000.0
-    return {"rate": np.where(nv >= 2, out, np.nan)}
+def window_slots(v, f, lst):
+    """The slots of each window of a shared grid, gathered: v [n, T] on
+    the card, f/lst [W] first and last slot -> (x [n, W, L], in-window
+    mask [W, L]), L the widest window."""
+    import torch
+    L = int((lst - f + 1).max())
+    j = f[:, None] + torch.arange(L, device=v.device)[None, :]
+    return v[:, j.clamp(max=v.shape[1] - 1)], j <= lst[:, None]
 
 
-def oracle_over_time(vals, ts_row, wends):
-    """Per (series, window) in f64, NaN samples absent: the value in the
-    window's newest slot (the instant selector, slot semantics),
-    sum/avg/count/min/max_over_time."""
+def oracle_over_time_t(v, ts_row, wends):
+    """Per (series, window) in f64 on the card, NaN samples absent: the
+    value in the window's newest slot (the instant selector, slot
+    semantics), sum/avg/count/min/max_over_time."""
+    import torch
+    dev = v.device
     first, last = window_bounds(ts_row, wends)
-    valid = ~np.isnan(vals)
-    z = np.where(valid, vals, 0.0)
-    cs = np.concatenate([np.zeros((vals.shape[0], 1)), np.cumsum(z, 1)], 1)
-    cc = np.concatenate([np.zeros((vals.shape[0], 1)),
-                         np.cumsum(valid, 1)], 1)
-    s = cs[:, last + 1] - cs[:, first]
-    n = cc[:, last + 1] - cc[:, first]
-    with np.errstate(invalid="ignore", divide="ignore"):
-        avg = s / n
-    lo = np.where(valid, vals, np.inf)
-    hi = np.where(valid, vals, -np.inf)
-    mn = np.stack([lo[:, a:b + 1].min(1) for a, b in zip(first, last)], 1)
-    mx = np.stack([hi[:, a:b + 1].max(1) for a, b in zip(first, last)], 1)
+    f = torch.from_numpy(first).to(dev)
+    lst = torch.from_numpy(last).to(dev)
+    valid = ~torch.isnan(v)
+    zero = torch.zeros((v.shape[0], 1), dtype=torch.float64, device=dev)
+    cs = torch.cat([zero, torch.cumsum(torch.where(valid, v, 0.0), 1)], 1)
+    cc = torch.cat([zero, torch.cumsum(valid.double(), 1)], 1)
+    s = cs[:, lst + 1] - cs[:, f]
+    n = cc[:, lst + 1] - cc[:, f]
+    x, inw = window_slots(v, f, lst)
+    ok = inw & ~torch.isnan(x)
+    inf = torch.full((), float("inf"), dtype=torch.float64, device=dev)
+    mn = torch.where(ok, x, inf).amin(2)
+    mx = torch.where(ok, x, -inf).amax(2)
     some = n > 0
-    nan = np.nan
-    return {"last": vals[:, last], "sum": np.where(some, s, nan),
-            "avg": np.where(some, avg, nan), "count": n,
-            "min": np.where(some, mn, nan), "max": np.where(some, mx, nan)}
+    nan = torch.full((), float("nan"), dtype=torch.float64, device=dev)
+    return {"last": v[:, lst], "sum": torch.where(some, s, nan),
+            "avg": torch.where(some, s / n, nan), "count": n,
+            "min": torch.where(some, mn, nan),
+            "max": torch.where(some, mx, nan)}
+
+
+def oracle_general_t(v, ts_row, wends, kind):
+    """The general path's per-series answers for G1-G4 in f64 on the card,
+    for one slab of dense series v [n, T] on the shared grid ts_row
+    (written here, apart from the port's ops/rangefns.py): counters ->
+    irate over the reset-corrected values (G5's increase and rate come
+    from oracle_rates_t); gauges -> deriv (the least-squares slope about
+    each window's means), the instant selector's value (the newest sample
+    of the 5 m lookback) and quantile_over_time(0.9) (Prometheus'
+    interpolation between sorted ranks)."""
+    import torch
+    dev = v.device
+    first, last = window_bounds(ts_row, wends)
+    f = torch.from_numpy(first).to(dev)
+    lst = torch.from_numpy(last).to(dev)
+    ts = torch.from_numpy(ts_row.astype(np.float64)).to(dev)
+    nslots = (lst - f + 1).to(torch.float64)             # [W], dense grid
+    nan = torch.full((), float("nan"), dtype=torch.float64, device=dev)
+    if kind == "counter":
+        prev = torch.cat([v[:, :1], v[:, :-1]], dim=1)
+        corr = v + torch.cumsum(torch.where(prev > v, prev,
+                                            torch.zeros_like(v)), dim=1)
+        lp = (lst - 1).clamp(min=0)
+        irate = (corr[:, lst] - corr[:, lp]) / ((ts[lst] - ts[lp]) / 1000.0)
+        return {"irate": torch.where(nslots >= 2, irate, nan)}
+    x, inw = window_slots(v, f, lst)                      # [n, W, L]
+    m = inw.to(torch.float64)
+    j = (f[:, None] + torch.arange(inw.shape[1], device=dev)[None, :])
+    t = ts[j.clamp(max=T - 1)] / 1000.0
+    tbar = (t * m).sum(1) / nslots
+    xbar = (x * m).sum(2) / nslots
+    dt = (t - tbar[:, None]) * m
+    slope = ((x - xbar[..., None]) * dt).sum(2) / (dt * dt).sum(1)
+    srt = torch.sort(torch.where(inw, x, torch.full_like(x, float("inf"))),
+                     dim=2).values
+    rank = 0.9 * (nslots - 1)
+    lo, hi = torch.floor(rank).long(), torch.ceil(rank).long()
+    w = torch.arange(len(wends), device=dev)
+    q90 = srt[:, w, lo] + (srt[:, w, hi] - srt[:, w, lo]) * (rank - lo)
+    return {"deriv": torch.where(nslots >= 2, slope, nan),
+            "last_lb": torch.where(nslots >= 1, v[:, lst], nan),
+            "q90": torch.where(nslots >= 1, q90, nan)}
+
+
+# The general path at full width (general-1M), over the dense counter
+# and gauge stores: query, the store it reads, the oracle as (per-series
+# key, group op) pairs (two pairs: their ratio), tolerance, warm repeats
+# cap, and the kernels each run must launch.
+GENERAL_QUERIES = {
+    "counter": [
+        dict(name="G1", query="sum by (_ns_) (irate(request_total[5m]))",
+             oracle=[("irate", "sum")], tol=(2e-5, 1e-4), kernels=()),
+        dict(name="G5", query="sum by (_ns_) (increase(request_total[5m])) "
+             "/ on (_ns_) sum by (_ns_) (rate(request_total[5m]))",
+             oracle=[("increase", "sum"), ("rate", "sum")],
+             tol=(2e-4, 1e-3), kernels=("fused_rate_dense",)),
+    ],
+    "gauge": [
+        dict(name="G2", query="avg by (_ns_) (deriv(heap_usage[5m]))",
+             oracle=[("deriv", "avg")], tol=(5e-4, 2e-4), kernels=()),
+        dict(name="G3", query="stddev by (_ns_) (heap_usage)",
+             oracle=[("last_lb", "stddev")], tol=(5e-4, 5e-3), kernels=()),
+        dict(name="G4", query="max by (_ns_) (quantile_over_time(0.9, "
+             "heap_usage[5m]))", oracle=[("q90", "max")], tol=(5e-4, 5e-3),
+             kernels=(), warm=2),
+    ],
+}
+
+
+def run_queries(what, eng, specs, want, warm, start_s, end_s):
+    """Each query once cold and `warm` times warm (a spec's own `warm`
+    caps it) through QueryEngine.query_range, against `want`; every run
+    must launch the spec's kernels; two warm answers bit-identical.  The
+    launch counts are set to 0 just before the first query and read just
+    after the last -> (launches, rows)."""
+    import torch
+    from filodb_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rows_out = []
+    for spec in specs:
+        q, reps = spec["query"], min(warm, spec.get("warm", warm))
+        times, answers = [], []
+        for i in range(reps + 1):
+            n0 = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            answers.append(eng.query_range(q, start_s + 600, 60, end_s))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            for k in spec["kernels"]:
+                check(kernels.LAUNCHES[k] > n0[k],
+                      f"{what}: run {i} of `{q}` did not launch {k}")
+        rtol, atol = spec["tol"]
+        checked = [compare(r, want[q], rtol, atol, f"{what} `{q}`")
+                   for r in answers]
+        check(np.array_equal(checked[-2][0], checked[-1][0], equal_nan=True),
+              f"{what}: two warm answers of `{q}` differ")
+        _, err, rel = checked[-1]
+        warm_s = times[1:]
+        p50, p99 = np.percentile(warm_s, 50), np.percentile(warm_s, 99)
+        log(f"{what}: {spec['name']} `{q}` via "
+            f"{'+'.join(spec['kernels']) or 'the general path, no kernel'}: "
+            f"cold {times[0]:.4f} s; warm x{reps} p50 {p50:.4f} s p99 "
+            f"{p99:.4f} s; oracle max_abs_err {err} max_rel_err {rel} "
+            f"(rtol {rtol}, atol {atol}; oracle max abs "
+            f"{np.nanmax(np.abs(want[q]))}, median abs "
+            f"{np.nanmedian(np.abs(want[q]))}); warm answers bit-identical")
+        rows_out.append(dict(query=q, cold_s=times[0], p50=p50, p99=p99,
+                             err=err))
+    launches = dict(kernels.LAUNCHES)
+    log(f"{what}: max_memory_allocated {torch.cuda.max_memory_allocated()} "
+        f"B; launches {({k: v for k, v in launches.items() if v})}")
+    return launches, rows_out
 
 
 class GroupOracle:
-    """f64 group aggregates of per-series values [n, W] (NaN = absent),
-    accumulated slab by slab."""
+    """f64 group aggregates on the card of per-series values [n, W] (NaN =
+    absent), accumulated slab by slab."""
 
     def __init__(self, groups, W):
-        self.sum = np.zeros((groups, W))
-        self.cnt = np.zeros((groups, W))
-        self.min = np.full((groups, W), np.inf)
-        self.max = np.full((groups, W), -np.inf)
+        import torch
+        dev = torch.device("cuda", 0)
+
+        def full(x):
+            return torch.full((groups, W), x, dtype=torch.float64,
+                              device=dev)
+        self.sum, self.sq, self.cnt = full(0.0), full(0.0), full(0.0)
+        self.min, self.max = full(float("inf")), full(float("-inf"))
 
     def add(self, per, gids):
-        order = np.argsort(gids, kind="stable")
-        g = gids[order]
-        starts = np.flatnonzero(np.r_[True, g[1:] != g[:-1]])
-        x = per[order]
-        ok = ~np.isnan(x)
-        at = g[starts]
-        self.sum[at] += np.add.reduceat(np.where(ok, x, 0.0), starts, 0)
-        self.cnt[at] += np.add.reduceat(ok.astype(np.float64), starts, 0)
-        self.min[at] = np.minimum(self.min[at], np.minimum.reduceat(
-            np.where(ok, x, np.inf), starts, 0))
-        self.max[at] = np.maximum(self.max[at], np.maximum.reduceat(
-            np.where(ok, x, -np.inf), starts, 0))
+        """per [n, W] f64 and gids [n] int64, both on the card."""
+        import torch
+        ok = ~torch.isnan(per)
+        x = torch.where(ok, per, 0.0)
+        self.sum.index_add_(0, gids, x)
+        self.sq.index_add_(0, gids, x * x)
+        self.cnt.index_add_(0, gids, ok.to(torch.float64))
+        idx = gids[:, None].expand_as(per)
+        self.min.scatter_reduce_(0, idx, torch.where(ok, per, float("inf")),
+                                 "amin")
+        self.max.scatter_reduce_(0, idx, torch.where(ok, per, float("-inf")),
+                                 "amax")
 
     def result(self, op):
-        present = self.cnt > 0
-        with np.errstate(invalid="ignore", divide="ignore"):
-            val = {"sum": self.sum, "avg": self.sum / self.cnt,
-                   "min": self.min, "max": self.max}[op]
-        return np.where(present, val, np.nan)
+        import torch
+        mean = self.sum / self.cnt
+        val = {"sum": self.sum, "avg": mean, "min": self.min,
+               "max": self.max,
+               "stddev": torch.sqrt(torch.clamp(self.sq / self.cnt
+                                                - mean * mean, min=0.0))}[op]
+        return torch.where(self.cnt > 0, val, float("nan")).cpu().numpy()
 
 
-def build_store(kind, num_series, seed, hole_frac, queries):
+def build_store(kind, num_series, seed, hole_frac, queries, general=()):
     """Ingest counters or gauges through the port's shard; return the
-    memstore, the oracle's answer [G, W] per query, the windows and
-    timings."""
+    memstore, the oracle's answer [G, W] per query (and per general-path
+    query of `general`, from oracle_general_t on the card), the windows
+    and timings."""
+    import torch
     from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
     from filodb_tpu_torch.core.partkey import PartKey
+    dev = torch.device("cuda", 0)
     rng = np.random.default_rng(seed)
     ms = TimeSeriesMemStore()
     shard = ms.setup("prometheus", 0)
@@ -295,13 +418,20 @@ def build_store(kind, num_series, seed, hole_frac, queries):
         t1 = time.perf_counter()
         shard.ingest_columns(schema, keys, ts, {col: vals})
         t2 = time.perf_counter()
-        per_all = (oracle_rates(vals, ts_row, wends) if kind == "counter"
-                   else oracle_over_time(vals, ts_row, wends))
-        for okey in {q[1] for q in queries}:
+        v = torch.from_numpy(vals).to(dev)
+        per_all = (oracle_rates_t(v, ts_row, wends) if kind == "counter"
+                   else oracle_over_time_t(v, ts_row, wends))
+        if general:
+            per_all.update(oracle_general_t(v, ts_row, wends, kind))
+        g = torch.from_numpy(gids).to(dev)
+        for okey in {q[1] for q in queries} | {
+                k for g_ in general for k, _ in g_["oracle"]}:
             a = accs.setdefault(okey, (GroupOracle(NUM_NS, W),
                                        GroupOracle(1, W)))
-            a[0].add(per_all[okey], gids)
-            a[1].add(per_all[okey], np.zeros(n, np.int64))
+            a[0].add(per_all[okey], g)
+            a[1].add(per_all[okey], torch.zeros_like(g))
+        torch.cuda.synchronize()
+        del v, per_all
         gen_s += t1 - t0
         ingest_s += t2 - t1
         oracle_s += time.perf_counter() - t2
@@ -310,6 +440,11 @@ def build_store(kind, num_series, seed, hole_frac, queries):
         grouped, total = accs[okey]
         want[q] = (total.result(op[:-4]) if op.endswith("_all")
                    else grouped.result(op))
+    for g in general:
+        parts = [accs[okey][0].result(op) for okey, op in g["oracle"]]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            want[g["query"]] = parts[0] if len(parts) == 1 \
+                else parts[0] / parts[1]
     return ms, want, wends, dict(gen_s=gen_s, ingest_s=ingest_s,
                                  oracle_s=oracle_s)
 
@@ -654,17 +789,20 @@ def run_kernel_checks(num_series, seed, device):
 
 # --------------------------------------------------------- phases 3 to 6
 
-def run_path(kind, num_series, seed, hole_frac, warm, queries, tol):
+def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
+             general=(), general_warm=0):
     """Ingest, then drive each query once cold and `warm` times warm
     through QueryEngine.query_range; the launch counts are set to 0 just
-    before the first query and read just after the last."""
+    before the first query and read just after the last.  Then, over the
+    same store, the general-path queries `general` (run_queries) ->
+    (launches, rows, general launches)."""
     import torch
     from filodb_tpu_torch.ops import kernels
     from filodb_tpu_torch.query.engine import QueryEngine
     ragged = bool(hole_frac)
     what = f"{kind} {'ragged' if ragged else 'dense'}"
     ms, want, wends, t = build_store(kind, num_series, seed, hole_frac,
-                                     queries)
+                                     queries, general)
     log(f"{what}: {num_series} series x {T} samples: generate "
         f"{t['gen_s']:.3f} s, ingest_columns {t['ingest_s']:.3f} s, oracle "
         f"{t['oracle_s']:.3f} s")
@@ -747,9 +885,18 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol):
         f"{mirror.last_upload_s:.4f} s; leaf gather {gather_ms:.3f} ms; "
         f"samples scanned/query {samples}; max_memory_allocated {peak} B; "
         f"launches {({k: v for k, v in launches.items() if v})}")
-    del eng, ms, mirror, snap, answers, res
+    del mirror, snap, answers, res
+    general_launches = {}
+    if general:
+        t0 = time.perf_counter()
+        general_launches, g_rows = run_queries(
+            f"general-1M {kind}", eng, general, want, general_warm,
+            start_s, end_s)
+        rows_out += g_rows
+        log(f"general-1M {kind}: {time.perf_counter() - t0:.1f} s")
+    del eng, ms
     free_device_memory()
-    return launches, rows_out
+    return launches, rows_out, general_launches
 
 
 def free_device_memory():
@@ -763,6 +910,197 @@ def free_device_memory():
         cache.clear()
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------- K8: the selection probe
+
+# the Pallas body of tools/probe_slice.py each K8 kernel replaces (the
+# bodies its main() launches through run's pallas_call, :98)
+PROBE_REPLACES = {"probe_gather": "tools/probe_slice.py:75",
+                  "probe_two_gathers": "tools/probe_slice.py:81",
+                  "probe_onehot_matmul": "tools/probe_slice.py:89"}
+
+
+def run_probe_phase(dev):
+    """K8: the probe's own entry point (filodb_tpu_torch.tools.probe_slice
+    main, its main path) with the launch counts set to 0 just before and
+    read just after; then each kernel at the probe's shape against its
+    plain version to the bit, timed beside one library call and its
+    bound -> (table rows, launches)."""
+    import torch
+    from filodb_tpu_torch.ops import kernels, probe
+    from filodb_tpu_torch.tools import probe_slice as ps
+    kernels.reset_launch_counts()
+    ps.main(["--grid", str(ps.GRID)])
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in PROBE_REPLACES}
+    check(all(launches.values()),
+          f"K8: the probe's entry point did not launch {launches}")
+    x, o, i1, i2 = ps.inputs(ps.GRID, dev)
+    rows, K = x.shape
+    W, WP = ps.W, ps.WP
+    sel1 = i1[:W].cpu().numpy()
+    sel2 = i2[:W].cpu().numpy()
+
+    def sectors(cols):
+        return np.unique(np.asarray(cols) * 4 // SECTOR).size
+    idx1 = i1[:W].long()
+    # x[:, i2] - x[:, i1] as one product: +1 at (i2[w], w), -1 at
+    # (i1[w], w); two nonzero terms a column, so exact in any order
+    diff = torch.zeros(K, WP, dtype=x.dtype, device=dev)
+    cols = torch.arange(W, device=dev)
+    diff[i2[:W].long(), cols] = 1.0
+    diff[idx1, cols] = -1.0
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [
+        ("probe_gather", lambda: probe.probe_gather(x, i1, W, WP),
+         lambda: probe.probe_gather_plain(x, i1, W, WP),
+         ("index_select", lambda: torch.index_select(x, 1, idx1)),
+         rows * (sectors(sel1) * SECTOR + WP * 4), 0),
+        ("probe_two_gathers", lambda: probe.probe_two_gathers(x, i1, i2, W,
+                                                              WP),
+         lambda: probe.probe_two_gathers_plain(x, i1, i2, W, WP),
+         ("matmul FP32 by +1/-1, TF32 off", lambda: torch.matmul(x, diff)),
+         rows * (sectors(np.union1d(sel1, sel2)) * SECTOR + WP * 4),
+         rows * W),
+        ("probe_onehot_matmul", lambda: probe.probe_onehot_matmul(x, o),
+         lambda: probe.probe_onehot_matmul_plain(x, o),
+         ("matmul FP32, TF32 off", lambda: torch.matmul(x, o)),
+         4 * (rows * K + K * WP + rows * WP), 2 * rows * K * WP),
+    ]
+    table = {}
+    try:
+        for name, kern, plain, lib, nbytes, ops in cases:
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"{name}: two runs differ")
+            check(same_bits(got, want),
+                  f"{name}: kernel and plain differ in some bit")
+            if lib[1]().shape == want.shape:
+                check(torch.equal(lib[1](), want),
+                      f"{name}: {lib[0]} and plain differ")
+            ms = cuda_ms(kern, reps=20)
+            plain_ms = cuda_ms(plain, reps=5)
+            library_ms = cuda_ms(lib[1], reps=20)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+            bound_ms = 1e3 * max(t_bytes, t_ops)
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"K8 {name} [{rows}, {K}] -> [{rows}, {WP}]: bit-identical "
+                f"to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"{lib[0]} {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
+                f"{ops} FP32 operations)")
+            table[name] = dict(
+                max_abs_err=float((got - want).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, yardsticks={lib[0]: library_ms},
+                source="filodb_tpu_torch/csrc/probe_select.cu")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    del x, o, diff
+    gc.collect()
+    torch.cuda.empty_cache()
+    return table, launches
+
+
+# ------------------------------ hist-classic-1M: classic histograms
+
+LES = ["0.005", "0.01", "0.025", "0.05", "0.1", "0.25", "0.5", "1", "2.5",
+       "5", "10", "25", "50", "100", "250", "+Inf"]
+HIST_COUNT = 65_536                # x 16 buckets = 1,048,576 series
+HIST_QUERY = ("histogram_quantile(0.9, sum by (le, _ns_) "
+              "(rate(http_latency_bucket[5m])))")
+
+
+def oracle_bucket_quantile(q, cum, les):
+    """Prometheus' bucketQuantile in f64 over cumulative bucket rates
+    [G, W, B] (les ascending, the last +Inf), with its monotonic fix-up:
+    the first bucket reaching q x total, linear inside it from the bucket
+    below (from 0 for the first); the +Inf bucket gives the highest finite
+    le; no observations -> NaN."""
+    cum = np.maximum.accumulate(cum, axis=-1)
+    total = cum[..., -1]
+    rank = q * total
+    idx = np.argmax(cum >= rank[..., None], axis=-1)
+
+    def take(a, i):
+        return np.take_along_axis(a, i[..., None], axis=-1)[..., 0]
+    lower = np.where(idx > 0, les[np.maximum(idx - 1, 0)], 0.0)
+    c_lo = np.where(idx > 0, take(cum, np.maximum(idx - 1, 0)), 0.0)
+    c_hi = take(cum, idx)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        frac = np.where(c_hi > c_lo, (rank - c_lo) / (c_hi - c_lo), 0.0)
+    out = lower + (les[idx] - lower) * frac
+    out = np.where(idx == les.size - 1, les[-2], out)
+    return np.where(total > 0, out, np.nan)
+
+
+def run_hist_path(num_hist, seed, warm, dev):
+    """hist-classic-1M: num_hist classic histograms x 16 `le` buckets,
+    each bucket a cumulative http_latency_bucket counter (_ns_ =
+    App-{h % NUM_NS}), made on the card slab by slab and ingested through
+    TimeSeriesShard.ingest_columns; the f64 oracle (bucket rates by
+    oracle_rates_t, summed by (le, _ns_), then oracle_bucket_quantile) is
+    computed on the card beside them.  Then G6 through
+    QueryEngine.query_range (run_queries) -> (launches, rows)."""
+    import torch
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.query.engine import QueryEngine
+    B = len(LES)
+    les = np.array([float(x) for x in LES])
+    ms = TimeSeriesMemStore()
+    shard = ms.setup("prometheus", 0)
+    ts_row = START_MS + np.arange(T, dtype=np.int64) * STEP_MS
+    wends = np.arange(START_MS + 600_000, int(ts_row[-1]) + 1, 60_000)
+    W = len(wends)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    sums = torch.zeros((NUM_NS * B, W), dtype=torch.float64, device=dev)
+    per_slab = SLAB // B
+    gen_s = ingest_s = oracle_s = 0.0
+    for h0 in range(0, num_hist, per_slab):
+        nh = min(per_slab, num_hist - h0)
+        t0 = time.perf_counter()
+        inc = torch.poisson(torch.full((nh, T, B), 2.0, device=dev),
+                            generator=gen).double()
+        vals = inc.cumsum(1).cumsum(2).permute(0, 2, 1).reshape(nh * B, T)
+        keys = [PartKey.make("http_latency_bucket", {
+            "_ws_": "demo", "_ns_": f"App-{h % NUM_NS}",
+            "instance": f"Instance-{h}", "le": le})
+            for h in range(h0, h0 + nh) for le in LES]
+        host = vals.cpu().numpy()
+        t1 = time.perf_counter()
+        shard.ingest_columns("prom-counter", keys,
+                             np.broadcast_to(ts_row, (nh * B, T)),
+                             {"count": host})
+        t2 = time.perf_counter()
+        rates = oracle_rates_t(vals, ts_row, wends)["rate"]
+        g = ((torch.arange(h0, h0 + nh, device=dev) % NUM_NS)[:, None] * B
+             + torch.arange(B, device=dev)[None, :]).reshape(-1)
+        sums.index_add_(0, g, torch.nan_to_num(rates, nan=0.0))
+        torch.cuda.synchronize()
+        gen_s += t1 - t0
+        ingest_s += t2 - t1
+        oracle_s += time.perf_counter() - t2
+        del inc, vals, rates, host
+    want = oracle_bucket_quantile(
+        0.9, sums.reshape(NUM_NS, B, W).permute(0, 2, 1).cpu().numpy(), les)
+    del sums
+    log(f"hist-classic-1M: {num_hist} histograms x {B} buckets = "
+        f"{num_hist * B} series x {T} samples: generate on the card "
+        f"{gen_s:.3f} s, ingest_columns {ingest_s:.3f} s, f64 oracle "
+        f"{oracle_s:.3f} s")
+    eng = QueryEngine("prometheus", ms)
+    start_s = START_MS // 1000
+    end_s = start_s + (T - 1) * STEP_MS // 1000
+    spec = dict(name="G6", query=HIST_QUERY, tol=(2e-4, 1e-3),
+                kernels=("fused_rate_dense",))
+    launches, rows = run_queries("hist-classic-1M", eng, [spec],
+                                 {HIST_QUERY: want}, warm, start_s, end_s)
+    del eng, ms
+    free_device_memory()
+    return launches, rows
 
 
 # ------------------------------------------------ phases 7 and 8: raw
@@ -789,7 +1127,8 @@ def make_raw_counters_t(gen, n, hole_frac, device):
 
 
 def oracle_rates_t(vals, ts_row, wends):
-    """oracle_rates in f64 torch on the card, for rate and increase: the
+    """Prometheus extrapolated rate and increase per (series, window) in
+    f64 on the card, NaN samples absent (tests/oracle.py semantics): the
     counters corrected against the previous valid sample, then the
     extrapolated increase between each window's first and last valid
     sample (NaN where fewer than two)."""
@@ -1250,9 +1589,24 @@ def main(argv=None) -> int:
     log_ptxas(kernels)
     dev = torch.device("cuda", 0)
 
-    table = run_kernel_checks(args.series, args.seed, dev)
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = time.perf_counter() - t
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    table = timed("kernels K1-K7", run_kernel_checks, args.series, args.seed,
+                  dev)
+    probe_table, probe_launches = timed("K8", run_probe_phase, dev)
 
     launches = {name: 0 for name in table}
+
+    def add(got):
+        for name in launches:
+            launches[name] += got.get(name, 0)
     small_warm = max(3, args.warm // 3)
     for kind, n, seed, hole, warm, queries, tol in (
             ("counter", args.series, args.seed, 0.0, args.warm,
@@ -1263,17 +1617,29 @@ def main(argv=None) -> int:
              GAUGE_QUERIES, (2e-4, 1e-3)),
             ("gauge", RAGGED_SERIES, args.seed + 3, 0.01, small_warm,
              GAUGE_QUERIES, (5e-4, 1e-4))):
-        got, _ = run_path(kind, n, seed, hole, warm, queries, tol)
-        for name in launches:
-            launches[name] += got.get(name, 0)
+        # the dense 1M stores also serve general-1M (G1-G5)
+        general = GENERAL_QUERIES[kind] if not hole else ()
+        name = f"{kind} {'ragged' if hole else 'dense'}" \
+            + (" + general-1M" if general else "")
+        got, _, got_general = timed(name, run_path, kind, n, seed, hole,
+                                    warm, queries, tol, general,
+                                    small_warm)
+        add(got)
+        add(got_general)
     for n, seed, hole, warm, tol in (
             (args.series, args.seed + 4, 0.0, args.warm, (2e-4, 1e-3)),
             (RAGGED_SERIES, args.seed + 5, 0.01, small_warm, (5e-4, 1e-4))):
-        got, _ = run_raw_counter_path(n, seed, hole, warm, tol, dev)
-        for name in launches:
-            launches[name] += got.get(name, 0)
+        got, _ = timed(f"raw-counter {'ragged' if hole else 'dense'}",
+                       run_raw_counter_path, n, seed, hole, warm, tol, dev)
+        add(got)
+    got, _ = timed("hist-classic-1M", run_hist_path,
+                   args.series // len(LES), args.seed + 6, small_warm, dev)
+    add(got)
     missing = [name for name, k in launches.items() if k == 0]
     check(not missing, f"kernels of the main path never launched: {missing}")
+    log("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()})
+        + f"; total {time.perf_counter() - t0:.1f} s")
     # a group-mode entry replaces its variant's branch of _kernel; a
     # per-series one the _epilogue's per-series mode (:661)
     kernels_json = [
@@ -1286,6 +1652,14 @@ def main(argv=None) -> int:
              bound_by=row["bound_by"], library_ms=row["library_ms"],
              yardsticks=row["yardsticks"])
         for name, row in table.items()]
+    kernels_json += [
+        dict(name=name, route="cuda", source=row["source"],
+             replaces=PROBE_REPLACES[name], launches=probe_launches[name],
+             max_abs_err=row["max_abs_err"], ms=row["ms"],
+             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+             bound_by=row["bound_by"], library_ms=row["library_ms"],
+             yardsticks=row["yardsticks"])
+        for name, row in probe_table.items()]
     log(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,9 @@ namespace {
 // many rows computes the first part once and reuses whatever of it a row
 // shares.
 struct RateWin {
-  float dur_start;  // (t1 - ws) / 1000
-  float dur_end;    // (we - t2) / 1000
-  float sampled;    // max((t2 - t1) / 1000, 1e-9)
+  float dur_start;  // (t1 - ws) * 0.001
+  float dur_end;    // (we - t2) * 0.001
+  float sampled;    // max((t2 - t1) * 0.001, 1e-9)
   float threshold;  // avg_between * 1.1, avg_between = sampled / (n - 1)
   float half;       // avg_between / 2
   float span;       // max(we - ws, 1)
@@ -34,9 +34,11 @@ __device__ __forceinline__ void rate_spacing(RateWin& k, float n) {
 __device__ __forceinline__ RateWin rate_window(float t1, float t2, float n,
                                                float ws, float we) {
   RateWin k;
-  k.dur_start = (t1 - ws) / 1000.0f;
-  k.dur_end = (we - t2) / 1000.0f;
-  const float sampled = (t2 - t1) / 1000.0f;
+  // ms to s as a multiply by the f32 reciprocal, as the reference's
+  // compiled `/ 1000.0` is (the plain version, ops/fused._extrapolate)
+  k.dur_start = (t1 - ws) * 0.001f;
+  k.dur_end = (we - t2) * 0.001f;
+  const float sampled = (t2 - t1) * 0.001f;
   k.sampled = (sampled < 1e-9f) ? 1e-9f : sampled;  // max, NaN propagates
   rate_spacing(k, n);
   const float span = we - ws;

@@ -271,10 +271,10 @@ __device__ __forceinline__ float rate_cell(const float* s, const int4* tab,
       RateWin k = x.k;
       const bool moved1 = j1 != x.i1 - a;
       const bool moved2 = j2 != x.i2 - a;
-      if (moved1) k.dur_start = (ts[j1] - x.ws) / 1000.0f;
-      if (moved2) k.dur_end = (x.we - ts[j2]) / 1000.0f;
+      if (moved1) k.dur_start = (ts[j1] - x.ws) * 0.001f;
+      if (moved2) k.dur_end = (x.we - ts[j2]) * 0.001f;
       if (moved1 || moved2) {
-        const float sampled = (ts[j2] - ts[j1]) / 1000.0f;
+        const float sampled = (ts[j2] - ts[j1]) * 0.001f;
         k.sampled = (sampled < 1e-9f) ? 1e-9f : sampled;
       }
       if (moved1 || moved2 || nv != x.i2 - x.i1 + 1) {

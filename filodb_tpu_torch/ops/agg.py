@@ -1,13 +1,15 @@
 """Cross-series aggregation, the 3-phase map/reduce/present contract
-(port of filodb_tpu/ops/agg.py for the slice's aggregates).
+(port of filodb_tpu/ops/agg.py).
 
 Partial aggregates keep the reference's [G, W, C] component layout
-(AGGREGATORS) so partials from shards merge the same way.  The port
-carries sum, avg, count, min and max.  Everything here gives the same
-bits on every run: min/max are order-independent scatter reductions,
-presence flags and counts are small integers (exact in f64 in any
-order), and value sums run in a fixed CSR row order
-(ops/fused.segment_sum), never through float atomics.
+(AGGREGATORS) so partials from shards merge the same way; topk, bottomk
+and quantile keep their candidate rows instead (topk_mask,
+quantile_agg).  Everything here gives the same bits on every run:
+min/max/group are order-independent scatter reductions, presence flags
+and counts are small integers (exact in f64 in any order), value sums
+(sum, avg, stddev, stdvar) run in a fixed CSR row order
+(ops/fused.segment_sum), never through float atomics, and the rank
+aggregates sort stably.
 """
 from __future__ import annotations
 
@@ -32,6 +34,9 @@ AGGREGATORS: Dict[str, AggSpec] = {
     # legal sample values the result must preserve
     "min":    AggSpec(2, ("min", "max")),   # (min-or-+inf, present)
     "max":    AggSpec(2, ("max", "max")),   # (max-or--inf, present)
+    "stddev": AggSpec(3, "sum"),     # (sum, sumsq, count)
+    "stdvar": AggSpec(3, "sum"),
+    "group":  AggSpec(1, "max"),     # group() = 1 for any present series
 }
 
 IDENTITY = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
@@ -77,9 +82,9 @@ def map_phase(op: str, vals: torch.Tensor, gids: torch.Tensor,
               num_groups: int, csr=None) -> torch.Tensor:
     """vals [S, W] (NaN absent) -> partial components [G, W, C] f64.
 
-    gids [S] on vals' device.  sum/avg value sums need `csr` (the
-    grouping's ops/fused.GroupCSR, rows by group in ascending order) for
-    their fixed summation order; min/max and count do not."""
+    gids [S] on vals' device.  The value sums (sum, avg, stddev, stdvar)
+    need `csr` (the grouping's ops/fused.GroupCSR, rows by group in
+    ascending order) for their fixed summation order; the others do not."""
     present = ~torch.isnan(vals)
     if op in ("min", "max"):
         ident = torch.full((), IDENTITY[op], dtype=vals.dtype,
@@ -88,7 +93,10 @@ def map_phase(op: str, vals: torch.Tensor, gids: torch.Tensor,
                            num_groups, op)
         flag = _seg_extreme(present.to(vals.dtype), gids, num_groups, "max")
         return torch.stack([ext.double(), flag.double()], dim=-1)
-    if op not in ("sum", "avg", "count"):
+    if op == "group":
+        one = torch.where(present, 1.0, float("-inf")).double()
+        return _seg_extreme(one, gids, num_groups, "max")[..., None]
+    if op not in ("sum", "avg", "count", "stddev", "stdvar"):
         raise ValueError(f"unsupported aggregate {op}")
     cnt = _seg_count(present, gids, num_groups)
     if op == "count":
@@ -99,7 +107,10 @@ def map_phase(op: str, vals: torch.Tensor, gids: torch.Tensor,
     zeroed = torch.where(present, vals.double(),
                          torch.zeros((), dtype=torch.float64,
                                      device=vals.device))
-    return torch.stack([segment_sum(zeroed, csr, num_groups), cnt], dim=-1)
+    planes = [segment_sum(zeroed, csr, num_groups)]
+    if op in ("stddev", "stdvar"):
+        planes.append(segment_sum(zeroed * zeroed, csr, num_groups))
+    return torch.stack(planes + [cnt], dim=-1)
 
 
 def reduce_phase(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -139,4 +150,90 @@ def present(op: str, partial: torch.Tensor) -> torch.Tensor:
     if op == "avg":
         s, c = partial[..., 0], partial[..., 1]
         return torch.where(c > 0, s / torch.clamp(c, min=1.0), nan)
+    if op in ("stddev", "stdvar"):
+        s, s2, c = partial[..., 0], partial[..., 1], partial[..., 2]
+        cs = torch.clamp(c, min=1.0)
+        var = torch.clamp(s2 / cs - (s / cs) ** 2, min=0.0)
+        out = torch.sqrt(var) if op == "stddev" else var
+        return torch.where(c > 0, out, nan)
+    if op == "group":
+        v = partial[..., 0]
+        return torch.where(torch.isinf(v), nan, v)
     raise ValueError(f"unsupported aggregate {op}")
+
+
+def aggregate(op: str, vals: torch.Tensor, gids: torch.Tensor,
+              num_groups: int, csr=None) -> torch.Tensor:
+    """Single-shard shortcut: map + present -> [G, W] f64."""
+    return present(op, map_phase(op, vals, gids, num_groups, csr))
+
+
+# ----------------------------------------------------------- rank aggregates
+
+def _group_sorted(key: torch.Tensor, gids: torch.Tensor):
+    """Per column, the rows ordered by (group ascending, key ascending),
+    ties in row order (a stable lexsort) -> order [S, W] int64."""
+    by_key = torch.sort(key, dim=0, stable=True).indices
+    by_group = torch.sort(gids.long()[by_key], dim=0, stable=True).indices
+    return by_key.gather(0, by_group)
+
+
+def _group_starts(gids: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """[G] first position of each group in a group-sorted column."""
+    size = torch.bincount(gids.long(), minlength=num_groups)[:num_groups]
+    return torch.cumsum(size, 0) - size
+
+
+def topk_mask(vals: torch.Tensor, gids: torch.Tensor, num_groups: int,
+              k: int, largest: bool = True) -> torch.Tensor:
+    """Per-(group, step) top/bottom-k selection mask [S, W]: each value's
+    rank within its group per step by a stable sort on (group, value
+    descending for topk), as the reference's lexsort."""
+    S, W = vals.shape
+    if S == 0:
+        return torch.zeros((0, W), dtype=torch.bool, device=vals.device)
+    fill = float("-inf") if largest else float("inf")
+    key = torch.where(torch.isnan(vals), torch.full((), fill,
+                                                    dtype=vals.dtype,
+                                                    device=vals.device),
+                      vals)
+    order = _group_sorted(-key if largest else key, gids)
+    g_sorted = gids.long()[order]
+    pos = torch.arange(S, device=vals.device)[:, None]
+    rank_sorted = pos - _group_starts(gids, num_groups)[g_sorted]
+    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    return (rank < k) & ~torch.isnan(vals)
+
+
+def quantile_agg(vals: torch.Tensor, gids: torch.Tensor, num_groups: int,
+                 q: float) -> torch.Tensor:
+    """quantile(q, expr) by group -> [G, W], exact (sort-based): within
+    each group's sorted present values, linear interpolation between
+    ranks floor and ceil of q * (count - 1).  As the reference, `count`
+    leaves out ±Inf samples while the sort keeps them, so a group holding
+    one differs from Prometheus (ROADMAP Queue 3)."""
+    S, W = vals.shape
+    dev = vals.device
+    inf = torch.full((), float("inf"), dtype=vals.dtype, device=dev)
+    present = ~torch.isnan(vals)
+    key = torch.where(present, vals, inf)
+    order = _group_sorted(key, gids)
+    srt = key.gather(0, order)
+    n_present = torch.zeros((num_groups, W), dtype=torch.int64, device=dev)
+    n_present.index_add_(0, gids.long(), present.long())
+    cnt = torch.zeros((num_groups, W), dtype=torch.int64, device=dev)
+    cnt.index_add_(0, gids.long(), (~torch.isinf(key)).long())
+    rank = q * (cnt.to(vals.dtype) - 1.0)
+    lo = torch.clamp(torch.floor(rank).long(), 0, S - 1)
+    hi = torch.clamp(torch.ceil(rank).long(), 0, S - 1)
+    frac = rank - lo.to(vals.dtype)
+    start = _group_starts(gids, num_groups)[:, None]
+
+    def at(i):
+        # past the group's present values the reference reads its +inf
+        # padding, as in its per-group [S, W] sort
+        v = srt.gather(0, torch.clamp(start + i, max=max(S - 1, 0)))
+        return torch.where(i < n_present, v, inf)
+    vlo, vhi = at(lo), at(hi)
+    out = vlo + (vhi - vlo) * frac
+    return torch.where(cnt > 0, out, torch.full_like(out, float("nan")))

@@ -3,9 +3,13 @@
 The numpy host functions are kept as they are in the reference.  The
 torch functions do the same f64 correction and rebase on a tensor's own
 device: the DeviceMirror runs them on the card in row chunks, because the
-host version takes minutes at a million series x 720 samples.
+host version takes minutes at a million series x 720 samples.  drops,
+counter_correct and total_correction_and_last are the general path's
+query-time correction (ops/rangefns.py), in the values' own dtype.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -112,3 +116,50 @@ def rebase_rows_t(v: torch.Tensor, correct_counter: bool):
     corrected = counter_correct_t(v) if correct_counter else v
     vbase = series_value_base_t(corrected)
     return corrected - vbase[:, None], vbase, corrected
+
+
+def _prev_valid(vals: torch.Tensor) -> torch.Tensor:
+    """prev[s, t] = the most recent non-NaN value at an index < t (NaN if
+    none): NaN gaps inside a row do not hide a reset across the gap."""
+    S, T = vals.shape
+    valid = ~torch.isnan(vals)
+    pos = torch.arange(T, device=vals.device).expand(S, T)
+    last = torch.cummax(torch.where(valid, pos, torch.full_like(pos, -1)),
+                        dim=1).values
+    prev_idx = torch.cat([torch.full_like(last[:, :1], -1), last[:, :-1]],
+                         dim=1)
+    prev = vals.gather(1, prev_idx.clamp(min=0))
+    return torch.where(prev_idx >= 0, prev,
+                       torch.full_like(prev, float("nan")))
+
+
+def drops(vals: torch.Tensor, vbase=None) -> torch.Tensor:
+    """Per-sample reset correction: the FULL previous valid value where the
+    counter dropped, 0 at NaN samples.  vbase [S]: on rebased values the
+    true previous raw value is prev + vbase."""
+    valid = ~torch.isnan(vals)
+    prev = _prev_valid(vals)
+    amount = prev if vbase is None else prev + vbase[:, None]
+    zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+    return torch.where(valid & ~torch.isnan(prev) & (prev > vals), amount,
+                       zero)
+
+
+def counter_correct(vals: torch.Tensor, vbase=None) -> torch.Tensor:
+    """Reset-corrected values: vals + cumulative drop sum; monotone per row."""
+    correction = torch.cumsum(drops(vals, vbase), dim=1)
+    return torch.where(torch.isnan(vals), vals, vals + correction)
+
+
+def total_correction_and_last(vals: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-series (total correction, last raw value) for a carry across
+    blocks."""
+    S, T = vals.shape
+    valid = ~torch.isnan(vals)
+    total = torch.sum(drops(vals), dim=1)
+    pos = torch.arange(T, device=vals.device).expand(S, T)
+    last_idx = torch.where(valid, pos, torch.full_like(pos, -1)).amax(dim=1)
+    last = vals.gather(1, last_idx.clamp(min=0)[:, None])[:, 0]
+    return total, torch.where(last_idx >= 0, last,
+                              torch.full_like(last, float("nan")))

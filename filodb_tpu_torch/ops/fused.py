@@ -371,10 +371,14 @@ def _extrapolate(v1, v2, t1, t2, n, ws, we, vb, is_counter: bool,
     """Prometheus extrapolated rate/increase/delta in f32, in the
     reference kernel's operation order (ref: RateFunctions.scala:37-76)."""
     c = _consts(v1.device)
-    k1000 = c(1000.0)
-    dur_start = (t1 - ws) / k1000
-    dur_end = (we - t2) / k1000
-    sampled = torch.maximum((t2 - t1) / k1000, c(1e-9))
+    k1000, ms_to_s = c(1000.0), c(0.001)
+    # milliseconds to seconds as a multiply by the f32 reciprocal: the
+    # reference compiles its `/ 1000.0` to exactly that (XLA rewrites a
+    # division by a constant), so the extrapolation threshold's ties
+    # land on the same side
+    dur_start = (t1 - ws) * ms_to_s
+    dur_end = (we - t2) * ms_to_s
+    sampled = torch.maximum((t2 - t1) * ms_to_s, c(1e-9))
     avg_between = sampled / (n - c(1.0))
     delta = v2 - v1
     if is_counter:

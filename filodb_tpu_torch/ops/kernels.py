@@ -30,7 +30,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = {"fused_rate": CSRC / "fused_rate.cu",
            "fused_over_time": CSRC / "fused_over_time.cu",
-           "fused_drops": CSRC / "fused_drops.cu"}
+           "fused_drops": CSRC / "fused_drops.cu",
+           "probe_select": CSRC / "probe_select.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC"]
@@ -42,10 +43,13 @@ LAUNCHES: Dict[str, int] = {
                  "fused_over_time_ragged", "fused_rate_drops_dense",
                  "fused_rate_drops_ragged")
     for suffix in ("", "_series")}
+LAUNCHES.update({name: 0 for name in ("probe_gather", "probe_two_gathers",
+                                      "probe_onehot_matmul")})
 """Kernel launches per wrapper since process start (or the last reset).
 `<kernel>` is the group-sum mode (K1, K3, K4, K5, and K2 as
 `fused_rate_drops_*`), `<kernel>_series` the per-series mode (K6) of the
-same kernel."""
+same kernel; `probe_*` are the three strategies of the column-selection
+probe (K8, csrc/probe_select.cu)."""
 
 NO_FIT = -1
 """What a staged launcher (K2, K3) returns when a row's staged slots do
@@ -207,8 +211,19 @@ def _bind_drops(lib: ctypes.CDLL) -> None:
         f.restype = i
 
 
+def _bind_probe(lib: ctypes.CDLL) -> None:
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.probe_gather_launch.argtypes = [vp, ll, ll, vp, i, i, vp, vp]
+    lib.probe_gather_launch.restype = i
+    lib.probe_two_gathers_launch.argtypes = [vp, ll, ll, vp, vp, i, i, vp,
+                                             vp]
+    lib.probe_two_gathers_launch.restype = i
+    lib.probe_onehot_matmul_launch.argtypes = [vp, ll, i, vp, i, vp, vp]
+    lib.probe_onehot_matmul_launch.restype = i
+
+
 _BINDERS = {"fused_rate": _bind, "fused_over_time": _bind_over_time,
-            "fused_drops": _bind_drops}
+            "fused_drops": _bind_drops, "probe_select": _bind_probe}
 
 
 def library(name: str = "fused_rate") -> ctypes.CDLL:
@@ -468,3 +483,73 @@ def fused_per_series_cuda(vals_p, vbase_p, rows, num_rows: int, kind: str,
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out, pres
+
+
+def _check_probe(x, idx, what):
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel given a tensor on {dev}")
+    if x.dim() != 2:
+        raise ValueError("x must be [rows, K]")
+    _check(x, "x", torch.float32, dev)
+    for i, t in enumerate(idx):
+        _check(t, f"{what} index {i + 1}", torch.int32, dev)
+    return dev
+
+
+def _check_selection(x, idx, W: int, WP: int):
+    if not 0 <= W <= WP:
+        raise ValueError(f"W={W} outside [0, WP={WP}]")
+    for t in idx:
+        if t.numel() < W:
+            raise ValueError(f"an index row of {t.numel()} for W={W}")
+
+
+def probe_gather_cuda(x, idx1, W: int, WP: int) -> torch.Tensor:
+    """Launch K8's gather: y [rows, WP] f32, y[:, w] = x[:, idx1[w]] for
+    w < W, 0 beyond (csrc/probe_select.cu)."""
+    dev = _check_probe(x, (idx1,), "probe_gather")
+    _check_selection(x, (idx1,), W, WP)
+    y = torch.empty((x.shape[0], WP), dtype=torch.float32, device=dev)
+    err = library("probe_select").probe_gather_launch(
+        _ptr(x), x.shape[0], x.shape[1], _ptr(idx1), W, WP, _ptr(y),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_gather")
+    LAUNCHES["probe_gather"] += 1
+    return y
+
+
+def probe_two_gathers_cuda(x, idx1, idx2, W: int, WP: int) -> torch.Tensor:
+    """Launch K8's difference of two gathers: y[:, w] = x[:, idx2[w]] -
+    x[:, idx1[w]] for w < W, 0 beyond."""
+    dev = _check_probe(x, (idx1, idx2), "probe_two_gathers")
+    _check_selection(x, (idx1, idx2), W, WP)
+    y = torch.empty((x.shape[0], WP), dtype=torch.float32, device=dev)
+    err = library("probe_select").probe_two_gathers_launch(
+        _ptr(x), x.shape[0], x.shape[1], _ptr(idx1), _ptr(idx2), W, WP,
+        _ptr(y), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_two_gathers")
+    LAUNCHES["probe_two_gathers"] += 1
+    return y
+
+
+def probe_onehot_matmul_cuda(x, onehot) -> torch.Tensor:
+    """Launch K8's product: y = x @ onehot in FP32 on the CUDA cores (no
+    TF32); K and N multiples of 4, 16-byte aligned bases."""
+    dev = _check_probe(x, (), "probe_onehot_matmul")
+    rows, K = x.shape
+    _check(onehot, "onehot", torch.float32, dev)
+    if onehot.dim() != 2 or onehot.shape[0] != K:
+        raise ValueError(f"onehot must be [{K}, N], got "
+                         f"{tuple(onehot.shape)}")
+    N = onehot.shape[1]
+    if K % 4 or N % 4 or x.data_ptr() % 16 or onehot.data_ptr() % 16:
+        raise ValueError("probe_onehot_matmul needs K and N multiples of 4 "
+                         "and 16-byte aligned operands")
+    y = torch.empty((rows, N), dtype=torch.float32, device=dev)
+    err = library("probe_select").probe_onehot_matmul_launch(
+        _ptr(x), rows, K, _ptr(onehot), N, _ptr(y),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "probe_onehot_matmul")
+    LAUNCHES["probe_onehot_matmul"] += 1
+    return y

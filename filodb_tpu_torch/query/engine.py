@@ -22,7 +22,7 @@ from filodb_tpu_torch.query import logical as lp
 from filodb_tpu_torch.query.execbase import QueryError
 from filodb_tpu_torch.query.planner import SingleClusterPlanner
 from filodb_tpu_torch.query.rangevector import (PlannerParams, QueryContext,
-                                                QueryResult)
+                                                QueryResult, host_values)
 from filodb_tpu_torch.utils.device import resolve_device
 
 
@@ -47,7 +47,8 @@ class QueryEngine:
     def _ctx(self, planner_params: Optional[PlannerParams]) -> QueryContext:
         return QueryContext(query_id=str(uuid.uuid4()),
                             submit_time_ms=int(_time.time() * 1000),
-                            planner_params=planner_params or PlannerParams())
+                            planner_params=planner_params or PlannerParams(),
+                            device=self.device)
 
     def query_range(self, promql: str, start_s: int, step_s: int, end_s: int,
                     planner_params: Optional[PlannerParams] = None
@@ -90,7 +91,7 @@ class QueryEngine:
                     "error": result.error}
         out = []
         for b in result.blocks:
-            vals = np.asarray(b.values)
+            vals = host_values(b.values)
             if vals.ndim != 2:
                 continue
             secs = (np.asarray(b.wends, np.int64) / 1000.0).tolist()

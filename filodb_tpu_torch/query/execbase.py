@@ -1,7 +1,8 @@
-"""Exec-tree foundations (port of filodb_tpu/query/execbase.py for the
-query slice): data shapes, the fused-leaf caches, the 3-phase
-aggregation finishers, and the ExecPlan base classes without the
-analyze, telemetry, deadline and cancellation hooks.
+"""Exec-tree foundations (port of filodb_tpu/query/execbase.py): data
+shapes, the fused-leaf caches, the 3-phase aggregation finishers (the
+component form and the candidate form of topk, bottomk, quantile and
+count_values), and the ExecPlan base classes without the analyze,
+telemetry, deadline and cancellation hooks.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch
 from filodb_tpu_torch.ops import agg as agg_ops
 from filodb_tpu_torch.query.rangevector import (QueryContext, QueryResult,
                                                 QueryStats, RangeVectorKey,
-                                                ResultBlock,
+                                                ResultBlock, cat_values,
+                                                host_values,
                                                 remove_nan_series)
 
 # --------------------------------------------------------------- data shapes
@@ -159,12 +161,24 @@ def _vals_cache_insert(key, v) -> None:
 
 
 @dataclasses.dataclass
+class ScalarResult:
+    """One value per step (scalar plans)."""
+    wends: np.ndarray                   # int64 [W]
+    values: np.ndarray                  # float [W]
+
+
+@dataclasses.dataclass
 class AggPartial:
-    """Partial aggregate in the [G, W, C] component form."""
+    """Partial aggregate: the [G, W, C] component form, or the candidate
+    rows (topk, bottomk, quantile, count_values)."""
     op: str
     group_keys: List[RangeVectorKey]
     wends: np.ndarray
     comp: Optional[np.ndarray] = None   # [G, W, C] float64
+    cand_keys: Optional[List[RangeVectorKey]] = None
+    cand_vals: Optional[torch.Tensor] = None    # [N, W]
+    cand_groups: Optional[np.ndarray] = None    # int [N] -> group_keys index
+    params: Tuple = ()
     # working-set identity of the aggregated keys ("agg", op, by,
     # without, source token); value-level identity is not implied
     cache_token: Optional[Tuple] = None
@@ -178,7 +192,7 @@ def agg_token(op: str, by, without,
     return ("agg", op, tuple(by), tuple(without), data_token)
 
 
-Data = Union[RawBlock, ResultBlock, AggPartial, None]
+Data = Union[RawBlock, ResultBlock, ScalarResult, AggPartial, None]
 
 
 def _block_empty(wends: np.ndarray) -> ResultBlock:
@@ -187,11 +201,47 @@ def _block_empty(wends: np.ndarray) -> ResultBlock:
 
 def present_partial(p: AggPartial) -> Optional[ResultBlock]:
     """Finish an AggPartial into a ResultBlock."""
-    if p.comp is None:
-        raise not_ported(f"candidate-form aggregate {p.op}")
-    out = agg_ops.present(p.op, torch.from_numpy(
-        np.asarray(p.comp, np.float64))).numpy()
-    return ResultBlock(p.group_keys, p.wends, out, cache_token=p.cache_token)
+    if p.comp is not None:
+        out = agg_ops.present(p.op, torch.from_numpy(
+            np.asarray(p.comp, np.float64))).numpy()
+        return ResultBlock(p.group_keys, p.wends, out,
+                           cache_token=p.cache_token)
+    vals = p.cand_vals
+    gids = torch.from_numpy(np.asarray(p.cand_groups, np.int64)).to(
+        vals.device)
+    if p.op in ("topk", "bottomk"):
+        mask = agg_ops.topk_mask(vals, gids, len(p.group_keys),
+                                 int(p.params[0]), largest=p.op == "topk")
+        out = torch.where(mask, vals, torch.full_like(vals, float("nan")))
+        return remove_nan_series(ResultBlock(p.cand_keys, p.wends, out))
+    if p.op == "quantile":
+        out = agg_ops.quantile_agg(vals, gids, len(p.group_keys),
+                                   float(p.params[0]))
+        return ResultBlock(p.group_keys, p.wends, out)
+    if p.op == "count_values":
+        return _count_values(p, host_values(vals))
+    raise ValueError(p.op)
+
+
+def _count_values(p: AggPartial, vals: np.ndarray) -> Optional[ResultBlock]:
+    """count_values(label, expr): one series per (group, distinct value)
+    counting the series with that value at each step (host math, as the
+    reference)."""
+    label = str(p.params[0])
+    out_keys: List[RangeVectorKey] = []
+    out_rows: List[np.ndarray] = []
+    for g in range(len(p.group_keys)):
+        rows = vals[p.cand_groups == g]
+        for v in np.unique(rows[~np.isnan(rows)]):
+            cnt = np.nansum(rows == v, axis=0).astype(float)
+            cnt[cnt == 0] = np.nan
+            lbls = dict(p.group_keys[g].labels)
+            lbls[label] = f"{v:g}"
+            out_keys.append(RangeVectorKey.make(lbls))
+            out_rows.append(cnt)
+    if not out_keys:
+        return None
+    return ResultBlock(out_keys, p.wends, np.stack(out_rows))
 
 
 def _reduced_token(parts: List[AggPartial]) -> Optional[Tuple]:
@@ -208,8 +258,6 @@ def reduce_partials(parts: List[AggPartial]) -> Optional[AggPartial]:
     if not parts:
         return None
     op = parts[0].op
-    if parts[0].comp is None:
-        raise not_ported(f"candidate-form aggregate {op}")
     gmap: Dict[RangeVectorKey, int] = {}
     gkeys: List[RangeVectorKey] = []
     for p in parts:
@@ -217,6 +265,18 @@ def reduce_partials(parts: List[AggPartial]) -> Optional[AggPartial]:
             if k not in gmap:
                 gmap[k] = len(gkeys)
                 gkeys.append(k)
+    if parts[0].comp is None:
+        # candidate form: concatenate the rows, group ids remapped
+        ck: List[RangeVectorKey] = []
+        cg: List[np.ndarray] = []
+        for p in parts:
+            idx = np.asarray([gmap[k] for k in p.group_keys], np.int64)
+            ck.extend(p.cand_keys)
+            cg.append(idx[p.cand_groups])
+        return AggPartial(op, gkeys, parts[0].wends, cand_keys=ck,
+                          cand_vals=cat_values([p.cand_vals for p in parts]),
+                          cand_groups=np.concatenate(cg),
+                          params=parts[0].params)
     W, C = parts[0].comp.shape[1:]
     # each component starts from its combiner's identity (+inf for min,
     # -inf for max): starting a max from 0 would beat negative values
@@ -272,7 +332,13 @@ class ExecPlan:
             raise not_ported("raw range-vector results")
         if isinstance(data, AggPartial):
             data = present_partial(data)
+        if isinstance(data, ScalarResult):
+            data = ResultBlock([RangeVectorKey(())], data.wends,
+                               data.values[None, :])
         data = remove_nan_series(data)
+        if data is not None and isinstance(data.values, torch.Tensor):
+            # the result leaves the device here, for the Prometheus JSON
+            data = dataclasses.replace(data, values=host_values(data.values))
         blocks = [data] if data is not None else []
         limit = self.ctx.planner_params.sample_limit
         result_samples = sum(int(np.asarray(b.values).size) for b in blocks)

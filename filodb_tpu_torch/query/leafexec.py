@@ -1,6 +1,7 @@
 """The shard-local leaf: index lookup, device-mirror gather and the fused
 peephole (port of filodb_tpu/query/leafexec.py, the mirror branch and
-scalar columns only).
+scalar columns only), and the scalar leaves (time(), literals and
+scalar arithmetic).
 
 A range function followed by an aggregate over one shared scrape grid
 is answered in one of four ways, as in the reference (:174-214):
@@ -11,11 +12,12 @@ is answered in one of four ways, as in the reference (:174-214):
 - min/max_over_time run as windowed torch reductions (ops/minmax.py);
 - everything else is one fused kernel launch (ops/fused.py).
 
-Not carried over, on purpose: the reference's broad `except` that
-degrades a failed fused evaluation to the general path, the
-interpret-unless-TPU gate, the host router, demand paging and the cold
-tier.  A leaf the fused path cannot take raises not_ported instead of
-answering some other way.
+Every other leaf — the cases where the reference's _try_fused returns
+None — runs its transformers' general path on the mirror's device
+(query/transformers.py).  Not carried over, on purpose: the reference's
+broad `except` that degrades a failed fused evaluation to the general
+path, the interpret-unless-TPU gate, the host router, demand paging and
+the cold tier.
 """
 from __future__ import annotations
 
@@ -27,9 +29,11 @@ import torch
 
 from filodb_tpu_torch.core.index import ColumnFilter
 from filodb_tpu_torch.ops import fused, minmax
+from filodb_tpu_torch.ops.instant import INSTANT_FUNCTIONS, apply_binary_op
 from filodb_tpu_torch.ops.timewindow import PAD_TS, make_window_ends
 from filodb_tpu_torch.query.execbase import (
     AggPartial, GroupCardinalityError, LazyKeys, LeafExecPlan, RawBlock,
+    ScalarResult,
     _FUSED_CACHE_LOCK, _FUSED_MINMAX_PAD_CACHE, _FUSED_PLAN_CACHE,
     _FUSED_VALS_CACHE, _group_cache_insert, _group_cache_lookup, _lru_touch,
     _vals_cache_insert, agg_token, not_ported)
@@ -44,22 +48,6 @@ from filodb_tpu_torch.utils.counters import counters
 # is_counter flag): on a counter column they read the reset-corrected
 # values the mirror holds; any other function needs the raw ones
 COUNTER_FNS = ("rate", "increase", "irate")
-
-
-def _fusion_gap(t0, t1, shared: bool, dense: bool) -> Optional[str]:
-    """What the ported fused path lacks for this leaf, or None.  t0 is
-    the range-function transformer after the instant-selector rewrite."""
-    fn = t0.function or ""
-    if not t0.function_args and not t1.params \
-            and fused.can_fuse(fn, t1.op, shared, dense):
-        return None
-    if fn not in fused.FUSABLE_FNS:
-        return f"range function {fn} (the general path, ops/rangefns.py)"
-    if t1.op not in fused.FUSABLE_AGGS:
-        return f"aggregate {t1.op} (the general path, ops/agg.py)"
-    if not shared:
-        return "series without one shared scrape grid (general path)"
-    return "range function or aggregate parameters (general path)"
 
 
 class MultiSchemaPartitionsExec(LeafExecPlan):
@@ -94,11 +82,11 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         """Peephole: PeriodicSamplesMapper (a fusable range function, or
         an instant selector) followed by AggregateMapReduce (sum, avg,
         count, min or max) over a shared-grid working set collapses into
-        one fused evaluation.  Returns the AggPartial, None when there is
-        nothing to fuse (no data, or not that transformer pair), and
-        raises not_ported for a leaf of that pair the port cannot take."""
+        one fused evaluation.  Returns the AggPartial, or None where the
+        reference's peephole returns None too: then the transformers run
+        the general path."""
         if len(self.transformers) < 2 or not isinstance(data, RawBlock) \
-                or not data.keys:
+                or not data.keys or data.shared_ts_row is None:
             return None
         t0, t1 = self.transformers[:2]
         if not isinstance(t0, PeriodicSamplesMapper) \
@@ -108,15 +96,18 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             # instant-vector selector (`sum by (x) (metric)`): lookback
             # sampling IS last_over_time over the stale-lookback window
             if t0.function is not None:
-                raise not_ported(f"instant function {t0.function} "
-                                 f"(the general path)")
+                return None
             t0 = dataclasses.replace(t0, window_ms=t0.lookback_ms,
                                      function="last_over_time")
         fn = t0.function or ""
         dense = data.dense
-        gap = _fusion_gap(t0, t1, data.shared_ts_row is not None, dense)
-        if gap is not None:
-            raise not_ported(gap)
+        if t0.function_args or t1.params \
+                or not fused.can_fuse(fn, t1.op, True, dense):
+            return None
+        wends = make_window_ends(t0.start_ms, t0.end_ms, t0.step_ms)
+        eval_wends = wends - t0.offset_ms - data.base_ms
+        if eval_wends.size == 0 or abs(eval_wends).max() >= (1 << 30):
+            return None
         # host-only answers: under the dense shared grid every series has
         # the same samples per window, so count_over_time and the count
         # aggregate never need the values
@@ -124,19 +115,12 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             return self._fused_count_over_time(data, t0, t1)
         if dense and t1.op == "count":
             return self._fused_count_agg(data, t0, t1)
-        wends = make_window_ends(t0.start_ms, t0.end_ms, t0.step_ms)
-        eval_wends = wends - t0.offset_ms - data.base_ms
-        if eval_wends.size == 0 or abs(eval_wends).max() >= (1 << 30):
-            raise not_ported("query windows beyond the int32 offset range "
-                             "of one mirror upload")
         if fn in fused.MINMAX_FNS:
             return self._fused_minmax(data, t0, t1, wends, eval_wends)
         if fn in ("rate", "increase") and not data.precorrected:
             # the reference leaf sends these to its general path too
             # (filodb_tpu/query/leafexec.py:220), never to in-kernel drops
-            raise not_ported("rate over values the mirror did not "
-                             "reset-correct (the general path, "
-                             "ops/rangefns.py)")
+            return None
         # plan + padded-values + group caches: a repeat query over an
         # unchanged snapshot skips the plan build, the padded device copy
         # and the per-series grouping
@@ -247,20 +231,16 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         """min/max_over_time + any aggregate as windowed torch reductions
         on the mirror's device (ops/minmax.py).  Needs windows that are a
         uniform stride of the grid reaching at most one grid length past
-        its right edge; anything else is the general path."""
+        its right edge; anything else is the general path (None)."""
         ts_row0 = np.asarray(data.shared_ts_row)
         real = ts_row0[ts_row0 < PAD_TS]
         geom = minmax.uniform_window_geometry(real.astype(np.int64),
                                               eval_wends, t0.window_ms)
         if geom is None:
-            raise not_ported(f"{t0.function} over windows that are not a "
-                             f"uniform stride of the scrape grid (the "
-                             f"general path)")
+            return None
         f0, stride, width, t_needed = geom
         if t_needed > 2 * real.size:
-            raise not_ported(f"{t0.function} over windows reaching more "
-                             f"than one grid length past the data (the "
-                             f"general path)")
+            return None
         key = self._fused_cache_key
         groups, gkeys = _group_cache_lookup(key, t1.by, t1.without)
         vals = data.values
@@ -386,3 +366,66 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                         shared_ts_row=shared_ts_row, dense=dense,
                         cache_token=(shard.keys_serial, shard.keys_epoch,
                                      pids.tobytes())), stats
+
+
+# ------------------------------------------------------------- scalar execs
+
+class TimeScalarGeneratorExec(LeafExecPlan):
+    """time(), hour(), ... of the step timestamps."""
+
+    def __init__(self, ctx, start_ms, step_ms, end_ms, function="time"):
+        super().__init__(ctx)
+        self.start_ms, self.step_ms, self.end_ms = start_ms, step_ms, end_ms
+        self.function = function
+
+    def _do_execute(self, source):
+        wends = make_window_ends(self.start_ms, self.end_ms, self.step_ms)
+        secs = wends / 1000.0
+        if self.function == "time":
+            vals = secs
+        else:
+            # the date functions read their values as epoch seconds
+            vals = INSTANT_FUNCTIONS[self.function](
+                torch.from_numpy(secs).to(self.ctx.device)).cpu().numpy()
+        return ScalarResult(wends, np.asarray(vals, dtype=float)), \
+            QueryStats()
+
+
+class ScalarFixedDoubleExec(LeafExecPlan):
+    """A literal scalar."""
+
+    def __init__(self, ctx, start_ms, step_ms, end_ms, value: float):
+        super().__init__(ctx)
+        self.start_ms, self.step_ms, self.end_ms = start_ms, step_ms, end_ms
+        self.value = value
+
+    def _do_execute(self, source):
+        wends = make_window_ends(self.start_ms, self.end_ms, self.step_ms)
+        return ScalarResult(wends, np.full(len(wends), self.value)), \
+            QueryStats()
+
+
+class ScalarBinaryOperationExec(LeafExecPlan):
+    """scalar op scalar; a comparison always acts as `bool` (PromQL)."""
+
+    def __init__(self, ctx, start_ms, step_ms, end_ms, operator, lhs, rhs):
+        super().__init__(ctx)
+        self.start_ms, self.step_ms, self.end_ms = start_ms, step_ms, end_ms
+        self.operator = operator
+        self.lhs = lhs          # float or ScalarBinaryOperationExec
+        self.rhs = rhs
+
+    def _eval(self, x, source):
+        if isinstance(x, ScalarBinaryOperationExec):
+            return x._do_execute(source)[0].values
+        return float(x)
+
+    def _do_execute(self, source):
+        wends = make_window_ends(self.start_ms, self.end_ms, self.step_ms)
+
+        def side(x):
+            a = np.broadcast_to(self._eval(x, source), wends.shape)
+            return torch.from_numpy(a.astype(float)).to(self.ctx.device)
+        out = apply_binary_op(side(self.lhs), side(self.rhs),
+                              op=self.operator, bool_modifier=True)
+        return ScalarResult(wends, out.cpu().numpy()), QueryStats()

@@ -1,15 +1,24 @@
-"""Non-leaf exec plans the single-cluster planner builds for the slice
-(port of filodb_tpu/query/nonleaf.py: DistConcatExec and
-ReduceAggregateExec).
+"""Non-leaf exec plans (port of filodb_tpu/query/nonleaf.py):
+DistConcatExec, ReduceAggregateExec, BinaryJoinExec and
+SetOperatorExec.  Label matching runs on the host, as in the reference;
+the values stay on their device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Sequence, Tuple
 
-from filodb_tpu_torch.query.execbase import (AggPartial, NonLeafExecPlan,
-                                             RawBlock, not_ported,
-                                             reduce_partials)
-from filodb_tpu_torch.query.rangevector import ResultBlock, concat_blocks
+import numpy as np
+import torch
+
+from filodb_tpu_torch.ops.select import gather_binop
+from filodb_tpu_torch.query.execbase import (AggPartial, ExecPlan,
+                                             NonLeafExecPlan, RawBlock,
+                                             not_ported, reduce_partials)
+from filodb_tpu_torch.query.rangevector import (RangeVectorKey, ResultBlock,
+                                                cat_values, concat_blocks,
+                                                device_values,
+                                                remove_nan_series)
+from filodb_tpu_torch.query.transformers import _group_ids
 
 
 class DistConcatExec(NonLeafExecPlan):
@@ -38,3 +47,208 @@ class ReduceAggregateExec(NonLeafExecPlan):
     def compose(self, results, stats):
         return reduce_partials([r for r in results
                                 if isinstance(r, AggPartial)])
+
+
+def _join_index_maps(join, many_side: ResultBlock, one_side: ResultBlock):
+    """Label matching on the host -> (mi, oi, keys): many-side and
+    one-side row of each output pair and its result labels.  Raises the
+    reference's errors (a duplicate on the one side, a one-to-one join
+    with many matches, the join cardinality limit)."""
+    card_limit = join.ctx.planner_params.join_cardinality_limit
+    one_index = {}
+    for i, k in enumerate(one_side.keys):
+        mk = join._match_key(k)
+        if mk in one_index:
+            raise ValueError(
+                "many-to-many matching not allowed: duplicate series on "
+                f"'one' side for key {mk}")
+        one_index[mk] = i
+    pairs: List[Tuple[int, int]] = []
+    for i, k in enumerate(many_side.keys):
+        j = one_index.get(join._match_key(k))
+        if j is not None:
+            pairs.append((i, j))
+            if len(pairs) > card_limit:
+                raise ValueError(
+                    f"join cardinality limit {card_limit} exceeded")
+    if join.cardinality == "OneToOne":
+        seen = set()
+        for _, j in pairs:
+            if j in seen:
+                raise ValueError(
+                    "one-to-one join has many-to-one matches; "
+                    "use group_left/group_right")
+            seen.add(j)
+    mi = np.asarray([p[0] for p in pairs], dtype=np.int64)
+    oi = np.asarray([p[1] for p in pairs], dtype=np.int64)
+    keys = [join._result_labels(many_side.keys[i], one_side.keys[j])
+            for i, j in pairs]
+    return mi, oi, keys
+
+
+class BinaryJoinExec(NonLeafExecPlan):
+    """Vector-vector join, one-to-one or group_left/group_right: lhs
+    children first, then rhs children, split at n_lhs."""
+
+    def __init__(self, ctx, lhs: Sequence[ExecPlan], rhs: Sequence[ExecPlan],
+                 operator: str, cardinality: str = "OneToOne",
+                 on: Optional[Tuple[str, ...]] = None,
+                 ignoring: Tuple[str, ...] = (),
+                 include: Tuple[str, ...] = (),
+                 bool_modifier: bool = False):
+        super().__init__(ctx, list(lhs) + list(rhs))
+        self.n_lhs = len(lhs)
+        self.operator = operator
+        self.cardinality = cardinality
+        self.on = tuple(on) if on is not None else None
+        self.ignoring = tuple(ignoring)
+        self.include = tuple(include)
+        self.bool_modifier = bool_modifier
+
+    def _match_key(self, k: RangeVectorKey) -> RangeVectorKey:
+        if self.on is not None:
+            return k.only(self.on)
+        return k.without(self.ignoring + ("_metric_", "__name__"))
+
+    def compose(self, results, stats):
+        lhs = _side(results[:self.n_lhs])
+        rhs = _side(results[self.n_lhs:])
+        if lhs is None or rhs is None:
+            return None
+        many_side, one_side = lhs, rhs
+        flip = self.cardinality == "OneToMany"
+        if flip:
+            many_side, one_side = rhs, lhs
+        mi, oi, keys = _join_index_maps(self, many_side, one_side)
+        if not len(mi):
+            return None
+        mv = device_values(many_side.values, self.ctx)
+        ov = device_values(one_side.values, self.ctx)
+        mi_t = torch.from_numpy(mi).to(mv.device)
+        oi_t = torch.from_numpy(oi).to(ov.device)
+        # a = the query's LHS values
+        a, b, ai, bi = (ov, mv, oi_t, mi_t) if flip else (mv, ov, mi_t, oi_t)
+        out = gather_binop(a, b, ai, bi, op=self.operator,
+                           bool_modifier=self.bool_modifier,
+                           keep_side="lhs")
+        return ResultBlock(keys, many_side.wends, out)
+
+    def _result_labels(self, many_key: RangeVectorKey,
+                       one_key: RangeVectorKey) -> RangeVectorKey:
+        if self.cardinality in ("ManyToOne", "OneToMany"):
+            lbls = many_key.without(("_metric_", "__name__")).labels_dict
+            if self.include:
+                od = one_key.labels_dict
+                for lbl in self.include:
+                    if lbl in od:
+                        lbls[lbl] = od[lbl]
+                    else:
+                        lbls.pop(lbl, None)
+            return RangeVectorKey.make(lbls)
+        if self.on is not None:
+            return many_key.only(self.on)
+        return many_key.without(self.ignoring + ("_metric_", "__name__"))
+
+
+def _side(results) -> Optional[ResultBlock]:
+    """One side of a join or set operation: its children's blocks
+    concatenated (a raw range vector cannot be an operand)."""
+    if any(isinstance(r, RawBlock) for r in results):
+        raise not_ported("a raw range vector as a binary operand")
+    return concat_blocks([r for r in results if isinstance(r, ResultBlock)])
+
+
+class SetOperatorExec(NonLeafExecPlan):
+    """and / or / unless, step by step, on the values' device."""
+
+    def __init__(self, ctx, lhs: Sequence[ExecPlan], rhs: Sequence[ExecPlan],
+                 operator: str, on: Optional[Tuple[str, ...]] = None,
+                 ignoring: Tuple[str, ...] = ()):
+        super().__init__(ctx, list(lhs) + list(rhs))
+        self.n_lhs = len(lhs)
+        self.operator = operator.lower()
+        self.on = tuple(on) if on is not None else None
+        self.ignoring = tuple(ignoring)
+
+    def _match_key(self, k: RangeVectorKey) -> RangeVectorKey:
+        if self.on is not None:
+            return k.only(self.on)
+        return k.without(self.ignoring + ("_metric_", "__name__"))
+
+    def _presence_by_key(self, block: ResultBlock, vals: torch.Tensor):
+        """({match key: g}, present [G, W] bool on the device): some series
+        with match key g has a sample at the step."""
+        S = len(block.keys)
+        if self.on is not None and not self.on:
+            # on(): every series shares the empty match key
+            gids = np.zeros(S, dtype=np.int64)
+            gkeys = [RangeVectorKey(())]
+        elif self.on is not None:
+            gids, gkeys = _group_ids(block.keys, tuple(self.on), ())
+        else:
+            # ignoring=() still strips only _metric_/__name__: pad with a
+            # name no label can carry so _group_ids takes `without`
+            gids, gkeys = _group_ids(block.keys, (),
+                                     tuple(self.ignoring) or ("\x00",))
+        cnt = torch.zeros((len(gkeys), vals.shape[1]), dtype=torch.int64,
+                          device=vals.device)
+        cnt.index_add_(0, torch.from_numpy(np.asarray(gids, np.int64)).to(
+            vals.device), (~torch.isnan(vals)).long())
+        return {gk: g for g, gk in enumerate(gkeys)}, cnt > 0
+
+    def _masks(self, block: ResultBlock, other: ResultBlock,
+               other_vals: torch.Tensor):
+        """For each row of `block`: its match key's group in `other` (-1
+        when none) and the [rows, W] presence of that group (False where
+        none)."""
+        gmap, present = self._presence_by_key(other, other_vals)
+        g = torch.tensor([gmap.get(self._match_key(k), -1)
+                          for k in block.keys], dtype=torch.int64,
+                         device=present.device)
+        mask = present[g.clamp(min=0)] & (g >= 0)[:, None]
+        return g, mask
+
+    def compose(self, results, stats):
+        lhs = _side(results[:self.n_lhs])
+        rhs = _side(results[self.n_lhs:])
+        op = self.operator
+        if op == "and":
+            if lhs is None or rhs is None:
+                return None
+            lvals = device_values(lhs.values, self.ctx)
+            g, mask = self._masks(lhs, rhs, device_values(rhs.values,
+                                                          self.ctx))
+            rows = torch.nonzero(g >= 0)[:, 0]
+            if not rows.numel():
+                return None
+            out = torch.where(mask[rows].to(lvals.device), lvals[rows],
+                              _nan_like(lvals[rows]))
+            return ResultBlock([lhs.keys[i] for i in rows.tolist()],
+                               lhs.wends, out)
+        if op == "or":
+            if lhs is None:
+                return rhs
+            if rhs is None:
+                return lhs
+            lvals = device_values(lhs.values, self.ctx)
+            rvals = device_values(rhs.values, self.ctx)
+            _, mask = self._masks(rhs, lhs, lvals)
+            rows = torch.where(mask.to(rvals.device), _nan_like(rvals), rvals)
+            return ResultBlock(list(lhs.keys) + list(rhs.keys), lhs.wends,
+                               cat_values([lvals, rows]))
+        if op == "unless":
+            if lhs is None:
+                return None
+            if rhs is None:
+                return lhs
+            lvals = device_values(lhs.values, self.ctx)
+            _, mask = self._masks(lhs, rhs, device_values(rhs.values,
+                                                          self.ctx))
+            out = torch.where(mask.to(lvals.device), _nan_like(lvals), lvals)
+            return remove_nan_series(ResultBlock(list(lhs.keys), lhs.wends,
+                                                 out))
+        raise ValueError(op)
+
+
+def _nan_like(x: torch.Tensor) -> torch.Tensor:
+    return torch.full_like(x, float("nan"))

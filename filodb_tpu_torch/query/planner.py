@@ -1,11 +1,13 @@
 """SingleClusterPlanner — materializes a LogicalPlan into an ExecPlan
-(port of filodb_tpu/query/planner.py for the slice).
+(port of filodb_tpu/query/planner.py).
 
-One dataset over N shards: a raw series selector, a periodic range
-function over it, and an aggregate on top — one leaf
-MultiSchemaPartitionsExec per shard with the transformers pushed down,
-composed by ReduceAggregateExec (+ AggregatePresenter) or a concat.
-Any other plan node raises not_ported.
+One dataset over N shards: selectors, range functions and aggregates
+become one leaf MultiSchemaPartitionsExec per shard with the
+transformers pushed down, composed by ReduceAggregateExec (+
+AggregatePresenter) or a concat; binary joins, set operators, scalar
+operations, instant functions and the scalar plans they need compose
+those.  Any other plan node (subqueries, `@`, sort, limit, absent, the
+label functions, scalar(), vector(), metadata) raises not_ported.
 """
 from __future__ import annotations
 
@@ -16,13 +18,23 @@ from filodb_tpu_torch.core.partkey import PartKey, strip_metric_suffix
 from filodb_tpu_torch.core.schemas import PartitionSchema
 from filodb_tpu_torch.parallel.shardmapper import ShardMapper, SpreadProvider
 from filodb_tpu_torch.query import logical as lp
-from filodb_tpu_torch.query.execbase import ExecPlan, not_ported
-from filodb_tpu_torch.query.leafexec import MultiSchemaPartitionsExec
-from filodb_tpu_torch.query.nonleaf import DistConcatExec, ReduceAggregateExec
+from filodb_tpu_torch.query.execbase import (ExecPlan, ScalarResult,
+                                             not_ported)
+from filodb_tpu_torch.query.leafexec import (MultiSchemaPartitionsExec,
+                                             ScalarBinaryOperationExec,
+                                             ScalarFixedDoubleExec,
+                                             TimeScalarGeneratorExec)
+from filodb_tpu_torch.query.nonleaf import (BinaryJoinExec, DistConcatExec,
+                                            ReduceAggregateExec,
+                                            SetOperatorExec)
 from filodb_tpu_torch.query.rangevector import QueryContext
 from filodb_tpu_torch.query.transformers import (AggregateMapReduce,
                                                  AggregatePresenter,
-                                                 PeriodicSamplesMapper)
+                                                 InstantVectorFunctionMapper,
+                                                 PeriodicSamplesMapper,
+                                                 ScalarOperationMapper)
+
+SET_OPERATORS = ("and", "or", "unless")
 
 
 class SingleClusterPlanner:
@@ -130,5 +142,87 @@ class SingleClusterPlanner:
         reducer = ReduceAggregateExec(ctx, children, p.operator,
                                       tuple(p.params), by=tuple(p.by),
                                       without=tuple(p.without))
-        reducer.add_transformer(AggregatePresenter(p.operator))
+        reducer.add_transformer(AggregatePresenter(p.operator,
+                                                   tuple(p.params)))
         return reducer
+
+    # joins -------------------------------------------------------------------
+
+    def _m_BinaryJoin(self, p: lp.BinaryJoin, ctx: QueryContext) -> ExecPlan:
+        lhs = self._leaves(p.lhs, ctx)
+        rhs = self._leaves(p.rhs, ctx)
+        op = p.operator[:-5] if p.operator.endswith("_bool") else p.operator
+        if op.lower() in SET_OPERATORS:
+            return SetOperatorExec(ctx, lhs, rhs, op.lower(),
+                                   on=p.on, ignoring=p.ignoring)
+        return BinaryJoinExec(ctx, lhs, rhs, op, p.cardinality,
+                              on=p.on, ignoring=p.ignoring, include=p.include,
+                              bool_modifier=p.operator.endswith("_bool"))
+
+    def _m_ScalarVectorBinaryOperation(self, p: lp.ScalarVectorBinaryOperation,
+                                       ctx: QueryContext) -> ExecPlan:
+        vec = self.materialize(p.vector, ctx)
+        op = p.operator[:-5] if p.operator.endswith("_bool") else p.operator
+        scalar_exec = self.materialize(p.scalar_arg, ctx)
+        # a literal folds to a float; any other scalar runs on its own
+        if isinstance(scalar_exec, ScalarFixedDoubleExec):
+            scalar: object = scalar_exec.value
+        else:
+            scalar = _DeferredScalar(scalar_exec)
+        vec.add_transformer(ScalarOperationMapper(
+            op, scalar, scalar_is_lhs=p.scalar_is_lhs,
+            bool_modifier=p.operator.endswith("_bool")))
+        return vec
+
+    # functions ---------------------------------------------------------------
+
+    def _m_ApplyInstantFunction(self, p: lp.ApplyInstantFunction,
+                                ctx: QueryContext) -> ExecPlan:
+        child = self.materialize(p.vectors, ctx)
+        args = tuple(self._fold_scalar(a, ctx) for a in p.function_args)
+        child.add_transformer(InstantVectorFunctionMapper(p.function, args))
+        return child
+
+    # scalars -----------------------------------------------------------------
+
+    def _m_ScalarTimeBasedPlan(self, p: lp.ScalarTimeBasedPlan, ctx):
+        return TimeScalarGeneratorExec(ctx, p.start_ms, p.step_ms, p.end_ms,
+                                       p.function)
+
+    def _m_ScalarFixedDoublePlan(self, p: lp.ScalarFixedDoublePlan, ctx):
+        return ScalarFixedDoubleExec(ctx, p.start_ms, p.step_ms, p.end_ms,
+                                     p.scalar)
+
+    def _m_ScalarBinaryOperation(self, p: lp.ScalarBinaryOperation, ctx):
+        def conv(x):
+            if isinstance(x, lp.ScalarBinaryOperation):
+                return ScalarBinaryOperationExec(
+                    ctx, x.start_ms, x.step_ms, x.end_ms, x.operator,
+                    conv(x.lhs), conv(x.rhs))
+            return float(x)
+        return ScalarBinaryOperationExec(ctx, p.start_ms, p.step_ms, p.end_ms,
+                                         p.operator, conv(p.lhs), conv(p.rhs))
+
+    def _fold_scalar(self, arg, ctx):
+        if isinstance(arg, lp.ScalarFixedDoublePlan):
+            return arg.scalar
+        if isinstance(arg, lp.LogicalPlan):
+            return _DeferredScalar(self.materialize(arg, ctx))
+        return arg
+
+
+class _DeferredScalar:
+    """A scalar subplan run when a transformer first reads it."""
+
+    def __init__(self, plan: ExecPlan):
+        self.plan = plan
+        self._result: Optional[ScalarResult] = None
+
+    def resolve(self, source) -> ScalarResult:
+        if self._result is None:
+            data, _ = self.plan.execute_internal(source)
+            if not isinstance(data, ScalarResult):
+                raise TypeError(f"scalar argument gave "
+                                f"{type(data).__name__}")
+            self._result = data
+        return self._result

@@ -6,6 +6,10 @@ design keeps results BATCH-DENSE: one ResultBlock = many series sharing the
 same step grid, values in a single [S, W] (or [S, W, B] histogram) matrix.
 Transformers and reducers operate on whole blocks on device; per-series
 objects only exist at the JSON/serialization edge.
+
+In this package a block's values are a numpy array or, on the general
+path, a torch tensor on the engine's device; the root of the exec tree
+reads them back to the host for the result (ExecPlan.execute).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +73,33 @@ class ResultBlock:
         return self.values.ndim == 3
 
     def select(self, rows: np.ndarray) -> "ResultBlock":
+        rows = np.asarray(rows, np.int64)
+        if isinstance(self.values, torch.Tensor):
+            vals = self.values.index_select(
+                0, torch.from_numpy(rows).to(self.values.device))
+        else:
+            vals = np.asarray(self.values)[rows]
         return ResultBlock([self.keys[int(r)] for r in rows], self.wends,
-                           np.asarray(self.values)[rows], self.bucket_les)
+                           vals, self.bucket_les)
+
+
+def host_values(values) -> np.ndarray:
+    """A block's values as a host numpy array."""
+    if isinstance(values, torch.Tensor):
+        return values.cpu().numpy()
+    return np.asarray(values)
+
+
+def cat_values(parts: Sequence) -> object:
+    """Concatenate value matrices along series: numpy when every part is,
+    else a tensor on the first tensor part's device."""
+    tensors = [p for p in parts if isinstance(p, torch.Tensor)]
+    if not tensors:
+        return np.concatenate([np.asarray(p) for p in parts])
+    dev = tensors[0].device
+    return torch.cat([p if isinstance(p, torch.Tensor)
+                      else torch.from_numpy(np.asarray(p)).to(dev)
+                      for p in parts])
 
 
 def concat_blocks(blocks: Sequence[ResultBlock]) -> Optional[ResultBlock]:
@@ -89,7 +119,7 @@ def concat_blocks(blocks: Sequence[ResultBlock]) -> Optional[ResultBlock]:
     if all(b.cache_token is not None for b in blocks):
         token = ("cat",) + tuple(b.cache_token for b in blocks)
     return ResultBlock(keys, blocks[0].wends,
-                       np.concatenate([np.asarray(b.values) for b in blocks]),
+                       cat_values([b.values for b in blocks]),
                        blocks[0].bucket_les, cache_token=token)
 
 
@@ -289,7 +319,7 @@ class QueryResult:
     def series(self):
         """Iterate (key, wends, values_row) across blocks — serialization edge."""
         for b in self.blocks:
-            vals = np.asarray(b.values)
+            vals = host_values(b.values)
             for i, k in enumerate(b.keys):
                 yield k, b.wends, vals[i]
 
@@ -364,6 +394,18 @@ class QueryContext:
     # wire with dispatched subtrees, so remote nodes enforce it too
     # (nodes share one clock here; document skew bounds for real WANs)
     deadline_unix_s: float = 0.0
+    # the engine's device: where the general path puts host values (a
+    # presented aggregate, a scalar) it computes on
+    device: torch.device = dataclasses.field(
+        default_factory=lambda: torch.device("cpu"))
+
+
+def device_values(values, ctx: "QueryContext") -> torch.Tensor:
+    """A block's values as a tensor on the query's device (host arrays
+    move there; tensors stay where they are)."""
+    if isinstance(values, torch.Tensor):
+        return values
+    return torch.from_numpy(np.asarray(values)).to(ctx.device)
 
 
 def compute_deadline(pp: PlannerParams, default_timeout_s: float) -> float:
@@ -403,9 +445,13 @@ def remove_nan_series(block: Optional[ResultBlock]) -> Optional[ResultBlock]:
     all-NaN SerializedRangeVectors before responding)."""
     if block is None:
         return None
-    vals = np.asarray(block.values)
-    axis = tuple(range(1, vals.ndim))
-    keep = ~np.isnan(vals).all(axis=axis)
+    vals = block.values
+    if isinstance(vals, torch.Tensor):
+        flat = torch.isnan(vals).reshape(vals.shape[0], -1)
+        keep = (~flat.all(dim=1)).cpu().numpy()
+    else:
+        vals = np.asarray(vals)
+        keep = ~np.isnan(vals).all(axis=tuple(range(1, vals.ndim)))
     if keep.all():
         return block
     rows = np.flatnonzero(keep)

@@ -1,27 +1,38 @@
-"""Range-vector transformers for the query slice (port of
-filodb_tpu/query/transformers.py).
+"""Range-vector transformers (port of filodb_tpu/query/transformers.py):
+PeriodicSamplesMapper, the aggregation map and present phases, instant
+functions (with the classic `le`-bucket histogram_quantile) and scalar
+operations.
 
-PeriodicSamplesMapper and AggregateMapReduce carry the query's window
-grid, function and grouping down to the leaf, whose fused path consumes
-both (query/leafexec.py).  Their general-path apply() over non-empty
-data — evaluating a range function series by series, then aggregating —
-is not ported: it raises not_ported, naming what the fused path did not
-take.  Empty inputs keep their reference behaviour.
+PeriodicSamplesMapper and AggregateMapReduce also carry the query's
+window grid, function and grouping down to the leaf, whose fused path
+consumes both (query/leafexec.py).  Their apply() is the general path:
+a range function over every series on the values' device
+(ops/rangefns.py), then a map phase (ops/agg.py).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
+from filodb_tpu_torch.ops import agg as agg_ops
+from filodb_tpu_torch.ops import fused
+from filodb_tpu_torch.ops import hist as hist_ops
+from filodb_tpu_torch.ops.instant import INSTANT_FUNCTIONS, apply_binary_op
+from filodb_tpu_torch.ops.rangefns import evaluate_range_function
 from filodb_tpu_torch.ops.timewindow import make_window_ends
-from filodb_tpu_torch.query.execbase import (Data, RawBlock, _block_empty,
-                                             _lru_touch, not_ported,
-                                             present_partial, AggPartial)
+from filodb_tpu_torch.query.execbase import (AggPartial, Data,
+                                             GroupCardinalityError, RawBlock,
+                                             ScalarResult, _block_empty,
+                                             _lru_touch, agg_token,
+                                             not_ported, present_partial)
 from filodb_tpu_torch.query.rangevector import (QueryContext, QueryStats,
-                                                RangeVectorKey, ResultBlock)
+                                                RangeVectorKey, ResultBlock,
+                                                device_values)
 
 
 class RangeVectorTransformer:
@@ -48,12 +59,163 @@ class PeriodicSamplesMapper(RangeVectorTransformer):
         wends = make_window_ends(self.start_ms, self.end_ms, self.step_ms)
         if data is None or (isinstance(data, RawBlock) and not data.keys):
             return _block_empty(wends)
-        raise not_ported(
-            f"general range-function path for "
-            f"{self.function or 'an instant selector'} (ops/rangefns.py): "
-            f"only a fused leaf (rate family, last/sum/avg/count/min/"
-            f"max_over_time or an instant selector, under sum/avg/count/"
-            f"min/max) on one shared scrape grid is ported")
+        if not isinstance(data, RawBlock):
+            raise TypeError("PeriodicSamplesMapper needs raw data")
+        window = self.window_ms if self.window_ms else self.lookback_ms
+        fn = self.function
+        base = data.base_ms
+        # timestamp(): offset seconds in the value dtype, the epoch base
+        # added back in f64 below (f32 cannot hold epoch seconds)
+        kernel_base = 0 if fn == "timestamp" else base
+        # offset: shift the window grid back, keep the original stamps
+        eval_wends = wends - self.offset_ms
+        dev = data.values.device
+        wends_off = torch.from_numpy(
+            (eval_wends - base).astype(np.int32)).to(dev)
+        shared = data.shared_ts_row is not None
+        ts_in = data.ts_off[:1] if shared else data.ts_off
+        out = evaluate_range_function(
+            ts_in, data.values, wends_off, window, fn,
+            tuple(self.function_args), base_ms=kernel_base,
+            vbase=data.vbase, precorrected=data.precorrected,
+            shared_grid=shared, dense=data.dense)
+        if fn == "timestamp":
+            out = out.double() + base / 1000.0
+        return ResultBlock(data.keys, wends, out, data.bucket_les,
+                           cache_token=data.cache_token)
+
+
+def _arg_value(a, source, per_step: bool = False):
+    """A (possibly deferred) scalar argument.  per_step gives a [W] array
+    for the elementwise functions; otherwise one float — a scalar that
+    varies over time is refused rather than read at its first step."""
+    if hasattr(a, "resolve"):                 # deferred scalar subplan
+        a = a.resolve(source)
+    if isinstance(a, ScalarResult):
+        if len(a.values) == 0:
+            return np.nan
+        if per_step:
+            return a.values
+        vals = a.values[~np.isnan(a.values)]
+        if len(vals) and not np.all(vals == vals[0]):
+            raise ValueError("time-varying scalar argument not supported "
+                             "for this function")
+        return a.values[0] if len(vals) == 0 else vals[0]
+    return a
+
+
+@dataclasses.dataclass
+class InstantVectorFunctionMapper(RangeVectorTransformer):
+    """abs(), round(), hour(), histogram_quantile(), ... over a block."""
+    function: str
+    args: Tuple = ()
+
+    def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
+              source=None) -> Data:
+        if not isinstance(data, ResultBlock) or data.num_series == 0:
+            return data
+        if data.is_histogram or self.function == "histogram_bucket":
+            raise not_ported(f"{self.function} over native histogram "
+                             f"columns")
+        if self.function in ("histogram_quantile",
+                             "histogram_max_quantile"):
+            # classic Prometheus histograms: `_bucket` series carrying
+            # cumulative counts in `le` labels
+            return self._classic_bucket_quantile(
+                float(_arg_value(self.args[0], source)), data, ctx)
+        fn = INSTANT_FUNCTIONS[self.function]
+        vals = device_values(data.values, ctx)
+        # per-step scalar arguments broadcast over [S, W], in f64: an
+        # epoch-sized scalar does not fit f32 (the result promotes)
+        extra = [torch.as_tensor(np.asarray(_arg_value(a, source,
+                                                       per_step=True),
+                                            np.float64)).to(vals.device)
+                 for a in self.args]
+        return ResultBlock(data.keys, data.wends, fn(vals, *extra),
+                           data.bucket_les, cache_token=data.cache_token)
+
+    @staticmethod
+    def _classic_bucket_quantile(q: float, data: ResultBlock,
+                                 ctx: QueryContext) -> ResultBlock:
+        """histogram_quantile over le-labelled `_bucket` series: group by
+        the labels minus `le`, stack each group's cumulative counts in
+        ascending le order and take the quantile per ladder of les, one
+        [G, W, B] call each.  Groups without a +Inf bucket are dropped,
+        as upstream; an absent bucket sample fills down from the bucket
+        below (no extra observations) instead of making the group NaN."""
+        vals = device_values(data.values, ctx)
+        groups: Dict[tuple, list] = {}
+        for i, k in enumerate(data.keys):
+            le_txt = k.labels_dict.get("le")
+            if le_txt is None:
+                continue
+            try:
+                le = float(le_txt)
+            except ValueError:
+                continue
+            gk = k.without(("le", "_metric_", "__name__")).labels
+            groups.setdefault(gk, []).append((le, i))
+        by_ladder: Dict[tuple, list] = {}
+        for gk, entries in sorted(groups.items()):
+            entries.sort(key=lambda e: e[0])
+            les = tuple(e[0] for e in entries)
+            if len(les) < 2 or not math.isinf(les[-1]):
+                continue                  # upstream requires an +Inf bucket
+            by_ladder.setdefault(les, []).append(
+                (gk, [e[1] for e in entries]))
+        keys, outs = [], []
+        for les, members in by_ladder.items():
+            idx = torch.tensor([rows for _, rows in members],
+                               dtype=torch.int64, device=vals.device)
+            mat = vals[idx]                                  # [G, B, W]
+            nan = torch.isnan(mat)
+            cols = [torch.where(nan[:, 0], torch.zeros_like(mat[:, 0]),
+                                mat[:, 0])]
+            for b in range(1, mat.shape[1]):
+                cols.append(torch.where(nan[:, b], cols[-1], mat[:, b]))
+            stacked = torch.stack(cols, dim=-1)              # [G, W, B]
+            outs.append(hist_ops.histogram_quantile(q, stacked, list(les)))
+            keys.extend(RangeVectorKey(gk) for gk, _ in members)
+        if not keys:
+            return ResultBlock([], data.wends,
+                               np.zeros((0, len(data.wends))))
+        return ResultBlock(keys, data.wends, torch.cat(outs))
+
+
+@dataclasses.dataclass
+class ScalarOperationMapper(RangeVectorTransformer):
+    """vector op scalar."""
+    operator: str
+    scalar: Union[float, ScalarResult]
+    scalar_is_lhs: bool = False
+    bool_modifier: bool = False
+
+    def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
+              source=None) -> Data:
+        if not isinstance(data, ResultBlock) or data.num_series == 0:
+            return data
+        vals = device_values(data.values, ctx)
+        scalar = self.scalar
+        if hasattr(scalar, "resolve"):            # deferred scalar subplan
+            scalar = scalar.resolve(source)
+        if isinstance(scalar, ScalarResult):
+            # an empty scalar stream behaves as NaN
+            sv = (scalar.values[None, :] if scalar.values.shape[0]
+                  == vals.shape[1] else np.full((1, 1), np.nan))
+        else:
+            sv = np.full((1, 1), float(scalar))
+        # the scalar stays f64 (time() does not fit f32); the result
+        # promotes
+        sv = torch.as_tensor(np.asarray(sv, np.float64)).to(
+            vals.device).expand(vals.shape)
+        a, b = (sv, vals) if self.scalar_is_lhs else (vals, sv)
+        # comparison filtering keeps the VECTOR side's value
+        out = apply_binary_op(a, b, op=self.operator,
+                              bool_modifier=self.bool_modifier,
+                              keep_side="rhs" if self.scalar_is_lhs
+                              else "lhs")
+        return ResultBlock(data.keys, data.wends, out, data.bucket_les,
+                           cache_token=data.cache_token)
 
 
 def _group_ids(keys: Sequence[RangeVectorKey], by: Tuple[str, ...],
@@ -101,9 +263,13 @@ def _group_ids_cached(token, keys, by, without):
     return gids, gkeys
 
 
+_CANDIDATE_OPS = ("topk", "bottomk", "quantile", "count_values")
+
+
 @dataclasses.dataclass
 class AggregateMapReduce(RangeVectorTransformer):
-    """Map phase of 3-phase aggregation (the fused leaf runs it)."""
+    """Map phase of 3-phase aggregation (the fused leaf runs it when it
+    takes the leaf)."""
     op: str
     params: Tuple = ()
     by: Tuple[str, ...] = ()
@@ -114,15 +280,55 @@ class AggregateMapReduce(RangeVectorTransformer):
         if data is None or (isinstance(data, ResultBlock)
                             and data.num_series == 0):
             return None
-        raise not_ported(f"general-path map phase of {self.op} "
-                         f"(ops/agg.map_phase)")
+        if not isinstance(data, ResultBlock):
+            raise TypeError("AggregateMapReduce needs periodic data")
+        if data.is_histogram:
+            raise not_ported(f"{self.op} over native histogram columns")
+        vals = device_values(data.values, ctx)
+        gids, gkeys = _group_ids_cached(data.cache_token, data.keys,
+                                        self.by, self.without)
+        limit = ctx.planner_params.group_by_cardinality_limit
+        if limit and len(gkeys) > limit:
+            raise GroupCardinalityError(
+                f"group-by cardinality limit {limit} exceeded "
+                f"({len(gkeys)} groups)")
+        G = len(gkeys)
+        gids_t = torch.from_numpy(np.asarray(gids, np.int64)).to(vals.device)
+        if self.op in _CANDIDATE_OPS:
+            rows = np.arange(len(data.keys))
+            if self.op in ("topk", "bottomk"):
+                # a row outside every window's group top/bottom k on this
+                # shard cannot make the merged one
+                keep = agg_ops.topk_mask(
+                    vals, gids_t, G, int(self.params[0]),
+                    largest=self.op == "topk").any(dim=1)
+                rows = np.flatnonzero(keep.cpu().numpy())
+            return AggPartial(
+                self.op, gkeys, data.wends,
+                cand_keys=[data.keys[int(r)] for r in rows],
+                cand_vals=vals.index_select(
+                    0, torch.from_numpy(rows).to(vals.device)),
+                cand_groups=np.asarray(gids)[rows], params=self.params)
+        if self.op not in agg_ops.AGGREGATORS:
+            raise ValueError(f"unknown aggregate {self.op}")
+        csr = None
+        if self.op in ("sum", "avg", "stddev", "stdvar"):
+            csr = fused.pad_groups(gids, len(data.keys), G,
+                                   device=vals.device).csr
+        comp = agg_ops.map_phase(self.op, vals, gids_t, G, csr)
+        return AggPartial(self.op, gkeys, data.wends,
+                          comp=comp.cpu().numpy(), params=self.params,
+                          cache_token=agg_token(self.op, self.by,
+                                                self.without,
+                                                data.cache_token))
 
 
 class AggregatePresenter(RangeVectorTransformer):
     """Present phase."""
 
-    def __init__(self, op: str):
+    def __init__(self, op: str, params: Tuple = ()):
         self.op = op
+        self.params = params
 
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:

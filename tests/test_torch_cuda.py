@@ -457,3 +457,50 @@ def test_staged_kernels_refuse_rows_too_long_for_shared_memory(card, case):
     with pytest.raises(ValueError, match="shared memory"):
         call(*args)
     assert kernels.LAUNCHES[name] == n0
+
+
+# ------------------------------------------- K8, the column-selection probe
+
+@pytest.mark.parametrize("rows", [1, 777, 4096])
+@pytest.mark.parametrize("strategy", ["gather", "two_gathers",
+                                      "onehot_matmul"])
+def test_probe_kernels_match_plain_to_the_bit(card, strategy, rows):
+    """Each K8 kernel (csrc/probe_select.cu) against its plain version at
+    the probe's widths (K 768, 110 selections of 128 columns) and at row
+    counts that are not a multiple of a tile."""
+    from filodb_tpu_torch.ops import probe
+    from filodb_tpu_torch.tools import probe_slice as ps
+    x, o, i1, i2 = ps.inputs(1, card)
+    x = torch.randn((rows, ps.TP), generator=torch.Generator(
+        device=card).manual_seed(rows), device=card)
+    kern, plain = {
+        "gather": (lambda: probe.probe_gather(x, i1, ps.W, ps.WP),
+                   lambda: probe.probe_gather_plain(x, i1, ps.W, ps.WP)),
+        "two_gathers": (lambda: probe.probe_two_gathers(x, i1, i2, ps.W,
+                                                        ps.WP),
+                        lambda: probe.probe_two_gathers_plain(
+                            x, i1, i2, ps.W, ps.WP)),
+        "onehot_matmul": (lambda: probe.probe_onehot_matmul(x, o),
+                          lambda: probe.probe_onehot_matmul_plain(x, o)),
+    }[strategy]
+    name = "probe_" + strategy
+    n0 = kernels.LAUNCHES[name]
+    got = kern()
+    assert kernels.LAUNCHES[name] == n0 + 1
+    want = plain()
+    assert got.shape == want.shape == (rows, ps.WP)
+    assert torch.equal(got, want)
+    assert torch.equal(kern(), got)
+
+
+def test_probe_matmul_is_a_full_product(card):
+    """probe_onehot_matmul computes the whole product, not only one-hot
+    selections: on a dense matrix it agrees with the FP32 library product
+    to FP32 rounding."""
+    from filodb_tpu_torch.ops import probe
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn((1000, 768), generator=g, device=card)
+    m = torch.randn((768, 132), generator=g, device=card)
+    got = probe.probe_onehot_matmul(x, m)
+    want = probe.probe_onehot_matmul_plain(x.double(), m.double())
+    assert (got.double() - want).abs().max() < 1e-3

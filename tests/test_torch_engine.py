@@ -133,13 +133,13 @@ def test_headline_query_matches_jax_engine(num_shards, ragged, jax_mode):
 
 
 @pytest.mark.parametrize("promql", [
-    "stddev by (_ns_) (rate(request_total[5m]))",
+    # a non-counter function over a counter column (the host route)
     "sum by (_ns_) (max_over_time(request_total[5m]))",
     "sum by (_ns_) (request_total)",
-    "rate(request_total[5m])",
-    "sum by (_ns_) (rate(request_total[5m])) / 2",
-    "topk(2, sum by (_ns_) (rate(request_total[5m])))",
-    "histogram_quantile(0.9, sum by (le) (rate(request_total[5m])))",
+    # functions and plan nodes the port leaves out
+    "sort(rate(request_total[5m]))",
+    "absent(rate(request_total[5m]))",
+    "rate(request_total[5m:1m])",
 ])
 def test_out_of_slice_query_raises_not_ported(promql):
     je = _mk_engine([_batch(False)])
@@ -318,14 +318,49 @@ def test_max_by_over_negative_gauges_across_two_shards(monkeypatch):
     _assert_close(got, want, False)
 
 
-def test_rate_over_values_not_reset_corrected_raises_not_ported():
+@pytest.mark.parametrize("promql", [
+    "stddev by (_ns_) (rate(request_total[5m]))",
+    "rate(request_total[5m])",
+    "sum by (_ns_) (rate(request_total[5m])) / 2",
+    "topk(2, sum by (_ns_) (rate(request_total[5m])))",
+])
+def test_general_path_query_matches_jax_engine(promql):
+    """Queries the fused leaf does not take run the general path
+    (ops/rangefns.py, ops/agg.py, the binary operators) and agree with
+    the JAX engine's."""
+    je = _mk_engine([_batch(False)])
+    pe = _port_engine(je, 1)
+    want = _series(je.query_range(promql, START_S + 600, 60, END_S))
+    got = _series(pe.query_range(promql, START_S + 600, 60, END_S))
+    assert want and set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=1e-3,
+                                   equal_nan=True)
+
+
+def test_histogram_quantile_over_series_without_le_is_empty():
+    """Classic histogram_quantile groups series by their `le` label; a
+    grouping that drops it leaves no bucket ladder, so no series, as in
+    the JAX engine."""
+    je = _mk_engine([_batch(False)])
+    pe = _port_engine(je, 1)
+    q = "histogram_quantile(0.9, sum by (le) (rate(request_total[5m])))"
+    want = je.query_range(q, START_S + 600, 60, END_S)
+    got = pe.query_range(q, START_S + 600, 60, END_S)
+    assert want.error is None and got.error is None
+    assert want.num_series == got.num_series == 0
+
+
+def test_rate_over_values_not_reset_corrected_takes_the_general_path():
     """rate over a gauge column (values the mirror did not reset-correct)
-    goes to the general path in the reference leaf, as it does not route
-    such leaves to the in-kernel drops variant; the port has no general
-    path yet, so it names it."""
-    _, pe, _ = _gauge_engines(False, 1)
-    with pytest.raises(QueryError) as e:
-        pe.query_range("sum by (_ns_) (rate(heap_usage[5m]))",
-                       START_S + 600, 60, END_S)
-    assert e.value.code == "not_ported"
-    assert "general path" in str(e.value) and "rangefns" in str(e.value)
+    goes to the general path in the reference leaf, which corrects resets
+    on the device, not to the in-kernel drops variant; the port does the
+    same and launches no fused kernel."""
+    je, pe, _ = _gauge_engines(False, 1)
+    q = "sum by (_ns_) (rate(heap_usage[5m]))"
+    before = counters.get("leaf_fused_kernel")
+    got = _series(pe.query_range(q, START_S + 600, 60, END_S))
+    assert counters.get("leaf_fused_kernel") == before
+    want = _series(je.query_range(q, START_S + 600, 60, END_S))
+    assert len(got) == 10
+    _assert_close(got, want, False)

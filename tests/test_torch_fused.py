@@ -199,10 +199,10 @@ def _adversarial_ragged(seed=21, S=70, T=301, inf=True, jitter=True):
     ±Inf samples; windows one slot apart from before the grid to past its
     end (W = 371 > 256, empty and one-sample windows at both ends, span =
     T, not a multiple of 4).  The scrapes are jittered by up to 1 s off
-    the 10 s grid, as real scrapes are: on an exact grid (jitter=False) a
-    window's trailing gap can equal 1.1 x the average spacing exactly,
-    where f32 and f64 pick different sides of the extrapolation's
-    threshold (test_exact_grid_threshold_tie_is_the_open_queue3_fault)."""
+    the 10 s grid, as real scrapes are; on an exact grid (jitter=False) a
+    window's trailing gap can sit on the extrapolation's threshold, 1.1 x
+    the average spacing
+    (test_exact_grid_threshold_tie_agrees_with_reference_and_oracle)."""
     rng = np.random.default_rng(seed)
     raw = np.cumsum(rng.exponential(10.0, size=(S, T)), axis=1)
     for s in range(S):
@@ -268,16 +268,15 @@ def test_ragged_plain_matches_jax_on_adversarial_rows(fn, op):
                                    equal_nan=True)
 
 
-def test_exact_grid_threshold_tie_is_the_open_queue3_fault():
-    """Pins the open fault of ROADMAP Queue 3 ("an exact tie"): on the
-    exact 10 s grid, row 9 of seed 21 has 12 valid samples 200 s apart
-    and a 20 s trailing gap in windows 342 and 348.  In f32, 200 / 11 x
-    1.1 rounds to 20.0 exactly, so `dur_end < threshold` is false and the
-    port's plain rate (ops/fused._ragged_rates, and K3 with it) takes
-    half a spacing; the f64 oracle's threshold is 20.000000000000004, and
-    the reference (interpret mode) lands on the oracle's side.  The fix
-    that clears the fault makes this test fail: then turn it into a test
-    that the three agree, and take the entry off the queue."""
+def test_exact_grid_threshold_tie_agrees_with_reference_and_oracle():
+    """On the exact 10 s grid, row 9 of seed 21 has 12 valid samples 200 s
+    apart and a 20 s trailing gap in windows 342 and 348: the gap sits on
+    the extrapolation threshold 1.1 x 200 / 11.  The reference compiles
+    its `/ 1000.0` to a multiply by the f32 reciprocal, which puts the
+    threshold a hair above 20 s, on the f64 oracle's side; the port's
+    plain rate (and K1/K2/K3 with it) multiplies the same way, so the
+    port, the reference (interpret mode) and tests/oracle.py agree in
+    every window, the tie included."""
     from oracle import eval_series
     raw, ts_row, wends, range_ms = _adversarial_ragged(inf=False,
                                                        jitter=False)
@@ -301,18 +300,21 @@ def test_exact_grid_threshold_tie_is_the_open_queue3_fault():
     port = tagg.present("sum", torch.from_numpy(got)).numpy()[0]
     ref = eval_series(ts_row, raw[0], wends, range_ms, "rate")
     tie = [342, 348]
-    rest = np.setdiff1d(np.arange(len(wends)), tie)
-    np.testing.assert_allclose(port[rest], ref[rest], rtol=5e-4, atol=1e-4,
-                               equal_nan=True)
-    np.testing.assert_allclose(jax_rate, ref, rtol=5e-4, atol=1e-4,
-                               equal_nan=True)
-    # the tie: 12 samples over 200 s, so the port takes 200 + 2 x 100 / 11
-    # s of extrapolated span where the oracle takes 200 + 100 / 11 + 20
-    ratio = (200.0 + 100.0 / 11.0 + 20.0) / (200.0 + 200.0 / 11.0)
-    np.testing.assert_allclose(ref[tie] / port[tie], ratio, rtol=1e-5)
-    assert np.float32(np.float32(200.0) / np.float32(11.0)) \
-        * np.float32(1.1) == np.float32(20.0)
-    assert 200.0 / 11.0 * 1.1 > 20.0
+    assert not np.isnan(ref[tie]).any()
+    for other in (jax_rate, ref):
+        assert (np.isnan(port) == np.isnan(other)).all()
+        np.testing.assert_allclose(port, other, rtol=5e-4, atol=1e-4,
+                                   equal_nan=True)
+        np.testing.assert_allclose(port[tie], other[tie], rtol=5e-4)
+    # the tie is real: divided, the f32 threshold is exactly 20 s and the
+    # trailing gap would take half a spacing instead of its own 20 s
+    ms_to_s = np.float32(0.001)
+    sampled = np.float32(200_000) * ms_to_s
+    threshold = sampled / np.float32(11.0) * np.float32(1.1)
+    assert np.float32(20_000) * ms_to_s < threshold
+    assert not np.float32(20_000) / np.float32(1000.0) \
+        < np.float32(200_000) / np.float32(1000.0) / np.float32(11.0) \
+        * np.float32(1.1)
 
 
 # ------------- the O(1) ragged window of csrc/rate_stage.cuh, modelled

@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 import filodb_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,6 +46,33 @@ def test_port_imports_no_jax_and_no_reference_package():
         assert mod in res["imported"]
 
 
+NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
+               "ops.probe", "ops.timewindow", "ops.counter",
+               "query.transformers", "query.nonleaf", "query.planner",
+               "tools.probe_slice")
+
+
+def _bare_import(module):
+    probe = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'filodb_tpu'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_general_path_module_stands_alone(module):
+    """Each module of the general path and of the probe, imported alone in
+    a fresh interpreter, pulls in neither jax nor the reference
+    package."""
+    assert _bare_import("filodb_tpu_torch." + module) == []
+
+
 def test_port_sources_name_no_reference_import():
     """No source line imports jax or filodb_tpu (only filodb_tpu_torch)."""
     offenders = []
@@ -79,7 +108,8 @@ def test_kernel_level_api_stands_alone():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert res["sources"] == ["fused_drops", "fused_over_time", "fused_rate"]
+    assert res["sources"] == ["fused_drops", "fused_over_time", "fused_rate",
+                              "probe_select"]
     assert res["drops"] == ["fused_rate_drops_dense",
                             "fused_rate_drops_dense_series",
                             "fused_rate_drops_ragged",
