@@ -56,7 +56,14 @@ K8.  the column-selection probe (csrc/probe_select.cu) through its own
    the probe's shape (262,144 x 768 f32, 110 of 128 columns); then each
    of its three kernels against its plain version to the bit, timed
    beside one library call (index_select; matmul with TF32 off, by the
-   one-hot matrix or by a +1/-1 difference matrix) and its bound;
+   one-hot matrix or by a +1/-1 difference matrix) and its bound, and
+   against that call in 10 alternating rounds (A B, B A, ...; the median
+   and range of the per-round time ratio); the product also on the
+   probe's adversarial inputs at the same shape (+-Inf, NaN, -0.0 in x;
+   an all-zero column, a +1/-1 pair, three non-unit nonzeros, a NaN and
+   a +Inf in o) to the bit.  Every bound is bytes over 3.35 TB/s against
+   FP32 operations over 67 TFLOP/s, counting the operations these inputs
+   need: the product's are 2 x rows x nnz(o), not 2 x rows x K x N;
 general-1M.  over the dense 1M counter and gauge stores of phases 3 and
    5, the general path (ops/rangefns.py, ops/agg.py, the binary join):
    G1 sum by (_ns_) (irate(...)), G5 increase / on (_ns_) rate (two K1
@@ -921,12 +928,27 @@ PROBE_REPLACES = {"probe_gather": "tools/probe_slice.py:75",
                   "probe_onehot_matmul": "tools/probe_slice.py:89"}
 
 
-def run_probe_phase(dev):
+def alternate(fa, fb, rounds=10, reps=20):
+    """fa's CUDA-event time over fb's in `rounds` rounds whose turns
+    alternate (A B, B A, ...) -> median, min and max of the ratios."""
+    ratios = []
+    for k in range(rounds):
+        t = {}
+        for f in ((fa, fb) if k % 2 == 0 else (fb, fa)):
+            t[f] = cuda_ms(f, reps=reps)
+        ratios.append(t[fa] / t[fb])
+    r = np.asarray(ratios)
+    return dict(rounds=rounds, median=float(np.median(r)),
+                min=float(r.min()), max=float(r.max()))
+
+
+def run_probe_phase(dev, seed):
     """K8: the probe's own entry point (filodb_tpu_torch.tools.probe_slice
     main, its main path) with the launch counts set to 0 just before and
     read just after; then each kernel at the probe's shape against its
     plain version to the bit, timed beside one library call and its
-    bound -> (table rows, launches)."""
+    bound and against that call in alternating rounds, and the product on
+    the adversarial inputs -> (table rows, launches)."""
     import torch
     from filodb_tpu_torch.ops import kernels, probe
     from filodb_tpu_torch.tools import probe_slice as ps
@@ -951,6 +973,7 @@ def run_probe_phase(dev):
     cols = torch.arange(W, device=dev)
     diff[i2[:W].long(), cols] = 1.0
     diff[idx1, cols] = -1.0
+    nnz = int((o != 0).sum())      # o's nonzero entries, NaN included
     allow = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = [
@@ -967,7 +990,7 @@ def run_probe_phase(dev):
         ("probe_onehot_matmul", lambda: probe.probe_onehot_matmul(x, o),
          lambda: probe.probe_onehot_matmul_plain(x, o),
          ("matmul FP32, TF32 off", lambda: torch.matmul(x, o)),
-         4 * (rows * K + K * WP + rows * WP), 2 * rows * K * WP),
+         4 * (rows * K + K * WP + rows * WP), 2 * rows * nnz),
     ]
     table = {}
     try:
@@ -983,21 +1006,40 @@ def run_probe_phase(dev):
             ms = cuda_ms(kern, reps=20)
             plain_ms = cuda_ms(plain, reps=5)
             library_ms = cuda_ms(lib[1], reps=20)
+            ab = alternate(kern, lib[1])
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
             bound_ms = 1e3 * max(t_bytes, t_ops)
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
             log(f"K8 {name} [{rows}, {K}] -> [{rows}, {WP}]: bit-identical "
                 f"to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"{lib[0]} {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
-                f"{ops} FP32 operations)")
+                f"{lib[0]} {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}: {nbytes} B, {ops} FP32 operations); kernel "
+                f"over {lib[0]} in {ab['rounds']} alternating rounds: "
+                f"median {ab['median']:.4f} ({ab['min']:.4f}-"
+                f"{ab['max']:.4f})")
             table[name] = dict(
                 max_abs_err=float((got - want).abs().max()), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms, yardsticks={lib[0]: library_ms},
+                ab_vs_library=ab,
                 source="filodb_tpu_torch/csrc/probe_select.cu")
+        del diff
+        xa, oa = ps.adversarial_inputs(rows, dev, seed)
+        got = probe.probe_onehot_matmul(xa, oa)
+        again = probe.probe_onehot_matmul(xa, oa)
+        want = probe.probe_onehot_matmul_plain(xa, oa)
+        torch.cuda.synchronize()
+        check(same_bits(got, again), "probe_onehot_matmul: two runs on the "
+              "adversarial inputs differ")
+        check(same_bits(got, want), "probe_onehot_matmul: kernel and plain "
+              "differ in some bit on the adversarial inputs")
+        log(f"K8 probe_onehot_matmul adversarial [{rows}, {K}] -> [{rows}, "
+            f"{WP}]: bit-identical to plain, {int(torch.isnan(got).sum())} "
+            f"NaN cells, {int(torch.isinf(got).sum())} +-Inf, "
+            f"{int((got == 0).sum())} zeros")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
-    del x, o, diff
+    del x, o, xa, oa, got, again, want
     gc.collect()
     torch.cuda.empty_cache()
     return table, launches
@@ -1600,7 +1642,8 @@ def main(argv=None) -> int:
 
     table = timed("kernels K1-K7", run_kernel_checks, args.series, args.seed,
                   dev)
-    probe_table, probe_launches = timed("K8", run_probe_phase, dev)
+    probe_table, probe_launches = timed("K8", run_probe_phase, dev,
+                                        args.seed)
 
     launches = {name: 0 for name in table}
 
@@ -1658,7 +1701,8 @@ def main(argv=None) -> int:
              max_abs_err=row["max_abs_err"], ms=row["ms"],
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"],
-             yardsticks=row["yardsticks"])
+             yardsticks=row["yardsticks"],
+             ab_vs_library=row["ab_vs_library"])
         for name, row in probe_table.items()]
     log(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {

@@ -16,24 +16,52 @@
 // gather across vreg boundaries (:60-62); on the card the direct and the
 // tiled form are the same indexed load, so one kernel serves both.
 //
-// Bound on the H100.  The gathers are memory-bound: selections 6 slots
-// apart touch every 32-byte sector of a row's selected span (83 sectors,
-// 2,656 B a row at the probe's shape) and write 512 B a row.  The product
-// is arithmetic-bound: 2 x rows x K x N FP32 operations (51.5 GFLOP at
-// 262,144 x 768 x 128, 0.77 ms at 67 TFLOP/s) against 0.28 ms to read x.
+// Bound on the H100: bytes, for all three.  The gathers: selections 6
+// slots apart touch every 32-byte sector of a row's selected span (83
+// sectors, 2,656 B a row at the probe's shape) and write 512 B a row.  The
+// product has to read every byte of x, because a non-finite x[r, k] makes
+// x[r, k] * 0 NaN in each column that does not select k, and write y once:
+// 4 x (rows x K + K x N + rows x N) = 939,917,312 B at 262,144 x 768 x
+// 128, 0.2806 ms at 3.35 TB/s.  The operations it needs are 2 x rows x
+// nnz(o), 57.7 MFLOP for the probe's 110 nonzeros (0.001 ms at 67 TFLOP/s),
+// not a dense product's 2 x rows x K x N = 51.5 GFLOP, 99.9% of which
+// multiply by zero.
 //
 // Design.  The gathers run one thread per output cell, neighbouring
 // threads on neighbouring windows of one row, so a warp's loads fall in
-// 24 consecutive sectors.  The product is a classic shared-memory SGEMM:
-// 128 x 128 output tiles, 16-deep slabs of x and the one-hot matrix
-// staged in shared memory with 16-byte loads, each of 256 threads
-// accumulating an 8 x 8 micro-tile with explicit fused multiply-adds
-// (the library is built with --fmad=false, so contraction must be asked
-// for), FP32 throughout, no tensor cores.  With a one-hot matrix every
-// output is one product x * 1 plus zeros, so any summation order gives
-// the same bits as the plain version (torch.matmul with TF32 off).
-// What is left for later: double-buffered slabs, and a product that
-// skips the zero rows of the one-hot matrix.
+// 24 consecutive sectors.  The product is column-sparse, in two launches:
+// 1. column_lists, one block a column of o: its nonzero entries (NaN and
+//    +-Inf count, +-0 does not) in ascending k, as [K, N] planes of index
+//    and value (entry e of column j at e * N + j) and a count a column;
+//    it reads o once, 393 KB at the probe's shape.
+// 2. sparse_product, a persistent grid of one 256-thread block an SM: the
+//    block streams x through shared memory in tiles of up to 16 whole rows
+//    (48 KB at K = 768), each tile one cp.async.bulk copy into a ring of 4
+//    stages that completes on the stage's mbarrier; thread 0 expects the
+//    bytes of the rows the tile really has (the last tile may be short) and
+//    issues the copy, every thread waits on the barrier with the parity of
+//    its round (i / 4) & 1, and a __syncthreads after the tile frees the
+//    stage for tile i + 4.  Each block first copies every column's count
+//    and first 4 entries into shared memory; longer lists are read from L2.
+//    One warp a row: (a) its lanes scan the staged row for a non-finite
+//    value (16-byte reads, one vote); (b) lane l sums columns l, l + 32,
+//    ...: acc = fma(x[k], v, acc) from +0.0f over the column's list in
+//    ascending k, and a warp's 32 stores fill 128 contiguous bytes of y;
+//    (c) a row with a non-finite value takes the full chain over all K
+//    in ascending k, with o read from L2.  Each sum is stored plus +0.0f,
+//    which turns -0 into +0 and leaves every other value as it is.  No
+//    atomics: one thread writes each cell, so two runs give the same bits.
+// Why the sparse sum has the dense product's bits: for a finite x, x * 0
+// is +-0, and adding +-0 leaves a non-zero sum as it is and can turn a zero
+// sum from -0 into +0 only, never back.  So the sparse and the full chain
+// in ascending k differ at most where the sparse sum is -0 (an underflow
+// to zero), and + 0.0f makes both +0, as the reference's jnp.dot (interpret
+// mode on the CPU) and torch.matmul on the card give there; a non-finite x
+// makes x * 0 NaN, and its row takes the full chain.  Where a column's sum
+// does not depend on the order (one nonzero, or +1 and -1, as in every
+// input of the probe) that is the bits of torch.matmul (FP32, TF32 off).
+// The library is built with --fmad=false, so each fused multiply-add is
+// written out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,92 +87,186 @@ __global__ void gather_cells(const float* __restrict__ x, long long rows,
   }
 }
 
-constexpr int BM = 128;  // output rows of a tile
-constexpr int BN = 128;  // output columns of a tile
-constexpr int BK = 16;   // depth of a staged slab
-constexpr int kThreads = 256;
+// ------------------------------------------------ the column-sparse product
 
-// y [rows, N] = x [rows, K] @ o [K, N]; K and N multiples of 4, x and o
-// 16-byte aligned (the launcher checks).  Thread (tr, tc) of the 16 x 16
-// grid owns rows {tr*4 .. +3, 64 + tr*4 .. +3} and columns {tc*4 .. +3,
-// 64 + tc*4 .. +3} of the tile, so its shared-memory reads are 16-byte
-// and conflict-free.
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 4;            // row tiles in flight a block
+constexpr int kMaxTileRows = 16;      // rows of x a tile
+constexpr int kListCap = 4;           // list entries a column keeps in smem
+constexpr long long kListSmemMax = 32 * 1024;
+constexpr long long kMaxSmem = 232448;  // bytes a block may use on sm_90
+// What the launcher returns when one row of x does not fit the ring (CUDA's
+// error codes are never negative); the wrapper raises ValueError for it.
+constexpr int kNoFit = -1;
+
+// Column lists: for column j of o [K, N], its nonzero entries (NaN and
+// +-Inf included; +-0 is zero) in ascending k, entry e at lk/lv[e * N + j],
+// and their count cnt[j].  One block a column.
 __global__ void __launch_bounds__(kThreads)
-    onehot_matmul(const float* __restrict__ x, long long rows, int K,
-                  const float* __restrict__ o, int N, float* __restrict__ y) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const long long row0 = (long long)blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  }
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x slab: 128 rows x 16 columns as 512 float4, two a thread
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int i = tid + p * kThreads;
-      const int m = i / 4, kq = (i % 4) * 4;
-      const long long r = row0 + m;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (r < rows && k0 + kq < K) {
-        v = __ldg(reinterpret_cast<const float4*>(x + r * K + k0 + kq));
-      }
-      As[kq + 0][m] = v.x;
-      As[kq + 1][m] = v.y;
-      As[kq + 2][m] = v.z;
-      As[kq + 3][m] = v.w;
-    }
-    // one-hot slab: 16 rows x 128 columns as 512 float4, two a thread
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int i = tid + p * kThreads;
-      const int k = i / 32, nq = (i % 32) * 4;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (k0 + k < K && col0 + nq < N) {
-        v = __ldg(reinterpret_cast<const float4*>(
-            o + (long long)(k0 + k) * N + col0 + nq));
-      }
-      *reinterpret_cast<float4*>(&Bs[k][nq]) = v;
-    }
+    column_lists(const float* __restrict__ o, int K, int N,
+                 int* __restrict__ lk, float* __restrict__ lv,
+                 int* __restrict__ cnt) {
+  __shared__ int warp_nnz[kWarps];
+  const int j = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int base = 0;
+  for (int k0 = 0; k0 < K; k0 += kThreads) {
+    const int k = k0 + threadIdx.x;
+    const float v = k < K ? __ldg(o + (long long)k * N + j) : 0.0f;
+    const bool nz = !(v == 0.0f);
+    const unsigned m = __ballot_sync(0xffffffffu, nz);
+    if (lane == 0) warp_nnz[warp] = __popc(m);
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][tr * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[k][64 + tr * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tc * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[k][64 + tc * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
+    int at = base, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      at += w < warp ? warp_nnz[w] : 0;
+      total += warp_nnz[w];
+    }
+    if (nz) {
+      const long long e = at + __popc(m & ((1u << lane) - 1u));
+      lk[e * N + j] = k;
+      lv[e * N + j] = v;
+    }
+    base += total;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) cnt[j] = base;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One thread: expect `bytes` on the stage's barrier, then copy them there
+// from global memory with one bulk copy that completes on that barrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ bool nonfinite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+}
+
+// The full chain over all K in ascending k, o read from L2: the exact
+// path for a row holding a non-finite value.
+__device__ __forceinline__ float full_chain(const float* xr, int K,
+                                            const float* __restrict__ o,
+                                            int N, int j) {
+  float acc = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    acc = __fmaf_rn(xr[k], __ldg(o + (long long)k * N + j), acc);
+  }
+  return acc;
+}
+
+// y [rows, N] = x [rows, K] @ o [K, N] from o's column lists (see the note
+// at the top).  Persistent: block b takes row tiles b, b + gridDim.x, ...
+__global__ void __launch_bounds__(kThreads, 1)
+    sparse_product(const float* __restrict__ x, long long rows, int K,
+                   const float* __restrict__ o, int N,
+                   const int* __restrict__ lk, const float* __restrict__ lv,
+                   const int* __restrict__ cnt, int cap, int tile_rows,
+                   float* __restrict__ y) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const long long tile_floats = (long long)tile_rows * K;
+  float* ring = reinterpret_cast<float*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * tile_floats);
+  int* s_cnt = reinterpret_cast<int*>(full + kStages);  // [N] when cap > 0
+  int* s_k = s_cnt + N;                                 // [cap, N]
+  float* s_v = reinterpret_cast<float*>(s_k + (long long)cap * N);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long tiles = (rows + tile_rows - 1) / tile_rows;
+  const long long mine =
+      blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+
+  auto issue = [&](long long i) {  // local tile i into stage i % kStages
+    const long long row0 = (blockIdx.x + i * gridDim.x) * tile_rows;
+    const long long n = rows - row0 < tile_rows ? rows - row0 : tile_rows;
+    bulk_load(ring + (i % kStages) * tile_floats, x + row0 * K,
+              (unsigned)(n * K * 4), &full[i % kStages]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) bar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (long long i = 0; i < kStages && i < mine; ++i) issue(i);
+  }
+  if (cap) {
+    for (int i = tid; i < N; i += kThreads) s_cnt[i] = __ldg(cnt + i);
+    for (long long i = tid; i < (long long)cap * N; i += kThreads) {
+      s_k[i] = __ldg(lk + i);
+      s_v[i] = __ldg(lv + i);
+    }
+  }
+  __syncthreads();
+
+  for (long long i = 0; i < mine; ++i) {
+    const long long row0 = (blockIdx.x + i * gridDim.x) * tile_rows;
+    const int nr = (int)(rows - row0 < tile_rows ? rows - row0 : tile_rows);
+    bar_wait(&full[i % kStages], (unsigned)((i / kStages) & 1));
+    const float* tile = ring + (i % kStages) * tile_floats;
+    for (int rr = warp; rr < nr; rr += kWarps) {
+      const float* xr = tile + (long long)rr * K;
+      // (a) does the row hold a non-finite value?
+      bool bad = false;
+      for (int k = lane * 4; k < K; k += 128) {
+        const float4 v = *reinterpret_cast<const float4*>(xr + k);
+        bad |= nonfinite(v.x) | nonfinite(v.y) | nonfinite(v.z) |
+               nonfinite(v.w);
+      }
+      bad = __any_sync(0xffffffffu, bad);
+      float* yr = y + (row0 + rr) * N;
+      for (int j = lane; j < N; j += 32) {
+        float acc = 0.0f;
+        if (!bad) {
+          // (b) the column's list, the first cap entries from smem
+          const int c = cap ? s_cnt[j] : __ldg(cnt + j);
+          int e = 0;
+          for (; e < c && e < cap; ++e) {
+            acc = __fmaf_rn(xr[s_k[e * N + j]], s_v[e * N + j], acc);
+          }
+          for (; e < c; ++e) {
+            const long long at = (long long)e * N + j;
+            acc = __fmaf_rn(xr[__ldg(lk + at)], __ldg(lv + at), acc);
+          }
         }
+        // (c) the exact slow path for a row holding a non-finite value
+        if (bad) acc = full_chain(xr, K, o, N, j);
+        yr[j] = __fadd_rn(acc, 0.0f);  // -0 becomes +0
       }
     }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long r = row0 + (i < 4 ? tr * 4 + i : 64 + tr * 4 + i - 4);
-    if (r >= rows) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = col0 + h * 64 + tc * 4;
-      if (c < N) {
-        *reinterpret_cast<float4*>(y + r * N + c) =
-            make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2],
-                        acc[i][h * 4 + 3]);
-      }
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && i + kStages < mine) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(i + kStages);
     }
   }
 }
@@ -180,14 +302,41 @@ int probe_two_gathers_launch(const float* x, long long rows, long long stride,
 }
 
 // probe_onehot_matmul: y [rows, N] = x [rows, K] @ o [K, N], all f32
-// row-major; K and N multiples of 4, x and o 16-byte aligned.
+// row-major, x contiguous; K and N multiples of 4, x and o 16-byte aligned.
+// lk, lv [K, N] and cnt [N] are scratch for o's column lists.  Returns
+// cudaGetLastError(), or kNoFit (-1) when one row of x does not fit the
+// ring of shared memory (K above about 14,000).
 int probe_onehot_matmul_launch(const float* x, long long rows, int K,
-                               const float* o, int N, float* y,
-                               void* stream) {
+                               const float* o, int N, int* lk, float* lv,
+                               int* cnt, float* y, void* stream) {
   if (rows == 0 || N == 0) return 0;
-  const dim3 grid((unsigned)((rows + BM - 1) / BM), (N + BN - 1) / BN);
-  onehot_matmul<<<grid, kThreads, 0, (cudaStream_t)stream>>>(x, rows, K, o,
-                                                             N, y);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (K == 0) return (int)cudaMemsetAsync(y, 0, rows * N * 4, st);
+  int cap = kListCap;  // K is a multiple of 4, so at least kListCap
+  long long list_bytes = (long long)N * (4 + 8LL * cap);
+  if (list_bytes > kListSmemMax) cap = 0, list_bytes = 0;
+  const long long fixed = 8LL * kStages + list_bytes;
+  long long tile_rows = (kMaxSmem - fixed) / (kStages * 4LL * K);
+  if (tile_rows > kMaxTileRows) tile_rows = kMaxTileRows;
+  if (tile_rows < 1) return kNoFit;
+  const long long smem = kStages * tile_rows * K * 4 + fixed;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(sparse_product,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  }
+  if (err != cudaSuccess) return (int)err;
+  column_lists<<<N, kThreads, 0, st>>>(o, K, N, lk, lv, cnt);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long tiles = (rows + tile_rows - 1) / tile_rows;
+  sparse_product<<<(unsigned)(tiles < sms ? tiles : sms), kThreads,
+                   smem, st>>>(x, rows, K, o, N, lk, lv, cnt, cap,
+                               (int)tile_rows, y);
   return (int)cudaGetLastError();
 }
 

@@ -218,7 +218,8 @@ def _bind_probe(lib: ctypes.CDLL) -> None:
     lib.probe_two_gathers_launch.argtypes = [vp, ll, ll, vp, vp, i, i, vp,
                                              vp]
     lib.probe_two_gathers_launch.restype = i
-    lib.probe_onehot_matmul_launch.argtypes = [vp, ll, i, vp, i, vp, vp]
+    lib.probe_onehot_matmul_launch.argtypes = [vp, ll, i, vp, i, vp, vp, vp,
+                                               vp, vp]
     lib.probe_onehot_matmul_launch.restype = i
 
 
@@ -534,8 +535,10 @@ def probe_two_gathers_cuda(x, idx1, idx2, W: int, WP: int) -> torch.Tensor:
 
 
 def probe_onehot_matmul_cuda(x, onehot) -> torch.Tensor:
-    """Launch K8's product: y = x @ onehot in FP32 on the CUDA cores (no
-    TF32); K and N multiples of 4, 16-byte aligned bases."""
+    """Launch K8's product: y = x @ onehot in FP32 for any onehot [K, N],
+    summed over each column's nonzero entries (csrc/probe_select.cu: the
+    column lists, then x streamed once through shared memory); K and N
+    multiples of 4, x contiguous, 16-byte aligned bases."""
     dev = _check_probe(x, (), "probe_onehot_matmul")
     rows, K = x.shape
     _check(onehot, "onehot", torch.float32, dev)
@@ -546,10 +549,16 @@ def probe_onehot_matmul_cuda(x, onehot) -> torch.Tensor:
     if K % 4 or N % 4 or x.data_ptr() % 16 or onehot.data_ptr() % 16:
         raise ValueError("probe_onehot_matmul needs K and N multiples of 4 "
                          "and 16-byte aligned operands")
+    lk = torch.empty((K, N), dtype=torch.int32, device=dev)
+    lv = torch.empty((K, N), dtype=torch.float32, device=dev)
+    cnt = torch.empty((N,), dtype=torch.int32, device=dev)
     y = torch.empty((rows, N), dtype=torch.float32, device=dev)
     err = library("probe_select").probe_onehot_matmul_launch(
-        _ptr(x), rows, K, _ptr(onehot), N, _ptr(y),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(x), rows, K, _ptr(onehot), N, _ptr(lk), _ptr(lv), _ptr(cnt),
+        _ptr(y), torch.cuda.current_stream(dev).cuda_stream)
+    if err == NO_FIT:
+        raise ValueError(f"probe_onehot_matmul: a row of K={K} floats does "
+                         f"not fit the shared-memory ring")
     _raise_on(err, "probe_onehot_matmul")
     LAUNCHES["probe_onehot_matmul"] += 1
     return y

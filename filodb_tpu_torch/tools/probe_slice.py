@@ -51,6 +51,44 @@ def inputs(grid: int, device, seed: int = 0):
     return put(x), put(onehot), put(idx), put(idx + (STRIDE - 1))
 
 
+# columns of adversarial_inputs' o that break the one-hot pattern
+ADV_ZERO, ADV_PAIR, ADV_THREE, ADV_NAN, ADV_INF = 3, 7, 11, 13, 17
+
+
+def adversarial_inputs(rows: int, device, seed: int = 0):
+    """(x [rows, TP], o [TP, WP]) f32 for the product's exact rules.
+
+    o is the probe's one-hot selection (column w takes slot F0 + STRIDE
+    * w, columns W.. are zero) except: column ADV_ZERO is all zero,
+    ADV_PAIR is +1 at its slot and -1 one slot later, ADV_THREE holds
+    0.5, -2 and 4 at three slots whose x values are multiples of 2^-8 in
+    [-16, 16) (so their sum is exact in any order), ADV_NAN adds a NaN
+    beside its 1, and ADV_INF is +Inf at its slot.  x is standard normal
+    with, by row r % 10: 0 -0.0 in every selected slot, 1 +Inf in column
+    0's slot, 3 -Inf in a slot no column selects, 5 NaN in column 2's
+    slot, 8 +Inf in column ADV_INF's slot.
+    """
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, TP)).astype(np.float32)
+    sel = F0 + STRIDE * np.arange(W)
+    o = np.zeros((TP, WP), np.float32)
+    o[sel, np.arange(W)] = 1.0
+    o[:, ADV_ZERO] = 0.0
+    o[sel[ADV_PAIR] + 1, ADV_PAIR] = -1.0
+    three = sel[ADV_THREE] + np.array([-2, 0, 3])
+    o[three, ADV_THREE] = (0.5, -2.0, 4.0)
+    x[:, three] = rng.integers(-4096, 4096, size=(rows, 3)) / np.float32(256)
+    o[sel[ADV_NAN] + 2, ADV_NAN] = np.nan
+    o[sel[ADV_INF], ADV_INF] = np.inf
+    r = np.arange(rows)
+    x[np.ix_(r[r % 10 == 0], sel)] = -0.0
+    x[r[r % 10 == 1], sel[0]] = np.inf
+    x[r[r % 10 == 3], sel[5] + 1] = -np.inf
+    x[r[r % 10 == 5], sel[2]] = np.nan
+    x[r[r % 10 == 8], sel[ADV_INF]] = np.inf
+    return (torch.from_numpy(x).to(device), torch.from_numpy(o).to(device))
+
+
 STRATEGIES = {
     "tiled_gather": (lambda x, o, i1, i2: probe.probe_gather(x, i1, W, WP),
                      lambda x, o, i1, i2: probe.probe_gather_plain(

@@ -504,3 +504,64 @@ def test_probe_matmul_is_a_full_product(card):
     got = probe.probe_onehot_matmul(x, m)
     want = probe.probe_onehot_matmul_plain(x.double(), m.double())
     assert (got.double() - want).abs().max() < 1e-3
+
+
+@pytest.mark.parametrize("rows", [1, 777, 4096, 262_144])
+def test_probe_product_adversarial_inputs_to_the_bit(card, rows):
+    """probe_onehot_matmul against x @ o (FP32, TF32 off) on inputs that
+    hold +-Inf, NaN and -0.0 in x and an all-zero column, a +1/-1 pair,
+    three non-unit nonzeros, a NaN and a +Inf in o
+    (probe_slice.adversarial_inputs): the same bits with NaN in the same
+    cells, two runs the same, one launch a call."""
+    from filodb_tpu_torch.ops import probe
+    from filodb_tpu_torch.tools import probe_slice as ps
+    x, o = ps.adversarial_inputs(rows, card, seed=rows)
+    n0 = kernels.LAUNCHES["probe_onehot_matmul"]
+    got = probe.probe_onehot_matmul(x, o)
+    again = probe.probe_onehot_matmul(x, o)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["probe_onehot_matmul"] == n0 + 2
+    want = probe.probe_onehot_matmul_plain(x, o)
+    assert got.shape == want.shape == (rows, ps.WP)
+    assert _same_bits(got, want) and _same_bits(got, again)
+    assert torch.isnan(got[:, ps.ADV_NAN]).all()
+
+
+def test_probe_product_sign_of_zero_at_an_underflow(card):
+    """A product that underflows to -0 (x = -2^-149 times 0.5): the sum in
+    ascending k stays -0 in row 0, whose other x are all negative, and
+    turns +0 in row 1 at a positive x; the kernel stores +0 in both, as
+    x @ o (FP32, TF32 off) and the reference's jnp.dot give."""
+    from filodb_tpu_torch.ops import probe
+    x = -torch.ones((2, 64), device=card)
+    x[:, 10] = -torch.finfo(torch.float32).smallest_normal * 2.0 ** -23
+    x[1, 40] = 1.0
+    o = torch.zeros((64, 4), device=card)
+    o[10, 0] = 0.5
+    got = probe.probe_onehot_matmul(x, o)
+    assert got.view(torch.int32).eq(0).all()
+    assert _same_bits(got, probe.probe_onehot_matmul_plain(x, o))
+
+
+def test_probe_product_refuses_a_non_contiguous_x(card):
+    from filodb_tpu_torch.ops import probe
+    from filodb_tpu_torch.tools import probe_slice as ps
+    x, o, _, _ = ps.inputs(1, card)
+    wide = torch.zeros((x.shape[0], ps.TP + 4), device=card)
+    n0 = kernels.LAUNCHES["probe_onehot_matmul"]
+    with pytest.raises(ValueError, match="contiguous"):
+        probe.probe_onehot_matmul(wide[:, :ps.TP], o)
+    assert kernels.LAUNCHES["probe_onehot_matmul"] == n0
+
+
+def test_probe_product_refuses_a_row_wider_than_the_ring(card):
+    """A row of x has to fit one stage of the shared-memory ring: at K =
+    16,384 (64 KB a row) the launcher reports no fit and the wrapper
+    raises instead of launching."""
+    from filodb_tpu_torch.ops import probe
+    x = torch.ones((3, 16_384), device=card)
+    o = torch.zeros((16_384, 8), device=card)
+    n0 = kernels.LAUNCHES["probe_onehot_matmul"]
+    with pytest.raises(ValueError, match="does not fit"):
+        probe.probe_onehot_matmul(x, o)
+    assert kernels.LAUNCHES["probe_onehot_matmul"] == n0

@@ -75,6 +75,39 @@ def test_strategy_matches_the_pallas_body(ref, body):
     np.testing.assert_array_equal(got, want)
 
 
+def _bits(a):
+    """float32 bits with every NaN as one pattern."""
+    return np.where(np.isnan(a), np.float32(np.nan), a).view(np.int32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_product_on_adversarial_inputs_matches_the_pallas_body(ref, seed):
+    """The product (plain version on the CPU) against k_matmul in interpret
+    mode on probe_slice.adversarial_inputs: +-Inf, NaN and -0.0 in x; an
+    all-zero column, a +1/-1 pair, three non-unit nonzeros, a NaN and a
+    +Inf in o.  Same bits, NaN in the same cells, and the NaN rule cell by
+    cell: y[r, j] is NaN wherever a non-finite x[r, k] meets o[k, j] == 0."""
+    x, o = tps.adversarial_inputs(GRID * ref.BS, "cpu", seed=seed)
+    xs, os_ = x.numpy(), o.numpy()
+    idx = np.zeros((1, ref.TP), np.int32)
+    want = np.asarray(ref.run(ref.k_matmul, xs, os_, idx, idx,
+                              interpret=True))
+    got = probe.probe_onehot_matmul(x, o).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    rule = ((~np.isfinite(xs)).astype(np.int64)
+            @ (os_ == 0).astype(np.int64)) > 0
+    assert rule.any() and np.isnan(got[rule]).all()
+    with np.errstate(invalid="ignore"):
+        exact = xs.astype(np.float64) @ os_.astype(np.float64)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(exact))
+    assert np.isnan(got[:, tps.ADV_NAN]).all()
+    # -0.0 selected by a 1 gives +0.0
+    zero = np.arange(len(xs)) % 10 == 0
+    onehot = [w for w in range(tps.W) if w not in (
+        tps.ADV_PAIR, tps.ADV_THREE, tps.ADV_NAN, tps.ADV_INF)]
+    assert (_bits(got[np.ix_(zero, onehot)]) == 0).all()
+
+
 def test_wrappers_take_the_plain_version_on_the_cpu():
     x, o, i1, i2 = _port_inputs()
     assert torch.equal(probe.probe_gather(x, i1, tps.W, tps.WP),
