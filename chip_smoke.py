@@ -58,7 +58,9 @@ K8.  the column-selection probe (csrc/probe_select.cu) through its own
    beside one library call (index_select; matmul with TF32 off, by the
    one-hot matrix or by a +1/-1 difference matrix) and its bound, and
    against that call in 10 alternating rounds (A B, B A, ...; the median
-   and range of the per-round time ratio); the product also on the
+   and range of the per-round time ratio); the gather also at
+   index_select's own output, [rows, 110] (no zero columns), to the bit
+   and in alternating rounds against it; the product also on the
    probe's adversarial inputs at the same shape (+-Inf, NaN, -0.0 in x;
    an all-zero column, a +1/-1 pair, three non-unit nonzeros, a NaN and
    a +Inf in o) to the bit.  Every bound is bytes over 3.35 TB/s against
@@ -81,9 +83,20 @@ hist-classic-1M.  65,536 classic histograms x 16 `le` buckets
    (1,048,576 cumulative http_latency_bucket counters, _ns_ =
    App-{h % 1000}) made on the card: G6 histogram_quantile(0.9, sum by
    (le, _ns_) (rate(...))), K1 over 16,000 groups then the classic
-   quantile, against an f64 oracle (rtol 2e-4, atol 1e-3).
-Every phase prints its seconds; general-1M and hist-classic-1M print
-each query's cold time, warm p50/p99 and the peak device memory.
+   quantile, against an f64 oracle (rtol 2e-4, atol 1e-3);
+hist-native-1M.  the same counts (the same generator and seed) as 65,536
+   native histograms x 16 buckets ([S, T, B] columns of http_latency,
+   ingested with their bucket bounds): the bench's panel
+   histogram_quantile(0.9, sum(rate(http_latency[5m])) by (_ns_)), K1
+   over 1,048,576 flattened bucket rows into 16,000 (group, bucket)
+   slots, held to hist-classic-1M's oracle (rtol 2e-4, atol 1e-3); the
+   general path's histogram_quantile(0.9, rate(http_latency[5m])) per
+   histogram against an f64 per-histogram oracle (the same tolerance);
+   then 4,096 native histograms with ~1% whole-scrape holes, the panel
+   through K3 (rtol 5e-4, atol 1e-4).
+Every phase prints its seconds; general-1M, hist-classic-1M and
+hist-native-1M print each query's cold time, warm p50/p99 and the peak
+device memory, and hist-native-1M the mirror upload seconds.
 
 Then one JSON line with the kernel table (K1-K8), and as the last line
 {"ok": true, "device": {...}}.
@@ -324,15 +337,16 @@ def run_queries(what, eng, specs, want, warm, start_s, end_s):
         for i in range(reps + 1):
             n0 = dict(kernels.LAUNCHES)
             t0 = time.perf_counter()
-            answers.append(eng.query_range(q, start_s + 600, 60, end_s))
+            answers.append(eng.query_range(q, start_s + 600, 60, end_s,
+                                           spec.get("params")))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             for k in spec["kernels"]:
                 check(kernels.LAUNCHES[k] > n0[k],
                       f"{what}: run {i} of `{q}` did not launch {k}")
         rtol, atol = spec["tol"]
-        checked = [compare(r, want[q], rtol, atol, f"{what} `{q}`")
-                   for r in answers]
+        checked = [compare(r, want[q], rtol, atol, f"{what} `{q}`",
+                           spec.get("label", "_ns_")) for r in answers]
         check(np.array_equal(checked[-2][0], checked[-1][0], equal_nan=True),
               f"{what}: two warm answers of `{q}` differ")
         _, err, rel = checked[-1]
@@ -456,12 +470,14 @@ def build_store(kind, num_series, seed, hole_frac, queries, general=()):
                                  oracle_s=oracle_s)
 
 
-def compare(got_res, want, rtol, atol, what):
+def compare(got_res, want, rtol, atol, what, label="_ns_"):
+    """Each result series into row N of `want` by its `label` (App-N,
+    Instance-N; row 0 without one), then held to it."""
     check(got_res.error is None, f"{what}: query error {got_res.error}")
     got = np.full_like(want, np.nan)
     for key, _, row in got_res.series():
         labels = dict(key.labels)
-        got[int(labels["_ns_"].split("-")[1]) if "_ns_" in labels else 0] = \
+        got[int(labels[label].split("-")[1]) if label in labels else 0] = \
             row
     check((np.isnan(got) == np.isnan(want)).all(),
           f"{what}: NaN pattern differs from the oracle")
@@ -866,21 +882,7 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
         rows_out.append(dict(query=q, kernel=kernel, cold_s=cold_s, p50=p50,
                              p99=p99, err=err))
         if qi == 0:
-            # where a warm query's host time goes: one more warm query
-            # under cProfile (host calls that wait on the card show it)
-            prof = cProfile.Profile()
-            prof.enable()
-            query(q)
-            prof.disable()
-            buf = io.StringIO()
-            pstats.Stats(prof, stream=buf).sort_stats("tottime") \
-                .print_stats(6)
-            top = [ln for ln in buf.getvalue().splitlines()
-                   if ln.strip() and ln.lstrip()[0].isdigit()]
-            log(f"{what}: cProfile of one warm `{q}`, top 6 by own time "
-                f"(ncalls tottime percall cumtime percall function):")
-            for ln in top[-6:]:
-                log(f"{what}:   {ln.strip()}")
+            log_profile(what, q, lambda: query(q))
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     mirror = ms.get_shard("prometheus", 0).stores[schema].device_mirror
@@ -904,6 +906,24 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
     del eng, ms
     free_device_memory()
     return launches, rows_out, general_launches
+
+
+def log_profile(what, q, run):
+    """Where a warm query's host time goes: one more warm run under
+    cProfile (host calls that wait on the card show it), top 6 by own
+    time."""
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    prof.disable()
+    buf = io.StringIO()
+    pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(6)
+    top = [ln for ln in buf.getvalue().splitlines()
+           if ln.strip() and ln.lstrip()[0].isdigit()]
+    log(f"{what}: cProfile of one warm `{q}`, top 6 by own time "
+        f"(ncalls tottime percall cumtime percall function):")
+    for ln in top[-6:]:
+        log(f"{what}:   {ln.strip()}")
 
 
 def free_device_memory():
@@ -1023,6 +1043,30 @@ def run_probe_phase(dev, seed):
                 library_ms=library_ms, yardsticks={lib[0]: library_ms},
                 ab_vs_library=ab,
                 source="filodb_tpu_torch/csrc/probe_select.cu")
+        # the gather like for like: index_select returns [rows, W], so the
+        # kernel is timed at WP = W too (no zero columns to write)
+        def gather_w():
+            return probe.probe_gather(x, i1, W, W)
+
+        def select_w():
+            return torch.index_select(x, 1, idx1)
+        got, want = gather_w(), select_w()
+        torch.cuda.synchronize()
+        check(same_bits(got, want), "probe_gather at [rows, W]: kernel and "
+              "index_select differ in some bit")
+        nbytes = rows * (sectors(sel1) * SECTOR + W * 4)
+        eq = dict(shape=[rows, W], ms=cuda_ms(gather_w, reps=20),
+                  library_ms=cuda_ms(select_w, reps=20),
+                  bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+                  ab_vs_library=alternate(gather_w, select_w))
+        table["probe_gather"]["equal_output"] = eq
+        ab = eq["ab_vs_library"]
+        log(f"K8 probe_gather [{rows}, {K}] -> [{rows}, {W}] (index_select's "
+            f"output): bit-identical to index_select; kernel "
+            f"{eq['ms']:.4f} ms, index_select {eq['library_ms']:.4f} ms, "
+            f"bound {eq['bound_ms']:.4f} ms (bytes: {nbytes} B); kernel "
+            f"over index_select in {ab['rounds']} alternating rounds: median "
+            f"{ab['median']:.4f} ({ab['min']:.4f}-{ab['max']:.4f})")
         del diff
         xa, oa = ps.adversarial_inputs(rows, dev, seed)
         got = probe.probe_onehot_matmul(xa, oa)
@@ -1142,6 +1186,137 @@ def run_hist_path(num_hist, seed, warm, dev):
                                  {HIST_QUERY: want}, warm, start_s, end_s)
     del eng, ms
     free_device_memory()
+    return launches, rows, want
+
+
+# ------------------------------- hist-native-1M: native histograms
+
+HIST_NATIVE_QUERY = ("histogram_quantile(0.9, sum(rate(http_latency[5m])) "
+                     "by (_ns_))")        # bench.py:908-910, word for word
+HIST_SERIES_QUERY = "histogram_quantile(0.9, rate(http_latency[5m]))"
+NATIVE_RAGGED_COUNT = 4_096
+
+
+def native_hist_store(num_hist, seed, dev, hole_frac=0.0):
+    """num_hist native histograms x the 16 LES buckets x T samples
+    (http_latency, _ns_ = App-{h % NUM_NS}) made on the card slab by slab
+    with hist-classic-1M's Poisson generator and seed, so both hold the
+    same counts, and ingested as [S, T, B] columns through
+    TimeSeriesShard.ingest_columns.  hole_frac drops whole scrapes (every
+    bucket, sum and count of a series at one sample).  The f64 oracle:
+    per (histogram, window, bucket) rates by oracle_rates_t (NaN samples
+    absent), then oracle_bucket_quantile per histogram ([H, W]) and, of
+    the sums by _ns_, per group ([NUM_NS, W]) -> (memstore, the two
+    oracles, timings)."""
+    import torch
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    B = len(LES)
+    les = np.array([float(x) for x in LES])
+    ms = TimeSeriesMemStore()
+    shard = ms.setup("prometheus", 0)
+    ts_row = START_MS + np.arange(T, dtype=np.int64) * STEP_MS
+    wends = np.arange(START_MS + 600_000, int(ts_row[-1]) + 1, 60_000)
+    W = len(wends)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    sums = torch.zeros((NUM_NS, W, B), dtype=torch.float64, device=dev)
+    per_series = np.empty((num_hist, W))
+    per_slab = SLAB // B
+    gen_s = ingest_s = oracle_s = 0.0
+    for h0 in range(0, num_hist, per_slab):
+        nh = min(per_slab, num_hist - h0)
+        t0 = time.perf_counter()
+        inc = torch.poisson(torch.full((nh, T, B), 2.0, device=dev),
+                            generator=gen).double()
+        h = inc.cumsum(1).cumsum(2)                       # [nh, T, B]
+        if hole_frac:
+            h[torch.rand((nh, T), generator=gen, device=dev) < hole_frac] \
+                = float("nan")
+        keys = [PartKey.make("http_latency", {
+            "_ws_": "demo", "_ns_": f"App-{i % NUM_NS}",
+            "instance": f"Instance-{i}"}) for i in range(h0, h0 + nh)]
+        host = h.cpu().numpy()
+        t1 = time.perf_counter()
+        shard.ingest_columns(
+            "prom-histogram", keys, np.broadcast_to(ts_row, (nh, T)),
+            {"h": host, "count": host[..., -1],
+             "sum": host[..., -1] * 0.25}, bucket_les=les)
+        t2 = time.perf_counter()
+        rates = oracle_rates_t(h.permute(0, 2, 1).reshape(nh * B, T),
+                               ts_row, wends)["rate"]
+        rates = rates.reshape(nh, B, W).permute(0, 2, 1)   # [nh, W, B]
+        g = torch.arange(h0, h0 + nh, device=dev) % NUM_NS
+        sums.index_add_(0, g, torch.nan_to_num(rates, nan=0.0))
+        per_series[h0:h0 + nh] = oracle_bucket_quantile(
+            0.9, rates.cpu().numpy(), les)
+        torch.cuda.synchronize()
+        gen_s += t1 - t0
+        ingest_s += t2 - t1
+        oracle_s += time.perf_counter() - t2
+        del inc, h, rates, host
+    grouped = oracle_bucket_quantile(0.9, sums.cpu().numpy(), les)
+    return ms, grouped, per_series, dict(gen_s=gen_s, ingest_s=ingest_s,
+                                         oracle_s=oracle_s)
+
+
+def run_hist_native_path(num_hist, seed, warm, dev, classic_want):
+    """hist-native-1M: the bench's native panel HIST_NATIVE_QUERY (K1 over
+    num_hist x 16 flattened bucket rows, 16,000 (group, bucket) slots)
+    held to hist-classic-1M's oracle `classic_want` (the same counts), and
+    the general path's per-histogram HIST_SERIES_QUERY held to its own
+    f64 oracle; then NATIVE_RAGGED_COUNT histograms with ~1% whole-scrape
+    holes through K3 -> (launches, rows)."""
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.rangevector import PlannerParams
+    start_s = START_MS // 1000
+    end_s = start_s + (T - 1) * STEP_MS // 1000
+    launches, rows = {}, []
+    for what, n, hole, tol in (
+            ("hist-native-1M", num_hist, 0.0, (2e-4, 1e-3)),
+            ("hist-native-ragged", NATIVE_RAGGED_COUNT, 0.01, (5e-4, 1e-4))):
+        ms, grouped, per_series, t = native_hist_store(
+            n, seed + (1 if hole else 0), dev, hole)
+        if not hole:
+            # the same counts: the two oracles differ only in the order
+            # of their f64 group sums
+            check(np.allclose(grouped, classic_want, rtol=1e-9, atol=0,
+                              equal_nan=True),
+                  f"{what}: the counts differ from hist-classic-1M's")
+        log(f"{what}: {n} native histograms x {len(LES)} buckets x {T} "
+            f"samples: generate on the card {t['gen_s']:.3f} s, "
+            f"ingest_columns {t['ingest_s']:.3f} s, f64 oracle "
+            f"{t['oracle_s']:.3f} s")
+        eng = QueryEngine("prometheus", ms)
+        specs = [dict(name="panel", query=HIST_NATIVE_QUERY, tol=tol,
+                      kernels=("fused_rate_ragged" if hole
+                               else "fused_rate_dense",))]
+        want = {HIST_NATIVE_QUERY: classic_want if not hole else grouped}
+        if not hole:
+            # one value a histogram and window: over the default result
+            # limit of 1,000,000 samples at 65,536 histograms
+            specs.append(dict(name="per-series", query=HIST_SERIES_QUERY,
+                              tol=tol, kernels=(), label="instance",
+                              warm=2, params=PlannerParams(
+                                  sample_limit=per_series.size)))
+            want[HIST_SERIES_QUERY] = per_series
+        got, r = run_queries(what, eng, specs, want, warm, start_s, end_s)
+        mirror = ms.get_shard("prometheus", 0) \
+            .stores["prom-histogram"].device_mirror
+        snap = mirror.snapshot()
+        idx = np.arange(n)
+        log(f"{what}: mirror upload {mirror.last_upload_s:.3f} s; the "
+            f"leaf's gather of [{n}, {T}, {len(LES)}] "
+            f"{cuda_ms(lambda: mirror.gather_cached(idx, snap), reps=5):.3f}"
+            f" ms")
+        if not hole:
+            log_profile(what, HIST_NATIVE_QUERY, lambda: eng.query_range(
+                HIST_NATIVE_QUERY, start_s + 600, 60, end_s))
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        rows += r
+        del eng, ms, mirror, snap
+        free_device_memory()
     return launches, rows
 
 
@@ -1675,8 +1850,13 @@ def main(argv=None) -> int:
         got, _ = timed(f"raw-counter {'ragged' if hole else 'dense'}",
                        run_raw_counter_path, n, seed, hole, warm, tol, dev)
         add(got)
-    got, _ = timed("hist-classic-1M", run_hist_path,
-                   args.series // len(LES), args.seed + 6, small_warm, dev)
+    got, _, classic_want = timed("hist-classic-1M", run_hist_path,
+                                 args.series // len(LES), args.seed + 6,
+                                 small_warm, dev)
+    add(got)
+    got, _ = timed("hist-native-1M", run_hist_native_path,
+                   args.series // len(LES), args.seed + 6, small_warm, dev,
+                   classic_want)
     add(got)
     missing = [name for name, k in launches.items() if k == 0]
     check(not missing, f"kernels of the main path never launched: {missing}")
@@ -1702,7 +1882,9 @@ def main(argv=None) -> int:
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=row["library_ms"],
              yardsticks=row["yardsticks"],
-             ab_vs_library=row["ab_vs_library"])
+             ab_vs_library=row["ab_vs_library"],
+             **({"equal_output": row["equal_output"]}
+                if "equal_output" in row else {}))
         for name, row in probe_table.items()]
     log(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {

@@ -27,14 +27,6 @@ import numpy as np
 from filodb_tpu_torch.core.schemas import Schema
 
 _PAD_TS = np.iinfo(np.int64).max
-
-
-def _histogram_not_ported(*_args, **_kwargs):
-    """Stands in for memory/histogram.py's rebucket/union_les, which this
-    package does not carry: a bucket-scheme change fails loudly."""
-    raise NotImplementedError(
-        "not_ported: histogram bucket-scheme changes (memory/histogram.py)")
-
 _NEG_TS = np.iinfo(np.int64).min
 
 
@@ -227,7 +219,7 @@ class DenseSeriesStore:
         if inc.shape[0] == self.num_buckets \
                 and np.array_equal(inc, self.bucket_les):
             return False
-        rebucket = union_les = _histogram_not_ported
+        from filodb_tpu_torch.memory.histogram import rebucket, union_les
         union = union_les(self.bucket_les, inc)
         if not np.array_equal(union, self.bucket_les):
             with self.mutation():       # nest-safe under an ongoing append
@@ -311,7 +303,7 @@ class DenseSeriesStore:
                             if c.col_type == "hist")
             nb = columns[hist_col].shape[1] if columns[hist_col].ndim == 2 else 0
             if self.ensure_scheme(nb, bucket_les):
-                rebucket = _histogram_not_ported
+                from filodb_tpu_torch.memory.histogram import rebucket
                 columns = {**columns,
                            hist_col: rebucket(columns[hist_col],
                                               bucket_les, self.bucket_les)}
@@ -426,7 +418,7 @@ class DenseSeriesStore:
             nb = columns[hist_col].shape[2] if columns[hist_col].ndim == 3 \
                 else 0
             if self.ensure_scheme(nb, bucket_les):
-                rebucket = _histogram_not_ported
+                from filodb_tpu_torch.memory.histogram import rebucket
                 columns = {**columns,
                            hist_col: rebucket(columns[hist_col],
                                               bucket_les, self.bucket_les)}

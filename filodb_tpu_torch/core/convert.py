@@ -20,11 +20,13 @@ def load_reference_arrays(memstore, dataset: str, shard: int, *,
                           part_key_labels: Sequence[Mapping[str, str]],
                           ts: np.ndarray, columns: Dict[str, np.ndarray],
                           counts: np.ndarray,
-                          schema: str = "prom-counter") -> int:
+                          schema: str = "prom-counter",
+                          bucket_les=None) -> int:
     """part_key_labels[i]: series i's labels, its metric under
-    ``_metric_``; ts [S, T] int64 ms; columns {name: [S, T] f64}; counts
-    [S] valid samples per row (a row's samples are its first counts[i]
-    slots).  Returns samples loaded."""
+    ``_metric_``; ts [S, T] int64 ms; columns {name: [S, T] f64, or
+    [S, T, B] for a histogram column with `bucket_les` its B upper
+    bounds}; counts [S] valid samples per row (a row's samples are its
+    first counts[i] slots).  Returns samples loaded."""
     sh = memstore.setup(dataset, shard)
     counts = np.asarray(counts, np.int64)
     ts = np.asarray(ts, np.int64)
@@ -43,5 +45,5 @@ def load_reference_arrays(memstore, dataset: str, shard: int, *,
         total += sh.ingest_columns(
             schema, [keys[r] for r in rows.tolist()], ts[rows, :k],
             {name: np.asarray(col, np.float64)[rows, :k]
-             for name, col in columns.items()})
+             for name, col in columns.items()}, bucket_les=bucket_les)
     return total

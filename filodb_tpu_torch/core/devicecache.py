@@ -9,6 +9,8 @@ value columns are reset-corrected (counters) and rebased per series in
 f64 before the f32 downcast.  Unlike the reference, that f64 work runs on
 the mirror's device in row chunks (ops/counter.rebase_rows_t), not on the
 host, and the columns are kept in f32, the type the fused kernels read.
+A histogram column [S, T, B] is corrected and rebased per bucket along
+time, with a base per (series, bucket).
 
 Over the HBM cap the mirror raises MirrorCapExceeded; it never serves
 from the host.  Incremental refresh, background rebuild, the cold
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from filodb_tpu_torch.ops.counter import rebase_rows_t
+from filodb_tpu_torch.ops.hist import bucket_rows, from_bucket_rows
 from filodb_tpu_torch.ops.timewindow import PAD_TS
 from filodb_tpu_torch.utils.device import resolve_device
 
@@ -48,9 +51,13 @@ class _MirrorSnapshot:
     base_ms: int
     t_used: int
     ts_off: torch.Tensor                 # int32 [S, T_used]
-    cols: Dict[str, torch.Tensor]        # f32 [S, T_used] rebased values
-    vbases: Dict[str, torch.Tensor]      # f64 [S] per-series value bases
+    cols: Dict[str, torch.Tensor]        # f32 [S, T_used] (or [S, T_used,
+                                         # B] histograms) rebased values
+    vbases: Dict[str, torch.Tensor]      # f64 [S] (or [S, B]) value bases
     counts: Optional[np.ndarray] = None  # int32 [S] at upload
+    # per column: bool [S] (or [S, B]) some finite value, i.e. vbase real
+    vbase_valid: Dict[str, np.ndarray] = dataclasses.field(
+        default_factory=dict)
     # fused-kernel eligibility: every row shares one scrape grid
     uniform_grid: bool = False
     ts_row0: Optional[np.ndarray] = None     # int32 [T] row-0 offsets
@@ -63,15 +70,14 @@ _mirror_serial = itertools.count(1)
 
 def store_nbytes(store) -> int:
     """Device bytes of a store's mirror: int32 offsets, f32 values and an
-    f64 base per series for each value column."""
+    f64 base per series (per series and bucket for a histogram column)
+    for each value column."""
     s, t = store.num_series, max(store.time_used, 1)
     n = s * t * 4
     for arr in store.cols.values():
         if arr is not None:
-            if arr.ndim == 3:
-                raise NotImplementedError(
-                    "not_ported: histogram columns in the device mirror")
-            n += s * t * 4 + s * 8
+            b = arr.shape[2] if arr.ndim == 3 else 1
+            n += (s * t * 4 + s * 8) * b
     return n
 
 
@@ -106,19 +112,18 @@ class DeviceMirror:
         counts = store.counts[:s].astype(np.int32).copy()
         ts_host = store.ts[:s, :t]
         pos = torch.arange(t, device=dev)[None, :]
-        chunks = range(0, s, UPLOAD_CHUNK_ROWS)
 
-        def rows_slice(i):
-            return slice(i, min(i + UPLOAD_CHUNK_ROWS, s))
+        def chunks(rows=UPLOAD_CHUNK_ROWS):
+            return [slice(i, min(i + rows, s)) for i in range(0, s, rows)]
 
-        def counted(i):
-            c = torch.from_numpy(counts[rows_slice(i)]).to(dev)
+        def counted(sl):
+            c = torch.from_numpy(counts[sl]).to(dev)
             return pos < c[:, None]
 
         # base_ms: the smallest live timestamp
         base_ms = None
-        for i in chunks:
-            ts = torch.from_numpy(ts_host[rows_slice(i)]).to(dev)
+        for sl in chunks():
+            ts = torch.from_numpy(ts_host[sl]).to(dev)
             live = ts[ts > 0]
             if live.numel():
                 m = int(live.min())
@@ -127,11 +132,10 @@ class DeviceMirror:
         ts_off = torch.empty((s, t), dtype=torch.int32, device=dev)
         uniform = s > 0 and bool((counts == counts[0]).all())
         row0 = None
-        for i in chunks:
-            sl = rows_slice(i)
+        for sl in chunks():
             ts = torch.from_numpy(ts_host[sl]).to(dev)
             off = torch.clamp(ts - base_ms, -(1 << 30), 1 << 30).to(torch.int32)
-            off = torch.where(counted(i), off,
+            off = torch.where(counted(sl), off,
                               torch.full_like(off, int(PAD_TS)))
             ts_off[sl] = off
             if row0 is None:
@@ -142,33 +146,47 @@ class DeviceMirror:
                         if c.detect_drops or c.counter}
         cols: Dict[str, torch.Tensor] = {}
         vbases: Dict[str, torch.Tensor] = {}
+        vbase_valid: Dict[str, np.ndarray] = {}
         col_finite: Dict[str, bool] = {}
         for name, arr in store.cols.items():
             if arr is None:
                 continue
-            col = torch.empty((s, t), dtype=torch.float32, device=dev)
-            vb_all = torch.empty(s, dtype=torch.float64, device=dev)
+            bkt = arr.shape[2:]                  # (B,) for a histogram
+            nb = bkt[0] if bkt else 1
+            col = torch.empty((s, t) + bkt, dtype=torch.float32, device=dev)
+            vb_all = torch.empty((s,) + bkt, dtype=torch.float64, device=dev)
+            vb_ok = np.empty((s,) + bkt, dtype=bool)
             finite_ok = True
-            for i in chunks:
-                sl = rows_slice(i)
+            for sl in chunks(max(1, UPLOAD_CHUNK_ROWS // nb)):
                 v = torch.from_numpy(
                     np.ascontiguousarray(arr[sl, :t], np.float64)).to(dev)
+                if bkt:
+                    v = bucket_rows(v)     # each bucket a row along time
                 rebased, vb, corrected = rebase_rows_t(v, name in counter_cols)
+                fin = torch.isfinite(corrected)
+                ok = fin.any(dim=1)
+                if bkt:
+                    rebased = from_bucket_rows(rebased, nb)
+                    fin = from_bucket_rows(fin, nb)
+                    vb, ok = vb.reshape(-1, nb), ok.reshape(-1, nb)
                 col[sl] = rebased.to(torch.float32)
                 vb_all[sl] = vb
-                fin = torch.isfinite(corrected)
+                vb_ok[sl] = ok.cpu().numpy()
                 # counted region fully finite (padding beyond counts is
                 # NaN by construction and does not disqualify)
                 if finite_ok:
-                    finite_ok = bool((fin | ~counted(i)).all())
+                    pad = ~counted(sl)
+                    finite_ok = bool(
+                        (fin | (pad[..., None] if bkt else pad)).all())
             cols[name] = col
             vbases[name] = vb_all
+            vbase_valid[name] = vb_ok
             col_finite[name] = finite_ok
         ts_row0 = None
         if uniform:
             ts_row0 = ts_off[0].cpu().numpy().copy()
         self._snap = _MirrorSnapshot(gen0, base_ms, t, ts_off, cols, vbases,
-                                     counts=counts,
+                                     counts=counts, vbase_valid=vbase_valid,
                                      uniform_grid=uniform, ts_row0=ts_row0,
                                      col_finite=col_finite)
         if dev.type == "cuda":
@@ -219,7 +237,8 @@ class DeviceMirror:
                                           Dict[str, torch.Tensor], int]]:
         """(ts_off [R, T], cols, vbases, base_ms) on the device for the
         requested rows of a snapshot — no host reads, no freshness check.
-        Offsets are relative to base_ms; values rebased by vbases."""
+        Offsets are relative to base_ms; values rebased by vbases.  A
+        histogram column comes back [R, T, B] with vbases [R, B]."""
         snap = snap if snap is not None else self._snap
         if snap is None:
             return None

@@ -67,7 +67,7 @@ def _seg_extreme(x: torch.Tensor, gids: torch.Tensor, num_groups: int,
                                include_self=True)
 
 
-def _seg_count(present: torch.Tensor, gids: torch.Tensor,
+def seg_count(present: torch.Tensor, gids: torch.Tensor,
                num_groups: int) -> torch.Tensor:
     """[S, W] bool -> [G, W] f64 counts, summed as integers (no float
     atomics; exact in any order)."""
@@ -98,7 +98,7 @@ def map_phase(op: str, vals: torch.Tensor, gids: torch.Tensor,
         return _seg_extreme(one, gids, num_groups, "max")[..., None]
     if op not in ("sum", "avg", "count", "stddev", "stdvar"):
         raise ValueError(f"unsupported aggregate {op}")
-    cnt = _seg_count(present, gids, num_groups)
+    cnt = seg_count(present, gids, num_groups)
     if op == "count":
         return cnt[..., None]
     if csr is None:

@@ -1,6 +1,6 @@
 """Histogram kernels over dense bucket matrices: histogram_quantile (with
 its numpy twin), histogram_bucket and hist_sum_rv (port of
-filodb_tpu/ops/hist.py).
+filodb_tpu/ops/hist.py), and the bucket-row layout.
 
 Buckets are cumulative counts with ascending `le` upper bounds, the last
 one +Inf, laid out [S, W, B] with `les` [B].  The quantile is
@@ -13,6 +13,29 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+# The bucket-row layout: a histogram column [S, T, B] runs through the
+# per-series machinery (counter correction, range functions, the fused
+# kernels) as S*B rows, bucket-major within a series (row s * B + b); the
+# fused leaf's (group, bucket) slots follow it (slot g * B + b).  Numpy
+# arrays and tensors alike.
+
+def bucket_rows(x):
+    """[S, T, B] -> [S*B, T], row s * B + b = bucket b of series s."""
+    S, T, B = x.shape
+    return x.swapaxes(1, 2).reshape(S * B, T)
+
+
+def from_bucket_rows(x, B: int):
+    """[S*B, W] rows (or slots) -> [S, W, B]: bucket_rows' inverse."""
+    return x.reshape(-1, B, x.shape[1]).swapaxes(1, 2)
+
+
+def bucket_slots(gids, B: int) -> np.ndarray:
+    """Per-series group ids [S] -> the slot of each bucket row [S*B]."""
+    return (np.asarray(gids, np.int64)[:, None] * B
+            + np.arange(B)[None, :]).reshape(-1)
 
 
 def histogram_quantile(q, buckets, les):

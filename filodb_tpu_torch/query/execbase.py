@@ -13,6 +13,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from filodb_tpu_torch.memory.histogram import rebucket, union_les
 from filodb_tpu_torch.ops import agg as agg_ops
 from filodb_tpu_torch.query.rangevector import (QueryContext, QueryResult,
                                                 QueryStats, RangeVectorKey,
@@ -61,11 +62,11 @@ class RawBlock:
     deltas survive the f32 downcast; vbase is the per-series base."""
     keys: Sequence[RangeVectorKey]
     ts_off: torch.Tensor                # int32 [S, T] offsets from base_ms
-    values: torch.Tensor                # f32 [S, T]
+    values: torch.Tensor                # f32 [S, T] or [S, T, B]
     base_ms: int
-    bucket_les: Optional[np.ndarray] = None
+    bucket_les: Optional[np.ndarray] = None     # [B] histogram bounds
     samples: int = 0                    # total valid samples (stats)
-    vbase: Optional[torch.Tensor] = None  # [S]
+    vbase: Optional[torch.Tensor] = None  # [S] or [S, B]
     precorrected: bool = False          # counter reset-correction done
     # shared scrape grid: row-0 ts offsets when ALL rows share one grid,
     # else None.  `dense`: no NaN holes anywhere in the counted region.
@@ -179,6 +180,7 @@ class AggPartial:
     cand_vals: Optional[torch.Tensor] = None    # [N, W]
     cand_groups: Optional[np.ndarray] = None    # int [N] -> group_keys index
     params: Tuple = ()
+    bucket_les: Optional[np.ndarray] = None     # hist_sum partials
     # working-set identity of the aggregated keys ("agg", op, by,
     # without, source token); value-level identity is not implied
     cache_token: Optional[Tuple] = None
@@ -201,6 +203,11 @@ def _block_empty(wends: np.ndarray) -> ResultBlock:
 
 def present_partial(p: AggPartial) -> Optional[ResultBlock]:
     """Finish an AggPartial into a ResultBlock."""
+    if p.comp is not None and p.op == "hist_sum":
+        # [G, W, B+1]: the bucket sums, then the present-series count
+        out = np.where(p.comp[..., -1:] > 0, p.comp[..., :-1], np.nan)
+        return ResultBlock(p.group_keys, p.wends, out, p.bucket_les,
+                           cache_token=p.cache_token)
     if p.comp is not None:
         out = agg_ops.present(p.op, torch.from_numpy(
             np.asarray(p.comp, np.float64))).numpy()
@@ -244,6 +251,48 @@ def _count_values(p: AggPartial, vals: np.ndarray) -> Optional[ResultBlock]:
     return ResultBlock(out_keys, p.wends, np.stack(out_rows))
 
 
+def _union_scheme(les_list: List[Optional[np.ndarray]]
+                  ) -> Optional[np.ndarray]:
+    """The union bucket scheme across shards, or None when a shard carries
+    no boundaries."""
+    if any(les is None for les in les_list):
+        return None
+    out = les_list[0]
+    for les in les_list[1:]:
+        out = union_les(out, les)
+    return out
+
+
+def _align_hist_schemes(parts: List[AggPartial]) -> List[AggPartial]:
+    """Rebucket hist_sum partials onto the union scheme, so shards whose
+    series changed bucket scheme still merge."""
+    les_list = [p.bucket_les for p in parts]
+    if any(les is None for les in les_list):
+        # boundary-less partials merge only by width, and only when every
+        # known scheme is the same one
+        widths = {p.comp.shape[-1] for p in parts}
+        known = [les for les in les_list if les is not None]
+        if len(widths) > 1 or any(not np.array_equal(les, known[0])
+                                  for les in known[1:]):
+            raise ValueError(
+                "cannot merge histogram partials of different schemes when "
+                "some shards carry no bucket boundaries to re-map by")
+        return parts
+    if all(np.array_equal(les, les_list[0]) for les in les_list):
+        return parts
+    union = _union_scheme(les_list)
+
+    def rebucket_comp(p):
+        # [G, W, B+1]: B bucket slots, then the present-series count
+        B = len(p.bucket_les)
+        buckets = rebucket(p.comp[..., :B], p.bucket_les, union)
+        return np.concatenate([buckets, p.comp[..., B:]], axis=-1)
+
+    return [dataclasses.replace(p, comp=rebucket_comp(p), bucket_les=union)
+            if not np.array_equal(p.bucket_les, union) else p
+            for p in parts]
+
+
 def _reduced_token(parts: List[AggPartial]) -> Optional[Tuple]:
     """Composite identity of a merged partial: the children's tokens in
     merge order."""
@@ -258,6 +307,8 @@ def reduce_partials(parts: List[AggPartial]) -> Optional[AggPartial]:
     if not parts:
         return None
     op = parts[0].op
+    if op == "hist_sum":
+        parts = _align_hist_schemes(parts)
     gmap: Dict[RangeVectorKey, int] = {}
     gkeys: List[RangeVectorKey] = []
     for p in parts:
@@ -278,16 +329,19 @@ def reduce_partials(parts: List[AggPartial]) -> Optional[AggPartial]:
                           cand_groups=np.concatenate(cg),
                           params=parts[0].params)
     W, C = parts[0].comp.shape[1:]
+    # a hist_sum partial's B bucket sums and count all merge by addition
+    comb_op = "sum" if op == "hist_sum" else op
     # each component starts from its combiner's identity (+inf for min,
     # -inf for max): starting a max from 0 would beat negative values
-    out = agg_ops.identity_partial(op, len(gkeys), W, C)
+    out = agg_ops.identity_partial(comb_op, len(gkeys), W, C)
     for p in parts:
         idx = torch.tensor([gmap[k] for k in p.group_keys], dtype=torch.long)
         # group keys are unique within one partial: a plain indexed
         # combine, no duplicate-index accumulation
-        out[idx] = agg_ops.reduce_phase(op, out[idx],
+        out[idx] = agg_ops.reduce_phase(comb_op, out[idx],
                                         torch.from_numpy(p.comp))
     return AggPartial(op, gkeys, parts[0].wends, comp=out.numpy(),
+                      bucket_les=parts[0].bucket_les,
                       cache_token=_reduced_token(parts))
 
 

@@ -1,8 +1,10 @@
 """Batched fused-leaf dispatch: merge compatible panels into single
-kernel launches (port of filodb_tpu/query/fusedbatch.py, scalar series
-only).  Calls of one working set, window grid and function share a
-launch: sum/avg/count panels one group-mode launch, min/max panels one
-per-series launch (ops/fused.fused_leaf_agg_batch).
+kernel launches (port of filodb_tpu/query/fusedbatch.py).  Calls of one
+working set, window grid and function share a launch: sum/avg/count
+panels one group-mode launch, min/max panels one per-series launch
+(ops/fused.fused_leaf_agg_batch).  A histogram call's groups are
+(group, bucket) slots; its finisher reshapes them to [G, W, B] and adds
+the present-series count (a "hist_sum" AggPartial).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from filodb_tpu_torch.ops.hist import from_bucket_rows
 from filodb_tpu_torch.query.execbase import AggPartial
 
 
@@ -34,6 +37,9 @@ class FusedCall:
     # subset + window params): lets equal-but-distinct plan/values
     # objects merge when the caches declined to share them
     cache_key: Optional[tuple] = None
+    # histogram leaf: groups carry (group, bucket) slots, gid * B + b
+    bucket_les: Optional[np.ndarray] = None
+    num_buckets: int = 1
     cache_token: Optional[tuple] = None
 
     def compat_key(self):
@@ -52,7 +58,7 @@ def finish_fused_calls(calls: List[FusedCall]) -> List[AggPartial]:
     prim: Dict[tuple, int] = {}
     alias: Dict[int, int] = {}
     for i, fc in enumerate(calls):
-        k = fc.compat_key() + (id(fc.groups.gids_p), fc.op)
+        k = fc.compat_key() + (id(fc.groups.gids_p), fc.op, fc.num_buckets)
         if k in prim:
             alias[i] = prim[k]
         else:
@@ -64,7 +70,8 @@ def finish_fused_calls(calls: List[FusedCall]) -> List[AggPartial]:
     pending = []
     for take in by_key.values():
         fc0 = calls[take[0]]
-        panels = [(calls[i].groups, len(calls[i].gkeys), calls[i].op)
+        panels = [(calls[i].groups,
+                   len(calls[i].gkeys) * calls[i].num_buckets, calls[i].op)
                   for i in take]
         finisher = fused.fused_leaf_agg_batch(
             fc0.plan, fc0.values, panels, fc0.fn,
@@ -73,9 +80,28 @@ def finish_fused_calls(calls: List[FusedCall]) -> List[AggPartial]:
         pending.append((take, finisher))
     for take, finisher in pending:
         for i, comp in zip(take, finisher()):
-            fc = calls[i]
-            out[i] = AggPartial(fc.op, fc.gkeys, fc.wends, comp=comp,
-                                cache_token=fc.cache_token)
+            out[i] = _present(calls[i], comp)
     for i, j in alias.items():
         out[i] = dataclasses.replace(out[j])
     return out
+
+
+def _present(fc: FusedCall, comp) -> AggPartial:
+    if fc.bucket_les is None:
+        return AggPartial(fc.op, fc.gkeys, fc.wends, comp=comp,
+                          cache_token=fc.cache_token)
+    # histogram: comp[..., 0] sums each (group, bucket) slot -> [G, W, B]
+    G, B = len(fc.gkeys), fc.num_buckets
+    buckets = from_bucket_rows(np.asarray(comp[..., 0], np.float64), B)
+    if fc.ragged:
+        # scrape holes take whole scrapes, so every bucket of a series
+        # shares one presence pattern: bucket 0's count is the series
+        # count (the kernel's presence output)
+        cnt = from_bucket_rows(np.asarray(comp[..., 1], np.float64),
+                               B)[..., 0]
+    else:
+        gsize = fc.groups.gsize.reshape(G, B)[:, 0]
+        cnt = gsize[:, None] * fc.plan.wvalid[None, :].astype(np.float64)
+    hist_comp = np.concatenate([buckets, cnt[..., None]], axis=2)
+    return AggPartial("hist_sum", fc.gkeys, fc.wends, comp=hist_comp,
+                      bucket_les=fc.bucket_les, cache_token=fc.cache_token)

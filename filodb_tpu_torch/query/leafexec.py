@@ -1,7 +1,6 @@
 """The shard-local leaf: index lookup, device-mirror gather and the fused
-peephole (port of filodb_tpu/query/leafexec.py, the mirror branch and
-scalar columns only), and the scalar leaves (time(), literals and
-scalar arithmetic).
+peephole (port of filodb_tpu/query/leafexec.py, the mirror branch), and
+the scalar leaves (time(), literals and scalar arithmetic).
 
 A range function followed by an aggregate over one shared scrape grid
 is answered in one of four ways, as in the reference (:174-214):
@@ -11,6 +10,10 @@ is answered in one of four ways, as in the reference (:174-214):
   (every series has the same samples per window);
 - min/max_over_time run as windowed torch reductions (ops/minmax.py);
 - everything else is one fused kernel launch (ops/fused.py).
+
+A native histogram column [S, T, B] takes the fused path only as
+sum(rate|increase): its S*B bucket rows, bucket-major within a series,
+go through the same kernels with one slot per (group, bucket).
 
 Every other leaf — the cases where the reference's _try_fused returns
 None — runs its transformers' general path on the mirror's device
@@ -29,6 +32,7 @@ import torch
 
 from filodb_tpu_torch.core.index import ColumnFilter
 from filodb_tpu_torch.ops import fused, minmax
+from filodb_tpu_torch.ops import hist as hist_ops
 from filodb_tpu_torch.ops.instant import INSTANT_FUNCTIONS, apply_binary_op
 from filodb_tpu_torch.ops.timewindow import PAD_TS, make_window_ends
 from filodb_tpu_torch.query.execbase import (
@@ -92,6 +96,7 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         if not isinstance(t0, PeriodicSamplesMapper) \
                 or not isinstance(t1, AggregateMapReduce):
             return None
+        is_hist = data.values.ndim == 3
         if t0.window_ms is None:
             # instant-vector selector (`sum by (x) (metric)`): lookback
             # sampling IS last_over_time over the stale-lookback window
@@ -104,6 +109,9 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         if t0.function_args or t1.params \
                 or not fused.can_fuse(fn, t1.op, True, dense):
             return None
+        if is_hist and (fn not in ("rate", "increase") or t1.op != "sum"
+                        or data.bucket_les is None):
+            return None
         wends = make_window_ends(t0.start_ms, t0.end_ms, t0.step_ms)
         eval_wends = wends - t0.offset_ms - data.base_ms
         if eval_wends.size == 0 or abs(eval_wends).max() >= (1 << 30):
@@ -111,9 +119,9 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         # host-only answers: under the dense shared grid every series has
         # the same samples per window, so count_over_time and the count
         # aggregate never need the values
-        if dense and fn == "count_over_time":
+        if dense and fn == "count_over_time" and not is_hist:
             return self._fused_count_over_time(data, t0, t1)
-        if dense and t1.op == "count":
+        if dense and t1.op == "count" and not is_hist:
             return self._fused_count_agg(data, t0, t1)
         if fn in fused.MINMAX_FNS:
             return self._fused_minmax(data, t0, t1, wends, eval_wends)
@@ -150,8 +158,25 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                                             t1.by, t1.without)
         self._check_group_limit(gkeys)
         vals = data.values
+        S = vals.shape[0]
+        B = vals.shape[2] if is_hist else 1
+        # the kernels' index-space limits (the reference's VMEM guard):
+        # a shape they do not take is the general path's, decided before
+        # the padded device copy
+        try:
+            fused.check_kernel_shape(
+                S * B, plan.Tp, plan.W,
+                fused.pad_group_count(len(gkeys) * B))
+        except ValueError:
+            return None
         if padded_vals is None:
-            padded_vals = fused.pad_values(vals, data.vbase, plan)
+            if is_hist:
+                flat = hist_ops.bucket_rows(vals)
+                padded_vals = fused.pad_values(flat, data.vbase.reshape(-1),
+                                               plan)
+                del flat            # the padded copy holds it now
+            else:
+                padded_vals = fused.pad_values(vals, data.vbase, plan)
             if key is not None:
                 # a new snapshot generation obsoletes this mirror's older
                 # entries — each pins a full padded copy on the device
@@ -161,19 +186,23 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                         del _FUSED_VALS_CACHE[k]
                     _vals_cache_insert(key, padded_vals)
         if groups is None:
-            groups = fused.pad_groups(gids, vals.shape[0], len(gkeys),
+            if is_hist:
+                gids = hist_ops.bucket_slots(gids, B)
+            groups = fused.pad_groups(gids, S * B, len(gkeys) * B,
                                       device=vals.device)
             _group_cache_insert(key, t1.by, t1.without, groups, gkeys)
         counters.inc("leaf_fused_kernel")
         ck = None if key is None else key + (
             t0.start_ms, t0.step_ms, t0.end_ms, t0.offset_ms,
-            t0.window_ms, data.base_ms)
+            t0.window_ms, data.base_ms) + (("hist", B) if is_hist else ())
         fc = FusedCall(
             plan=plan, values=padded_vals, groups=groups, gkeys=gkeys,
             wends=wends, fn=fn, op=t1.op, precorrected=data.precorrected,
-            ragged=not dense, num_series=vals.shape[0], cache_key=ck,
-            cache_token=agg_token(t1.op, t1.by, t1.without,
-                                  data.cache_token))
+            ragged=not dense, num_series=S * B, cache_key=ck,
+            bucket_les=data.bucket_les if is_hist else None,
+            num_buckets=B,
+            cache_token=agg_token("hist_sum" if is_hist else t1.op, t1.by,
+                                  t1.without, data.cache_token))
         return finish_fused_calls([fc])[0]
 
     def _window_counts_groups(self, data, t0, t1):
@@ -318,9 +347,8 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         col_name = self.columns[0] if self.columns else schema.value_column
         col_def = next((c for c in schema.data_columns
                         if c.name == col_name), None)
-        if col_def is None or col_def.col_type == "hist":
-            raise not_ported(f"column {col_name} of schema {schema_name} "
-                             f"(histograms and unknown columns)")
+        if col_def is None:
+            raise not_ported(f"column {col_name} of schema {schema_name}")
         counter_col = col_def.detect_drops or col_def.counter
         fn_is_counter = False
         for t in self.transformers:
@@ -360,7 +388,8 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         keys = LazyKeys(shard, pids)
         stats.series_scanned = int(pids.size)
         stats.samples_scanned = int(counts.sum())
-        return RawBlock(keys, ts_off, vals, base,
+        les = store.bucket_les if vals.ndim == 3 else None
+        return RawBlock(keys, ts_off, vals, base, les,
                         samples=stats.samples_scanned, vbase=vbase,
                         precorrected=counter_col,
                         shared_ts_row=shared_ts_row, dense=dense,

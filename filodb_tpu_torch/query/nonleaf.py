@@ -5,31 +5,88 @@ the values stay on their device.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from filodb_tpu_torch.memory.histogram import rebucket
 from filodb_tpu_torch.ops.select import gather_binop
+from filodb_tpu_torch.ops.timewindow import PAD_TS
 from filodb_tpu_torch.query.execbase import (AggPartial, ExecPlan,
                                              NonLeafExecPlan, RawBlock,
-                                             not_ported, reduce_partials)
+                                             _union_scheme, not_ported,
+                                             reduce_partials)
 from filodb_tpu_torch.query.rangevector import (RangeVectorKey, ResultBlock,
                                                 cat_values, concat_blocks,
                                                 device_values,
                                                 remove_nan_series)
 from filodb_tpu_torch.query.transformers import _group_ids
+from filodb_tpu_torch.utils.counters import counters
 
 
 class DistConcatExec(NonLeafExecPlan):
     """Concatenate child results."""
 
     def compose(self, results, stats):
-        if any(isinstance(r, RawBlock) for r in results):
-            raise not_ported("raw-series concatenation across shards "
-                             "(a bare selector or range vector)")
+        raws = [r for r in results if isinstance(r, RawBlock)]
+        if raws:
+            return _concat_raw(raws)
         return concat_blocks([r for r in results
                               if isinstance(r, ResultBlock)])
+
+
+def _concat_raw(raws: List[RawBlock]) -> RawBlock:
+    """Raw blocks of one grid and base, concatenated along series; shards
+    whose bucket schemes differ are first rebucketed onto the union."""
+    les0 = raws[0].bucket_les
+    if any((r.bucket_les is None) != (les0 is None)
+           or (les0 is not None and not np.array_equal(les0, r.bucket_les))
+           for r in raws[1:]):
+        union = _union_scheme([r.bucket_les for r in raws])
+        if union is None:
+            raise ValueError("cannot concat histogram blocks: some shards "
+                             "carry no bucket boundaries")
+        counters.inc("hist_concat_rebuckets")
+
+        def remap(r):
+            # rebucket selects source buckets: an index along the last axis
+            idx = torch.from_numpy(rebucket(
+                np.arange(len(r.bucket_les)), r.bucket_les, union)).to(
+                    r.values.device)
+            return dataclasses.replace(
+                r, values=r.values.index_select(2, idx),
+                vbase=(r.vbase.index_select(1, idx)
+                       if r.vbase is not None and r.vbase.ndim == 2
+                       else r.vbase),
+                bucket_les=union)
+        raws = [r if np.array_equal(r.bucket_les, union) else remap(r)
+                for r in raws]
+    keys = []
+    for r in raws:
+        keys.extend(r.keys)
+    T = max(r.ts_off.shape[1] for r in raws)
+
+    def pad(a, fill):
+        out = a.new_full((a.shape[0], T) + tuple(a.shape[2:]), fill)
+        out[:, :a.shape[1]] = a
+        return out
+    vbase = None
+    if any(r.vbase is not None for r in raws):
+        vbase = torch.cat([
+            r.vbase if r.vbase is not None
+            else r.values.new_zeros(r.values.shape[:1] + r.values.shape[2:])
+            for r in raws])
+    return RawBlock(keys, torch.cat([pad(r.ts_off, int(PAD_TS))
+                                     for r in raws]),
+                    torch.cat([pad(r.values, float("nan")) for r in raws]),
+                    raws[0].base_ms, raws[0].bucket_les,
+                    samples=sum(r.samples for r in raws), vbase=vbase,
+                    precorrected=all(r.precorrected for r in raws),
+                    # pad NaNs sit at PAD_TS slots, so raggedness merges
+                    # as AND over the blocks
+                    dense=all(r.dense for r in raws))
 
 
 class ReduceAggregateExec(NonLeafExecPlan):
@@ -177,7 +234,10 @@ class SetOperatorExec(NonLeafExecPlan):
 
     def _presence_by_key(self, block: ResultBlock, vals: torch.Tensor):
         """({match key: g}, present [G, W] bool on the device): some series
-        with match key g has a sample at the step."""
+        with match key g has a sample at the step (a histogram's first
+        bucket)."""
+        if vals.ndim == 3:
+            vals = vals[..., 0]
         S = len(block.keys)
         if self.on is not None and not self.on:
             # on(): every series shares the empty match key

@@ -1,7 +1,7 @@
 """Range-vector transformers (port of filodb_tpu/query/transformers.py):
 PeriodicSamplesMapper, the aggregation map and present phases, instant
-functions (with the classic `le`-bucket histogram_quantile) and scalar
-operations.
+functions (histogram_quantile over native [S, W, B] blocks and over
+classic `le`-bucket series, histogram_bucket) and scalar operations.
 
 PeriodicSamplesMapper and AggregateMapReduce also carry the query's
 window grid, function and grouping down to the leaf, whose fused path
@@ -29,7 +29,7 @@ from filodb_tpu_torch.query.execbase import (AggPartial, Data,
                                              GroupCardinalityError, RawBlock,
                                              ScalarResult, _block_empty,
                                              _lru_touch, agg_token,
-                                             not_ported, present_partial)
+                                             present_partial)
 from filodb_tpu_torch.query.rangevector import (QueryContext, QueryStats,
                                                 RangeVectorKey, ResultBlock,
                                                 device_values)
@@ -74,11 +74,23 @@ class PeriodicSamplesMapper(RangeVectorTransformer):
             (eval_wends - base).astype(np.int32)).to(dev)
         shared = data.shared_ts_row is not None
         ts_in = data.ts_off[:1] if shared else data.ts_off
+        vals, vbase = data.values, data.vbase
+        hist = vals.ndim == 3
+        if hist:
+            # each bucket a series, evaluated as one block of S*B rows
+            B = vals.shape[2]
+            vals = hist_ops.bucket_rows(vals)
+            if not shared:
+                ts_in = ts_in.repeat_interleave(B, dim=0)
+            if vbase is not None:
+                vbase = vbase.reshape(-1)
         out = evaluate_range_function(
-            ts_in, data.values, wends_off, window, fn,
+            ts_in, vals, wends_off, window, fn,
             tuple(self.function_args), base_ms=kernel_base,
-            vbase=data.vbase, precorrected=data.precorrected,
+            vbase=vbase, precorrected=data.precorrected,
             shared_grid=shared, dense=data.dense)
+        if hist:
+            out = hist_ops.from_bucket_rows(out, B)
         if fn == "timestamp":
             out = out.double() + base / 1000.0
         return ResultBlock(data.keys, wends, out, data.bucket_les,
@@ -114,15 +126,25 @@ class InstantVectorFunctionMapper(RangeVectorTransformer):
               source=None) -> Data:
         if not isinstance(data, ResultBlock) or data.num_series == 0:
             return data
-        if data.is_histogram or self.function == "histogram_bucket":
-            raise not_ported(f"{self.function} over native histogram "
-                             f"columns")
         if self.function in ("histogram_quantile",
                              "histogram_max_quantile"):
-            # classic Prometheus histograms: `_bucket` series carrying
-            # cumulative counts in `le` labels
-            return self._classic_bucket_quantile(
-                float(_arg_value(self.args[0], source)), data, ctx)
+            q = float(_arg_value(self.args[0], source))
+            if not data.is_histogram:
+                # classic Prometheus histograms: `_bucket` series
+                # carrying cumulative counts in `le` labels
+                return self._classic_bucket_quantile(q, data, ctx)
+            # a host [G, W, B] partial takes the numpy twin, a device
+            # block is computed where it lies
+            out = hist_ops.histogram_quantile(q, data.values,
+                                              np.asarray(data.bucket_les))
+            return ResultBlock(data.keys, data.wends, out,
+                               cache_token=data.cache_token)
+        if self.function == "histogram_bucket":
+            le = float(_arg_value(self.args[0], source))
+            out = hist_ops.histogram_bucket(
+                le, device_values(data.values, ctx), data.bucket_les)
+            return ResultBlock(data.keys, data.wends, out,
+                               cache_token=data.cache_token)
         fn = INSTANT_FUNCTIONS[self.function]
         vals = device_values(data.values, ctx)
         # per-step scalar arguments broadcast over [S, W], in f64: an
@@ -282,8 +304,6 @@ class AggregateMapReduce(RangeVectorTransformer):
             return None
         if not isinstance(data, ResultBlock):
             raise TypeError("AggregateMapReduce needs periodic data")
-        if data.is_histogram:
-            raise not_ported(f"{self.op} over native histogram columns")
         vals = device_values(data.values, ctx)
         gids, gkeys = _group_ids_cached(data.cache_token, data.keys,
                                         self.by, self.without)
@@ -294,6 +314,18 @@ class AggregateMapReduce(RangeVectorTransformer):
                 f"({len(gkeys)} groups)")
         G = len(gkeys)
         gids_t = torch.from_numpy(np.asarray(gids, np.int64)).to(vals.device)
+        if data.is_histogram and self.op not in ("sum", "count_values"):
+            # the reference answers these with an error too (its
+            # [S, W, B] values do not broadcast in the map phase)
+            raise ValueError(f"{self.op} over histogram blocks: only sum "
+                             f"aggregates buckets")
+        if data.is_histogram and self.op == "sum":
+            return AggPartial(
+                "hist_sum", gkeys, data.wends,
+                comp=_hist_sum_map(vals, gids, gids_t, G),
+                params=self.params, bucket_les=data.bucket_les,
+                cache_token=agg_token("hist_sum", self.by, self.without,
+                                      data.cache_token))
         if self.op in _CANDIDATE_OPS:
             rows = np.arange(len(data.keys))
             if self.op in ("topk", "bottomk"):
@@ -321,6 +353,24 @@ class AggregateMapReduce(RangeVectorTransformer):
                           cache_token=agg_token(self.op, self.by,
                                                 self.without,
                                                 data.cache_token))
+
+
+def _hist_sum_map(vals: torch.Tensor, gids, gids_t: torch.Tensor,
+                  G: int) -> np.ndarray:
+    """sum over histogram blocks [S, W, B] -> [G, W, B+1] f64: each
+    bucket summed elementwise over the group's present series in the
+    fixed CSR order (f64, no float atomics), then the count of series with
+    any bucket present."""
+    S, W, B = vals.shape
+    present = ~torch.isnan(vals)
+    zeroed = torch.where(present, vals.double(),
+                         torch.zeros((), dtype=torch.float64,
+                                     device=vals.device))
+    csr = fused.pad_groups(gids, S, G, device=vals.device).csr
+    sums = fused.segment_sum(zeroed.reshape(S, W * B), csr, G)
+    cnt = agg_ops.seg_count(present.any(dim=2), gids_t, G)
+    return torch.cat([sums.reshape(G, W, B), cnt[..., None]],
+                     dim=2).cpu().numpy()
 
 
 class AggregatePresenter(RangeVectorTransformer):

@@ -5,12 +5,13 @@ are carried into the port's (load_reference_arrays, as
 tests/test_torch_engine.py does), and every `eval` must give the
 expected values.  An eval that needs what the port leaves out (the sort,
 limit, absent, label, scalar() and vector() functions, subqueries, `@`,
-native histogram columns, a bare range vector) must raise not_ported;
-each file's count of those is pinned in NOT_PORTED, so a regression
-cannot hide among them.
+a bare range vector) must raise not_ported; each file's count of those
+is pinned in NOT_PORTED, so a regression cannot hide among them.
+histograms.test is also replayed through the native histogram schema.
 """
 import os
 
+import numpy as np
 import pytest
 
 from filodb_tpu_torch.query.execbase import QueryError
@@ -46,3 +47,65 @@ def test_corpus_file_through_the_port(fname):
                 raise
             skipped.append((case.line_no, case.expr))
     assert len(skipped) == NOT_PORTED.get(fname, 0), skipped
+
+
+def test_classic_buckets_match_native_histogram_schema_through_the_port():
+    """The port's counterpart of tests/test_promql_corpus.py::
+    test_classic_buckets_match_native_histogram_schema: histograms.test's
+    job="a" ladder as one native column (bucket matrix + bucket_les) must
+    answer histogram_quantile over rate as the classic `le`-labelled
+    form does, through the port's general path and its fused leaf.  The
+    instant form over the native column is a non-counter read of the
+    counter column `h` (the reference's host route, not in the port
+    yet): not_ported, while the reference answers it."""
+    from filodb_tpu.core.memstore import TimeSeriesMemStore
+    from filodb_tpu.core.partkey import PartKey
+    from filodb_tpu.core.records import RecordBatch
+    from filodb_tpu.core.schemas import DEFAULT_SCHEMAS
+    from filodb_tpu.parallel.shardmapper import ShardEvent, ShardMapper
+    from filodb_tpu.query.engine import QueryEngine
+
+    from test_torch_hist_native import _port_engine as _native_port
+
+    step_s, series, _ = parse_corpus(
+        os.path.join(CORPUS_DIR, "histograms.test"))
+    classic = _port_engine(build_engine(step_s, series), 1, "gauge",
+                           "value")
+    les = np.array([0.1, 0.5, 1.0, np.inf])
+    slopes = np.array([1.0, 3.0, 5.0, 6.0])
+    T = 21
+    ts = np.arange(T, dtype=np.int64) * int(step_s * 1000)
+    hist = slopes[None, :] * np.arange(T, dtype=np.float64)[:, None]
+    pk = PartKey.make("req", {"job": "a"})
+    ms = TimeSeriesMemStore()
+    ms.setup("prometheus", 0).ingest(RecordBatch(
+        DEFAULT_SCHEMAS["prom-histogram"], [pk], np.zeros(T, np.int32), ts,
+        {"sum": hist[:, -1] * 2.0, "count": hist[:, -1].copy(),
+         "h": hist}, bucket_les=les))
+    mapper = ShardMapper(1)
+    mapper.update_from_event(
+        ShardEvent("IngestionStarted", "prometheus", 0, "b"))
+    reference = QueryEngine("prometheus", ms, mapper)
+    native = _native_port(reference, 1)
+
+    def one(engine, promql):
+        res = engine.query_range(promql, 600, 60, 600)
+        assert res.error is None, res.error
+        vals = [float(np.asarray(v)[0]) for _, _, v in res.series()]
+        assert len(vals) == 1, (promql, vals)
+        return vals[0]
+
+    for q in (0.25, 0.5, 0.75, 0.9, 1.0):
+        want = one(classic, f'histogram_quantile({q}, rate('
+                   f'req_bucket{{job="a"}}[5m]))')
+        assert one(native, f'histogram_quantile({q}, rate('
+                   f'req{{job="a"}}[5m]))') == pytest.approx(want, rel=1e-6)
+        # the fused leaf: sum over (group, bucket) slots
+        assert one(native, f'histogram_quantile({q}, sum(rate('
+                   f'req{{job="a"}}[5m])))') == pytest.approx(want, rel=1e-6)
+    q_instant = 'histogram_quantile(0.5, req{job="a"})'
+    assert one(reference, q_instant) == pytest.approx(
+        one(classic, 'histogram_quantile(0.5, req_bucket{job="a"})'))
+    with pytest.raises(QueryError) as e:
+        native.query_range(q_instant, 600, 60, 600)
+    assert e.value.code == "not_ported"

@@ -1,7 +1,8 @@
 """filodb_tpu_torch's CUDA kernels (K1 dense and K3 ragged rate, K2 rate
 over raw counters, K4 last_over_time, K5 sum/avg/count_over_time, each
 also in its per-series mode K6) against their plain torch versions, on
-the card.  Marked `cuda`: without a card they
+the card, and the native histogram leaf on the card against the same
+query on the CPU.  Marked `cuda`: without a card they
 skip.  This file imports neither jax nor filodb_tpu, so it also runs on
 a machine with only the port's dependencies:
 
@@ -565,3 +566,52 @@ def test_probe_product_refuses_a_row_wider_than_the_ring(card):
     with pytest.raises(ValueError, match="does not fit"):
         probe.probe_onehot_matmul(x, o)
     assert kernels.LAUNCHES["probe_onehot_matmul"] == n0
+
+
+# ------------------------------------------- native histograms, end to end
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_native_histogram_leaf_on_the_card_matches_the_cpu(card, ragged):
+    """histogram_quantile(0.9, sum(rate(h[5m])) by (_ns_)) over 300 native
+    histograms x 16 buckets x 720 samples: the fused leaf on the card (K1
+    dense, K3 ragged over S*B bucket rows) against the same query through
+    the plain versions on the CPU.  Ragged drops ~1% of whole scrapes."""
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.query.engine import QueryEngine
+    rng = np.random.default_rng(21)
+    S, T, B = 300, 720, 16
+    t0 = 1_600_000_000_000
+    les = np.append(0.005 * 2.0 ** np.arange(B - 1), np.inf)
+    h = np.cumsum(np.cumsum(rng.poisson(2.0, (S, T, B)), 1), 2) \
+        .astype(np.float64)
+    if ragged:
+        h[rng.random((S, T)) < 0.01] = np.nan
+    keys = [PartKey.make("http_latency", {"_ws_": "demo",
+                                          "_ns_": f"App-{i % 20}",
+                                          "instance": f"Instance-{i}"})
+            for i in range(S)]
+    ts = np.broadcast_to(t0 + np.arange(T, dtype=np.int64) * 10_000, (S, T))
+    panel = "histogram_quantile(0.9, sum(rate(http_latency[5m])) by (_ns_))"
+    name = "fused_rate_ragged" if ragged else "fused_rate_dense"
+    out = {}
+    for dev in ("cpu", card):
+        ms = TimeSeriesMemStore(device=dev)
+        ms.setup("prometheus", 0).ingest_columns(
+            "prom-histogram", keys, ts,
+            {"h": h, "count": h[..., -1], "sum": h[..., -1] * 0.1},
+            bucket_les=les)
+        eng = QueryEngine("prometheus", ms, device=dev)
+        n0 = kernels.LAUNCHES[name]
+        res = eng.query_range(panel, t0 // 1000 + 600, 60,
+                              t0 // 1000 + (T - 1) * 10)
+        assert res.error is None, res.error
+        assert kernels.LAUNCHES[name] == \
+            n0 + (torch.device(dev).type == "cuda")
+        out[str(dev)] = {k: np.asarray(v) for k, _, v in res.series()}
+    got, want = out[str(card)], out["cpu"]
+    assert set(got) == set(want) and len(want) == 20
+    for k in want:
+        assert (np.isnan(got[k]) == np.isnan(want[k])).all()
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-9,
+                                   equal_nan=True)

@@ -49,7 +49,7 @@ def test_port_imports_no_jax_and_no_reference_package():
 NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "ops.probe", "ops.timewindow", "ops.counter",
                "query.transformers", "query.nonleaf", "query.planner",
-               "tools.probe_slice")
+               "tools.probe_slice", "memory.histogram")
 
 
 def _bare_import(module):
