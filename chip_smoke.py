@@ -93,8 +93,33 @@ hist-native-1M.  the same counts (the same generator and seed) as 65,536
    general path's histogram_quantile(0.9, rate(http_latency[5m])) per
    histogram against an f64 per-histogram oracle (the same tolerance);
    then 4,096 native histograms with ~1% whole-scrape holes, the panel
-   through K3 (rtol 5e-4, atol 1e-4).
-Every phase prints its seconds; general-1M, hist-classic-1M and
+   through K3 (rtol 5e-4, atol 1e-4);
+host-route-1M.  over phase 3's dense counters (kept alive after
+   general-1M): H1 sum by (_ns_) (changes(...)) and H2 max by (_ns_)
+   (max_over_time(...)), range queries, each once cold and twice warm, and
+   H3 sum by (_ns_) (resets(...)) through query_instant at the grid's end
+   (cold, then max(3, --warm // 3) warm, to_prom_vector with 1000
+   results): the leaf's windowed host gather of raw values, then the
+   general path on the card.  Oracles from the raw slab on the card: H1
+   exact against changes counted over the values as the device holds them
+   (rebased, uncorrected, f32; the f64 count's difference printed), H2
+   within rtol 2e-4 / atol 1e-3 of the f64 raw maximum, H3 exact against
+   the f64 reset count.  Then the router at 2,048 series (~1.4M samples):
+   sum by (_ns_) (rate(...)) with the router switched on through
+   FILODB_TPU_FORCE_HOST_ROUTE (leaf_host_routed rises, no kernel
+   launches) and off, the default (K1), both
+   against the f64 rate oracle, their warm p50s printed; and, over
+   hist-native-1M's store, histogram_quantile(0.9, http_latency) through
+   query_instant (a 3-d host gather) against the f64 quantile of the raw
+   counts at the last sample;
+promql-1M.  over the same counters, each once cold and max(3, --warm //
+   3) times warm, K1 under every plan node: P1 sort_desc, P2 `@ end()`,
+   P3 max_over_time of a [30m:1m] subquery (the parser's inner grid), P4
+   label_replace, P5 a ratio over scalar(); P6 absent() of present and
+   missing series; the LabelValues and SeriesKeysByFilters plans, timed.
+Every query runs with PlannerParams(scan_limit=2,000,000,000), as
+bench.py raises it at this size: the default cap refuses a 1M-series
+scan.  Every phase prints its seconds; general-1M, hist-classic-1M and
 hist-native-1M print each query's cold time, warm p50/p99 and the peak
 device memory, and hist-native-1M the mirror upload seconds.
 
@@ -113,6 +138,7 @@ import cProfile
 import gc
 import io
 import json
+import os
 import pstats
 import subprocess
 import sys
@@ -140,6 +166,7 @@ RATE_OPS = 26
 # compare with the previous sample, the select of the drop, the prefix add
 DROP_OPS = 3
 RESETS = 2                         # counter restarts per raw series
+SCAN_LIMIT = 2_000_000_000         # bench.py:1091's raised scan_limit
 
 COUNTER_QUERIES = [
     # (PromQL, oracle key, aggregate, kernel launched: dense, ragged)
@@ -169,6 +196,14 @@ GAUGE_QUERIES = [
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def scan_params(**kw):
+    """PlannerParams with the scan cap raised to SCAN_LIMIT, as bench.py
+    raises it at this size: the default 50,000,000 refuses a 1M-series
+    query over 690 samples a series (the leaf's scan cap)."""
+    from filodb_tpu_torch.query.rangevector import PlannerParams
+    return PlannerParams(scan_limit=SCAN_LIMIT, **kw)
 
 
 def check(cond, msg):
@@ -338,7 +373,8 @@ def run_queries(what, eng, specs, want, warm, start_s, end_s):
             n0 = dict(kernels.LAUNCHES)
             t0 = time.perf_counter()
             answers.append(eng.query_range(q, start_s + 600, 60, end_s,
-                                           spec.get("params")))
+                                           spec.get("params")
+                                           or scan_params()))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             for k in spec["kernels"]:
@@ -813,12 +849,14 @@ def run_kernel_checks(num_series, seed, device):
 # --------------------------------------------------------- phases 3 to 6
 
 def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
-             general=(), general_warm=0):
+             general=(), general_warm=0, keep=False):
     """Ingest, then drive each query once cold and `warm` times warm
     through QueryEngine.query_range; the launch counts are set to 0 just
     before the first query and read just after the last.  Then, over the
     same store, the general-path queries `general` (run_queries) ->
-    (launches, rows, general launches)."""
+    (launches, rows, general launches, kept): with `keep` the engine, its
+    memstore, the oracle's answers and the windows stay alive for later
+    phases (kept = (eng, ms, want, wends)), else they are freed (None)."""
     import torch
     from filodb_tpu_torch.ops import kernels
     from filodb_tpu_torch.query.engine import QueryEngine
@@ -836,7 +874,7 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
 
     def query(q):
         t0 = time.perf_counter()
-        res = eng.query_range(q, start_s + 600, 60, end_s)
+        res = eng.query_range(q, start_s + 600, 60, end_s, scan_params())
         return res, time.perf_counter() - t0
 
     torch.cuda.synchronize()
@@ -903,9 +941,11 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
             start_s, end_s)
         rows_out += g_rows
         log(f"general-1M {kind}: {time.perf_counter() - t0:.1f} s")
+    if keep:
+        return launches, rows_out, general_launches, (eng, ms, want, wends)
     del eng, ms
     free_device_memory()
-    return launches, rows_out, general_launches
+    return launches, rows_out, general_launches, None
 
 
 def log_profile(what, q, run):
@@ -1207,7 +1247,7 @@ def native_hist_store(num_hist, seed, dev, hole_frac=0.0):
     per (histogram, window, bucket) rates by oracle_rates_t (NaN samples
     absent), then oracle_bucket_quantile per histogram ([H, W]) and, of
     the sums by _ns_, per group ([NUM_NS, W]) -> (memstore, the two
-    oracles, timings)."""
+    oracles, each histogram's counts at its last sample [H, B], timings)."""
     import torch
     from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
     from filodb_tpu_torch.core.partkey import PartKey
@@ -1222,6 +1262,7 @@ def native_hist_store(num_hist, seed, dev, hole_frac=0.0):
     gen.manual_seed(seed)
     sums = torch.zeros((NUM_NS, W, B), dtype=torch.float64, device=dev)
     per_series = np.empty((num_hist, W))
+    last = np.empty((num_hist, B))
     per_slab = SLAB // B
     gen_s = ingest_s = oracle_s = 0.0
     for h0 in range(0, num_hist, per_slab):
@@ -1237,6 +1278,7 @@ def native_hist_store(num_hist, seed, dev, hole_frac=0.0):
             "_ws_": "demo", "_ns_": f"App-{i % NUM_NS}",
             "instance": f"Instance-{i}"}) for i in range(h0, h0 + nh)]
         host = h.cpu().numpy()
+        last[h0:h0 + nh] = host[:, -1, :]
         t1 = time.perf_counter()
         shard.ingest_columns(
             "prom-histogram", keys, np.broadcast_to(ts_row, (nh, T)),
@@ -1256,8 +1298,8 @@ def native_hist_store(num_hist, seed, dev, hole_frac=0.0):
         oracle_s += time.perf_counter() - t2
         del inc, h, rates, host
     grouped = oracle_bucket_quantile(0.9, sums.cpu().numpy(), les)
-    return ms, grouped, per_series, dict(gen_s=gen_s, ingest_s=ingest_s,
-                                         oracle_s=oracle_s)
+    return ms, grouped, per_series, last, dict(
+        gen_s=gen_s, ingest_s=ingest_s, oracle_s=oracle_s)
 
 
 def run_hist_native_path(num_hist, seed, warm, dev, classic_want):
@@ -1266,16 +1308,17 @@ def run_hist_native_path(num_hist, seed, warm, dev, classic_want):
     held to hist-classic-1M's oracle `classic_want` (the same counts), and
     the general path's per-histogram HIST_SERIES_QUERY held to its own
     f64 oracle; then NATIVE_RAGGED_COUNT histograms with ~1% whole-scrape
-    holes through K3 -> (launches, rows)."""
+    holes through K3; between them, over the 1M store, host-route-1M's
+    native instant query (run_hist_instant) -> (launches, rows, that
+    query's row)."""
     from filodb_tpu_torch.query.engine import QueryEngine
-    from filodb_tpu_torch.query.rangevector import PlannerParams
     start_s = START_MS // 1000
     end_s = start_s + (T - 1) * STEP_MS // 1000
     launches, rows = {}, []
     for what, n, hole, tol in (
             ("hist-native-1M", num_hist, 0.0, (2e-4, 1e-3)),
             ("hist-native-ragged", NATIVE_RAGGED_COUNT, 0.01, (5e-4, 1e-4))):
-        ms, grouped, per_series, t = native_hist_store(
+        ms, grouped, per_series, last, t = native_hist_store(
             n, seed + (1 if hole else 0), dev, hole)
         if not hole:
             # the same counts: the two oracles differ only in the order
@@ -1297,7 +1340,7 @@ def run_hist_native_path(num_hist, seed, warm, dev, classic_want):
             # limit of 1,000,000 samples at 65,536 histograms
             specs.append(dict(name="per-series", query=HIST_SERIES_QUERY,
                               tol=tol, kernels=(), label="instance",
-                              warm=2, params=PlannerParams(
+                              warm=2, params=scan_params(
                                   sample_limit=per_series.size)))
             want[HIST_SERIES_QUERY] = per_series
         got, r = run_queries(what, eng, specs, want, warm, start_s, end_s)
@@ -1311,12 +1354,405 @@ def run_hist_native_path(num_hist, seed, warm, dev, classic_want):
             f" ms")
         if not hole:
             log_profile(what, HIST_NATIVE_QUERY, lambda: eng.query_range(
-                HIST_NATIVE_QUERY, start_s + 600, 60, end_s))
+                HIST_NATIVE_QUERY, start_s + 600, 60, end_s, scan_params()))
+            hist_instant = run_hist_instant(eng, last, warm, end_s)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         rows += r
         del eng, ms, mirror, snap
         free_device_memory()
+    return launches, rows, hist_instant
+
+
+# ------------------------------ host-route-1M and promql-1M
+
+H_QUERIES = [
+    # (name, PromQL, oracle key, instant)
+    ("H1", "sum by (_ns_) (changes(request_total[5m]))", "changes", False),
+    ("H2", "max by (_ns_) (max_over_time(request_total[5m]))", "max",
+     False),
+    ("H3", "sum by (_ns_) (resets(request_total[5m]))", "resets", True),
+]
+ROUTER_SERIES = 2_048
+# Instance-0 .. Instance-2047: the first ROUTER_SERIES series of the store
+ROUTER_QUERY = ('sum by (_ns_) (rate(request_total{instance=~"Instance-'
+                '([0-9]|[1-9][0-9]|[1-9][0-9][0-9]|1[0-9][0-9][0-9]|'
+                '20[0-3][0-9]|204[0-7])"}[5m]))')
+HIST_INSTANT_QUERY = "histogram_quantile(0.9, http_latency)"
+RATE_Q = COUNTER_QUERIES[0][0]          # sum by (_ns_) (rate(...[5m]))
+P_QUERIES = [
+    ("P1", f"sort_desc({RATE_Q})"),
+    ("P2", "sum by (_ns_) (rate(request_total[5m] @ end()))"),
+    ("P3", f"max_over_time({RATE_Q}[30m:1m])"),
+    ("P4", f'label_replace({RATE_Q}, "app", "$1", "_ns_", "App-(.*)")'),
+    ("P5", f"{RATE_Q} / scalar(sum(rate(request_total[5m])))"),
+]
+ABSENT_QUERIES = [('absent(request_total{_ns_="App-1"})', 0),
+                  ('absent(nonexistent_metric{_ns_="App-1"})', 1)]
+
+
+def host_rss() -> int:
+    """Peak resident set of this process, bytes."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def store_rows(ms, num_series):
+    """The counter store of the dense 1M memstore, after checking that
+    series i (instance Instance-i) sits in row i, as ingest_columns
+    created them."""
+    shard = ms.get_shard("prometheus", 0)
+    store = shard.stores["prom-counter"]
+    for pid in (0, num_series // 2, num_series - 1):
+        p = shard.partitions[pid]
+        check(p.row == pid and p.part_key.tags_dict["instance"]
+              == f"Instance-{pid}", f"series {pid} is not in row {pid}")
+    return store
+
+
+def raw_oracles(store, num_series, ts_row, wends, inst_wend, inner_wends,
+                dev):
+    """From the store's raw slab, slab by slab on the card, by _ns_
+    ([NUM_NS, W]): changes counted over the values as the device holds
+    them (rebased by the first sample the leaf's gather copies, in f32)
+    and in f64; the f64 raw maximum; resets in the one window ending at
+    inst_wend; the rate oracle (oracle_rates_t) in the window ending at
+    inst_wend and over the subquery's inner grid (NaN before the data)
+    -> dict."""
+    import torch
+    # the first column the leaf's host gather copies of each row
+    # (DenseSeriesStore.window_positions over the chunk-scan span): its
+    # values are rebased by their first sample there
+    lo = store.window_positions(int(wends[0]) - RANGE_MS, inst_wend)[0]
+    first, last = window_bounds(ts_row, wends)
+    f_i, l_i = window_bounds(ts_row, np.asarray([inst_wend]))
+    live = inner_wends >= ts_row[0]
+    W = len(wends)
+
+    def zeros(width, fill=0.0):
+        return torch.full((NUM_NS, width), fill, dtype=torch.float64,
+                          device=dev)
+    out = {"changes32": zeros(W), "changes64": zeros(W),
+           "max": zeros(W, float("-inf")), "resets": zeros(1),
+           "rate_at_end": zeros(1), "inner_rate": zeros(int(live.sum()))}
+    for i0 in range(0, num_series, SLAB):
+        i1 = min(i0 + SLAB, num_series)
+        v = torch.from_numpy(np.ascontiguousarray(
+            store.cols["count"][i0:i1, :T])).to(dev)
+        g = torch.arange(i0, i1, device=dev) % NUM_NS
+        x32 = (v[:, lo:] - v[:, lo:lo + 1]).float()
+
+        def pair_counts(ind, fi, la):
+            # ind[:, j] flags the pair (j, j+1); a window [f, l] counts
+            # the pairs whose both samples it holds
+            c = torch.cat([torch.zeros_like(ind[:, :1]),
+                           torch.cumsum(ind, dim=1)], dim=1)
+            fi = torch.from_numpy(fi).to(dev)
+            la = torch.from_numpy(la).to(dev)
+            return (c[:, la] - c[:, fi]).double()
+        out["changes32"].index_add_(0, g, pair_counts(
+            (x32[:, 1:] != x32[:, :-1]).long(), first - lo, last - lo))
+        out["changes64"].index_add_(0, g, pair_counts(
+            (v[:, 1:] != v[:, :-1]).long(), first, last))
+        out["resets"].index_add_(0, g, pair_counts(
+            (v[:, 1:] < v[:, :-1]).long(), f_i, l_i))
+        mx = torch.stack([v[:, a:b + 1].amax(dim=1)
+                          for a, b in zip(first, last)], dim=1)
+        out["max"].scatter_reduce_(0, g[:, None].expand_as(mx), mx, "amax")
+        rates = oracle_rates_t(v, ts_row, inner_wends[live])["rate"]
+        out["inner_rate"].index_add_(0, g, torch.nan_to_num(rates, nan=0.0))
+        out["rate_at_end"].index_add_(0, g, oracle_rates_t(
+            v, ts_row, np.asarray([inst_wend]))["rate"])
+        del v, x32, mx, rates
+    res = {k: t.cpu().numpy() for k, t in out.items()}
+    inner = np.full((NUM_NS, len(inner_wends)), np.nan)
+    inner[:, live] = res.pop("inner_rate")
+    # a window with fewer than two samples has no rate in any series
+    n_inner = np.searchsorted(ts_row, inner_wends, side="right") \
+        - np.searchsorted(ts_row, inner_wends - RANGE_MS + 1)
+    inner[:, n_inner < 2] = np.nan
+    res["inner_rate"] = inner
+    res["inner_wends"] = inner_wends
+    return res
+
+
+def timed_runs(eng, q, reps, instant, end_s, start_s, kernels_each=(),
+               routed_each=False, no_kernel=False):
+    """One cold and `reps` warm runs -> (results, seconds); each run
+    must launch every kernel of `kernels_each`, route a leaf to the host
+    where `routed_each`, and launch nothing where `no_kernel`."""
+    import torch
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.utils.counters import counters
+    out, secs = [], []
+    for i in range(reps + 1):
+        n0, r0 = dict(kernels.LAUNCHES), counters.get("leaf_host_routed")
+        t0 = time.perf_counter()
+        res = (eng.query_instant(q, end_s, scan_params()) if instant
+               else eng.query_range(q, start_s + 600, 60, end_s,
+                                    scan_params()))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(res.error is None, f"`{q}` run {i}: {res.error}")
+        for k in kernels_each:
+            check(kernels.LAUNCHES[k] > n0[k],
+                  f"`{q}` run {i} did not launch {k}")
+        if no_kernel:
+            check(kernels.LAUNCHES == n0, f"`{q}` run {i} launched a kernel")
+        if routed_each:
+            check(counters.get("leaf_host_routed") > r0,
+                  f"`{q}` run {i} routed no leaf to the host")
+        out.append(res)
+    return out, secs
+
+
+def warm_line(secs):
+    warm = secs[1:]
+    return (f"cold {secs[0]:.4f} s; warm x{len(warm)} p50 "
+            f"{np.percentile(warm, 50):.4f} s p99 "
+            f"{np.percentile(warm, 99):.4f} s")
+
+
+def same_answers(a, b, what):
+    """Two results' series and values, bit for bit."""
+    ka = [(k.labels, np.asarray(v).tobytes()) for k, _, v in a.series()]
+    kb = [(k.labels, np.asarray(v).tobytes()) for k, _, v in b.series()]
+    check(ka == kb, f"{what}: two warm answers differ")
+
+
+def run_host_route_phase(eng, ms, num_series, wends, warm, dev):
+    """host-route-1M over the dense counter store: H1-H3 (the windowed
+    host gather of raw values, then the general path on the card), each
+    held to its oracle from the raw slab; then the router at
+    ROUTER_SERIES series, once with the router switched on
+    (FILODB_TPU_FORCE_HOST_ROUTE) and once off, the default (K1)
+    -> (launches, rows)."""
+    import torch
+    from filodb_tpu_torch.ops import kernels
+    start_s = START_MS // 1000
+    end_s = start_s + (T - 1) * STEP_MS // 1000
+    ts_row = START_MS + np.arange(T, dtype=np.int64) * STEP_MS
+    store = store_rows(ms, num_series)
+    t0 = time.perf_counter()
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                query_range_to_logical_plan)
+    inner = query_range_to_logical_plan(
+        P_QUERIES[2][1], TimeStepParams(start_s + 600, 60, end_s)).inner
+    inner_wends = np.arange(inner.start_ms, inner.end_ms + 1,
+                            inner.step_ms, dtype=np.int64)
+    orc = raw_oracles(store, num_series, ts_row, wends, end_s * 1000,
+                      inner_wends, dev)
+    log(f"host-route-1M: oracles from the raw slab on the card "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rows = []
+    for name, q, key, instant in H_QUERIES:
+        reps = warm if instant else 2
+        runs, secs = timed_runs(eng, q, reps, instant, end_s, start_s)
+        # counts are exact; the maximum within the rate tolerance
+        want = orc["changes32" if key == "changes" else key]
+        tol = (2e-4, 1e-3) if key == "max" else (0.0, 0.0)
+        checked = [compare(r, want, tol[0], tol[1], f"host-route-1M {name}")
+                   for r in runs]
+        same_answers(runs[-2], runs[-1], f"host-route-1M {name}")
+        extra = ""
+        if key == "changes":
+            d = np.abs(checked[-1][0] - orc["changes64"])
+            extra = (f"; the f64 count differs in {int((d > 0).sum())} of "
+                     f"{d.size} cells, by at most {d.max():.0f}")
+        if instant:
+            payload = eng.to_prom_vector(runs[-1])
+            check(len(payload["data"]["result"]) == NUM_NS,
+                  f"host-route-1M {name}: to_prom_vector has "
+                  f"{len(payload['data']['result'])} results")
+            extra += f"; to_prom_vector {NUM_NS} results"
+        st = runs[-1].stats
+        log(f"host-route-1M: {name} `{q}`{' (query_instant)' * instant}: "
+            f"{warm_line(secs)}; oracle max_abs_err {checked[-1][1]} "
+            f"(rtol {tol[0]}, atol {tol[1]}){extra}; samples scanned "
+            f"{st.samples_scanned}; host gather {st.cpu_seconds:.4f} s; "
+            f"upload {st.transfer_s:.4f} s "
+            f"({st.bytes_transferred} B); max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} B; peak host RSS "
+            f"{host_rss()} B; warm answers bit-identical")
+        rows.append(dict(query=q, cold_s=secs[0],
+                         p50=float(np.percentile(secs[1:], 50))))
+        if name == "H1":
+            # the main thread's view: the host gather's worker threads
+            # show as the wait on their futures
+            log_profile("host-route-1M", q, lambda: eng.query_range(
+                q, start_s + 600, 60, end_s, scan_params()))
+    # the router: ROUTER_SERIES series, under HOST_ROUTE_MAX_SAMPLES
+    # when it is switched on
+    v = torch.from_numpy(np.ascontiguousarray(
+        store.cols["count"][:ROUTER_SERIES, :T])).to(dev)
+    rates = torch.nan_to_num(oracle_rates_t(v, ts_row, wends)["rate"])
+    want = torch.zeros((NUM_NS, len(wends)), dtype=torch.float64,
+                       device=dev).index_add_(
+        0, torch.arange(ROUTER_SERIES, device=dev) % NUM_NS, rates)
+    want = want.cpu().numpy()
+    del v, rates
+    p50 = {}
+    for label, routed in (("routed", True), ("router off", False)):
+        if routed:
+            os.environ["FILODB_TPU_FORCE_HOST_ROUTE"] = "1"
+        try:
+            runs, secs = timed_runs(
+                eng, ROUTER_QUERY, warm, False, end_s, start_s,
+                kernels_each=() if routed else ("fused_rate_dense",),
+                routed_each=routed, no_kernel=routed)
+        finally:
+            os.environ.pop("FILODB_TPU_FORCE_HOST_ROUTE", None)
+        _, err, _ = compare(runs[-1], want, 2e-4, 1e-3,
+                            f"host-route-1M router {label}")
+        same_answers(runs[-2], runs[-1], f"host-route-1M router {label}")
+        p50[label] = float(np.percentile(secs[1:], 50))
+        log(f"host-route-1M: router at {ROUTER_SERIES} series "
+            f"({runs[-1].stats.samples_scanned} samples scanned), {label}: "
+            f"{warm_line(secs)}; host gather "
+            f"{runs[-1].stats.cpu_seconds:.4f} s; oracle max_abs_err {err}")
+    log(f"host-route-1M: router crossover evidence at {ROUTER_SERIES} "
+        f"series: warm p50 routed {p50['routed']:.4f} s, router off "
+        f"{p50['router off']:.4f} s")
+    rows.append(dict(query=ROUTER_QUERY, **{f"p50_{k}": v
+                                            for k, v in p50.items()}))
+    launches = dict(kernels.LAUNCHES)
+    log(f"host-route-1M: launches "
+        f"{({k: n for k, n in launches.items() if n})}")
+    return launches, rows, orc
+
+
+def run_hist_instant(eng, last, warm, end_s):
+    """host-route-1M's native histogram query: HIST_INSTANT_QUERY through
+    query_instant at the grid's end, a 3-d host gather of the store's
+    histograms x ~30 samples x 16 buckets, held to an f64 oracle of the
+    raw cumulative counts at the last sample in the lookback -> row."""
+    import torch
+    from filodb_tpu_torch.ops import kernels
+    les = np.array([float(x) for x in LES])
+    want = oracle_bucket_quantile(0.9, last[:, None, :], les)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    runs, secs = timed_runs(eng, HIST_INSTANT_QUERY, warm, True, end_s,
+                            START_MS // 1000)
+    checked = [compare(r, want, 2e-4, 1e-3, "host-route-1M hist instant",
+                       "instance") for r in runs]
+    same_answers(runs[-2], runs[-1], "host-route-1M hist instant")
+    st = runs[-1].stats
+    log(f"host-route-1M: `{HIST_INSTANT_QUERY}` (query_instant) over "
+        f"{len(last)} native histograms: {warm_line(secs)}; oracle "
+        f"max_abs_err {checked[-1][1]} (rtol 2e-4, atol 1e-3); samples "
+        f"scanned {st.samples_scanned}; host gather {st.cpu_seconds:.4f} "
+        f"s; upload {st.transfer_s:.4f} s "
+        f"({st.bytes_transferred} B); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; launches "
+        f"{({k: n for k, n in kernels.LAUNCHES.items() if n})}")
+    return dict(query=HIST_INSTANT_QUERY, cold_s=secs[0],
+                p50=float(np.percentile(secs[1:], 50)))
+
+
+def run_promql_phase(eng, want_rate, orc, wends, warm, num_series):
+    """promql-1M over the dense counter store: P1-P5 (K1 under each plan
+    node), P6 absent, and the metadata plans, each held to an oracle
+    derived from phase 3's f64 rate oracle `want_rate` [NUM_NS, W] or,
+    where the query reads other windows (P2's pinned end, P3's inner
+    grid), from the same oracle over the raw slab (orc) -> (launches,
+    rows)."""
+    import torch
+    from filodb_tpu_torch.core.index import Equals
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.query import logical as lp
+    start_s = START_MS // 1000
+    end_s = start_s + (T - 1) * STEP_MS // 1000
+    tol = (2e-4, 1e-3)
+    # P3's inner grid is the parser's (query/logical.py), as planned
+    inner, inner_wends = orc["inner_rate"], orc["inner_wends"]
+    p3 = np.full_like(want_rate, np.nan)
+    for w, we in enumerate(wends):
+        sel = inner[:, (inner_wends > we - 1_800_000) & (inner_wends <= we)]
+        ok = ~np.isnan(sel).all(axis=1)
+        p3[ok, w] = np.nanmax(sel[ok], axis=1)
+    total = want_rate.sum(axis=0)
+    oracles = {
+        # `@ end()` pins the query's end, the window ending at end_s
+        "P1": want_rate, "P2": np.repeat(orc["rate_at_end"], len(wends), 1),
+        "P3": p3, "P4": want_rate, "P5": want_rate / total[None, :]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rows = []
+    for name, q in P_QUERIES:
+        runs, secs = timed_runs(eng, q, warm, False, end_s, start_s,
+                                kernels_each=("fused_rate_dense",))
+        ptol = (2e-4, 1e-9) if name == "P5" else tol
+        checked = [compare(r, oracles[name], ptol[0], ptol[1],
+                           f"promql-1M {name}") for r in runs]
+        same_answers(runs[-2], runs[-1], f"promql-1M {name}")
+        got = checked[-1][0]
+        extra = ""
+        keys = [k.labels_dict for k, _, _ in runs[-1].series()]
+        check(len(keys) == NUM_NS, f"promql-1M {name}: {len(keys)} series")
+        if name == "P1":
+            # the port ranks by its own f64 means; against the oracle's
+            # order an adjacent pair may swap only where the two oracle
+            # means lie within the tolerance of each other
+            mean_o = np.nanmean(want_rate, axis=1)
+            ranked = [int(k["_ns_"].split("-")[1]) for k in keys]
+            mo = mean_o[ranked]
+            slack = tol[1] + tol[0] * np.abs(mo)
+            check((mo[:-1] >= mo[1:] - slack[1:]).all(),
+                  "promql-1M P1: order against the oracle's means")
+            exact = np.argsort(-mean_o, kind="stable")
+            extra = (f"; order: {int((np.asarray(ranked) != exact).sum())} "
+                     f"of {NUM_NS} ranks differ from the oracle's exact "
+                     f"order, none by more than the tolerance")
+        if name == "P4":
+            check(all(k.get("app") == k["_ns_"].split("-")[1]
+                      for k in keys), "promql-1M P4: the app label")
+        if name == "P5":
+            s_ = np.nansum(got, axis=0)
+            check(np.abs(s_ - 1.0).max() <= 1e-4,
+                  f"promql-1M P5: the groups sum to {s_.min()}..{s_.max()}")
+            extra = f"; the groups sum to 1 within {np.abs(s_ - 1).max():.2e}"
+        log(f"promql-1M: {name} `{q}`: {warm_line(secs)}; oracle "
+            f"max_abs_err {checked[-1][1]} max_rel_err {checked[-1][2]}"
+            f"{extra}; warm answers bit-identical")
+        rows.append(dict(query=q, cold_s=secs[0],
+                         p50=float(np.percentile(secs[1:], 50))))
+    for q, n in ABSENT_QUERIES:
+        runs, secs = timed_runs(eng, q, warm, False, end_s, start_s)
+        got = list(runs[-1].series())
+        check(len(got) == n, f"promql-1M `{q}`: {len(got)} series")
+        if n:
+            key, _, v = got[0]
+            check(key.labels_dict == {"_ns_": "App-1"}
+                  and (np.asarray(v) == 1.0).all()
+                  and len(v) == len(wends), f"promql-1M `{q}`: {key} {v}")
+        log(f"promql-1M: P6 `{q}`: {n} series as expected; "
+            f"{warm_line(secs)}")
+    end_ms = end_s * 1000
+    for plan, count in (
+            (lp.LabelValues(("_ns_",), (), START_MS, end_ms), NUM_NS),
+            (lp.SeriesKeysByFilters((Equals("_ns_", "App-7"),), START_MS,
+                                    end_ms), None)):
+        secs = []
+        for _ in range(warm + 1):
+            t0 = time.perf_counter()
+            res = eng.exec_logical_plan(plan)
+            secs.append(time.perf_counter() - t0)
+        data = res.data["_ns_"] if isinstance(res.data, dict) else res.data
+        want_n = count or len(range(7, num_series, NUM_NS))
+        check(res.error is None and len(data) == want_n,
+              f"promql-1M {type(plan).__name__}: {len(data)} entries, "
+              f"expected {want_n}")
+        log(f"promql-1M: {type(plan).__name__}: {len(data)} entries; "
+            f"{warm_line(secs)}")
+    launches = dict(kernels.LAUNCHES)
+    log(f"promql-1M: max_memory_allocated {torch.cuda.max_memory_allocated()}"
+        f" B; launches {({k: n for k, n in launches.items() if n})}")
     return launches, rows
 
 
@@ -1616,7 +2052,7 @@ def ab_setup(cell, num_series, seed, dev):
     end_s = start_s + (T - 1) * STEP_MS // 1000
 
     def call():
-        return eng.query_range(q, start_s + 600, 60, end_s)
+        return eng.query_range(q, start_s + 600, 60, end_s, scan_params())
 
     call()
     return {q: ("host", call)}
@@ -1839,11 +2275,24 @@ def main(argv=None) -> int:
         general = GENERAL_QUERIES[kind] if not hole else ()
         name = f"{kind} {'ragged' if hole else 'dense'}" \
             + (" + general-1M" if general else "")
-        got, _, got_general = timed(name, run_path, kind, n, seed, hole,
-                                    warm, queries, tol, general,
-                                    small_warm)
+        keep = kind == "counter" and not hole
+        got, _, got_general, kept = timed(name, run_path, kind, n, seed,
+                                          hole, warm, queries, tol, general,
+                                          small_warm, keep)
         add(got)
         add(got_general)
+        if kept is not None:
+            # host-route-1M and promql-1M over the same dense counters
+            eng, ms, want, wends = kept
+            got, _, orc = timed("host-route-1M", run_host_route_phase, eng,
+                                ms, n, wends, small_warm, dev)
+            add(got)
+            got, _ = timed("promql-1M", run_promql_phase, eng,
+                           want[COUNTER_QUERIES[0][0]], orc, wends,
+                           small_warm, n)
+            add(got)
+            del eng, ms, want, kept, orc
+            free_device_memory()
     for n, seed, hole, warm, tol in (
             (args.series, args.seed + 4, 0.0, args.warm, (2e-4, 1e-3)),
             (RAGGED_SERIES, args.seed + 5, 0.01, small_warm, (5e-4, 1e-4))):
@@ -1854,9 +2303,9 @@ def main(argv=None) -> int:
                                  args.series // len(LES), args.seed + 6,
                                  small_warm, dev)
     add(got)
-    got, _ = timed("hist-native-1M", run_hist_native_path,
-                   args.series // len(LES), args.seed + 6, small_warm, dev,
-                   classic_want)
+    got, _, _ = timed("hist-native-1M", run_hist_native_path,
+                      args.series // len(LES), args.seed + 6, small_warm,
+                      dev, classic_want)
     add(got)
     missing = [name for name, k in launches.items() if k == 0]
     check(not missing, f"kernels of the main path never launched: {missing}")

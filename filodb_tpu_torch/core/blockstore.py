@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -457,18 +457,27 @@ class DenseSeriesStore:
                     self.cols[name][rows[:, None], pos, :] = arr
                 else:
                     self.cols[name][rows[:, None], pos] = arr
-        # conservative per-position bounds, as in _append_batch; rows are
-        # time-ascending so the edge columns bound the whole grid (one
-        # [S] pass each, and O(k) on a shared grid)
-        p0, p1 = int(pos0.min()), int(pos0.max()) + k
-        if shared_row and ts.strides[0] == 0:
-            tmin, tmax = int(ts[0, 0]), int(ts[0, -1])
+        if uniform and shared_row and ts.strides[0] == 0:
+            # one shared grid at one position: slot c0 + j holds ts[0, j]
+            # in every row, an exact bound in O(k), so a windowed gather
+            # copies only the slots its window can reach
+            np.minimum(self.pos_ts_min[c0:c0 + k], ts[0],
+                       out=self.pos_ts_min[c0:c0 + k])
+            np.maximum(self.pos_ts_max[c0:c0 + k], ts[0],
+                       out=self.pos_ts_max[c0:c0 + k])
         else:
-            tmin, tmax = int(ts[:, 0].min()), int(ts[:, -1].max())
-        np.minimum(self.pos_ts_min[p0:p1], tmin,
-                   out=self.pos_ts_min[p0:p1])
-        np.maximum(self.pos_ts_max[p0:p1], tmax,
-                   out=self.pos_ts_max[p0:p1])
+            # conservative per-position bounds, as in _append_batch; rows
+            # are time-ascending so the edge columns bound the whole grid
+            # (one [S] pass each)
+            p0, p1 = int(pos0.min()), int(pos0.max()) + k
+            if shared_row and ts.strides[0] == 0:
+                tmin, tmax = int(ts[0, 0]), int(ts[0, -1])
+            else:
+                tmin, tmax = int(ts[:, 0].min()), int(ts[:, -1].max())
+            np.minimum(self.pos_ts_min[p0:p1], tmin,
+                       out=self.pos_ts_min[p0:p1])
+            np.maximum(self.pos_ts_max[p0:p1], tmax,
+                       out=self.pos_ts_max[p0:p1])
         self.counts[rows] += k            # rows unique: fancy += is exact
         self.last_ts[rows] = ts[:, -1]
         self.page_only[rows] = False
@@ -706,7 +715,9 @@ class DenseSeriesStore:
 
     def gather_rows(self, rows: np.ndarray,
                     t_lo_ms: Optional[int] = None,
-                    t_hi_ms: Optional[int] = None
+                    t_hi_ms: Optional[int] = None,
+                    positions: Optional[Tuple[int, int]] = None,
+                    columns: Optional[Sequence[str]] = None
                     ) -> Tuple[np.ndarray, Dict[str, np.ndarray], np.ndarray]:
         """Fancy-index series rows for the device kernels, optionally
         restricted to the [t_lo_ms, t_hi_ms] time window (the planner's
@@ -714,15 +725,21 @@ class DenseSeriesStore:
         at a 4096-capacity store and a 2h dashboard query that is ~5x
         less copy, and proportionally less seqlock-tear exposure under
         live ingest.  Returns (ts [S, W], cols, counts [S]) where counts
-        are RELATIVE to the returned slice."""
+        are RELATIVE to the returned slice.  `positions` gives the column
+        range [p_lo, p_hi) itself (window_positions' answer, computed once
+        for a gather made in row blocks); `columns` names the value
+        columns to copy (default: all)."""
         t_used = max(self.time_used, 1)
         p_lo = 0
         p_hi = t_used
-        if t_lo_ms is not None and t_hi_ms is not None:
+        if positions is not None:
+            p_lo, p_hi = positions
+        elif t_lo_ms is not None and t_hi_ms is not None:
             p_lo, p_hi = self.window_positions(t_lo_ms, t_hi_ms)
         ts = self.ts[rows, p_lo:p_hi]
         cols = {name: (arr[rows, p_lo:p_hi] if arr is not None else None)
-                for name, arr in self.cols.items()}
+                for name, arr in self.cols.items()
+                if columns is None or name in columns}
         counts = np.clip(self.counts[rows] - p_lo, 0,
                          p_hi - p_lo).astype(np.int32)
         return ts, cols, counts

@@ -56,6 +56,10 @@ class PartLookupResult:
     part_ids: np.ndarray
     pids_by_schema: Dict[str, np.ndarray]
     first_schema: Optional[str]
+    # the leaf's scan estimates over this lookup's rows and time range,
+    # memoized with it: (schema, store generation) -> samples
+    scan_estimates: Dict = dataclasses.field(default_factory=dict,
+                                             repr=False, compare=False)
 
 
 class TimeSeriesShard:

@@ -51,6 +51,28 @@ def host_counter_correct(vals: np.ndarray) -> np.ndarray:
     return out
 
 
+def host_counter_correct_after(prefix: np.ndarray,
+                               vals: np.ndarray) -> np.ndarray:
+    """host_counter_correct of `vals` as the tail of rows whose earlier
+    columns are `prefix` ([S, P] or [S, P, B]): the correction the whole
+    rows would get, carried into `vals` from the prefix's total correction
+    and last finite value.  -> f64, the shape of `vals`."""
+    if prefix.shape[1] == 0:
+        return host_counter_correct(vals)
+    pre = np.asarray(prefix, dtype=np.float64)
+    fin = np.isfinite(pre)
+    last = np.expand_dims(pre.shape[1] - 1 - fin[:, ::-1].argmax(axis=1), 1)
+    has = fin.any(axis=1)
+    raw_last = np.take_along_axis(pre, last, axis=1)[:, 0]
+    cor_last = np.take_along_axis(host_counter_correct(pre), last,
+                                  axis=1)[:, 0]
+    carry = np.where(has, raw_last, np.nan)
+    out = host_counter_correct(np.concatenate(
+        [np.expand_dims(carry, 1), np.asarray(vals, np.float64)],
+        axis=1))[:, 1:]
+    return out + np.expand_dims(np.where(has, cor_last - raw_last, 0.0), 1)
+
+
 def rebase_values(vals: np.ndarray, correct_counter: bool,
                   return_corrected: bool = False,
                   _block_rows: int = 65_536):

@@ -1,6 +1,8 @@
 """QueryEngine — parse -> plan -> execute facade (port of
-filodb_tpu/query/engine.py: query_range, exec_logical_plan and the
-Prometheus matrix model).
+filodb_tpu/query/engine.py: query_range, query_instant,
+exec_logical_plan with the metadata plans, and the Prometheus matrix and
+vector models).  Not ported yet: query_range_batch and the
+whole-expression compiler.
 
 Takes ``device=`` (default ``"cuda"``) and raises without a card unless
 given ``device="cpu"``; the source memstore must live on the same device.
@@ -66,9 +68,19 @@ class QueryEngine:
         res.stats.parse_s += parse_t
         return res
 
+    def query_instant(self, promql: str, time_s: int,
+                      planner_params: Optional[PlannerParams] = None
+                      ) -> QueryResult:
+        """Instant query: a range query of one step at time_s (what rule
+        evaluation runs)."""
+        return self.query_range(promql, time_s, 1, time_s, planner_params)
+
     def exec_logical_plan(self, plan: lp.LogicalPlan,
                           planner_params: Optional[PlannerParams] = None
                           ) -> QueryResult:
+        """Plan and run a logical plan.  A metadata plan's answer comes
+        back in the result's `data`: a list of label names, a dict of
+        label -> values, or a list of series label dicts."""
         ctx = self._ctx(planner_params)
         t_plan0 = _time.perf_counter()
         try:
@@ -78,6 +90,17 @@ class QueryEngine:
         except Exception as e:  # noqa: BLE001
             return QueryResult([], error=f"planning error: {e}")
         plan_t = _time.perf_counter() - t_plan0
+        if isinstance(plan, lp.MetadataQueryPlan):
+            try:
+                data, stats = ep.execute_internal(self.source)
+            except QueryError as e:
+                if e.code == "not_ported":
+                    raise
+                return QueryResult([], error=str(e))
+            stats.plan_s += plan_t
+            if isinstance(data, QueryResult):
+                return data
+            return QueryResult([], stats)
         res = ep.execute(self.source)
         res.stats.plan_s += plan_t
         res.trace_id = ctx.query_id
@@ -106,6 +129,23 @@ class QueryEngine:
                                        for j in idx]})
         return {"status": "success",
                 "data": {"resultType": "matrix", "result": out}}
+
+    @staticmethod
+    def to_prom_vector(result: QueryResult) -> Dict:
+        """Prometheus vector envelope: the last step of each series."""
+        if result.error:
+            return {"status": "error", "errorType": "query_error",
+                    "error": result.error}
+        out = []
+        for key, wends, vals in result.series():
+            if vals.ndim == 2 or len(vals) == 0:
+                continue
+            v = vals[-1]
+            if not math.isnan(v):
+                out.append({"metric": _prom_labels(key.labels_dict),
+                            "value": [int(wends[-1]) / 1000.0, _fmt(v)]})
+        return {"status": "success",
+                "data": {"resultType": "vector", "result": out}}
 
 
 def _prom_labels(labels: Dict[str, str]) -> Dict[str, str]:

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -59,10 +60,15 @@ class RawBlock:
     """Raw gathered samples for one schema on one shard: pre-step-grid.
 
     values are REBASED per series (absolute value - vbase[s]) so counter
-    deltas survive the f32 downcast; vbase is the per-series base."""
+    deltas survive the f32 downcast; vbase is the per-series base.  A
+    block from the device mirror holds tensors on its device; one from
+    the leaf's windowed host gather holds numpy arrays (f32 values, f64
+    for the numpy host route and a raw range vector), which on_device()
+    uploads once for the consumers that need tensors."""
     keys: Sequence[RangeVectorKey]
     ts_off: torch.Tensor                # int32 [S, T] offsets from base_ms
-    values: torch.Tensor                # f32 [S, T] or [S, T, B]
+    values: torch.Tensor                # f32 [S, T] or [S, T, B] (numpy
+                                        # from the host gather)
     base_ms: int
     bucket_les: Optional[np.ndarray] = None     # [B] histogram bounds
     samples: int = 0                    # total valid samples (stats)
@@ -74,6 +80,47 @@ class RawBlock:
     dense: bool = True
     # working-set identity (shard keys_serial, keys_epoch, pids bytes)
     cache_token: Optional[Tuple] = None
+    # the leaf's router sent this block to the host: ts_off, values and
+    # vbase are numpy arrays from the windowed host gather
+    route_host: bool = False
+    _device_copy: Optional["RawBlock"] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def on_device(self, device, stats=None) -> "RawBlock":
+        """This block with its host arrays moved onto `device` in the
+        mirror's types (int32 offsets, f32 rebased values, f64 bases),
+        uploaded once: later calls return the same copy.  A block whose
+        values already lie on a device is returned as it is.  The upload
+        is booked into `stats` (transfer_s, bytes_transferred)."""
+        if isinstance(self.values, torch.Tensor):
+            return self
+        if self._device_copy is None:
+            t0 = time.perf_counter()
+            ts = torch.from_numpy(np.ascontiguousarray(
+                self.ts_off, np.int32)).to(device)
+            vals = torch.from_numpy(np.ascontiguousarray(
+                self.values, np.float32)).to(device)
+            vbase = None if self.vbase is None else torch.from_numpy(
+                np.ascontiguousarray(self.vbase, np.float64)).to(device)
+            if stats is not None:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                stats.transfer_s += time.perf_counter() - t0
+                stats.bytes_transferred += int(
+                    ts.numel() * 4 + vals.numel() * 4
+                    + (0 if vbase is None else vbase.numel() * 8))
+            self._device_copy = dataclasses.replace(
+                self, ts_off=ts, values=vals, vbase=vbase)
+        return self._device_copy
+
+    def on_host(self) -> "RawBlock":
+        """This block with device tensors read back into numpy arrays."""
+        if not isinstance(self.values, torch.Tensor):
+            return self
+        return dataclasses.replace(
+            self, ts_off=host_values(self.ts_off),
+            values=host_values(self.values),
+            vbase=None if self.vbase is None else host_values(self.vbase))
 
 
 # Fused-leaf caches (MultiSchemaPartitionsExec._try_fused): keyed by
@@ -383,13 +430,17 @@ class ExecPlan:
             return QueryResult([], QueryStats(),
                                error=f"{type(e).__name__}: {e}")
         if isinstance(data, RawBlock):
-            raise not_ported("raw range-vector results")
-        if isinstance(data, AggPartial):
+            # a raw range vector at the root (a RawSeries plan): the
+            # reference hands the gathered block itself back, rebased
+            # values and int32 offsets from base_ms; here on the host
+            data = data.on_host()
+        elif isinstance(data, AggPartial):
             data = present_partial(data)
         if isinstance(data, ScalarResult):
             data = ResultBlock([RangeVectorKey(())], data.wends,
                                data.values[None, :])
-        data = remove_nan_series(data)
+        if isinstance(data, ResultBlock):
+            data = remove_nan_series(data)
         if data is not None and isinstance(data.values, torch.Tensor):
             # the result leaves the device here, for the Prometheus JSON
             data = dataclasses.replace(data, values=host_values(data.values))

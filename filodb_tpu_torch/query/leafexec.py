@@ -1,13 +1,33 @@
-"""The shard-local leaf: index lookup, device-mirror gather and the fused
-peephole (port of filodb_tpu/query/leafexec.py, the mirror branch), and
-the scalar leaves (time(), literals and scalar arithmetic).
+"""The shard-local leaf: scan cap, index lookup, the router, the
+device-mirror gather or the windowed host gather, and the fused peephole
+(port of filodb_tpu/query/leafexec.py); and the scalar leaves (time(),
+literals and scalar arithmetic).
+
+The leaf first refuses a scan over PlannerParams.scan_limit, as the
+reference does over its resident data.  Then its rows come from one of
+two places:
+
+- the device mirror, which holds counter columns reset-corrected: any
+  gauge column, and a counter column under a counter function (rate,
+  increase, irate);
+- the windowed host gather (numpy), which reads the raw values: a
+  non-counter function over a counter column (changes, resets,
+  max_over_time, an instant selector, a native histogram's instant
+  form), and every working set the router sends to the host.
+
+The router (HOST_ROUTE_MAX_SAMPLES) sends a working set of at most that
+many estimated samples to the host, only where the environment sets
+FILODB_TPU_FORCE_HOST_ROUTE: on the card the mirror and its kernels
+answer a small set faster than the host does.
 
 A range function followed by an aggregate over one shared scrape grid
-is answered in one of four ways, as in the reference (:174-214):
+is answered in one of five ways, as in the reference (:174-214):
 
 - an instant selector is last_over_time over the stale lookback;
 - on dense data, count_over_time and the count aggregate are host math
   (every series has the same samples per window);
+- a host-routed dense set under sum/avg/count/min/max is numpy
+  (ops/hostleaf.py);
 - min/max_over_time run as windowed torch reductions (ops/minmax.py);
 - everything else is one fused kernel launch (ops/fused.py).
 
@@ -16,25 +36,30 @@ sum(rate|increase): its S*B bucket rows, bucket-major within a series,
 go through the same kernels with one slot per (group, bucket).
 
 Every other leaf — the cases where the reference's _try_fused returns
-None — runs its transformers' general path on the mirror's device
-(query/transformers.py).  Not carried over, on purpose: the reference's
-broad `except` that degrades a failed fused evaluation to the general
-path, the interpret-unless-TPU gate, the host router, demand paging and
-the cold tier.
+None — runs its transformers' general path on the engine's device
+(query/transformers.py); a host block is uploaded for it once.  Not
+carried over, on purpose: the reference's broad `except` that degrades a
+failed fused evaluation to the general path, the interpret-unless-TPU
+gate, demand paging (and the scan check after it) and the cold tier.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from filodb_tpu_torch.core.index import ColumnFilter
-from filodb_tpu_torch.ops import fused, minmax
+from filodb_tpu_torch.ops import counter, fused, hostleaf, minmax
 from filodb_tpu_torch.ops import hist as hist_ops
 from filodb_tpu_torch.ops.instant import INSTANT_FUNCTIONS, apply_binary_op
-from filodb_tpu_torch.ops.timewindow import PAD_TS, make_window_ends
+from filodb_tpu_torch.ops.timewindow import (PAD_TS, make_window_ends,
+                                             to_offsets)
 from filodb_tpu_torch.query.execbase import (
     AggPartial, GroupCardinalityError, LazyKeys, LeafExecPlan, RawBlock,
     ScalarResult,
@@ -45,6 +70,7 @@ from filodb_tpu_torch.query.fusedbatch import FusedCall, finish_fused_calls
 from filodb_tpu_torch.query.rangevector import QueryContext, QueryStats
 from filodb_tpu_torch.query.transformers import (AggregateMapReduce,
                                                  PeriodicSamplesMapper,
+                                                 RepeatToGridMapper,
                                                  _group_ids_cached)
 from filodb_tpu_torch.utils.counters import counters
 
@@ -52,6 +78,11 @@ from filodb_tpu_torch.utils.counters import counters
 # is_counter flag): on a counter column they read the reset-corrected
 # values the mirror holds; any other function needs the raw ones
 COUNTER_FNS = ("rate", "increase", "irate")
+
+HOST_ROUTE_MAX_SAMPLES = 2_000_000
+"""The router's threshold: a working set of at most this many estimated
+samples is gathered on the host (0 turns the router off).  The router is
+active only where the environment sets FILODB_TPU_FORCE_HOST_ROUTE."""
 
 
 class MultiSchemaPartitionsExec(LeafExecPlan):
@@ -74,28 +105,50 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
     def execute_internal(self, source):
         self._fused_cache_key = None
         data, stats = self._do_execute(source)
-        fused_out = self._try_fused(data)
-        start = 0
+        fused_out, start = self._try_fused(data, stats)
         if fused_out is not None:
-            data, start = fused_out, 2
+            data = fused_out
         for t in self.transformers[start:]:
             data = t.apply(data, self.ctx, stats, source)
         return data, stats
 
-    def _try_fused(self, data):
+    def _try_fused(self, data, stats=None):
         """Peephole: PeriodicSamplesMapper (a fusable range function, or
         an instant selector) followed by AggregateMapReduce (sum, avg,
         count, min or max) over a shared-grid working set collapses into
-        one fused evaluation.  Returns the AggPartial, or None where the
-        reference's peephole returns None too: then the transformers run
-        the general path."""
-        if len(self.transformers) < 2 or not isinstance(data, RawBlock) \
+        one fused evaluation: on the host when the router sent the block
+        there and the host route takes it, else on the device (a host
+        block is uploaded first).  An `@` pin between the two
+        (RepeatToGridMapper) commutes with the per-step aggregate: the
+        pinned step is evaluated fused and its partial repeated across
+        the grid.  -> (AggPartial, transformers consumed), or (None, 0)
+        where the reference's peephole returns None: then the
+        transformers run the general path."""
+        ts = list(self.transformers)
+        repeat = None
+        if len(ts) >= 3 and isinstance(ts[1], RepeatToGridMapper):
+            repeat = ts.pop(1)
+        if len(ts) < 2 or not isinstance(data, RawBlock) \
                 or not data.keys or data.shared_ts_row is None:
-            return None
-        t0, t1 = self.transformers[:2]
+            return None, 0
+        t0, t1 = ts[:2]
         if not isinstance(t0, PeriodicSamplesMapper) \
                 or not isinstance(t1, AggregateMapReduce):
-            return None
+            return None, 0
+        out = self._fuse(data, t0, t1, stats)
+        if out is None:
+            return None, 0
+        if repeat is None:
+            return out, 2
+        wends = make_window_ends(repeat.start_ms, repeat.end_ms,
+                                 repeat.step_ms)
+        return dataclasses.replace(
+            out, wends=wends,
+            comp=np.repeat(out.comp, len(wends), axis=1)), 3
+
+    def _fuse(self, data, t0, t1, stats):
+        """The peephole's evaluation of t0 then t1 over `data` (see
+        _try_fused) -> the AggPartial, or None."""
         is_hist = data.values.ndim == 3
         if t0.window_ms is None:
             # instant-vector selector (`sum by (x) (metric)`): lookback
@@ -123,6 +176,14 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             return self._fused_count_over_time(data, t0, t1)
         if dense and t1.op == "count" and not is_hist:
             return self._fused_count_agg(data, t0, t1)
+        routed = self._try_host_routed(data, t0, t1, wends, eval_wends, fn,
+                                       dense, is_hist)
+        if routed is not None:
+            return routed
+        # a host block the host route declined goes on to the device
+        # paths with its values uploaded (once: the general path reuses
+        # the copy)
+        data = data.on_device(self.ctx.device, stats)
         if fn in fused.MINMAX_FNS:
             return self._fused_minmax(data, t0, t1, wends, eval_wends)
         if fn in ("rate", "increase") and not data.precorrected:
@@ -204,6 +265,32 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             cache_token=agg_token("hist_sum" if is_hist else t1.op, t1.by,
                                   t1.without, data.cache_token))
         return finish_fused_calls([fc])[0]
+
+    def _try_host_routed(self, data, t0, t1, wends, eval_wends, fn, dense,
+                         is_hist):
+        """Host evaluation of a working set the router sent to the host
+        (RawBlock.route_host): dense, shared grid, not a histogram, one of
+        the five fusable aggregates.  Returns the AggPartial, or None to
+        go on to the device paths."""
+        if not (data.route_host and dense and not is_hist
+                and data.shared_ts_row is not None
+                and t1.op in ("sum", "avg", "count", "min", "max")
+                and isinstance(data.values, np.ndarray)):
+            return None
+        if fn in ("rate", "increase") and not data.precorrected:
+            return None
+        plan = fused.build_plan(np.asarray(data.shared_ts_row, np.int64),
+                                eval_wends, t0.window_ms)
+        gids, gkeys = _group_ids_cached(data.cache_token, data.keys,
+                                        t1.by, t1.without)
+        self._check_group_limit(gkeys)
+        comp = hostleaf.host_leaf_agg(plan, data.values, data.vbase,
+                                      np.asarray(gids), len(gkeys), fn,
+                                      t1.op)
+        counters.inc("leaf_host_routed")
+        return AggPartial(t1.op, gkeys, wends, comp=comp,
+                          cache_token=agg_token(t1.op, t1.by, t1.without,
+                                                data.cache_token))
 
     def _window_counts_groups(self, data, t0, t1):
         """Host math shared by the no-device answers: per-window sample
@@ -328,7 +415,6 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                 f"({len(gkeys)} groups)")
 
     def _do_execute(self, source):
-        from filodb_tpu_torch.core.devicecache import DeviceMirror
         stats = QueryStats(shards_queried=1)
         shard = source.get_shard(self.dataset, self.shard)
         if shard is None:
@@ -343,6 +429,24 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             return None, stats
         store = shard.stores[schema_name]
         rows = shard.rows_for(pids)
+        # the scan cap, before anything is gathered: a pathological
+        # selector fails fast instead of filling memory first.  The
+        # estimate clips each series to the chunk range under uniform
+        # spacing, over the resident data; it is memoized with the lookup
+        # per store generation (at 1M series one estimate reads 2M
+        # scattered timestamps)
+        est_key = (schema_name, store.generation)
+        est = lookup.scan_estimates.get(est_key)
+        if est is None:
+            est = lookup.scan_estimates[est_key] = _estimate_scan(
+                store, rows, self.chunk_start_ms, self.chunk_end_ms)
+        limit = self.ctx.planner_params.scan_limit
+        if limit and self.ctx.planner_params.enforced_limits \
+                and est > limit:
+            raise ValueError(
+                f"shard {self.shard}: query would scan ~{est} samples "
+                f"(resident), over the scan limit {limit} — narrow the "
+                f"filters or time range")
         schema = shard.schemas[schema_name]
         col_name = self.columns[0] if self.columns else schema.value_column
         col_def = next((c for c in schema.data_columns
@@ -350,17 +454,66 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         if col_def is None:
             raise not_ported(f"column {col_name} of schema {schema_name}")
         counter_col = col_def.detect_drops or col_def.counter
-        fn_is_counter = False
+        fn_is_counter = periodic = False
         for t in self.transformers:
             if isinstance(t, PeriodicSamplesMapper):
                 fn_is_counter = t.function in COUNTER_FNS
+                periodic = True
                 break
-        if counter_col and not fn_is_counter:
-            raise not_ported("a non-counter function over a counter column "
-                             "(needs raw values: the host gather path)")
-        # the device mirror: one full upload per store generation, under
-        # the write lock so it cannot race ingest; the row gather then
-        # reads only the immutable device copy
+        # the cost-based router, on only where the environment sets
+        # FILODB_TPU_FORCE_HOST_ROUTE: a working set of at most
+        # HOST_ROUTE_MAX_SAMPLES samples is gathered on the host and,
+        # where _try_fused's host route takes it, evaluated there
+        route_host = False
+        if HOST_ROUTE_MAX_SAMPLES > 0 \
+                and os.environ.get("FILODB_TPU_FORCE_HOST_ROUTE"):
+            route_est = est
+            if counter_col and fn_is_counter:
+                # its reset correction also reads each row's history
+                # before the window: count every sample up to the window's
+                # last column
+                p_hi = store.window_positions(self.chunk_start_ms,
+                                              self.chunk_end_ms)[1]
+                route_est = int(np.minimum(store.counts[rows], p_hi).sum())
+            route_host = 0 < route_est <= HOST_ROUTE_MAX_SAMPLES
+        shared_ts_row = None
+        if not route_host and (not counter_col or fn_is_counter):
+            ts_off, vals, vbase, base, counts, shared_ts_row, dense = \
+                self._mirror_gather(shard, store, rows, col_name)
+            precorrected = counter_col
+        else:
+            # the mirror holds counters reset-corrected, so a non-counter
+            # function over a counter column reads the raw values here
+            precorrected = counter_col and fn_is_counter
+            base = self.chunk_start_ms
+            # f32, the type the device computes in, where the values go
+            # on to the device; f64 for the numpy host route and for a
+            # raw range vector, which the root returns as it is
+            t0 = time.perf_counter()
+            ts_off, vals, vbase, counts, dense = self._host_gather(
+                shard, store, rows, col_name, precorrected,
+                np.float32 if periodic and not route_host else np.float64)
+            # the gather is host work inside this node: cpu_seconds
+            stats.cpu_seconds += time.perf_counter() - t0
+            if route_host:
+                shared_ts_row = _host_shared_row(ts_off, counts)
+        keys = LazyKeys(shard, pids)
+        stats.series_scanned = int(pids.size)
+        stats.samples_scanned = int(counts.sum())
+        les = store.bucket_les if vals.ndim == 3 else None
+        return RawBlock(keys, ts_off, vals, base, les,
+                        samples=stats.samples_scanned, vbase=vbase,
+                        precorrected=precorrected,
+                        shared_ts_row=shared_ts_row, dense=dense,
+                        cache_token=(shard.keys_serial, shard.keys_epoch,
+                                     pids.tobytes()),
+                        route_host=route_host), stats
+
+    def _mirror_gather(self, shard, store, rows, col_name):
+        """The rows from the device mirror: one full upload per store
+        generation, under the write lock so it cannot race ingest; the
+        row gather then reads only the immutable device copy."""
+        from filodb_tpu_torch.core.devicecache import DeviceMirror
         mirror = getattr(store, "device_mirror", None)
         if mirror is None:
             with shard._write_locked("mirror_create"):
@@ -374,27 +527,113 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         # one snapshot read serves gather AND fused eligibility
         snap = mirror.snapshot()
         ts_off, dev_cols, dev_vbases, base = mirror.gather_cached(rows, snap)
-        vals = dev_cols[col_name]
-        vbase = dev_vbases.get(col_name)
-        counts = snap.counts[rows]
         shared_ts_row = mirror.fused_eligible(col_name, snap,
                                               allow_ragged=True)
-        dense = mirror.col_dense(col_name, snap)
         if shared_ts_row is not None:
             # cache identity for the fused path's padded-input reuse
             # (mirror.serial, not id(); raw rows bytes, not a hash)
             self._fused_cache_key = (mirror.serial, snap.gen, col_name,
                                      rows.tobytes())
-        keys = LazyKeys(shard, pids)
-        stats.series_scanned = int(pids.size)
-        stats.samples_scanned = int(counts.sum())
-        les = store.bucket_les if vals.ndim == 3 else None
-        return RawBlock(keys, ts_off, vals, base, les,
-                        samples=stats.samples_scanned, vbase=vbase,
-                        precorrected=counter_col,
-                        shared_ts_row=shared_ts_row, dense=dense,
-                        cache_token=(shard.keys_serial, shard.keys_epoch,
-                                     pids.tobytes())), stats
+        return (ts_off, dev_cols[col_name], dev_vbases.get(col_name), base,
+                snap.counts[rows], shared_ts_row,
+                mirror.col_dense(col_name, snap))
+
+    def _host_gather(self, shard, store, rows, col_name, precorrected,
+                     dtype):
+        """The windowed host gather: only the chunk-scan span of the rows
+        is copied, its timestamps become int32 offsets from chunk_start_ms
+        and the values are rebased per series in f64, then stored as
+        `dtype`.  When `precorrected` the values are reset-corrected as
+        the mirror corrects them, from each row's first sample: the
+        correction of the row's history before the span is carried in.
+        A histogram column gathers [S, T, B].  Row blocks run on a thread
+        pool, inside one seqlock snapshot of the store; the blocking
+        changes no output bit.  -> (ts_off, vals, vbase, counts, dense),
+        numpy."""
+        start = self.chunk_start_ms
+
+        def gather():
+            pos = store.window_positions(start, self.chunk_end_ms)
+            width = pos[1] - pos[0]
+            col = store.cols[col_name]
+            S = len(rows)
+            ts_off = np.empty((S, width), np.int32)
+            vals = np.empty((S, width) + col.shape[2:], dtype)
+            vbase = np.empty((S,) + col.shape[2:], np.float64)
+            counts = np.empty(S, np.int32)
+
+            def block(i):
+                sl = slice(i, min(i + HOST_GATHER_BLOCK_ROWS, S))
+                ts, cols, cnt = store.gather_rows(rows[sl], positions=pos,
+                                                  columns=(col_name,))
+                ts_off[sl] = to_offsets(ts, cnt, start)
+                v = cols[col_name]
+                if precorrected:
+                    v = counter.host_counter_correct_after(
+                        col[rows[sl], :pos[0]], v)
+                v, vbase[sl] = counter.rebase_values(v, False)
+                vals[sl] = v
+                counts[sl] = cnt
+                # NaN anywhere (staleness markers or ragged-length
+                # padding) routes the rate family onto its valid-boundary
+                # variant
+                return bool(np.isnan(v).any())
+
+            holes = list(_gather_pool().map(
+                block, range(0, S, HOST_GATHER_BLOCK_ROWS)))
+            return ts_off, vals, vbase, counts, not any(holes)
+
+        return shard.snapshot_read(store, gather)
+
+
+HOST_GATHER_BLOCK_ROWS = 16_384
+"""Rows a worker of the host gather copies and processes at a time."""
+
+_GATHER_POOL: Optional[ThreadPoolExecutor] = None
+_GATHER_POOL_LOCK = threading.Lock()
+
+
+def _gather_pool() -> ThreadPoolExecutor:
+    """The host gather's worker threads (numpy releases the GIL in the
+    copies and ufuncs), created at first use: one a core, at most 8."""
+    global _GATHER_POOL
+    with _GATHER_POOL_LOCK:
+        if _GATHER_POOL is None:
+            _GATHER_POOL = ThreadPoolExecutor(
+                max_workers=min(8, os.cpu_count() or 1),
+                thread_name_prefix="host-gather")
+        return _GATHER_POOL
+
+
+def _host_shared_row(ts_off: np.ndarray, counts: np.ndarray
+                     ) -> Optional[np.ndarray]:
+    """The shared-grid row of a host gather, derived as the mirror
+    certifies it (every row has the same count and the same offsets over
+    its samples), so small dense sets stay fusable; else None."""
+    if not (ts_off.size and counts.size and (counts == counts[0]).all()):
+        return None
+    n = max(int(counts[0]), 1)
+    if not (ts_off[:, :n] == ts_off[0, :n]).all():
+        return None
+    return ts_off[0, :int(counts[0])]
+
+
+def _estimate_scan(store, rows: np.ndarray, start_ms: int,
+                   end_ms: int) -> int:
+    """Estimated samples in [start_ms, end_ms] across the given store rows,
+    from per-series extents under a uniform-spacing assumption — O(S), no
+    [S, T] materialization."""
+    cnt = store.counts[rows].astype(np.int64)
+    if store.ts.shape[1] == 0 or not cnt.any():
+        return 0
+    first = store.ts[rows, 0]
+    last = store.ts[rows, np.maximum(cnt - 1, 0)]
+    lo = np.maximum(first, start_ms)
+    hi = np.minimum(last, end_ms)
+    span = np.maximum(last - first, 1).astype(np.float64)
+    frac = np.clip((hi - lo).astype(np.float64) / span, 0.0, 1.0)
+    est = np.where((cnt > 0) & (hi >= lo), np.maximum(cnt * frac, 1.0), 0.0)
+    return int(est.sum())
 
 
 # ------------------------------------------------------------- scalar execs

@@ -1,6 +1,6 @@
 """Non-leaf exec plans (port of filodb_tpu/query/nonleaf.py):
-DistConcatExec, ReduceAggregateExec, BinaryJoinExec and
-SetOperatorExec.  Label matching runs on the host, as in the reference;
+DistConcatExec, ReduceAggregateExec, BinaryJoinExec, SetOperatorExec
+and SubqueryExec.  Label matching runs on the host, as in the reference;
 the values stay on their device.
 """
 from __future__ import annotations
@@ -12,11 +12,12 @@ import numpy as np
 import torch
 
 from filodb_tpu_torch.memory.histogram import rebucket
+from filodb_tpu_torch.ops.rangefns import evaluate_range_function
 from filodb_tpu_torch.ops.select import gather_binop
-from filodb_tpu_torch.ops.timewindow import PAD_TS
+from filodb_tpu_torch.ops.timewindow import PAD_TS, make_window_ends
 from filodb_tpu_torch.query.execbase import (AggPartial, ExecPlan,
                                              NonLeafExecPlan, RawBlock,
-                                             _union_scheme, not_ported,
+                                             _block_empty, _union_scheme,
                                              reduce_partials)
 from filodb_tpu_torch.query.rangevector import (RangeVectorKey, ResultBlock,
                                                 cat_values, concat_blocks,
@@ -39,7 +40,14 @@ class DistConcatExec(NonLeafExecPlan):
 
 def _concat_raw(raws: List[RawBlock]) -> RawBlock:
     """Raw blocks of one grid and base, concatenated along series; shards
-    whose bucket schemes differ are first rebucketed onto the union."""
+    whose bucket schemes differ are first rebucketed onto the union.
+    Blocks that all lie on the device join there; where any is a host
+    gather's (numpy), all join on the host, in their own value types, and
+    a consumer that needs tensors uploads the result once."""
+    on_dev = all(isinstance(r.values, torch.Tensor) for r in raws)
+    if not on_dev:
+        raws = [r.on_host() for r in raws]
+    cat = torch.cat if on_dev else np.concatenate
     les0 = raws[0].bucket_les
     if any((r.bucket_les is None) != (les0 is None)
            or (les0 is not None and not np.array_equal(les0, r.bucket_les))
@@ -50,14 +58,18 @@ def _concat_raw(raws: List[RawBlock]) -> RawBlock:
                              "carry no bucket boundaries")
         counters.inc("hist_concat_rebuckets")
 
+        def take(a, axis, idx):
+            if on_dev:
+                return a.index_select(axis, torch.from_numpy(idx).to(
+                    a.device))
+            return np.take(a, idx, axis=axis)
+
         def remap(r):
             # rebucket selects source buckets: an index along the last axis
-            idx = torch.from_numpy(rebucket(
-                np.arange(len(r.bucket_les)), r.bucket_les, union)).to(
-                    r.values.device)
+            idx = rebucket(np.arange(len(r.bucket_les)), r.bucket_les, union)
             return dataclasses.replace(
-                r, values=r.values.index_select(2, idx),
-                vbase=(r.vbase.index_select(1, idx)
+                r, values=take(r.values, 2, idx),
+                vbase=(take(r.vbase, 1, idx)
                        if r.vbase is not None and r.vbase.ndim == 2
                        else r.vbase),
                 bucket_les=union)
@@ -69,18 +81,21 @@ def _concat_raw(raws: List[RawBlock]) -> RawBlock:
     T = max(r.ts_off.shape[1] for r in raws)
 
     def pad(a, fill):
-        out = a.new_full((a.shape[0], T) + tuple(a.shape[2:]), fill)
+        shape = (a.shape[0], T) + tuple(a.shape[2:])
+        out = a.new_full(shape, fill) if on_dev \
+            else np.full(shape, fill, a.dtype)
         out[:, :a.shape[1]] = a
         return out
+
+    def zeros(r):
+        shape = r.values.shape[:1] + r.values.shape[2:]
+        return r.values.new_zeros(shape) if on_dev else np.zeros(shape)
     vbase = None
     if any(r.vbase is not None for r in raws):
-        vbase = torch.cat([
-            r.vbase if r.vbase is not None
-            else r.values.new_zeros(r.values.shape[:1] + r.values.shape[2:])
-            for r in raws])
-    return RawBlock(keys, torch.cat([pad(r.ts_off, int(PAD_TS))
-                                     for r in raws]),
-                    torch.cat([pad(r.values, float("nan")) for r in raws]),
+        vbase = cat([r.vbase if r.vbase is not None else zeros(r)
+                     for r in raws])
+    return RawBlock(keys, cat([pad(r.ts_off, int(PAD_TS)) for r in raws]),
+                    cat([pad(r.values, float("nan")) for r in raws]),
                     raws[0].base_ms, raws[0].bucket_les,
                     samples=sum(r.samples for r in raws), vbase=vbase,
                     precorrected=all(r.precorrected for r in raws),
@@ -208,10 +223,9 @@ class BinaryJoinExec(NonLeafExecPlan):
 
 
 def _side(results) -> Optional[ResultBlock]:
-    """One side of a join or set operation: its children's blocks
-    concatenated (a raw range vector cannot be an operand)."""
-    if any(isinstance(r, RawBlock) for r in results):
-        raise not_ported("a raw range vector as a binary operand")
+    """One side of a join or set operation: its children's result blocks
+    concatenated.  A raw range vector is no result block and drops out,
+    as in the reference: such a side is empty."""
     return concat_blocks([r for r in results if isinstance(r, ResultBlock)])
 
 
@@ -312,3 +326,43 @@ class SetOperatorExec(NonLeafExecPlan):
 
 def _nan_like(x: torch.Tensor) -> torch.Tensor:
     return torch.full_like(x, float("nan"))
+
+
+class SubqueryExec(NonLeafExecPlan):
+    """An outer range function over an inner periodic series
+    (`max_over_time(expr[30m:1m])`): the inner grid's steps are the outer
+    window function's raw samples, evaluated on the values' device by
+    ops/rangefns.py.  The inner grid is the one the parser planned
+    (query/logical.py's SubqueryWithWindowing.inner)."""
+
+    def __init__(self, ctx, children, start_ms, step_ms, end_ms, function,
+                 function_args, subquery_window_ms, subquery_step_ms,
+                 offset_ms=0):
+        super().__init__(ctx, children)
+        self.start_ms, self.step_ms, self.end_ms = start_ms, step_ms, end_ms
+        self.function = function
+        self.function_args = tuple(function_args)
+        self.subquery_window_ms = subquery_window_ms
+        self.subquery_step_ms = subquery_step_ms
+        self.offset_ms = offset_ms
+
+    def compose(self, results, stats):
+        block = concat_blocks([r for r in results
+                               if isinstance(r, ResultBlock)])
+        wends = make_window_ends(self.start_ms, self.end_ms, self.step_ms)
+        if block is None:
+            return _block_empty(wends)
+        inner_ts = np.asarray(block.wends)
+        base = int(inner_ts[0]) if len(inner_ts) else 0
+        vals = device_values(block.values, self.ctx)
+        # every series shares the inner grid: one offset row; a NaN step
+        # is an absent sample
+        ts_off = torch.from_numpy((inner_ts - base).astype(np.int32)[None, :]
+                                  ).to(vals.device)
+        eval_wends = torch.from_numpy(
+            (wends - self.offset_ms - base).astype(np.int32)).to(vals.device)
+        out = evaluate_range_function(
+            ts_off, vals, eval_wends, self.subquery_window_ms,
+            self.function, self.function_args, base_ms=base,
+            shared_grid=True, dense=not bool(torch.isnan(vals).any()))
+        return ResultBlock(block.keys, wends, out)

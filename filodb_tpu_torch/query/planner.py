@@ -5,9 +5,12 @@ One dataset over N shards: selectors, range functions and aggregates
 become one leaf MultiSchemaPartitionsExec per shard with the
 transformers pushed down, composed by ReduceAggregateExec (+
 AggregatePresenter) or a concat; binary joins, set operators, scalar
-operations, instant functions and the scalar plans they need compose
-those.  Any other plan node (subqueries, `@`, sort, limit, absent, the
-label functions, scalar(), vector(), metadata) raises not_ported.
+operations, instant functions, subqueries, `@`, sort, limitk, absent,
+the label functions, scalar(), vector() and the scalar plans they need
+compose those; the metadata plans (label names, label values, series
+keys) fan out to one metadata leaf per shard under MetadataMergeExec.
+Every plan node of the reference's planner is carried; the reference's
+dispatchers and aggregation pushdown are not (one process).
 """
 from __future__ import annotations
 
@@ -24,15 +27,18 @@ from filodb_tpu_torch.query.leafexec import (MultiSchemaPartitionsExec,
                                              ScalarBinaryOperationExec,
                                              ScalarFixedDoubleExec,
                                              TimeScalarGeneratorExec)
+from filodb_tpu_torch.query.metaexec import (LabelValuesExec,
+                                             MetadataMergeExec, PartKeysExec)
 from filodb_tpu_torch.query.nonleaf import (BinaryJoinExec, DistConcatExec,
                                             ReduceAggregateExec,
-                                            SetOperatorExec)
+                                            SetOperatorExec, SubqueryExec)
 from filodb_tpu_torch.query.rangevector import QueryContext
-from filodb_tpu_torch.query.transformers import (AggregateMapReduce,
-                                                 AggregatePresenter,
-                                                 InstantVectorFunctionMapper,
-                                                 PeriodicSamplesMapper,
-                                                 ScalarOperationMapper)
+from filodb_tpu_torch.query.transformers import (
+    AbsentFunctionMapper, AggregateMapReduce, AggregatePresenter,
+    InstantVectorFunctionMapper, LimitFunctionMapper,
+    MiscellaneousFunctionMapper, PeriodicSamplesMapper, RepeatToGridMapper,
+    ScalarFunctionMapper, ScalarOperationMapper, SortFunctionMapper,
+    VectorFunctionMapper)
 
 SET_OPERATORS = ("and", "or", "unless")
 
@@ -134,6 +140,30 @@ class SingleClusterPlanner:
                 lookback_ms=self.stale_lookback_ms))
         return leaves
 
+    def _m_ApplyAtTimestamp(self, p: lp.ApplyAtTimestamp, ctx: QueryContext):
+        out = self._walk(p.inner, ctx)
+        if not p.repeat:                 # a pinned matrix (subquery)
+            return out
+        mapper = RepeatToGridMapper(p.start_ms, p.step_ms, p.end_ms)
+        for leaf in out if isinstance(out, list) else [out]:
+            leaf.add_transformer(mapper)
+        return out
+
+    # subqueries --------------------------------------------------------------
+
+    def _m_TopLevelSubquery(self, p: lp.TopLevelSubquery, ctx: QueryContext):
+        return self._walk(p.inner, ctx)
+
+    def _m_SubqueryWithWindowing(self, p: lp.SubqueryWithWindowing,
+                                 ctx: QueryContext):
+        inner = self.materialize(p.inner, ctx)
+        return SubqueryExec(ctx, [inner], p.start_ms, p.step_ms, p.end_ms,
+                            p.function, tuple(p.function_args),
+                            p.subquery_window_ms, p.subquery_step_ms,
+                            p.offset_ms or 0)
+
+    # aggregates --------------------------------------------------------------
+
     def _m_Aggregate(self, p: lp.Aggregate, ctx: QueryContext) -> ExecPlan:
         children = self._leaves(p.vectors, ctx)
         for c in children:
@@ -183,6 +213,29 @@ class SingleClusterPlanner:
         child.add_transformer(InstantVectorFunctionMapper(p.function, args))
         return child
 
+    def _m_ApplyMiscellaneousFunction(self, p, ctx) -> ExecPlan:
+        child = self.materialize(p.vectors, ctx)
+        child.add_transformer(MiscellaneousFunctionMapper(
+            p.function, tuple(p.string_args)))
+        return child
+
+    def _m_ApplySortFunction(self, p, ctx) -> ExecPlan:
+        child = self.materialize(p.vectors, ctx)
+        child.add_transformer(SortFunctionMapper(p.function == "sort_desc"))
+        return child
+
+    def _m_ApplyAbsentFunction(self, p: lp.ApplyAbsentFunction,
+                               ctx) -> ExecPlan:
+        child = self.materialize(p.vectors, ctx)
+        child.add_transformer(AbsentFunctionMapper(
+            tuple(p.filters), p.start_ms, p.step_ms, p.end_ms))
+        return child
+
+    def _m_ApplyLimitFunction(self, p, ctx) -> ExecPlan:
+        child = self.materialize(p.vectors, ctx)
+        child.add_transformer(LimitFunctionMapper(p.limit))
+        return child
+
     # scalars -----------------------------------------------------------------
 
     def _m_ScalarTimeBasedPlan(self, p: lp.ScalarTimeBasedPlan, ctx):
@@ -192,6 +245,11 @@ class SingleClusterPlanner:
     def _m_ScalarFixedDoublePlan(self, p: lp.ScalarFixedDoublePlan, ctx):
         return ScalarFixedDoubleExec(ctx, p.start_ms, p.step_ms, p.end_ms,
                                      p.scalar)
+
+    def _m_ScalarVaryingDoublePlan(self, p: lp.ScalarVaryingDoublePlan, ctx):
+        child = self.materialize(p.vectors, ctx)
+        child.add_transformer(ScalarFunctionMapper())
+        return child
 
     def _m_ScalarBinaryOperation(self, p: lp.ScalarBinaryOperation, ctx):
         def conv(x):
@@ -203,12 +261,38 @@ class SingleClusterPlanner:
         return ScalarBinaryOperationExec(ctx, p.start_ms, p.step_ms, p.end_ms,
                                          p.operator, conv(p.lhs), conv(p.rhs))
 
+    def _m_VectorPlan(self, p: lp.VectorPlan, ctx) -> ExecPlan:
+        child = self.materialize(p.scalars, ctx)
+        child.add_transformer(VectorFunctionMapper())
+        return child
+
     def _fold_scalar(self, arg, ctx):
         if isinstance(arg, lp.ScalarFixedDoublePlan):
             return arg.scalar
         if isinstance(arg, lp.LogicalPlan):
             return _DeferredScalar(self.materialize(arg, ctx))
         return arg
+
+    # metadata ----------------------------------------------------------------
+
+    def _m_LabelValues(self, p: lp.LabelValues, ctx) -> ExecPlan:
+        return MetadataMergeExec(ctx, [
+            LabelValuesExec(ctx, self.dataset, s, p.filters, p.label_names,
+                            p.start_ms, p.end_ms)
+            for s in self.shard_mapper.all_shards()])
+
+    def _m_LabelNames(self, p: lp.LabelNames, ctx) -> ExecPlan:
+        return MetadataMergeExec(ctx, [
+            LabelValuesExec(ctx, self.dataset, s, p.filters, [], p.start_ms,
+                            p.end_ms)
+            for s in self.shard_mapper.all_shards()])
+
+    def _m_SeriesKeysByFilters(self, p: lp.SeriesKeysByFilters,
+                               ctx) -> ExecPlan:
+        return MetadataMergeExec(ctx, [
+            PartKeysExec(ctx, self.dataset, s, p.filters, p.start_ms,
+                         p.end_ms)
+            for s in self.shards_from_filters(p.filters, ctx)])
 
 
 class _DeferredScalar:

@@ -1,7 +1,11 @@
 """Range-vector transformers (port of filodb_tpu/query/transformers.py):
 PeriodicSamplesMapper, the aggregation map and present phases, instant
 functions (histogram_quantile over native [S, W, B] blocks and over
-classic `le`-bucket series, histogram_bucket) and scalar operations.
+classic `le`-bucket series, histogram_bucket), scalar operations, and
+the plan nodes' mappers: the `@` repeat, absent, sort, label_replace /
+label_join, limitk, scalar() and vector().  Those run on the host over
+a block's keys (and, for absent, sort and the label merge, its values
+read back); the values otherwise stay where they are.
 
 PeriodicSamplesMapper and AggregateMapReduce also carry the query's
 window grid, function and grouping down to the leaf, whose fused path
@@ -13,12 +17,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 import threading
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from filodb_tpu_torch.core.index import ColumnFilter, Equals
 from filodb_tpu_torch.ops import agg as agg_ops
 from filodb_tpu_torch.ops import fused
 from filodb_tpu_torch.ops import hist as hist_ops
@@ -32,7 +39,7 @@ from filodb_tpu_torch.query.execbase import (AggPartial, Data,
                                              present_partial)
 from filodb_tpu_torch.query.rangevector import (QueryContext, QueryStats,
                                                 RangeVectorKey, ResultBlock,
-                                                device_values)
+                                                device_values, host_values)
 
 
 class RangeVectorTransformer:
@@ -61,6 +68,9 @@ class PeriodicSamplesMapper(RangeVectorTransformer):
             return _block_empty(wends)
         if not isinstance(data, RawBlock):
             raise TypeError("PeriodicSamplesMapper needs raw data")
+        # a host gather (per-series offsets, no shared row) is evaluated
+        # on the engine's device like a mirror block
+        data = data.on_device(ctx.device, stats)
         window = self.window_ms if self.window_ms else self.lookback_ms
         fn = self.function
         base = data.base_ms
@@ -93,6 +103,33 @@ class PeriodicSamplesMapper(RangeVectorTransformer):
             out = hist_ops.from_bucket_rows(out, B)
         if fn == "timestamp":
             out = out.double() + base / 1000.0
+        return ResultBlock(data.keys, wends, out, data.bucket_les,
+                           cache_token=data.cache_token)
+
+
+@dataclasses.dataclass
+class RepeatToGridMapper(RangeVectorTransformer):
+    """The `@` modifier's finisher: the upstream mapper evaluated on a
+    single-step grid pinned at the @ timestamp; that one column repeated
+    across the query's output grid (Prometheus: the pinned value at every
+    step)."""
+    start_ms: int
+    step_ms: int
+    end_ms: int
+
+    def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
+              source=None) -> Data:
+        wends = make_window_ends(self.start_ms, self.end_ms, self.step_ms)
+        if data is None:
+            return None
+        if not isinstance(data, ResultBlock):
+            raise TypeError("@ repeat needs periodic data")
+        vals = data.values
+        if vals.shape[1] != 1:
+            raise ValueError("@ inner grid must be single-step")
+        reps = (1, len(wends)) + (1,) * (vals.ndim - 2)
+        out = (vals.repeat(*reps) if isinstance(vals, torch.Tensor)
+               else np.tile(vals, reps))
         return ResultBlock(data.keys, wends, out, data.bucket_les,
                            cache_token=data.cache_token)
 
@@ -388,3 +425,177 @@ class AggregatePresenter(RangeVectorTransformer):
             raise TypeError(f"AggregatePresenter needs an AggPartial, "
                             f"got {type(data).__name__}")
         return present_partial(data)
+
+
+@dataclasses.dataclass
+class AbsentFunctionMapper(RangeVectorTransformer):
+    """absent(): one series of 1.0 at the steps where no input series has
+    a sample, labelled with the selector's equality matchers."""
+    filters: Tuple[ColumnFilter, ...]
+    start_ms: int = 0
+    step_ms: int = 0
+    end_ms: int = 0
+
+    def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
+              source=None) -> Data:
+        wends = (data.wends if isinstance(data, ResultBlock)
+                 else make_window_ends(self.start_ms, self.end_ms,
+                                       max(self.step_ms, 1)))
+        if isinstance(data, ResultBlock) and data.num_series:
+            present = ~np.isnan(host_values(data.values)).all(axis=0)
+            if present.ndim == 2:             # histogram blocks [W, B]
+                present = present.any(axis=-1)
+        else:
+            present = np.zeros(len(wends), dtype=bool)
+        out = np.where(present, np.nan, 1.0)[None, :]
+        labels = {f.column: f.value for f in self.filters
+                  if isinstance(f, Equals)
+                  and f.column not in ("__name__", "_metric_")}
+        return ResultBlock([RangeVectorKey.make(labels)], wends, out)
+
+
+@dataclasses.dataclass
+class SortFunctionMapper(RangeVectorTransformer):
+    """sort()/sort_desc(): series ordered by their mean over the steps
+    (f64, NaN steps ignored), a stable sort; a series with no sample
+    ranks first either way, as in the reference."""
+    descending: bool = False
+
+    def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
+              source=None) -> Data:
+        if not isinstance(data, ResultBlock) or data.num_series <= 1:
+            return data
+        with np.errstate(invalid="ignore"), warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            means = np.nanmean(host_values(data.values).astype(np.float64),
+                               axis=1)
+        means = np.where(np.isnan(means),
+                         np.inf if self.descending else -np.inf, means)
+        order = np.argsort(-means if self.descending else means,
+                           kind="stable")
+        return data.select(order)
+
+
+@dataclasses.dataclass
+class MiscellaneousFunctionMapper(RangeVectorTransformer):
+    """label_replace / label_join: new label sets on the host; series
+    that land on one label set merge where their samples never share a
+    step, else the query fails (_merge_relabeled)."""
+    function: str
+    string_args: Tuple[str, ...] = ()
+
+    def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
+              source=None) -> Data:
+        if not isinstance(data, ResultBlock):
+            return data
+        if self.function == "label_replace":
+            dst, repl, src, regex = self.string_args
+            pat = re.compile("^(?:" + regex + ")$")
+            keys = []
+            for k in data.keys:
+                lbls = k.labels_dict
+                m = pat.match(lbls.get(src, ""))
+                if m:
+                    val = m.expand(_dollar_to_backslash(repl))
+                    if val:
+                        lbls[dst] = val
+                    else:
+                        lbls.pop(dst, None)
+                keys.append(RangeVectorKey.make(lbls))
+        elif self.function == "label_join":
+            dst, sep, *srcs = self.string_args
+            keys = []
+            for k in data.keys:
+                lbls = k.labels_dict
+                val = sep.join(lbls.get(s, "") for s in srcs)
+                if val:
+                    lbls[dst] = val
+                else:
+                    lbls.pop(dst, None)
+                keys.append(RangeVectorKey.make(lbls))
+        else:
+            raise ValueError(f"unknown misc function {self.function}")
+        keys, vals = _merge_relabeled(keys, data, self.function)
+        return ResultBlock(keys, data.wends, vals, data.bucket_les)
+
+
+def _merge_relabeled(keys, data: ResultBlock, fn_name: str):
+    """Relabeling that lands several series on one label set is an error
+    only where the duplicates share an evaluation step ("vector cannot
+    contain metrics with the same labelset"); series whose samples never
+    overlap merge into one.  Presence is NaN-only, as in the reference:
+    a ±Inf sample is a sample, so it collides and merges like any other.
+    -> (keys, values) with disjoint duplicates merged."""
+    groups: dict = {}
+    for i, k in enumerate(keys):
+        groups.setdefault(k.labels, []).append(i)
+    if all(len(rows) == 1 for rows in groups.values()):
+        return keys, data.values
+    vals = host_values(data.values)
+    out_keys, out_rows = [], []
+    for rows in groups.values():
+        if len(rows) == 1:
+            out_keys.append(keys[rows[0]])
+            out_rows.append(vals[rows[0]])
+            continue
+        sub = vals[rows]                      # [d, W] or [d, W, B]
+        present = ~np.isnan(sub)
+        if sub.ndim == 3:
+            present = present.any(axis=-1)
+        if (present.sum(axis=0) > 1).any():
+            raise ValueError(
+                f"{fn_name}: vector cannot contain metrics with the "
+                f"same labelset")
+        merged = np.full(sub.shape[1:], np.nan, vals.dtype)
+        for d in range(sub.shape[0]):
+            m = present[d]
+            merged[m] = sub[d][m]
+        out_keys.append(keys[rows[0]])
+        out_rows.append(merged)
+    return out_keys, np.stack(out_rows)
+
+
+def _dollar_to_backslash(repl: str) -> str:
+    """PromQL writes $1 where python's re.expand reads \\1."""
+    return re.sub(r"\$(\d+)", r"\\\1", repl)
+
+
+@dataclasses.dataclass
+class LimitFunctionMapper(RangeVectorTransformer):
+    """limitk: the first `limit` series."""
+    limit: int
+
+    def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
+              source=None) -> Data:
+        if isinstance(data, ResultBlock) and data.num_series > self.limit:
+            return data.select(np.arange(self.limit))
+        return data
+
+
+@dataclasses.dataclass
+class ScalarFunctionMapper(RangeVectorTransformer):
+    """scalar(vector): a single series becomes a scalar stream; anything
+    else is NaN at every step."""
+    function: str = "scalar"
+
+    def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
+              source=None) -> Data:
+        if data is not None and not isinstance(data, ResultBlock):
+            raise TypeError(f"scalar() needs periodic data, got "
+                            f"{type(data).__name__}")
+        if data is None or data.num_series != 1:
+            wends = data.wends if data is not None else np.zeros(0, np.int64)
+            return ScalarResult(wends, np.full(len(wends), np.nan))
+        return ScalarResult(data.wends, host_values(data.values)[0])
+
+
+@dataclasses.dataclass
+class VectorFunctionMapper(RangeVectorTransformer):
+    """vector(scalar): the scalar stream as one series without labels."""
+
+    def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
+              source=None) -> Data:
+        if isinstance(data, ScalarResult):
+            return ResultBlock([RangeVectorKey(())], data.wends,
+                               data.values[None, :])
+        return data

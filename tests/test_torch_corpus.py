@@ -3,10 +3,9 @@ port's QueryEngine(device="cpu"), with tests/test_promql_corpus.py's
 loader and checks: each file is loaded into the JAX memstore, its series
 are carried into the port's (load_reference_arrays, as
 tests/test_torch_engine.py does), and every `eval` must give the
-expected values.  An eval that needs what the port leaves out (the sort,
-limit, absent, label, scalar() and vector() functions, subqueries, `@`,
-a bare range vector) must raise not_ported; each file's count of those
-is pinned in NOT_PORTED, so a regression cannot hide among them.
+expected values.  NOT_PORTED pins each file's count of evals that raise
+not_ported, so a regression cannot hide among them; it is empty: the
+port answers every eval of the corpus.
 histograms.test is also replayed through the native histogram schema.
 """
 import os
@@ -20,18 +19,10 @@ from test_promql_corpus import (CORPUS_DIR, _corpus_files, build_engine,
                                 parse_corpus, run_case)
 from test_torch_engine import _port_engine
 
-# file -> evals that raise not_ported (see PERF.md for the groups)
-NOT_PORTED = {
-    "advanced.test": 4,             # `@` (1), subqueries (3)
-    "at_offset_subquery.test": 18,  # `@` (9), subqueries (9)
-    "functions.test": 3,            # label_replace (1), absent (2)
-    "functions2.test": 7,           # vector, scalar, absent (2),
-                                    # label_replace/label_join (2), sort
-    "functions3.test": 5,           # absent_over_time (an absent plan)
-    "operators2.test": 1,           # scalar()
-    "operators3.test": 3,           # vector()
-    "scalars.test": 6,              # vector() (3), scalar() (3)
-}
+# file -> evals that raise not_ported: none since the plan nodes (sort,
+# limitk, absent, the label functions, scalar(), vector(), subqueries,
+# `@`) are ported; the reference itself refuses no eval of the corpus
+NOT_PORTED = {}
 
 
 @pytest.mark.parametrize("fname", _corpus_files())
@@ -55,9 +46,9 @@ def test_classic_buckets_match_native_histogram_schema_through_the_port():
     job="a" ladder as one native column (bucket matrix + bucket_les) must
     answer histogram_quantile over rate as the classic `le`-labelled
     form does, through the port's general path and its fused leaf.  The
-    instant form over the native column is a non-counter read of the
-    counter column `h` (the reference's host route, not in the port
-    yet): not_ported, while the reference answers it."""
+    instant form over the native column, a non-counter read of the
+    counter column `h`, takes the windowed host gather (the reference's
+    host route) and must agree with the reference and the classic form."""
     from filodb_tpu.core.memstore import TimeSeriesMemStore
     from filodb_tpu.core.partkey import PartKey
     from filodb_tpu.core.records import RecordBatch
@@ -104,8 +95,6 @@ def test_classic_buckets_match_native_histogram_schema_through_the_port():
         assert one(native, f'histogram_quantile({q}, sum(rate('
                    f'req{{job="a"}}[5m])))') == pytest.approx(want, rel=1e-6)
     q_instant = 'histogram_quantile(0.5, req{job="a"})'
-    assert one(reference, q_instant) == pytest.approx(
-        one(classic, 'histogram_quantile(0.5, req_bucket{job="a"})'))
-    with pytest.raises(QueryError) as e:
-        native.query_range(q_instant, 600, 60, 600)
-    assert e.value.code == "not_ported"
+    want = one(classic, 'histogram_quantile(0.5, req_bucket{job="a"})')
+    assert one(reference, q_instant) == pytest.approx(want)
+    assert one(native, q_instant) == pytest.approx(want, rel=1e-6)

@@ -1,9 +1,9 @@
 """filodb_tpu_torch's CUDA kernels (K1 dense and K3 ragged rate, K2 rate
 over raw counters, K4 last_over_time, K5 sum/avg/count_over_time, each
 also in its per-series mode K6) against their plain torch versions, on
-the card, and the native histogram leaf on the card against the same
-query on the CPU.  Marked `cuda`: without a card they
-skip.  This file imports neither jax nor filodb_tpu, so it also runs on
+the card; the native histogram leaf, the host route and a plan node on
+the card against the same queries on the CPU.  Marked `cuda`: without a
+card they skip.  This file imports neither jax nor filodb_tpu, so it also runs on
 a machine with only the port's dependencies:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -614,4 +614,77 @@ def test_native_histogram_leaf_on_the_card_matches_the_cpu(card, ragged):
     for k in want:
         assert (np.isnan(got[k]) == np.isnan(want[k])).all()
         np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-9,
+                                   equal_nan=True)
+
+
+# ------------------------------- the host route and a plan node, end to end
+
+def _counter_engines(card, S=300, T=720, seed=23):
+    """S counters x T samples with one reset each, _ns_ = App-{i % 20}, in
+    a CPU engine and a card engine."""
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.query.engine import QueryEngine
+    rng = np.random.default_rng(seed)
+    t0 = 1_600_000_000_000
+    v = np.cumsum(rng.exponential(10.0, size=(S, T)), axis=1)
+    at = rng.integers(T // 2, T, size=S)
+    v = np.where(np.arange(T)[None, :] >= at[:, None],
+                 v - v[np.arange(S), at - 1][:, None], v)
+    keys = [PartKey.make("request_total", {"_ws_": "demo",
+                                           "_ns_": f"App-{i % 20}",
+                                           "instance": f"Instance-{i}"})
+            for i in range(S)]
+    ts = np.broadcast_to(t0 + np.arange(T, dtype=np.int64) * 10_000, (S, T))
+    engines = {}
+    for dev in ("cpu", card):
+        ms = TimeSeriesMemStore(device=dev)
+        ms.setup("prometheus", 0).ingest_columns("prom-counter", keys, ts,
+                                                 {"count": v})
+        engines[torch.device(dev).type] = QueryEngine("prometheus", ms,
+                                                      device=dev)
+    return engines, t0 // 1000 + 600, t0 // 1000 + (T - 1) * 10
+
+
+def _series_of(res):
+    assert res.error is None, res.error
+    return [(k.labels, np.asarray(v)) for k, _, v in res.series()]
+
+
+@pytest.mark.parametrize("promql, kernel, routed", [
+    # the raw values through the host gather, then the general path on
+    # the card
+    ("sum by (_ns_) (changes(request_total[5m]))", None, 0),
+    ("max by (_ns_) (resets(request_total[5m]))", None, 0),
+    # the router, switched on for the card run: a working set under
+    # HOST_ROUTE_MAX_SAMPLES is numpy
+    ("sum by (_ns_) (rate(request_total[5m]))", None, 1),
+    ("max by (_ns_) (max_over_time(request_total[5m]))", None, 1),
+    # a plan node over K1
+    ("sort_desc(sum by (_ns_) (rate(request_total[5m])))",
+     "fused_rate_dense", 0),
+])
+def test_host_route_and_plan_node_on_the_card_match_the_cpu(
+        card, monkeypatch, promql, kernel, routed):
+    """The same query on the card and through the plain path on the CPU
+    (the router off): the same series in the same order, values within
+    rtol 2e-4 / atol 1e-3; the card run, with the router switched on
+    (FILODB_TPU_FORCE_HOST_ROUTE) where `routed`, launches `kernel` (none
+    where None) and routes `routed` leaves to the host."""
+    from filodb_tpu_torch.utils.counters import counters
+    engines, start_s, end_s = _counter_engines(card)
+    want = _series_of(engines["cpu"].query_range(promql, start_s, 60,
+                                                 end_s))
+    if routed:
+        monkeypatch.setenv("FILODB_TPU_FORCE_HOST_ROUTE", "1")
+    n0, r0 = dict(kernels.LAUNCHES), counters.get("leaf_host_routed")
+    got = _series_of(engines["cuda"].query_range(promql, start_s, 60,
+                                                 end_s))
+    launched = {k for k, v in kernels.LAUNCHES.items() if v > n0.get(k, 0)}
+    assert launched == ({kernel} if kernel else set())
+    assert counters.get("leaf_host_routed") - r0 == routed
+    assert [k for k, _ in got] == [k for k, _ in want] and len(want) == 20
+    for (k, w), (_, g) in zip(want, got):
+        assert (np.isnan(g) == np.isnan(w)).all(), k
+        np.testing.assert_allclose(g, w, rtol=2e-4, atol=1e-3,
                                    equal_nan=True)

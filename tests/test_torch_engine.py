@@ -23,7 +23,6 @@ from filodb_tpu_torch.core.convert import load_reference_arrays
 from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
 from filodb_tpu_torch.parallel.shardmapper import ShardEvent, ShardMapper
 from filodb_tpu_torch.query.engine import QueryEngine
-from filodb_tpu_torch.query.execbase import QueryError
 from filodb_tpu_torch.utils.counters import counters
 
 from test_query_engine import _mk_engine
@@ -136,18 +135,30 @@ def test_headline_query_matches_jax_engine(num_shards, ragged, jax_mode):
     # a non-counter function over a counter column (the host route)
     "sum by (_ns_) (max_over_time(request_total[5m]))",
     "sum by (_ns_) (request_total)",
-    # functions and plan nodes the port leaves out
+    # plan nodes: sort, absent, a top-level subquery
     "sort(rate(request_total[5m]))",
     "absent(rate(request_total[5m]))",
     "rate(request_total[5m:1m])",
 ])
 def test_out_of_slice_query_raises_not_ported(promql):
+    """These queries once raised not_ported (the name is kept from then);
+    the port now answers each as the JAX engine does: the same series in
+    the same order, values within rtol 2e-4 / atol 1e-3, NaN placement
+    equal."""
     je = _mk_engine([_batch(False)])
     pe = _port_engine(je, 1)
-    with pytest.raises(QueryError) as e:
-        pe.query_range(promql, START_S + 600, 60, END_S)
-    assert e.value.code == "not_ported"
-    assert str(e.value).startswith("not_ported: ")
+    want = je.query_range(promql, START_S + 600, 60, END_S)
+    got = pe.query_range(promql, START_S + 600, 60, END_S)
+    assert want.error is None and got.error is None, (want.error, got.error)
+    wk = [k.labels for k, _, _ in want.series()]
+    assert [k.labels for k, _, _ in got.series()] == wk
+    # absent() over present series answers nothing, in both
+    assert len(wk) == (0 if promql.startswith("absent") else
+                       10 if "_ns_" in promql else 48)
+    for (_, _, w), (_, _, g) in zip(want.series(), got.series()):
+        assert (np.isnan(np.asarray(g)) == np.isnan(np.asarray(w))).all()
+        np.testing.assert_allclose(g, w, rtol=2e-4, atol=1e-3,
+                                   equal_nan=True)
 
 
 def test_query_over_no_series_is_empty():

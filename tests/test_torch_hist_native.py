@@ -35,7 +35,6 @@ from filodb_tpu_torch.core.schemas import PROM_HISTOGRAM as THIST
 from filodb_tpu_torch.memory import histogram as th
 from filodb_tpu_torch.parallel.shardmapper import ShardEvent, ShardMapper
 from filodb_tpu_torch.query.engine import QueryEngine
-from filodb_tpu_torch.query.execbase import QueryError
 from filodb_tpu_torch.utils.counters import counters
 
 from test_query_engine import _mk_engine
@@ -268,12 +267,18 @@ def test_other_aggregates_over_histogram_blocks_are_errors(op):
 ])
 def test_native_histogram_instant_selector_takes_the_host_route(promql):
     """A non-counter function over the counter column `h` needs its raw
-    values, the reference's host route, which the port does not carry
-    yet: not_ported, as for scalar counters."""
-    _, pe = _engines(False, 1)
-    with pytest.raises(QueryError) as e:
-        _q(pe, promql)
-    assert e.value.code == "not_ported"
+    values: the windowed host gather, [S, T, B], as in the reference.
+    The answers agree with the JAX engine's (rtol 2e-4 / atol 1e-3)."""
+    je, pe = _engines(False, 1)
+    want, got = _q(je, promql), _q(pe, promql)
+    assert want.error is None and got.error is None, (want.error, got.error)
+    w = {k.labels: np.asarray(v) for k, _, v in want.series()}
+    g = {k.labels: np.asarray(v) for k, _, v in got.series()}
+    assert w and set(g) == set(w)
+    for k in w:
+        assert (np.isnan(g[k]) == np.isnan(w[k])).all()
+        np.testing.assert_allclose(g[k], w[k], rtol=RTOL, atol=ATOL,
+                                   equal_nan=True)
 
 
 # ----------------------------------------------------------- scheme changes

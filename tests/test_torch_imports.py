@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "ops.probe", "ops.timewindow", "ops.counter",
                "query.transformers", "query.nonleaf", "query.planner",
-               "tools.probe_slice", "memory.histogram")
+               "tools.probe_slice", "memory.histogram", "ops.hostleaf",
+               "query.metaexec")
 
 
 def _bare_import(module):
