@@ -116,12 +116,40 @@ promql-1M.  over the same counters, each once cold and max(3, --warm //
    3) times warm, K1 under every plan node: P1 sort_desc, P2 `@ end()`,
    P3 max_over_time of a [30m:1m] subquery (the parser's inner grid), P4
    label_replace, P5 a ratio over scalar(); P6 absent() of present and
-   missing series; the LabelValues and SeriesKeysByFilters plans, timed.
+   missing series; the LabelValues and SeriesKeysByFilters plans, timed;
+live-ingest-1M.  over the same counters (their values made again from the
+   seed, on the card, for the oracle): 30 scrapes (5 minutes at 10 s)
+   through TimeSeriesShard.ingest, each one grid RecordBatch of one
+   sample a series with the same key list, 1% of the series restarting
+   in scrape 10; after each, the panel `sum by (_ns_) (rate(...[5m]))`
+   over the 110 one-minute steps ending at that scrape, once paying the
+   mirror's refresh (which must be incremental, with no incremental
+   error, and launch K1) and once warm (bit-identical), against an f64
+   oracle of the grown slab (rtol 2e-4 / atol 1e-3); after scrape 30 the
+   mirror against a fresh full upload (timestamps to the bit, absolutes
+   within rtol 1e-6 / atol 1e-6); then a 31st scrape that 1% of the
+   series miss (still incremental; the general path, rtol 5e-4 / atol
+   5e-3).  Each scrape's ingest and refresh seconds and bytes, the p50
+   and p99 of the panel that pays the refresh, the full upload's
+   seconds, the peak device memory, the peak host RSS and the device
+   copy that one refresh makes (CUDA events) are printed;
+flush-page-16k.  16,384 counters x 720 in a fresh memstore with an
+   InMemoryColumnStore and an InMemoryMetaStore: the panel (K1, the
+   mirror built), flush_all_groups (chunks, encoded bytes, seconds),
+   enforce_memory(budget_bytes=1, active_tail_rows=120), the same panel
+   at once (its history paged back from the resident tier, served by
+   the host gather while the mirror is rebuilt in the background), the
+   rebuild joined (within 60 s), the panel twice on the rebuilt mirror
+   (K1, bit-identical); every answer against the f64 oracle of the
+   original slab.  Cut from 1M to 16,384 series for the time limit:
+   flush encodes each series on the host.
 Every query runs with PlannerParams(scan_limit=2,000,000,000), as
 bench.py raises it at this size: the default cap refuses a 1M-series
 scan.  Every phase prints its seconds; general-1M, hist-classic-1M and
 hist-native-1M print each query's cold time, warm p50/p99 and the peak
-device memory, and hist-native-1M the mirror upload seconds.
+device memory, and hist-native-1M the mirror upload seconds; a cold
+query's line (phases 3-6 and general-1M) also gives the seconds of
+garbage collection inside it.
 
 Then one JSON line with the kernel table (K1-K8), and as the last line
 {"ok": true, "device": {...}}.
@@ -354,6 +382,33 @@ GENERAL_QUERIES = {
 }
 
 
+class GcPauses:
+    """Seconds the interpreter spent in cyclic garbage collection inside a
+    `with` block (gc.callbacks), and how many of those collections were
+    full (generation 2)."""
+
+    def __init__(self):
+        self.seconds, self.full, self._t = 0.0, 0, None
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.seconds += time.perf_counter() - self._t
+            self.full += info["generation"] == 2
+            self._t = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._note)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._note)
+
+    def __str__(self):
+        return f"gc {self.seconds:.4f} s, {self.full} full collections"
+
+
 def run_queries(what, eng, specs, want, warm, start_s, end_s):
     """Each query once cold and `warm` times warm (a spec's own `warm`
     caps it) through QueryEngine.query_range, against `want`; every run
@@ -368,15 +423,18 @@ def run_queries(what, eng, specs, want, warm, start_s, end_s):
     rows_out = []
     for spec in specs:
         q, reps = spec["query"], min(warm, spec.get("warm", warm))
-        times, answers = [], []
+        times, answers, pauses = [], [], GcPauses()
         for i in range(reps + 1):
             n0 = dict(kernels.LAUNCHES)
-            t0 = time.perf_counter()
-            answers.append(eng.query_range(q, start_s + 600, 60, end_s,
-                                           spec.get("params")
-                                           or scan_params()))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+            with GcPauses() as gcp:
+                t0 = time.perf_counter()
+                answers.append(eng.query_range(q, start_s + 600, 60, end_s,
+                                               spec.get("params")
+                                               or scan_params()))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            if i == 0:
+                pauses = gcp
             for k in spec["kernels"]:
                 check(kernels.LAUNCHES[k] > n0[k],
                       f"{what}: run {i} of `{q}` did not launch {k}")
@@ -390,7 +448,8 @@ def run_queries(what, eng, specs, want, warm, start_s, end_s):
         p50, p99 = np.percentile(warm_s, 50), np.percentile(warm_s, 99)
         log(f"{what}: {spec['name']} `{q}` via "
             f"{'+'.join(spec['kernels']) or 'the general path, no kernel'}: "
-            f"cold {times[0]:.4f} s; warm x{reps} p50 {p50:.4f} s p99 "
+            f"cold {times[0]:.4f} s ({pauses}); "
+            f"warm x{reps} p50 {p50:.4f} s p99 "
             f"{p99:.4f} s; oracle max_abs_err {err} max_rel_err {rel} "
             f"(rtol {rtol}, atol {atol}; oracle max abs "
             f"{np.nanmax(np.abs(want[q]))}, median abs "
@@ -884,7 +943,8 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
     for qi, (q, _, op, k_dense, k_ragged) in enumerate(queries):
         kernel = k_ragged if ragged else k_dense
         n0 = dict(kernels.LAUNCHES)
-        res, cold_s = query(q)
+        with GcPauses() as pauses:
+            res, cold_s = query(q)
         if kernel is not None:
             check(kernels.LAUNCHES[kernel] == n0[kernel] + 1,
                   f"{what}: cold `{q}` did not launch {kernel}")
@@ -913,7 +973,8 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
               f"{what}: Prometheus matrix of `{q}` has "
               f"{len(payload['data']['result'])} series, expected {groups}")
         p50, p99 = np.percentile(warm_s, 50), np.percentile(warm_s, 99)
-        log(f"{what}: `{q}` via {kernel or 'no kernel'}: cold {cold_s:.4f} s; "
+        log(f"{what}: `{q}` via {kernel or 'no kernel'}: cold {cold_s:.4f} s "
+            f"({pauses}); "
             f"warm x{warm} p50 {p50:.4f} s p99 {p99:.4f} s; oracle max_abs_err "
             f"{err} max_rel_err {rel} (rtol {rtol}, atol {atol}); warm "
             f"answers bit-identical")
@@ -1756,6 +1817,316 @@ def run_promql_phase(eng, want_rate, orc, wends, warm, num_series):
     return launches, rows
 
 
+# --------------------------------- live-ingest-1M and flush-page-16k
+
+SCRAPES = 30                       # live-ingest-1M: 5 minutes at 10 s
+RESET_SCRAPE = 10                  # 1% of the series restart in this one
+LIVE_QUERY = COUNTER_QUERIES[0][0]  # sum by (_ns_) (rate(request_total[5m]))
+KERNEL_TOL = (2e-4, 1e-3)          # K1's answers
+GENERAL_TOL = (5e-4, 5e-3)         # the general path's (general-1M's)
+PAGE_SERIES = 16_384               # flush-page-16k (host encode: cut)
+PAGE_TAIL = 120                    # samples a series keeps in memory
+
+
+def rate_by_ns(vals, ts_row, wends):
+    """f64 oracle of LIVE_QUERY over vals [n, T'] on the card (NaN =
+    absent; series i in group App-{i % NUM_NS}) -> [NUM_NS, W] numpy."""
+    import torch
+    acc = GroupOracle(NUM_NS, len(wends))
+    for i0 in range(0, vals.shape[0], SLAB):
+        per = oracle_rates_t(vals[i0:i0 + SLAB], ts_row, wends)["rate"]
+        acc.add(per, torch.arange(i0, i0 + per.shape[0],
+                                  device=vals.device) % NUM_NS)
+    return acc.result("sum")
+
+
+def scrape_windows(end_ms):
+    """(start_s, end_s, window ends in ms) of the panel's 110 one-minute
+    steps ending at end_ms."""
+    end_s = end_ms // 1000
+    start_s = end_s - 109 * 60
+    return start_s, end_s, np.arange(start_s * 1000, end_ms + 1, 60_000)
+
+
+def mirror_matches_full_upload(mirror, store, shard, dev):
+    """A fresh full upload of `store` against the mirror's snapshot:
+    timestamps to the bit, absolute values (rebased + vbase) within rtol
+    1e-6 / atol 1e-6 (the reference's bound for an incremental mirror)
+    -> (full upload seconds, max abs difference of the absolutes)."""
+    import torch
+    from filodb_tpu_torch.core.devicecache import DeviceMirror
+    fresh = DeviceMirror(device=dev, shard_num=shard.shard_num)
+    with shard._write_locked("smoke_full_upload"):
+        fresh.ensure_fresh(store)
+    a, b = mirror.snapshot(), fresh.snapshot()
+    check(a.gen == b.gen and torch.equal(a.ts_off, b.ts_off),
+          "live-ingest-1M: mirror timestamps differ from a full upload")
+    check(np.array_equal(a.counts, b.counts),
+          "live-ingest-1M: mirror counts differ from a full upload")
+    worst = 0.0
+    for i0 in range(0, a.ts_off.shape[0], SLAB):
+        sl = slice(i0, i0 + SLAB)
+        x = a.cols["count"][sl].double() + a.vbases["count"][sl, None]
+        y = b.cols["count"][sl].double() + b.vbases["count"][sl, None]
+        check(bool(torch.isclose(x, y, rtol=1e-6, atol=1e-6,
+                                 equal_nan=True).all()),
+              f"live-ingest-1M: mirror rows {i0}+ differ from a full upload "
+              f"beyond rtol 1e-6 / atol 1e-6")
+        d = (x - y).abs().nan_to_num(0.0)
+        worst = max(worst, float(d.max()))
+    secs = fresh.last_upload_s
+    del fresh, a, b
+    return secs, worst
+
+
+def run_live_ingest_phase(eng, ms, num_series, seed, dev):
+    """live-ingest-1M over phase 3's dense counters (made again from its
+    seed, on the card, for the oracle): SCRAPES scrapes through
+    TimeSeriesShard.ingest, each one grid RecordBatch of one sample a
+    series with the same key list, 1% of the series restarting in scrape
+    RESET_SCRAPE; after each, the panel over the 110 steps ending at it
+    pays the mirror's refresh, which must be incremental, launch K1 and
+    match the f64 oracle of the grown slab, and a warm run must repeat it
+    bit for bit.  Then the mirror against a fresh full upload, and a
+    scrape that 1% of the series miss -> (launches, rows)."""
+    import torch
+    from filodb_tpu_torch.core.records import RecordBatch
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.utils.counters import counters
+    shard = ms.get_shard("prometheus", 0)
+    store = store_rows(ms, num_series)
+    mirror = store.device_mirror
+    n_t = T + SCRAPES + 1
+    ts_row = START_MS + np.arange(n_t, dtype=np.int64) * STEP_MS
+    t0 = time.perf_counter()
+    vals = torch.full((num_series, n_t), float("nan"), dtype=torch.float64,
+                      device=dev)
+    rng = np.random.default_rng(seed)
+    for i0 in range(0, num_series, SLAB):
+        n = min(SLAB, num_series - i0)
+        slab = make_counter_slab(rng, n, 0.0)
+        check(np.array_equal(slab[:2], store.cols["count"][i0:i0 + 2, :T]),
+              f"live-ingest-1M: the slab at row {i0} made again differs "
+              f"from the store's")
+        vals[i0:i0 + n, :T] = torch.from_numpy(slab).to(dev)
+    regen_s = time.perf_counter() - t0
+    keys = [p.part_key for p in shard.partitions]      # row i = series i
+    schema = shard.schemas["prom-counter"]
+    all_idx = np.arange(num_series, dtype=np.int32)
+    srng = np.random.default_rng(seed + 100)
+    last = vals[:, T - 1].cpu().numpy()
+    t_cap0 = store.ts.shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    err0 = counters.get("device_mirror_incremental_errors")
+    log(f"live-ingest-1M: {num_series} series, slab made again on the card "
+        f"in {regen_s:.3f} s; host store time capacity {t_cap0}; mirror "
+        f"{tuple(mirror.snapshot().ts_off.shape)}")
+    paid, rows = [], []
+    full_s = worst = None
+    for j in range(1, SCRAPES + 2):
+        c = T - 1 + j
+        new = last + srng.exponential(10.0, size=num_series)
+        if j == RESET_SCRAPE:
+            hit = srng.random(num_series) < 0.01
+            new[hit] = srng.exponential(5.0, size=int(hit.sum()))
+        present = (srng.random(num_series) >= 0.01 if j == SCRAPES + 1
+                   else np.ones(num_series, dtype=bool))
+        last = np.where(present, new, last)
+        batch = RecordBatch(schema, keys, all_idx[present],
+                            np.full(int(present.sum()), ts_row[c]),
+                            {"count": new[present]})
+        t1 = time.perf_counter()
+        got_n = shard.ingest(batch, offset=j)
+        ingest_s = time.perf_counter() - t1
+        check(got_n == int(present.sum()),
+              f"live-ingest-1M: scrape {j} ingested {got_n} samples")
+        vals[:, c] = torch.from_numpy(np.where(present, new, np.nan)).to(dev)
+        start_s, end_s, wends = scrape_windows(int(ts_row[c]))
+        incr0 = counters.get("device_mirror_incremental")
+        n0 = dict(kernels.LAUNCHES)
+        t1 = time.perf_counter()
+        r1 = eng.query_range(LIVE_QUERY, start_s, 60, end_s, scan_params())
+        q_s = time.perf_counter() - t1
+        launched = sorted(k for k, v in kernels.LAUNCHES.items()
+                          if v > n0.get(k, 0))
+        check(counters.get("device_mirror_incremental") == incr0 + 1
+              and mirror.last_refresh_kind == "incremental",
+              f"live-ingest-1M: scrape {j}'s refresh was "
+              f"{mirror.last_refresh_kind}, not incremental")
+        check(counters.get("device_mirror_incremental_errors") == err0,
+              f"live-ingest-1M: incremental errors after scrape {j}")
+        uniform = bool(present.all())
+        if uniform:
+            check(launched == ["fused_rate_dense"],
+                  f"live-ingest-1M: scrape {j}'s panel launched {launched}, "
+                  f"not K1 (fused_rate_dense)")
+        r2 = eng.query_range(LIVE_QUERY, start_s, 60, end_s, scan_params())
+        same_answers(r1, r2, f"live-ingest-1M scrape {j}")
+        want = rate_by_ns(vals[:, :c + 1], ts_row[:c + 1], wends)
+        tol = KERNEL_TOL if launched else GENERAL_TOL
+        _, err, rel = compare(r1, want, tol[0], tol[1],
+                              f"live-ingest-1M scrape {j}")
+        path = ("K1 (fused_rate_dense)" if launched == ["fused_rate_dense"]
+                else f"the general path, kernels {launched}")
+        log(f"live-ingest-1M: scrape {j}"
+            f"{' (1% restart)' if j == RESET_SCRAPE else ''}"
+            f"{' (1% absent)' if not uniform else ''}: ingest "
+            f"{ingest_s:.4f} s ({got_n / ingest_s:.0f} samples/s); refresh "
+            f"{mirror.last_refresh_kind} {mirror.last_refresh_s:.4f} s, "
+            f"{mirror.last_upload_bytes} B uploaded; panel {q_s:.4f} s via "
+            f"{path}; oracle max_abs_err {err} max_rel_err {rel} (rtol "
+            f"{tol[0]}, atol {tol[1]}); warm answer bit-identical")
+        rows.append(dict(scrape=j, ingest_s=ingest_s, query_s=q_s,
+                         refresh_s=mirror.last_refresh_s,
+                         upload_bytes=mirror.last_upload_bytes))
+        if uniform:
+            paid.append(q_s)
+        if j == SCRAPES:
+            full_s, worst = mirror_matches_full_upload(mirror, store, shard,
+                                                       dev)
+            log(f"live-ingest-1M: after scrape {j} the mirror equals a "
+                f"fresh full upload (timestamps to the bit, absolutes max "
+                f"abs diff {worst}, within rtol 1e-6 / atol 1e-6); the full "
+                f"upload took {full_s:.4f} s")
+    launches = dict(kernels.LAUNCHES)
+    log(f"live-ingest-1M: the panel that pays the refresh, {len(paid)} "
+        f"uniform scrapes: p50 {np.percentile(paid, 50):.4f} s p99 "
+        f"{np.percentile(paid, 99):.4f} s; refresh p50 "
+        f"{np.percentile([r['refresh_s'] for r in rows], 50):.4f} s against "
+        f"the full upload's {full_s:.4f} s; host store time capacity "
+        f"{t_cap0} -> {store.ts.shape[1]}; mirror "
+        f"{tuple(mirror.snapshot().ts_off.shape)}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; peak host RSS {host_rss()} "
+        f"B; launches {({k: n for k, n in launches.items() if n})}")
+    del vals
+    # the device copy each refresh makes (new arrays one time column
+    # wider, the old cells copied in), which slack capacity would skip
+    snap = mirror.snapshot()
+    grow_ms = cuda_ms(lambda: mirror._grown(snap, snap.ts_off.shape[0],
+                                            snap.t_used + 1), reps=5)
+    del snap
+    log(f"live-ingest-1M: the device copy a refresh makes (new arrays of "
+        f"{num_series} x {store.time_used + 1}, old cells copied): "
+        f"{grow_ms:.4f} ms on the card")
+    return launches, rows
+
+
+def run_flush_page_phase(seed, dev):
+    """flush-page-16k: PAGE_SERIES counters x T in a fresh memstore with
+    an InMemoryColumnStore and an InMemoryMetaStore.  The panel builds
+    the mirror (K1); flush_all_groups seals every series;
+    enforce_memory(budget_bytes=1, active_tail_rows=PAGE_TAIL) evicts all
+    but the tail and moves shift_version; the same panel then pages the
+    history back from the resident tier and is served by the host
+    gather while the mirror is rebuilt in the background; the rebuild
+    must publish within 60 s, and the panel then runs on the mirror
+    again (K1).  Every answer against the f64 oracle of the original
+    slab -> (launches, rows)."""
+    import torch
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.core.store import (InMemoryColumnStore,
+                                             InMemoryMetaStore)
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.utils.counters import counters
+    n = PAGE_SERIES
+    vals = make_counter_slab(np.random.default_rng(seed), n, 0.0)
+    keys = [PartKey.make("request_total", {
+        "_ws_": "demo", "_ns_": f"App-{i % NUM_NS}",
+        "instance": f"Instance-{i}", "dc": f"DC{i % 2}"}) for i in range(n)]
+    cs, meta = InMemoryColumnStore(), InMemoryMetaStore()
+    ms = TimeSeriesMemStore(column_store=cs, meta_store=meta)
+    shard = ms.setup("prometheus", 0)
+    ts_row = START_MS + np.arange(T, dtype=np.int64) * STEP_MS
+    shard.ingest_columns("prom-counter", keys, np.broadcast_to(ts_row, (n, T)),
+                         {"count": vals}, offset=0)
+    store = shard.stores["prom-counter"]
+    eng = QueryEngine("prometheus", ms)
+    start_s, end_s = START_MS // 1000 + 600, int(ts_row[-1]) // 1000
+    wends = np.arange(start_s * 1000, int(ts_row[-1]) + 1, 60_000)
+    want = rate_by_ns(torch.from_numpy(vals).to(dev), ts_row, wends)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+
+    def panel(what, kernel, tol):
+        n0 = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        res = eng.query_range(LIVE_QUERY, start_s, 60, end_s, scan_params())
+        secs = time.perf_counter() - t0
+        launched = sorted(k for k, v in kernels.LAUNCHES.items()
+                          if v > n0.get(k, 0))
+        check(launched == ([kernel] if kernel else []),
+              f"flush-page-16k: {what} launched {launched}, expected "
+              f"{kernel or 'none'}")
+        _, err, rel = compare(res, want, tol[0], tol[1],
+                              f"flush-page-16k {what}")
+        log(f"flush-page-16k: {what}: {secs:.4f} s via "
+            f"{kernel or 'the host gather + the general path'}; samples "
+            f"paged {res.stats.samples_paged}; oracle max_abs_err {err} "
+            f"max_rel_err {rel} (rtol {tol[0]}, atol {tol[1]})")
+        return res, secs
+
+    panel("cold panel (mirror build)", "fused_rate_dense", KERNEL_TOL)
+    mirror = store.device_mirror
+    t0 = time.perf_counter()
+    chunks = shard.flush_all_groups()
+    flush_s = time.perf_counter() - t0
+    encoded = sum(c.nbytes for p in shard.partitions
+                  for c in cs.read_chunks("prometheus", 0, p.part_key, 0,
+                                          1 << 62))
+    ckpts = meta.read_checkpoints("prometheus", 0)
+    check(chunks == n and cs.num_chunksets() == n,
+          f"flush-page-16k: {chunks} chunks flushed, expected {n}")
+    check(set(ckpts.values()) == {0},
+          f"flush-page-16k: group checkpoints {set(ckpts.values())}")
+    log(f"flush-page-16k: flush_all_groups: {chunks} chunks, {encoded} B "
+        f"encoded ({encoded / (n * T):.2f} B/sample), {flush_s:.3f} s; "
+        f"{len(ckpts)} group checkpoints at offset 0")
+    shift0 = store.shift_version
+    t0 = time.perf_counter()
+    released = shard.enforce_memory(budget_bytes=1,
+                                    active_tail_rows=PAGE_TAIL)
+    enforce_s = time.perf_counter() - t0
+    check(store.shift_version > shift0
+          and int(store.counts[:n].max()) == PAGE_TAIL,
+          "flush-page-16k: enforce_memory did not evict to the tail")
+    log(f"flush-page-16k: enforce_memory: {released} B released, "
+        f"{enforce_s:.3f} s; resident tier {shard.resident.bytes_used} B")
+    fb0 = counters.get("device_mirror_query_fallbacks")
+    rb0 = counters.get("device_mirror_bg_rebuilds")
+    paged, paged_s = panel("panel after eviction", None, GENERAL_TOL)
+    check(paged.stats.samples_paged > 0,
+          "flush-page-16k: no samples paged back")
+    check(counters.get("device_mirror_query_fallbacks") >= fb0 + 1,
+          "flush-page-16k: the panel did not fall back to the host gather")
+    t0 = time.perf_counter()
+    check(mirror.join_rebuild(timeout=60),
+          "flush-page-16k: the background rebuild did not publish in 60 s")
+    wait_s = time.perf_counter() - t0
+    check(counters.get("device_mirror_bg_rebuilds") > rb0
+          and mirror.is_fresh(store),
+          "flush-page-16k: the background rebuild did not publish")
+    log(f"flush-page-16k: background rebuild published {wait_s:.3f} s after "
+        f"the panel returned (full upload {mirror.last_upload_s:.4f} s)")
+    fb1 = counters.get("device_mirror_query_fallbacks")
+    r1, warm1 = panel("panel on the rebuilt mirror", "fused_rate_dense",
+                      KERNEL_TOL)
+    r2, warm2 = panel("warm panel", "fused_rate_dense", KERNEL_TOL)
+    same_answers(r1, r2, "flush-page-16k")
+    check(counters.get("device_mirror_query_fallbacks") == fb1,
+          "flush-page-16k: a query fell back after the rebuild")
+    launches = dict(kernels.LAUNCHES)
+    log(f"flush-page-16k: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    return launches, [dict(flush_s=flush_s, encoded=encoded,
+                           paged_s=paged_s, warm_s=warm2)]
+
+
 # ------------------------------------------------ phases 7 and 8: raw
 
 def make_raw_counters_t(gen, n, hole_frac, device):
@@ -1787,9 +2158,9 @@ def oracle_rates_t(vals, ts_row, wends):
     sample (NaN where fewer than two)."""
     import torch
     dev = vals.device
-    n_s = vals.shape[0]
+    n_s, n_t = vals.shape
     valid = ~torch.isnan(vals)
-    pos = torch.arange(T, device=dev).expand(n_s, T)
+    pos = torch.arange(n_t, device=dev).expand(n_s, n_t)
     last_v = torch.cummax(torch.where(valid, pos, torch.full_like(pos, -1)),
                           dim=1).values
     prev_idx = torch.cat([torch.full_like(last_v[:, :1], -1),
@@ -1799,13 +2170,13 @@ def oracle_rates_t(vals, ts_row, wends):
                        torch.zeros_like(vals))
     corr = vals + torch.cumsum(drop, dim=1)
     nxt = torch.flip(torch.cummin(torch.flip(
-        torch.where(valid, pos, torch.full_like(pos, T)), [1]), dim=1)
+        torch.where(valid, pos, torch.full_like(pos, n_t)), [1]), dim=1)
         .values, [1])
     cnt = torch.cumsum(valid.to(torch.int32), dim=1)
     first, last = (torch.from_numpy(x).to(dev)
                    for x in window_bounds(ts_row, wends))
     nv = cnt[:, last] - cnt[:, first] + valid[:, first].to(torch.int32)
-    j1 = nxt[:, first].clamp(max=T - 1)
+    j1 = nxt[:, first].clamp(max=n_t - 1)
     j2 = last_v[:, last].clamp(min=0)
     v1, v2 = corr.gather(1, j1), corr.gather(1, j2)
     ts = torch.from_numpy(ts_row.astype(np.float64)).to(dev)
@@ -2291,7 +2662,15 @@ def main(argv=None) -> int:
                            want[COUNTER_QUERIES[0][0]], orc, wends,
                            small_warm, n)
             add(got)
-            del eng, ms, want, kept, orc
+            del want, orc
+            got, _ = timed("live-ingest-1M", run_live_ingest_phase, eng,
+                           ms, n, seed, dev)
+            add(got)
+            del eng, ms, kept
+            free_device_memory()
+            got, _ = timed("flush-page-16k", run_flush_page_phase,
+                           args.seed + 7, dev)
+            add(got)
             free_device_memory()
     for n, seed, hole, warm, tol in (
             (args.series, args.seed + 4, 0.0, args.warm, (2e-4, 1e-3)),

@@ -1,34 +1,57 @@
 """Device-resident mirror of a shard's dense series store (port of
-filodb_tpu/core/devicecache.py: the full upload only).
+filodb_tpu/core/devicecache.py: the full upload, the incremental tail
+upload, the pad-only growth and the background rebuild).
 
 The mirror uploads a store's live arrays once and revalidates by the
 store's generation counter: unchanged generation -> queries gather rows
-on the device from the cached copy; changed generation -> one full
-re-upload.  Timestamps become int32 offsets from the mirror's base, and
-value columns are reset-corrected (counters) and rebased per series in
-f64 before the f32 downcast.  Unlike the reference, that f64 work runs on
-the mirror's device in row chunks (ops/counter.rebase_rows_t), not on the
-host, and the columns are kept in f32, the type the fused kernels read.
-A histogram column [S, T, B] is corrected and rebased per bucket along
-time, with a base per (series, bucket).
+on the device from the cached copy; appended samples -> only the new
+cells are uploaded (`_refresh_incremental`); cells rearranged (eviction,
+paging, a bucket-scheme change: the store's shift_version moved) -> one
+full re-upload, which the leaf moves off the query's path onto a
+background thread (`request_background_refresh`).
 
-Over the HBM cap the mirror raises MirrorCapExceeded; it never serves
-from the host.  Incremental refresh, background rebuild, the cold
+Timestamps become int32 offsets from the mirror's base, and value
+columns are reset-corrected (counters) and rebased per series in f64
+before the f32 downcast.  Unlike the reference, the full upload's f64
+work runs on the mirror's device in row chunks (ops/counter.rebase_rows_t),
+not on the host, and the columns are kept in f32, the type the fused
+kernels read.  The full upload also keeps, per counter column, each
+row's correction state at its last finite sample (raw value and
+cumulative drop), computed from the same corrected values; the
+incremental path continues the correction from it on the host, over the
+new cells only.  A histogram column [S, T, B] is corrected and rebased
+per bucket along time, with a base per (series, bucket).
+
+As in the reference, each incremental refresh builds new device arrays
+of exactly [S, t_used]: the old ones are copied on the device, padded,
+and the new cells scattered in.  A published snapshot is never written,
+so a query reading it on another thread sees it whole.
+
+Over the HBM cap the mirror raises MirrorCapExceeded.  A query is served
+from the host gather only while a background rebuild is in flight: a
+rebuild that would exceed the cap is never started, and after a failed
+one the next query refreshes inline and meets its error.  The cold
 segment cache and multi-device placement are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import logging
+import threading
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from filodb_tpu_torch.ops.counter import rebase_rows_t
+from filodb_tpu_torch.ops.counter import host_counter_correct, rebase_rows_t
 from filodb_tpu_torch.ops.hist import bucket_rows, from_bucket_rows
-from filodb_tpu_torch.ops.timewindow import PAD_TS
+from filodb_tpu_torch.ops.timewindow import PAD_TS, series_value_base
+from filodb_tpu_torch.utils.counters import counters
 from filodb_tpu_torch.utils.device import resolve_device
+
+_log = logging.getLogger("filodb.mirror")
 
 DEFAULT_HBM_LIMIT_BYTES = 8 << 30
 """Default cap on one mirror's device bytes (ts offsets + value columns +
@@ -63,15 +86,61 @@ class _MirrorSnapshot:
     ts_row0: Optional[np.ndarray] = None     # int32 [T] row-0 offsets
     # per column: no NaN/Inf anywhere in the counted region
     col_finite: Dict[str, bool] = dataclasses.field(default_factory=dict)
+    # --- incremental-update bookkeeping ---
+    shift_version: int = -1              # store.shift_version at upload
+    host_vbases: Dict[str, np.ndarray] = dataclasses.field(
+        default_factory=dict)            # f64 [S(, B)], vbases on the host
+    # per counter column: correction state at each row's last finite
+    # sample, so an appended tail is corrected without re-reading the row:
+    # corrected_tail = correct(last_raw ++ tail) + cum_drop
+    tail_last_raw: Dict[str, np.ndarray] = dataclasses.field(
+        default_factory=dict)            # f64 [S(, B)]
+    tail_cum_drop: Dict[str, np.ndarray] = dataclasses.field(
+        default_factory=dict)            # f64 [S(, B)]
+
+
+def _tail_state(raw: torch.Tensor, corrected: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(last_raw, cum_drop) of [R, T] f64 rows on their own device: the raw
+    value at each row's last finite sample and the cumulative reset
+    correction there (NaN / 0 when a row has no finite sample)."""
+    finite = torch.isfinite(raw)
+    any_f = finite.any(dim=1)
+    last = raw.shape[1] - 1 - finite.flip(1).to(torch.uint8).argmax(dim=1)
+    lr = raw.gather(1, last[:, None])[:, 0]
+    cd = corrected.gather(1, last[:, None])[:, 0] - lr
+    nan = torch.full_like(lr, float("nan"))
+    return torch.where(any_f, lr, nan), torch.where(any_f, cd,
+                                                    torch.zeros_like(cd))
+
+
+def _cells(arr: np.ndarray, idx_r: np.ndarray, idx_p: np.ndarray
+           ) -> np.ndarray:
+    """arr[idx_r, idx_p] ([N], or [N, B] of a histogram column) through
+    one flat take: at a million cells a few times cheaper than numpy's
+    index by two arrays."""
+    return np.take(arr.reshape((-1,) + arr.shape[2:]),
+                   idx_r * arr.shape[1] + idx_p, axis=0)
+
+
+def _tails_matrix(col: np.ndarray, idx_r: np.ndarray, idx_p: np.ndarray,
+                  valid: np.ndarray) -> np.ndarray:
+    """Compact [R, L(, B)] f64 matrix of the changed rows' new samples,
+    NaN-padded: the cells (idx_r, idx_p) of `col`, in row-major order
+    over the structural validity mask valid [R, L] (which tells padding
+    from NaN samples)."""
+    tails = np.full(valid.shape + col.shape[2:], np.nan)
+    tails[valid] = _cells(col, idx_r, idx_p)
+    return tails
 
 
 _mirror_serial = itertools.count(1)
 
 
 def store_nbytes(store) -> int:
-    """Device bytes of a store's mirror: int32 offsets, f32 values and an
-    f64 base per series (per series and bucket for a histogram column)
-    for each value column."""
+    """Device bytes of a store's mirror at its used extent: int32
+    offsets, f32 values and an f64 base per series (per series and
+    bucket for a histogram column) for each value column."""
     s, t = store.num_series, max(store.time_used, 1)
     n = s * t * 4
     for arr in store.cols.values():
@@ -92,10 +161,33 @@ class DeviceMirror:
         self._snap: Optional[_MirrorSnapshot] = None
         # process-unique identity for external caches (id() is reused)
         self.serial = next(_mirror_serial)
-        self.last_upload_s = 0.0
+        # the last refresh: "full", "incremental", "pad" or "bookkeeping",
+        # its seconds (publication included) and the bytes it uploaded
+        self.last_refresh_kind = ""
+        self.last_refresh_s = 0.0
+        self.last_upload_bytes = 0
+        self.last_upload_s = 0.0             # the last full upload's seconds
+        # background full rebuild (after cells were rearranged): at most
+        # one thread at a time; the last one's error until a refresh
+        # publishes
+        self._bg_lock = threading.Lock()
+        self._bg_thread: Optional[threading.Thread] = None
+        self._bg_error: Optional[BaseException] = None
+
+    def _publish(self, snap: _MirrorSnapshot, kind: str, t0: float,
+                 nbytes: int) -> None:
+        """Make `snap` the current snapshot once its uploads are complete:
+        a query reading it from another thread or stream must never see a
+        cell before its upload landed."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._snap = snap
+        self._bg_error = None
+        self.last_refresh_kind = kind
+        self.last_refresh_s = time.perf_counter() - t0
+        self.last_upload_bytes = nbytes
 
     def _refresh(self, store) -> bool:
-        import time as _time
         # capture the version BEFORE copying host arrays: a mutation
         # landing mid-copy leaves the recorded generation stale, so the
         # next is_fresh check re-uploads (seqlock protocol)
@@ -106,7 +198,7 @@ class DeviceMirror:
             raise MirrorCapExceeded(
                 f"device mirror needs {nbytes} bytes, over its cap of "
                 f"{self.hbm_limit_bytes} (shard {self.shard_num})")
-        t0 = _time.perf_counter()
+        t0 = time.perf_counter()
         dev = self.device
         s, t = store.num_series, max(store.time_used, 1)
         counts = store.counts[:s].astype(np.int32).copy()
@@ -148,23 +240,37 @@ class DeviceMirror:
         vbases: Dict[str, torch.Tensor] = {}
         vbase_valid: Dict[str, np.ndarray] = {}
         col_finite: Dict[str, bool] = {}
+        host_vbases: Dict[str, np.ndarray] = {}
+        last_raw: Dict[str, np.ndarray] = {}
+        cum_drop: Dict[str, np.ndarray] = {}
         for name, arr in store.cols.items():
             if arr is None:
                 continue
             bkt = arr.shape[2:]                  # (B,) for a histogram
             nb = bkt[0] if bkt else 1
+            is_counter = name in counter_cols
             col = torch.empty((s, t) + bkt, dtype=torch.float32, device=dev)
             vb_all = torch.empty((s,) + bkt, dtype=torch.float64, device=dev)
             vb_ok = np.empty((s,) + bkt, dtype=bool)
+            if is_counter:
+                lr_all = torch.empty((s,) + bkt, dtype=torch.float64,
+                                     device=dev)
+                cd_all = torch.empty_like(lr_all)
             finite_ok = True
             for sl in chunks(max(1, UPLOAD_CHUNK_ROWS // nb)):
                 v = torch.from_numpy(
                     np.ascontiguousarray(arr[sl, :t], np.float64)).to(dev)
                 if bkt:
                     v = bucket_rows(v)     # each bucket a row along time
-                rebased, vb, corrected = rebase_rows_t(v, name in counter_cols)
+                rebased, vb, corrected = rebase_rows_t(v, is_counter)
                 fin = torch.isfinite(corrected)
                 ok = fin.any(dim=1)
+                if is_counter:
+                    # the incremental path continues the correction from
+                    # the state of these same corrected values
+                    lr, cd = _tail_state(v, corrected)
+                    lr_all[sl] = lr.reshape(-1, nb) if bkt else lr
+                    cd_all[sl] = cd.reshape(-1, nb) if bkt else cd
                 if bkt:
                     rebased = from_bucket_rows(rebased, nb)
                     fin = from_bucket_rows(fin, nb)
@@ -182,16 +288,21 @@ class DeviceMirror:
             vbases[name] = vb_all
             vbase_valid[name] = vb_ok
             col_finite[name] = finite_ok
+            host_vbases[name] = vb_all.cpu().numpy()
+            if is_counter:
+                last_raw[name] = lr_all.cpu().numpy()
+                cum_drop[name] = cd_all.cpu().numpy()
         ts_row0 = None
         if uniform:
             ts_row0 = ts_off[0].cpu().numpy().copy()
-        self._snap = _MirrorSnapshot(gen0, base_ms, t, ts_off, cols, vbases,
-                                     counts=counts, vbase_valid=vbase_valid,
-                                     uniform_grid=uniform, ts_row0=ts_row0,
-                                     col_finite=col_finite)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self.last_upload_s = _time.perf_counter() - t0
+        snap = _MirrorSnapshot(
+            gen0, base_ms, t, ts_off, cols, vbases, counts=counts,
+            vbase_valid=vbase_valid, uniform_grid=uniform, ts_row0=ts_row0,
+            col_finite=col_finite, shift_version=store.shift_version,
+            host_vbases=host_vbases, tail_last_raw=last_raw,
+            tail_cum_drop=cum_drop)
+        self._publish(snap, "full", t0, nbytes)
+        self.last_upload_s = self.last_refresh_s
         return True
 
     def is_fresh(self, store) -> bool:
@@ -199,12 +310,300 @@ class DeviceMirror:
         return snap is not None and store.generation == snap.gen
 
     def ensure_fresh(self, store) -> bool:
-        """Re-upload if the store moved on.  Callers exclude writers (hold
-        the shard write lock): the refresh copies host arrays and must not
-        race a mutation.  Raises MirrorCapExceeded over the cap."""
+        """Bring the mirror up to the store.  Callers exclude writers (hold
+        the shard write lock): a refresh copies host arrays and must not
+        race a mutation.  Append-only changes take the incremental path
+        (transfer O(new samples)); anything that rearranged cells takes a
+        full upload.  A failure of the incremental path is counted
+        (device_mirror_incremental_errors), logged with its traceback and
+        answered by a full upload.  Raises MirrorCapExceeded over the
+        cap."""
         if self.is_fresh(store):
             return True
+        snap = self._snap
+        if snap is not None and snap.shift_version == store.shift_version \
+                and snap.counts is not None:
+            try:
+                if self._refresh_incremental(store, snap):
+                    return True
+            except Exception:  # noqa: BLE001 — the full upload below
+                # answers it; the counter and the log make it visible
+                counters.inc("device_mirror_incremental_errors")
+                _log.exception("incremental mirror refresh failed "
+                               "(shard %s); re-uploading in full",
+                               self.shard_num)
         return self._refresh(store)
+
+    # ------------------------------------------------- background rebuild
+
+    def can_update_inline(self, store) -> bool:
+        """True when freshness is restorable without a full re-upload: the
+        first build (nothing to serve from anyway) and append-only growth.
+        False exactly when cells were rearranged (shift_version moved)."""
+        snap = self._snap
+        return snap is None or snap.shift_version == store.shift_version
+
+    def may_rebuild_in_background(self, store) -> bool:
+        """False when a full upload of the store would exceed the cap, or
+        the last background rebuild failed and no refresh has published
+        since: the query then refreshes inline, so MirrorCapExceeded or
+        the rebuild's error reaches it instead of every later query
+        falling back to the host."""
+        return (self._bg_error is None
+                and store_nbytes(store) <= self.hbm_limit_bytes)
+
+    @property
+    def rebuild_in_progress(self) -> bool:
+        t = self._bg_thread
+        return t is not None and t.is_alive()
+
+    def request_background_refresh(self, shard, store) -> bool:
+        """Start (at most one) background full rebuild; True if this call
+        started it.  Queries keep serving through the leaf's host gather
+        until the new snapshot publishes; the rebuild holds the shard
+        write lock for its host copy and upload, as an inline refresh
+        would, but on no query's path."""
+        with self._bg_lock:
+            if self._bg_thread is not None and self._bg_thread.is_alive():
+                return False
+            t = threading.Thread(target=self._bg_refresh,
+                                 args=(shard, store), daemon=True,
+                                 name=f"mirror-rebuild-{self.serial}")
+            self._bg_thread = t
+            t.start()
+            return True
+
+    def join_rebuild(self, timeout: Optional[float] = None) -> bool:
+        """Wait for a background rebuild in flight; True when none is
+        running afterwards."""
+        t = self._bg_thread
+        if t is not None:
+            t.join(timeout)
+        return not self.rebuild_in_progress
+
+    def _bg_refresh(self, shard, store) -> None:
+        try:
+            with shard._write_locked("mirror_bg_rebuild"):
+                ok = self.ensure_fresh(store)
+            if ok:
+                counters.inc("device_mirror_bg_rebuilds")
+        except Exception as e:  # noqa: BLE001 — kept for the next query,
+            # which refreshes inline and meets it
+            self._bg_error = e
+            counters.inc("device_mirror_bg_rebuild_errors")
+            _log.exception("background mirror rebuild failed (shard %s)",
+                           self.shard_num)
+
+    # ------------------------------------------------- incremental update
+
+    def _grown(self, snap: _MirrorSnapshot, s_new: int, t_new: int
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """New device arrays of [s_new, t_new] holding the snapshot's cells,
+        the others PAD_TS / NaN.  Always new: the snapshot itself is never
+        written, as a query may be reading it on another thread."""
+        s_old, t_old = snap.counts.shape[0], snap.t_used
+
+        def grown(old, fill):
+            new = torch.full((s_new, t_new) + tuple(old.shape[2:]), fill,
+                             dtype=old.dtype, device=self.device)
+            new[:s_old, :t_old] = old
+            return new
+
+        return (grown(snap.ts_off, int(PAD_TS)),
+                {n: grown(c, float("nan")) for n, c in snap.cols.items()})
+
+    def _refresh_incremental(self, store, snap: _MirrorSnapshot) -> bool:
+        """Upload only the appended cells.  Sound exactly when nothing
+        rearranged existing cells (shift_version unchanged) and counts
+        only grew; returns False to request a full refresh otherwise."""
+        t0 = time.perf_counter()
+        gen0 = store.generation
+        s_old = snap.counts.shape[0]
+        s_new = store.num_series
+        t_new = max(store.time_used, 1)
+        if s_new < s_old or t_new < snap.t_used:
+            return False
+        if set(n for n, a in store.cols.items() if a is not None) \
+                != set(snap.cols):
+            return False                 # a column appeared (hist alloc)
+        if store_nbytes(store) > self.hbm_limit_bytes:
+            return False                 # the full path raises
+        counts_new = store.counts[:s_new].astype(np.int32).copy()
+        counts_old = np.zeros(s_new, dtype=np.int32)
+        counts_old[:s_old] = snap.counts
+        delta = counts_new - counts_old
+        if (delta < 0).any():
+            return False
+        total_new = int(delta.sum())
+        if total_new == 0 and s_new == s_old and t_new == snap.t_used:
+            # bookkeeping-only generation bump
+            self._publish(dataclasses.replace(snap, gen=gen0),
+                          "bookkeeping", t0, 0)
+            return True
+        if total_new == 0:
+            # series grew but no new cells (rows whose samples were all
+            # dropped as out-of-order): pad-only, nothing to scatter
+            return self._refresh_pad_only(store, snap, gen0, s_new, t_new,
+                                          t0)
+        if total_new > 0.5 * s_new * t_new:
+            return False                 # a full upload is cheaper
+        rows = np.flatnonzero(delta > 0)
+        # the new cells, row-major over [rows, ascending positions]: the
+        # validity mask [R, L] of each changed row's L slots and the
+        # (row, position) of each new cell
+        n_new = delta[rows]
+        L = int(n_new.max())
+        valid = np.arange(L)[None, :] < n_new[:, None]
+        idx_p = (counts_old[rows][:, None] + np.arange(L)[None, :])[valid]
+        idx_r = np.repeat(rows, n_new)
+        off = _cells(store.ts, idx_r, idx_p) - snap.base_ms
+        if off.size and (off.min() <= -(1 << 30) or off.max() >= (1 << 30)):
+            return False                 # out of int32 offset range: re-base
+        off = off.astype(np.int32)
+
+        # uniform-grid preservation: every row appended the same offsets
+        uniform = (snap.uniform_grid and s_new == s_old
+                   and rows.size == s_new and bool((n_new == n_new[0]).all()))
+        ts_row0 = None
+        if uniform:
+            off2 = off.reshape(s_new, -1)
+            uniform = bool((off2 == off2[0:1]).all())
+            if uniform:
+                ts_row0 = np.full(t_new, PAD_TS, np.int32)
+                ts_row0[:snap.t_used] = snap.ts_row0
+                p0 = int(counts_old[0])
+                ts_row0[p0:p0 + off2.shape[1]] = off2[0]
+
+        counter_cols = {c.name for c in store.schema.data_columns
+                        if c.detect_drops or c.counter}
+        host_vbases = dict(snap.host_vbases)
+        last_raw = dict(snap.tail_last_raw)
+        cum_drop = dict(snap.tail_cum_drop)
+        vbase_valid = dict(snap.vbase_valid)
+        col_finite = dict(snap.col_finite)
+        new_vals: Dict[str, np.ndarray] = {}     # f32 cells to scatter
+        vb_changed: Dict[str, bool] = {}
+        for name in snap.cols:
+            tails = _tails_matrix(store.cols[name], idx_r, idx_p, valid)
+            vb = host_vbases[name]
+            vb_new = np.zeros((s_new,) + vb.shape[1:], np.float64)
+            vb_new[:s_old] = vb
+            if name in counter_cols:
+                lr = np.full((s_new,) + vb.shape[1:], np.nan)
+                lr[:s_old] = last_raw[name]
+                cd = np.zeros((s_new,) + vb.shape[1:], np.float64)
+                cd[:s_old] = cum_drop[name]
+                seeded = np.concatenate([lr[rows][:, None], tails], axis=1)
+                corr_seeded = host_counter_correct(seeded)
+                vals = corr_seeded[:, 1:] + cd[rows][:, None]
+                # the tail state of the seeded rows, each bucket a row
+                n_lr, n_cd = (x.numpy().reshape(lr[rows].shape)
+                              for x in _tail_state(
+                                  *(bucket_rows(torch.from_numpy(a))
+                                    if a.ndim == 3 else torch.from_numpy(a)
+                                    for a in (seeded, corr_seeded))))
+                upd = np.isfinite(n_lr)
+                lr[rows] = np.where(upd, n_lr, lr[rows])
+                cd[rows] = np.where(upd, cd[rows] + n_cd, cd[rows])
+                last_raw[name] = lr
+                cum_drop[name] = cd
+            else:
+                vals = tails
+            # (re)establish vbase for any row/bucket whose base never came
+            # from a finite sample: the first finite appended value becomes
+            # the base — without this, large counters appended to an
+            # all-NaN row land on the device un-rebased and their f32
+            # deltas vanish
+            vv = np.zeros((s_new,) + vb.shape[1:], dtype=bool)
+            vv[:s_old] = vbase_valid[name]
+            tail_fin = np.isfinite(vals).any(axis=1)       # [R(, B)]
+            upd_vb = (~vv[rows]) & tail_fin
+            vb_changed[name] = bool(upd_vb.any())
+            if vb_changed[name]:
+                vb_new[rows] = np.where(upd_vb, series_value_base(vals),
+                                        vb_new[rows])
+            vv[rows] = vv[rows] | tail_fin
+            vbase_valid[name] = vv
+            host_vbases[name] = vb_new
+            # rebased cells in idx_r/idx_p's order
+            cells = (vals - vb_new[rows][:, None])[valid]
+            col_finite[name] = bool(col_finite.get(name, False)
+                                    and np.isfinite(cells).all())
+            new_vals[name] = cells.astype(np.float32)
+
+        dev = self.device
+        ts_dev, cols_dev = self._grown(snap, s_new, t_new)
+        # one flat index into the new [s_new, t_new] arrays
+        flat = idx_r * t_new + idx_p
+        at = torch.from_numpy(flat).to(dev)
+        ts_dev.view(-1)[at] = torch.from_numpy(off).to(dev)
+        nbytes = flat.nbytes + off.nbytes
+        for name, cells in new_vals.items():
+            col = cols_dev[name]
+            col.view((-1,) + col.shape[2:])[at] = \
+                torch.from_numpy(cells).to(dev)
+            nbytes += cells.nbytes
+        new_vbases: Dict[str, torch.Tensor] = {}
+        for name in snap.cols:
+            if s_new != s_old or vb_changed[name]:
+                new_vbases[name] = torch.from_numpy(
+                    host_vbases[name]).to(dev)
+                nbytes += host_vbases[name].nbytes
+            else:
+                new_vbases[name] = snap.vbases[name]
+        counters.inc("device_mirror_incremental")
+        self._publish(_MirrorSnapshot(
+            gen0, snap.base_ms, t_new, ts_dev, cols_dev, new_vbases,
+            counts=counts_new, vbase_valid=vbase_valid, uniform_grid=uniform,
+            ts_row0=ts_row0, col_finite=col_finite,
+            shift_version=store.shift_version, host_vbases=host_vbases,
+            tail_last_raw=last_raw, tail_cum_drop=cum_drop),
+            "incremental", t0, nbytes)
+        return True
+
+    def _refresh_pad_only(self, store, snap, gen0: int, s_new: int,
+                          t_new: int, t0: float) -> bool:
+        """Grow the snapshot to [s_new, t_new] when no cell value changed
+        (new rows registered but all their samples dropped).  New rows
+        start empty: PAD_TS offsets, NaN values, invalid vbase."""
+        s_old = snap.counts.shape[0]
+        ts_dev, cols_dev = self._grown(snap, s_new, t_new)
+
+        def grow(a, fill):
+            out = np.full((s_new,) + a.shape[1:], fill, a.dtype)
+            out[:s_old] = a
+            return out
+
+        host_vbases, vbase_valid = {}, {}
+        last_raw, cum_drop = dict(snap.tail_last_raw), dict(snap.tail_cum_drop)
+        new_vbases = {}
+        nbytes = 0
+        for name in snap.cols:
+            host_vbases[name] = grow(snap.host_vbases[name], 0.0)
+            vbase_valid[name] = grow(snap.vbase_valid[name], False)
+            if name in last_raw:
+                last_raw[name] = grow(last_raw[name], np.nan)
+                cum_drop[name] = grow(cum_drop[name], 0.0)
+            if s_new != s_old:
+                new_vbases[name] = torch.from_numpy(
+                    host_vbases[name]).to(self.device)
+                nbytes += host_vbases[name].nbytes
+            else:
+                new_vbases[name] = snap.vbases[name]
+        counts_new = np.zeros(s_new, dtype=np.int32)
+        counts_new[:s_old] = snap.counts
+        counters.inc("device_mirror_incremental")
+        # reachable only with new (empty) rows, which break grid uniformity
+        self._publish(_MirrorSnapshot(
+            gen0, snap.base_ms, t_new, ts_dev, cols_dev, new_vbases,
+            counts=counts_new, vbase_valid=vbase_valid, uniform_grid=False,
+            ts_row0=None, col_finite=dict(snap.col_finite),
+            shift_version=store.shift_version, host_vbases=host_vbases,
+            tail_last_raw=last_raw, tail_cum_drop=cum_drop), "pad", t0,
+            nbytes)
+        return True
+
+    # ------------------------------------------------------------ reads
 
     def snapshot(self) -> Optional[_MirrorSnapshot]:
         """The current immutable snapshot (None before the first refresh).

@@ -1,23 +1,35 @@
 """TimeSeriesMemStore — per-node map of dataset -> shards (port of
-filodb_tpu/core/memstore.py: setup and lookup).
+filodb_tpu/core/memstore.py: setup, lookup, ingest, the ingest stream
+with interleaved group flushes, flush_all and drop_shard; recovery comes
+with the WAL).
 
 Takes ``device=`` (default ``"cuda"``) and raises without a card unless
-given ``device="cpu"``; every shard's DeviceMirror lives there.
+given ``device="cpu"``; every shard's DeviceMirror lives there.  Shards
+persist flushed chunks to ``column_store`` and group checkpoints to
+``meta_store`` (by default a NullColumnStore and an InMemoryMetaStore,
+as in the reference).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
+from filodb_tpu_torch.core.records import RecordBatch
 from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS, Schemas
 from filodb_tpu_torch.core.shard import TimeSeriesShard
+from filodb_tpu_torch.core.store import (ColumnStore, InMemoryMetaStore,
+                                         MetaStore, NullColumnStore)
 from filodb_tpu_torch.utils.device import resolve_device
 
 
 class TimeSeriesMemStore:
 
-    def __init__(self, schemas: Optional[Schemas] = None, device="cuda"):
+    def __init__(self, schemas: Optional[Schemas] = None,
+                 column_store: Optional[ColumnStore] = None,
+                 meta_store: Optional[MetaStore] = None, device="cuda"):
         self.device = resolve_device(device)
         self.schemas = schemas if schemas is not None else DEFAULT_SCHEMAS
+        self.column_store = column_store or NullColumnStore()
+        self.meta_store = meta_store or InMemoryMetaStore()
         self._shards: Dict[str, Dict[int, TimeSeriesShard]] = {}
 
     def setup(self, dataset: str, shard_num: int) -> TimeSeriesShard:
@@ -25,7 +37,9 @@ class TimeSeriesMemStore:
         if shard_num in shards:
             return shards[shard_num]
         shard = TimeSeriesShard(dataset, shard_num, self.schemas,
-                                device=self.device)
+                                device=self.device,
+                                column_store=self.column_store,
+                                meta_store=self.meta_store)
         shards[shard_num] = shard
         return shard
 
@@ -33,5 +47,49 @@ class TimeSeriesMemStore:
                   shard_num: int) -> Optional[TimeSeriesShard]:
         return self._shards.get(dataset, {}).get(shard_num)
 
+    def _shard(self, dataset: str, shard_num: int) -> TimeSeriesShard:
+        shard = self.get_shard(dataset, shard_num)
+        if shard is None:
+            raise KeyError(f"shard {shard_num} of {dataset} not set up")
+        return shard
+
     def shards_for(self, dataset: str) -> List[TimeSeriesShard]:
         return list(self._shards.get(dataset, {}).values())
+
+    def drop_shard(self, dataset: str, shard_num: int) -> bool:
+        """Release a local shard copy's working set; persisted chunks stay
+        in the column store."""
+        shards = self._shards.get(dataset)
+        if shards is None or shard_num not in shards:
+            return False
+        shards.pop(shard_num)
+        return True
+
+    def ingest(self, dataset: str, shard_num: int, batch: RecordBatch,
+               offset: int = -1) -> int:
+        return self._shard(dataset, shard_num).ingest(batch, offset)
+
+    def ingest_columns(self, dataset: str, shard_num: int, schema_name: str,
+                       part_keys, ts, columns, offset: int = -1,
+                       bucket_les=None) -> int:
+        """Columnar grid ingest (see TimeSeriesShard.ingest_columns)."""
+        return self._shard(dataset, shard_num).ingest_columns(
+            schema_name, part_keys, ts, columns, offset, bucket_les)
+
+    def ingest_stream(self, dataset: str, shard_num: int,
+                      stream: Iterable[Tuple[RecordBatch, int]],
+                      flush_every: int = 0) -> int:
+        """Consume a stream of (batch, offset), flushing one group round
+        robin every `flush_every` batches."""
+        shard = self._shard(dataset, shard_num)
+        total = 0
+        group = 0
+        for i, (batch, offset) in enumerate(stream):
+            total += shard.ingest(batch, offset)
+            if flush_every and (i + 1) % flush_every == 0:
+                shard.flush_group(group % shard._groups)
+                group += 1
+        return total
+
+    def flush_all(self, dataset: str) -> int:
+        return sum(s.flush_all_groups() for s in self.shards_for(dataset))

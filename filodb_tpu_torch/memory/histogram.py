@@ -1,11 +1,10 @@
-"""Histogram bucket schemes (port of filodb_tpu/memory/histogram.py: the
-scheme type, union_les and rebucket).
+"""Histogram bucket schemes and the bucket-matrix encoding (port of
+filodb_tpu/memory/histogram.py).
 
 Buckets are CUMULATIVE counts with `le` (less-than-or-equal) upper
 bounds, the last one +Inf: the Prometheus scheme.  A store keeps them as
-a dense [series, time, buckets] matrix.  The bucket-matrix encoding of
-the reference (encode_hist_matrix / decode_hist_matrix) belongs to the
-wire and persistence, which this package does not carry.
+a dense [series, time, buckets] matrix; a flushed chunk encodes a
+series' [time, buckets] matrix with encode_hist_matrix.
 """
 from __future__ import annotations
 
@@ -13,6 +12,8 @@ import dataclasses
 from typing import Sequence, Tuple
 
 import numpy as np
+
+from filodb_tpu_torch.memory import nibblepack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,3 +70,27 @@ def rebucket(mat: np.ndarray, src_les: np.ndarray,
     idx = np.searchsorted(src, dst, side="left")
     idx = np.minimum(idx, len(src) - 1)
     return np.asarray(mat)[..., idx]
+
+
+def encode_hist_matrix(mat: np.ndarray) -> bytes:
+    """Encode a [time, buckets] cumulative-count matrix.
+
+    2D-delta: each row is delta'd against the previous row (time-delta),
+    and within a row buckets are delta'd against the previous bucket —
+    increasing cumulative buckets make both deltas small and
+    NibblePack-friendly.
+    """
+    m = np.asarray(mat, dtype=np.int64)
+    if m.ndim != 2:
+        raise ValueError("hist matrix must be [time, buckets]")
+    bucket_delta = np.diff(m, axis=1, prepend=0)       # within-row
+    time_delta = np.diff(bucket_delta, axis=0, prepend=0)  # across rows
+    return nibblepack.pack_i64(time_delta.ravel())
+
+
+def decode_hist_matrix(data: bytes, num_rows: int,
+                       num_buckets: int) -> np.ndarray:
+    flat = nibblepack.unpack_i64(data, num_rows * num_buckets)
+    time_delta = flat.reshape(num_rows, num_buckets)
+    bucket_delta = np.cumsum(time_delta, axis=0)
+    return np.cumsum(bucket_delta, axis=1)

@@ -34,8 +34,13 @@ class QueryEngine:
                  shard_mapper: Optional[ShardMapper] = None,
                  spread_provider: Optional[SpreadProvider] = None,
                  planner: Optional[SingleClusterPlanner] = None,
-                 device="cuda"):
+                 device="cuda", mirror_background_rebuild: bool = True):
+        """mirror_background_rebuild: after an eviction or a page-in
+        rearranged a store's cells, rebuild its device mirror on a
+        background thread and serve meanwhile from the host gather (the
+        reference's default), or, with False, re-upload it inline."""
         self.device = resolve_device(device)
+        self.mirror_background_rebuild = mirror_background_rebuild
         src_dev = getattr(source, "device", None)
         if src_dev is not None and src_dev != self.device:
             raise ValueError(f"engine device {self.device} differs from its "
@@ -50,7 +55,9 @@ class QueryEngine:
         return QueryContext(query_id=str(uuid.uuid4()),
                             submit_time_ms=int(_time.time() * 1000),
                             planner_params=planner_params or PlannerParams(),
-                            device=self.device)
+                            device=self.device,
+                            mirror_background_rebuild=(
+                                self.mirror_background_rebuild))
 
     def query_range(self, promql: str, start_s: int, step_s: int, end_s: int,
                     planner_params: Optional[PlannerParams] = None

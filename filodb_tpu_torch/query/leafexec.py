@@ -4,8 +4,10 @@ device-mirror gather or the windowed host gather, and the fused peephole
 literals and scalar arithmetic).
 
 The leaf first refuses a scan over PlannerParams.scan_limit, as the
-reference does over its resident data.  Then its rows come from one of
-two places:
+reference does over its resident data; then demand paging brings back
+sealed history the dense tier dropped (at most scan_limit samples, else
+QueryError("paged_limit_exceeded")), and the scan check runs again over
+what is now resident.  Then its rows come from one of two places:
 
 - the device mirror, which holds counter columns reset-corrected: any
   gauge column, and a counter column under a counter function (rate,
@@ -13,7 +15,10 @@ two places:
 - the windowed host gather (numpy), which reads the raw values: a
   non-counter function over a counter column (changes, resets,
   max_over_time, an instant selector, a native histogram's instant
-  form), and every working set the router sends to the host.
+  form), every working set the router sends to the host, and a query
+  that meets a mirror being rebuilt in the background after cells were
+  rearranged (corrected as the mirror would be; counted as
+  device_mirror_query_fallbacks).
 
 The router (HOST_ROUTE_MAX_SAMPLES) sends a working set of at most that
 many estimated samples to the host, only where the environment sets
@@ -40,7 +45,7 @@ None — runs its transformers' general path on the engine's device
 (query/transformers.py); a host block is uploaded for it once.  Not
 carried over, on purpose: the reference's broad `except` that degrades a
 failed fused evaluation to the general path, the interpret-unless-TPU
-gate, demand paging (and the scan check after it) and the cold tier.
+gate and the cold tier.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ import numpy as np
 import torch
 
 from filodb_tpu_torch.core.index import ColumnFilter
+from filodb_tpu_torch.core.shard import PagedLimitExceeded
 from filodb_tpu_torch.ops import counter, fused, hostleaf, minmax
 from filodb_tpu_torch.ops import hist as hist_ops
 from filodb_tpu_torch.ops.instant import INSTANT_FUNCTIONS, apply_binary_op
@@ -65,7 +71,7 @@ from filodb_tpu_torch.query.execbase import (
     ScalarResult,
     _FUSED_CACHE_LOCK, _FUSED_MINMAX_PAD_CACHE, _FUSED_PLAN_CACHE,
     _FUSED_VALS_CACHE, _group_cache_insert, _group_cache_lookup, _lru_touch,
-    _vals_cache_insert, agg_token, not_ported)
+    QueryError, _vals_cache_insert, agg_token, not_ported)
 from filodb_tpu_torch.query.fusedbatch import FusedCall, finish_fused_calls
 from filodb_tpu_torch.query.rangevector import QueryContext, QueryStats
 from filodb_tpu_torch.query.transformers import (AggregateMapReduce,
@@ -429,24 +435,41 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             return None, stats
         store = shard.stores[schema_name]
         rows = shard.rows_for(pids)
-        # the scan cap, before anything is gathered: a pathological
-        # selector fails fast instead of filling memory first.  The
-        # estimate clips each series to the chunk range under uniform
-        # spacing, over the resident data; it is memoized with the lookup
-        # per store generation (at 1M series one estimate reads 2M
-        # scattered timestamps)
-        est_key = (schema_name, store.generation)
-        est = lookup.scan_estimates.get(est_key)
-        if est is None:
-            est = lookup.scan_estimates[est_key] = _estimate_scan(
-                store, rows, self.chunk_start_ms, self.chunk_end_ms)
+        # the scan cap, before anything is gathered or paged: a
+        # pathological selector fails fast instead of filling memory
+        # first.  The estimate clips each series to the chunk range under
+        # uniform spacing, over the resident data; it is memoized with the
+        # lookup per store generation (at 1M series one estimate reads 2M
+        # scattered timestamps).  Checked again after demand paging
         limit = self.ctx.planner_params.scan_limit
-        if limit and self.ctx.planner_params.enforced_limits \
-                and est > limit:
-            raise ValueError(
-                f"shard {self.shard}: query would scan ~{est} samples "
-                f"(resident), over the scan limit {limit} — narrow the "
-                f"filters or time range")
+        enforced = bool(limit and self.ctx.planner_params.enforced_limits)
+
+        def check_scan_cap(when: str) -> int:
+            est_key = (schema_name, store.generation)
+            est = lookup.scan_estimates.get(est_key)
+            if est is None:
+                est = lookup.scan_estimates[est_key] = _estimate_scan(
+                    store, rows, self.chunk_start_ms, self.chunk_end_ms)
+            if enforced and est > limit:
+                raise ValueError(
+                    f"shard {self.shard}: query would scan ~{est} samples "
+                    f"({when}), over the scan limit {limit} — narrow the "
+                    f"filters or time range")
+            return est
+
+        est = check_scan_cap("resident")
+        # demand paging: sealed history the dense tier dropped comes back
+        # from the resident tier or the column store, at most `limit`
+        # samples of it (the work already paged is kept)
+        try:
+            paged = shard.ensure_paged_pids(
+                schema_name, pids, self.chunk_start_ms, self.chunk_end_ms,
+                max_samples=limit if enforced else None)
+        except PagedLimitExceeded as e:
+            raise QueryError("paged_limit_exceeded", str(e)) from None
+        if paged:
+            stats.samples_paged += int(paged)
+            est = check_scan_cap("after demand paging")
         schema = shard.schemas[schema_name]
         col_name = self.columns[0] if self.columns else schema.value_column
         col_def = next((c for c in schema.data_columns
@@ -477,13 +500,19 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                 route_est = int(np.minimum(store.counts[rows], p_hi).sum())
             route_host = 0 < route_est <= HOST_ROUTE_MAX_SAMPLES
         shared_ts_row = None
+        mirrored = None
         if not route_host and (not counter_col or fn_is_counter):
+            mirrored = self._mirror_gather(shard, store, rows, col_name)
+        if mirrored is not None:
             ts_off, vals, vbase, base, counts, shared_ts_row, dense = \
-                self._mirror_gather(shard, store, rows, col_name)
+                mirrored
             precorrected = counter_col
         else:
             # the mirror holds counters reset-corrected, so a non-counter
-            # function over a counter column reads the raw values here
+            # function over a counter column reads the raw values here; a
+            # counter function (the router's, or a query falling back
+            # during a mirror rebuild) gets them corrected as the mirror
+            # would
             precorrected = counter_col and fn_is_counter
             base = self.chunk_start_ms
             # f32, the type the device computes in, where the values go
@@ -510,9 +539,17 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                         route_host=route_host), stats
 
     def _mirror_gather(self, shard, store, rows, col_name):
-        """The rows from the device mirror: one full upload per store
-        generation, under the write lock so it cannot race ingest; the
-        row gather then reads only the immutable device copy."""
+        """The rows from the device mirror, or None when this query is
+        served by the host gather instead.  A stale mirror is refreshed
+        under the write lock, so it cannot race ingest: inline when only
+        appends happened (the incremental upload) or on the first build.
+        When cells were rearranged (eviction, paging: shift_version
+        moved), the full re-upload runs on a background thread and this
+        query falls back (device_mirror_query_fallbacks), unless the
+        context turns the background rebuild off, the upload would exceed
+        the mirror's cap or the last background rebuild failed: then it
+        runs inline and its error (MirrorCapExceeded) reaches the query.
+        The row gather then reads only the immutable device snapshot."""
         from filodb_tpu_torch.core.devicecache import DeviceMirror
         mirror = getattr(store, "device_mirror", None)
         if mirror is None:
@@ -522,8 +559,19 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                     mirror = store.device_mirror = DeviceMirror(
                         device=shard.device, shard_num=self.shard)
         if not mirror.is_fresh(store):
-            with shard._write_locked("mirror_refresh"):
-                mirror.ensure_fresh(store)
+            bg = (self.ctx.mirror_background_rebuild
+                  and mirror.may_rebuild_in_background(store))
+            ok = False
+            if mirror.can_update_inline(store) or not bg:
+                with shard._write_locked("mirror_refresh"):
+                    # re-check under the lock: an eviction may move
+                    # shift_version between the check and the lock
+                    if not bg or mirror.can_update_inline(store):
+                        ok = mirror.ensure_fresh(store)
+            if not ok:
+                mirror.request_background_refresh(shard, store)
+                counters.inc("device_mirror_query_fallbacks")
+                return None
         # one snapshot read serves gather AND fused eligibility
         snap = mirror.snapshot()
         ts_off, dev_cols, dev_vbases, base = mirror.gather_cached(rows, snap)

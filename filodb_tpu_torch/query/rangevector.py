@@ -398,6 +398,10 @@ class QueryContext:
     # presented aggregate, a scalar) it computes on
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cpu"))
+    # a mirror whose cells were rearranged (eviction, paging) is rebuilt
+    # in full on a background thread while the leaf serves from the host
+    # gather; False rebuilds it inline, on the query's path
+    mirror_background_rebuild: bool = True
 
 
 def device_values(values, ctx: "QueryContext") -> torch.Tensor:

@@ -688,3 +688,176 @@ def test_host_route_and_plan_node_on_the_card_match_the_cpu(
         assert (np.isnan(g) == np.isnan(w)).all(), k
         np.testing.assert_allclose(g, w, rtol=2e-4, atol=1e-3,
                                    equal_nan=True)
+
+
+# --------------------------------- the mirror under live ingest, on the card
+
+LES = np.append(0.005 * 2.0 ** np.arange(7), np.inf)
+
+
+def _live_store(dev, S=512, T=120, seed=31, hist=False):
+    """S counters (hist: native histograms of 8 buckets) x T samples, one
+    reset each, in a shard on `dev`, with the values to append later:
+    -> (memstore, shard, keys, ts_row, cols) where each column is
+    [S, T + 40] ([S, T + 40, 8] for `h`)."""
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    rng = np.random.default_rng(seed)
+    n = T + 40
+    shape = (S, n, len(LES)) if hist else (S, n)
+    v = np.cumsum(rng.exponential(10.0, size=shape), axis=1) + 1e9
+    if hist:
+        v = np.cumsum(v, axis=2)
+    at = rng.integers(1, n, size=S)
+    after = np.arange(n)[None, :] >= at[:, None]
+    before = v[np.arange(S), at - 1][:, None]
+    v = np.where(after[..., None] if hist else after, v - before + 1.0, v)
+    metric = "http_latency" if hist else "request_total"
+    keys = [PartKey.make(metric, {"_ws_": "demo", "_ns_": f"App-{i % 16}",
+                                  "instance": f"Instance-{i}"})
+            for i in range(S)]
+    ts_row = 1_600_000_000_000 + np.arange(n, dtype=np.int64) * 10_000
+    cols = ({"h": v, "count": v[..., -1], "sum": v[..., -1] * 0.1} if hist
+            else {"count": v})
+    ms = TimeSeriesMemStore(device=dev)
+    sh = ms.setup("prometheus", 0)
+    sh.ingest_columns("prom-histogram" if hist else "prom-counter", keys,
+                      np.broadcast_to(ts_row[:T], (S, T)),
+                      {k: c[:, :T] for k, c in cols.items()},
+                      bucket_les=LES if hist else None)
+    return ms, sh, keys, ts_row, cols
+
+
+def _scrape(sh, keys, ts_row, cols, j, rows=None):
+    """Append sample j of every series (or of `rows`) as one grid batch
+    through the per-record ingest."""
+    from filodb_tpu_torch.core.records import RecordBatch
+    rows = np.arange(len(keys)) if rows is None else rows
+    hist = "h" in cols
+    batch = RecordBatch.from_grid(
+        sh.schemas["prom-histogram" if hist else "prom-counter"],
+        [keys[i] for i in rows.tolist()], np.full((len(rows), 1), ts_row[j]),
+        {k: c[rows, j:j + 1] for k, c in cols.items()},
+        LES if hist else None)
+    return sh.ingest(batch)
+
+
+def _abs_state(snap):
+    out = {"ts": snap.ts_off.cpu().numpy()}
+    for name, col in snap.cols.items():
+        c = col.double().cpu().numpy()
+        vb = snap.vbases[name].cpu().numpy()
+        out[name] = c + (vb[:, None, :] if c.ndim == 3 else vb[:, None])
+    return out
+
+
+@pytest.mark.parametrize("hist", [False, True])
+def test_incremental_mirror_matches_full_upload_on_the_card(card, hist):
+    """Scrapes (one ragged: a quarter of the series miss it) update the
+    card mirror incrementally; after each, it equals a fresh full upload
+    of the same store on the card: timestamps to the bit, absolutes
+    within rtol 1e-6 / atol 1e-6 (the reference's bound), the same
+    counts, col_finite and tail state; and the grid stays uniform until
+    the ragged scrape.  Counters, and native histograms ([S, T, B])."""
+    from filodb_tpu_torch.core.devicecache import DeviceMirror
+    from filodb_tpu_torch.utils.counters import counters
+    _, sh, keys, ts_row, v = _live_store(card, hist=hist)
+    store = sh.stores["prom-histogram" if hist else "prom-counter"]
+    mirror = DeviceMirror(device=card)
+    mirror.ensure_fresh(store)
+    err0 = counters.get("device_mirror_incremental_errors")
+    for j in range(120, 140):
+        rows = np.arange(len(keys))
+        if j == 135:
+            rows = rows[rows % 4 != 1]
+        _scrape(sh, keys, ts_row, v, j, rows)
+        assert mirror.ensure_fresh(store)
+        assert mirror.last_refresh_kind == "incremental"
+        snap = mirror.snapshot()
+        assert snap.uniform_grid == (j < 135)
+        fresh = DeviceMirror(device=card)
+        fresh.ensure_fresh(store)
+        fsnap = fresh.snapshot()
+        a, b = _abs_state(snap), _abs_state(fsnap)
+        np.testing.assert_array_equal(a.pop("ts"), b.pop("ts"))
+        assert set(a) == set(b)
+        for name in b:
+            np.testing.assert_allclose(a[name], b[name], rtol=1e-6,
+                                       atol=1e-6, equal_nan=True,
+                                       err_msg=name)
+        np.testing.assert_array_equal(snap.counts, fsnap.counts)
+        assert snap.col_finite == fsnap.col_finite
+        assert set(snap.tail_last_raw) == set(fsnap.tail_last_raw)
+        for name in fsnap.tail_last_raw:
+            np.testing.assert_array_equal(snap.tail_last_raw[name],
+                                          fsnap.tail_last_raw[name])
+            np.testing.assert_allclose(snap.tail_cum_drop[name],
+                                       fsnap.tail_cum_drop[name],
+                                       rtol=1e-12)
+    assert counters.get("device_mirror_incremental_errors") == err0
+
+
+def test_background_rebuild_publishes_while_queries_read(card):
+    """A query thread reads snapshots through the engine while the store
+    is evicted and its mirror rebuilt on a background thread: every
+    answer equals the card's answer before the eviction (no torn or
+    stale snapshot: the store's samples in the window are unchanged),
+    queries fall back to the host gather until the rebuild publishes,
+    and the mirror is fresh afterwards."""
+    import threading
+    import time
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.utils.counters import counters
+    ms, sh, keys, ts_row, v = _live_store(card)
+    for j in range(120, 130):
+        _scrape(sh, keys, ts_row, v, j)
+    eng = QueryEngine("prometheus", ms, device=card)
+    q = "sum by (_ns_) (rate(request_total[5m]))"
+    start_s, end_s = int(ts_row[60]) // 1000, int(ts_row[129]) // 1000
+
+    def answer():
+        return _series_of(eng.query_range(q, start_s, 60, end_s))
+
+    want = answer()
+    store = sh.stores["prom-counter"]
+    mirror = store.device_mirror
+    stop = threading.Event()
+    got, errors = [], []
+
+    def reader():
+        while not stop.is_set():
+            try:
+                got.append(answer())
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+                return
+
+    fb0 = counters.get("device_mirror_query_fallbacks")
+    rb0 = counters.get("device_mirror_bg_rebuilds")
+    t = threading.Thread(target=reader)
+    t.start()
+    try:
+        # keep the samples the query reads (its first window's range
+        # starts 30 samples before ts_row[60]): evict only older ones
+        sh.enforce_memory(budget_bytes=1, active_tail_rows=110)
+        # the reader's next query requests the rebuild; wait for it to
+        # publish
+        deadline = time.monotonic() + 60.0
+        while counters.get("device_mirror_bg_rebuilds") == rb0 \
+                and time.monotonic() < deadline:
+            mirror.join_rebuild(timeout=0.5)
+            time.sleep(0.01)
+        got.append(answer())
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors[:3]
+    assert counters.get("device_mirror_bg_rebuilds") > rb0
+    assert counters.get("device_mirror_query_fallbacks") > fb0
+    assert mirror.is_fresh(store)
+    for ans in got:
+        assert [k for k, _ in ans] == [k for k, _ in want]
+        for (k, w), (_, g) in zip(want, ans):
+            assert (np.isnan(g) == np.isnan(w)).all(), k
+            np.testing.assert_allclose(g, w, rtol=2e-4, atol=1e-3,
+                                       equal_nan=True)

@@ -50,7 +50,8 @@ NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "ops.probe", "ops.timewindow", "ops.counter",
                "query.transformers", "query.nonleaf", "query.planner",
                "tools.probe_slice", "memory.histogram", "ops.hostleaf",
-               "query.metaexec")
+               "query.metaexec", "core.records", "core.store",
+               "memory.nibblepack", "memory.chunks", "memory.resident")
 
 
 def _bare_import(module):
@@ -68,9 +69,9 @@ def _bare_import(module):
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_general_path_module_stands_alone(module):
-    """Each module of the general path and of the probe, imported alone in
-    a fresh interpreter, pulls in neither jax nor the reference
-    package."""
+    """Each module of the general path, the probe and the live write path,
+    imported alone in a fresh interpreter, pulls in neither jax nor the
+    reference package."""
     assert _bare_import("filodb_tpu_torch." + module) == []
 
 
