@@ -117,6 +117,24 @@ promql-1M.  over the same counters, each once cold and max(3, --warm //
    P3 max_over_time of a [30m:1m] subquery (the parser's inner grid), P4
    label_replace, P5 a ratio over scalar(); P6 absent() of present and
    missing series; the LabelValues and SeriesKeysByFilters plans, timed;
+serve-1M.  over the same counters, through the port's HTTP stack
+   (FiloHttpServer(PromHttpApi({"prometheus": eng}), port=0), driven over
+   real HTTP from this process): the reference's 8-panel dashboard
+   (bench.py:4128-4139) as one POST /api/v1/query_range_batch, cold and
+   three times warm, each printing its K1 launches, exprfuse_fused and
+   _degraded, leaf_gather_memo_hits and per-panel exec seconds; every
+   panel's JSON bit-identical (value strings, label sets) to the panel
+   alone through GET /api/v1/query_range with query.exprfuse_enabled off;
+   the rate panels within rtol 2e-4 / atol 1e-3 of the f64 oracle (sum,
+   avg, the ratio, increase, topk), the count panel each group's size, the
+   bool panel 1, max_over_time as in host-route-1M; then 8 client threads
+   polling the 4 rate-only panels twice with query.batch_window_ms 50:
+   answers bit-identical to the sequential ones, query_singleflight_hits
+   and coalesce_merged_batches above 0, per-request p50/p99, peak device
+   memory under 8 leaf gathers; the headline panel re-polled uncached and
+   cached (verdicts from stats); and max by (_ns_) (quantile_over_time(0.9,
+   ...)) killed through POST /admin/queries/<id>/kill 1 s into its run,
+   answering query_canceled (the seconds from the kill printed);
 live-ingest-1M.  over the same counters (their values made again from the
    seed, on the card, for the oracle): 30 scrapes (5 minutes at 10 s)
    through TimeSeriesShard.ingest, each one grid RecordBatch of one
@@ -2545,6 +2563,343 @@ def run_ab(others, rounds, cells, num_series, seed, reps) -> int:
 
 # ------------------------------------------------------------------ main
 
+# ---------------------------------------------------------------- serve-1M
+
+# the reference's 8-panel dashboard (bench.py:4128-4139, measure_exprfuse)
+# with m = request_total
+DASHBOARD = [
+    "sum by (_ns_)(rate(request_total[5m]))",
+    "avg by (_ns_)(rate(request_total[5m]))",
+    "max by (_ns_)(max_over_time(request_total[5m]))",
+    "count by (_ns_)(rate(request_total[5m]))",
+    "sum by (_ns_)(rate(request_total[5m]))"
+    " / on (_ns_) count by (_ns_)(rate(request_total[5m]))",
+    "sum by (_ns_)(increase(request_total[5m]))",
+    "topk(3, sum by (_ns_)(rate(request_total[5m])))",
+    "sum by (_ns_)(rate(request_total[5m]))"
+    " > bool on (_ns_) avg by (_ns_)(rate(request_total[5m]))",
+]
+RATE_ONLY = (0, 1, 3, 5)           # the panels that read only rate/increase
+SERVE_CLIENTS = 8
+SERVE_WINDOW_MS = 50.0             # query.batch_window_ms of the clients step
+SERVE_BATCH_WARM = 3
+SERVE_CACHE_POLLS = 5
+# G4's function over the counters: the raw values through the host
+# gather, then the general path's quantile on the card
+KILL_QUERY = "max by (_ns_) (quantile_over_time(0.9, request_total[5m]))"
+KILL_AFTER_S = 1.0
+
+
+class Http:
+    """A JSON client of one FiloHttpServer on localhost."""
+
+    def __init__(self, port):
+        self.base = f"http://127.0.0.1:{port}"
+
+    def call(self, method, path, params=None, body=None):
+        """-> (status, payload, seconds)."""
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+        url = self.base + path
+        if params:
+            url += "?" + urllib.parse.urlencode(params)
+        req = urllib.request.Request(
+            url, data=body, method=method,
+            headers={"Content-Type": "application/json"} if body else {})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as f:
+                status, raw = f.status, f.read()
+        except urllib.error.HTTPError as e:
+            status, raw = e.code, e.read()
+        return status, json.loads(raw), time.perf_counter() - t0
+
+
+def series_map(payload):
+    """A matrix payload's series: label set -> its [time, value string]
+    points, for a bit-for-bit comparison."""
+    check(payload["status"] == "success",
+          f"error payload {payload.get('error')}")
+    return {tuple(sorted(r["metric"].items())): r["values"]
+            for r in payload["data"]["result"]}
+
+
+def matrix_of(payload, wends):
+    """A by-_ns_ matrix payload as [NUM_NS, W] floats (NaN = absent)."""
+    out = np.full((NUM_NS, len(wends)), np.nan)
+    for r in payload["data"]["result"]:
+        g = int(r["metric"]["_ns_"].split("-")[1])
+        for t, v in r["values"]:
+            out[g, (int(round(float(t) * 1000)) - int(wends[0])) // 60_000] = \
+                float(v)
+    return out
+
+
+def run_serve_phase(eng, want_rate, orc, wends, num_series):
+    """serve-1M over the dense counter store, through the port's HTTP
+    stack (FiloHttpServer(PromHttpApi({"prometheus": eng}), port=0), driven
+    over real HTTP from this process): the dashboard batch (POST
+    /api/v1/query_range_batch, cold and SERVE_BATCH_WARM warm) bit for bit
+    against each panel alone (GET /api/v1/query_range, exprfuse off) and
+    against the f64 oracles; SERVE_CLIENTS clients polling the rate-only
+    panels with the coalescer on; the result cache; a kill -> (launches,
+    rows)."""
+    import threading
+
+    import torch
+    from filodb_tpu_torch.config import FilodbSettings, settings
+    from filodb_tpu_torch.http.routes import PromHttpApi
+    from filodb_tpu_torch.http.server import FiloHttpServer
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.utils.metrics import registry
+    start_s = START_MS // 1000
+    end_s = start_s + (T - 1) * STEP_MS // 1000
+    grid = {"start": start_s + 600, "step": 60, "end": end_s}
+    scan = {"scanLimit": str(SCAN_LIMIT)}
+    tol = (2e-4, 1e-3)
+    gsize = np.bincount(np.arange(num_series) % NUM_NS,
+                        minlength=NUM_NS).astype(np.float64)
+    avg = want_rate / gsize[:, None]
+    cfg = FilodbSettings()
+    cfg.query.batch_window_ms = SERVE_WINDOW_MS
+    api = PromHttpApi({"prometheus": eng}, config=cfg)
+    fe = api.frontends["prometheus"]
+    # the coalescer waits only for the clients step (its window delays
+    # every request it takes)
+    fe.coalescer.window_s = 0.0
+    srv = FiloHttpServer(api, port=0)
+    srv.start()
+    http = Http(srv.port)
+
+    def counter(name, **tags):
+        return registry.counter(name, **tags).value
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rows = []
+    try:
+        # 1. the dashboard batch
+        body = json.dumps({"queries": DASHBOARD, **grid}).encode()
+        batches, secs = [], []
+        for i in range(SERVE_BATCH_WARM + 1):
+            n0 = dict(kernels.LAUNCHES)
+            memo0 = counter("leaf_gather_memo_hits")
+            with GcPauses() as gcp:
+                st, pay, s = http.call("POST", "/api/v1/query_range_batch",
+                                       {**scan, "stats": "true"}, body)
+            check(st == 200, f"serve-1M batch {i}: status {st} {pay}")
+            k1 = {k: kernels.LAUNCHES[k] - n0[k] for k in kernels.LAUNCHES
+                  if kernels.LAUNCHES[k] > n0[k]}
+            check(k1.get("fused_rate_dense", 0) >= 1,
+                  f"serve-1M batch {i} did not launch K1: {k1}")
+            res = pay["results"]
+            fusedn = sum(r["stats"]["exprfuse"]["fused"] for r in res)
+            degr = sum(r["stats"]["exprfuse"]["degraded"] for r in res)
+            log(f"serve-1M: batch {'cold' if i == 0 else f'warm {i}'} "
+                f"{s:.4f} s ({gcp}); launches {k1}; exprfuse_fused "
+                f"{fusedn} exprfuse_degraded {degr}; leaf_gather_memo_hits "
+                f"{counter('leaf_gather_memo_hits') - memo0:.0f}; per-panel "
+                "exec_s " + json.dumps(
+                    [r["stats"]["phases"]["exec_s"] for r in res])
+                + " transfer_s " + json.dumps(
+                    [r["stats"]["phases"]["transfer_s"] for r in res]))
+            batches.append(res)
+            secs.append(s)
+        log(f"serve-1M: dashboard batch {warm_line(secs)}")
+        # the same batch through the engine alone, warm: the rest of the
+        # HTTP batch's wall is the HTTP layer and JSON, both ways
+        with GcPauses() as gcp:
+            t0 = time.perf_counter()
+            direct = eng.query_range_batch(DASHBOARD, grid["start"], 60,
+                                           end_s, scan_params())
+            direct_s = time.perf_counter() - t0
+        check(all(r.error is None for r in direct),
+              "serve-1M: the engine's batch failed")
+        log(f"serve-1M: the engine's query_range_batch alone {direct_s:.4f}"
+            f" s ({gcp}); the HTTP layer and JSON "
+            f"{np.percentile(secs[1:], 50) - direct_s:.4f} s of the warm "
+            "p50")
+        del direct
+        for a, b in zip(batches[-2], batches[-1]):
+            check(series_map(a) == series_map(b),
+                  "serve-1M: two warm batches differ")
+        last = batches[-1]
+        # 2. each panel alone, exprfuse off
+        settings().query.exprfuse_enabled = False
+        singles, single_s, single_gc = [], [], []
+        try:
+            for q in DASHBOARD:
+                with GcPauses() as gcp:
+                    st, pay, s = http.call("GET", "/api/v1/query_range",
+                                           {"query": q, **grid, **scan})
+                single_gc.append(round(gcp.seconds, 4))
+                check(st == 200, f"serve-1M single `{q}`: {st} {pay}")
+                singles.append(pay)
+                single_s.append(s)
+        finally:
+            settings().query.exprfuse_enabled = True
+        for q, b, s1, s in zip(DASHBOARD, last, singles, single_s):
+            check(series_map(b) == series_map(s1),
+                  f"serve-1M: batch panel `{q}` differs from its run alone")
+        log("serve-1M: every batch panel bit-identical to its run alone "
+            "(exprfuse off), value strings and label sets; singles s "
+            + json.dumps([round(s, 4) for s in single_s]) + ", gc s in them "
+            + json.dumps(single_gc))
+        # the f64 oracles
+        m = [matrix_of(p, wends) for p in last]
+        errs = {
+            "sum rate": check_close(m[0], want_rate, *tol, "serve-1M p1"),
+            "avg rate": check_close(m[1], avg, *tol, "serve-1M p2"),
+            "max_over_time": check_close(m[2], orc["max"], *tol,
+                                         "serve-1M p3"),
+            "ratio": check_close(m[4], avg, *tol, "serve-1M p5"),
+            "increase": check_close(m[5], want_rate * (RANGE_MS / 1000),
+                                    *tol, "serve-1M p6"),
+        }
+        errs = {k: v[0] for k, v in errs.items()}
+        check(np.array_equal(m[3], np.broadcast_to(gsize[:, None],
+                                                   m[3].shape)),
+              "serve-1M p4: count by (_ns_) is not each group's size")
+        check(np.array_equal(m[7], np.ones_like(m[7])),
+              "serve-1M p8: sum > bool avg is not 1 everywhere")
+        third = np.sort(want_rate, axis=0)[-3]
+        top = m[6]
+        check(((~np.isnan(top)).sum(axis=0) == 3).all(),
+              "serve-1M p7: topk(3) has not 3 series a step")
+        ok = ~np.isnan(top)
+        errs["topk"] = check_close(np.where(ok, top, np.nan),
+                                   np.where(ok, want_rate, np.nan), *tol,
+                                   "serve-1M p7")[0]
+        check((top[ok] >= (third[None, :] * (1 - tol[0]) - tol[1])
+               .repeat(NUM_NS, 0)[ok]).all(),
+              "serve-1M p7: a topk(3) member below the oracle's third")
+        log("serve-1M: oracle max_abs_err " + json.dumps(errs)
+            + f" (rtol {tol[0]}, atol {tol[1]}); count exact; bool exact")
+        rows.append(dict(query="dashboard batch", cold_s=secs[0],
+                         p50=float(np.percentile(secs[1:], 50))))
+        # 3. concurrent clients, the coalescer on
+        fe.cache.clear()
+        fe.coalescer.window_s = cfg.query.batch_window_ms / 1000.0
+        sf0, cb0 = counter("query_singleflight_hits"), \
+            counter("coalesce_merged_batches")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lat, answers, errors, verdicts = [], [], [], []
+        barrier = threading.Barrier(SERVE_CLIENTS)
+
+        def client(c):
+            try:
+                barrier.wait()
+                for _ in range(2):
+                    for j in range(len(RATE_ONLY)):
+                        p = RATE_ONLY[(c + j) % len(RATE_ONLY)]
+                        st, pay, s = http.call(
+                            "GET", "/api/v1/query_range",
+                            {"query": DASHBOARD[p], **grid, **scan,
+                             "stats": "true"})
+                        lat.append(s)
+                        answers.append((p, st, pay))
+                        verdicts.append(pay["stats"]["cache"]["result"])
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        with GcPauses() as gcp:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"serve-1M clients: {errors[:3]}")
+        for p, st, pay in answers:
+            check(st == 200 and series_map(pay) == series_map(singles[p]),
+                  f"serve-1M: a client's `{DASHBOARD[p]}` differs from the "
+                  "sequential answer")
+        sf = counter("query_singleflight_hits") - sf0
+        cb = counter("coalesce_merged_batches") - cb0
+        check(sf > 0, "serve-1M: no singleflight hit")
+        check(cb > 0, "serve-1M: the coalescer merged no batch")
+        gather = num_series * T * 8        # int32 offsets + f32 values
+        check(peak < SERVE_CLIENTS * gather,
+              f"serve-1M: peak device memory {peak} B over "
+              f"{SERVE_CLIENTS} gathers ({SERVE_CLIENTS * gather} B)")
+        log(f"serve-1M: {SERVE_CLIENTS} clients x {2 * len(RATE_ONLY)} "
+            f"requests in {wall:.3f} s ({gcp}; cache verdicts "
+            f"{ {v: verdicts.count(v) for v in sorted(set(verdicts))} }): p50 "
+            f"{np.percentile(lat, 50):.4f} s p99 "
+            f"{np.percentile(lat, 99):.4f} s; query_singleflight_hits "
+            f"{sf:.0f}; coalesce_merged_batches {cb:.0f}; peak device "
+            f"memory above the baseline {peak} B (one gather {gather} B); "
+            "answers bit-identical to the sequential ones")
+        rows.append(dict(query="clients", p50=float(np.percentile(lat, 50)),
+                         p99=float(np.percentile(lat, 99))))
+        # 4. the result cache, on the headline panel
+        fe.coalescer.window_s = 0.0
+        head = {"query": DASHBOARD[0], **grid, **scan, "stats": "true"}
+        timings = {"miss": [], "hit": []}
+        for verdict in ("miss", "hit"):
+            for _ in range(SERVE_CACHE_POLLS):
+                if verdict == "miss":
+                    fe.cache.clear()
+                st, pay, s = http.call("GET", "/api/v1/query_range", head)
+                got = pay["stats"]["cache"]["result"]
+                check(st == 200 and got == verdict,
+                      f"serve-1M: cache verdict {got}, expected {verdict}")
+                check(series_map(pay) == series_map(singles[0]),
+                      f"serve-1M: a cache {verdict} differs")
+                timings[verdict].append(s)
+        log(f"serve-1M: headline panel uncached p50 "
+            f"{np.percentile(timings['miss'], 50):.4f} s, cached p50 "
+            f"{np.percentile(timings['hit'], 50):.4f} s "
+            f"({SERVE_CACHE_POLLS} polls each, verdicts from stats)")
+        # 5. a kill
+        fe.cache.clear()
+        out = []
+        t = threading.Thread(target=lambda: out.append(http.call(
+            "GET", "/api/v1/query_range",
+            {"query": KILL_QUERY, **grid, **scan})))
+        t_start = time.perf_counter()
+        t.start()
+        qid = None
+        while qid is None and time.perf_counter() - t_start < 120:
+            _, pay, _ = http.call("GET", "/admin/queries")
+            for r in pay["data"]["queries"]:
+                if r["promql"] == KILL_QUERY and r["phase"] == "executing":
+                    qid = r["queryID"]
+            time.sleep(0.02)
+        check(qid is not None, "serve-1M: the query to kill never ran")
+        time.sleep(KILL_AFTER_S)
+        t_kill = time.perf_counter()
+        st, pay, _ = http.call("POST", f"/admin/queries/{qid}/kill")
+        check(st == 200 and pay["data"]["killed"],
+              f"serve-1M: kill answered {st} {pay}")
+        t.join(timeout=600)
+        back = time.perf_counter() - t_kill
+        st, pay, _ = out[0]
+        check(st != 200 and pay.get("errorType") == "canceled"
+              and pay["error"].startswith("query_canceled"),
+              f"serve-1M: the killed query answered {st} {pay}")
+        log(f"serve-1M: `{KILL_QUERY}` killed "
+            f"{t_kill - t_start:.3f} s after it was sent; answered "
+            f"{st} {pay['errorType']} {back:.4f} s after the kill: "
+            f"{pay['error']}")
+        rows.append(dict(query=KILL_QUERY, kill_latency_s=back))
+    finally:
+        srv.stop()
+    launches = dict(kernels.LAUNCHES)
+    log(f"serve-1M: max_memory_allocated {torch.cuda.max_memory_allocated()}"
+        f" B; launches {({k: v for k, v in launches.items() if v})}")
+    return launches, rows
+
+
 def log_ptxas(kernels):
     """Each kernel's registers, static shared memory and spills as ptxas
     reported them (-Xptxas -v), and the warps an SM its registers allow
@@ -2661,6 +3016,9 @@ def main(argv=None) -> int:
             got, _ = timed("promql-1M", run_promql_phase, eng,
                            want[COUNTER_QUERIES[0][0]], orc, wends,
                            small_warm, n)
+            add(got)
+            got, _ = timed("serve-1M", run_serve_phase, eng,
+                           want[COUNTER_QUERIES[0][0]], orc, wends, n)
             add(got)
             del want, orc
             got, _ = timed("live-ingest-1M", run_live_ingest_phase, eng,

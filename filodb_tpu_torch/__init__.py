@@ -9,7 +9,9 @@ first use into build/ (ops/kernels.py).
 
 Device rule: the entry points (TimeSeriesMemStore, QueryEngine,
 DeviceMirror) take ``device=`` and default to ``"cuda"``.  Without a card
-they raise unless the caller passes ``device="cpu"``.
+they raise unless the caller passes ``device="cpu"``.  The HTTP layer
+(http/: PromHttpApi, FiloHttpServer) takes engines that already carry
+their device.
 """
 
 __version__ = "0.1.0"

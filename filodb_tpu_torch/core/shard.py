@@ -46,6 +46,7 @@ from filodb_tpu_torch.utils.growable import grow_to as _grow_to
 
 _log = logging.getLogger("filodb.shard")
 
+NO_HORIZON_MS = -(1 << 62)               # see append_horizon_ms
 _SHARD_KEYS_SERIAL = itertools.count(1)  # see TimeSeriesShard.keys_serial
 _KEY_RESOLVE_CACHE_MAX = 4               # live key tables per shard (schemas)
 _LOOKUP_CACHE_MAX = 32                   # memoized lookup_partitions results
@@ -190,6 +191,8 @@ class TimeSeriesShard:
         self._evicted_tombstones: collections.deque = collections.deque()
         # True while an eviction sweep or memory enforcement runs
         self.eviction_in_progress = False
+        # append_horizon_ms memo: schema -> (store generation, horizon)
+        self._horizon_memo: Dict[str, tuple] = {}
 
     @contextlib.contextmanager
     def _write_locked(self, what: str, warn_after_s: float = 10.0):
@@ -1017,6 +1020,34 @@ class TimeSeriesShard:
                         return total
         finally:
             self.eviction_in_progress = False
+
+    def append_horizon_ms(self) -> int:
+        """Largest timestamp T such that every FUTURE append lands strictly
+        after T: the min over rows of each row's newest sample (ingest
+        drops out-of-order samples against last_ts, so appends only move
+        forward).  The query frontend's result cache treats windows ending
+        at or before T as immutable.  A registered row with no samples
+        accepts any timestamp, so its presence collapses the horizon to
+        NO_HORIZON_MS (series-set changes are tracked separately through
+        keys_epoch and index.mutations).  Memoized per store generation;
+        a scan torn by a concurrent mutation still lower-bounds each row's
+        future appends, and the memo heals on the next generation."""
+        horizon = None
+        # list(): lock-free on query threads while ingest may add a store
+        for name, store in list(self.stores.items()):
+            s = store.num_series
+            if s == 0:
+                continue
+            gen = store.generation
+            memo = self._horizon_memo.get(name)
+            if memo is not None and memo[0] == gen:
+                h = memo[1]
+            else:
+                h = (NO_HORIZON_MS if (store.counts[:s] == 0).any()
+                     else int(store.last_ts[:s].min()))
+                self._horizon_memo[name] = (gen, h)
+            horizon = h if horizon is None else min(horizon, h)
+        return horizon if horizon is not None else NO_HORIZON_MS
 
     @property
     def num_partitions(self) -> int:

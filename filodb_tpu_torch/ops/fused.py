@@ -1031,12 +1031,17 @@ def fused_rate_groupsum(vals, vbase, gids, plan: FusedPlan, num_groups: int,
 
 def warmup_compile(S: int, T: int, W: int, G: int, fn_name: str = "rate",
                    device=None) -> float:
-    """Build the CUDA libraries (on the card) and make one launch at the
-    canonical padded shape of (S series, T samples, W windows, G groups)
-    over zeros -> wall seconds (pallas_fused.py:1004).  The reference also
-    warms its general XLA path here; the port's general path is not
-    ported yet, and it compiles nothing at query time."""
+    """Build every CUDA library (on the card), make one fused launch at
+    the canonical padded shape of (S series, T samples, W windows, G
+    groups) over zeros, and run the general path (ops/rangefns.py then
+    ops/agg.py) once at the same shape -> wall seconds
+    (pallas_fused.py:1004).  The port compiles nothing at query time, so
+    this warms the libraries' loading and the allocator's pools, which
+    the first query over such a working set would otherwise pay."""
     import time
+    from filodb_tpu_torch.ops import agg as agg_ops
+    from filodb_tpu_torch.ops.rangefns import evaluate_range_function
+    from filodb_tpu_torch.ops.timewindow import to_offsets
     t0 = time.perf_counter()
     dev = _input_device(None, device)
     if dev.type == "cuda":
@@ -1046,14 +1051,25 @@ def warmup_compile(S: int, T: int, W: int, G: int, fn_name: str = "rate",
             kernels.library(name)
     step = 10_000
     W = max(min(W, T), 1)
+    G = max(G, 1)
     ts_row = np.arange(T, dtype=np.int64) * step
     wends = ts_row[-1] - np.arange(W, dtype=np.int64)[::-1] * step
     plan = build_plan(ts_row, wends, 300_000)
     vals = torch.zeros((S, T), dtype=torch.float32, device=dev)
     vbase = torch.zeros((S,), dtype=torch.float32, device=dev)
-    gids = (np.arange(S) % max(G, 1)).astype(np.int32)
-    fused_rate_groupsum(vals, vbase, gids, plan, max(G, 1), fn_name,
+    gids = (np.arange(S) % G).astype(np.int32)
+    fused_rate_groupsum(vals, vbase, gids, plan, G, fn_name,
                         precorrected=True)
+    # the general path at the same shape: any query the fused leaf does
+    # not take over such a working set runs these ops
+    ts_off = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        to_offsets(ts_row[None, :], np.full(1, T), 0), (S, T)))).to(dev)
+    per = evaluate_range_function(
+        ts_off, vals, torch.from_numpy(wends.astype(np.int32)).to(dev),
+        300_000, fn_name, shared_grid=True, vbase=vbase.double(),
+        precorrected=True)
+    groups = pad_groups(gids, S, G, device=dev)
+    agg_ops.aggregate("sum", per, groups.gids_p[:S], G, csr=groups.csr)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return time.perf_counter() - t0

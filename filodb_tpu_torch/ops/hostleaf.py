@@ -1,5 +1,5 @@
-"""Host numpy evaluation of small fused-leaf working sets (port of
-filodb_tpu/ops/hostleaf.py).
+"""Host numpy evaluation of small fused-leaf working sets, and the batch
+gather memo (port of filodb_tpu/ops/hostleaf.py).
 
 The host side of the leaf's cost-based router: the same (fusable fn x
 aggregate) set as ops/fused.py, dense shared-grid working sets only,
@@ -10,14 +10,61 @@ the kernels' (same boundary indices, same extrapolation) in f64.
 The routing decision lives in query/leafexec.py (threshold
 HOST_ROUTE_MAX_SAMPLES) and is observable through the
 `leaf_host_routed` counter.
-
-The reference's batch gather memo, which lets the panels of one
-query_range_batch share a windowed host gather, comes with the port of
-that entry point.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
+
+from filodb_tpu_torch.utils.counters import counters
+
+# ----------------------------------------------------- batch gather memo
+#
+# Under engine.query_range_batch, N panels over one working set would
+# each run the same windowed host gather and its post-processing
+# (offsets, reset correction, rebasing) during their fused preflight.
+# The engine opens this scope around the batch's prepare phase; the
+# leaf's host gather and its host-routed partials consult it, so the
+# working set is scanned and processed once and the arrays are shared
+# (every consumer reads them and never writes them).  The scope is
+# thread-local: concurrent batches on other threads never see each
+# other's entries, and outside a scope the memo is inert.
+
+_MEMO = threading.local()
+
+
+@contextlib.contextmanager
+def batch_gather_memo():
+    """Scope the gather memo over one batch's prepare phase."""
+    prev = getattr(_MEMO, "entries", None)
+    _MEMO.entries = {}
+    try:
+        yield
+    finally:
+        _MEMO.entries = prev
+
+
+def memo_active() -> bool:
+    """A memo scope is open on this thread."""
+    return getattr(_MEMO, "entries", None) is not None
+
+
+def memo_get(key):
+    entries = getattr(_MEMO, "entries", None)
+    if entries is None:
+        return None
+    hit = entries.get(key)
+    if hit is not None:
+        counters.inc("leaf_gather_memo_hits")
+    return hit
+
+
+def memo_put(key, value) -> None:
+    entries = getattr(_MEMO, "entries", None)
+    if entries is not None:
+        entries[key] = value
 
 
 def host_leaf_agg(plan, vals: np.ndarray, vbase, gids: np.ndarray,

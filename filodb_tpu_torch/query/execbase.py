@@ -1,8 +1,10 @@
 """Exec-tree foundations (port of filodb_tpu/query/execbase.py): data
 shapes, the fused-leaf caches, the 3-phase aggregation finishers (the
 component form and the candidate form of topk, bottomk, quantile and
-count_values), and the ExecPlan base classes without the analyze,
-telemetry, deadline and cancellation hooks.
+count_values), and the ExecPlan base classes with the deadline and
+cancellation checks at every node boundary and the live-query tally.
+Not carried over: the analyze recorder and the device telemetry tally
+(they come with explain and device telemetry).
 """
 from __future__ import annotations
 
@@ -23,6 +25,18 @@ from filodb_tpu_torch.query.rangevector import (QueryContext, QueryResult,
                                                 remove_nan_series)
 
 # --------------------------------------------------------------- data shapes
+
+
+class _ExecTally(threading.local):
+    """Per-thread running totals behind QueryStats.cpu_seconds: the wall
+    of the nodes that finished inside the current one (child) and the
+    uploads booked as transfer_s, so each node adds only its own
+    exclusive host time (execute_internal)."""
+    child = 0.0
+    transfer = 0.0
+
+
+_TALLY = _ExecTally()
 
 
 class LazyKeys:
@@ -105,7 +119,9 @@ class RawBlock:
             if stats is not None:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
-                stats.transfer_s += time.perf_counter() - t0
+                spent = time.perf_counter() - t0
+                stats.transfer_s += spent
+                _TALLY.transfer += spent
                 stats.bytes_transferred += int(
                     ts.numel() * 4 + vals.numel() * 4
                     + (0 if vbase is None else vbase.numel() * 8))
@@ -145,9 +161,21 @@ class GroupCardinalityError(ValueError):
 
 class QueryError(Exception):
     """Typed query-path failure with a stable machine-readable code.  The
-    string form is "<code>: <detail>".  This package adds the code
-    not_ported: the query needs a function, aggregate, data shape or
-    operator the port does not carry yet; the detail names it."""
+    string form is "<code>: <detail>".  Codes raised in the port:
+
+      query_timeout — the query's end-to-end deadline
+          (query.default_timeout_s / the `timeout=` request param)
+          expired: at an exec-node boundary or while queued in the
+          frontend scheduler.  Never retried, never cached.
+      query_canceled — the query's CancellationToken was tripped (admin
+          kill via POST /admin/queries/<id>/kill, or a client
+          disconnect): checked at every exec-node boundary and before
+          fused kernel launches.  Never retried, never cached.
+      paged_limit_exceeded — demand paging would bring back more than
+          the scan limit.
+      not_ported — the query needs a function, aggregate, data shape or
+          operator the port does not carry yet; the detail names it.
+          Raised out of ExecPlan.execute, never folded into a result."""
 
     def __init__(self, code: str, detail: str):
         self.code = code
@@ -407,13 +435,58 @@ class ExecPlan:
         self.transformers.append(t)
         return self
 
+    @property
+    def children(self) -> List["ExecPlan"]:
+        return []
+
     def _do_execute(self, source):
         raise NotImplementedError
 
-    def execute_internal(self, source):
+    def _execute_impl(self, source):
         data, stats = self._do_execute(source)
         for t in self.transformers:
+            self._check_live(type(t).__name__)
             data = t.apply(data, self.ctx, stats, source)
+        return data, stats
+
+    def _check_live(self, where: str) -> None:
+        """The deadline and the cancellation token, checked at a stage
+        boundary: a query past its budget raises query_timeout, a killed
+        one query_canceled, instead of starting more work."""
+        dl = getattr(self.ctx, "deadline_unix_s", 0.0)
+        if dl and time.time() >= dl:
+            raise QueryError(
+                "query_timeout",
+                f"deadline exceeded at {where} "
+                f"(budget expired {time.time() - dl:.3f}s ago)")
+        tok = getattr(self.ctx, "cancel", None)
+        if tok is not None and tok.cancelled:
+            tok.raise_if_cancelled(f"at {where}")
+
+    def execute_internal(self, source):
+        """_execute_impl behind the node-boundary checks (deadline, then
+        cancellation: a query past its budget or killed stops here
+        instead of fanning out more work).  The node's exclusive wall
+        (less its children's, less the uploads it booked as transfer_s)
+        goes into stats.cpu_seconds, so the root's total is the exec
+        phase's host time (kernel waits included: the port books no
+        device time).  The live registry entry riding the context sees
+        this node's counters in place."""
+        self._check_live(type(self).__name__)
+        outer_child, outer_transfer = _TALLY.child, _TALLY.transfer
+        _TALLY.child = _TALLY.transfer = 0.0
+        t0 = time.perf_counter()
+        try:
+            data, stats = self._execute_impl(source)
+        finally:
+            total = time.perf_counter() - t0
+            own = max(total - _TALLY.child - _TALLY.transfer, 0.0)
+            _TALLY.child = outer_child + total
+            _TALLY.transfer = outer_transfer
+        stats.cpu_seconds += own
+        ent = getattr(self.ctx, "active", None)
+        if ent is not None:
+            ent.tally(self, stats)
         return data, stats
 
     def execute(self, source) -> QueryResult:
@@ -452,6 +525,8 @@ class ExecPlan:
                                error=f"sample limit {limit} exceeded "
                                      f"({result_samples} samples)")
         stats.result_samples = result_samples
+        stats.result_bytes = sum(int(np.asarray(b.values).nbytes)
+                                 for b in blocks)
         return QueryResult(blocks, stats)
 
 
@@ -466,6 +541,10 @@ class NonLeafExecPlan(ExecPlan):
         super().__init__(ctx)
         self._children = list(children)
 
+    @property
+    def children(self) -> List[ExecPlan]:
+        return self._children
+
     def _gather(self, source):
         stats = QueryStats()
         results = []
@@ -473,6 +552,9 @@ class NonLeafExecPlan(ExecPlan):
             data, st = c.execute_internal(source)
             stats.merge(st)
             results.append(data)
+            # a child's return is a boundary too: a kill or deadline
+            # that landed while it ran stops the tree here
+            self._check_live(f"{type(self).__name__} gather")
         return results, stats
 
     def compose(self, results: List[Data], stats: QueryStats) -> Data:

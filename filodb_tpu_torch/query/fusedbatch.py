@@ -15,6 +15,7 @@ import numpy as np
 
 from filodb_tpu_torch.ops.hist import from_bucket_rows
 from filodb_tpu_torch.query.execbase import AggPartial
+from filodb_tpu_torch.utils.metrics import registry
 
 
 @dataclasses.dataclass
@@ -63,6 +64,8 @@ def finish_fused_calls(calls: List[FusedCall]) -> List[AggPartial]:
             alias[i] = prim[k]
         else:
             prim[k] = i
+    if alias:
+        registry.counter("fused_batch_deduped").increment(len(alias))
     by_key: Dict[tuple, List[int]] = {}
     for i, fc in enumerate(calls):
         if i not in alias:
@@ -73,6 +76,17 @@ def finish_fused_calls(calls: List[FusedCall]) -> List[AggPartial]:
         panels = [(calls[i].groups,
                    len(calls[i].gkeys) * calls[i].num_buckets, calls[i].op)
                   for i in take]
+        if len(take) > 1:
+            # the batching win: the launches this merged set costs
+            # (group mode, per-series mode) and the panels sharing them
+            group_mode = any(
+                calls[i].op in ("sum", "avg")
+                or (calls[i].op == "count" and fc0.ragged) for i in take)
+            per_series = any(calls[i].op in ("min", "max") for i in take)
+            registry.counter("fused_batch_dispatches").increment(
+                group_mode + per_series)
+            registry.counter("fused_batch_merged_panels").increment(
+                len(take))
         finisher = fused.fused_leaf_agg_batch(
             fc0.plan, fc0.values, panels, fc0.fn,
             precorrected=fc0.precorrected, ragged=fc0.ragged,

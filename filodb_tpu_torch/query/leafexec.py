@@ -40,6 +40,16 @@ A native histogram column [S, T, B] takes the fused path only as
 sum(rate|increase): its S*B bucket rows, bucket-major within a series,
 go through the same kernels with one slot per (group, bucket).
 
+In a dashboard batch (engine.query_range_batch, query/exprfuse.py) the
+leaf runs in three phases: prepare_fused gathers and takes the peephole
+without launching (a kernel evaluation comes back as its FusedCall), the
+batch launches every leaf's FusedCall merged, and the node's execution
+picks up what was parked.  Inside a batch the windowed host gather and
+the host route share their work through the batch gather memo
+(ops/hostleaf.py).  A killed query raises query_canceled before any
+launch, and the host gather stops between row blocks on a kill or an
+expired deadline.
+
 Every other leaf — the cases where the reference's _try_fused returns
 None — runs its transformers' general path on the engine's device
 (query/transformers.py); a host block is uploaded for it once.  Not
@@ -71,7 +81,7 @@ from filodb_tpu_torch.query.execbase import (
     ScalarResult,
     _FUSED_CACHE_LOCK, _FUSED_MINMAX_PAD_CACHE, _FUSED_PLAN_CACHE,
     _FUSED_VALS_CACHE, _group_cache_insert, _group_cache_lookup, _lru_touch,
-    QueryError, _vals_cache_insert, agg_token, not_ported)
+    QueryError, _TALLY, _vals_cache_insert, agg_token, not_ported)
 from filodb_tpu_torch.query.fusedbatch import FusedCall, finish_fused_calls
 from filodb_tpu_torch.query.rangevector import QueryContext, QueryStats
 from filodb_tpu_torch.query.transformers import (AggregateMapReduce,
@@ -107,18 +117,77 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         self.columns = list(columns)
         self.schema = schema
         self._fused_cache_key = None
+        # phase 1 of a batch parks (data, stats, fused outcome,
+        # transformers consumed) here for phase 3 (prepare_fused)
+        self._prefused = None
 
-    def execute_internal(self, source):
-        self._fused_cache_key = None
-        data, stats = self._do_execute(source)
-        fused_out, start = self._try_fused(data, stats)
-        if fused_out is not None:
-            data = fused_out
+    def _execute_impl(self, source):
+        pre = self._prefused
+        if pre is not None:
+            # phase 3 of engine.query_range_batch: the gather and the
+            # fused preflight already ran in prepare_fused, and the kernel
+            # work was batched (inject_fused) or is still parked
+            self._prefused = None
+            data, stats, out, start = pre
+            if isinstance(out, FusedCall):
+                out = self._finish_or_degrade(out)
+        else:
+            self._fused_cache_key = None
+            data, stats = self._do_execute(source)
+            out, start = self._try_fused(data, stats)
+        if out is not None:
+            data = out
         for t in self.transformers[start:]:
+            self._check_live(type(t).__name__)
             data = t.apply(data, self.ctx, stats, source)
         return data, stats
 
-    def _try_fused(self, data, stats=None):
+    def prepare_fused(self, source):
+        """Phase 1 of engine.query_range_batch: the gather and the fused
+        preflight, but NOT the kernel.  Returns a FusedCall when this
+        leaf's kernel work can merge with other panels'
+        (finish_fused_calls), else None.  Either way the outcome is
+        parked on the leaf, so phase 3 never gathers again: the gathered
+        block only where the general path still needs it (a fused answer
+        never reads it again, and on the card it is a full device copy
+        of the working set).  Errors propagate: exprfuse.compile_tree
+        then resets the leaf, which runs standalone in phase 3."""
+        self._prefused = None
+        self._fused_cache_key = None
+        t0 = time.perf_counter()
+        transfer0 = _TALLY.transfer
+        data, stats = self._do_execute(source)
+        out, start = self._try_fused(data, stats, defer=True)
+        # this work is the leaf's own, done ahead of its node: book it
+        stats.cpu_seconds += max(time.perf_counter() - t0
+                                 - (_TALLY.transfer - transfer0), 0.0)
+        self._prefused = (None if out is not None else data, stats, out,
+                          start)
+        return out if isinstance(out, FusedCall) else None
+
+    def inject_fused(self, partial) -> None:
+        """Phase 2 hand-off: replace the parked FusedCall with its batched
+        result (an AggPartial)."""
+        data, stats, _, start = self._prefused
+        self._prefused = (data, stats, partial, start)
+
+    def _finish_or_degrade(self, fc):
+        """Launch a parked FusedCall the batch never finished (a killed
+        query's, or every call of a batch whose merged launch failed).
+        The cancellation check comes first, so a killed query's kernel
+        never runs.  Unlike the reference, a failure here raises: the
+        port never degrades a failed kernel to the general path."""
+        self._check_cancel("fused kernel dispatch")
+        return finish_fused_calls([fc])[0]
+
+    def _check_cancel(self, where: str) -> None:
+        """Cooperative cancellation between the node-boundary checks,
+        before a kernel launch."""
+        tok = getattr(self.ctx, "cancel", None)
+        if tok is not None and tok.cancelled:
+            tok.raise_if_cancelled(f"before {where} (shard {self.shard})")
+
+    def _try_fused(self, data, stats=None, defer: bool = False):
         """Peephole: PeriodicSamplesMapper (a fusable range function, or
         an instant selector) followed by AggregateMapReduce (sum, avg,
         count, min or max) over a shared-grid working set collapses into
@@ -129,7 +198,10 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         pinned step is evaluated fused and its partial repeated across
         the grid.  -> (AggPartial, transformers consumed), or (None, 0)
         where the reference's peephole returns None: then the
-        transformers run the general path."""
+        transformers run the general path.  With defer=True a kernel
+        evaluation comes back as its unlaunched FusedCall, for the
+        batch to merge (not under an `@` pin: that one is finished at
+        once)."""
         ts = list(self.transformers)
         repeat = None
         if len(ts) >= 3 and isinstance(ts[1], RepeatToGridMapper):
@@ -141,7 +213,8 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         if not isinstance(t0, PeriodicSamplesMapper) \
                 or not isinstance(t1, AggregateMapReduce):
             return None, 0
-        out = self._fuse(data, t0, t1, stats)
+        out = self._fuse(data, t0, t1, stats,
+                         defer=defer and repeat is None)
         if out is None:
             return None, 0
         if repeat is None:
@@ -152,9 +225,10 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             out, wends=wends,
             comp=np.repeat(out.comp, len(wends), axis=1)), 3
 
-    def _fuse(self, data, t0, t1, stats):
+    def _fuse(self, data, t0, t1, stats, defer: bool = False):
         """The peephole's evaluation of t0 then t1 over `data` (see
-        _try_fused) -> the AggPartial, or None."""
+        _try_fused) -> the AggPartial (with defer, a kernel evaluation's
+        FusedCall), or None."""
         is_hist = data.values.ndim == 3
         if t0.window_ms is None:
             # instant-vector selector (`sum by (x) (metric)`): lookback
@@ -270,6 +344,9 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             num_buckets=B,
             cache_token=agg_token("hist_sum" if is_hist else t1.op, t1.by,
                                   t1.without, data.cache_token))
+        if defer:
+            return fc
+        self._check_cancel("fused kernel dispatch")
         return finish_fused_calls([fc])[0]
 
     def _try_host_routed(self, data, t0, t1, wends, eval_wends, fn, dense,
@@ -285,6 +362,21 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             return None
         if fn in ("rate", "increase") and not data.precorrected:
             return None
+        # the batch's finished-partial memo: a dashboard repeats whole
+        # subexpressions (one panel alone, as a ratio operand, under
+        # topk), and within one memo scope an identical (working set, fn,
+        # aggregate, grouping, grid) key means identical inputs, so the
+        # evaluation is shared like the scan.  Inert outside a batch
+        mkey = None
+        if data.cache_token is not None:
+            mkey = ("hpartial", data.cache_token, fn, t1.op, tuple(t1.by),
+                    tuple(t1.without), t0.start_ms, t0.step_ms, t0.end_ms,
+                    t0.offset_ms, t0.window_ms, data.base_ms)
+            hit = hostleaf.memo_get(mkey)
+            if hit is not None:
+                self._check_group_limit(hit.group_keys)
+                counters.inc("leaf_host_routed")
+                return dataclasses.replace(hit)
         plan = fused.build_plan(np.asarray(data.shared_ts_row, np.int64),
                                 eval_wends, t0.window_ms)
         gids, gkeys = _group_ids_cached(data.cache_token, data.keys,
@@ -294,9 +386,12 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                                       np.asarray(gids), len(gkeys), fn,
                                       t1.op)
         counters.inc("leaf_host_routed")
-        return AggPartial(t1.op, gkeys, wends, comp=comp,
-                          cache_token=agg_token(t1.op, t1.by, t1.without,
-                                                data.cache_token))
+        p = AggPartial(t1.op, gkeys, wends, comp=comp,
+                       cache_token=agg_token(t1.op, t1.by, t1.without,
+                                             data.cache_token))
+        if mkey is not None:
+            hostleaf.memo_put(mkey, p)
+        return p
 
     def _window_counts_groups(self, data, t0, t1):
         """Host math shared by the no-device answers: per-window sample
@@ -518,12 +613,9 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             # f32, the type the device computes in, where the values go
             # on to the device; f64 for the numpy host route and for a
             # raw range vector, which the root returns as it is
-            t0 = time.perf_counter()
             ts_off, vals, vbase, counts, dense = self._host_gather(
                 shard, store, rows, col_name, precorrected,
                 np.float32 if periodic and not route_host else np.float64)
-            # the gather is host work inside this node: cpu_seconds
-            stats.cpu_seconds += time.perf_counter() - t0
             if route_host:
                 shared_ts_row = _host_shared_row(ts_off, counts)
         keys = LazyKeys(shard, pids)
@@ -596,26 +688,61 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         correction of the row's history before the span is carried in.
         A histogram column gathers [S, T, B].  Row blocks run on a thread
         pool, inside one seqlock snapshot of the store; the blocking
-        changes no output bit.  -> (ts_off, vals, vbase, counts, dense),
-        numpy."""
+        changes no output bit.  A kill or an expired deadline stops the
+        remaining blocks.  -> (ts_off, vals, vbase, counts, dense),
+        numpy.
+
+        Under a query_range_batch's memo scope (ops/hostleaf.py) the
+        panels over one working set share the work: the processed arrays
+        by (span, column, correction, dtype, rows, keys epoch); the raw
+        gathered values by (span, column, rows), for a panel that reads
+        the same column with another correction or type; the offsets by
+        (span, rows), for one that reads another column.  Every consumer
+        reads these arrays and never writes them."""
         start = self.chunk_start_ms
+        span = (shard.keys_serial, shard.keys_epoch, self.dataset,
+                self.shard, start, self.chunk_end_ms)
+        rows_b = rows.tobytes()
+        memo_key = span + (col_name, precorrected, np.dtype(dtype).str,
+                           rows_b)
+        hit = hostleaf.memo_get(memo_key)
+        if hit is not None:
+            return hit
+        raw_key = ("raw",) + span + (col_name, rows_b)
+        off_key = ("off",) + span + (rows_b,)
+        raw = hostleaf.memo_get(raw_key)
+        ts_memo = hostleaf.memo_get(off_key)
+        keep_raw = raw is None and hostleaf.memo_active()
 
         def gather():
-            pos = store.window_positions(start, self.chunk_end_ms)
+            pos = raw[0] if raw is not None else \
+                store.window_positions(start, self.chunk_end_ms)
             width = pos[1] - pos[0]
             col = store.cols[col_name]
             S = len(rows)
-            ts_off = np.empty((S, width), np.int32)
+            ts_off = ts_memo if ts_memo is not None else \
+                np.empty((S, width), np.int32)
             vals = np.empty((S, width) + col.shape[2:], dtype)
             vbase = np.empty((S,) + col.shape[2:], np.float64)
             counts = np.empty(S, np.int32)
+            nblk = -(-S // HOST_GATHER_BLOCK_ROWS)
+            raw_blocks = raw[1] if raw is not None else [None] * nblk
 
-            def block(i):
-                sl = slice(i, min(i + HOST_GATHER_BLOCK_ROWS, S))
-                ts, cols, cnt = store.gather_rows(rows[sl], positions=pos,
-                                                  columns=(col_name,))
-                ts_off[sl] = to_offsets(ts, cnt, start)
-                v = cols[col_name]
+            def block(b):
+                if self._stopped():
+                    return False
+                sl = slice(b * HOST_GATHER_BLOCK_ROWS,
+                           min((b + 1) * HOST_GATHER_BLOCK_ROWS, S))
+                if raw is not None:
+                    v, cnt = raw_blocks[b], raw[2][sl]
+                else:
+                    ts, cols, cnt = store.gather_rows(
+                        rows[sl], positions=pos, columns=(col_name,))
+                    v = cols[col_name]
+                    if ts_memo is None:
+                        ts_off[sl] = to_offsets(ts, cnt, start)
+                    if keep_raw:
+                        raw_blocks[b] = v
                 if precorrected:
                     v = counter.host_counter_correct_after(
                         col[rows[sl], :pos[0]], v)
@@ -627,11 +754,29 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                 # variant
                 return bool(np.isnan(v).any())
 
-            holes = list(_gather_pool().map(
-                block, range(0, S, HOST_GATHER_BLOCK_ROWS)))
-            return ts_off, vals, vbase, counts, not any(holes)
+            holes = list(_gather_pool().map(block, range(nblk)))
+            self._check_live("host gather")
+            return (ts_off, vals, vbase, counts, not any(holes)), pos, \
+                raw_blocks
 
-        return shard.snapshot_read(store, gather)
+        # the memo takes only a consistent snapshot's arrays (a torn
+        # attempt's are dropped by snapshot_read's retry)
+        out, pos, raw_blocks = shard.snapshot_read(store, gather)
+        if keep_raw:
+            hostleaf.memo_put(raw_key, (pos, raw_blocks, out[3]))
+        if ts_memo is None:
+            hostleaf.memo_put(off_key, out[0])
+        hostleaf.memo_put(memo_key, out)
+        return out
+
+    def _stopped(self) -> bool:
+        """The query was killed or ran out of its deadline (the host
+        gather's blocks test it; _check_live raises)."""
+        tok = getattr(self.ctx, "cancel", None)
+        if tok is not None and tok.cancelled:
+            return True
+        dl = getattr(self.ctx, "deadline_unix_s", 0.0)
+        return bool(dl and time.time() >= dl)
 
 
 HOST_GATHER_BLOCK_ROWS = 16_384

@@ -19,6 +19,7 @@ from filodb_tpu_torch.query.execbase import (AggPartial, ExecPlan,
                                              NonLeafExecPlan, RawBlock,
                                              _block_empty, _union_scheme,
                                              reduce_partials)
+from filodb_tpu_torch.query.exprfuse import join_index_maps
 from filodb_tpu_torch.query.rangevector import (RangeVectorKey, ResultBlock,
                                                 cat_values, concat_blocks,
                                                 device_values,
@@ -121,43 +122,6 @@ class ReduceAggregateExec(NonLeafExecPlan):
                                 if isinstance(r, AggPartial)])
 
 
-def _join_index_maps(join, many_side: ResultBlock, one_side: ResultBlock):
-    """Label matching on the host -> (mi, oi, keys): many-side and
-    one-side row of each output pair and its result labels.  Raises the
-    reference's errors (a duplicate on the one side, a one-to-one join
-    with many matches, the join cardinality limit)."""
-    card_limit = join.ctx.planner_params.join_cardinality_limit
-    one_index = {}
-    for i, k in enumerate(one_side.keys):
-        mk = join._match_key(k)
-        if mk in one_index:
-            raise ValueError(
-                "many-to-many matching not allowed: duplicate series on "
-                f"'one' side for key {mk}")
-        one_index[mk] = i
-    pairs: List[Tuple[int, int]] = []
-    for i, k in enumerate(many_side.keys):
-        j = one_index.get(join._match_key(k))
-        if j is not None:
-            pairs.append((i, j))
-            if len(pairs) > card_limit:
-                raise ValueError(
-                    f"join cardinality limit {card_limit} exceeded")
-    if join.cardinality == "OneToOne":
-        seen = set()
-        for _, j in pairs:
-            if j in seen:
-                raise ValueError(
-                    "one-to-one join has many-to-one matches; "
-                    "use group_left/group_right")
-            seen.add(j)
-    mi = np.asarray([p[0] for p in pairs], dtype=np.int64)
-    oi = np.asarray([p[1] for p in pairs], dtype=np.int64)
-    keys = [join._result_labels(many_side.keys[i], one_side.keys[j])
-            for i, j in pairs]
-    return mi, oi, keys
-
-
 class BinaryJoinExec(NonLeafExecPlan):
     """Vector-vector join, one-to-one or group_left/group_right: lhs
     children first, then rhs children, split at n_lhs."""
@@ -191,7 +155,9 @@ class BinaryJoinExec(NonLeafExecPlan):
         flip = self.cardinality == "OneToMany"
         if flip:
             many_side, one_side = rhs, lhs
-        mi, oi, keys = _join_index_maps(self, many_side, one_side)
+        # label matching resolves on the host into (mi, oi) index maps,
+        # memoized on the operand blocks' cache_token (query/exprfuse.py)
+        mi, oi, keys = join_index_maps(self, many_side, one_side)
         if not len(mi):
             return None
         mv = device_values(many_side.values, self.ctx)

@@ -1,27 +1,23 @@
-"""Plain named integer counters (the port's stand-in for the reference's
-metrics registry, which it does not carry).
+"""Named integer counters, read and written by the port's query and ingest
+paths and its tests.
 
-One process-wide ``counters`` instance; tests read a counter before and
-after a query and compare.
+A thin view over the metrics registry (utils/metrics.py): `inc(name)`
+increments the untagged registry counter `name`, so /metrics exposes each
+of these as `<name>_total` beside the registry's other families, under
+one name only.  Tests read a counter before and after a query and
+compare.
 """
 from __future__ import annotations
 
-import threading
-from typing import Dict
+from filodb_tpu_torch.utils.metrics import registry
 
 
 class Counters:
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._values: Dict[str, int] = {}
-
     def inc(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._values[name] = self._values.get(name, 0) + n
+        registry.counter(name).increment(n)
 
     def get(self, name: str) -> int:
-        with self._lock:
-            return self._values.get(name, 0)
+        return int(registry.counter(name).value)
 
 
 counters = Counters()

@@ -861,3 +861,70 @@ def test_background_rebuild_publishes_while_queries_read(card):
             assert (np.isnan(g) == np.isnan(w)).all(), k
             np.testing.assert_allclose(g, w, rtol=2e-4, atol=1e-3,
                                        equal_nan=True)
+
+
+# ---------------------------- batched expressions and the serving stack
+
+
+def test_batch_shares_one_k1_launch_bit_identical_to_single(card,
+                                                            monkeypatch):
+    """Three rate panels over one working set (sum and avg by _ns_, sum by
+    instance) share ONE K1 group-mode launch in query_range_batch, and
+    each answer is bit-identical to the panel run alone with the
+    expression compiler off: a group's reduction order does not depend
+    on which panels share the launch."""
+    from filodb_tpu_torch.config import settings
+    engines, start_s, end_s = _counter_engines(card)
+    eng = engines["cuda"]
+    panels = ["sum by (_ns_) (rate(request_total[5m]))",
+              "avg by (_ns_) (rate(request_total[5m]))",
+              "sum by (instance) (rate(request_total[5m]))"]
+    monkeypatch.setattr(settings().query, "exprfuse_enabled", False)
+    alone = [_series_of(eng.query_range(q, start_s, 60, end_s))
+             for q in panels]
+    monkeypatch.setattr(settings().query, "exprfuse_enabled", True)
+    n0 = kernels.LAUNCHES["fused_rate_dense"]
+    got = eng.query_range_batch(panels, start_s, 60, end_s)
+    assert kernels.LAUNCHES["fused_rate_dense"] - n0 == 1
+    for q, a, g in zip(panels, alone, got):
+        g = _series_of(g)
+        assert [k for k, _ in g] == [k for k, _ in a], q
+        for (k, av), (_, gv) in zip(a, g):
+            assert gv.tobytes() == av.tobytes(), (q, k)
+
+
+def test_result_cache_splices_cuda_values_on_the_host(card):
+    """A result block whose values are a CUDA tensor goes through the
+    result cache: the entry holds host rows only, a full hit and a
+    partial hit come back as numpy blocks, and their bits are the
+    tensor's."""
+    from filodb_tpu_torch.query.rangevector import (QueryResult,
+                                                    RangeVectorKey,
+                                                    ResultBlock)
+    from filodb_tpu_torch.query.resultcache import ResultCache
+    keys = [RangeVectorKey.make({"s": str(i)}) for i in range(4)]
+    full = torch.rand((4, 20), dtype=torch.float64, device=card)
+
+    def run(s, e):
+        wends = np.arange(s, e + 1, 60, dtype=np.int64) * 1000
+        lo = (s - 60) // 60
+        return QueryResult([ResultBlock(keys, wends,
+                                        full[:, lo:lo + len(wends)])])
+
+    cache = ResultCache()
+    first = cache.query_range(run, "up", 60, 60, 600, "pp",
+                              (("tok",), 300_000))
+    assert isinstance(first.blocks[0].values, torch.Tensor)
+    hit = cache.query_range(run, "up", 60, 60, 300, "pp",
+                            (("tok",), 300_000))
+    part = cache.query_range(run, "up", 60, 60, 900, "pp",
+                             (("tok",), 300_000))
+    assert (hit.stats.result_cache, part.stats.result_cache) == \
+        ("hit", "partial")
+    want = full.cpu().numpy()
+    for res, n in ((hit, 5), (part, 15)):
+        vals = res.blocks[0].values
+        assert isinstance(vals, np.ndarray)
+        assert vals.tobytes() == want[:, :n].tobytes()
+    for ent in cache._entries.values():
+        assert all(isinstance(r, np.ndarray) for r in ent.series.values())

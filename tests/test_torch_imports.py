@@ -51,7 +51,12 @@ NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "query.transformers", "query.nonleaf", "query.planner",
                "tools.probe_slice", "memory.histogram", "ops.hostleaf",
                "query.metaexec", "core.records", "core.store",
-               "memory.nibblepack", "memory.chunks", "memory.resident")
+               "memory.nibblepack", "memory.chunks", "memory.resident",
+               "query.exprfuse", "query.frontend", "query.resultcache",
+               "query.coalesce", "query.qos", "query.activequeries",
+               "http.routes", "http.server", "config", "utils.hoconlite",
+               "utils.metrics", "utils.events", "utils.slowlog",
+               "utils.usage")
 
 
 def _bare_import(module):
@@ -69,8 +74,8 @@ def _bare_import(module):
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_general_path_module_stands_alone(module):
-    """Each module of the general path, the probe and the live write path,
-    imported alone in a fresh interpreter, pulls in neither jax nor the
+    """Each module of the general path, the probe, the live write path
+    and the serving stack, imported alone in a fresh interpreter, pulls in neither jax nor the
     reference package."""
     assert _bare_import("filodb_tpu_torch." + module) == []
 
