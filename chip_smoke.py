@@ -135,6 +135,23 @@ serve-1M.  over the same counters, through the port's HTTP stack
    cached (verdicts from stats); and max by (_ns_) (quantile_over_time(0.9,
    ...)) killed through POST /admin/queries/<id>/kill 1 s into its run,
    answering query_canceled (the seconds from the kill printed);
+ops-1M.  on the serve-1M server, over the same counters: /ready 200 and
+   /api/v1/status/health ok in every subsystem; after one warm dashboard
+   batch, /admin/devices shows cuda:0 with the batch's K1 launches as
+   its rate-family ledger dispatches, busySeconds grown, booked `hot`
+   bytes equal to the mirror's tensors (and within memory_allocated),
+   and one compile a csrc/ source this process built; stats=all on the
+   headline panel splits device_s by device and kernel (the engine's
+   QueryStats to 1e-9); explain=true (query_range, query,
+   /api/v1/explain) launches nothing and leaves memory_allocated as it
+   was, analyze=true launches K1 once and its nodes' device seconds are
+   the trace's ledger sum; `device.upload` armed: the query over a
+   dropped mirror reports the fault with no device arrays left behind,
+   the background rebuild's failure shows in the health model's jobs,
+   then the answer comes back bit-identical and memory_allocated within
+   one mirror of before; the sampling profiler over one warm batch.  It
+   prints the padded-values cache's budget and its evictions per earlier
+   phase;
 live-ingest-1M.  over the same counters (their values made again from the
    seed, on the card, for the oracle): 30 scrapes (5 minutes at 10 s)
    through TimeSeriesShard.ingest, each one grid RecordBatch of one
@@ -2596,8 +2613,9 @@ class Http:
     def __init__(self, port):
         self.base = f"http://127.0.0.1:{port}"
 
-    def call(self, method, path, params=None, body=None):
-        """-> (status, payload, seconds)."""
+    def call(self, method, path, params=None, body=None, text=False):
+        """-> (status, payload, seconds); the payload is the body's text
+        where `text` (a text route), else its JSON."""
         import urllib.error
         import urllib.parse
         import urllib.request
@@ -2613,7 +2631,8 @@ class Http:
                 status, raw = f.status, f.read()
         except urllib.error.HTTPError as e:
             status, raw = e.code, e.read()
-        return status, json.loads(raw), time.perf_counter() - t0
+        return (status, raw.decode() if text else json.loads(raw),
+                time.perf_counter() - t0)
 
 
 def series_map(payload):
@@ -2636,21 +2655,36 @@ def matrix_of(payload, wends):
     return out
 
 
-def run_serve_phase(eng, want_rate, orc, wends, num_series):
+def start_server(eng):
+    """The serve-1M server: FiloHttpServer(PromHttpApi({"prometheus":
+    eng}), port=0) with the clients step's batch window, and its client
+    -> (api, srv, http).  The caller stops srv."""
+    from filodb_tpu_torch.config import FilodbSettings
+    from filodb_tpu_torch.http.routes import PromHttpApi
+    from filodb_tpu_torch.http.server import FiloHttpServer
+    cfg = FilodbSettings()
+    cfg.query.batch_window_ms = SERVE_WINDOW_MS
+    api = PromHttpApi({"prometheus": eng}, config=cfg)
+    # the coalescer waits only for the clients step (its window delays
+    # every request it takes)
+    api.frontends["prometheus"].coalescer.window_s = 0.0
+    srv = FiloHttpServer(api, port=0)
+    srv.start()
+    return api, srv, Http(srv.port)
+
+
+def run_serve_phase(eng, api, http, want_rate, orc, wends, num_series):
     """serve-1M over the dense counter store, through the port's HTTP
-    stack (FiloHttpServer(PromHttpApi({"prometheus": eng}), port=0), driven
-    over real HTTP from this process): the dashboard batch (POST
-    /api/v1/query_range_batch, cold and SERVE_BATCH_WARM warm) bit for bit
-    against each panel alone (GET /api/v1/query_range, exprfuse off) and
-    against the f64 oracles; SERVE_CLIENTS clients polling the rate-only
-    panels with the coalescer on; the result cache; a kill -> (launches,
-    rows)."""
+    stack (start_server's, driven over real HTTP from this process): the
+    dashboard batch (POST /api/v1/query_range_batch, cold and
+    SERVE_BATCH_WARM warm) bit for bit against each panel alone (GET
+    /api/v1/query_range, exprfuse off) and against the f64 oracles;
+    SERVE_CLIENTS clients polling the rate-only panels with the coalescer
+    on; the result cache; a kill -> (launches, rows)."""
     import threading
 
     import torch
-    from filodb_tpu_torch.config import FilodbSettings, settings
-    from filodb_tpu_torch.http.routes import PromHttpApi
-    from filodb_tpu_torch.http.server import FiloHttpServer
+    from filodb_tpu_torch.config import settings
     from filodb_tpu_torch.ops import kernels
     from filodb_tpu_torch.utils.metrics import registry
     start_s = START_MS // 1000
@@ -2661,16 +2695,7 @@ def run_serve_phase(eng, want_rate, orc, wends, num_series):
     gsize = np.bincount(np.arange(num_series) % NUM_NS,
                         minlength=NUM_NS).astype(np.float64)
     avg = want_rate / gsize[:, None]
-    cfg = FilodbSettings()
-    cfg.query.batch_window_ms = SERVE_WINDOW_MS
-    api = PromHttpApi({"prometheus": eng}, config=cfg)
     fe = api.frontends["prometheus"]
-    # the coalescer waits only for the clients step (its window delays
-    # every request it takes)
-    fe.coalescer.window_s = 0.0
-    srv = FiloHttpServer(api, port=0)
-    srv.start()
-    http = Http(srv.port)
 
     def counter(name, **tags):
         return registry.counter(name, **tags).value
@@ -2679,224 +2704,476 @@ def run_serve_phase(eng, want_rate, orc, wends, num_series):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     rows = []
-    try:
-        # 1. the dashboard batch
-        body = json.dumps({"queries": DASHBOARD, **grid}).encode()
-        batches, secs = [], []
-        for i in range(SERVE_BATCH_WARM + 1):
-            n0 = dict(kernels.LAUNCHES)
-            memo0 = counter("leaf_gather_memo_hits")
-            with GcPauses() as gcp:
-                st, pay, s = http.call("POST", "/api/v1/query_range_batch",
-                                       {**scan, "stats": "true"}, body)
-            check(st == 200, f"serve-1M batch {i}: status {st} {pay}")
-            k1 = {k: kernels.LAUNCHES[k] - n0[k] for k in kernels.LAUNCHES
-                  if kernels.LAUNCHES[k] > n0[k]}
-            check(k1.get("fused_rate_dense", 0) >= 1,
-                  f"serve-1M batch {i} did not launch K1: {k1}")
-            res = pay["results"]
-            fusedn = sum(r["stats"]["exprfuse"]["fused"] for r in res)
-            degr = sum(r["stats"]["exprfuse"]["degraded"] for r in res)
-            log(f"serve-1M: batch {'cold' if i == 0 else f'warm {i}'} "
-                f"{s:.4f} s ({gcp}); launches {k1}; exprfuse_fused "
-                f"{fusedn} exprfuse_degraded {degr}; leaf_gather_memo_hits "
-                f"{counter('leaf_gather_memo_hits') - memo0:.0f}; per-panel "
-                "exec_s " + json.dumps(
-                    [r["stats"]["phases"]["exec_s"] for r in res])
-                + " transfer_s " + json.dumps(
-                    [r["stats"]["phases"]["transfer_s"] for r in res]))
-            batches.append(res)
-            secs.append(s)
-        log(f"serve-1M: dashboard batch {warm_line(secs)}")
-        # the same batch through the engine alone, warm: the rest of the
-        # HTTP batch's wall is the HTTP layer and JSON, both ways
+    # 1. the dashboard batch
+    body = json.dumps({"queries": DASHBOARD, **grid}).encode()
+    batches, secs = [], []
+    for i in range(SERVE_BATCH_WARM + 1):
+        n0 = dict(kernels.LAUNCHES)
+        memo0 = counter("leaf_gather_memo_hits")
         with GcPauses() as gcp:
-            t0 = time.perf_counter()
-            direct = eng.query_range_batch(DASHBOARD, grid["start"], 60,
-                                           end_s, scan_params())
-            direct_s = time.perf_counter() - t0
-        check(all(r.error is None for r in direct),
-              "serve-1M: the engine's batch failed")
-        log(f"serve-1M: the engine's query_range_batch alone {direct_s:.4f}"
-            f" s ({gcp}); the HTTP layer and JSON "
-            f"{np.percentile(secs[1:], 50) - direct_s:.4f} s of the warm "
-            "p50")
-        del direct
-        for a, b in zip(batches[-2], batches[-1]):
-            check(series_map(a) == series_map(b),
-                  "serve-1M: two warm batches differ")
-        last = batches[-1]
-        # 2. each panel alone, exprfuse off
-        settings().query.exprfuse_enabled = False
-        singles, single_s, single_gc = [], [], []
-        try:
-            for q in DASHBOARD:
-                with GcPauses() as gcp:
-                    st, pay, s = http.call("GET", "/api/v1/query_range",
-                                           {"query": q, **grid, **scan})
-                single_gc.append(round(gcp.seconds, 4))
-                check(st == 200, f"serve-1M single `{q}`: {st} {pay}")
-                singles.append(pay)
-                single_s.append(s)
-        finally:
-            settings().query.exprfuse_enabled = True
-        for q, b, s1, s in zip(DASHBOARD, last, singles, single_s):
-            check(series_map(b) == series_map(s1),
-                  f"serve-1M: batch panel `{q}` differs from its run alone")
-        log("serve-1M: every batch panel bit-identical to its run alone "
-            "(exprfuse off), value strings and label sets; singles s "
-            + json.dumps([round(s, 4) for s in single_s]) + ", gc s in them "
-            + json.dumps(single_gc))
-        # the f64 oracles
-        m = [matrix_of(p, wends) for p in last]
-        errs = {
-            "sum rate": check_close(m[0], want_rate, *tol, "serve-1M p1"),
-            "avg rate": check_close(m[1], avg, *tol, "serve-1M p2"),
-            "max_over_time": check_close(m[2], orc["max"], *tol,
-                                         "serve-1M p3"),
-            "ratio": check_close(m[4], avg, *tol, "serve-1M p5"),
-            "increase": check_close(m[5], want_rate * (RANGE_MS / 1000),
-                                    *tol, "serve-1M p6"),
-        }
-        errs = {k: v[0] for k, v in errs.items()}
-        check(np.array_equal(m[3], np.broadcast_to(gsize[:, None],
-                                                   m[3].shape)),
-              "serve-1M p4: count by (_ns_) is not each group's size")
-        check(np.array_equal(m[7], np.ones_like(m[7])),
-              "serve-1M p8: sum > bool avg is not 1 everywhere")
-        third = np.sort(want_rate, axis=0)[-3]
-        top = m[6]
-        check(((~np.isnan(top)).sum(axis=0) == 3).all(),
-              "serve-1M p7: topk(3) has not 3 series a step")
-        ok = ~np.isnan(top)
-        errs["topk"] = check_close(np.where(ok, top, np.nan),
-                                   np.where(ok, want_rate, np.nan), *tol,
-                                   "serve-1M p7")[0]
-        check((top[ok] >= (third[None, :] * (1 - tol[0]) - tol[1])
-               .repeat(NUM_NS, 0)[ok]).all(),
-              "serve-1M p7: a topk(3) member below the oracle's third")
-        log("serve-1M: oracle max_abs_err " + json.dumps(errs)
-            + f" (rtol {tol[0]}, atol {tol[1]}); count exact; bool exact")
-        rows.append(dict(query="dashboard batch", cold_s=secs[0],
-                         p50=float(np.percentile(secs[1:], 50))))
-        # 3. concurrent clients, the coalescer on
-        fe.cache.clear()
-        fe.coalescer.window_s = cfg.query.batch_window_ms / 1000.0
-        sf0, cb0 = counter("query_singleflight_hits"), \
-            counter("coalesce_merged_batches")
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        lat, answers, errors, verdicts = [], [], [], []
-        barrier = threading.Barrier(SERVE_CLIENTS)
-
-        def client(c):
-            try:
-                barrier.wait()
-                for _ in range(2):
-                    for j in range(len(RATE_ONLY)):
-                        p = RATE_ONLY[(c + j) % len(RATE_ONLY)]
-                        st, pay, s = http.call(
-                            "GET", "/api/v1/query_range",
-                            {"query": DASHBOARD[p], **grid, **scan,
-                             "stats": "true"})
-                        lat.append(s)
-                        answers.append((p, st, pay))
-                        verdicts.append(pay["stats"]["cache"]["result"])
-            except Exception as e:  # noqa: BLE001 — reported below
-                errors.append(e)
-
+            st, pay, s = http.call("POST", "/api/v1/query_range_batch",
+                                   {**scan, "stats": "true"}, body)
+        check(st == 200, f"serve-1M batch {i}: status {st} {pay}")
+        k1 = {k: kernels.LAUNCHES[k] - n0[k] for k in kernels.LAUNCHES
+              if kernels.LAUNCHES[k] > n0[k]}
+        check(k1.get("fused_rate_dense", 0) >= 1,
+              f"serve-1M batch {i} did not launch K1: {k1}")
+        res = pay["results"]
+        fusedn = sum(r["stats"]["exprfuse"]["fused"] for r in res)
+        degr = sum(r["stats"]["exprfuse"]["degraded"] for r in res)
+        log(f"serve-1M: batch {'cold' if i == 0 else f'warm {i}'} "
+            f"{s:.4f} s ({gcp}); launches {k1}; exprfuse_fused "
+            f"{fusedn} exprfuse_degraded {degr}; leaf_gather_memo_hits "
+            f"{counter('leaf_gather_memo_hits') - memo0:.0f}; per-panel "
+            "exec_s " + json.dumps(
+                [r["stats"]["phases"]["exec_s"] for r in res])
+            + " transfer_s " + json.dumps(
+                [r["stats"]["phases"]["transfer_s"] for r in res]))
+        batches.append(res)
+        secs.append(s)
+    log(f"serve-1M: dashboard batch {warm_line(secs)}")
+    # the same batch through the engine alone, warm: the rest of the
+    # HTTP batch's wall is the HTTP layer and JSON, both ways
+    with GcPauses() as gcp:
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in range(SERVE_CLIENTS)]
-        with GcPauses() as gcp:
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-        wall = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        check(not errors and not any(t.is_alive() for t in threads),
-              f"serve-1M clients: {errors[:3]}")
-        for p, st, pay in answers:
-            check(st == 200 and series_map(pay) == series_map(singles[p]),
-                  f"serve-1M: a client's `{DASHBOARD[p]}` differs from the "
-                  "sequential answer")
-        sf = counter("query_singleflight_hits") - sf0
-        cb = counter("coalesce_merged_batches") - cb0
-        check(sf > 0, "serve-1M: no singleflight hit")
-        check(cb > 0, "serve-1M: the coalescer merged no batch")
-        gather = num_series * T * 8        # int32 offsets + f32 values
-        check(peak < SERVE_CLIENTS * gather,
-              f"serve-1M: peak device memory {peak} B over "
-              f"{SERVE_CLIENTS} gathers ({SERVE_CLIENTS * gather} B)")
-        log(f"serve-1M: {SERVE_CLIENTS} clients x {2 * len(RATE_ONLY)} "
-            f"requests in {wall:.3f} s ({gcp}; cache verdicts "
-            f"{ {v: verdicts.count(v) for v in sorted(set(verdicts))} }): p50 "
-            f"{np.percentile(lat, 50):.4f} s p99 "
-            f"{np.percentile(lat, 99):.4f} s; query_singleflight_hits "
-            f"{sf:.0f}; coalesce_merged_batches {cb:.0f}; peak device "
-            f"memory above the baseline {peak} B (one gather {gather} B); "
-            "answers bit-identical to the sequential ones")
-        rows.append(dict(query="clients", p50=float(np.percentile(lat, 50)),
-                         p99=float(np.percentile(lat, 99))))
-        # 4. the result cache, on the headline panel
-        fe.coalescer.window_s = 0.0
-        head = {"query": DASHBOARD[0], **grid, **scan, "stats": "true"}
-        timings = {"miss": [], "hit": []}
-        for verdict in ("miss", "hit"):
-            for _ in range(SERVE_CACHE_POLLS):
-                if verdict == "miss":
-                    fe.cache.clear()
-                st, pay, s = http.call("GET", "/api/v1/query_range", head)
-                got = pay["stats"]["cache"]["result"]
-                check(st == 200 and got == verdict,
-                      f"serve-1M: cache verdict {got}, expected {verdict}")
-                check(series_map(pay) == series_map(singles[0]),
-                      f"serve-1M: a cache {verdict} differs")
-                timings[verdict].append(s)
-        log(f"serve-1M: headline panel uncached p50 "
-            f"{np.percentile(timings['miss'], 50):.4f} s, cached p50 "
-            f"{np.percentile(timings['hit'], 50):.4f} s "
-            f"({SERVE_CACHE_POLLS} polls each, verdicts from stats)")
-        # 5. a kill
-        fe.cache.clear()
-        out = []
-        t = threading.Thread(target=lambda: out.append(http.call(
-            "GET", "/api/v1/query_range",
-            {"query": KILL_QUERY, **grid, **scan})))
-        t_start = time.perf_counter()
-        t.start()
-        qid = None
-        while qid is None and time.perf_counter() - t_start < 120:
-            _, pay, _ = http.call("GET", "/admin/queries")
-            for r in pay["data"]["queries"]:
-                if r["promql"] == KILL_QUERY and r["phase"] == "executing":
-                    qid = r["queryID"]
-            time.sleep(0.02)
-        check(qid is not None, "serve-1M: the query to kill never ran")
-        time.sleep(KILL_AFTER_S)
-        t_kill = time.perf_counter()
-        st, pay, _ = http.call("POST", f"/admin/queries/{qid}/kill")
-        check(st == 200 and pay["data"]["killed"],
-              f"serve-1M: kill answered {st} {pay}")
-        t.join(timeout=600)
-        back = time.perf_counter() - t_kill
-        st, pay, _ = out[0]
-        check(st != 200 and pay.get("errorType") == "canceled"
-              and pay["error"].startswith("query_canceled"),
-              f"serve-1M: the killed query answered {st} {pay}")
-        log(f"serve-1M: `{KILL_QUERY}` killed "
-            f"{t_kill - t_start:.3f} s after it was sent; answered "
-            f"{st} {pay['errorType']} {back:.4f} s after the kill: "
-            f"{pay['error']}")
-        rows.append(dict(query=KILL_QUERY, kill_latency_s=back))
+        direct = eng.query_range_batch(DASHBOARD, grid["start"], 60,
+                                       end_s, scan_params())
+        direct_s = time.perf_counter() - t0
+    check(all(r.error is None for r in direct),
+          "serve-1M: the engine's batch failed")
+    log(f"serve-1M: the engine's query_range_batch alone {direct_s:.4f}"
+        f" s ({gcp}); the HTTP layer and JSON "
+        f"{np.percentile(secs[1:], 50) - direct_s:.4f} s of the warm "
+        "p50")
+    del direct
+    for a, b in zip(batches[-2], batches[-1]):
+        check(series_map(a) == series_map(b),
+              "serve-1M: two warm batches differ")
+    last = batches[-1]
+    # 2. each panel alone, exprfuse off
+    settings().query.exprfuse_enabled = False
+    singles, single_s, single_gc = [], [], []
+    try:
+        for q in DASHBOARD:
+            with GcPauses() as gcp:
+                st, pay, s = http.call("GET", "/api/v1/query_range",
+                                       {"query": q, **grid, **scan})
+            single_gc.append(round(gcp.seconds, 4))
+            check(st == 200, f"serve-1M single `{q}`: {st} {pay}")
+            singles.append(pay)
+            single_s.append(s)
     finally:
-        srv.stop()
+        settings().query.exprfuse_enabled = True
+    for q, b, s1, s in zip(DASHBOARD, last, singles, single_s):
+        check(series_map(b) == series_map(s1),
+              f"serve-1M: batch panel `{q}` differs from its run alone")
+    log("serve-1M: every batch panel bit-identical to its run alone "
+        "(exprfuse off), value strings and label sets; singles s "
+        + json.dumps([round(s, 4) for s in single_s]) + ", gc s in them "
+        + json.dumps(single_gc))
+    # the f64 oracles
+    m = [matrix_of(p, wends) for p in last]
+    errs = {
+        "sum rate": check_close(m[0], want_rate, *tol, "serve-1M p1"),
+        "avg rate": check_close(m[1], avg, *tol, "serve-1M p2"),
+        "max_over_time": check_close(m[2], orc["max"], *tol,
+                                     "serve-1M p3"),
+        "ratio": check_close(m[4], avg, *tol, "serve-1M p5"),
+        "increase": check_close(m[5], want_rate * (RANGE_MS / 1000),
+                                *tol, "serve-1M p6"),
+    }
+    errs = {k: v[0] for k, v in errs.items()}
+    check(np.array_equal(m[3], np.broadcast_to(gsize[:, None],
+                                               m[3].shape)),
+          "serve-1M p4: count by (_ns_) is not each group's size")
+    check(np.array_equal(m[7], np.ones_like(m[7])),
+          "serve-1M p8: sum > bool avg is not 1 everywhere")
+    third = np.sort(want_rate, axis=0)[-3]
+    top = m[6]
+    check(((~np.isnan(top)).sum(axis=0) == 3).all(),
+          "serve-1M p7: topk(3) has not 3 series a step")
+    ok = ~np.isnan(top)
+    errs["topk"] = check_close(np.where(ok, top, np.nan),
+                               np.where(ok, want_rate, np.nan), *tol,
+                               "serve-1M p7")[0]
+    check((top[ok] >= (third[None, :] * (1 - tol[0]) - tol[1])
+           .repeat(NUM_NS, 0)[ok]).all(),
+          "serve-1M p7: a topk(3) member below the oracle's third")
+    log("serve-1M: oracle max_abs_err " + json.dumps(errs)
+        + f" (rtol {tol[0]}, atol {tol[1]}); count exact; bool exact")
+    rows.append(dict(query="dashboard batch", cold_s=secs[0],
+                     p50=float(np.percentile(secs[1:], 50))))
+    # 3. concurrent clients, the coalescer on
+    fe.cache.clear()
+    fe.coalescer.window_s = SERVE_WINDOW_MS / 1000.0
+    sf0, cb0 = counter("query_singleflight_hits"), \
+        counter("coalesce_merged_batches")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lat, answers, errors, verdicts = [], [], [], []
+    barrier = threading.Barrier(SERVE_CLIENTS)
+
+    def client(c):
+        try:
+            barrier.wait()
+            for _ in range(2):
+                for j in range(len(RATE_ONLY)):
+                    p = RATE_ONLY[(c + j) % len(RATE_ONLY)]
+                    st, pay, s = http.call(
+                        "GET", "/api/v1/query_range",
+                        {"query": DASHBOARD[p], **grid, **scan,
+                         "stats": "true"})
+                    lat.append(s)
+                    answers.append((p, st, pay))
+                    verdicts.append(pay["stats"]["cache"]["result"])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    with GcPauses() as gcp:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"serve-1M clients: {errors[:3]}")
+    for p, st, pay in answers:
+        check(st == 200 and series_map(pay) == series_map(singles[p]),
+              f"serve-1M: a client's `{DASHBOARD[p]}` differs from the "
+              "sequential answer")
+    sf = counter("query_singleflight_hits") - sf0
+    cb = counter("coalesce_merged_batches") - cb0
+    check(sf > 0, "serve-1M: no singleflight hit")
+    check(cb > 0, "serve-1M: the coalescer merged no batch")
+    gather = num_series * T * 8        # int32 offsets + f32 values
+    check(peak < SERVE_CLIENTS * gather,
+          f"serve-1M: peak device memory {peak} B over "
+          f"{SERVE_CLIENTS} gathers ({SERVE_CLIENTS * gather} B)")
+    log(f"serve-1M: {SERVE_CLIENTS} clients x {2 * len(RATE_ONLY)} "
+        f"requests in {wall:.3f} s ({gcp}; cache verdicts "
+        f"{ {v: verdicts.count(v) for v in sorted(set(verdicts))} }): p50 "
+        f"{np.percentile(lat, 50):.4f} s p99 "
+        f"{np.percentile(lat, 99):.4f} s; query_singleflight_hits "
+        f"{sf:.0f}; coalesce_merged_batches {cb:.0f}; peak device "
+        f"memory above the baseline {peak} B (one gather {gather} B); "
+        "answers bit-identical to the sequential ones")
+    rows.append(dict(query="clients", p50=float(np.percentile(lat, 50)),
+                     p99=float(np.percentile(lat, 99))))
+    # 4. the result cache, on the headline panel
+    fe.coalescer.window_s = 0.0
+    head = {"query": DASHBOARD[0], **grid, **scan, "stats": "true"}
+    timings = {"miss": [], "hit": []}
+    for verdict in ("miss", "hit"):
+        for _ in range(SERVE_CACHE_POLLS):
+            if verdict == "miss":
+                fe.cache.clear()
+            st, pay, s = http.call("GET", "/api/v1/query_range", head)
+            got = pay["stats"]["cache"]["result"]
+            check(st == 200 and got == verdict,
+                  f"serve-1M: cache verdict {got}, expected {verdict}")
+            check(series_map(pay) == series_map(singles[0]),
+                  f"serve-1M: a cache {verdict} differs")
+            timings[verdict].append(s)
+    log(f"serve-1M: headline panel uncached p50 "
+        f"{np.percentile(timings['miss'], 50):.4f} s, cached p50 "
+        f"{np.percentile(timings['hit'], 50):.4f} s "
+        f"({SERVE_CACHE_POLLS} polls each, verdicts from stats)")
+    # 5. a kill
+    fe.cache.clear()
+    out = []
+    t = threading.Thread(target=lambda: out.append(http.call(
+        "GET", "/api/v1/query_range",
+        {"query": KILL_QUERY, **grid, **scan})))
+    t_start = time.perf_counter()
+    t.start()
+    qid = None
+    while qid is None and time.perf_counter() - t_start < 120:
+        _, pay, _ = http.call("GET", "/admin/queries")
+        for r in pay["data"]["queries"]:
+            if r["promql"] == KILL_QUERY and r["phase"] == "executing":
+                qid = r["queryID"]
+        time.sleep(0.02)
+    check(qid is not None, "serve-1M: the query to kill never ran")
+    time.sleep(KILL_AFTER_S)
+    t_kill = time.perf_counter()
+    st, pay, _ = http.call("POST", f"/admin/queries/{qid}/kill")
+    check(st == 200 and pay["data"]["killed"],
+          f"serve-1M: kill answered {st} {pay}")
+    t.join(timeout=600)
+    back = time.perf_counter() - t_kill
+    st, pay, _ = out[0]
+    check(st != 200 and pay.get("errorType") == "canceled"
+          and pay["error"].startswith("query_canceled"),
+          f"serve-1M: the killed query answered {st} {pay}")
+    log(f"serve-1M: `{KILL_QUERY}` killed "
+        f"{t_kill - t_start:.3f} s after it was sent; answered "
+        f"{st} {pay['errorType']} {back:.4f} s after the kill: "
+        f"{pay['error']}")
+    rows.append(dict(query=KILL_QUERY, kill_latency_s=back))
     launches = dict(kernels.LAUNCHES)
     log(f"serve-1M: max_memory_allocated {torch.cuda.max_memory_allocated()}"
         f" B; launches {({k: v for k, v in launches.items() if v})}")
+    return launches, rows
+
+
+OPS_FUSED = ("fused_rate", "fused_increase", "fused_delta")  # K1's labels
+
+
+def mirror_nbytes(eng):
+    """The bytes of every device tensor of the engine's mirrors'
+    snapshots (holding no reference to them)."""
+    n = 0
+    for sh in eng.source.shards_for("prometheus"):
+        for store in sh.stores.values():
+            m = getattr(store, "device_mirror", None)
+            snap = m.snapshot() if m is not None else None
+            if snap is not None:
+                n += sum(t.numel() * t.element_size() for t in
+                         (snap.ts_off, *snap.cols.values(),
+                          *snap.vbases.values()))
+    return n
+
+
+def run_ops_phase(eng, api, http, built, evictions):
+    """ops-1M, on the serve-1M server over the same 1M-series store: /ready
+    and the health model; /admin/devices after one warm dashboard batch
+    (K1's ledger dispatches against its launches, busy seconds, the
+    booked `hot` bytes against the mirror's tensors and the allocator,
+    one compile a source this process built); stats=all's device split;
+    explain (no launch, no device memory) and explain-analyze (K1, its
+    ledger sum); a `device.upload` fault in an inline refresh and in the
+    background rebuild, then the same answer bit for bit; the profiler.
+    `built`: the csrc/ sources this process compiled; `evictions`: the
+    padded-values cache's evictions per earlier phase -> (launches,
+    rows)."""
+    import gc
+
+    import torch
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.query import execbase
+    from filodb_tpu_torch.utils.devicetelem import telem
+    from filodb_tpu_torch.utils.faults import faults
+    from filodb_tpu_torch.utils.jobs import jobs
+    dev = eng.device
+    start_s = START_MS // 1000
+    end_s = start_s + (T - 1) * STEP_MS // 1000
+    grid = {"start": start_s + 600, "step": 60, "end": end_s}
+    scan = {"scanLimit": str(SCAN_LIMIT)}
+    fe = api.frontends["prometheus"]
+    body = json.dumps({"queries": DASHBOARD, **grid}).encode()
+    head = {"query": DASHBOARD[0], **grid, **scan}
+    kernels.reset_launch_counts()
+    rows = []
+    log(f"ops-1M: fused values budget {execbase._fused_vals_budget()} B "
+        f"(device {dev}, total memory {torch.cuda.mem_get_info(dev)[1]} B,"
+        f" mirror budget {execbase._MIRROR_LIMIT_SEEN} B); cache evictions "
+        "per phase " + json.dumps(evictions))
+
+    # 1. readiness and the health model
+    st, pay, _ = http.call("GET", "/ready")
+    check(st == 200 and pay == {"status": "ready"}, f"ops-1M /ready {st} {pay}")
+
+    def health_ok(what):
+        st, pay, _ = http.call("GET", "/api/v1/status/health")
+        subs = pay["data"]["subsystems"]
+        bad = {k: v for k, v in subs.items() if v["status"] != "ok"}
+        check(st == 200 and not bad and pay["data"]["status"] == "ok",
+              f"ops-1M: health {what}: {bad or pay}")
+        return subs
+    subs = health_ok("at start")
+    log("ops-1M: /ready 200; /api/v1/status/health ok in "
+        + ", ".join(sorted(subs)))
+
+    # 2. /admin/devices over one warm dashboard batch
+    st, pay, _ = http.call("POST", "/api/v1/query_range_batch", scan, body)
+    check(st == 200, f"ops-1M: warm-up batch {st}")
+
+    def devices():
+        st, pay, _ = http.call("GET", "/admin/devices", {"recent": "0"})
+        check(st == 200, f"ops-1M: /admin/devices {st} {pay}")
+        return pay["data"]["devices"]
+
+    def k1_dispatches(d):
+        ks = d.get(str(dev), {}).get("kernels", {})
+        return sum(ks.get(k, {}).get("count", 0) for k in OPS_FUSED)
+    d0 = devices()
+    n0 = dict(kernels.LAUNCHES)
+    st, pay, batch_s = http.call("POST", "/api/v1/query_range_batch", scan,
+                                 body)
+    check(st == 200, f"ops-1M: batch {st}")
+    torch.cuda.synchronize()
+    d1 = devices()
+    k1 = sum(kernels.LAUNCHES[k] - n0[k] for k in
+             ("fused_rate_dense", "fused_rate_dense_series"))
+    disp = k1_dispatches(d1) - k1_dispatches(d0)
+    card = d1.get(str(dev))
+    check(card is not None, f"ops-1M: no {dev} row in /admin/devices: "
+          f"{sorted(d1)}")
+    check(k1 >= 1 and disp == k1, f"ops-1M: K1 launched {k1} times, the "
+          f"ledger shows {disp} fused rate-family dispatches")
+    check(card["busySeconds"] > d0.get(str(dev), {}).get("busySeconds", 0),
+          f"ops-1M: busySeconds did not grow: {card['busySeconds']}")
+    nbytes = mirror_nbytes(eng)
+    alloc = torch.cuda.memory_allocated(dev)
+    check(card["hbm"].get("hot") == nbytes,
+          f"ops-1M: booked hot {card['hbm']} != the mirror's {nbytes} B")
+    check(nbytes <= alloc, f"ops-1M: booked {nbytes} B over the "
+          f"allocator's {alloc} B")
+    compiles = sum(d.get("compiles", 0) for d in d1.values())
+    check(compiles == len(built), f"ops-1M: {compiles} compile entries, "
+          f"this process built {built}")
+    log(f"ops-1M: warm batch {batch_s:.4f} s; K1 launches {k1} = ledger "
+        f"dispatches {disp}; {dev} busySeconds {card['busySeconds']} "
+        f"utilEwma {card['utilEwma']} dispatches {card['dispatches']}; "
+        f"kernels " + json.dumps(card["kernels"]) + f"; booked hot "
+        f"{nbytes} B = the mirror's tensors, memory_allocated {alloc} B, "
+        f"high water {card['hbmHighWaterBytes']} B; compiles {compiles} "
+        f"(built here: {built})")
+    rows.append(dict(query="ops batch", seconds=batch_s, k1=k1,
+                     busy_s=card["busySeconds"]))
+
+    # 3. stats=all: the device split of a warm fused panel
+    fe.cache.clear()
+    http.call("GET", "/api/v1/query_range", head)
+    fe.cache.clear()
+    st, pay, _ = http.call("GET", "/api/v1/query_range",
+                           {**head, "stats": "all"})
+    check(st == 200, f"ops-1M: stats=all {st}")
+    s = pay["stats"]
+    split = [c["seconds"] for dv in s["devices"].values()
+             for c in dv.values()]
+    check(s["phases"]["device_s"] > 0 and split, f"ops-1M: stats {s}")
+    check(abs(sum(split) - s["phases"]["device_s"]) <= 1e-6 * len(split),
+          f"ops-1M: device split {sum(split)} != device_s "
+          f"{s['phases']['device_s']} (6-decimal JSON)")
+    res = eng.query_range(DASHBOARD[0], grid["start"], 60, end_s,
+                          scan_params())
+    st_ = res.stats
+    exact = sum(c[0] for c in st_.device_calls.values())
+    check(res.error is None and st_.device_seconds > 0
+          and abs(exact - st_.device_seconds) <= 1e-9,
+          f"ops-1M: QueryStats split {exact} != {st_.device_seconds}")
+    log(f"ops-1M: stats=all device_s {s['phases']['device_s']} s = sum of "
+        f"devices " + json.dumps(s["devices"]) + f"; engine QueryStats "
+        f"device_seconds {st_.device_seconds} = its split to 1e-9")
+
+    # 4. explain launches nothing; analyze runs K1 once
+    torch.cuda.synchronize()
+    n0, m0 = dict(kernels.LAUNCHES), torch.cuda.memory_allocated(dev)
+    for path, extra in (("/api/v1/query_range", {"explain": "true"}),
+                        ("/api/v1/query", {"explain": "true",
+                                           "time": str(end_s)}),
+                        ("/api/v1/explain", {})):
+        st, pay, _ = http.call("GET", path, {**head, **extra})
+        check(st == 200 and pay["data"]["resultType"] == "execPlan",
+              f"ops-1M: explain {path} {st} {pay}")
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES == n0, "ops-1M: explain launched a kernel")
+    m1 = torch.cuda.memory_allocated(dev)
+    check(m1 == m0, f"ops-1M: explain moved memory_allocated {m0} -> {m1}")
+    tree = pay["data"]["result"]
+    st, pay, an_s = http.call("GET", "/api/v1/explain",
+                              {**head, "analyze": "true"})
+    check(st == 200 and pay["data"]["resultType"] == "execPlanAnalysis",
+          f"ops-1M: analyze {st} {pay}")
+    k1 = kernels.LAUNCHES["fused_rate_dense"] - n0["fused_rate_dense"]
+    check(k1 == 1, f"ops-1M: analyze launched K1 {k1} times")
+    tid = pay["data"]["traceID"]
+    ledger = sum(e["seconds"] for e in telem.recent(limit=512,
+                                                     kind="kernel")
+                 if e["origin"] == tid)
+    node_dev = sum(n["device_s"] for n in pay["data"]["nodes"])
+    check(ledger > 0 and abs(node_dev - ledger) <= 1e-5,
+          f"ops-1M: analyze device {node_dev} s, its ledger {ledger} s")
+    log("ops-1M: explain (query_range, query, /api/v1/explain) launched "
+        f"nothing, memory_allocated {m0} B before and after; tree "
+        + json.dumps(tree) + f"; analyze {an_s:.4f} s, K1 once, nodes' "
+        f"device {node_dev:.6f} s = the trace's ledger {ledger:.6f} s: "
+        + json.dumps(pay["data"]["result"]))
+
+    # 5. device.upload: the inline first build, then a background rebuild
+    shard = eng.source.get_shard("prometheus", 0)
+    store = next(x for x in shard.stores.values()
+                 if getattr(x, "device_mirror", None) is not None)
+    fe.cache.clear()
+    st, before, _ = http.call("GET", "/api/v1/query_range", head)
+    check(st == 200, f"ops-1M: the answer before the fault {st}")
+    torch.cuda.synchronize()
+    m_before = torch.cuda.memory_allocated(dev)
+    mirror_bytes = store.device_mirror.booked_bytes
+    store.device_mirror = None
+    gc.collect()
+    torch.cuda.synchronize()
+    m_dropped = torch.cuda.memory_allocated(dev)
+    faults.arm("device.upload", "error", first_k=2)
+    try:
+        fe.cache.clear()
+        st, pay, _ = http.call("GET", "/api/v1/query_range", head)
+        check(st != 200 and "device.upload" in pay.get("error", ""),
+              f"ops-1M: the faulted query answered {st} {pay}")
+        fault_err = pay["error"]
+        torch.cuda.synchronize()
+        m_fault = torch.cuda.memory_allocated(dev)
+        mirror = store.device_mirror
+        check(mirror.snapshot() is None and mirror.booked_bytes == 0
+              and m_fault <= m_dropped,
+              f"ops-1M: the failed upload left device arrays: "
+              f"{m_dropped} -> {m_fault} B")
+        check(mirror.request_background_refresh(shard, store)
+              and mirror.join_rebuild(120),
+              "ops-1M: the background rebuild did not run")
+    finally:
+        faults.disarm()
+    key = f"mirror_rebuild:prometheus/{shard.shard_num}"
+    st, pay, _ = http.call("GET", "/api/v1/status/health")
+    job = pay["data"]["subsystems"]["jobs"]["jobs"].get(key, {})
+    check(job.get("status") == "degraded"
+          and "device.upload" in job.get("lastError", ""),
+          f"ops-1M: health shows no failed rebuild: {job}")
+    fe.cache.clear()
+    t0 = time.perf_counter()
+    st, after, _ = http.call("GET", "/api/v1/query_range", head)
+    reup_s = time.perf_counter() - t0
+    check(st == 200 and series_map(after) == series_map(before),
+          "ops-1M: the answer after the fault differs from the one before")
+    torch.cuda.synchronize()
+    m_after = torch.cuda.memory_allocated(dev)
+    check(abs(m_after - m_before) <= mirror_bytes,
+          f"ops-1M: memory_allocated {m_before} -> {m_after} B, more than "
+          f"one mirror ({mirror_bytes} B)")
+    check(mirror.request_background_refresh(shard, store)
+          and mirror.join_rebuild(120), "ops-1M: the clean rebuild")
+    health_ok("after the fault drill")
+    snap = [j for j in jobs.snapshot() if j["job"] == "mirror_rebuild"]
+    log(f"ops-1M: device.upload armed: the query answered `{fault_err}`; "
+        f"memory_allocated {m_before} -> {m_dropped} (mirror dropped) -> "
+        f"{m_fault} (failed upload) -> {m_after} B (re-uploaded in "
+        f"{reup_s:.3f} s, mirror {mirror_bytes} B); health jobs showed "
+        f"`{job['lastError']}`, ok again after a clean rebuild; the answer "
+        f"bit-identical to the one before; jobs " + json.dumps(snap))
+
+    # 6. the profiler over one warm batch
+    st, pay, _ = http.call("POST", "/admin/profiler/start", {"hz": "100"})
+    check(st == 200, f"ops-1M: profiler start {st} {pay}")
+    st, _, prof_s = http.call("POST", "/api/v1/query_range_batch", scan,
+                              body)
+    st, pay, _ = http.call("POST", "/admin/profiler/stop")
+    check(st == 200 and pay["samples"] > 0,
+          f"ops-1M: profiler stop {st} {pay}")
+    samples = pay["samples"]
+    st, rep, _ = http.call("GET", "/admin/profiler/report", {"top": "8"},
+                           text=True)
+    check(st == 200 and "samples" in rep, f"ops-1M: profiler report {st}")
+    log(f"ops-1M: profiler {samples} samples over a {prof_s:.3f} s batch; "
+        "report:\n" + rep[:2000])
+    launches = dict(kernels.LAUNCHES)
+    log(f"ops-1M: launches {({k: v for k, v in launches.items() if v})}")
     return launches, rows
 
 
@@ -2960,21 +3237,41 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+    # the sources this process compiles (ops-1M finds one compile each
+    # in the device telemetry)
+    built = [n for n in kernels.SOURCES
+             if not kernels.library_path(n).exists()]
     kernels.finish_builds(kernels.start_builds())
     for name in kernels.SOURCES:
         kernels.library(name)
     log(f"build {time.perf_counter() - t0:.2f} s "
-        f"({', '.join(kernels.SOURCES)})")
+        f"({', '.join(kernels.SOURCES)}; compiled here: {built})")
     log_ptxas(kernels)
     dev = torch.device("cuda", 0)
 
     phase_s = {"build": time.perf_counter() - t0}
+    # the padded-values cache's evictions per phase (its byte budget,
+    # query/execbase._fused_vals_budget, is what ops-1M prints), and the
+    # kernel ledger's busy seconds on the card per phase (launch through
+    # readback of the fused calls; enqueue time of the mirror gathers)
+    from filodb_tpu_torch.utils.devicetelem import telem
+    from filodb_tpu_torch.utils.metrics import registry
+    evictions = registry.counter("fused_vals_cache_evictions")
+    phase_evictions = {}
+
+    def busy():
+        return telem.snapshot(recent=0)["devices"].get(
+            str(dev), {}).get("busySeconds", 0.0)
 
     def timed(name, fn, *a, **kw):
-        t = time.perf_counter()
+        t, e0, b0 = time.perf_counter(), evictions.value, busy()
         out = fn(*a, **kw)
         phase_s[name] = time.perf_counter() - t
-        log(f"phase {name}: {phase_s[name]:.1f} s")
+        phase_evictions[name] = int(evictions.value - e0)
+        b = busy() - b0
+        log(f"phase {name}: {phase_s[name]:.1f} s; fused values cache "
+            f"evictions {phase_evictions[name]}; ledger busy seconds on "
+            f"{dev} {b:.4f} ({100 * b / phase_s[name]:.2f}% of the phase)")
         return out
 
     table = timed("kernels K1-K7", run_kernel_checks, args.series, args.seed,
@@ -3017,10 +3314,17 @@ def main(argv=None) -> int:
                            want[COUNTER_QUERIES[0][0]], orc, wends,
                            small_warm, n)
             add(got)
-            got, _ = timed("serve-1M", run_serve_phase, eng,
-                           want[COUNTER_QUERIES[0][0]], orc, wends, n)
-            add(got)
-            del want, orc
+            api, srv, http = start_server(eng)
+            try:
+                got, _ = timed("serve-1M", run_serve_phase, eng, api, http,
+                               want[COUNTER_QUERIES[0][0]], orc, wends, n)
+                add(got)
+                got, _ = timed("ops-1M", run_ops_phase, eng, api, http,
+                               built, dict(phase_evictions))
+                add(got)
+            finally:
+                srv.stop()
+            del want, orc, api, srv, http
             got, _ = timed("live-ingest-1M", run_live_ingest_phase, eng,
                            ms, n, seed, dev)
             add(got)

@@ -27,11 +27,21 @@ of exactly [S, t_used]: the old ones are copied on the device, padded,
 and the new cells scattered in.  A published snapshot is never written,
 so a query reading it on another thread sees it whole.
 
-Over the HBM cap the mirror raises MirrorCapExceeded.  A query is served
-from the host gather only while a background rebuild is in flight: a
-rebuild that would exceed the cap is never started, and after a failed
-one the next query refreshes inline and meets its error.  The cold
-segment cache and multi-device placement are not ported.
+Over the HBM cap the mirror journals `mirror_over_cap`, drops its
+snapshot and raises MirrorCapExceeded.  A query is served from the host
+gather only while a background rebuild is in flight: a rebuild that
+would exceed the cap is never started, and after a failed one the next
+query refreshes inline and meets its error.  The background rebuild is
+the `mirror_rebuild` job of utils/jobs.py.
+
+Observability, as in the reference: the `device.upload` fault point at
+the top of a full refresh (before anything is allocated), each upload
+a `transfer` entry of the kernel ledger and a transfer of the exec tally
+(note_transfer, note_mirror_refresh), and the snapshot's device bytes
+booked in the HBM occupancy model under region `hot`
+(utils/devicetelem.hbm_book), released when the mirror is collected.
+The cold segment cache and multi-device placement (MirrorPlacer) are
+not ported.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ import itertools
 import logging
 import threading
 import time
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -50,6 +61,10 @@ from filodb_tpu_torch.ops.hist import bucket_rows, from_bucket_rows
 from filodb_tpu_torch.ops.timewindow import PAD_TS, series_value_base
 from filodb_tpu_torch.utils.counters import counters
 from filodb_tpu_torch.utils.device import resolve_device
+from filodb_tpu_torch.utils.devicetelem import telem
+from filodb_tpu_torch.utils.faults import faults
+from filodb_tpu_torch.utils.metrics import (note_mirror_refresh,
+                                            note_transfer, registry)
 
 _log = logging.getLogger("filodb.mirror")
 
@@ -150,6 +165,26 @@ def store_nbytes(store) -> int:
     return n
 
 
+def snapshot_nbytes(snap: Optional[_MirrorSnapshot]) -> int:
+    """Device bytes a snapshot holds: its offsets, value columns and
+    per-series bases (what the HBM model books as `hot`)."""
+    if snap is None:
+        return 0
+    n = snap.ts_off.numel() * snap.ts_off.element_size()
+    for t in list(snap.cols.values()) + list(snap.vbases.values()):
+        n += t.numel() * t.element_size()
+    return int(n)
+
+
+def _release_booking(cell) -> None:
+    """weakref.finalize target: give a collected mirror's booked bytes
+    back to the HBM model (module-level, so it does not pin the
+    mirror)."""
+    device, nbytes = cell
+    if nbytes:
+        telem.hbm_book(device, "hot", -nbytes)
+
+
 class DeviceMirror:
     """One mirror per DenseSeriesStore (attached lazily by the leaf)."""
 
@@ -173,12 +208,31 @@ class DeviceMirror:
         self._bg_lock = threading.Lock()
         self._bg_thread: Optional[threading.Thread] = None
         self._bg_error: Optional[BaseException] = None
+        # the snapshot's device bytes as booked in the HBM model; the
+        # finalizer releases them when the mirror is collected
+        self._booking = [self.device, 0]
+        weakref.finalize(self, _release_booking, self._booking)
+
+    def _book(self, nbytes: int) -> None:
+        """Book this mirror's device bytes in the HBM occupancy model
+        (region `hot`), as a delta against what it booked before."""
+        delta = nbytes - self._booking[1]
+        if delta:
+            telem.hbm_book(self.device, "hot", delta)
+            self._booking[1] = nbytes
+
+    @property
+    def booked_bytes(self) -> int:
+        return self._booking[1]
 
     def _publish(self, snap: _MirrorSnapshot, kind: str, t0: float,
                  nbytes: int) -> None:
         """Make `snap` the current snapshot once its uploads are complete:
         a query reading it from another thread or stream must never see a
-        cell before its upload landed."""
+        cell before its upload landed.  Then its bytes are booked and the
+        upload (`nbytes` moved, the refresh's seconds) goes to the exec
+        tally and the kernel ledger (a `transfer` entry, note=False: the
+        tally has it already)."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         self._snap = snap
@@ -186,15 +240,37 @@ class DeviceMirror:
         self.last_refresh_kind = kind
         self.last_refresh_s = time.perf_counter() - t0
         self.last_upload_bytes = nbytes
+        self._book(snapshot_nbytes(snap))
+        if kind == "bookkeeping":
+            return
+        full = kind == "full"
+        note_transfer(nbytes, self.last_refresh_s)
+        note_mirror_refresh("full" if full else "incremental")
+        telem.record_dispatch(
+            "mirror_upload_full" if full else "mirror_upload_incr",
+            device=self.device,
+            shape=f"S{snap.ts_off.shape[0]}xT{snap.t_used}",
+            seconds=self.last_refresh_s, bytes_in=nbytes,
+            kind="transfer", note=False)
 
     def _refresh(self, store) -> bool:
+        # the fault point fires before anything is allocated: a failed
+        # upload leaves no half-built device arrays
+        faults.fire("device.upload")
         # capture the version BEFORE copying host arrays: a mutation
         # landing mid-copy leaves the recorded generation stale, so the
         # next is_fresh check re-uploads (seqlock protocol)
         gen0 = store.generation
         nbytes = store_nbytes(store)
         if nbytes > self.hbm_limit_bytes:
+            from filodb_tpu_torch.utils.events import journal
+            registry.counter("device_mirror_over_cap").increment()
+            journal.emit("mirror_over_cap", subsystem="mirror",
+                         scope="store", nbytes=nbytes,
+                         limit=self.hbm_limit_bytes)
+            # a stale snapshot would keep its device memory: drop it
             self._snap = None
+            self._book(0)
             raise MirrorCapExceeded(
                 f"device mirror needs {nbytes} bytes, over its cap of "
                 f"{self.hbm_limit_bytes} (shard {self.shard_num})")
@@ -382,17 +458,36 @@ class DeviceMirror:
         return not self.rebuild_in_progress
 
     def _bg_refresh(self, shard, store) -> None:
+        """The background rebuild: one tick of the shard's
+        `mirror_rebuild` job (utils/jobs.py), journaled from start to
+        done or failed."""
+        from filodb_tpu_torch.utils.events import journal
+        from filodb_tpu_torch.utils.jobs import jobs
+        from filodb_tpu_torch.utils.metrics import span
+        sn = getattr(shard, "shard_num", -1)
+        job = jobs.register(
+            "mirror_rebuild",
+            dataset=f"{getattr(shard, 'dataset', '')}/{sn}")
+        journal.emit("mirror_rebuild_started", subsystem="mirror",
+                     shard=sn)
         try:
-            with shard._write_locked("mirror_bg_rebuild"):
-                ok = self.ensure_fresh(store)
+            with job.tick():
+                job.set_progress(f"shard {sn}")
+                with span("mirror_bg_rebuild"):
+                    with shard._write_locked("mirror_bg_rebuild"):
+                        ok = self.ensure_fresh(store)
             if ok:
                 counters.inc("device_mirror_bg_rebuilds")
+            journal.emit("mirror_rebuild_done", subsystem="mirror",
+                         shard=sn, ok=ok)
         except Exception as e:  # noqa: BLE001 — kept for the next query,
             # which refreshes inline and meets it
             self._bg_error = e
             counters.inc("device_mirror_bg_rebuild_errors")
             _log.exception("background mirror rebuild failed (shard %s)",
                            self.shard_num)
+            journal.emit("mirror_rebuild_failed", subsystem="mirror",
+                         shard=sn, error=f"{type(e).__name__}: {e}")
 
     # ------------------------------------------------- incremental update
 

@@ -4,7 +4,9 @@ with interleaved group flushes, flush_all and drop_shard; recovery comes
 with the WAL).
 
 Takes ``device=`` (default ``"cuda"``) and raises without a card unless
-given ``device="cpu"``; every shard's DeviceMirror lives there.  Shards
+given ``device="cpu"``; every shard's DeviceMirror lives there.  A store
+on a card registers it with the device telemetry when it is constructed,
+so /admin/devices lists it before the first dispatch.  Shards
 persist flushed chunks to ``column_store`` and group checkpoints to
 ``meta_store`` (by default a NullColumnStore and an InMemoryMetaStore,
 as in the reference).
@@ -31,6 +33,9 @@ class TimeSeriesMemStore:
         self.column_store = column_store or NullColumnStore()
         self.meta_store = meta_store or InMemoryMetaStore()
         self._shards: Dict[str, Dict[int, TimeSeriesShard]] = {}
+        if self.device.type == "cuda":
+            from filodb_tpu_torch.utils.devicetelem import telem
+            telem.register_devices([self.device])
 
     def setup(self, dataset: str, shard_num: int) -> TimeSeriesShard:
         shards = self._shards.setdefault(dataset, {})

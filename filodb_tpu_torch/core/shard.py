@@ -8,11 +8,14 @@ flattens a slab with duplicate keys into a RecordBatch), index lookup,
 the pid->row and pid->key maps, the seqlock snapshot read, flush groups
 and their checkpoints (`flush_group`: copy and seal under the write lock,
 encode and persist outside it), the compressed resident tier, memory
-enforcement, eviction of ended series and demand paging.
+enforcement, eviction of ended series and demand paging; traced filters
+(`set_traced_filters`: series matching a filter group are logged at
+creation, ingest and query lookup) and the fault points `ingest.batch`
+and `flush.persist` (utils/faults.py), where the reference fires them.
 
 Left out: the downsampler hook, the cardinality tracker, tenant quotas
-and usage accounting, traced filters, fault injection and recovery
-(`recover_index`, `recover_stream`).  The store settings the reference
+and usage accounting, and recovery (`recover_index`,
+`recover_stream`).  The store settings the reference
 reads from its config are the constants below, at its defaults.  Host
 arrays stay numpy; the device copy is the DeviceMirror's.
 """
@@ -27,7 +30,7 @@ import logging
 import os
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -42,7 +45,9 @@ from filodb_tpu_torch.core.store import (ColumnStore, InMemoryMetaStore,
 from filodb_tpu_torch.memory.chunks import encode_chunkset
 from filodb_tpu_torch.memory.histogram import HistogramBuckets
 from filodb_tpu_torch.memory.resident import ResidentChunkCache
+from filodb_tpu_torch.utils.faults import faults
 from filodb_tpu_torch.utils.growable import grow_to as _grow_to
+from filodb_tpu_torch.utils.metrics import registry as metrics_registry
 
 _log = logging.getLogger("filodb.shard")
 
@@ -193,6 +198,15 @@ class TimeSeriesShard:
         self.eviction_in_progress = False
         # append_horizon_ms memo: schema -> (store generation, horizon)
         self._horizon_memo: Dict[str, tuple] = {}
+        # trace-filter logging of individual series: partitions whose
+        # labels match ALL filters of any filter group get lifecycle log
+        # lines at creation, ingest and query lookup (the reference's
+        # tracedPartFilters).  Set via set_traced_filters (a list of label
+        # maps) or POST /admin/tracedfilters; traced pids are a set, so
+        # the ingest and query paths pay one membership test.
+        self.traced_part_filters: List[Tuple[str, str]] = []
+        self._traced_groups: List[Dict[str, str]] = []
+        self._traced_pids: set = set()
 
     @contextlib.contextmanager
     def _write_locked(self, what: str, warn_after_s: float = 10.0):
@@ -251,13 +265,72 @@ class TimeSeriesShard:
         self.index.add_partition(pid, part_key, start_time_ms)
         self._dirty_part_keys.add(pid)
         self.stats.partitions_created += 1
+        if self.traced_part_filters or self._traced_groups:
+            if self._trace_match(part_key):
+                self._traced_pids.add(pid)
+                _log.info("TRACED series created: shard=%d partId=%d %s",
+                          self.shard_num, pid, part_key)
         return info
+
+    # ------------------------------------------- per-series debug follow
+
+    def _trace_match(self, part_key: PartKey) -> bool:
+        labels = {**part_key.tags_dict, "_metric_": part_key.metric}
+        if self.traced_part_filters and \
+                all(labels.get(k) == v
+                    for k, v in self.traced_part_filters):
+            return True
+        return any(all(labels.get(k) == v for k, v in grp.items())
+                   for grp in self._traced_groups)
+
+    def set_traced_filters(self, groups) -> int:
+        """groups: list of {label: value} maps; a series matching ALL
+        labels of ANY map is debug-followed through creation, ingest and
+        query lookup.  [] clears.  Returns the number of currently
+        matching partitions.  Takes the write lock: the scan must not
+        race partition creation."""
+        with self._write_locked("traced_filters"):
+            self._traced_groups = [dict(g) for g in groups]
+            pids = set()
+            if self._traced_groups:
+                for info in self.partitions:
+                    if info is not None and self._trace_match(info.part_key):
+                        pids.add(info.part_id)
+                        _log.info("TRACED series matched filter: shard=%d "
+                                  "partId=%d %s", self.shard_num,
+                                  info.part_id, info.part_key)
+            self._traced_pids = pids
+            return len(pids)
+
+    def _trace_touch(self, what: str, pids, extra: str = "") -> None:
+        if not self._traced_pids:
+            return
+        hit = self._traced_pids.intersection(
+            pids if isinstance(pids, (list, set))
+            else np.asarray(pids).tolist())
+        for pid in sorted(hit):
+            info = self.partitions[pid]
+            _log.info("TRACED series %s: shard=%d partId=%d %s%s",
+                      what, self.shard_num, pid,
+                      info.part_key if info is not None else "?", extra)
+            metrics_registry.counter(
+                "traced_series_events", dataset=self.dataset,
+                event=what).increment()
+
+    def _trace_touch_resolved(self, pids_for_key: np.ndarray,
+                              offset: int) -> None:
+        touched = pids_for_key[pids_for_key >= 0]
+        traced = [int(p) for p in touched.tolist()
+                  if int(p) in self._traced_pids]
+        if traced:
+            self._trace_touch("ingest", traced, extra=f" offset={offset}")
 
     def ingest(self, batch: RecordBatch, offset: int = -1) -> int:
         """Ingest one record batch.  Returns samples ingested
         (out-of-order samples are dropped).  Serialized with flush,
         eviction and paging by the write lock; concurrent queries read
         through the seqlock (snapshot_read)."""
+        faults.fire("ingest.batch")
         with self._write_locked("ingest"):
             return self._ingest(batch, offset)
 
@@ -344,6 +417,8 @@ class TimeSeriesShard:
             if not self._grid_rows_ok(ent):
                 grid_k = 0             # duplicate keys: flat path below
         if grid_k:
+            if self._traced_pids:
+                self._trace_touch_resolved(pids_for_key, offset)
             rows = self._pid_row[pids_for_key]
             cols2d = {c: v.reshape((len(pk_list), grid_k) + v.shape[1:])
                       for c, v in batch.columns.items()}
@@ -361,6 +436,13 @@ class TimeSeriesShard:
             self._create_missing(pk_list, batch.schema.name, pids_for_key,
                                  unresolved, first_ts)
             ent[4] = None
+        if self._traced_pids:
+            touched = pids_for_key[uniq]
+            traced_touched = [int(p) for p in touched[touched >= 0].tolist()
+                              if int(p) in self._traced_pids]
+            if traced_touched:
+                self._trace_touch("ingest", traced_touched,
+                                  extra=f" offset={offset}")
         rows = self._pid_row[pids_for_key[batch.part_idx]]
         n = store.append_batch(rows, batch.timestamps, batch.columns,
                                batch.bucket_les)
@@ -383,6 +465,7 @@ class TimeSeriesShard:
         ts = np.asarray(ts)
         if ts.ndim != 2 or len(part_keys) != ts.shape[0]:
             raise ValueError("ingest_columns: ts must be [num_keys, k]")
+        faults.fire("ingest.batch")
         with self._write_locked("ingest"):
             if ts.size == 0:
                 return 0
@@ -401,6 +484,8 @@ class TimeSeriesShard:
                                              list(part_keys), ts, columns,
                                              bucket_les)
                 return self._ingest(flat, offset)
+            if self._traced_pids:
+                self._trace_touch_resolved(pids_for_key, offset)
             rows = self._pid_row[pids_for_key]
             n = store.append_grid(rows, ts, columns, bucket_les)
             self.stats.rows_ingested += n
@@ -577,6 +662,8 @@ class TimeSeriesShard:
              les)
             for pid, info, hi_i, ts_pad, col_pads_, les, r, ln in pending]
         chunksets = self._encode_pending(pending, ingestion_time_ms)
+        if pending:
+            faults.fire("flush.persist")
         encoded = []
         for (pid, info, hi, _, _, _), cs in zip(pending, chunksets):
             self.column_store.write_chunks(
@@ -667,6 +754,8 @@ class TimeSeriesShard:
             hit = self._lookup_cache.pop(ck, None)
             if hit is not None:
                 self._lookup_cache[ck] = hit          # LRU touch
+                if self._traced_pids and hit.part_ids.size:
+                    self._trace_touch("query_lookup", hit.part_ids)
                 return hit
         ids = self.index.part_ids_from_filters(
             filters, start_time_ms, end_time_ms, limit)
@@ -680,6 +769,8 @@ class TimeSeriesShard:
             for c in np.unique(codes):
                 name = self._schema_names[int(c)]
                 by_schema[name] = ids[codes == c]
+        if self._traced_pids and ids.size:
+            self._trace_touch("query_lookup", ids)
         res = PartLookupResult(self.shard_num, ids, by_schema, first)
         if ck is not None:
             # the memo hands the SAME arrays to every hit: freeze them

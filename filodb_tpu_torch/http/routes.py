@@ -1,25 +1,36 @@
 """Transport-agnostic HTTP route handlers (port of
-filodb_tpu/http/routes.py, trimmed to the query-serving routes).
+filodb_tpu/http/routes.py: the query-serving routes and the node's
+operations surface).
 
 Handlers take (params, body) and return (status_code, payload); the
 socket server in server.py is a thin shell, so tests exercise routes
 without binding ports.  Routes served:
 
-- /api/v1/query_range, /api/v1/query, POST /api/v1/query_range_batch,
-  /api/v1/labels, /api/v1/label/<name>/values, /api/v1/series,
-  /api/v1/usage, each also under /promql/<dataset>/api/v1/...;
-- /metrics, /__health, /healthz;
-- /admin/queries (list, get, POST .../kill) and /admin/slowlog.
+- /api/v1/query_range, /api/v1/query (each with `explain=true`: the exec
+  plan tree, nothing run), POST /api/v1/query_range_batch,
+  /api/v1/explain (`analyze=true` runs the plan and annotates every
+  node), /api/v1/labels, /api/v1/label/<name>/values, /api/v1/series,
+  /api/v1/usage, /api/v1/status/{health,buildinfo,runtimeinfo}, each
+  also under /promql/<dataset>/api/v1/...;
+- /metrics, /__health, /healthz (with the health model's phase), /ready;
+- /admin/queries (list, get, POST .../kill), /admin/slowlog,
+  /admin/ingestlog, /admin/devices, /admin/jobs, /admin/breakers,
+  /admin/events, /admin/tenants, /admin/traces[/<id>], POST
+  /admin/tracedfilters, POST /admin/loglevel/<logger> and
+  /admin/profiler/{start,stop,report}.
 
-Every other route answers the reference's 404 shape.  Still to port,
-each with the subsystem it fronts: /ready and the health model, explain
-(and analyze), remote write and read, /api/v1/status/*, the rules and
-alerts routes, and the other admin routes.  A QueryError("not_ported")
-raised below the API answers 501 with an error payload.
+Every route the reference serves that the port does not have yet (the
+remote write and read routes, status/tsdb, metering/cardinality, the
+rules and alerts routes, /cluster/<dataset>/status, /admin/shards and
+its handoff verb, /admin/federation, /admin/rules/reload, /influx/write)
+answers 501 with errorType `not_ported`; a path the reference does not
+know keeps its 404.  A QueryError("not_ported") raised below the API
+answers 501 as well.
 """
 from __future__ import annotations
 
 import json
+import logging
 import re
 from typing import Dict, List, Optional, Tuple
 
@@ -38,13 +49,30 @@ class PromHttpApi:
                  shard_mappers: Optional[Dict[str, object]] = None,
                  default_dataset: Optional[str] = None,
                  batch_window_ms: Optional[float] = None,
-                 config=None):
+                 config=None, health=None):
         """engines: dataset -> QueryEngine, each already on its device.
         config: a FilodbSettings (None: the settings() singleton); its
-        `query` section sets the frontends' knobs."""
+        `query` section sets the frontends' knobs.  health: the node's
+        HealthEvaluator (None: one of its own, already `serving`)."""
+        import time as _time
         self.engines = engines
         self.shard_mappers = shard_mappers or {}
         self.default_dataset = default_dataset or next(iter(engines), None)
+        # the health model (utils/health.py): shard mappers feed the
+        # shard verdict; the port has no WAL yet, so every dataset
+        # reports it not enabled
+        if health is None:
+            from filodb_tpu_torch.utils.health import HealthEvaluator
+            health = HealthEvaluator()
+        self.health = health
+        self.health.shard_mappers = self.shard_mappers
+        for name in engines:
+            self.health.note_wal(name, enabled=False)
+        self._start_unix = _time.time()
+        # last-config-reload status for /api/v1/status/runtimeinfo; the
+        # port has no reloadable config yet
+        self._last_reload_unix = self._start_unix
+        self._last_reload_ok = True
         # query-serving frontend per dataset (query/frontend.py):
         # singleflight, the step-aligned result cache, the weighted-fair
         # scheduler and the window-grid coalescer (query.batch_window_ms
@@ -79,7 +107,10 @@ class PromHttpApi:
                 return 200, {"status": "healthy"}
             if parts == ["healthz"]:
                 # liveness: the process and its HTTP loop answered
-                return 200, {"status": "alive", "phase": "serving"}
+                return 200, {"status": "alive",
+                             "phase": self.health.phase}
+            if parts == ["ready"]:
+                return self._ready()
             if parts == ["metrics"]:
                 return self._own_metrics(params)
             if parts[:1] == ["promql"] and len(parts) >= 4 \
@@ -91,17 +122,56 @@ class PromHttpApi:
                     return 404, _err("no datasets registered")
                 return self._api_v1(self.default_dataset, parts[2:], method,
                                     params, body, multi)
+            if parts[:1] == ["cluster"] and len(parts) >= 3 \
+                    and parts[2] == "status":
+                return _not_ported("/cluster/<dataset>/status")
+            if parts[:2] == ["admin", "loglevel"] and len(parts) == 3 \
+                    and method == "POST":
+                return self._loglevel(parts[2], body.decode().strip())
+            if parts[:2] == ["admin", "profiler"] and len(parts) == 3:
+                return self._profiler(parts[2], params, method)
             if parts[:2] == ["admin", "slowlog"] and len(parts) in (2, 3):
                 return self._slowlog(parts[2] if len(parts) == 3 else None,
                                      params, method)
+            if parts[:2] == ["admin", "ingestlog"] and len(parts) in (2, 3):
+                return self._ingestlog(
+                    parts[2] if len(parts) == 3 else None, params, method)
+            if parts[:2] == ["admin", "breakers"] and len(parts) == 2 \
+                    and method == "GET":
+                return self._breakers()
+            if parts == ["admin", "jobs"] and method == "GET":
+                return self._jobs()
+            if parts == ["admin", "federation"] and method == "GET":
+                return _not_ported("/admin/federation")
+            if parts == ["admin", "shards"] and method == "GET":
+                return _not_ported("/admin/shards")
+            if parts[:2] == ["admin", "shards"] and len(parts) == 4 \
+                    and parts[3] == "handoff" and method == "POST":
+                return _not_ported("/admin/shards/<shard>/handoff")
             if parts[:2] == ["admin", "queries"] and len(parts) <= 4:
                 return self._active_queries(parts[2:], params, method)
+            if parts == ["admin", "tenants"] and method == "GET":
+                return self._tenants()
+            if parts == ["admin", "devices"] and method == "GET":
+                return self._devices(params)
+            if parts == ["admin", "events"] and method == "GET":
+                return self._events(params)
+            if parts == ["admin", "rules", "reload"] and method == "POST":
+                return _not_ported("/admin/rules/reload")
+            if parts[:2] == ["admin", "traces"] and len(parts) in (2, 3):
+                return self._traces(parts[2] if len(parts) == 3 else None,
+                                    params)
+            if parts[:2] == ["admin", "tracedfilters"] and method == "POST":
+                return self._traced_filters(body)
+            if parts[:1] == ["influx"] and len(parts) == 2 \
+                    and parts[1] == "write" and method == "POST":
+                return _not_ported("/influx/write")
             return 404, _err(f"no route for {method} {path}")
         except _BadRequest as e:
             return 400, _err(str(e))
         except ParseError as e:
-            # PromQL typos in match[] parse outside the engine's own
-            # error capture — still the client's fault
+            # PromQL typos in match[] and explain parse outside the
+            # engine's own error capture — still the client's fault
             return 400, _err(f"parse error: {e}")
         except QueryError as e:
             if e.code == "not_ported":
@@ -119,12 +189,16 @@ class PromHttpApi:
         eng = self.engines.get(dataset)
         if eng is None:
             return 404, _err(f"dataset {dataset!r} not found")
+        if rest == ["write"] and method == "POST":
+            return _not_ported("/api/v1/write (remote write)")
         planner_params = _planner_params(params, self._qconfig)
         if rest == ["query_range"]:
             q = params.get("query", "")
             start = _num_param(params, "start")
             end = _num_param(params, "end")
             step = _step_param(params.get("step", "15"))
+            if params.get("explain") in ("true", "1"):
+                return self._explain(eng, q, start, step, end)
             res = self.frontends[dataset].query_range(
                 q, start, step, end, planner_params)
             payload = QueryEngine.to_prom_matrix(res)
@@ -134,6 +208,15 @@ class PromHttpApi:
                 payload["stats"] = res.stats.to_dict()
             status = 200 if payload["status"] == "success" else 400
             return (_throttled_status(res, payload) or status), payload
+        if rest == ["explain"]:
+            q = params.get("query", "")
+            start = _num_param(params, "start")
+            end = _num_param(params, "end")
+            step = _step_param(params.get("step", "15"))
+            if params.get("analyze") in ("true", "1"):
+                return self._explain_analyze(dataset, q, start, step, end,
+                                             planner_params)
+            return self._explain(eng, q, start, step, end)
         if rest == ["usage"]:
             from filodb_tpu_torch.utils.usage import usage
             return 200, {"status": "success", "data": usage.snapshot()}
@@ -166,6 +249,8 @@ class PromHttpApi:
         if rest == ["query"]:
             q = params.get("query", "")
             t = _num_param(params, "time", "0")
+            if params.get("explain") in ("true", "1"):
+                return self._explain(eng, q, t, 1, t)
             res = self.frontends[dataset].query_instant(
                 q, t, planner_params)
             payload = QueryEngine.to_prom_vector(res)
@@ -185,7 +270,63 @@ class PromHttpApi:
         if rest == ["series"]:
             return self._metadata(eng, "series", params, multi,
                                   planner_params=planner_params)
+        if rest == ["metering", "cardinality"]:
+            return _not_ported("/api/v1/metering/cardinality")
+        if rest == ["read"] and method == "POST":
+            return _not_ported("/api/v1/read (remote read)")
+        if rest in (["rules"], ["alerts"]):
+            return _not_ported(f"/api/v1/{rest[0]} (the rules engine)")
+        if rest == ["status", "buildinfo"]:
+            return self._buildinfo()
+        if rest == ["status", "runtimeinfo"]:
+            return self._runtimeinfo()
+        if rest == ["status", "health"]:
+            return 200, {"status": "success",
+                         "data": self.health.evaluate()}
+        if rest == ["status", "tsdb"]:
+            return _not_ported("/api/v1/status/tsdb")
         return 404, _err(f"unknown api/v1 endpoint {'/'.join(rest)}")
+
+    def _explain(self, eng: QueryEngine, q: str, start: int, step: int,
+                 end: int) -> Tuple[int, object]:
+        """Exec-plan tree instead of results (the reference's
+        `explainOnly` verb): the plan is materialized, never run, so
+        nothing reaches the device."""
+        from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                              query_range_to_logical_plan)
+        from filodb_tpu_torch.query.rangevector import QueryContext
+        plan = query_range_to_logical_plan(q, TimeStepParams(start, step, end))
+        ep = eng.planner.materialize(plan, QueryContext())
+        return 200, {"status": "success",
+                     "data": {"resultType": "execPlan",
+                              "result": ep.print_tree().splitlines()}}
+
+    def _explain_analyze(self, dataset: str, q: str, start: int, step: int,
+                         end: int, planner_params) -> Tuple[int, object]:
+        """EXPLAIN ANALYZE: the plan is EXECUTED and every locally-run
+        node's line carries its exclusive time / device / transfer /
+        samples attribution plus the root QueryStats.  Goes through the
+        dataset's frontend so the tenant limits, scheduler bound, and
+        usage/slowlog accounting apply exactly as for query_range — an
+        unaccounted analyze verb would be a free pass around them."""
+        res, rec, ep = self.frontends[dataset].analyze_range(
+            q, start, step, end, planner_params)
+        if rec is None:                  # tenant admission rejected/shed it
+            # same errorType taxonomy as query_range (a shed analyze is
+            # "too_many_requests", not "bad_data" — clients route on it)
+            payload = _prom_error_payload(res) or _err("rejected")
+            return (_throttled_status(res, payload) or 400), payload
+        if res.error:
+            # same contract as query_range: execution failure is a 400
+            # with status error, not a success-shaped payload
+            return 400, _err(res.error)
+        lines = ep.print_tree(annot=rec.annotation).splitlines()
+        data = {"resultType": "execPlanAnalysis",
+                "result": lines,
+                "stats": res.stats.to_dict(),
+                "nodes": rec.order,
+                "traceID": res.trace_id}
+        return 200, {"status": "success", "data": data}
 
     def _metadata(self, eng: QueryEngine, kind: str, params: Dict[str, str],
                   multi: Dict[str, List[str]],
@@ -311,6 +452,308 @@ class PromHttpApi:
                          "data": {"cleared": slowlog.clear()}}
         return 404, _err(f"unknown slowlog action {action!r} ({method})")
 
+    def _ingestlog(self, action, params: Dict[str, str],
+                   method: str) -> Tuple[int, object]:
+        """Ingest-batch flight recorder (utils/slowlog.IngestSlowLog):
+        GET /admin/ingestlog returns the write-path ring newest-last —
+        batches over `ingest.slow_batch_threshold_s` door-to-ack with
+        tenant, byte/sample counts, per-stage breakdown and trace id;
+        ?limit=N tails it, POST /admin/ingestlog/clear empties it."""
+        from filodb_tpu_torch.utils.slowlog import ingestlog
+        if action is None and method == "GET":
+            limit = _num_param(params, "limit", "0")
+            entries = ingestlog.entries(limit)
+            return 200, {"status": "success",
+                         "data": {"count": len(entries),
+                                  "thresholdSeconds":
+                                      self._config.ingest
+                                      .slow_batch_threshold_s,
+                                  "entries": entries}}
+        if action == "clear" and method == "POST":
+            return 200, {"status": "success",
+                         "data": {"cleared": ingestlog.clear()}}
+        return 404, _err(f"unknown ingestlog action {action!r} ({method})")
+
+    def _ready(self) -> Tuple[int, object]:
+        """Readiness probe (Prometheus /-/ready semantics): 503 during
+        boot WAL replay / shard recovery and while a critical subsystem
+        is failed — the signal a load balancer or rolling restart waits
+        on before routing traffic here (doc/operations.md)."""
+        ok, reason = self.health.ready()
+        if ok:
+            return 200, {"status": "ready"}
+        return 503, {"status": "unready", "reason": reason}
+
+    def _devices(self, params: Dict[str, str]) -> Tuple[int, object]:
+        """GET /admin/devices — the per-card device telemetry table
+        (utils/devicetelem): utilization EWMA, booked HBM by region,
+        cumulative kernel/compile counters, and the newest kernel-ledger
+        entries.  ?recent=N sizes the ledger tail (default 10, max the
+        ring capacity); ?device= / ?kind= filter it."""
+        from filodb_tpu_torch.utils.devicetelem import telem
+        try:
+            recent = int(params.get("recent", "10"))
+        except ValueError:
+            raise _BadRequest("recent must be an integer") from None
+        snap = telem.snapshot(recent=max(0, recent))
+        dev_f, kind_f = params.get("device", ""), params.get("kind", "")
+        if dev_f or kind_f:
+            snap["recent"] = telem.recent(limit=max(0, recent) or 10,
+                                          device=dev_f, kind=kind_f)
+        return 200, {"status": "success", "data": snap}
+
+    def _tenants(self) -> Tuple[int, object]:
+        """GET /admin/tenants — the per-tenant QoS control panel in one
+        payload: usage-accountant rows (cumulative + rolling-window
+        burn) joined with the live scheduler state (share, running,
+        queued, lifetime sheds) merged across this node's frontends."""
+        from filodb_tpu_torch.utils.usage import usage
+        rows: Dict[str, dict] = {}
+
+        def row_for(ws: str) -> dict:
+            row = rows.get(ws)
+            if row is None:
+                row = rows[ws] = {
+                    "ws": ws,
+                    "share": self._qconfig.tenant_default_share,
+                    "running": 0, "queued": 0, "shed": 0,
+                    "queries": 0, "querySeconds": 0.0,
+                    "samplesScanned": 0, "ingestSamples": 0,
+                    "rejected": 0, "windowSamplesScanned": 0}
+            return row
+
+        # usage rows are per (ws, ns); the QoS unit is the workspace —
+        # fold namespaces together (the /api/v1/usage endpoint keeps
+        # the fine-grained split)
+        for r in usage.snapshot():
+            row = row_for(r["ws"])
+            row["queries"] += r["queries"]
+            row["querySeconds"] = round(
+                row["querySeconds"] + r["querySeconds"], 6)
+            row["samplesScanned"] += r["samplesScanned"]
+            row["ingestSamples"] += r["ingestSamples"]
+            row["rejected"] += r["rejected"]
+            row["windowSamplesScanned"] += r["windowSamplesScanned"]
+        for fe in self.frontends.values():
+            if fe.scheduler is None:
+                continue
+            for s in fe.scheduler.snapshot():
+                row = row_for(s["ws"])
+                row["share"] = s["share"]
+                row["running"] += s["running"]
+                row["queued"] += s["queued"]
+                row["shed"] += s["shed"]
+        out = sorted(rows.values(),
+                     key=lambda r: (-(r["queued"] + r["running"]),
+                                    -r["querySeconds"], r["ws"]))
+        return 200, {"status": "success",
+                     "data": {"count": len(out), "tenants": out}}
+
+    def _jobs(self) -> Tuple[int, object]:
+        """Unified background-job registry (utils/jobs.py): every
+        recurring worker's last start/end, duration, lag vs schedule,
+        consecutive-error streak, and progress string in one place."""
+        from filodb_tpu_torch.utils.jobs import jobs
+        snaps = jobs.snapshot()
+        return 200, {"status": "success",
+                     "data": {"count": len(snaps), "jobs": snaps}}
+
+    def _events(self, params: Dict[str, str]) -> Tuple[int, object]:
+        """Structured event journal (utils/events.py): typed lifecycle
+        events with monotonic sequence numbers — GET
+        /admin/events?since_seq=N&limit=K resumes from a sequence (the
+        CLI's `events --follow` tail), ?kind= filters one event type."""
+        from filodb_tpu_torch.utils.events import journal
+        since = _num_param(params, "since_seq", "0")
+        limit = _num_param(params, "limit", "0")
+        evs = journal.since(since, limit, kind=params.get("kind", ""))
+        return 200, {"status": "success",
+                     "data": {"nextSeq": journal.next_seq,
+                              "count": len(evs), "events": evs}}
+
+    def _breakers(self) -> Tuple[int, object]:
+        """Per-peer circuit-breaker states (parallel/breaker.py): which
+        remote nodes the query transport is currently failing fast on,
+        with consecutive-failure counts and backoff windows — the view an
+        operator checks when a chaos/partial-results event is suspected."""
+        from filodb_tpu_torch.parallel.breaker import breakers
+        return 200, {"status": "success",
+                     "data": {"breakers": breakers.snapshot()}}
+
+    def _buildinfo(self) -> Tuple[int, object]:
+        """Grafana probes /api/v1/status/buildinfo on datasource setup to
+        pick API features by version — answer the Prometheus shape."""
+        import platform as _platform
+
+        from filodb_tpu_torch import __version__
+        return 200, {"status": "success", "data": {
+            "version": __version__,
+            "revision": "",
+            "branch": "",
+            "buildUser": "",
+            "buildDate": "",
+            "goVersion": f"python-{_platform.python_version()}",
+        }}
+
+    def _runtimeinfo(self) -> Tuple[int, object]:
+        import os as _os
+        import threading as _threading
+        import time as _time
+
+        from filodb_tpu_torch.utils import iso_utc as iso
+
+        n_series = 0
+        for dataset, eng in self.engines.items():
+            source = getattr(eng, "source", None)
+            mapper = self.shard_mappers.get(dataset)
+            if source is None or mapper is None:
+                continue
+            for s in mapper.all_shards():
+                shard = source.get_shard(dataset, s)
+                if shard is not None:
+                    n_series += shard.num_partitions
+        retention_s = self._config.store.disk_time_to_live_s
+        # WAL posture for runbooks: enabled datasets + whether the boot
+        # replay completed (a restarted node mid-replay shows false —
+        # the same signal /ready turns into a 503)
+        wal = self.health.wal_summary()
+        wal_enabled = any(e["enabled"] for e in wal.values())
+        replay_done = all(e["replayDone"] for e in wal.values()
+                          if e["enabled"]) if wal_enabled else True
+        return 200, {"status": "success", "data": {
+            "startTime": iso(self._start_unix),
+            "CWD": _os.getcwd(),
+            "reloadConfigSuccess": self._last_reload_ok,
+            "lastConfigTime": iso(self._last_reload_unix),
+            "corruptionCount": 0,
+            "goroutineCount": _threading.active_count(),
+            "GOMAXPROCS": _os.cpu_count() or 1,
+            "storageRetention": f"{retention_s}s",
+            "timeSeriesCount": n_series,
+            "serverTime": iso(_time.time()),
+            "walEnabled": wal_enabled,
+            "walReplayDone": replay_done,
+            "serverPhase": self.health.phase,
+        }}
+
+    def _traces(self, trace_id,
+                params: Optional[Dict[str, str]] = None
+                ) -> Tuple[int, object]:
+        """Stitched cross-node span tree for one request (the
+        Zipkin-query analogue; spans from remote nodes arrive via the
+        dispatch/ack replies and carry their node name).  GET
+        /admin/traces lists known ids — `?limit=N` (default 50) keeps
+        the newest N, `?origin=query|rule_eval|remote_write` filters to
+        one door's traces; /admin/traces/<id> returns the events sorted
+        by end time, answering 410 for an id the bounded ring has
+        EVICTED (it existed; the buffer recycled it) vs 404 for one it
+        never saw."""
+        from filodb_tpu_torch.utils.metrics import collector
+        params = params or {}
+        if trace_id is None:
+            origin = params.get("origin", "")
+            if origin and origin not in ("query", "rule_eval",
+                                         "remote_write"):
+                raise _BadRequest(
+                    f"unknown trace origin {origin!r} "
+                    "(query | rule_eval | remote_write)")
+            limit = _num_param(params, "limit", "50")
+            if limit < 0:
+                raise _BadRequest("limit must be >= 0")
+            return 200, {"status": "success",
+                         "data": collector.trace_ids(origin=origin,
+                                                     limit=limit)}
+        evs = sorted(collector.trace(trace_id),
+                     key=lambda e: e.get("end_unix_s", 0))
+        if not evs:
+            if collector.was_evicted(trace_id):
+                return 410, {"status": "error", "errorType": "gone",
+                             "error": f"trace {trace_id!r} was evicted "
+                                      "from the bounded trace ring "
+                                      "(raise max_traces or export "
+                                      "spans via trace_export_url)"}
+            return 404, _err(f"no trace {trace_id!r}")
+        data = {"traceID": trace_id, "queryID": trace_id, "spans": evs}
+        # cross-links: the final verdict (completed/killed/
+        # deadline) and, when this query also left a slowlog record, its
+        # ring seq — so trace <-> slowlog correlation works BOTH ways
+        # instead of being a manual join
+        verdict = collector.verdict(trace_id)
+        if verdict:
+            data["verdict"] = verdict
+        from filodb_tpu_torch.utils.slowlog import slowlog
+        seq = slowlog.seq_for_trace(trace_id)
+        if seq is not None:
+            data["slowlogSeq"] = seq
+        return 200, {"status": "success", "data": data}
+
+    def _traced_filters(self, body: bytes) -> Tuple[int, object]:
+        """Set per-series debug-follow filters on every local shard (ref:
+        README.md:871-875 tracedPartFilters; TimeSeriesShard.scala:265) —
+        POST a JSON list of label->value maps; [] clears."""
+        import json as _json
+        try:
+            filters = _json.loads(body.decode() or "[]")
+            if not isinstance(filters, list) or any(
+                    not isinstance(g, dict) for g in filters):
+                raise ValueError("expected a list of label maps")
+        except (ValueError, UnicodeDecodeError) as e:
+            raise _BadRequest(f"bad traced-filter body: {e}")
+        n = 0
+        for name, eng in self.engines.items():
+            source = getattr(eng, "source", None)
+            if source is None or not hasattr(source, "shards_for"):
+                continue
+            for shard in source.shards_for(name):
+                shard.set_traced_filters(filters)
+                n += 1
+        return 200, {"status": "success",
+                     "data": {"shards": n, "filters": filters}}
+
+    def _loglevel(self, logger_name: str, level: str) -> Tuple[int, object]:
+        """Dynamic per-logger level (ref: doc/http_api.md:38-46)."""
+        lvl = getattr(logging, level.upper(), None)
+        if not isinstance(lvl, int):
+            return 400, _err(f"bad level {level!r}")
+        logging.getLogger(logger_name if logger_name != "root" else None
+                          ).setLevel(lvl)
+        return 200, {"status": "success",
+                     "data": f"{logger_name} set to {level.upper()}"}
+
+    # ------------------------------------------------------------ profiler
+
+    def _profiler(self, action: str, params: Dict[str, str],
+                  method: str) -> Tuple[int, object]:
+        """Sampling-profiler admin (ref: SimpleProfiler.java in the
+        reference's standalone server)."""
+        from filodb_tpu_torch.utils.profiler import profiler
+        expected = {"start": "POST", "stop": "POST", "report": "GET"}
+        if action not in expected:
+            return 404, _err(f"unknown profiler action {action!r}")
+        if method != expected[action]:
+            return 405, _err(f"profiler {action} requires "
+                             f"{expected[action]}, got {method}")
+        if action == "start":
+            try:
+                hz = float(params.get("hz", "100"))
+                if not profiler.start(hz):
+                    raise _BadRequest("profiler already running")
+            except ValueError as e:
+                raise _BadRequest(f"bad hz: {e}")
+            return 200, {"status": "started", "hz": profiler.hz}
+        if action == "stop":
+            if not profiler.stop():
+                raise _BadRequest("profiler not running")
+            return 200, {"status": "stopped", "samples": profiler.samples}
+        fmt = params.get("format", "flat")
+        if fmt == "collapsed":
+            # semicolon-joined stacks, speedscope/flamegraph.pl-compatible
+            return 200, profiler.report_collapsed()
+        if fmt != "flat":
+            raise _BadRequest(f"unknown report format {fmt!r} "
+                              "(flat | collapsed)")
+        return 200, profiler.report(_num_param(params, "top", "30"))
+
     def _active_queries(self, rest: List[str], params: Dict[str, str],
                         method: str) -> Tuple[int, object]:
         """Live query introspection (query/activequeries.py):
@@ -368,6 +811,12 @@ class _TextPayload(str):
 
 class _BadRequest(Exception):
     """Client-side parameter problem → HTTP 400 (internal errors stay 500)."""
+
+
+def _not_ported(what: str) -> Tuple[int, Dict[str, str]]:
+    """501 for a route the reference serves and the port does not yet."""
+    return 501, {"status": "error", "errorType": "not_ported",
+                 "error": f"not_ported: {what} is not ported yet"}
 
 
 def _num_param(params: Dict[str, str], key: str,

@@ -10,6 +10,11 @@ The launch functions below are the only places the kernels are launched:
 they check device, dtype, shape and contiguity, allocate the outputs and
 scratch with torch, launch on torch.cuda.current_stream(), raise on a
 non-zero cudaGetLastError(), and add one to their entry in LAUNCHES.
+
+Each nvcc build is journaled as a compile in the device telemetry
+(utils/devicetelem.record_compile: the source's name and its nvcc wall
+seconds); every `library()` call that finds its library already loaded
+or built counts as a cache hit.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -90,9 +96,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def start_builds(names=None) -> Dict[str, Tuple[subprocess.Popen, Path]]:
+def start_builds(names=None
+                 ) -> Dict[str, Tuple[subprocess.Popen, Path, float]]:
     """Start one nvcc per missing library, all at once; returns
-    {name: (process, temporary output)} for finish_builds to wait on."""
+    {name: (process, temporary output, start time)} for finish_builds to
+    wait on."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names or SOURCES:
@@ -103,21 +111,26 @@ def start_builds(names=None) -> Dict[str, Tuple[subprocess.Popen, Path]]:
         procs[name] = (subprocess.Popen(
             [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
             stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), tmp)
+            stderr=subprocess.STDOUT, text=True), tmp, time.perf_counter())
     return procs
 
 
 def finish_builds(procs) -> None:
     """Wait for the builds; each library's nvcc output (with ptxas's
-    resource lines, -Xptxas -v) is kept beside it as <library>.log."""
+    resource lines, -Xptxas -v) is kept beside it as <library>.log, and
+    each successful build is journaled as a compile with its wall
+    seconds (from its start to the moment it was seen finished)."""
+    from filodb_tpu_torch.utils.devicetelem import telem
     errors = []
-    for name, (p, tmp) in procs.items():
+    for name, (p, tmp, t0) in procs.items():
         log, _ = p.communicate()
+        seconds = time.perf_counter() - t0
         if p.returncode != 0:
             errors.append(f"{name}: nvcc exit {p.returncode}\n{log}")
             continue
         library_path(name).with_suffix(".log").write_text(log)
         os.replace(tmp, library_path(name))
+        telem.record_compile(name, shape="sm_90a", seconds=seconds)
     if errors:
         raise KernelBuildError("\n".join(errors))
 
@@ -228,19 +241,28 @@ _BINDERS = {"fused_rate": _bind, "fused_over_time": _bind_over_time,
 
 
 def library(name: str = "fused_rate") -> ctypes.CDLL:
-    """The loaded library, built first if missing."""
+    """The loaded library, built first if missing (the device telemetry
+    counts the calls that needed no build as cache hits)."""
+    from filodb_tpu_torch.utils.devicetelem import watched_call
+    return watched_call(name, lambda: _load(name))
+
+
+def _load(name: str) -> Tuple[ctypes.CDLL, bool]:
+    """(the loaded library, whether this call built it)."""
     lib = _libs.get(name)
     if lib is not None:
-        return lib
+        return lib, False
+    built = False
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             if not library_path(name).exists():
                 finish_builds(start_builds([name]))
+                built = True
             lib = ctypes.CDLL(str(library_path(name)))
             _BINDERS[name](lib)
             _libs[name] = lib
-    return lib
+    return lib, built
 
 
 def _ptr(t: torch.Tensor) -> int:

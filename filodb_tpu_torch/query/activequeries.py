@@ -126,14 +126,17 @@ class ActiveQuery:
         self.device_dispatches += int(dispatches)
         self.device_seconds += float(device_s)
 
-    def tally(self, node, stats) -> None:
+    def tally(self, node, stats, exec_tally) -> None:
         """execute_internal's per-node hook: leaves own their scan
         counters (parents only merge children's — adding those again
-        would double-count)."""
+        would double-count); device work is EXCLUSIVE per node, so every
+        node may add its own."""
         if not node.children:
             self.add(samples=stats.samples_scanned,
                      paged_samples=stats.samples_paged,
                      paged_bytes=stats.bytes_paged)
+        if exec_tally.device_s > 0:
+            self.add(dispatches=1, device_s=exec_tally.device_s)
 
     def to_dict(self) -> dict:
         return {

@@ -1,14 +1,17 @@
 """Exec-tree foundations (port of filodb_tpu/query/execbase.py): data
-shapes, the fused-leaf caches, the 3-phase aggregation finishers (the
-component form and the candidate form of topk, bottomk, quantile and
-count_values), and the ExecPlan base classes with the deadline and
-cancellation checks at every node boundary and the live-query tally.
-Not carried over: the analyze recorder and the device telemetry tally
-(they come with explain and device telemetry).
+shapes, the fused-leaf caches and the byte budget of the padded-values
+cache, the 3-phase aggregation finishers (the component form and the
+candidate form of topk, bottomk, quantile and count_values), and the
+ExecPlan base classes: the deadline and cancellation checks at every
+node boundary, the resource tally (each node's exclusive host time, the
+device time the kernel ledger books to it, its transfers), the
+live-query tally, the plan printer behind explain (`print_tree`,
+`args_str`) and the recorder behind explain-analyze (`AnalyzeRecorder`).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -23,20 +26,9 @@ from filodb_tpu_torch.query.rangevector import (QueryContext, QueryResult,
                                                 ResultBlock, cat_values,
                                                 host_values,
                                                 remove_nan_series)
+from filodb_tpu_torch.utils.metrics import exec_tally, note_transfer
 
 # --------------------------------------------------------------- data shapes
-
-
-class _ExecTally(threading.local):
-    """Per-thread running totals behind QueryStats.cpu_seconds: the wall
-    of the nodes that finished inside the current one (child) and the
-    uploads booked as transfer_s, so each node adds only its own
-    exclusive host time (execute_internal)."""
-    child = 0.0
-    transfer = 0.0
-
-
-_TALLY = _ExecTally()
 
 
 class LazyKeys:
@@ -104,8 +96,10 @@ class RawBlock:
         """This block with its host arrays moved onto `device` in the
         mirror's types (int32 offsets, f32 rebased values, f64 bases),
         uploaded once: later calls return the same copy.  A block whose
-        values already lie on a device is returned as it is.  The upload
-        is booked into `stats` (transfer_s, bytes_transferred)."""
+        values already lie on a device is returned as it is.  With
+        `stats` given, the upload is synchronized and booked through the
+        exec tally (note_transfer), which the running node folds into
+        its stats (transfer_s, bytes_transferred)."""
         if isinstance(self.values, torch.Tensor):
             return self
         if self._device_copy is None:
@@ -119,12 +113,10 @@ class RawBlock:
             if stats is not None:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
-                spent = time.perf_counter() - t0
-                stats.transfer_s += spent
-                _TALLY.transfer += spent
-                stats.bytes_transferred += int(
+                note_transfer(
                     ts.numel() * 4 + vals.numel() * 4
-                    + (0 if vbase is None else vbase.numel() * 8))
+                    + (0 if vbase is None else vbase.numel() * 8),
+                    time.perf_counter() - t0)
             self._device_copy = dataclasses.replace(
                 self, ts_off=ts, values=vals, vbase=vbase)
         return self._device_copy
@@ -149,9 +141,47 @@ _FUSED_GROUP_CACHE: Dict[Tuple, Tuple] = {}
 # NaN-padded device copies for the min/max path's end=now shape, keyed
 # (working set, t_needed); a small cap: each entry pins a full copy
 _FUSED_MINMAX_PAD_CACHE: Dict[Tuple, object] = {}
-FUSED_VALS_CACHE_BYTES = 16 << 30
-"""Device bytes the padded-values cache may hold (the newest entry is
-always kept)."""
+_FUSED_VALS_CACHE_BYTES: Optional[int] = None    # resolved lazily
+_MIRROR_LIMIT_SEEN: Optional[int] = None         # largest live mirror budget
+_MIRROR_DEVICE: Optional[torch.device] = None    # where that mirror lives
+
+
+def _note_mirror_limit(limit_bytes: int, device=None) -> None:
+    """Record the largest DeviceMirror budget actually constructed (and
+    its device), so the values cache's budget subtracts the real mirror
+    share, not only the default."""
+    global _MIRROR_LIMIT_SEEN, _MIRROR_DEVICE, _FUSED_VALS_CACHE_BYTES
+    if _MIRROR_LIMIT_SEEN is None or limit_bytes > _MIRROR_LIMIT_SEEN:
+        _MIRROR_LIMIT_SEEN = limit_bytes
+        _MIRROR_DEVICE = device
+        _FUSED_VALS_CACHE_BYTES = None   # re-derive on next insert
+
+
+def _fused_vals_budget() -> int:
+    """Byte budget for the padded-values cache, derived as the reference
+    derives it: FILODB_TPU_FUSED_CACHE_BYTES when set; else 4 GiB, and
+    at most the device's memory (`torch.cuda.mem_get_info`) minus the
+    largest mirror budget minus 2 GiB headroom (floored at 1 GiB).  A
+    CPU mirror reports no device memory and keeps the 4 GiB.  Resolved
+    once, at the first insert after a new mirror budget."""
+    global _FUSED_VALS_CACHE_BYTES
+    if _FUSED_VALS_CACHE_BYTES is not None:
+        return _FUSED_VALS_CACHE_BYTES
+    env = os.environ.get("FILODB_TPU_FUSED_CACHE_BYTES")
+    if env:
+        _FUSED_VALS_CACHE_BYTES = int(env)
+        return _FUSED_VALS_CACHE_BYTES
+    from filodb_tpu_torch.core.devicecache import DEFAULT_HBM_LIMIT_BYTES
+    budget = 4 << 30
+    dev = _MIRROR_DEVICE
+    if dev is not None and dev.type == "cuda":
+        limit = int(torch.cuda.mem_get_info(dev)[1])
+        mirror_limit = _MIRROR_LIMIT_SEEN or DEFAULT_HBM_LIMIT_BYTES
+        budget = min(budget, max(1 << 30, limit - mirror_limit - (2 << 30)))
+    _FUSED_VALS_CACHE_BYTES = budget
+    return budget
+
+
 _FUSED_CACHE_LOCK = threading.Lock()
 
 
@@ -227,13 +257,17 @@ def _group_cache_insert(key, by, without, groups, gkeys) -> None:
 
 
 def _vals_cache_insert(key, v) -> None:
-    """Caller holds _FUSED_CACHE_LOCK."""
+    """Caller holds _FUSED_CACHE_LOCK.  Evictions are counted
+    (`fused_vals_cache_evictions`)."""
+    from filodb_tpu_torch.utils.metrics import registry
     _FUSED_VALS_CACHE[key] = v
+    budget = _fused_vals_budget()
     while len(_FUSED_VALS_CACHE) > 1 and (
             len(_FUSED_VALS_CACHE) > 4
             or sum(_vals_nbytes(e) for e in _FUSED_VALS_CACHE.values())
-            > FUSED_VALS_CACHE_BYTES):
+            > budget):
         _FUSED_VALS_CACHE.pop(next(iter(_FUSED_VALS_CACHE)))
+        registry.counter("fused_vals_cache_evictions").increment()
 
 
 @dataclasses.dataclass
@@ -423,6 +457,36 @@ def reduce_partials(parts: List[AggPartial]) -> Optional[AggPartial]:
 # ---------------------------------------------------------------- exec plans
 
 
+class AnalyzeRecorder:
+    """Per-node resource records for `/api/v1/explain?analyze=true` (the
+    EXPLAIN ANALYZE of the exec tree): every executed node appends its
+    EXCLUSIVE wall/device/transfer attribution plus the cumulative scan
+    counters its subtree produced.  Attach by setting
+    `ctx.analyze = AnalyzeRecorder()` on the QueryContext BEFORE
+    execution (a plain attribute, not a dataclass field)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.by_node: Dict[int, dict] = {}      # id(node) -> record
+        self.order: List[dict] = []
+
+    def add(self, node, rec: dict) -> None:
+        with self._lock:
+            self.by_node[id(node)] = rec
+            self.order.append(rec)
+
+    def annotation(self, node) -> str:
+        """Tree-line suffix for print_tree(annot=...)."""
+        r = self.by_node.get(id(node))
+        if r is None:
+            return "  [not executed locally]"
+        return ("  [self=%.3fms device=%.3fms transfer=%.3fms "
+                "bytes=%d samples=%d series=%d]"
+                % (r["self_s"] * 1e3, r["device_s"] * 1e3,
+                   r["transfer_s"] * 1e3, r["bytes_transferred"],
+                   r["samples_scanned"], r["series_scanned"]))
+
+
 class ExecPlan:
     """Base execution node.  `execute_internal` returns raw Data + stats;
     `execute` materializes a QueryResult with limits enforced."""
@@ -465,36 +529,59 @@ class ExecPlan:
 
     def execute_internal(self, source):
         """_execute_impl behind the node-boundary checks (deadline, then
-        cancellation: a query past its budget or killed stops here
-        instead of fanning out more work).  The node's exclusive wall
-        (less its children's, less the uploads it booked as transfer_s)
-        goes into stats.cpu_seconds, so the root's total is the exec
-        phase's host time (kernel waits included: the port books no
-        device time).  The live registry entry riding the context sees
-        this node's counters in place."""
+        cancellation) and inside the resource tally: each node's
+        EXCLUSIVE wall time (total minus nested nodes', minus the device
+        and transfer seconds it booked) goes into stats.cpu_seconds, and
+        whatever device/transfer work the thread accumulated while this
+        node ran (utils/metrics.exec_tally, fed by the kernel ledger and
+        the uploads) lands in ITS QueryStats — children's contributions
+        arrive via stats.merge, so the root totals are exact sums over
+        nodes.  An attached AnalyzeRecorder gets the node's record; the
+        live registry entry riding the context sees this node's counters
+        in place."""
         self._check_live(type(self).__name__)
-        outer_child, outer_transfer = _TALLY.child, _TALLY.transfer
-        _TALLY.child = _TALLY.transfer = 0.0
+        snap = exec_tally.snapshot()
         t0 = time.perf_counter()
         try:
             data, stats = self._execute_impl(source)
-        finally:
-            total = time.perf_counter() - t0
-            own = max(total - _TALLY.child - _TALLY.transfer, 0.0)
-            _TALLY.child = outer_child + total
-            _TALLY.transfer = outer_transfer
-        stats.cpu_seconds += own
+        except BaseException:
+            # the parent sees the whole failed subtree as child time
+            exec_tally.restore(snap, time.perf_counter() - t0)
+            raise
+        total = time.perf_counter() - t0
+        self_wall = max(total - exec_tally.child_wall
+                        - exec_tally.device_s - exec_tally.transfer_s, 0.0)
+        fold_tally(stats, self_wall)
+        rec = getattr(self.ctx, "analyze", None)
+        if rec is not None:
+            rec.add(self, {
+                "plan": type(self).__name__,
+                "self_s": self_wall,
+                "device_s": exec_tally.device_s,
+                "transfer_s": exec_tally.transfer_s,
+                "bytes_transferred": exec_tally.transfer_bytes,
+                # cumulative over this node's subtree (leaves: own scan)
+                "samples_scanned": stats.samples_scanned,
+                "series_scanned": stats.series_scanned,
+                "shards_queried": stats.shards_queried,
+            })
         ent = getattr(self.ctx, "active", None)
         if ent is not None:
-            ent.tally(self, stats)
+            ent.tally(self, stats, exec_tally)
+        exec_tally.restore(snap, total)
         return data, stats
 
     def execute(self, source) -> QueryResult:
-        """Run the tree.  Query errors come back in the result, as in the
-        reference, except not_ported, which is raised: a query outside
-        the port's slice must never look like an answer."""
+        """Run the tree under the query's trace id (ctx.query_id), so the
+        kernel ledger's entries and the spans carry it.  Query errors
+        come back in the result, as in the reference, except not_ported,
+        which is raised: a query outside the port's slice must never
+        look like an answer."""
+        from filodb_tpu_torch.utils.metrics import span, trace_context
         try:
-            data, stats = self.execute_internal(source)
+            with trace_context(self.ctx.query_id), \
+                    span("execplan", plan=type(self).__name__):
+                data, stats = self.execute_internal(source)
         except QueryError as e:
             if e.code == "not_ported":
                 raise
@@ -528,6 +615,49 @@ class ExecPlan:
         stats.result_bytes = sum(int(np.asarray(b.values).nbytes)
                                  for b in blocks)
         return QueryResult(blocks, stats)
+
+    # -- plan printing (the reference's ExecPlan.printTree)
+
+    def args_str(self) -> str:
+        return ""
+
+    def print_tree(self, level: int = 0, annot=None) -> str:
+        """annot: optional node -> suffix-string callable (the explain
+        analyze mode passes AnalyzeRecorder.annotation)."""
+        transf = [f"{'-' * (level + i + 1)}T~{type(t).__name__}({t.args_str()})"
+                  for i, t in enumerate(reversed(self.transformers))]
+        me = (f"{'-' * (level + len(self.transformers) + 1)}"
+              f"E~{type(self).__name__}({self.args_str()})"
+              + (annot(self) if annot is not None else ""))
+        kids = [c.print_tree(level + len(self.transformers) + 1, annot)
+                for c in self.children]
+        return "\n".join(transf + [me] + kids)
+
+    def __str__(self):
+        return self.print_tree()
+
+
+def fold_tally(stats: QueryStats, self_wall: float = 0.0) -> None:
+    """Fold the thread's exec tally (what the running scope accumulated:
+    device seconds by device and kernel, transfers, mirror refreshes)
+    into `stats`, plus `self_wall` of exclusive host time.  The caller
+    owns the snapshot/restore around the scope."""
+    stats.cpu_seconds += self_wall
+    stats.device_seconds += exec_tally.device_s
+    stats.transfer_s += exec_tally.transfer_s
+    stats.bytes_transferred += exec_tally.transfer_bytes
+    stats.mirror_full_rebuilds += exec_tally.mirror_full
+    stats.mirror_incremental += exec_tally.mirror_incremental
+    # the per-(device, kernel) split of device_seconds, under a flat
+    # "dev|kernel" key
+    for (dev, kern), cell in exec_tally.device_calls.items():
+        key = f"{dev}|{kern}"
+        mine = stats.device_calls.get(key)
+        if mine is None:
+            stats.device_calls[key] = [cell[0], cell[1]]
+        else:
+            mine[0] += cell[0]
+            mine[1] += cell[1]
 
 
 class LeafExecPlan(ExecPlan):

@@ -1,7 +1,6 @@
 """Query-serving frontend: turns a fast single-query engine into fast
-concurrent TRAFFIC (port of filodb_tpu/query/frontend.py, without
-analyze_range: EXPLAIN ANALYZE comes with the explain route in a later
-slice).
+concurrent TRAFFIC (port of filodb_tpu/query/frontend.py, with
+analyze_range, the EXPLAIN ANALYZE execution behind /api/v1/explain).
 
 Three layers wrap one QueryEngine, outermost first (ref: the Cortex/
 Thanos query-frontend split — dedup, result caching and scheduling live
@@ -292,6 +291,96 @@ class QueryFrontend:
                 if self._inflight.get(key) is flight:
                     del self._inflight[key]
             flight.done.set()
+
+    def analyze_range(self, promql: str, start_s: int, step_s: int,
+                      end_s: int, planner_params=None):
+        """EXPLAIN ANALYZE execution (/api/v1/explain?analyze=true): the
+        SAME tenant admission, scheduler bound, and usage/slowlog
+        accounting as query_range, but runs a recorder-attached plan and
+        bypasses the result caches (annotations must reflect a real
+        execution).  Returns (result, recorder, exec_tree); recorder and
+        tree are None when admission rejected the query.  Parse and
+        planning errors propagate (the HTTP edge turns them into 400s,
+        as on the plain explain path)."""
+        import dataclasses as _dc
+        import uuid as _uuid
+
+        from filodb_tpu_torch.promql.parser import (
+            TimeStepParams, query_range_to_logical_plan)
+        from filodb_tpu_torch.query.activequeries import (active_queries,
+                                                          verdict_of)
+        from filodb_tpu_torch.query.execbase import AnalyzeRecorder
+        from filodb_tpu_torch.query.rangevector import QueryContext
+        from filodb_tpu_torch.utils.slowlog import slowlog
+        from filodb_tpu_torch.utils.usage import tenant_of, usage
+        tenant = ("", "")
+        if self._usage_enabled:
+            tenant = tenant_of(promql)
+            err = usage.admit(tenant[0], tenant[1], self._warn_limit,
+                              self._fail_limit)
+            if err is not None:
+                return QueryResult([], error=err), None, None
+        t0 = _time.perf_counter()
+        plan = query_range_to_logical_plan(
+            promql, TimeStepParams(start_s, step_s, end_s))
+        eng = self.engine
+        ctx = QueryContext(query_id=_uuid.uuid4().hex[:16],
+                           device=eng.device,
+                           mirror_background_rebuild=(
+                               eng.mirror_background_rebuild))
+        # analyze executions are live-listable and killable like any
+        # other query
+        ent = active_queries.register(ctx.query_id, promql=promql,
+                                      tenant=tenant,
+                                      origin="explain_analyze")
+        if ent is not None:
+            ctx.cancel = ent.token
+            ctx.active = ent
+            ent.set_phase("planning")
+        # the deadline starts at admission, as for query_range; analyze
+        # has no re-plan layer, so the partial-results gate engages the
+        # scatter-gather drop directly
+        planner_params = self._admit_params(planner_params)
+        if planner_params.allow_partial_results:
+            planner_params = _dc.replace(planner_params, partial_now=True)
+        ctx.planner_params = planner_params
+        ctx.deadline_unix_s = planner_params.deadline_unix_s
+        ep = eng.planner.materialize(plan, ctx)
+        rec = AnalyzeRecorder()
+        # a plain attribute, not a dataclass field
+        ctx.analyze = rec
+        sched = self._sched
+        adm = None
+        res = None
+        if sched is not None:
+            adm = sched.admit(
+                tenant[0],
+                remaining_budget(planner_params, self._ask_timeout_s),
+                ent.token if ent is not None else None,
+                deadline_unix_s=planner_params.deadline_unix_s)
+            if adm.status == "shed":
+                res = self._shed_result(tenant[0], adm)
+                active_queries.deregister(ent, verdict_of(res))
+                return res, None, None
+        try:
+            if ent is not None:
+                ent.set_phase("executing")
+            res = ep.execute(eng.source)
+        finally:
+            if adm is not None and adm.acquired:
+                sched.release(tenant[0])
+            active_queries.deregister(ent, verdict_of(res))
+        res.trace_id = ctx.query_id
+        account_wait(res, adm)
+        dur = _time.perf_counter() - t0
+        if self._usage_enabled:
+            usage.record_query(tenant[0], tenant[1], dur,
+                               res.stats.samples_scanned,
+                               res.stats.result_bytes)
+        slowlog.maybe_record(promql, start_s, step_s, end_s, dur, res,
+                             tenant=tenant, origin="explain_analyze",
+                             threshold_s=self._slow_s)
+        return res, rec, ep
 
     # ----------------------------------------------------------- layers
 

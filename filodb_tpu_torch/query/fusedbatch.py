@@ -5,10 +5,19 @@ panels one group-mode launch, min/max panels one per-series launch
 (ops/fused.fused_leaf_agg_batch).  A histogram call's groups are
 (group, bucket) slots; its finisher reshapes them to [G, W, B] and adds
 the present-series count (a "hist_sum" AggPartial).
+
+Each merged set is one entry of the kernel ledger (`fused_{fn}`,
+utils/devicetelem), timed from its launch through the synchronizing
+readback.  A standalone leaf's entry feeds the running node's exec
+tally; a batch's (a call carrying its leaf's `stats`) is booked to the
+stats of the set's first call and to that query's trace, so the sum of
+device seconds over a batch's panels is the sum of its ledger entries
+(the reference's exec tally drops a batch's merged launch).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -42,6 +51,11 @@ class FusedCall:
     bucket_les: Optional[np.ndarray] = None
     num_buckets: int = 1
     cache_token: Optional[tuple] = None
+    # a batch-prepared call's owner: its leaf's QueryStats and query id,
+    # which the merged launch's device seconds are booked to (None: the
+    # running node's exec tally)
+    stats: Optional[object] = None
+    origin: str = ""
 
     def compat_key(self):
         base = (self.fn, self.precorrected, self.ragged)
@@ -53,8 +67,11 @@ class FusedCall:
 def finish_fused_calls(calls: List[FusedCall]) -> List[AggPartial]:
     """Launch every FusedCall, merging compatible ones into single kernel
     launches (identical panels dedup to one).  Phase A issues every
-    merged set's launch without reading back; phase B synchronizes."""
+    merged set's launch without reading back; phase B synchronizes.
+    Every merged set is recorded in the kernel ledger (see the module
+    docstring)."""
     from filodb_tpu_torch.ops import fused
+    from filodb_tpu_torch.utils.devicetelem import telem
     out: List[Optional[AggPartial]] = [None] * len(calls)
     prim: Dict[tuple, int] = {}
     alias: Dict[int, int] = {}
@@ -87,17 +104,45 @@ def finish_fused_calls(calls: List[FusedCall]) -> List[AggPartial]:
                 group_mode + per_series)
             registry.counter("fused_batch_merged_panels").increment(
                 len(take))
+        t0 = time.perf_counter()
         finisher = fused.fused_leaf_agg_batch(
             fc0.plan, fc0.values, panels, fc0.fn,
             precorrected=fc0.precorrected, ragged=fc0.ragged,
             num_series=fc0.num_series, lazy=True)
-        pending.append((take, finisher))
-    for take, finisher in pending:
-        for i, comp in zip(take, finisher()):
+        pending.append((take, finisher, time.perf_counter() - t0))
+    for take, finisher, disp_s in pending:
+        t0 = time.perf_counter()
+        comps = finisher()
+        for i, comp in zip(take, comps):
             out[i] = _present(calls[i], comp)
+        # launch + readback (_present's numpy conversion synchronizes)
+        fc0 = calls[take[0]]
+        seconds = disp_s + (time.perf_counter() - t0)
+        vals_p = fc0.values.vals_p
+        dev = str(vals_p.device)
+        kernel = f"fused_{fc0.fn}"
+        telem.record_dispatch(
+            kernel, device=dev,
+            shape=(f"S{fc0.num_series}xW{len(fc0.wends)}x{len(take)}p"
+                   + (":ragged" if fc0.ragged else "")),
+            seconds=seconds, bytes_in=int(vals_p.numel()) * 4,
+            bytes_out=sum(int(getattr(c, "nbytes", 0)) for c in comps),
+            origin=fc0.origin if fc0.stats is not None else None,
+            note=fc0.stats is None)
+        if fc0.stats is not None:
+            _book_device(fc0.stats, dev, kernel, seconds)
     for i, j in alias.items():
         out[i] = dataclasses.replace(out[j])
     return out
+
+
+def _book_device(stats, dev: str, kernel: str, seconds: float) -> None:
+    """One kernel call booked straight into a QueryStats, as the exec
+    tally would have folded it."""
+    stats.device_seconds += seconds
+    cell = stats.device_calls.setdefault(f"{dev}|{kernel}", [0.0, 0])
+    cell[0] += seconds
+    cell[1] += 1
 
 
 def _present(fc: FusedCall, comp) -> AggPartial:

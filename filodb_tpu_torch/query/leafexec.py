@@ -81,7 +81,8 @@ from filodb_tpu_torch.query.execbase import (
     ScalarResult,
     _FUSED_CACHE_LOCK, _FUSED_MINMAX_PAD_CACHE, _FUSED_PLAN_CACHE,
     _FUSED_VALS_CACHE, _group_cache_insert, _group_cache_lookup, _lru_touch,
-    QueryError, _TALLY, _vals_cache_insert, agg_token, not_ported)
+    QueryError, _note_mirror_limit, _vals_cache_insert, agg_token,
+    fold_tally, not_ported)
 from filodb_tpu_torch.query.fusedbatch import FusedCall, finish_fused_calls
 from filodb_tpu_torch.query.rangevector import QueryContext, QueryStats
 from filodb_tpu_torch.query.transformers import (AggregateMapReduce,
@@ -89,6 +90,8 @@ from filodb_tpu_torch.query.transformers import (AggregateMapReduce,
                                                  RepeatToGridMapper,
                                                  _group_ids_cached)
 from filodb_tpu_torch.utils.counters import counters
+from filodb_tpu_torch.utils.devicetelem import telem
+from filodb_tpu_torch.utils.metrics import exec_tally, trace_context
 
 # range functions with counter semantics (the reference's RANGE_FUNCTIONS
 # is_counter flag): on a counter column they read the reset-corrected
@@ -120,6 +123,17 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         # phase 1 of a batch parks (data, stats, fused outcome,
         # transformers consumed) here for phase 3 (prepare_fused)
         self._prefused = None
+        # "host" once the router's host route answered (explain-analyze
+        # prints it)
+        self.route = None
+
+    def args_str(self):
+        fs = ",".join(str(f) for f in self.filters)
+        return (f"dataset={self.dataset}, shard={self.shard}, "
+                f"chunkMethod=TimeRangeChunkScan({self.chunk_start_ms},"
+                f"{self.chunk_end_ms}), filters=[{fs}], "
+                f"colName={self.columns}"
+                + (f", route={self.route}" if self.route else ""))
 
     def _execute_impl(self, source):
         pre = self._prefused
@@ -154,13 +168,23 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         then resets the leaf, which runs standalone in phase 3."""
         self._prefused = None
         self._fused_cache_key = None
+        # this work is the leaf's own, done ahead of its node: its host
+        # time and what the exec tally gathers (the mirror gather, uploads)
+        # go into its stats, under its query's trace id
+        snap = exec_tally.snapshot()
         t0 = time.perf_counter()
-        transfer0 = _TALLY.transfer
-        data, stats = self._do_execute(source)
-        out, start = self._try_fused(data, stats, defer=True)
-        # this work is the leaf's own, done ahead of its node: book it
-        stats.cpu_seconds += max(time.perf_counter() - t0
-                                 - (_TALLY.transfer - transfer0), 0.0)
+        try:
+            with trace_context(self.ctx.query_id):
+                data, stats = self._do_execute(source)
+                out, start = self._try_fused(data, stats, defer=True)
+            fold_tally(stats, max(time.perf_counter() - t0
+                                  - exec_tally.device_s
+                                  - exec_tally.transfer_s, 0.0))
+        finally:
+            exec_tally.restore(snap, 0.0)
+        if isinstance(out, FusedCall):
+            # the merged launch's device seconds are booked to this leaf
+            out.stats, out.origin = stats, self.ctx.query_id
         self._prefused = (None if out is not None else data, stats, out,
                           start)
         return out if isinstance(out, FusedCall) else None
@@ -376,6 +400,7 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             if hit is not None:
                 self._check_group_limit(hit.group_keys)
                 counters.inc("leaf_host_routed")
+                self.route = "host"
                 return dataclasses.replace(hit)
         plan = fused.build_plan(np.asarray(data.shared_ts_row, np.int64),
                                 eval_wends, t0.window_ms)
@@ -386,6 +411,7 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                                       np.asarray(gids), len(gkeys), fn,
                                       t1.op)
         counters.inc("leaf_host_routed")
+        self.route = "host"
         p = AggPartial(t1.op, gkeys, wends, comp=comp,
                        cache_token=agg_token(t1.op, t1.by, t1.without,
                                              data.cache_token))
@@ -499,12 +525,20 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                                 next(iter(_FUSED_MINMAX_PAD_CACHE)))
             vals = padded
             ragged = True
+        d0 = time.perf_counter()
         comp = minmax.fused_minmax_agg(
             vals, data.vbase, groups.gids_p[:S], f0, stride, width,
             int(eval_wends.size), t0.function, t1.op, len(gkeys), ragged,
             csr=groups.csr)
+        comp_np = comp.cpu().numpy()             # synchronizing readback
+        telem.record_dispatch(
+            "fused_minmax", device=vals.device,
+            shape=f"S{vals.shape[0]}xW{int(eval_wends.size)}xG{len(gkeys)}",
+            seconds=time.perf_counter() - d0,
+            bytes_in=int(vals.numel() * vals.element_size()),
+            bytes_out=comp_np.nbytes)
         counters.inc("leaf_fused_minmax")
-        return AggPartial(t1.op, gkeys, wends, comp=comp.cpu().numpy(),
+        return AggPartial(t1.op, gkeys, wends, comp=comp_np,
                           cache_token=agg_token(t1.op, t1.by, t1.without,
                                                 data.cache_token))
 
@@ -650,6 +684,8 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                 if mirror is None:
                     mirror = store.device_mirror = DeviceMirror(
                         device=shard.device, shard_num=self.shard)
+                    _note_mirror_limit(mirror.hbm_limit_bytes,
+                                       mirror.device)
         if not mirror.is_fresh(store):
             bg = (self.ctx.mirror_background_rebuild
                   and mirror.may_rebuild_in_background(store))
@@ -666,7 +702,12 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                 return None
         # one snapshot read serves gather AND fused eligibility
         snap = mirror.snapshot()
+        g0 = time.perf_counter()
         ts_off, dev_cols, dev_vbases, base = mirror.gather_cached(rows, snap)
+        # enqueue time: the gathered tensors are not read back here
+        telem.record_dispatch("mirror_gather", device=mirror.device,
+                              shape=f"rows{len(rows)}",
+                              seconds=time.perf_counter() - g0)
         shared_ts_row = mirror.fused_eligible(col_name, snap,
                                               allow_ragged=True)
         if shared_ts_row is not None:
@@ -839,6 +880,9 @@ class TimeScalarGeneratorExec(LeafExecPlan):
         self.start_ms, self.step_ms, self.end_ms = start_ms, step_ms, end_ms
         self.function = function
 
+    def args_str(self):
+        return f"function={self.function}"
+
     def _do_execute(self, source):
         wends = make_window_ends(self.start_ms, self.end_ms, self.step_ms)
         secs = wends / 1000.0
@@ -860,6 +904,9 @@ class ScalarFixedDoubleExec(LeafExecPlan):
         self.start_ms, self.step_ms, self.end_ms = start_ms, step_ms, end_ms
         self.value = value
 
+    def args_str(self):
+        return f"value={self.value}"
+
     def _do_execute(self, source):
         wends = make_window_ends(self.start_ms, self.end_ms, self.step_ms)
         return ScalarResult(wends, np.full(len(wends), self.value)), \
@@ -875,6 +922,9 @@ class ScalarBinaryOperationExec(LeafExecPlan):
         self.operator = operator
         self.lhs = lhs          # float or ScalarBinaryOperationExec
         self.rhs = rhs
+
+    def args_str(self):
+        return f"operator={self.operator}"
 
     def _eval(self, x, source):
         if isinstance(x, ScalarBinaryOperationExec):

@@ -22,6 +22,9 @@ class PartKeysExec(LeafExecPlan):
         self.filters = list(filters)
         self.start_ms, self.end_ms = start_ms, end_ms
 
+    def args_str(self):
+        return f"shard={self.shard}, filters={[str(f) for f in self.filters]}"
+
     def _do_execute(self, source):
         shard = source.get_shard(self.dataset, self.shard)
         stats = QueryStats(shards_queried=1)
@@ -49,6 +52,10 @@ class LabelValuesExec(LeafExecPlan):
         self.filters = list(filters)
         self.labels = list(labels)
         self.start_ms, self.end_ms = start_ms, end_ms
+
+    def args_str(self):
+        return (f"shard={self.shard}, labels={self.labels}, "
+                f"filters={[str(f) for f in self.filters]}")
 
     def _do_execute(self, source):
         shard = source.get_shard(self.dataset, self.shard)

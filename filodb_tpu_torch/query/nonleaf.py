@@ -1,6 +1,7 @@
 """Non-leaf exec plans (port of filodb_tpu/query/nonleaf.py):
-DistConcatExec, ReduceAggregateExec, BinaryJoinExec, SetOperatorExec
-and SubqueryExec.  Label matching runs on the host, as in the reference;
+DistConcatExec and LocalPartitionDistConcatExec (the planner's
+multi-shard concat root), ReduceAggregateExec, BinaryJoinExec,
+SetOperatorExec and SubqueryExec.  Label matching runs on the host, as in the reference;
 the values stay on their device.
 """
 from __future__ import annotations
@@ -37,6 +38,11 @@ class DistConcatExec(NonLeafExecPlan):
             return _concat_raw(raws)
         return concat_blocks([r for r in results
                               if isinstance(r, ResultBlock)])
+
+
+class LocalPartitionDistConcatExec(DistConcatExec):
+    """The concat the planner builds over a selector's per-shard leaves
+    (the reference's name, which explain prints)."""
 
 
 def _concat_raw(raws: List[RawBlock]) -> RawBlock:
@@ -117,6 +123,9 @@ class ReduceAggregateExec(NonLeafExecPlan):
         self.by = tuple(by)
         self.without = tuple(without)
 
+    def args_str(self):
+        return f"aggrOp={self.op}, aggrParams={list(self.params)}"
+
     def compose(self, results, stats):
         return reduce_partials([r for r in results
                                 if isinstance(r, AggPartial)])
@@ -140,6 +149,10 @@ class BinaryJoinExec(NonLeafExecPlan):
         self.ignoring = tuple(ignoring)
         self.include = tuple(include)
         self.bool_modifier = bool_modifier
+
+    def args_str(self):
+        return (f"binaryOp={self.operator}, on={self.on}, "
+                f"ignoring={list(self.ignoring)}")
 
     def _match_key(self, k: RangeVectorKey) -> RangeVectorKey:
         if self.on is not None:
@@ -206,6 +219,10 @@ class SetOperatorExec(NonLeafExecPlan):
         self.operator = operator.lower()
         self.on = tuple(on) if on is not None else None
         self.ignoring = tuple(ignoring)
+
+    def args_str(self):
+        return (f"binaryOp={self.operator}, on={self.on}, "
+                f"ignoring={list(self.ignoring)}")
 
     def _match_key(self, k: RangeVectorKey) -> RangeVectorKey:
         if self.on is not None:
@@ -311,6 +328,11 @@ class SubqueryExec(NonLeafExecPlan):
         self.subquery_window_ms = subquery_window_ms
         self.subquery_step_ms = subquery_step_ms
         self.offset_ms = offset_ms
+
+    def args_str(self):
+        return (f"function={self.function}, "
+                f"window={self.subquery_window_ms}, "
+                f"step={self.subquery_step_ms}")
 
     def compose(self, results, stats):
         block = concat_blocks([r for r in results

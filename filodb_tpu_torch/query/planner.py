@@ -29,7 +29,8 @@ from filodb_tpu_torch.query.leafexec import (MultiSchemaPartitionsExec,
                                              TimeScalarGeneratorExec)
 from filodb_tpu_torch.query.metaexec import (LabelValuesExec,
                                              MetadataMergeExec, PartKeysExec)
-from filodb_tpu_torch.query.nonleaf import (BinaryJoinExec, DistConcatExec,
+from filodb_tpu_torch.query.nonleaf import (BinaryJoinExec,
+                                            LocalPartitionDistConcatExec,
                                             ReduceAggregateExec,
                                             SetOperatorExec, SubqueryExec)
 from filodb_tpu_torch.query.rangevector import QueryContext
@@ -88,7 +89,7 @@ class SingleClusterPlanner:
         if isinstance(out, list):
             if len(out) == 1:
                 return out[0]
-            return DistConcatExec(ctx, out)
+            return LocalPartitionDistConcatExec(ctx, out)
         return out
 
     def _leaves(self, plan, ctx) -> List[ExecPlan]:

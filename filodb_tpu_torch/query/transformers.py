@@ -48,6 +48,12 @@ class RangeVectorTransformer:
               source=None) -> Data:
         raise NotImplementedError
 
+    def args_str(self) -> str:
+        return ""
+
+    def __str__(self):
+        return f"{type(self).__name__}({self.args_str()})"
+
 
 @dataclasses.dataclass
 class PeriodicSamplesMapper(RangeVectorTransformer):
@@ -60,6 +66,11 @@ class PeriodicSamplesMapper(RangeVectorTransformer):
     function_args: Tuple[float, ...] = ()
     offset_ms: int = 0
     lookback_ms: int = 5 * 60 * 1000
+
+    def args_str(self):
+        return (f"start={self.start_ms}, step={self.step_ms}, end={self.end_ms}, "
+                f"window={self.window_ms}, functionId={self.function}, "
+                f"offset={self.offset_ms}")
 
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:
@@ -117,6 +128,10 @@ class RepeatToGridMapper(RangeVectorTransformer):
     step_ms: int
     end_ms: int
 
+    def args_str(self):
+        return (f"start={self.start_ms}, step={self.step_ms}, "
+                f"end={self.end_ms}")
+
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:
         wends = make_window_ends(self.start_ms, self.end_ms, self.step_ms)
@@ -158,6 +173,9 @@ class InstantVectorFunctionMapper(RangeVectorTransformer):
     """abs(), round(), hour(), histogram_quantile(), ... over a block."""
     function: str
     args: Tuple = ()
+
+    def args_str(self):
+        return f"function={self.function}"
 
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:
@@ -249,6 +267,9 @@ class ScalarOperationMapper(RangeVectorTransformer):
     scalar_is_lhs: bool = False
     bool_modifier: bool = False
 
+    def args_str(self):
+        return f"operator={self.operator}, scalarOnLhs={self.scalar_is_lhs}"
+
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:
         if not isinstance(data, ResultBlock) or data.num_series == 0:
@@ -334,6 +355,10 @@ class AggregateMapReduce(RangeVectorTransformer):
     by: Tuple[str, ...] = ()
     without: Tuple[str, ...] = ()
 
+    def args_str(self):
+        return (f"aggrOp={self.op}, aggrParams={list(self.params)}, "
+                f"without={list(self.without)}, by={list(self.by)}")
+
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:
         if data is None or (isinstance(data, ResultBlock)
@@ -417,6 +442,9 @@ class AggregatePresenter(RangeVectorTransformer):
         self.op = op
         self.params = params
 
+    def args_str(self):
+        return f"aggrOp={self.op}, aggrParams={list(self.params)}"
+
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:
         if data is None:
@@ -435,6 +463,9 @@ class AbsentFunctionMapper(RangeVectorTransformer):
     start_ms: int = 0
     step_ms: int = 0
     end_ms: int = 0
+
+    def args_str(self):
+        return "functionId=absent"
 
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:
@@ -461,6 +492,9 @@ class SortFunctionMapper(RangeVectorTransformer):
     ranks first either way, as in the reference."""
     descending: bool = False
 
+    def args_str(self):
+        return f"function={'sort_desc' if self.descending else 'sort'}"
+
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:
         if not isinstance(data, ResultBlock) or data.num_series <= 1:
@@ -483,6 +517,9 @@ class MiscellaneousFunctionMapper(RangeVectorTransformer):
     step, else the query fails (_merge_relabeled)."""
     function: str
     string_args: Tuple[str, ...] = ()
+
+    def args_str(self):
+        return f"function={self.function}"
 
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:
@@ -565,6 +602,9 @@ class LimitFunctionMapper(RangeVectorTransformer):
     """limitk: the first `limit` series."""
     limit: int
 
+    def args_str(self):
+        return f"limit={self.limit}"
+
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:
         if isinstance(data, ResultBlock) and data.num_series > self.limit:
@@ -577,6 +617,9 @@ class ScalarFunctionMapper(RangeVectorTransformer):
     """scalar(vector): a single series becomes a scalar stream; anything
     else is NaN at every step."""
     function: str = "scalar"
+
+    def args_str(self):
+        return f"function={self.function}"
 
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:
@@ -592,6 +635,9 @@ class ScalarFunctionMapper(RangeVectorTransformer):
 @dataclasses.dataclass
 class VectorFunctionMapper(RangeVectorTransformer):
     """vector(scalar): the scalar stream as one series without labels."""
+
+    def args_str(self):
+        return "function=vector"
 
     def apply(self, data: Data, ctx: QueryContext, stats: QueryStats,
               source=None) -> Data:

@@ -7,14 +7,20 @@ query's origin and verdict, and a `span()` context manager that records
 durations into histograms.  Everything is thread-safe; metric lookups are
 dict hits on interned (name, tags) keys.
 
-Not carried over: the per-node device and transfer tally (the port books
-exclusive exec time itself, query/execbase.py), the W3C traceparent
-helpers, span reporters and trace export, and the scheduler asserts;
-they come with the subsystems that use them.
+The per-thread exec tally attributes device kernel time (by device and
+kernel, fed by utils/devicetelem.record_dispatch), host->device
+transfers and mirror refreshes to the exec node that triggered them, so
+QueryStats.device_seconds and its per-device split reconcile with the
+kernel ledger by construction.
+
+Not carried over: span reporters and trace export, the exemplar kill
+switch and the scheduler asserts; they come with the subsystems that
+use them.
 """
 from __future__ import annotations
 
 import bisect
+import logging
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -326,9 +332,96 @@ def _om_exemplar(ex) -> str:
 registry = MetricsRegistry()
 
 
+# ----------------------------------------------------- exec resource tally
+
+class _ExecTally(threading.local):
+    """Per-thread accumulators attributing device time, host→device
+    transfer, and mirror-refresh events to the exec node that triggered
+    them (the Kamon-context analogue for QueryStats attribution).
+
+    Protocol: ExecPlan.execute_internal snapshots + zeroes the fields on
+    entry, folds whatever its own work accumulated into its QueryStats on
+    exit, then restores the outer values — so a parent node never
+    re-claims what a child already attributed (child contributions arrive
+    via QueryStats.merge instead).  `child_wall` carries nested nodes'
+    wall seconds up, letting each node compute its EXCLUSIVE cpu time."""
+
+    def __init__(self):
+        self.child_wall = 0.0
+        self.device_s = 0.0
+        self.transfer_s = 0.0
+        self.transfer_bytes = 0
+        self.mirror_full = 0
+        self.mirror_incremental = 0
+        # (device, kernel) -> [seconds, count]: the per-device, per-kernel
+        # split of device_s (device telemetry) — same snapshot /
+        # restore protocol, folded into QueryStats.device_calls
+        self.device_calls: Dict[Tuple[str, str], List[float]] = {}
+
+    def snapshot(self):
+        s = (self.child_wall, self.device_s, self.transfer_s,
+             self.transfer_bytes, self.mirror_full, self.mirror_incremental,
+             self.device_calls)
+        self.child_wall = 0.0
+        self.device_s = 0.0
+        self.transfer_s = 0.0
+        self.transfer_bytes = 0
+        self.mirror_full = 0
+        self.mirror_incremental = 0
+        self.device_calls = {}
+        return s
+
+    def restore(self, snap, total_wall: float) -> None:
+        (self.child_wall, self.device_s, self.transfer_s,
+         self.transfer_bytes, self.mirror_full,
+         self.mirror_incremental, self.device_calls) = snap
+        self.child_wall += total_wall
+
+
+exec_tally = _ExecTally()
+
+
+def note_device_time(seconds: float) -> None:
+    """Attribute device dispatch/kernel wall time to the current node."""
+    exec_tally.device_s += seconds
+
+
+def note_device_call(device: str, kernel: str, seconds: float) -> None:
+    """Attribute one device kernel dispatch to the current node, split by
+    (device, kernel) — the sum over entries equals what note_device_time
+    alone would have accumulated, so QueryStats.device_seconds and the
+    per-device breakdown reconcile by construction."""
+    exec_tally.device_s += seconds
+    cell = exec_tally.device_calls.get((device, kernel))
+    if cell is None:
+        exec_tally.device_calls[(device, kernel)] = [seconds, 1]
+    else:
+        cell[0] += seconds
+        cell[1] += 1
+
+
+def note_transfer(nbytes: int, seconds: float) -> None:
+    """Attribute a host→device (or wire) transfer to the current node."""
+    exec_tally.transfer_bytes += int(nbytes)
+    exec_tally.transfer_s += seconds
+
+
+def note_mirror_refresh(kind: str) -> None:
+    """kind: 'full' | 'incremental' — query-path mirror uploads, so
+    QueryStats can say WHICH query paid for a rebuild."""
+    if kind == "full":
+        exec_tally.mirror_full += 1
+    else:
+        exec_tally.mirror_incremental += 1
+
+
 # ------------------------------------------------------------------ spans
 
 _active = threading.local()
+
+# node identity stamped on every collected span event (a composition
+# root sets it at startup) so a stitched cross-node trace shows placement
+NODE_NAME = ""
 
 
 class TraceCollector:
@@ -450,6 +543,43 @@ class TraceCollector:
 collector = TraceCollector()
 
 
+# ------------------------------------------------------- W3C traceparent
+
+# the W3C Trace Context header: 00-<32 hex trace id>-<16 hex span id>-<flags>
+_TRACEPARENT_RE = None
+
+
+def parse_traceparent(header: Optional[str]) -> Optional[str]:
+    """Extract the 32-hex trace id from a `traceparent` request header
+    (W3C Trace Context).  Returns None for missing/malformed headers and
+    for the all-zero (invalid) trace id — the caller mints its own."""
+    global _TRACEPARENT_RE
+    if not header:
+        return None
+    if _TRACEPARENT_RE is None:
+        import re as _re
+        _TRACEPARENT_RE = _re.compile(
+            r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$")
+    m = _TRACEPARENT_RE.match(header.strip().lower())
+    if not m or m.group(1) == "ff":
+        return None
+    tid = m.group(2)
+    if tid == "0" * 32 or m.group(3) == "0" * 16:
+        return None
+    return tid
+
+
+def make_traceparent(trace_id: str) -> str:
+    """Format a trace id as an outgoing `traceparent` header (a fresh
+    16-hex span id per call; non-32-hex internal ids are hashed into
+    shape, matching the trace-export normalization)."""
+    import uuid as _uuid
+    tid = str(trace_id).replace("-", "").lower()
+    if len(tid) != 32 or any(c not in "0123456789abcdef" for c in tid):
+        tid = _uuid.uuid5(_uuid.NAMESPACE_OID, str(trace_id)).hex
+    return f"00-{tid}-{_uuid.uuid4().hex[:16]}-01"
+
+
 def mint_trace_id() -> str:
     """A fresh W3C-shaped (32 lower hex) trace id for a request that
     arrived without one."""
@@ -512,3 +642,32 @@ class span:
                 "span": full, "dur_s": round(elapsed, 6),
                 "end_unix_s": round(time.time(), 3), **self.tags})
         return False
+
+
+_error_last: Dict[str, float] = {}
+
+
+def log_error_once(where: str, exc: BaseException,
+                   min_interval_s: float = 300.0,
+                   logger_name: str = "filodb") -> None:
+    """Log a swallowed optimization-path exception once per (site, error
+    class), rate-limited — the general form of log_fused_degradation for
+    paths whose failures otherwise vanish into a bare counter (e.g. the
+    device mirror's incremental-refresh fallback).  A new error CLASS at
+    the same site always logs immediately, so a regression that changes
+    failure mode is visible even inside the rate window.
+
+    Every call — logged or rate-suppressed — also increments
+    `suppressed_errors_total{site,class}`, so swallowed
+    optimization-path errors are visible at /metrics and alertable via
+    the self-scrape loop, not only greppable in logs."""
+    registry.counter("suppressed_errors",
+                     **{"site": where,
+                        "class": type(exc).__name__}).increment()
+    key = f"{where}:{type(exc).__name__}"
+    now = time.monotonic()
+    if now - _error_last.get(key, -1e9) >= min_interval_s:
+        _error_last[key] = now
+        logging.getLogger(logger_name).warning(
+            "%s suppressed (optimization path fell back): %s: %s",
+            where, type(exc).__name__, exc)

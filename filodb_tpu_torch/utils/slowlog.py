@@ -1,5 +1,5 @@
-"""The slow-query flight recorder (port of filodb_tpu/utils/slowlog.py;
-the ingest recorder, IngestSlowLog, comes with the write path's doors).
+"""Slow-operation flight recorders, query and ingest (port of
+filodb_tpu/utils/slowlog.py).
 
 The serving frontend records every query whose total wall (queue wait
 included) exceeds `query.slow_query_threshold_s` into a bounded ring
@@ -13,6 +13,12 @@ GET /admin/slowlog and optionally mirrored to a JSONL sink
 This is the MySQL-slow-log / Monarch-query-annal shape: when the p99
 spikes, the operator reads the actual offending operations with their
 breakdown.
+
+The write path has the same recorder: ingest batches whose door-to-ack
+wall exceeds `ingest.slow_batch_threshold_s` land in a second ring
+(`IngestSlowLog`, GET /admin/ingestlog) with tenant, byte and sample
+counts, the per-stage breakdown and the batch's trace id.  The port's
+ingest doors are not ported yet, so nothing records into it.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ log = logging.getLogger("filodb.slowlog")
 
 class _RingLog:
     """Bounded ring + monotonic seq + optional JSONL mirror — the shared
-    flight-recorder mechanics of the slow log."""
+    flight-recorder mechanics both slow logs ride on."""
 
     def __init__(self, threshold_s: float, max_entries: int,
                  path: str = ""):
@@ -165,6 +171,42 @@ class SlowQueryLog(_RingLog):
         return None
 
 
-# the process-wide instance: the frontend records into it, /admin/slowlog
-# reads it
+class IngestSlowLog(_RingLog):
+    """The write path's flight recorder: batches over
+    `ingest.slow_batch_threshold_s` door-to-ack, with per-stage
+    breakdown and trace id (GET /admin/ingestlog)."""
+
+    def __init__(self, threshold_s: float = 5.0, max_entries: int = 128,
+                 path: str = ""):
+        super().__init__(threshold_s, max_entries, path)
+
+    def maybe_record(self, stats,
+                     threshold_s: Optional[float] = None) -> bool:
+        """`stats` is a utils.freshness.IngestStats; records iff its
+        total wall crossed the threshold.  The stitched span tree is
+        copied at record time, like the query ring."""
+        thr = self.threshold_s if threshold_s is None else threshold_s
+        if thr <= 0 or stats.total_s < thr:
+            return False
+        from filodb_tpu_torch.utils.metrics import collector, registry
+        spans: List[dict] = []
+        if stats.trace_id:
+            spans = sorted(collector.trace(stats.trace_id),
+                           key=lambda e: e.get("end_unix_s", 0))
+        rec = stats.to_dict()
+        rec["unix_ts"] = round(time.time(), 3)
+        rec["spans"] = spans
+        self._append(rec)
+        registry.counter("slow_ingest_batches",
+                         origin=stats.origin).increment()
+        log.warning("slow ingest batch (%.3fs > %.3fs): %d samples / "
+                    "%d series / %d bytes [%s] trace=%s",
+                    stats.total_s, thr, stats.samples, stats.series,
+                    stats.bytes_in, stats.origin, stats.trace_id)
+        return True
+
+
+# process-wide instances: the frontend records into the query ring,
+# /admin/slowlog and /admin/ingestlog read them
 slowlog = SlowQueryLog()
+ingestlog = IngestSlowLog()

@@ -928,3 +928,95 @@ def test_result_cache_splices_cuda_values_on_the_host(card):
         assert vals.tobytes() == want[:, :n].tobytes()
     for ent in cache._entries.values():
         assert all(isinstance(r, np.ndarray) for r in ent.series.values())
+
+
+# ------------------------------------- the kernel ledger and the HBM model
+
+
+def test_ledger_seconds_cover_the_k1_launch(card, monkeypatch):
+    """A warm fused panel's ledger entry (`fused_rate`, from the launch
+    through the readback) is positive and covers at least the CUDA-event
+    time of the K1 launch inside it; the query's device_seconds is its
+    ledger sum."""
+    from filodb_tpu_torch.utils.devicetelem import telem
+    engines, start_s, end_s = _counter_engines(card)
+    eng = engines["cuda"]
+    q = "sum by (_ns_) (rate(request_total[5m]))"
+    eng.query_range(q, start_s, 60, end_s)          # cold: build, upload
+    events = []
+    k1 = kernels.fused_rate_dense_cuda
+
+    def timed_k1(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = k1(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+    monkeypatch.setattr(kernels, "fused_rate_dense_cuda", timed_k1)
+    res = eng.query_range(q, start_s, 60, end_s)
+    torch.cuda.synchronize()
+    assert res.error is None and len(events) == 1
+    k1_s = events[0][0].elapsed_time(events[0][1]) / 1e3
+    ledger = [e for e in telem.recent(limit=100, kind="kernel")
+              if e["origin"] == res.trace_id]
+    rate = [e for e in ledger if e["kernel"] == "fused_rate"]
+    assert len(rate) == 1 and rate[0]["device"] == "cuda:0"
+    assert rate[0]["seconds"] > 0 and rate[0]["seconds"] >= k1_s - 1e-6
+    assert res.stats.device_seconds == pytest.approx(
+        sum(e["seconds"] for e in ledger), abs=1e-5)
+
+
+def test_booked_hot_is_the_mirror_bytes(card, monkeypatch):
+    """The HBM model books the mirror's tensors to the byte under `hot`,
+    within what the caching allocator holds; a dropped mirror gives its
+    booking back."""
+    import gc
+
+    import filodb_tpu_torch.core.devicecache as devicecache
+    from filodb_tpu_torch.utils.devicetelem import DeviceTelemetry
+    telem = DeviceTelemetry()
+    monkeypatch.setattr(devicecache, "telem", telem)
+    engines, start_s, end_s = _counter_engines(card)
+    eng = engines["cuda"]
+    assert eng.query_range("sum(rate(request_total[5m]))", start_s, 60,
+                           end_s).error is None
+    store = eng.source.get_shard("prometheus", 0).stores["prom-counter"]
+    snap = store.device_mirror.snapshot()
+    tensors = [snap.ts_off, *snap.cols.values(), *snap.vbases.values()]
+    assert all(t.device == card for t in tensors)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    assert telem.hbm_booked(card, "hot") == nbytes
+    assert nbytes <= torch.cuda.memory_allocated(card)
+    del snap, tensors
+    store.device_mirror = None
+    gc.collect()
+    assert telem.hbm_booked(card, "hot") == 0
+
+
+def test_explain_launches_nothing_and_analyze_launches_k1(card):
+    """explain=true materializes the plan only: no launch, no device
+    memory; analyze=true runs it once, K1 included."""
+    from filodb_tpu_torch.http.routes import PromHttpApi
+    engines, start_s, end_s = _counter_engines(card)
+    api = PromHttpApi({"prometheus": engines["cuda"]})
+    args = {"query": "sum by (_ns_) (rate(request_total[5m]))",
+            "start": str(start_s), "end": str(end_s), "step": "60"}
+    assert api.handle("GET", "/api/v1/query_range", args)[0] == 200
+    torch.cuda.synchronize()
+    n0, m0 = dict(kernels.LAUNCHES), torch.cuda.memory_allocated(card)
+    for path, extra in (("/api/v1/query_range", {"explain": "true"}),
+                        ("/api/v1/query", {"explain": "true",
+                                           "time": str(end_s)}),
+                        ("/api/v1/explain", {})):
+        st, p = api.handle("GET", path, {**args, **extra})
+        assert st == 200 and p["data"]["resultType"] == "execPlan"
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == n0
+    assert torch.cuda.memory_allocated(card) == m0
+    st, p = api.handle("GET", "/api/v1/explain", {**args,
+                                                   "analyze": "true"})
+    assert st == 200 and p["data"]["resultType"] == "execPlanAnalysis"
+    assert kernels.LAUNCHES["fused_rate_dense"] == \
+        n0["fused_rate_dense"] + 1

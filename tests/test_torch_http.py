@@ -45,16 +45,30 @@ def apis():
     return JaxApi({"prometheus": st.jeng}), PromHttpApi({"prometheus": st.eng})
 
 
+# the `stats` values both packages define exactly: samples, series and
+# counts (times, bytes and the per-device split are each package's own;
+# so are the exprfuse verdicts: on the CPU the reference sends a kernel
+# leaf to its general path, where the port runs K1's plain version)
+STATS_EXACT = ("samplesScanned", "seriesScanned", "resultSamples",
+               "shardsQueried", "samplesPaged", "partial", "warnings",
+               "pushdown")
+
+
 def _shape(x):
     """The payload's structure: dict keys recursively, list items by the
-    first one's shape, scalars by kind.  `stats` by its keys only: the
-    reference's device telemetry (not ported) fills stats.devices."""
+    first one's shape, scalars by kind.  `stats` by its keys and the
+    values of STATS_EXACT."""
     if isinstance(x, dict):
-        return {k: (sorted(v) if k == "stats" else _shape(v))
+        return {k: (_stats_shape(v) if k == "stats" else _shape(v))
                 for k, v in x.items() if k != "traceID"}
     if isinstance(x, list):
         return [_shape(x[0])] if x else []
     return type(x).__name__
+
+
+def _stats_shape(stats):
+    return {"keys": sorted(stats),
+            "exact": {k: stats[k] for k in STATS_EXACT if k in stats}}
 
 
 def _rows(payload, key):
@@ -100,13 +114,15 @@ def test_query_range_stats(apis):
                   {"query": PANELS[1], **ARGS, "stats": "true"})
     assert set(p["stats"]["phases"]) == set(jp["stats"]["phases"])
     assert p["stats"]["seriesScanned"] == jp["stats"]["seriesScanned"]
+    # the kernel ledger fills the device split, as the reference's does
+    assert p["stats"]["phases"]["device_s"] > 0 and p["stats"]["devices"]
     _same_values(p, jp, "values")
 
 
 def test_query_range_batch(apis):
     body = json.dumps({"queries": PANELS + ["sum(rate(nosuch[5m]"],
                        "start": S_SEC + 600, "step": 60,
-                       "end": S_SEC + 2390}).encode()
+                       "end": S_SEC + 2390, "stats": True}).encode()
     p, jp = _both(apis, "POST", "/api/v1/query_range_batch", body=body)
     assert len(p["results"]) == len(PANELS) + 1
     for got, want in zip(p["results"][:-1], jp["results"][:-1]):

@@ -56,7 +56,9 @@ NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "query.coalesce", "query.qos", "query.activequeries",
                "http.routes", "http.server", "config", "utils.hoconlite",
                "utils.metrics", "utils.events", "utils.slowlog",
-               "utils.usage")
+               "utils.usage", "utils.devicetelem", "utils.jobs",
+               "utils.freshness", "utils.health", "utils.faults",
+               "utils.profiler", "parallel.breaker")
 
 
 def _bare_import(module):
@@ -74,9 +76,9 @@ def _bare_import(module):
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_general_path_module_stands_alone(module):
-    """Each module of the general path, the probe, the live write path
-    and the serving stack, imported alone in a fresh interpreter, pulls in neither jax nor the
-    reference package."""
+    """Each module of the general path, the probe, the live write path,
+    the serving stack and the operations surface, imported alone in a
+    fresh interpreter, pulls in neither jax nor the reference package."""
     assert _bare_import("filodb_tpu_torch." + module) == []
 
 
