@@ -96,7 +96,7 @@ hist-native-1M.  the same counts (the same generator and seed) as 65,536
    through K3 (rtol 5e-4, atol 1e-4);
 host-route-1M.  over phase 3's dense counters (kept alive after
    general-1M): H1 sum by (_ns_) (changes(...)) and H2 max by (_ns_)
-   (max_over_time(...)), range queries, each once cold and twice warm, and
+   (max_over_time(...)), range queries, each once cold and once warm, and
    H3 sum by (_ns_) (resets(...)) through query_instant at the grid's end
    (cold, then max(3, --warm // 3) warm, to_prom_vector with 1000
    results): the leaf's windowed host gather of raw values, then the
@@ -121,14 +121,14 @@ serve-1M.  over the same counters, through the port's HTTP stack
    (FiloHttpServer(PromHttpApi({"prometheus": eng}), port=0), driven over
    real HTTP from this process): the reference's 8-panel dashboard
    (bench.py:4128-4139) as one POST /api/v1/query_range_batch, cold and
-   three times warm, each printing its K1 launches, exprfuse_fused and
+   twice warm, each printing its K1 launches, exprfuse_fused and
    _degraded, leaf_gather_memo_hits and per-panel exec seconds; every
    panel's JSON bit-identical (value strings, label sets) to the panel
    alone through GET /api/v1/query_range with query.exprfuse_enabled off;
    the rate panels within rtol 2e-4 / atol 1e-3 of the f64 oracle (sum,
    avg, the ratio, increase, topk), the count panel each group's size, the
    bool panel 1, max_over_time as in host-route-1M; then 8 client threads
-   polling the 4 rate-only panels twice with query.batch_window_ms 50:
+   polling the 4 rate-only panels once with query.batch_window_ms 50:
    answers bit-identical to the sequential ones, query_singleflight_hits
    and coalesce_merged_batches above 0, per-request p50/p99, peak device
    memory under 8 leaf gathers; the headline panel re-polled uncached and
@@ -152,17 +152,18 @@ ops-1M.  on the serve-1M server, over the same counters: /ready 200 and
    one mirror of before; the sampling profiler over one warm batch.  It
    prints the padded-values cache's budget and its evictions per earlier
    phase;
-live-ingest-1M.  over the same counters (their values made again from the
-   seed, on the card, for the oracle): 30 scrapes (5 minutes at 10 s)
+live-ingest-1M.  over the same counters (the store's values copied to
+   the card for the oracle, its first slab checked against the seed's):
+   10 scrapes (100 s at 10 s)
    through TimeSeriesShard.ingest, each one grid RecordBatch of one
    sample a series with the same key list, 1% of the series restarting
-   in scrape 10; after each, the panel `sum by (_ns_) (rate(...[5m]))`
+   in scrape 5; after each, the panel `sum by (_ns_) (rate(...[5m]))`
    over the 110 one-minute steps ending at that scrape, once paying the
    mirror's refresh (which must be incremental, with no incremental
    error, and launch K1) and once warm (bit-identical), against an f64
-   oracle of the grown slab (rtol 2e-4 / atol 1e-3); after scrape 30 the
+   oracle of the grown slab (rtol 2e-4 / atol 1e-3); after scrape 10 the
    mirror against a fresh full upload (timestamps to the bit, absolutes
-   within rtol 1e-6 / atol 1e-6); then a 31st scrape that 1% of the
+   within rtol 1e-6 / atol 1e-6); then an 11th scrape that 1% of the
    series miss (still incremental; the general path, rtol 5e-4 / atol
    5e-3).  Each scrape's ingest and refresh seconds and bytes, the p50
    and p99 of the panel that pays the refresh, the full upload's
@@ -177,7 +178,52 @@ flush-page-16k.  16,384 counters x 720 in a fresh memstore with an
    rebuild joined (within 60 s), the panel twice on the rebuilt mirror
    (K1, bit-identical); every answer against the f64 oracle of the
    original slab.  Cut from 1M to 16,384 series for the time limit:
-   flush encodes each series on the host.
+   flush encodes each series on the host;
+planners-1M.  on the serve-1M server and store, after ops-1M: each
+   composed planner's engine over the same memstore, its remote children
+   calling the server over localhost HTTP through the port's
+   planners._http_transport (the script's scan cap added to the
+   parameters), once cold and max(3, --warm // 3) times warm, every
+   answer bit-identical (f64 values, label sets) to the local-only one:
+   HighAvailabilityPlanner with a 30 min local failure mid-range (local |
+   PromQlRemoteExec | local under StitchRvsExec), MultiPartitionPlanner
+   (a remote partition owns the first hour), ShardKeyRegexPlanner
+   (sum by (_ns_) (rate(request_total{_ns_=~"App-1[0-9]"}[5m])) fanned
+   out to 10 leaves under MultiPartitionReduceAggregateExec, its p50
+   beside SingleClusterPlanner's), SinglePartitionPlanner by metric; the
+   explain of each; K1 launches a run (the server's own for a remote
+   child included) above 0 and the same in every warm run;
+cold-65k.  the tier-stitched panel: 65,536 request counters x 6 h at
+   10 s (2,160 samples, 0-20 requests a scrape; _ns_ = App-{i % 1000};
+   one reset a row in the first 2 h and one exactly on the first segment
+   boundary), from the seed;
+   the first two 2 h windows written as segment files (encode_segment +
+   SegmentStore.write, what the compactor writes), the live memstore the
+   last 2 h and the 5 m before them; Q1 sum by (_ns_) (rate(...[5m]))
+   over the 6 h at 1 m through LongTimeRangePlanner(SingleClusterPlanner,
+   None, PersistedClusterPlanner(tier)) with a 4 GiB cold region: cold
+   (both blocks paged in as CUDA tensors, the `cold` HBM booking equal to
+   their bytes and within memory_allocated), then --warm times (cold_hit,
+   K1 twice and two K1 ledger dispatches each: the merged cold block, the
+   hot tail; warm answers bit-identical), against the f64 oracle and the
+   all-in-memory engine (rtol 2e-4, atol 1e-3); explain (StitchRvsExec
+   over the persisted leaf, tier=cold, and the hot leaf); Q1b max by
+   (_ns_) (K6); Q2 over a span wholly in segments: first-scan and warm
+   samples/s against the all-in-memory engine's, cold_vs_mem and
+   warm_cold (bench.py:3669-3673, printed, not gated); Q2 on a region
+   of one and a half blocks (evictions, the booking never above the
+   budget) and Q3, over the first segment, on one of half a block (the
+   host degrade: counted, nothing booked), both bit-identical.  Cut from
+   1M series to 65,536 for the time limit: the segment codec and the
+   page-in's correction run on the host (PERF.md §4);
+compact-16k.  16,384 counters x 720 with 1% missed scrapes and 2,048
+   integer gauges on a LocalDiskColumnStore in a temporary directory:
+   the hot panel (K3), flush_all_groups, SegmentCompactor.compact_all
+   over 1 h windows; the panel through PersistedClusterPlanner (K3 over
+   the merged ragged block) within rtol 5e-4 / atol 1e-4 of the hot
+   answer; sum(m) stitched (segments | a live tail, K4) bit-identical to
+   the all-in-memory store; SelectChunkInfosExec and the panel after a
+   restart (recover_index, then paging the frames back).
 Every query runs with PlannerParams(scan_limit=2,000,000,000), as
 bench.py raises it at this size: the default cap refuses a 1M-series
 scan.  Every phase prints its seconds; general-1M, hist-classic-1M and
@@ -1645,7 +1691,7 @@ def run_host_route_phase(eng, ms, num_series, wends, warm, dev):
     kernels.reset_launch_counts()
     rows = []
     for name, q, key, instant in H_QUERIES:
-        reps = warm if instant else 2
+        reps = warm if instant else 1
         runs, secs = timed_runs(eng, q, reps, instant, end_s, start_s)
         # counts are exact; the maximum within the rate tolerance
         want = orc["changes32" if key == "changes" else key]
@@ -1854,8 +1900,8 @@ def run_promql_phase(eng, want_rate, orc, wends, warm, num_series):
 
 # --------------------------------- live-ingest-1M and flush-page-16k
 
-SCRAPES = 30                       # live-ingest-1M: 5 minutes at 10 s
-RESET_SCRAPE = 10                  # 1% of the series restart in this one
+SCRAPES = 10                       # live-ingest-1M: 100 s at 10 s
+RESET_SCRAPE = 5                   # 1% of the series restart in this one
 LIVE_QUERY = COUNTER_QUERIES[0][0]  # sum by (_ns_) (rate(request_total[5m]))
 KERNEL_TOL = (2e-4, 1e-3)          # K1's answers
 GENERAL_TOL = (5e-4, 5e-3)         # the general path's (general-1M's)
@@ -1915,8 +1961,8 @@ def mirror_matches_full_upload(mirror, store, shard, dev):
 
 
 def run_live_ingest_phase(eng, ms, num_series, seed, dev):
-    """live-ingest-1M over phase 3's dense counters (made again from its
-    seed, on the card, for the oracle): SCRAPES scrapes through
+    """live-ingest-1M over phase 3's dense counters (the store's values on
+    the card for the oracle): SCRAPES scrapes through
     TimeSeriesShard.ingest, each one grid RecordBatch of one sample a
     series with the same key list, 1% of the series restarting in scrape
     RESET_SCRAPE; after each, the panel over the 110 steps ending at it
@@ -1937,13 +1983,13 @@ def run_live_ingest_phase(eng, ms, num_series, seed, dev):
     vals = torch.full((num_series, n_t), float("nan"), dtype=torch.float64,
                       device=dev)
     rng = np.random.default_rng(seed)
+    first = make_counter_slab(rng, min(SLAB, num_series), 0.0)
+    check(np.array_equal(first, store.cols["count"][:len(first), :T]),
+          "live-ingest-1M: the first slab made again differs from the "
+          "store's")
     for i0 in range(0, num_series, SLAB):
-        n = min(SLAB, num_series - i0)
-        slab = make_counter_slab(rng, n, 0.0)
-        check(np.array_equal(slab[:2], store.cols["count"][i0:i0 + 2, :T]),
-              f"live-ingest-1M: the slab at row {i0} made again differs "
-              f"from the store's")
-        vals[i0:i0 + n, :T] = torch.from_numpy(slab).to(dev)
+        vals[i0:i0 + SLAB, :T] = torch.from_numpy(
+            store.cols["count"][i0:min(i0 + SLAB, num_series), :T]).to(dev)
     regen_s = time.perf_counter() - t0
     keys = [p.part_key for p in shard.partitions]      # row i = series i
     schema = shard.schemas["prom-counter"]
@@ -1955,8 +2001,10 @@ def run_live_ingest_phase(eng, ms, num_series, seed, dev):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     err0 = counters.get("device_mirror_incremental_errors")
-    log(f"live-ingest-1M: {num_series} series, slab made again on the card "
-        f"in {regen_s:.3f} s; host store time capacity {t_cap0}; mirror "
+    log(f"live-ingest-1M: {num_series} series on the card for the oracle "
+        f"(the store's values; its first slab made again from the seed "
+        f"matches them) in {regen_s:.3f} s; host store time capacity "
+        f"{t_cap0}; mirror "
         f"{tuple(mirror.snapshot().ts_off.shape)}")
     paid, rows = [], []
     full_s = worst = None
@@ -2160,6 +2208,705 @@ def run_flush_page_phase(seed, dev):
         f"{({k: v for k, v in launches.items() if v})}")
     return launches, [dict(flush_s=flush_s, encoded=encoded,
                            paged_s=paged_s, warm_s=warm2)]
+
+
+# ------------------------------------------ the persisted-segment tier
+
+COLD_SERIES = 65_536               # cold-65k (host segment codec: cut)
+COLD_WINDOW_MS = 2 * 3600 * 1000   # a Prometheus TSDB block
+COLD_T = 3 * COLD_WINDOW_MS // STEP_MS      # 2,160 samples: 6 h at 10 s
+COLD_SEG_T = COLD_WINDOW_MS // STEP_MS      # 720 samples a segment row
+COLD_START_MS = START_MS - START_MS % COLD_WINDOW_MS
+COLD_BUDGET = 4 << 30              # the cold region for Q1: both blocks
+COLD_SLAB = 32_768                 # oracle rows at a time (2,160 wide)
+COMPACT_SERIES = 16_384            # compact-16k's counters
+COMPACT_GAUGES = 2_048             # its integer gauges
+COMPACT_WINDOW_MS = 3600 * 1000    # two segments over the 2 h grid
+
+
+def one_shard_mapper():
+    from filodb_tpu_torch.parallel.shardmapper import ShardEvent, ShardMapper
+    m = ShardMapper(1)
+    m.update_from_event(ShardEvent("IngestionStarted", "prometheus", 0,
+                                   "local"))
+    return m
+
+
+def counter_keys(n):
+    """dense-1M's labels (bench.py:1-8): _ns_ = App-{i % 1000}."""
+    from filodb_tpu_torch.core.partkey import PartKey
+    return [PartKey.make("request_total", {
+        "_ws_": "demo", "_ns_": f"App-{i % NUM_NS}",
+        "instance": f"Instance-{i}", "dc": f"DC{i % 2}"}) for i in range(n)]
+
+
+def make_cold_counters(rng, n):
+    """[n, COLD_T] request counters: 0-20 requests a scrape, uniform (a
+    request counter counts whole requests; the segment codec encodes
+    these at about 2.3 B a sample where make_counter_slab's fractional
+    increments take 6.9), one reset a row inside the first 2 h, and one
+    on the first segment boundary (the first sample of window 2 below
+    the last of window 1)."""
+    out = np.empty((n, COLD_T))
+    w = COLD_SEG_T
+    for i0 in range(0, n, SLAB):
+        m = min(SLAB, n - i0)
+        v = np.cumsum(rng.integers(0, 21, size=(m, COLD_T)),
+                      axis=1).astype(np.float64)
+        r = rng.integers(1, w - 120, size=m)
+        v -= np.where(np.arange(COLD_T)[None, :] >= r[:, None],
+                      v[np.arange(m), r - 1][:, None], 0.0)
+        v[:, w:] -= v[:, w - 1:w].copy()
+        out[i0:i0 + m] = v
+    check(bool((out[:, w] < out[:, w - 1]).all()),
+          "cold-65k: the boundary reset is missing")
+    return out
+
+
+def cold_oracle(vals, ts_row, wends, dev):
+    """f64 rate per series on the card, slab by slab -> {"sum", "max"} by
+    _ns_ ([NUM_NS, W] numpy)."""
+    import torch
+    acc = GroupOracle(NUM_NS, len(wends))
+    for i0 in range(0, vals.shape[0], COLD_SLAB):
+        v = torch.from_numpy(vals[i0:i0 + COLD_SLAB]).to(dev)
+        per = oracle_rates_t(v, ts_row, wends)["rate"]
+        acc.add(per, torch.arange(i0, i0 + per.shape[0], device=dev)
+                % NUM_NS)
+        del v, per
+    return {"sum": acc.result("sum"), "max": acc.result("max")}
+
+
+def k1_ledger(dev):
+    """K1's dispatches in the kernel ledger (its rate-family labels)."""
+    from filodb_tpu_torch.utils.devicetelem import telem
+    ks = telem.snapshot(recent=0)["devices"].get(str(dev), {}).get(
+        "kernels", {})
+    return sum(ks.get(k, {}).get("count", 0) for k in OPS_FUSED)
+
+
+def launched(n0):
+    from filodb_tpu_torch.ops import kernels
+    return {k: v - n0.get(k, 0) for k, v in kernels.LAUNCHES.items()
+            if v > n0.get(k, 0)}
+
+
+def run_cold_phase(seed, warm, dev):
+    """cold-65k: the tier-stitched panel over the persisted tier.
+    COLD_SERIES request counters x 6 h at 10 s (make_cold_counters, from
+    the seed); the first two 2 h windows written as segment files
+    (SegmentStore.write of encode_segment, what the compactor writes);
+    the live memstore holds the last 2 h and the 5 m before them.  Q1
+    sum by (_ns_) (rate(...[5m])) over the 6 h through
+    LongTimeRangePlanner(SingleClusterPlanner, None, PersistedCluster-
+    Planner(tier)): cold (both segments paged into the cold region as
+    CUDA tensors), then `warm` times (cold_hit, two K1 launches and two
+    K1 ledger dispatches each: the merged cold block and the hot tail),
+    against the f64 oracle and the all-in-memory engine (rtol 2e-4, atol
+    1e-3), warm answers bit-identical; the `cold` booking against the
+    blocks and the allocator; explain; Q1b max by (_ns_) (K6); Q2 over a
+    span wholly in segments: first-scan and warm samples/s against the
+    all-in-memory engine's (bench.py:3669-3673); Q2 on a region that
+    holds one block of the two (evictions, the booking never above it),
+    and Q3 over the first segment on one below a block (the host
+    degrade) -> (launches, rows)."""
+    import shutil
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from filodb_tpu_torch.config import FilodbSettings
+    from filodb_tpu_torch.core.devicecache import ColdSegmentCache
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.persist.segments import (PersistedTier,
+                                                   SegmentStore,
+                                                   encode_segment)
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                query_range_to_logical_plan)
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.planner import SingleClusterPlanner
+    from filodb_tpu_torch.query.planners import (LongTimeRangePlanner,
+                                                 PersistedClusterPlanner)
+    from filodb_tpu_torch.query.rangevector import QueryContext
+    from filodb_tpu_torch.utils.devicetelem import telem
+    from filodb_tpu_torch.utils.metrics import registry
+    n = COLD_SERIES
+    t0 = time.perf_counter()
+    vals = make_cold_counters(np.random.default_rng(seed), n)
+    keys = counter_keys(n)
+    ts_row = COLD_START_MS + np.arange(COLD_T, dtype=np.int64) * STEP_MS
+    gen_s = time.perf_counter() - t0
+    q1_start = COLD_START_MS // 1000 + 300          # 5 m into segment 1
+    end_s = int(ts_row[-1]) // 1000
+    q2_end = (COLD_START_MS + 2 * COLD_WINDOW_MS) // 1000 - 600
+    wends = np.arange(q1_start * 1000, end_s * 1000 + 1, 60_000)
+    w2 = int(np.searchsorted(wends, q2_end * 1000, side="right"))
+    t0 = time.perf_counter()
+    want = cold_oracle(vals, ts_row, wends, dev)
+    oracle_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="filodb-cold-")
+    try:
+        seg_store = SegmentStore(root)
+        t0 = time.perf_counter()
+
+        def write(w):
+            w0 = COLD_START_MS + w * COLD_WINDOW_MS
+            sl = slice(w * COLD_SEG_T, (w + 1) * COLD_SEG_T)
+            payload = encode_segment(
+                "prom-counter", w0, w0 + COLD_WINDOW_MS, keys,
+                np.full(n, COLD_SEG_T, np.int32),
+                np.broadcast_to(ts_row[sl], (n, COLD_SEG_T)),
+                {"count": vals[:, sl]})
+            seg_store.write("prometheus", 0, "prom-counter", w0,
+                            w0 + COLD_WINDOW_MS, payload)
+            return len(payload)
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            seg_bytes = sum(pool.map(write, range(2)))
+        encode_s = time.perf_counter() - t0
+        metas = seg_store.list("prometheus", 0)
+        check(len(metas) == 2, f"cold-65k: {len(metas)} segments")
+        est = metas[0].device_bytes_estimate()
+        # the live working set: the last 2 h and the lookback before them
+        tail_from = 2 * COLD_SEG_T - RANGE_MS // STEP_MS
+        earliest_raw = int(ts_row[tail_from])
+        ms_live = TimeSeriesMemStore()
+        t0 = time.perf_counter()
+        ms_live.setup("prometheus", 0).ingest_columns(
+            "prom-counter", keys,
+            np.broadcast_to(ts_row[tail_from:], (n, COLD_T - tail_from)),
+            {"count": vals[:, tail_from:]})
+        ingest_s = time.perf_counter() - t0
+        log(f"cold-65k: {n} series x {COLD_T} samples (6 h at 10 s), "
+            f"generate {gen_s:.3f} s, oracle {oracle_s:.3f} s; 2 segments "
+            f"of {COLD_SEG_T} samples a row written (encode_segment + "
+            f"SegmentStore.write) in {encode_s:.3f} s, {seg_bytes} B "
+            f"({seg_bytes / (2 * n * COLD_SEG_T):.2f} B/sample); "
+            f"device_bytes_estimate {est} B a block; live memstore "
+            f"{COLD_T - tail_from} samples a row, ingest {ingest_s:.3f} s")
+        mapper = one_shard_mapper()
+
+        def tiered(budget):
+            tier = PersistedTier(seg_store, "prometheus", 1,
+                                 ColdSegmentCache(budget))
+            ltr = LongTimeRangePlanner(
+                SingleClusterPlanner("prometheus", mapper), None,
+                earliest_raw_time_fn=lambda: earliest_raw,
+                latest_downsample_time_fn=lambda: 1 << 62,
+                persisted_planner=PersistedClusterPlanner(
+                    "prometheus", mapper, tier),
+                persisted_range_fn=tier.range)
+            return QueryEngine("prometheus", ms_live, mapper,
+                               planner=ltr), tier
+
+        def run(eng, q, end=end_s):
+            t0 = time.perf_counter()
+            res = eng.query_range(q, q1_start, 60, end, scan_params())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(res.error is None, f"cold-65k `{q}`: {res.error}")
+            return res, secs
+
+        eng, tier = tiered(COLD_BUDGET)
+        q1, q1b = RATE_Q, "max by (_ns_) (rate(request_total[5m]))"
+        tree = eng.planner.materialize(query_range_to_logical_plan(
+            q1, TimeStepParams(q1_start, 60, end_s)),
+            QueryContext()).print_tree()
+        check(tree.startswith("-E~StitchRvsExec()")
+              and "E~SelectPersistedSegmentsExec(" in tree
+              and "tier=cold" in tree
+              and "E~MultiSchemaPartitionsExec(" in tree,
+              f"cold-65k: explain of Q1:\n{tree}")
+        log("cold-65k: explain of Q1:\n" + tree)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = dict(kernels.LAUNCHES)
+        with GcPauses() as pauses:
+            cold, cold_s = run(eng, q1)
+        check(cold.stats.cold_tier == "cold_paged",
+              f"cold-65k: Q1 cold verdict {cold.stats.cold_tier}")
+        blocks = tier.cold_cache.blocks()
+        check(len(blocks) == 2 and all(
+            b.ts_off.is_cuda and all(c.is_cuda for c in b.cols.values())
+            for b in blocks), "cold-65k: the cold blocks are not CUDA tensors")
+        check(launched(n0) == {"fused_rate_dense": 2},
+              f"cold-65k: Q1 cold launched {launched(n0)}")
+        booked = telem.hbm_booked(dev, "cold")
+        nbytes = sum(b.nbytes for b in blocks)
+        alloc = torch.cuda.memory_allocated(dev)
+        check(booked == nbytes == tier.cold_cache.bytes_booked
+              and booked <= alloc,
+              f"cold-65k: booked cold {booked} B, blocks {nbytes} B, "
+              f"allocated {alloc} B")
+        got, err, rel = compare(cold, want["sum"], *KERNEL_TOL,
+                                "cold-65k Q1 cold")
+        log(f"cold-65k: Q1 cold {cold_s:.3f} s ({pauses}): cold_paged, "
+            f"samples paged {cold.stats.samples_paged}, bytes paged "
+            f"{cold.stats.bytes_paged}; 2 K1 launches; blocks on "
+            f"{blocks[0].ts_off.device}; booked cold {booked} B = the "
+            f"blocks' nbytes, memory_allocated {alloc} B; oracle "
+            f"max_abs_err {err} max_rel_err {rel}")
+        hits = registry.counter("device_mirror_cold_hits")
+        warm_s, answers = [], [cold]
+        for i in range(warm):
+            n0, l0, h0 = dict(kernels.LAUNCHES), k1_ledger(dev), hits.value
+            res, s = run(eng, q1)
+            check(res.stats.cold_tier == "cold_hit"
+                  and hits.value >= h0 + 2,
+                  f"cold-65k: Q1 warm {i} verdict {res.stats.cold_tier}")
+            check(launched(n0) == {"fused_rate_dense": 2}
+                  and k1_ledger(dev) - l0 == 2,
+                  f"cold-65k: Q1 warm {i} launched {launched(n0)}, ledger "
+                  f"{k1_ledger(dev) - l0}")
+            warm_s.append(s)
+            answers.append(res)
+        same_answers(answers[-2], answers[-1], "cold-65k Q1")
+        _, err, rel = compare(answers[-1], want["sum"], *KERNEL_TOL,
+                              "cold-65k Q1 warm")
+        log(f"cold-65k: Q1 warm x{warm} p50 {np.percentile(warm_s, 50):.4f}"
+            f" s p99 {np.percentile(warm_s, 99):.4f} s: cold_hit, 2 K1 "
+            f"launches and 2 K1 ledger dispatches each (the merged cold "
+            f"block, the hot tail); oracle max_abs_err {err} max_rel_err "
+            f"{rel}; warm answers bit-identical")
+        n0 = dict(kernels.LAUNCHES)
+        r1b, q1b_s = run(eng, q1b)
+        check(launched(n0) == {"fused_rate_dense_series": 2},
+              f"cold-65k: Q1b launched {launched(n0)}")
+        _, err_b, rel_b = compare(r1b, want["max"], *KERNEL_TOL,
+                                  "cold-65k Q1b")
+        log(f"cold-65k: Q1b `{q1b}` {q1b_s:.4f} s via K6 (2 launches); "
+            f"oracle max_abs_err {err_b} max_rel_err {rel_b}")
+        peak_tier = torch.cuda.max_memory_allocated()
+        # the all-in-memory engine over the same 6 h
+        ms_ref = TimeSeriesMemStore()
+        t0 = time.perf_counter()
+        sh = ms_ref.setup("prometheus", 0)
+        for i0 in range(0, n, SLAB):
+            sh.ingest_columns("prom-counter", keys[i0:i0 + SLAB],
+                              np.broadcast_to(ts_row, (min(SLAB, n - i0),
+                                                       COLD_T)),
+                              {"count": vals[i0:i0 + SLAB]})
+        ref_ingest_s = time.perf_counter() - t0
+        eng_ref = QueryEngine("prometheus", ms_ref, mapper)
+        mem_first, mem_first_s = run(eng_ref, q1, q2_end)
+        mem_best = min(run(eng_ref, q1, q2_end)[1] for _ in range(3))
+        ref_q1, _ = run(eng_ref, q1)
+        mem_got, _, _ = compare(ref_q1, want["sum"], *KERNEL_TOL,
+                                "cold-65k Q1 all-in-memory")
+        m = ~np.isnan(mem_got)
+        diff = np.abs(got[m] - mem_got[m])
+        check(bool((diff <= KERNEL_TOL[1] + KERNEL_TOL[0]
+                    * np.abs(mem_got[m])).all()),
+              f"cold-65k: Q1 tiered against all-in-memory {diff.max()}")
+        samples = mem_first.stats.samples_scanned
+        del eng_ref, ms_ref, sh, mem_first, ref_q1
+        free_device_memory()
+        # Q2 on a fresh tier (every block decoded and uploaded again, warm
+        # code paths), then warm on the first tier
+        eng2, tier2 = tiered(COLD_BUDGET)
+        q2_cold, cold_scan_s = run(eng2, q1, q2_end)
+        check(q2_cold.stats.cold_tier == "cold_paged",
+              f"cold-65k: Q2 first scan {q2_cold.stats.cold_tier}")
+        del eng2, tier2
+        q2_warm, _ = run(eng, q1, q2_end)
+        warm_best = min(run(eng, q1, q2_end)[1] for _ in range(3))
+        same_answers(q2_cold, q2_warm, "cold-65k Q2 fresh tier")
+        check(q2_warm.stats.cold_tier == "cold_hit",
+              f"cold-65k: Q2 warm {q2_warm.stats.cold_tier}")
+        cold_samples = q2_warm.stats.samples_scanned
+        compare(q2_warm, want["sum"][:, :w2], *KERNEL_TOL, "cold-65k Q2")
+        rates = dict(mem_first=samples / mem_first_s,
+                     mem=samples / mem_best,
+                     cold_scan=cold_samples / cold_scan_s,
+                     warm=cold_samples / warm_best)
+        log(f"cold-65k: Q2 (span wholly in segments, {w2} steps): samples "
+            f"scanned tiered {cold_samples}, all-in-memory {samples}; "
+            f"samples/s: all-in-memory first {rates['mem_first']:.1f} "
+            f"({mem_first_s:.3f} s, upload included), all-in-memory warm "
+            f"{rates['mem']:.1f} ({mem_best:.4f} s best of 3), cold first "
+            f"scan {rates['cold_scan']:.1f} ({cold_scan_s:.3f} s, fresh "
+            f"tier), warm {rates['warm']:.1f} ({warm_best:.4f} s best of "
+            f"3); cold_vs_mem {rates['cold_scan'] / rates['mem_first']:.3f}"
+            f", warm_cold {rates['warm'] / rates['mem']:.3f}; all-in-memory "
+            f"ingest {ref_ingest_s:.3f} s")
+        # the LRU: a region that holds one block of the two (the config's
+        # default, 2 GiB, holds both at this size)
+        budget = est + est // 2
+        check(FilodbSettings().store.device_mirror_cold_limit_bytes
+              >= 2 * est, "cold-65k: the config's cold region is below "
+              "two blocks")
+        eng3, tier3 = tiered(budget)
+        ev = registry.counter("device_mirror_cold_evictions")
+        e0, peak, stop = ev.value, [0], threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                peak[0] = max(peak[0], tier3.cold_cache.bytes_booked)
+                time.sleep(0.001)
+        th = threading.Thread(target=sample, daemon=True)
+        th.start()
+        try:
+            lru, lru_s = run(eng3, q1, q2_end)
+        finally:
+            stop.set()
+            th.join()
+        check(ev.value - e0 >= 1 and peak[0] <= budget
+              and tier3.cold_cache.bytes_booked <= budget,
+              f"cold-65k: LRU evictions {ev.value - e0}, peak booked "
+              f"{peak[0]} B over {budget} B")
+        same_answers(lru, q2_warm, "cold-65k Q2 one-block region")
+        log(f"cold-65k: Q2 on a {budget} B region (one block of two): "
+            f"{lru_s:.3f} s, {int(ev.value - e0)} evictions, peak booked "
+            f"{peak[0]} B <= budget, answer bit-identical; the config's "
+            f"default region holds both blocks at this size")
+        del eng3, tier3
+        # the over-budget degrade: a region below one block, a span in
+        # the first segment (Q3)
+        over = registry.counter("device_mirror_cold_over_budget")
+        q3_end = (COLD_START_MS + COLD_WINDOW_MS) // 1000 - 600
+        q3_res, _ = run(eng, q1, q3_end)
+        o0, b0 = over.value, telem.hbm_booked(dev, "cold")
+        eng4, tier4 = tiered(est // 2)
+        n0 = dict(kernels.LAUNCHES)
+        deg, deg_s = run(eng4, q1, q3_end)
+        check(over.value - o0 == 1 and tier4.cold_cache.bytes_booked == 0
+              and telem.hbm_booked(dev, "cold") == b0
+              and launched(n0) == {"fused_rate_dense": 1},
+              f"cold-65k: degrade over_budget +{over.value - o0}, booked "
+              f"{tier4.cold_cache.bytes_booked} B, launched {launched(n0)}")
+        same_answers(deg, q3_res, "cold-65k Q3 over-budget degrade")
+        log(f"cold-65k: Q3 (the first segment's span) on a {est // 2} B "
+            f"region (below one block): the host degrade, {deg_s:.3f} s, "
+            f"device_mirror_cold_over_budget +1, nothing booked, K1 over "
+            f"the uploaded block, the answer equal to the resident "
+            f"region's to the bit")
+        del eng4, tier4
+        launches = dict(kernels.LAUNCHES)
+        log(f"cold-65k: max_memory_allocated (Q1, Q1b) {peak_tier} B; "
+            f"launches {({k: v for k, v in launches.items() if v})}")
+        tier.cold_cache.clear()
+        return launches, [dict(cold_s=cold_s, p50=float(np.percentile(
+            warm_s, 50)), p99=float(np.percentile(warm_s, 99)), **rates)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_compact_phase(seed, dev):
+    """compact-16k: COMPACT_SERIES counters x T with 1% missed scrapes
+    (make_counter_slab's NaN gaps) and COMPACT_GAUGES integer gauges `m`
+    (bench.py's longrange values), on a LocalDiskColumnStore in a
+    temporary directory: the hot panel (K3), flush_all_groups,
+    SegmentCompactor.compact_all over 1 h windows (two segments a
+    schema); the panel through PersistedClusterPlanner over the
+    segments (K3 over the merged ragged block) against the hot answer
+    (rtol 5e-4, atol 1e-4); sum(m) stitched by LongTimeRangePlanner
+    (segments | a live tail) bit-identical to the all-in-memory store;
+    a restart (a fresh memstore on the directory, recover_index) whose
+    panel pages the frames back and answers as before; and
+    SelectChunkInfosExec over the flushed chunks -> (launches, rows)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from filodb_tpu_torch.core.devicecache import ColdSegmentCache
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.persist.compactor import SegmentCompactor
+    from filodb_tpu_torch.persist.localstore import (LocalDiskColumnStore,
+                                                     LocalDiskMetaStore)
+    from filodb_tpu_torch.persist.segments import PersistedTier, SegmentStore
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.metaexec import SelectChunkInfosExec
+    from filodb_tpu_torch.query.planner import SingleClusterPlanner
+    from filodb_tpu_torch.query.planners import (LongTimeRangePlanner,
+                                                 PersistedClusterPlanner)
+    from filodb_tpu_torch.query.rangevector import QueryContext
+    n = COMPACT_SERIES
+    vals = make_counter_slab(np.random.default_rng(seed), n, 0.01)
+    ng = COMPACT_GAUGES
+    gauge = (np.arange(ng)[:, None] % 97 * 10.0
+             + (np.arange(T) % 11)[None, :])
+    ts_row = COLD_START_MS + np.arange(T, dtype=np.int64) * STEP_MS
+    keys = counter_keys(n)
+    gkeys = [PartKey("m", (("inst", f"i{i}"), ("_ws_", "bench"),
+                           ("_ns_", "lr"))) for i in range(ng)]
+    start_s, end_s = COLD_START_MS // 1000 + 600, int(ts_row[-1]) // 1000
+    wends = np.arange(start_s * 1000, int(ts_row[-1]) + 1, 60_000)
+    want = rate_by_ns(torch.from_numpy(vals).to(dev), ts_row, wends)
+    root = tempfile.mkdtemp(prefix="filodb-compact-")
+    kernels.reset_launch_counts()
+    mapper = one_shard_mapper()
+
+    def panel(eng, what, kernel, q=RATE_Q, tol=(5e-4, 1e-4), oracle=True):
+        n0 = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        res = eng.query_range(q, start_s, 60, end_s, scan_params())
+        secs = time.perf_counter() - t0
+        check(res.error is None, f"compact-16k {what}: {res.error}")
+        check(set(launched(n0)) == {kernel},
+              f"compact-16k: {what} launched {launched(n0)}, expected "
+              f"{kernel}")
+        msg = ""
+        if oracle:
+            _, err, rel = compare(res, want, *tol, f"compact-16k {what}")
+            msg = f"; oracle max_abs_err {err} max_rel_err {rel}"
+        log(f"compact-16k: {what}: {secs:.4f} s via {kernel}; cold tier "
+            f"{res.stats.cold_tier or '-'}; samples paged "
+            f"{res.stats.samples_paged}{msg}")
+        return res
+
+    try:
+        cs = LocalDiskColumnStore(root)
+        ms = TimeSeriesMemStore(column_store=cs,
+                                meta_store=LocalDiskMetaStore(root))
+        shard = ms.setup("prometheus", 0)
+        shard.ingest_columns("prom-counter", keys,
+                             np.broadcast_to(ts_row, (n, T)),
+                             {"count": vals}, offset=0)
+        shard.ingest_columns("gauge", gkeys, np.broadcast_to(ts_row, (ng, T)),
+                             {"value": gauge}, offset=0)
+        eng = QueryEngine("prometheus", ms, mapper)
+        hot = panel(eng, "hot panel", "fused_rate_ragged")
+        t0 = time.perf_counter()
+        chunks = shard.flush_all_groups()
+        flush_s = time.perf_counter() - t0
+        check(chunks == n + ng, f"compact-16k: {chunks} chunks flushed")
+        seg_store = SegmentStore(root)
+        comp = SegmentCompactor(cs, seg_store, "prometheus", 1,
+                                window_ms=COMPACT_WINDOW_MS,
+                                closed_lag_ms=0)
+        t0 = time.perf_counter()
+        written = comp.compact_all(now_ms=int(ts_row[-1])
+                                   + 10 * COMPACT_WINDOW_MS)
+        compact_s = time.perf_counter() - t0
+        metas = seg_store.list("prometheus", 0)
+        check(written == 4 and len(metas) == 4,
+              f"compact-16k: {written} segments written, {len(metas)} "
+              f"listed")
+        seg_bytes = sum(m.file_bytes for m in metas)
+        counter_meta = next(m for m in metas
+                            if m.schema_name == "prom-counter")
+        t0 = time.perf_counter()
+        seg_store.load(counter_meta)
+        decode_s = time.perf_counter() - t0
+        log(f"compact-16k: {n} counters (1% missed scrapes) and {ng} "
+            f"integer gauges x {T}: flush_all_groups {chunks} chunks in "
+            f"{flush_s:.3f} s; compact_all {written} segments in "
+            f"{compact_s:.3f} s, {seg_bytes} B; one counter segment "
+            f"({counter_meta.num_series} x {counter_meta.num_steps}) "
+            f"decoded in {decode_s:.3f} s")
+        tier = PersistedTier(seg_store, "prometheus", 1,
+                             ColdSegmentCache(COLD_BUDGET))
+        eng_p = QueryEngine("prometheus", ms, mapper,
+                            planner=PersistedClusterPlanner(
+                                "prometheus", mapper, tier))
+        cold = panel(eng_p, "persisted panel", "fused_rate_ragged")
+        check(cold.stats.cold_tier == "cold_paged",
+              f"compact-16k: persisted verdict {cold.stats.cold_tier}")
+        a = {k: v for k, _, v in hot.series()}
+        for k, _, v in cold.series():
+            check(bool(np.allclose(v, a[k], rtol=5e-4, atol=1e-4,
+                                   equal_nan=True)),
+                  f"compact-16k: persisted panel {k} differs from the hot "
+                  f"answer")
+        panel(eng_p, "persisted panel warm", "fused_rate_ragged")
+        # the stitched integer gauges (bench.py:3524-3525)
+        tail_from = T - (T // 4)
+        ms_live = TimeSeriesMemStore()
+        ms_live.setup("prometheus", 0).ingest_columns(
+            "gauge", gkeys, np.broadcast_to(ts_row[tail_from:],
+                                            (ng, T - tail_from)),
+            {"value": gauge[:, tail_from:]})
+        earliest_raw = int(ts_row[tail_from])
+        ltr = LongTimeRangePlanner(
+            SingleClusterPlanner("prometheus", mapper), None,
+            earliest_raw_time_fn=lambda: earliest_raw,
+            latest_downsample_time_fn=lambda: 1 << 62,
+            persisted_planner=PersistedClusterPlanner("prometheus", mapper,
+                                                      tier),
+            persisted_range_fn=tier.range)
+        eng_t = QueryEngine("prometheus", ms_live, mapper, planner=ltr)
+        st = panel(eng_t, "sum(m) stitched", "fused_last_dense", "sum(m)",
+                   oracle=False)
+        ref = panel(eng, "sum(m) all in memory", "fused_last_dense",
+                    "sum(m)", oracle=False)
+        same_answers(st, ref, "compact-16k sum(m) stitched")
+        log("compact-16k: sum(m) stitched (segments | live tail) "
+            "bit-identical to the all-in-memory store")
+        del eng_t, ms_live, eng_p, tier
+        # a restart on the same directory
+        cs.close()
+        ms2 = TimeSeriesMemStore(column_store=LocalDiskColumnStore(root),
+                                 meta_store=LocalDiskMetaStore(root))
+        shard2 = ms2.setup("prometheus", 0)
+        t0 = time.perf_counter()
+        recovered = shard2.recover_index()
+        recover_s = time.perf_counter() - t0
+        check(recovered == n + ng,
+              f"compact-16k: recover_index found {recovered} partitions")
+        plan = SelectChunkInfosExec(
+            QueryContext(), "prometheus", 0, [], 0, 1 << 62)
+        res, _ = plan._do_execute(ms2)
+        tiers = {}
+        for r in res.data:
+            tiers[r["tier"]] = tiers.get(r["tier"], 0) + 1
+        check(tiers == {"persisted": n + ng},
+              f"compact-16k: SelectChunkInfosExec rows by tier {tiers}")
+        eng2 = QueryEngine("prometheus", ms2, mapper)
+        again = panel(eng2, "panel after restart", "fused_rate_ragged")
+        check(again.stats.samples_paged > 0,
+              "compact-16k: the restart paged nothing back")
+        for k, _, v in again.series():
+            check(bool(np.allclose(v, a[k], rtol=5e-4, atol=1e-4,
+                                   equal_nan=True)),
+                  f"compact-16k: {k} after the restart differs")
+        same = [(k.labels, np.asarray(v).tobytes())
+                for k, _, v in again.series()] == \
+            [(k.labels, np.asarray(v).tobytes()) for k, _, v in hot.series()]
+        log(f"compact-16k: restart: recover_index {recovered} partitions "
+            f"in {recover_s:.3f} s; the panel paged back "
+            f"{again.stats.samples_paged} samples and answers as before "
+            f"({'bit-identical' if same else 'within rtol 5e-4 / atol 1e-4'}"
+            f"); SelectChunkInfosExec over the recovered shard: rows by "
+            f"tier {tiers}")
+        launches = dict(kernels.LAUNCHES)
+        return launches, [dict(flush_s=flush_s, compact_s=compact_s,
+                               seg_bytes=seg_bytes, decode_s=decode_s)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------- the composed planners
+
+SKR_QUERY = 'sum by (_ns_) (rate(request_total{_ns_=~"App-1[0-9]"}[5m]))'
+
+
+def run_planners_phase(eng, http, warm):
+    """planners-1M on the serve-1M server and store: each composed
+    planner's engine over the same memstore, its remote children calling
+    the server over localhost HTTP through planners._http_transport (with
+    the scan cap every query of this script raises), once cold and
+    `warm` times warm, each answer bit-identical to the local-only one:
+    HighAvailabilityPlanner (a 30 min local failure mid-range: local |
+    PromQlRemoteExec | local), MultiPartitionPlanner (the remote
+    partition owns the first hour), ShardKeyRegexPlanner (SKR_QUERY
+    fanned out to 10 leaves under MultiPartitionReduceAggregateExec,
+    against SingleClusterPlanner's p50), SinglePartitionPlanner by
+    metric; explain of each; K1 launches counted per run (the server's
+    own, for the remote children, included) -> (launches, rows)."""
+    import torch
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                query_range_to_logical_plan)
+    from filodb_tpu_torch.query import planners as pl
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.planner import SingleClusterPlanner
+    from filodb_tpu_torch.query.planutils import TimeRange
+    from filodb_tpu_torch.query.rangevector import QueryContext
+    start_s = START_MS // 1000 + 600
+    end_s = START_MS // 1000 + (T - 1) * STEP_MS // 1000
+    endpoint = http.base + "/api/v1/query_range"
+
+    def transport(ep, params):
+        return pl._http_transport(ep, {**params, "scanLimit": SCAN_LIMIT})
+
+    def local():
+        return SingleClusterPlanner("prometheus", eng.shard_mapper)
+
+    mid = start_s * 1000 + 40 * 60_000
+
+    class Failures(pl.FailureProvider):
+        def get_failures(self, dataset, tr):
+            return [pl.FailureTimeRange("local", TimeRange(
+                mid, mid + 30 * 60_000))]
+
+    class Partitions(pl.PartitionLocationProvider):
+        def get_partitions(self, filters, tr):
+            cut = start_s * 1000 + 3600_000
+            return [pl.PartitionAssignment("remote", endpoint,
+                                           TimeRange(0, cut - 1)),
+                    pl.PartitionAssignment("local", "",
+                                           TimeRange(cut, 1 << 62))]
+    shard = eng.source.get_shard("prometheus", 0)
+    cases = [
+        ("ha", RATE_Q, pl.HighAvailabilityPlanner(
+            "prometheus", local(), Failures(), endpoint,
+            transport=transport)),
+        ("multi-partition", RATE_Q, pl.MultiPartitionPlanner(
+            Partitions(), "local", local(), transport=transport)),
+        ("shard-key regex", SKR_QUERY, pl.ShardKeyRegexPlanner(
+            local(), pl.default_shard_key_matcher(
+                shard.index.label_values, ("_ws_", "_ns_")))),
+        ("single-partition", RATE_Q, pl.SinglePartitionPlanner(
+            {"raw": local(), "other": pl.ShardKeyRegexPlanner(
+                local(), lambda fs: [])},
+            planner_selector=lambda m: "raw" if m == "request_total"
+            else "other")),
+    ]
+    expect_root = {"ha": "StitchRvsExec", "multi-partition": "StitchRvsExec",
+                   "shard-key regex": "MultiPartitionReduceAggregateExec",
+                   "single-partition": "ReduceAggregateExec"}
+    kernels.reset_launch_counts()
+    rows = []
+
+    def run(e, q):
+        n0 = kernels.LAUNCHES["fused_rate_dense"]
+        t0 = time.perf_counter()
+        res = e.query_range(q, start_s, 60, end_s, scan_params())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(res.error is None, f"planners-1M `{q}`: {res.error}")
+        return res, secs, kernels.LAUNCHES["fused_rate_dense"] - n0
+
+    refs = {}
+    for name, q, planner in cases:
+        if q not in refs:
+            refs[q] = run(eng, q)
+        ref = refs[q][0]
+        composed = QueryEngine("prometheus", eng.source, eng.shard_mapper,
+                               planner=planner)
+        ep = planner.materialize(query_range_to_logical_plan(
+            q, TimeStepParams(start_s, 60, end_s)), QueryContext())
+        tree = ep.print_tree()
+        check(type(ep).__name__ == expect_root[name],
+              f"planners-1M {name}: plan root {type(ep).__name__}")
+        if name == "ha":
+            kinds = [type(c).__name__ for c in ep.children]
+            check(len(kinds) == 3 and kinds[1] == "PromQlRemoteExec"
+                  and kinds[0] == kinds[2] != "PromQlRemoteExec",
+                  f"planners-1M ha: children {kinds}")
+        if name == "shard-key regex":
+            check(len(ep.children) == 10,
+                  f"planners-1M: {len(ep.children)} fan-out leaves")
+        log(f"planners-1M: explain {name}:\n{tree}")
+        secs, k1 = [], []
+        for i in range(warm + 1):
+            res, s, n_k1 = run(composed, q)
+            ka = [(k.labels, np.asarray(v, np.float64).tobytes())
+                  for k, _, v in res.series()]
+            kb = [(k.labels, np.asarray(v, np.float64).tobytes())
+                  for k, _, v in ref.series()]
+            check(ka == kb, f"planners-1M {name} run {i}: not bit-identical "
+                  f"to the local-only answer")
+            secs.append(s)
+            k1.append(n_k1)
+        check(min(k1) > 0 and len(set(k1[1:])) == 1,
+              f"planners-1M {name}: K1 launches a run {k1}")
+        line = (f"planners-1M: {name} `{q}`: {warm_line(secs)}; K1 launches "
+                f"a run {k1} (cold, then warm); bit-identical to the local "
+                f"answer ({res.num_series} series)")
+        if name == "shard-key regex":
+            single = [run(eng, q) for _ in range(warm + 1)]
+            single_s = [s for _, s, _ in single]
+            line += (f"; SingleClusterPlanner: {warm_line(single_s)}, K1 "
+                     f"launches a run {[k for _, _, k in single]}")
+        log(line)
+        rows.append(dict(name=name, p50=float(np.percentile(secs[1:], 50)),
+                         k1=k1))
+    return dict(kernels.LAUNCHES), rows
 
 
 # ------------------------------------------------ phases 7 and 8: raw
@@ -2598,8 +3345,9 @@ DASHBOARD = [
 ]
 RATE_ONLY = (0, 1, 3, 5)           # the panels that read only rate/increase
 SERVE_CLIENTS = 8
+SERVE_CLIENT_PASSES = 1            # each client polls the rate-only panels once
 SERVE_WINDOW_MS = 50.0             # query.batch_window_ms of the clients step
-SERVE_BATCH_WARM = 3
+SERVE_BATCH_WARM = 2
 SERVE_CACHE_POLLS = 5
 # G4's function over the counters: the raw values through the host
 # gather, then the general path's quantile on the card
@@ -2817,7 +3565,7 @@ def run_serve_phase(eng, api, http, want_rate, orc, wends, num_series):
     def client(c):
         try:
             barrier.wait()
-            for _ in range(2):
+            for _ in range(SERVE_CLIENT_PASSES):
                 for j in range(len(RATE_ONLY)):
                     p = RATE_ONLY[(c + j) % len(RATE_ONLY)]
                     st, pay, s = http.call(
@@ -2855,7 +3603,8 @@ def run_serve_phase(eng, api, http, want_rate, orc, wends, num_series):
     check(peak < SERVE_CLIENTS * gather,
           f"serve-1M: peak device memory {peak} B over "
           f"{SERVE_CLIENTS} gathers ({SERVE_CLIENTS * gather} B)")
-    log(f"serve-1M: {SERVE_CLIENTS} clients x {2 * len(RATE_ONLY)} "
+    log(f"serve-1M: {SERVE_CLIENTS} clients x "
+        f"{SERVE_CLIENT_PASSES * len(RATE_ONLY)} "
         f"requests in {wall:.3f} s ({gcp}; cache verdicts "
         f"{ {v: verdicts.count(v) for v in sorted(set(verdicts))} }): p50 "
         f"{np.percentile(lat, 50):.4f} s p99 "
@@ -3274,6 +4023,7 @@ def main(argv=None) -> int:
             f"{dev} {b:.4f} ({100 * b / phase_s[name]:.2f}% of the phase)")
         return out
 
+    small_warm = max(3, args.warm // 3)
     table = timed("kernels K1-K7", run_kernel_checks, args.series, args.seed,
                   dev)
     probe_table, probe_launches = timed("K8", run_probe_phase, dev,
@@ -3284,7 +4034,6 @@ def main(argv=None) -> int:
     def add(got):
         for name in launches:
             launches[name] += got.get(name, 0)
-    small_warm = max(3, args.warm // 3)
     for kind, n, seed, hole, warm, queries, tol in (
             ("counter", args.series, args.seed, 0.0, args.warm,
              COUNTER_QUERIES, (2e-4, 1e-3)),
@@ -3322,6 +4071,9 @@ def main(argv=None) -> int:
                 got, _ = timed("ops-1M", run_ops_phase, eng, api, http,
                                built, dict(phase_evictions))
                 add(got)
+                got, _ = timed("planners-1M", run_planners_phase, eng, http,
+                               small_warm)
+                add(got)
             finally:
                 srv.stop()
             del want, orc, api, srv, http
@@ -3332,6 +4084,14 @@ def main(argv=None) -> int:
             free_device_memory()
             got, _ = timed("flush-page-16k", run_flush_page_phase,
                            args.seed + 7, dev)
+            add(got)
+            free_device_memory()
+            got, _ = timed("cold-65k", run_cold_phase, args.seed + 8,
+                           args.warm, dev)
+            add(got)
+            free_device_memory()
+            got, _ = timed("compact-16k", run_compact_phase, args.seed + 7,
+                           dev)
             add(got)
             free_device_memory()
     for n, seed, hole, warm, tol in (

@@ -40,8 +40,12 @@ a `transfer` entry of the kernel ledger and a transfer of the exec tally
 (note_transfer, note_mirror_refresh), and the snapshot's device bytes
 booked in the HBM occupancy model under region `hot`
 (utils/devicetelem.hbm_book), released when the mirror is collected.
-The cold segment cache and multi-device placement (MirrorPlacer) are
-not ported.
+
+ColdSegmentCache is the mirror's cold region: persisted-segment blocks
+(persist/segments.ColdBlock) uploaded on demand under a byte budget and
+evicted whole, least recently used first, booked under region `cold`.
+Multi-device placement (MirrorPlacer) is not ported: blocks go to the
+cache's one device.
 """
 from __future__ import annotations
 
@@ -183,6 +187,129 @@ def _release_booking(cell) -> None:
     device, nbytes = cell
     if nbytes:
         telem.hbm_book(device, "hot", -nbytes)
+
+
+class ColdSegmentCache:
+    """The LRU-paged cold region: whole persisted-segment blocks
+    uploaded on demand under a byte budget
+    (`store.device_mirror_cold_limit_bytes`), evicted at segment
+    granularity.
+
+    - Booked bytes never exceed the budget: eviction runs before the
+      upload, on the caller's size estimate, not after; a page-in whose
+      reservation does not fit while other page-ins are still building
+      (their blocks not yet evictable) waits for them, where the
+      reference books past the budget.
+    - A single block larger than the whole budget is built on the host
+      (`build("host")`): served, not cached, never an error and never an
+      out-of-memory (device_mirror_cold_over_budget).
+    - Every resident block's bytes are booked in the device telemetry's
+      HBM model under region `cold`, and given back on eviction and by
+      clear().
+
+    Blocks go to `device` (default "cuda"; without a card it raises
+    unless the caller passes device="cpu")."""
+
+    def __init__(self, limit_bytes: int, device="cuda"):
+        self.limit_bytes = int(limit_bytes)
+        self.device = resolve_device(device)
+        self._lock = threading.Condition()
+        self._entries: Dict[tuple, object] = {}      # key -> block (LRU)
+        self._bytes = 0
+
+    @property
+    def bytes_booked(self) -> int:
+        with self._lock:
+            return self._bytes
+
+    def blocks(self) -> list:
+        """The resident blocks, least recently used first."""
+        with self._lock:
+            return list(self._entries.values())
+
+    def _evict_until(self, need: int) -> None:
+        """Caller holds the lock.  Evict LRU entries until `need` more
+        bytes fit under the budget."""
+        while self._entries and self._bytes + need > self.limit_bytes:
+            block = self._entries.pop(next(iter(self._entries)))
+            nb = getattr(block, "nbytes", 0)
+            self._bytes -= nb
+            telem.hbm_book(self.device, "cold", -nb)
+            registry.counter("device_mirror_cold_evictions").increment()
+
+    def get(self, key: tuple, est_bytes: int, shard_num: int,
+            build) -> Tuple[object, str]:
+        """-> (block, verdict).  `build(device)` decodes and uploads the
+        block to the torch device it is given, or keeps it on the host
+        when given the string "host" (the over-budget degrade)."""
+        with self._lock:
+            block = self._entries.get(key)
+            if block is not None:
+                self._entries[key] = self._entries.pop(key)   # LRU touch
+                registry.counter("device_mirror_cold_hits").increment()
+                return block, "cold_hit"
+        if est_bytes > self.limit_bytes:
+            # one block alone blows the budget: host-side segment scan,
+            # uncached (the next query decodes again rather than pinning
+            # an over-budget block)
+            registry.counter("device_mirror_cold_over_budget").increment()
+            return build("host"), "cold_paged"
+        with self._lock:
+            # reserve before the upload, so concurrent page-ins see each
+            # other's bookings; a reservation that does not fit once every
+            # resident block is evicted waits for the builds in flight
+            self._evict_until(est_bytes)
+            while self._bytes + est_bytes > self.limit_bytes:
+                self._lock.wait()
+                self._evict_until(est_bytes)
+            self._bytes += est_bytes
+        telem.hbm_book(self.device, "cold", est_bytes)
+        b0 = time.perf_counter()
+        try:
+            block = build(self.device)
+        except Exception:
+            with self._lock:
+                self._bytes -= est_bytes
+                self._lock.notify_all()
+            telem.hbm_book(self.device, "cold", -est_bytes)
+            raise
+        actual = getattr(block, "nbytes", est_bytes)
+        telem.record_dispatch("cold_page_in", device=self.device,
+                              shape=f"seg{est_bytes >> 10}k",
+                              seconds=time.perf_counter() - b0,
+                              bytes_in=actual, kind="transfer", note=False)
+        with self._lock:
+            self._lock.notify_all()
+            existing = self._entries.get(key)
+            if existing is not None:
+                # a concurrent page-in won the race: keep theirs, give
+                # this build's reservation back
+                self._bytes -= est_bytes
+                self._entries[key] = self._entries.pop(key)
+                won = existing
+            else:
+                # the reservation becomes the measured size (actual <=
+                # est: the estimate counts every column)
+                self._bytes += actual - est_bytes
+                self._evict_until(0)
+                self._entries[key] = block
+                won = None
+        if won is not None:
+            telem.hbm_book(self.device, "cold", -est_bytes)
+            return won, "cold_hit"
+        telem.hbm_book(self.device, "cold", actual - est_bytes)
+        registry.counter("device_mirror_cold_misses").increment()
+        registry.gauge("device_mirror_cold_bytes").update(self.bytes_booked)
+        registry.gauge("device_mirror_cold_limit_bytes").update(
+            self.limit_bytes)
+        return block, "cold_paged"
+
+    def clear(self) -> None:
+        with self._lock:
+            freed = self._bytes
+            self._entries.clear()
+            self._bytes = 0
+        telem.hbm_book(self.device, "cold", -freed)
 
 
 class DeviceMirror:

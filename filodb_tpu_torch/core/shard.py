@@ -13,9 +13,11 @@ enforcement, eviction of ended series and demand paging; traced filters
 creation, ingest and query lookup) and the fault points `ingest.batch`
 and `flush.persist` (utils/faults.py), where the reference fires them.
 
-Left out: the downsampler hook, the cardinality tracker, tenant quotas
-and usage accounting, and recovery (`recover_index`,
-`recover_stream`).  The store settings the reference
+Recovery: `recover_index` rebuilds the index and the partition registry
+from the column store's part keys; queries then page the flushed chunk
+frames back through demand paging.  Left out: the downsampler hook, the
+cardinality tracker, tenant quotas and usage accounting, and the stream
+replay `recover_stream` (it comes with the WAL).  The store settings the reference
 reads from its config are the constants below, at its defaults.  Host
 arrays stay numpy; the device copy is the DeviceMirror's.
 """
@@ -122,15 +124,25 @@ class PagedLimitExceeded(ValueError):
 
 @dataclasses.dataclass
 class PartLookupResult:
-    """Vectorized lookup result: pids per schema."""
+    """Vectorized lookup result: pids per schema.  The hot paths read the
+    pid arrays; parts_by_schema materializes PartitionInfo lists for the
+    metadata and maintenance readers."""
     shard: int
     part_ids: np.ndarray
     pids_by_schema: Dict[str, np.ndarray]
     first_schema: Optional[str]
+    shard_obj: Optional["TimeSeriesShard"] = dataclasses.field(
+        default=None, repr=False, compare=False)
     # the leaf's scan estimates over this lookup's rows and time range,
     # memoized with it: (schema, store generation) -> samples
     scan_estimates: Dict = dataclasses.field(default_factory=dict,
                                              repr=False, compare=False)
+
+    @property
+    def parts_by_schema(self) -> Dict[str, List["PartitionInfo"]]:
+        parts = self.shard_obj.partitions
+        return {s: [parts[p] for p in pids.tolist()]
+                for s, pids in self.pids_by_schema.items()}
 
 
 class TimeSeriesShard:
@@ -771,7 +783,7 @@ class TimeSeriesShard:
                 by_schema[name] = ids[codes == c]
         if self._traced_pids and ids.size:
             self._trace_touch("query_lookup", ids)
-        res = PartLookupResult(self.shard_num, ids, by_schema, first)
+        res = PartLookupResult(self.shard_num, ids, by_schema, first, self)
         if ck is not None:
             # the memo hands the SAME arrays to every hit: freeze them
             ids.setflags(write=False)
@@ -1026,6 +1038,22 @@ class TimeSeriesShard:
                     else:
                         store.paged_ceil[row] = end_time_ms
         return paged
+
+    # ---------------------------------------------------------- recovery
+
+    def recover_index(self) -> int:
+        """Rebuild the tag index and the partition registry from the
+        persisted part keys; returns the partitions recovered.  Their
+        samples stay in the column store until a query pages them in."""
+        n = 0
+        for rec in self.column_store.read_part_keys(self.dataset,
+                                                    self.shard_num):
+            info = self.get_or_create_partition(
+                rec.part_key, rec.schema_name, rec.start_time_ms)
+            if rec.end_time_ms < MAX_TIME:
+                self.index.update_end_time(info.part_id, rec.end_time_ms)
+            n += 1
+        return n
 
     # ------------------------------------------------------------ memory
 

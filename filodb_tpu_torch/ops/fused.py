@@ -298,7 +298,7 @@ def pad_values(vals, vbase, plan: FusedPlan, device=None) -> PaddedValues:
     return PaddedValues(vals_p, vbase_p)
 
 
-def pad_groups(gids, S: int, num_groups: int, device="cpu") -> PaddedGroups:
+def pad_groups(gids, S: int, num_groups: int, *, device) -> PaddedGroups:
     Sp = pad_series_count(S)
     gids_np = np.asarray(gids, np.int32)
     gids_p = torch.full((Sp,), -1, dtype=torch.int32, device=device)

@@ -6,7 +6,9 @@ ExecPlan base classes: the deadline and cancellation checks at every
 node boundary, the resource tally (each node's exclusive host time, the
 device time the kernel ledger books to it, its transfers), the
 live-query tally, the plan printer behind explain (`print_tree`,
-`args_str`) and the recorder behind explain-analyze (`AnalyzeRecorder`).
+`args_str`) and the recorder behind explain-analyze (`AnalyzeRecorder`);
+the plan dispatchers (in-process only: remote ones come with the
+transport) and EmptyResultExec.
 """
 from __future__ import annotations
 
@@ -487,6 +489,22 @@ class AnalyzeRecorder:
                    r["samples_scanned"], r["series_scanned"]))
 
 
+class PlanDispatcher:
+    """Where a subtree runs: a parent hands each child to its
+    dispatcher."""
+
+    def dispatch(self, plan: "ExecPlan", source):
+        raise NotImplementedError
+
+
+class InProcessPlanDispatcher(PlanDispatcher):
+    """Run the subtree in this process.  The port's only dispatcher:
+    remote dispatchers come with the transport."""
+
+    def dispatch(self, plan: "ExecPlan", source):
+        return plan.execute_internal(source)
+
+
 class ExecPlan:
     """Base execution node.  `execute_internal` returns raw Data + stats;
     `execute` materializes a QueryResult with limits enforced."""
@@ -494,6 +512,7 @@ class ExecPlan:
     def __init__(self, ctx: Optional[QueryContext] = None):
         self.ctx = ctx or QueryContext()
         self.transformers: list = []
+        self.dispatcher: PlanDispatcher = InProcessPlanDispatcher()
 
     def add_transformer(self, t) -> "ExecPlan":
         self.transformers.append(t)
@@ -664,8 +683,15 @@ class LeafExecPlan(ExecPlan):
     pass
 
 
+class EmptyResultExec(LeafExecPlan):
+    """A leaf that answers nothing."""
+
+    def _do_execute(self, source):
+        return None, QueryStats()
+
+
 class NonLeafExecPlan(ExecPlan):
-    """Gather over children, in order, in this process."""
+    """Gather over children, in order, each through its dispatcher."""
 
     def __init__(self, ctx: QueryContext, children: Sequence[ExecPlan]):
         super().__init__(ctx)
@@ -679,7 +705,7 @@ class NonLeafExecPlan(ExecPlan):
         stats = QueryStats()
         results = []
         for c in self._children:
-            data, st = c.execute_internal(source)
+            data, st = c.dispatcher.dispatch(c, source)
             stats.merge(st)
             results.append(data)
             # a child's return is a boundary too: a kill or deadline

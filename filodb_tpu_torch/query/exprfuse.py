@@ -1,8 +1,9 @@
 """Whole-expression device compilation (port of
 filodb_tpu/query/exprfuse.py).
 
-Every port leaf runs in this process (the port has no plan dispatchers
-yet), so every MultiSchemaPartitionsExec of a tree is eligible.  A
+Only the leaves a tree runs in this process are eligible: those whose
+dispatcher is the InProcessPlanDispatcher, as in the reference (the
+port has no other dispatcher yet).  A
 leaf's fused work that fails raises instead of degrading, as the port's
 leaf does everywhere; "degraded" counts the eligible leaves whose shape
 the fused path does not take (the general path answers them).
@@ -54,9 +55,11 @@ class TreeCompilation:
 
 def _eligible_leaves(ep):
     from filodb_tpu_torch.query.engine import _walk_plan
+    from filodb_tpu_torch.query.execbase import InProcessPlanDispatcher
     from filodb_tpu_torch.query.leafexec import MultiSchemaPartitionsExec
     return [leaf for leaf in _walk_plan(ep)
-            if isinstance(leaf, MultiSchemaPartitionsExec)]
+            if isinstance(leaf, MultiSchemaPartitionsExec)
+            and isinstance(leaf.dispatcher, InProcessPlanDispatcher)]
 
 
 def compile_tree(ep, source, *, min_leaves: int = 1

@@ -54,8 +54,12 @@ Every other leaf — the cases where the reference's _try_fused returns
 None — runs its transformers' general path on the engine's device
 (query/transformers.py); a host block is uploaded for it once.  Not
 carried over, on purpose: the reference's broad `except` that degrades a
-failed fused evaluation to the general path, the interpret-unless-TPU
-gate and the cold tier.
+failed fused evaluation to the general path, and the interpret-unless-
+TPU gate.
+
+SelectPersistedSegmentsExec is the leaf of the persisted-segment tier:
+its rows come from the cold region's segment blocks, and from there the
+same peephole and transformers run.
 """
 from __future__ import annotations
 
@@ -868,6 +872,352 @@ def _estimate_scan(store, rows: np.ndarray, start_ms: int,
     frac = np.clip((hi - lo).astype(np.float64) / span, 0.0, 1.0)
     est = np.where((cnt > 0) & (hi >= lo), np.maximum(cnt * frac, 1.0), 0.0)
     return int(est.sum())
+
+
+class SelectPersistedSegmentsExec(MultiSchemaPartitionsExec):
+    """Leaf of the persisted-segment (historical) tier: gathers rows from
+    the cold region's segment blocks (persist/segments.ColdBlock) instead
+    of the shard's dense store, then runs the same transformer and fused
+    pipeline as the hot leaf, so a cold rate panel is K1 over the cold
+    blocks.
+
+    Over several segments the rows are unioned by part key and packed
+    (_merge_cold): each union row's samples contiguous, the counter
+    correction carried across segment boundaries.  On the card the gather
+    is index_select and the merge torch ops on the blocks' device; a
+    block the cold region built on the host (its over-budget degrade)
+    merges in numpy.  A non-counter function over a counter column reads
+    raw values: the segments are decoded again on the host
+    (_gather_cold_raw).
+
+    `tier` is the persist.segments.PersistedTier PersistedClusterPlanner
+    binds at plan time."""
+
+    def __init__(self, ctx: QueryContext, dataset: str, shard: int,
+                 filters: Sequence[ColumnFilter], chunk_start_ms: int,
+                 chunk_end_ms: int, tier, columns: Sequence[str] = (),
+                 schema: Optional[str] = None):
+        super().__init__(ctx, dataset, shard, filters, chunk_start_ms,
+                         chunk_end_ms, columns=columns, schema=schema)
+        self.tier = tier
+
+    def args_str(self):
+        fs = ",".join(str(f) for f in self.filters)
+        return (f"dataset={self.dataset}, shard={self.shard}, tier=cold, "
+                f"chunkMethod=TimeRangeChunkScan({self.chunk_start_ms},"
+                f"{self.chunk_end_ms}), filters=[{fs}]")
+
+    def _do_execute(self, source):
+        stats = QueryStats(shards_queried=1)
+        segs = self.tier.covering(self.shard, self.chunk_start_ms,
+                                  self.chunk_end_ms, self.schema)
+        if not segs:
+            return None, stats
+        by_schema = {}
+        for m in segs:
+            by_schema.setdefault(m.schema_name, []).append(m)
+        # the first schema (in coverage order) whose segments hold a
+        # matching row: the reference reads only the first schema's, so
+        # a metric of another schema in the same shard answered nothing
+        verdict = "cold_hit"
+        picked = []                       # (block, rows)
+        for schema_name, metas in by_schema.items():
+            picked, paged = self._page_schema(
+                sorted(metas, key=lambda m: m.start_ms), stats)
+            if paged:
+                verdict = "cold_paged"
+            if picked:
+                break
+        col_name = (self.columns[0] if self.columns
+                    else self.tier.schemas[schema_name].value_column)
+        stats.cold_tier = verdict
+        if not picked:
+            return None, stats
+        # the scan cap over the filter-matched rows (what this query
+        # scans, not the shard's segment volume), before the gather
+        limit = self.ctx.planner_params.scan_limit
+        if limit and self.ctx.planner_params.enforced_limits:
+            est = sum(int(b.counts[r].sum()) for b, r in picked)
+            if est > limit:
+                raise ValueError(
+                    f"shard {self.shard}: persisted-tier query would scan "
+                    f"~{est} samples, over the scan limit {limit} — "
+                    f"narrow the filters or time range")
+        base_ms = picked[0][0].meta.start_ms
+        span = max(b.meta.end_ms for b, _ in picked) - base_ms
+        if span >= (1 << 30):
+            raise ValueError(
+                "persisted-tier slice spans >2^30 ms — the planner must "
+                "split long ranges (PersistedClusterPlanner.plan_split_ms)")
+        return self._gather_cold(picked, col_name, base_ms, stats), stats
+
+    def _page_schema(self, metas, stats):
+        """Page one schema's segments into the cold region (concurrently:
+        decode and upload overlap, so the cold wall is about one
+        segment's) and match the filters -> ([(block, rows)] with rows,
+        whether a block was paged now)."""
+        self._check_cancel("cold-segment page-in")
+        if len(metas) > 1:
+
+            def fetch(m):
+                # a killed scan stops between page-ins
+                self._check_cancel("cold-segment page-in")
+                return self.tier.get_block(m)
+
+            with ThreadPoolExecutor(max_workers=min(4, len(metas))) as pool:
+                fetched = list(pool.map(fetch, metas))
+        else:
+            fetched = [self.tier.get_block(metas[0])]
+        self._check_cancel("cold-segment gather")
+        paged = False
+        picked = []
+        for block, v in fetched:
+            rows = block.match_rows(self.filters, self.chunk_start_ms,
+                                    self.chunk_end_ms)
+            if v == "cold_paged":
+                paged = True
+                stats.samples_paged += int(block.counts.sum())
+                stats.bytes_paged += int(block.nbytes)
+            if rows.size:
+                picked.append((block, rows))
+        return picked, paged
+
+    def _gather_cold(self, picked, col_name: str, base_ms: int, stats):
+        counter_col = col_name in picked[0][0].counter_cols
+        fn_is_counter = False
+        for t in self.transformers:
+            if isinstance(t, PeriodicSamplesMapper):
+                fn_is_counter = t.function in COUNTER_FNS
+                break
+        if counter_col and not fn_is_counter:
+            # resets/changes/... read raw counter values: decode the
+            # segments again on the host (uncached, the rare path), as
+            # the hot leaf bypasses the corrected mirror
+            return self._gather_cold_raw(picked, col_name, base_ms, stats)
+        host = any(b.is_host for b, _ in picked)
+        seg_inputs = []
+        for block, rows in picked:
+            vals = block.cols[col_name]
+            vbase = block.vbase[col_name][rows]
+            if host:
+                ts_g = np.asarray(block.ts_off)[rows]
+                v_g = np.asarray(vals)[rows]
+            else:
+                idx = torch.from_numpy(rows).to(vals.device)
+                ts_g = block.ts_off.index_select(0, idx)
+                v_g = vals.index_select(0, idx)
+            seg_inputs.append({
+                "block": block, "rows": rows, "ts_off": ts_g, "vals": v_g,
+                "counts": block.counts[rows], "t0": block.meta.start_ms,
+                "vbase": vbase})
+        samples = int(sum(int(si["counts"].sum()) for si in seg_inputs))
+        stats.samples_scanned = samples
+        if len(seg_inputs) == 1:
+            si = seg_inputs[0]
+            block, rows = picked[0]
+            stats.series_scanned = int(rows.size)
+            self._fused_cache_key = (("cold", block.serial), 0, col_name,
+                                     rows.tobytes())
+            return RawBlock(
+                block.keys_for(rows), si["ts_off"], si["vals"], si["t0"],
+                None, samples=samples,
+                vbase=_vbase_like(si["vbase"], si["vals"]),
+                precorrected=counter_col,
+                shared_ts_row=block.ts_row0 if block.uniform else None,
+                dense=block.dense.get(col_name, False),
+                cache_token=("cold", block.serial, rows.tobytes()))
+        return self._merge_cold(seg_inputs, picked, col_name, counter_col,
+                                base_ms, stats, samples, host)
+
+    def _merge_cold(self, seg_inputs, picked, col_name: str,
+                    counter_col: bool, base_ms: int, stats, samples: int,
+                    host: bool):
+        """Stitch K time-ordered segment gathers into one packed [Su, Tt]
+        RawBlock: union the row sets by part key, chain the counter
+        correction across segment boundaries (a row whose first raw value
+        in a segment is below its last raw value in the one before was
+        reset there), and pack each union row's samples contiguously
+        (the general windowing path needs per-row sorted offsets with the
+        pads at the end).  The packed arrays are cached on the tier, so
+        a repeat query over the same cold row set reuses them."""
+        serials = tuple(b.serial for b, _ in picked)
+        rows_token = b"".join(r.tobytes() for _, r in picked)
+        mkey = (serials, col_name, rows_token, base_ms)
+        self._fused_cache_key = (("cold",) + serials, 0, col_name,
+                                 rows_token)
+        cached = self.tier.merged_get(mkey)
+        if cached is None:
+            cached = self._pack_merged(seg_inputs, picked, col_name,
+                                       counter_col, base_ms, host)
+            self.tier.merged_put(mkey, cached)
+        union_keys, ts_out, v_out, out_vbase, shared, dense, Su = cached
+        stats.series_scanned = Su
+        return RawBlock(union_keys, ts_out, v_out, base_ms, None,
+                        samples=samples, vbase=out_vbase,
+                        precorrected=counter_col, shared_ts_row=shared,
+                        dense=dense,
+                        cache_token=("cold", serials, rows_token))
+
+    def _pack_merged(self, seg_inputs, picked, col_name, counter_col,
+                     base_ms, host):
+        union = {}
+        union_keys = []
+        urows_per = []
+        for block, rows in picked:
+            pk_bytes = block.identity.pk_bytes
+            urows = np.empty(len(rows), dtype=np.int64)
+            new_local = []
+            for i, r in enumerate(rows.tolist()):
+                u = union.get(pk_bytes[r])
+                if u is None:
+                    u = union[pk_bytes[r]] = len(union)
+                    new_local.append(i)
+                urows[i] = u
+            if new_local:
+                union_keys.extend(block.keys_for(rows[np.asarray(new_local)]))
+            urows_per.append(urows)
+        Su = len(union)
+        # per union row: the packed layout and the cross-segment carry
+        out_vbase = np.full(Su, np.nan)
+        carry = np.zeros(Su)
+        prev_last = np.full(Su, np.nan)
+        flat_ts, flat_v = [], []
+        flat_base = 0
+        src_of = []                      # (flat_base, Tk, urows, counts)
+        for si, ur in zip(seg_inputs, urows_per):
+            block = si["block"]
+            cnt = np.asarray(si["counts"], dtype=np.int64)
+            vb = np.asarray(si["vbase"], np.float64)
+            first_seen = np.isnan(out_vbase[ur])
+            out_vbase[ur] = np.where(first_seen, vb, out_vbase[ur])
+            if counter_col:
+                fr = block.first_raw[col_name][si["rows"]]
+                boundary = (~np.isnan(prev_last[ur])) & np.less(
+                    fr, prev_last[ur],
+                    where=~np.isnan(fr) & ~np.isnan(prev_last[ur]),
+                    out=np.zeros(len(ur), dtype=bool))
+                carry[ur] += np.where(boundary, prev_last[ur], 0.0)
+            adj = vb + carry[ur] - out_vbase[ur]          # f64 [Rk]
+            if counter_col:
+                carry[ur] += block.cum_drop[col_name][si["rows"]]
+                lr = block.last_raw[col_name][si["rows"]]
+                prev_last[ur] = np.where(np.isnan(lr), prev_last[ur], lr)
+            Tk = int(si["ts_off"].shape[1])
+            delta = int(si["t0"] - base_ms)
+            ts_k, v_k = si["ts_off"], si["vals"]
+            if host:
+                ts_adj = np.where(ts_k == PAD_TS, PAD_TS,
+                                  ts_k + np.int32(delta))
+                # the device branch's f32 add, so a degraded block
+                # answers to the bit as a resident one does
+                v_adj = v_k + adj[:, None].astype(v_k.dtype)
+            else:
+                ts_adj = torch.where(ts_k == PAD_TS, ts_k, ts_k + delta)
+                v_adj = v_k + torch.from_numpy(adj[:, None]).to(
+                    v_k.device, v_k.dtype)
+            flat_ts.append(ts_adj.reshape(-1))
+            flat_v.append(v_adj.reshape(-1))
+            src_of.append((flat_base, Tk, ur, cnt))
+            flat_base += len(ur) * Tk
+        ct = np.zeros(Su, dtype=np.int64)
+        for _, _, ur, cnt in src_of:
+            ct[ur] += cnt
+        Tmax = int(ct.max()) if Su else 0
+        # one sentinel slot (PAD_TS, NaN) is appended for the pads
+        out_idx = np.full((Su, Tmax), flat_base,
+                          dtype=np.int32 if flat_base < (1 << 31) - 1
+                          else np.int64)
+        write_pos = np.zeros(Su, dtype=np.int64)
+        for base_k, Tk, ur, cnt in src_of:
+            jj = np.arange(Tk)
+            valid = jj[None, :] < cnt[:, None]
+            src = base_k + np.arange(len(ur))[:, None] * Tk + jj[None, :]
+            rows_rep = np.repeat(ur, cnt)
+            cols_rep = (write_pos[ur][:, None] + jj[None, :])[valid]
+            out_idx[rows_rep, cols_rep] = src[valid]
+            write_pos[ur] += cnt
+        if host:
+            ts_all = np.concatenate(flat_ts + [np.asarray([PAD_TS],
+                                                          np.int32)])
+            v_all = np.concatenate(flat_v + [np.asarray([np.nan],
+                                                        flat_v[0].dtype)])
+            ts_out, v_out = ts_all[out_idx], v_all[out_idx]
+            vbase = out_vbase
+        else:
+            dev = flat_v[0].device
+            ts_all = torch.cat(flat_ts + [torch.full(
+                (1,), PAD_TS, dtype=torch.int32, device=dev)])
+            v_all = torch.cat(flat_v + [torch.full(
+                (1,), float("nan"), dtype=flat_v[0].dtype, device=dev)])
+            idx = torch.from_numpy(out_idx.reshape(-1)).to(dev)
+            ts_out = ts_all.index_select(0, idx).reshape(Su, Tmax)
+            v_out = v_all.index_select(0, idx).reshape(Su, Tmax)
+            vbase = torch.from_numpy(out_vbase).to(dev)
+        dense = all(b.dense.get(col_name, False) for b, _ in picked)
+        # the shared grid survives the merge only when every union row
+        # took every segment's full uniform grid
+        shared = None
+        if all(b.uniform for b, _ in picked) \
+                and all(len(ur) == Su for _, _, ur, _ in src_of) \
+                and Su > 0 and (ct == ct[0]).all():
+            cat = np.concatenate([
+                (b.ts_row0[:int(b.counts[0])].astype(np.int64)
+                 + (b.meta.start_ms - base_ms)).astype(np.int32)
+                for b, _ in picked])
+            if cat.size == Tmax:
+                shared = cat
+        return union_keys, ts_out, v_out, vbase, shared, dense, Su
+
+    def _gather_cold_raw(self, picked, col_name: str, base_ms: int,
+                         stats):
+        """The raw-value host path (a non-counter function over a counter
+        column): decode the segments again and merge uncorrected values
+        (f64 numpy; the transformers upload it)."""
+        series = {}
+        keys = {}
+        for block, rows in picked:
+            hdr, ts, cols = self.tier.store.load(block.meta)
+            vals = cols.get(col_name)
+            if vals is None:
+                continue
+            for r in rows.tolist():
+                kb = block.part_keys[r].to_bytes()
+                n = int(hdr["counts"][r])
+                series.setdefault(kb, []).append((ts[r, :n], vals[r, :n]))
+                keys.setdefault(kb, block.keys_for(np.asarray([r]))[0])
+        if not series:
+            return None
+        Su = len(series)
+        merged = []
+        for parts in series.values():
+            parts.sort(key=lambda p: p[0][0] if len(p[0]) else 0)
+            merged.append((np.concatenate([p[0] for p in parts]),
+                           np.concatenate([p[1] for p in parts])))
+        Tmax = max(len(t) for t, _ in merged)
+        counts = np.asarray([len(t) for t, _ in merged], dtype=np.int64)
+        ts_grid = np.zeros((Su, Tmax), dtype=np.int64)
+        v_grid = np.full((Su, Tmax), np.nan)
+        for i, (t, v) in enumerate(merged):
+            ts_grid[i, :len(t)] = t
+            v_grid[i, :len(v)] = v
+        stats.series_scanned = Su
+        stats.samples_scanned = int(counts.sum())
+        ts_off = to_offsets(ts_grid, counts, base_ms)
+        vals, vbase = counter.rebase_values(v_grid, False)
+        dense = not bool(np.isnan(
+            vals[np.arange(Tmax)[None, :] < counts[:, None]]).any())
+        return RawBlock(list(keys.values()), ts_off, vals, base_ms, None,
+                        samples=stats.samples_scanned, vbase=vbase,
+                        precorrected=False, shared_ts_row=None,
+                        dense=dense)
+
+
+def _vbase_like(vbase: np.ndarray, vals):
+    """A cold gather's per-row f64 bases beside its values: a tensor on
+    their device, or the numpy array for a host block."""
+    if isinstance(vals, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(vbase)).to(vals.device)
+    return vbase
 
 
 # ------------------------------------------------------------- scalar execs

@@ -1,9 +1,7 @@
 """Metadata exec plans (port of filodb_tpu/query/metaexec.py): series
-keys and label names/values per shard, and their merge across shards.
-All of it is index work on the host; nothing reaches the device.
-
-Not ported: SelectChunkInfosExec, the chunk-metadata debug scan, which
-SingleClusterPlanner never builds.
+keys and label names/values per shard, the chunk-metadata debug scan
+(SelectChunkInfosExec), and their merge across shards.  All of it is
+index and chunk-header work on the host; nothing reaches the device.
 """
 from __future__ import annotations
 
@@ -11,6 +9,89 @@ from typing import Dict, List
 
 from filodb_tpu_torch.query.execbase import LeafExecPlan, NonLeafExecPlan
 from filodb_tpu_torch.query.rangevector import QueryResult, QueryStats
+
+
+class SelectChunkInfosExec(LeafExecPlan):
+    """Chunk-metadata debug plan: per-partition chunk infos (id, rows,
+    time range, bytes, per-column encodings) for the series a filter
+    resolves to.  Covers both tiers: sealed chunks in the resident cache
+    (else the column store's, for evicted or recovered partitions) and
+    the unsealed tail of the dense store (encoding 'dense-unsealed')."""
+
+    def __init__(self, ctx, dataset, shard, filters, start_ms, end_ms,
+                 schema=None, col_name=None):
+        super().__init__(ctx)
+        self.dataset, self.shard = dataset, shard
+        self.filters = list(filters)
+        self.start_ms, self.end_ms = start_ms, end_ms
+        self.schema = schema
+        self.col_name = col_name
+
+    def args_str(self):
+        return (f"shard={self.shard}, chunkMethod=TimeRangeChunkScan("
+                f"{self.start_ms},{self.end_ms}), "
+                f"filters={[str(f) for f in self.filters]}, "
+                f"col={self.col_name}")
+
+    def _do_execute(self, source):
+        shard = source.get_shard(self.dataset, self.shard)
+        stats = QueryStats(shards_queried=1)
+        if shard is None:
+            return None, stats
+        lookup = shard.lookup_partitions(self.filters, self.start_ms,
+                                         self.end_ms)
+        parts_by_schema = lookup.parts_by_schema
+        rows = []
+        for schema_name, parts in parts_by_schema.items():
+            if self.schema and schema_name != self.schema:
+                continue
+            store = shard.stores[schema_name]
+            for p in parts:
+                labels = {**p.part_key.tags_dict,
+                          "_metric_": p.part_key.metric}
+                chunks = [(cs, "resident") for cs in shard.resident.read(
+                    p.part_id, self.start_ms, self.end_ms)]
+                if not chunks:
+                    chunks = [(cs, "persisted")
+                              for cs in shard.column_store.read_chunks(
+                                  self.dataset, self.shard, p.part_key,
+                                  self.start_ms, self.end_ms)]
+                for cs, tier in chunks:
+                    cols = {name: c.kind for name, c in cs.columns.items()
+                            if self.col_name in (None, name)}
+                    rows.append({
+                        **labels, "shard": self.shard, "partId": p.part_id,
+                        "chunkId": cs.info.chunk_id,
+                        "numRows": cs.info.num_rows,
+                        "startTime": cs.info.start_time_ms,
+                        "endTime": cs.info.end_time_ms,
+                        "numBytes": cs.nbytes,
+                        "ingestionTime": cs.info.ingestion_time_ms,
+                        "encodings": cols, "tier": tier})
+                # the unsealed dense-store tail is one writable chunk
+                cnt = int(store.counts[p.row])
+                sealed = int(store.sealed[p.row])
+                if cnt > sealed:
+                    ts_row = store.ts[p.row, sealed:cnt]
+                    t0, t1 = int(ts_row[0]), int(ts_row[-1])
+                    if t1 >= self.start_ms and t0 <= self.end_ms:
+                        per_cell = sum(
+                            (arr.dtype.itemsize
+                             * (arr.shape[2] if arr.ndim == 3 else 1))
+                            for name, arr in store.cols.items()
+                            if arr is not None
+                            and self.col_name in (None, name)) + 8
+                        rows.append({
+                            **labels, "shard": self.shard,
+                            "partId": p.part_id, "chunkId": -1,
+                            "numRows": cnt - sealed,
+                            "startTime": t0, "endTime": t1,
+                            "numBytes": (cnt - sealed) * per_cell,
+                            "ingestionTime": -1,
+                            "encodings": {"*": "dense-unsealed"},
+                            "tier": "dense"})
+        stats.series_scanned = sum(len(v) for v in parts_by_schema.values())
+        return QueryResult([], stats, data=rows), stats
 
 
 class PartKeysExec(LeafExecPlan):
@@ -74,7 +155,8 @@ class LabelValuesExec(LeafExecPlan):
 
 def _canon(x):
     """Hashable canonical form for metadata dedup (str or label dict)."""
-    return tuple(sorted(x.items())) if isinstance(x, dict) else x
+    return tuple(sorted((k, _canon(v)) for k, v in x.items())) \
+        if isinstance(x, dict) else x
 
 
 class MetadataMergeExec(NonLeafExecPlan):

@@ -1,13 +1,14 @@
 """Non-leaf exec plans (port of filodb_tpu/query/nonleaf.py):
 DistConcatExec and LocalPartitionDistConcatExec (the planner's
 multi-shard concat root), ReduceAggregateExec, BinaryJoinExec,
-SetOperatorExec and SubqueryExec.  Label matching runs on the host, as in the reference;
-the values stay on their device.
+SetOperatorExec, SubqueryExec and StitchRvsExec (the time stitch of the
+composed planners).  Label matching runs on the host, as in the
+reference; the values stay on their device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -354,3 +355,51 @@ class SubqueryExec(NonLeafExecPlan):
             self.function, self.function_args, base_ms=base,
             shared_grid=True, dense=not bool(torch.isnan(vals).any()))
         return ResultBlock(block.keys, wends, out)
+
+
+class StitchRvsExec(NonLeafExecPlan):
+    """Merge same-key series evaluated over adjacent time ranges into one
+    grid: the union of the blocks' step times, one row a key.  One
+    searchsorted and one scatter a block into a preallocated [S, W_union]
+    (or [S, W_union, B] for histogram blocks) f64 output, on the device
+    of the first block whose values are a tensor; a NaN step keeps what
+    an earlier block put there, and a later block wins where two
+    overlap."""
+
+    def compose(self, results, stats):
+        blocks = [r for r in results if isinstance(r, ResultBlock)]
+        if not blocks:
+            return None
+        if len(blocks) == 1:
+            return blocks[0]
+        wends = np.unique(np.concatenate([np.asarray(b.wends)
+                                          for b in blocks]))
+        row_of: Dict[RangeVectorKey, int] = {}
+        keys: List[RangeVectorKey] = []
+        for b in blocks:
+            for k in b.keys:
+                if k not in row_of:
+                    row_of[k] = len(keys)
+                    keys.append(k)
+        # shape and bucket scheme from the widest block: an empty tier
+        # (0 series, 2-d values) may come before one with [S, W, B] data
+        ref = max(blocks, key=lambda b: b.values.ndim)
+        extra = tuple(ref.values.shape[2:])
+        dev = next((b.values.device for b in blocks
+                    if isinstance(b.values, torch.Tensor)), self.ctx.device)
+        out = torch.full((len(keys), len(wends)) + extra, float("nan"),
+                         dtype=torch.float64, device=dev)
+        for b in blocks:
+            if b.num_series == 0:
+                continue
+            vals = device_values(b.values, self.ctx).to(dev, torch.float64)
+            pos = torch.from_numpy(
+                np.searchsorted(wends, np.asarray(b.wends))).to(dev)
+            rows = torch.from_numpy(np.fromiter(
+                (row_of[k] for k in b.keys), dtype=np.int64,
+                count=len(b.keys))).to(dev)
+            ri, ci = rows[:, None], pos[None, :]
+            out[ri, ci] = torch.where(torch.isnan(vals), out[ri, ci], vals)
+        les = next((b.bucket_les for b in blocks
+                    if b.bucket_les is not None), None)
+        return ResultBlock(keys, wends, out, les)

@@ -9,26 +9,30 @@ operations, instant functions, subqueries, `@`, sort, limitk, absent,
 the label functions, scalar(), vector() and the scalar plans they need
 compose those; the metadata plans (label names, label values, series
 keys) fan out to one metadata leaf per shard under MetadataMergeExec.
-Every plan node of the reference's planner is carried; the reference's
-dispatchers and aggregation pushdown are not (one process).
+Every plan node of the reference's planner is carried, and its
+dispatcher hook (`dispatcher_factory`: every leaf keeps the in-process
+dispatcher unless the factory names another); its aggregation pushdown
+is not (one process).  The chunk-metadata plan (RawChunkMeta), which the
+reference's planner refuses, fans out to SelectChunkInfosExec leaves.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 from filodb_tpu_torch.core.index import ColumnFilter, Equals
 from filodb_tpu_torch.core.partkey import PartKey, strip_metric_suffix
 from filodb_tpu_torch.core.schemas import PartitionSchema
 from filodb_tpu_torch.parallel.shardmapper import ShardMapper, SpreadProvider
 from filodb_tpu_torch.query import logical as lp
-from filodb_tpu_torch.query.execbase import (ExecPlan, ScalarResult,
-                                             not_ported)
+from filodb_tpu_torch.query.execbase import (ExecPlan, PlanDispatcher,
+                                             ScalarResult, not_ported)
 from filodb_tpu_torch.query.leafexec import (MultiSchemaPartitionsExec,
                                              ScalarBinaryOperationExec,
                                              ScalarFixedDoubleExec,
                                              TimeScalarGeneratorExec)
 from filodb_tpu_torch.query.metaexec import (LabelValuesExec,
-                                             MetadataMergeExec, PartKeysExec)
+                                             MetadataMergeExec, PartKeysExec,
+                                             SelectChunkInfosExec)
 from filodb_tpu_torch.query.nonleaf import (BinaryJoinExec,
                                             LocalPartitionDistConcatExec,
                                             ReduceAggregateExec,
@@ -44,17 +48,41 @@ from filodb_tpu_torch.query.transformers import (
 SET_OPERATORS = ("and", "or", "unless")
 
 
-class SingleClusterPlanner:
+class QueryPlanner:
+    """A logical plan in, an exec tree out."""
+
+    def materialize(self, plan: lp.LogicalPlan, ctx: QueryContext) -> ExecPlan:
+        raise NotImplementedError
+
+
+class SingleClusterPlanner(QueryPlanner):
 
     def __init__(self, dataset: str, shard_mapper: ShardMapper,
                  spread_provider: Optional[SpreadProvider] = None,
                  part_schema: Optional[PartitionSchema] = None,
-                 stale_lookback_ms: int = 5 * 60 * 1000):
+                 stale_lookback_ms: int = 5 * 60 * 1000,
+                 dispatcher_factory: Optional[
+                     Callable[[int], PlanDispatcher]] = None):
         self.dataset = dataset
         self.shard_mapper = shard_mapper
         self.spread_provider = spread_provider or SpreadProvider()
         self.part_schema = part_schema or PartitionSchema()
         self.stale_lookback_ms = stale_lookback_ms
+        self.dispatcher_factory = dispatcher_factory
+
+    def _dispatcher(self, shard: int) -> Optional[PlanDispatcher]:
+        if self.dispatcher_factory is not None:
+            return self.dispatcher_factory(shard)
+        return None
+
+    def _with_dispatcher(self, plans: List[ExecPlan],
+                         shards: Sequence[int]) -> List[ExecPlan]:
+        """Each shard's plan gets the factory's dispatcher, if any."""
+        for e, s in zip(plans, shards):
+            d = self._dispatcher(s)
+            if d is not None:
+                e.dispatcher = d
+        return plans
 
     def shards_from_filters(self, filters: Sequence[ColumnFilter],
                             ctx: QueryContext) -> List[int]:
@@ -105,10 +133,11 @@ class SingleClusterPlanner:
     def _m_RawSeries(self, p: lp.RawSeries, ctx: QueryContext) -> List[ExecPlan]:
         candidates = self.shards_from_filters(p.filters, ctx)
         shards = self.shard_mapper.active_shards(candidates) or candidates
-        return [MultiSchemaPartitionsExec(
+        plans = [MultiSchemaPartitionsExec(
             ctx, self.dataset, s, p.filters,
             p.range_selector.from_ms, p.range_selector.to_ms,
             columns=p.columns) for s in shards]
+        return self._with_dispatcher(plans, shards)
 
     def _m_PeriodicSeries(self, p: lp.PeriodicSeries, ctx: QueryContext):
         lookback = p.raw_series.lookback_ms or self.stale_lookback_ms
@@ -277,23 +306,34 @@ class SingleClusterPlanner:
     # metadata ----------------------------------------------------------------
 
     def _m_LabelValues(self, p: lp.LabelValues, ctx) -> ExecPlan:
-        return MetadataMergeExec(ctx, [
+        shards = self.shard_mapper.all_shards()
+        return MetadataMergeExec(ctx, self._with_dispatcher([
             LabelValuesExec(ctx, self.dataset, s, p.filters, p.label_names,
-                            p.start_ms, p.end_ms)
-            for s in self.shard_mapper.all_shards()])
+                            p.start_ms, p.end_ms) for s in shards], shards))
 
     def _m_LabelNames(self, p: lp.LabelNames, ctx) -> ExecPlan:
-        return MetadataMergeExec(ctx, [
+        shards = self.shard_mapper.all_shards()
+        return MetadataMergeExec(ctx, self._with_dispatcher([
             LabelValuesExec(ctx, self.dataset, s, p.filters, [], p.start_ms,
-                            p.end_ms)
-            for s in self.shard_mapper.all_shards()])
+                            p.end_ms) for s in shards], shards))
 
     def _m_SeriesKeysByFilters(self, p: lp.SeriesKeysByFilters,
                                ctx) -> ExecPlan:
-        return MetadataMergeExec(ctx, [
+        shards = self.shards_from_filters(p.filters, ctx)
+        return MetadataMergeExec(ctx, self._with_dispatcher([
             PartKeysExec(ctx, self.dataset, s, p.filters, p.start_ms,
-                         p.end_ms)
-            for s in self.shards_from_filters(p.filters, ctx)])
+                         p.end_ms) for s in shards], shards))
+
+    def _m_RawChunkMeta(self, p: lp.RawChunkMeta, ctx) -> ExecPlan:
+        """The chunk-metadata debug plan: one SelectChunkInfosExec a
+        shard, their rows concatenated."""
+        shards = self.shards_from_filters(p.filters, ctx)
+        return MetadataMergeExec(ctx, self._with_dispatcher([
+            SelectChunkInfosExec(ctx, self.dataset, s, p.filters,
+                                 p.range_selector.from_ms,
+                                 p.range_selector.to_ms,
+                                 col_name=p.column or None)
+            for s in shards], shards))
 
 
 class _DeferredScalar:

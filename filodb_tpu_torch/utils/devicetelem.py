@@ -14,7 +14,8 @@ filodb_tpu/utils/devicetelem.py for torch devices).
     fused calls), and are enqueue time where it has none (the mirror
     gather), as in the reference.
   - **HBM occupancy model** — the device mirrors book their device bytes
-    through `hbm_book(device, region, ±n)` (region `hot`), exposed as
+    through `hbm_book(device, region, ±n)` (region `hot`; the cold
+    segment region, core/devicecache.ColdSegmentCache, `cold`), exposed as
     `device_hbm_booked_bytes{device,region}` gauges with a journaled
     `device_hbm_high_water` timeline.  The model books what the port
     holds; the caching allocator reserves more.
@@ -279,10 +280,10 @@ class DeviceTelemetry:
 
     def hbm_book(self, device, region: str, delta: int) -> None:
         """Fold a booking delta into the per-device, per-region occupancy
-        model.  Regions: 'hot' (live shard mirrors); the reference's
-        'cold' (ColdSegmentCache pages) and 'planmats' have no booking in
-        the port yet.  Gauges clamp at zero — release races round down,
-        never negative."""
+        model.  Regions: 'hot' (live shard mirrors) and 'cold'
+        (ColdSegmentCache pages); the reference's 'planmats' has no
+        booking in the port.  Gauges clamp at zero — release races round
+        down, never negative."""
         if not delta:
             return
         try:

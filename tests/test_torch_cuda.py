@@ -1020,3 +1020,77 @@ def test_explain_launches_nothing_and_analyze_launches_k1(card):
     assert st == 200 and p["data"]["resultType"] == "execPlanAnalysis"
     assert kernels.LAUNCHES["fused_rate_dense"] == \
         n0["fused_rate_dense"] + 1
+
+
+def test_cold_tier_panel_launches_k1_over_cuda_blocks(card, tmp_path):
+    """The persisted tier on the card: counters flushed to a disk store
+    and compacted into two segments; a PersistedClusterPlanner panel
+    pages both into the cold region as CUDA tensors (booked `cold` in the
+    HBM model), merges them on the card and runs K1 over the merged
+    block; the warm run hits the region and launches K1 again with the
+    same bits; the answer agrees with the same tier on the CPU."""
+    from filodb_tpu_torch.core.devicecache import ColdSegmentCache
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.parallel.shardmapper import ShardEvent, ShardMapper
+    from filodb_tpu_torch.persist.compactor import SegmentCompactor
+    from filodb_tpu_torch.persist.localstore import LocalDiskColumnStore
+    from filodb_tpu_torch.persist.segments import PersistedTier, SegmentStore
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.planners import PersistedClusterPlanner
+    from filodb_tpu_torch.utils.devicetelem import telem
+    window = 2 * 3600 * 1000
+    t0 = 1_600_000_000_000 - 1_600_000_000_000 % window
+    S, T = 400, 1440
+    rng = np.random.default_rng(31)
+    v = np.cumsum(rng.exponential(10.0, size=(S, T)), axis=1)
+    v[:, 720:] -= v[:, 720:721] - 1.0          # a reset on the boundary
+    keys = [PartKey.make("request_total", {"_ws_": "demo",
+                                           "_ns_": f"App-{i % 20}",
+                                           "instance": f"Instance-{i}"})
+            for i in range(S)]
+    ts = np.broadcast_to(t0 + np.arange(T, dtype=np.int64) * 10_000, (S, T))
+    cs = LocalDiskColumnStore(str(tmp_path))
+    sh = TimeSeriesMemStore(column_store=cs, device="cpu").setup(
+        "prometheus", 0)
+    sh.ingest_columns("prom-counter", keys, ts, {"count": v})
+    sh.flush_all_groups()
+    seg = SegmentStore(str(tmp_path))
+    assert SegmentCompactor(cs, seg, "prometheus", 1, window_ms=window,
+                            closed_lag_ms=0).compact_all(
+        now_ms=t0 + 10 * window) == 2
+    mapper = ShardMapper(1)
+    mapper.update_from_event(ShardEvent("IngestionStarted", "prometheus", 0,
+                                        "n"))
+    q = "sum by (_ns_) (rate(request_total[5m]))"
+    start_s, end_s = t0 // 1000 + 600, t0 // 1000 + (T - 1) * 10
+    res = {}
+    for dev in ("cpu", card):
+        tier = PersistedTier(seg, "prometheus", 1,
+                             ColdSegmentCache(1 << 30, device=dev))
+        eng = QueryEngine("prometheus", TimeSeriesMemStore(device=dev),
+                          mapper, planner=PersistedClusterPlanner(
+                              "prometheus", mapper, tier), device=dev)
+        n0 = kernels.LAUNCHES.get("fused_rate_dense", 0)
+        cold = eng.query_range(q, start_s, 60, end_s)
+        warm = eng.query_range(q, start_s, 60, end_s)
+        assert (cold.stats.cold_tier, warm.stats.cold_tier) == \
+            ("cold_paged", "cold_hit")
+        a, b = _series_of(cold), _series_of(warm)
+        assert [k for k, _ in a] == [k for k, _ in b]
+        for (_, x), (_, y) in zip(a, b):
+            assert np.array_equal(x, y, equal_nan=True)
+        res[torch.device(dev).type] = a
+        if dev == card:
+            assert kernels.LAUNCHES["fused_rate_dense"] - n0 == 2
+            blocks = tier.cold_cache.blocks()
+            assert len(blocks) == 2
+            assert all(b.ts_off.is_cuda and b.cols["count"].is_cuda
+                       for b in blocks)
+            assert telem.hbm_booked(card, "cold") == \
+                tier.cold_cache.bytes_booked == sum(b.nbytes for b in blocks)
+            tier.cold_cache.clear()
+            assert telem.hbm_booked(card, "cold") == 0
+    assert [k for k, _ in res["cpu"]] == [k for k, _ in res["cuda"]]
+    for (_, x), (_, y) in zip(res["cpu"], res["cuda"]):
+        np.testing.assert_allclose(y, x, rtol=2e-4, atol=1e-3)

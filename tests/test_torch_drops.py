@@ -192,7 +192,8 @@ def test_leaf_agg_batch_raw_counters_panels_match_jax(case):
     tvals = tf.pad_values(torch.from_numpy(v32), torch.from_numpy(vb32),
                           tplan)
     got = tf.fused_leaf_agg_batch(
-        tplan, tvals, [(tf.pad_groups(g, S, n), n, o) for g, n, o in spec],
+        tplan, tvals,
+        [(tf.pad_groups(g, S, n, device="cpu"), n, o) for g, n, o in spec],
         "rate", precorrected=False, ragged=ragged)
     for w, g in zip(want, got):
         assert g.shape == np.asarray(w).shape

@@ -99,7 +99,8 @@ def _both(name, fn, op, panels):
     tplan = tf.build_plan(ts_row, wends, range_ms)
     tvals = tf.pad_values(torch.from_numpy(v32), torch.from_numpy(vb32),
                           tplan)
-    tp = [(tf.pad_groups(g, S, n), n, o) for (g, n), o in zip(groupings, ops)]
+    tp = [(tf.pad_groups(g, S, n, device="cpu"), n, o)
+          for (g, n), o in zip(groupings, ops)]
     got = tf.fused_leaf_agg_batch(tplan, tvals, tp, fn, precorrected=precor,
                                   ragged=ragged)
     return want, got, raw, ts_row, wends, range_ms, groupings, ops, ragged
@@ -156,7 +157,7 @@ def test_kernel_plain_versions_are_deterministic():
     vals = tf.pad_values(torch.from_numpy(reb.astype(np.float32)),
                          torch.from_numpy(vbase.astype(np.float32)), plan)
     g = tf.pad_groups((np.arange(raw.shape[0]) % G).astype(np.int32),
-                      raw.shape[0], G)
+                      raw.shape[0], G, device="cpu")
     Gp = tf.pad_group_count(G)
     ch = tf.chunk_plan(g.csr.offsets, Gp, "cpu", chunk_rows=5)
     rows = plan.device_rows("cpu")
@@ -175,7 +176,7 @@ def test_chunk_plan_covers_every_row_once(chunk_rows):
     rng = np.random.default_rng(5)
     gids = rng.integers(0, 9, size=200).astype(np.int32)
     gids[gids == 4] = 5                    # an empty group
-    g = tf.pad_groups(gids, 200, 9)
+    g = tf.pad_groups(gids, 200, 9, device="cpu")
     ch = tf.chunk_plan(g.csr.offsets, tf.pad_group_count(9), "cpu",
                        chunk_rows=chunk_rows)
     lo, hi, gco = ch.lo.numpy(), ch.hi.numpy(), ch.gco.numpy()
@@ -255,7 +256,8 @@ def test_ragged_plain_matches_jax_on_adversarial_rows(fn, op):
     got = tf.fused_leaf_agg_batch(
         tplan, tf.pad_values(torch.from_numpy(v32), torch.from_numpy(vb32),
                              tplan),
-        [(tf.pad_groups(gids, S, G), G, op)], fn, precorrected=precor,
+        [(tf.pad_groups(gids, S, G, device="cpu"), G, op)], fn,
+        precorrected=precor,
         ragged=True)[0]
     w = np.asarray(tagg.present(op, torch.from_numpy(np.asarray(want))))
     g = tagg.present(op, torch.from_numpy(got)).numpy()
@@ -293,8 +295,8 @@ def test_exact_grid_threshold_tie_agrees_with_reference_and_oracle():
     got = tf.fused_leaf_agg_batch(
         tplan, tf.pad_values(torch.from_numpy(v32), torch.from_numpy(vb32),
                              tplan),
-        [(tf.pad_groups(gids, 1, 1), 1, "sum")], "rate", precorrected=True,
-        ragged=True)[0]
+        [(tf.pad_groups(gids, 1, 1, device="cpu"), 1, "sum")], "rate",
+        precorrected=True, ragged=True)[0]
     jax_rate = np.asarray(tagg.present("sum", torch.from_numpy(
         np.asarray(want))))[0]
     port = tagg.present("sum", torch.from_numpy(got)).numpy()[0]

@@ -74,7 +74,8 @@ def _run_both(fn, ops, ragged, S=72, T=120, G=5, seed=0, range_ms=None,
     tplan = tf.build_plan(ts_row, wends, range_ms)
     tvals = tf.pad_values(torch.from_numpy(v32), torch.from_numpy(vb32),
                           tplan)
-    tp = [(tf.pad_groups(g, S, n), n, o) for (g, n), o in zip(groupings, ops)]
+    tp = [(tf.pad_groups(g, S, n, device="cpu"), n, o)
+          for (g, n), o in zip(groupings, ops)]
     got = tf.fused_leaf_agg_batch(tplan, tvals, tp, fn, precorrected=precor,
                                   ragged=ragged, num_series=S)
     return want, got
@@ -158,7 +159,7 @@ def test_fused_minmax_agg_matches_jax(fn, agg, ragged, inf, past_edge):
     want = np.asarray(pf.fused_minmax_agg(
         jnp.asarray(raw), jnp.asarray(vbase), jnp.asarray(gids), f0, stride,
         width, len(wends), fn, agg, G, ragged), np.float64)
-    groups = tf.pad_groups(gids, S, G)
+    groups = tf.pad_groups(gids, S, G, device="cpu")
     got = tmm.fused_minmax_agg(
         torch.from_numpy(raw), torch.from_numpy(vbase),
         groups.gids_p[:S], f0, stride, width, len(wends), fn, agg, G,
@@ -243,7 +244,8 @@ def test_plain_group_mode_is_deterministic(kind, ragged):
                                                   5 * STEP), 30 * STEP)
     vals = tf.pad_values(torch.from_numpy(reb.astype(np.float32)),
                          torch.from_numpy(vbase.astype(np.float32)), plan)
-    g = tf.pad_groups((np.arange(S) % G).astype(np.int32), S, G)
+    g = tf.pad_groups((np.arange(S) % G).astype(np.int32), S, G,
+                      device="cpu")
     Gp = tf.pad_group_count(G)
     ch = tf.chunk_plan(g.csr.offsets, Gp, "cpu", chunk_rows=5)
     rows = plan.device_rows("cpu")

@@ -369,7 +369,7 @@ def test_aggregate_matches_jax(op):
     v, gids, G = _agg_inputs()
     want = np.asarray(jagg.aggregate(op, jnp.asarray(v), jnp.asarray(gids),
                                      G))
-    csr = fused.pad_groups(gids, len(gids), G).csr
+    csr = fused.pad_groups(gids, len(gids), G, device="cpu").csr
     got = tagg.aggregate(op, torch.from_numpy(v),
                          torch.from_numpy(gids).long(), G, csr).numpy()
     rtol = 1e-9 if op in ("stddev", "stdvar") else 1e-12
@@ -379,7 +379,7 @@ def test_aggregate_matches_jax(op):
     parts = [tagg.map_phase(op, torch.from_numpy(v[sl]),
                             torch.from_numpy(gids[sl]).long(), G,
                             fused.pad_groups(gids[sl], len(gids[sl]),
-                                             G).csr)
+                                             G, device="cpu").csr)
              for sl in (slice(0, half), slice(half, None))]
     merged = tagg.present(op, tagg.reduce_phase(op, *parts)).numpy()
     _same(merged, want, rtol, 1e-9, op + " merged")

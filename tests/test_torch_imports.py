@@ -58,7 +58,9 @@ NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "utils.metrics", "utils.events", "utils.slowlog",
                "utils.usage", "utils.devicetelem", "utils.jobs",
                "utils.freshness", "utils.health", "utils.faults",
-               "utils.profiler", "parallel.breaker")
+               "utils.profiler", "parallel.breaker", "query.planners",
+               "query.exec", "persist", "persist.localstore",
+               "persist.segments", "persist.compactor")
 
 
 def _bare_import(module):
@@ -77,7 +79,8 @@ def _bare_import(module):
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_general_path_module_stands_alone(module):
     """Each module of the general path, the probe, the live write path,
-    the serving stack and the operations surface, imported alone in a
+    the serving stack, the operations surface, the composed planners
+    and the persisted-segment tier, imported alone in a
     fresh interpreter, pulls in neither jax nor the reference package."""
     assert _bare_import("filodb_tpu_torch." + module) == []
 
