@@ -72,7 +72,8 @@ general-1M.  over the dense 1M counter and gauge stores of phases 3 and
    leaves), G2 avg by (_ns_) (deriv(...)), G3 stddev by (_ns_) of the
    instant selector, G4 max by (_ns_) (quantile_over_time(0.9, ...)),
    each once cold and max(3, --warm // 3) times warm (G4 at most
-   twice), against an f64 oracle this script computes on the card slab
+   twice),
+   against an f64 oracle this script computes on the card slab
    by slab (oracle_general_t): rtol 2e-5 / atol 1e-4 for irate, 2e-4 /
    1e-3 for the rate ratio, 5e-4 / 2e-4 for deriv (set at the default
    width, 1,049 series a group, from its f32 error there, 7.3e-5, and
@@ -94,9 +95,10 @@ hist-native-1M.  the same counts (the same generator and seed) as 65,536
    histogram against an f64 per-histogram oracle (the same tolerance);
    then 4,096 native histograms with ~1% whole-scrape holes, the panel
    through K3 (rtol 5e-4, atol 1e-4);
-host-route-1M.  over phase 3's dense counters (kept alive after
-   general-1M): H1 sum by (_ns_) (changes(...)) and H2 max by (_ns_)
-   (max_over_time(...)), range queries, each once cold and once warm, and
+host-route-1M.  over phase 3's dense counters (the store restart-1M
+   recovered, kept alive after general-1M): H1 sum by (_ns_) (changes(...)) and H2 max by (_ns_)
+   (max_over_time(...)), range queries, each once cold and once warm
+   (H1's warm run under cProfile, the profile printed), and
    H3 sum by (_ns_) (resets(...)) through query_instant at the grid's end
    (cold, then max(3, --warm // 3) warm, to_prom_vector with 1000
    results): the leaf's windowed host gather of raw values, then the
@@ -149,7 +151,8 @@ ops-1M.  on the serve-1M server, over the same counters: /ready 200 and
    dropped mirror reports the fault with no device arrays left behind,
    the background rebuild's failure shows in the health model's jobs,
    then the answer comes back bit-identical and memory_allocated within
-   one mirror of before; the sampling profiler over one warm batch.  It
+   one mirror of before; the sampling profiler over one warm headline
+   panel.  It
    prints the padded-values cache's budget and its evictions per earlier
    phase;
 live-ingest-1M.  over the same counters (the store's values copied to
@@ -208,14 +211,22 @@ cold-65k.  the tier-stitched panel: 65,536 request counters x 6 h at
    hot tail; warm answers bit-identical), against the f64 oracle and the
    all-in-memory engine (rtol 2e-4, atol 1e-3); explain (StitchRvsExec
    over the persisted leaf, tier=cold, and the hot leaf); Q1b max by
-   (_ns_) (K6); Q2 over a span wholly in segments: first-scan and warm
-   samples/s against the all-in-memory engine's, cold_vs_mem and
-   warm_cold (bench.py:3669-3673, printed, not gated); Q2 on a region
-   of one and a half blocks (evictions, the booking never above the
-   budget) and Q3, over the first segment, on one of half a block (the
-   host degrade: counted, nothing booked), both bit-identical.  Cut from
-   1M series to 65,536 for the time limit: the segment codec and the
-   page-in's correction run on the host (PERF.md §4);
+   (_ns_) (K6); a SegmentUploader uploads both segments to a
+   LocalObjectStore (run_once), restore_from_objectstore into an empty
+   SegmentStore gives both files byte for byte; Q2 over a span wholly in
+   segments, its first scan on a fresh local tier and on a query-only
+   tier (make_query_tier over a ColdSegmentCache on the card: K1
+   launched, booked cold equal to its blocks), warm on the local tier,
+   all bit-identical: samples/s against the all-in-memory engine's,
+   cold_vs_mem (the fresh local tier's first scan, as
+   bench.py:3669-3673's), objstore_vs_mem (the query-only tier's) and
+   warm_cold (printed, not gated); Q2 on a
+   region of one and a half blocks (evictions, the booking never above
+   the budget) and Q3, over the first segment, on one of half a block
+   (the host degrade: counted, nothing booked), both bit-identical.  Cut
+   from 1M series to 65,536 for the time limit: the
+   segment codec and the page-in's correction run on the host
+   (PERF.md §4);
 compact-16k.  16,384 counters x 720 with 1% missed scrapes and 2,048
    integer gauges on a LocalDiskColumnStore in a temporary directory:
    the hot panel (K3), flush_all_groups, SegmentCompactor.compact_all
@@ -223,10 +234,53 @@ compact-16k.  16,384 counters x 720 with 1% missed scrapes and 2,048
    the merged ragged block) within rtol 5e-4 / atol 1e-4 of the hot
    answer; sum(m) stitched (segments | a live tail, K4) bit-identical to
    the all-in-memory store; SelectChunkInfosExec and the panel after a
-   restart (recover_index, then paging the frames back).
+   restart (recover_index, then paging the frames back).  Both slabs go
+   through a WalManager in the same directory (append without waiting,
+   ingest at the seq, commit); a FlushScheduler (1 s interval,
+   wal=the manager) flushes instead of flush_all_groups, and its first
+   rotation's horizon report must prune the sealed segment of the
+   counters' slab (wal_persisted_horizon = the earliest checkpoint);
+   30 scrape records (5 min) follow the flush through the WAL; the
+   restart replays the log from LocalDiskMetaStore's restart points
+   (the slab record left skipped, exactly the 30 replayed), and the
+   panel over the grid and the tail holds the f64 oracle within rtol
+   5e-4 / atol 1e-4 (K3); then 8 gauges end, evict_ended_partitions
+   and compact_index leave the panel the same to the bit.
+restart-1M.  inside phase 3, at its full width: the build's 16 slabs
+   go through a WalManager (WalConfig's defaults: fsync on, 64 MiB
+   segments) in a tempfile.mkdtemp directory, each as the remote-write
+   door takes it (append_grid without waiting, on the thread that makes
+   the slabs, ahead of the ingest; ingest_columns at the seq; one commit
+   of the last seq before the ack); the free disk space is checked
+   first.  Right after phase 3's two queries the node crashes (their
+   answers kept as numpy; the engine and the memstore dropped without a
+   flush), a new TimeSeriesMemStore on the card boots from the log
+   (WalManager(dir): recover_writer_state; then replay from the meta
+   store's restart points, all -1), and a new QueryEngine answers both
+   queries, cold (the mirror upload) and warm, bit-identical to the
+   answers before the crash, K1 and K6 launched: 16 records, 1,048,576
+   x 720 samples, none skipped or corrupt.  A [1,048,576, 1] scrape
+   record through the recovered writer gets seq 16.  It prints the
+   log's bytes and segments, the append and commit-wait seconds of the
+   build, the replay's seconds, samples/s and its split (ingest_columns
+   timed on the shard; the rest reads, decompresses and decodes), boot
+   to the first answer, the host's peak RSS, the scrape record's frame
+   bytes, and a cProfile of reading and decoding one record.  The
+   recovered engine and store serve general-1M and every later 1M phase
+   on phase 3's counters, each against its oracle; the directory is
+   deleted after live-ingest-1M.
+flush-page-16k, cold-65k and compact-16k run in a second process
+(`--side stores`) from K8 on, beside phase 3, restart-1M and the 1M
+phases on their store; hist-classic-1M and hist-native-1M in a third
+(`--side hist`) once that store is gone, beside phases 4-8.  A side
+process loads the libraries built here, counts its own launches from 0
+and writes them and its phases' seconds to a file read when it is
+joined; a side that fails fails the run, and one whose stdin (a pipe
+from the script) closes ends itself.
 Every query runs with PlannerParams(scan_limit=2,000,000,000), as
 bench.py raises it at this size: the default cap refuses a 1M-series
-scan.  Every phase prints its seconds; general-1M, hist-classic-1M and
+scan.  Every phase prints its seconds (phase 3's leave out restart-1M's,
+which runs inside it); general-1M, hist-classic-1M and
 hist-native-1M print each query's cold time, warm p50/p99 and the peak
 device memory, and hist-native-1M the mirror upload seconds; a cold
 query's line (phases 3-6 and general-1M) also gives the seconds of
@@ -244,13 +298,17 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import functools
 import gc
 import io
 import json
 import os
 import pstats
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 
@@ -581,11 +639,21 @@ class GroupOracle:
         return torch.where(self.cnt > 0, val, float("nan")).cpu().numpy()
 
 
-def build_store(kind, num_series, seed, hole_frac, queries, general=()):
+def build_store(kind, num_series, seed, hole_frac, queries, general=(),
+                wal=None):
     """Ingest counters or gauges through the port's shard; return the
     memstore, the oracle's answer [G, W] per query (and per general-path
     query of `general`, from oracle_general_t on the card), the windows
-    and timings."""
+    and timings.  One worker thread makes the slabs in order (the same
+    values as made one after another), two ahead of the ingest; `gen_s`
+    is the time the ingest waited for them.  With `wal` (a WalManager)
+    each slab takes the remote-write door's sequence: append_grid
+    (wait=False) on that thread, as a door appends one request while
+    the shard ingests the one before, then ingest_columns at the
+    record's seq, and one commit of the last seq once every slab is in
+    (the ack); `append_s` is the thread's time in append_grid."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
     from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
     from filodb_tpu_torch.core.partkey import PartKey
@@ -598,22 +666,41 @@ def build_store(kind, num_series, seed, hole_frac, queries, general=()):
     W = len(wends)
     accs = {}                          # oracle key -> (by _ns_, all)
     gen_s = ingest_s = oracle_s = 0.0
+    append_s = [0.0]
+    seq = -1
     metric, schema, col = (("request_total", "prom-counter", "count")
                            if kind == "counter"
                            else ("heap_usage", "gauge", "value"))
-    for i0 in range(0, num_series, SLAB):
+    def make_slab(i0):
         n = min(SLAB, num_series - i0)
-        t0 = time.perf_counter()
         vals = (make_counter_slab(rng, n, hole_frac) if kind == "counter"
                 else make_gauge_slab(rng, n, hole_frac))
-        gids = (np.arange(i0, i0 + n) % NUM_NS).astype(np.int64)
         keys = [PartKey.make(metric, {
             "_ws_": "demo", "_ns_": f"App-{i % NUM_NS}",
             "instance": f"Instance-{i}", "dc": f"DC{i % 2}"})
             for i in range(i0, i0 + n)]
+        if wal is None:
+            return n, vals, keys, -1
+        ta = time.perf_counter()
+        seq = wal.append_grid(0, schema, keys,
+                              np.broadcast_to(ts_row, (n, T)), {col: vals},
+                              wait=False)
+        append_s[0] += time.perf_counter() - ta
+        return n, vals, keys, seq
+
+    starts = list(range(0, num_series, SLAB))
+    pool = ThreadPoolExecutor(max_workers=1)
+    ahead = [pool.submit(make_slab, i0) for i0 in starts[:2]]
+    for k, i0 in enumerate(starts):
+        t0 = time.perf_counter()
+        n, vals, keys, seq = ahead.pop(0).result()
+        if k + 2 < len(starts):
+            ahead.append(pool.submit(make_slab, starts[k + 2]))
+        gids = (np.arange(i0, i0 + n) % NUM_NS).astype(np.int64)
         ts = np.broadcast_to(ts_row, (n, T))
+        gen_s += time.perf_counter() - t0
         t1 = time.perf_counter()
-        shard.ingest_columns(schema, keys, ts, {col: vals})
+        shard.ingest_columns(schema, keys, ts, {col: vals}, offset=seq)
         t2 = time.perf_counter()
         v = torch.from_numpy(vals).to(dev)
         per_all = (oracle_rates_t(v, ts_row, wends) if kind == "counter"
@@ -629,9 +716,14 @@ def build_store(kind, num_series, seed, hole_frac, queries, general=()):
             a[1].add(per_all[okey], torch.zeros_like(g))
         torch.cuda.synchronize()
         del v, per_all
-        gen_s += t1 - t0
         ingest_s += t2 - t1
         oracle_s += time.perf_counter() - t2
+    pool.shutdown()
+    commit_s = 0.0
+    if wal is not None:
+        t0 = time.perf_counter()
+        wal.commit(seq)
+        commit_s = time.perf_counter() - t0
     want = {}
     for q, okey, op, _, _ in queries:
         grouped, total = accs[okey]
@@ -643,7 +735,8 @@ def build_store(kind, num_series, seed, hole_frac, queries, general=()):
             want[g["query"]] = parts[0] if len(parts) == 1 \
                 else parts[0] / parts[1]
     return ms, want, wends, dict(gen_s=gen_s, ingest_s=ingest_s,
-                                 oracle_s=oracle_s)
+                                 oracle_s=oracle_s, append_s=append_s[0],
+                                 commit_s=commit_s, last_seq=seq)
 
 
 def compare(got_res, want, rtol, atol, what, label="_ns_"):
@@ -988,24 +1081,208 @@ def run_kernel_checks(num_series, seed, device):
 
 # --------------------------------------------------------- phases 3 to 6
 
+# ------------------------------------------------- restart-1M: the WAL
+
+WAL_KEY_BYTES = 100                # a PartKey's bytes in a key table, at most
+
+
+def open_wal(num_series):
+    """restart-1M's log: a WalManager with WalConfig's defaults (fsync
+    on, 64 MiB segments) in a new tempfile.mkdtemp directory, once its
+    disk is known to hold `num_series` x T counters and one scrape
+    record; raises SmokeFailure when it does not."""
+    import shutil
+    import tempfile
+
+    from filodb_tpu_torch.wal import WalManager
+    root = tempfile.mkdtemp(prefix="filodb-wal-")
+    # f64 values, one shared timestamp row a record, the key tables
+    need = num_series * (T * 8 + 8 + 2 * WAL_KEY_BYTES)
+    free = shutil.disk_usage(root).free
+    if free < need + need // 10:
+        shutil.rmtree(root, ignore_errors=True)
+        raise SmokeFailure(
+            f"restart-1M: {free} B free under {root}, the WAL of "
+            f"{num_series} series x {T} samples needs about {need} B "
+            f"(set TMPDIR to a larger disk)")
+    log(f"restart-1M: WAL directory {root}, {free} B free, about {need} B "
+        f"needed")
+    return WalManager(root, "prometheus")
+
+
+def close_wal(wal):
+    """Stop the log's committer and delete the directory open_wal made
+    (the manager keeps its dataset's log one level below it)."""
+    import shutil
+    wal.close()
+    shutil.rmtree(os.path.dirname(wal.dir), ignore_errors=True)
+
+
+def boot_from_wal(wal, num_series, before, want, build):
+    """restart-1M after the crash (the node's engine and memstore dropped
+    without a flush; what survives is the committed log): the dead
+    node's committer stopped, a new TimeSeriesMemStore on the card,
+    WalManager(dir) (recover_writer_state), replay from the restart
+    points the meta store gives (all -1: nothing was flushed), a new
+    QueryEngine; phase 3's two queries cold (the mirror upload) and
+    warm, each bit-identical to `before` (its answer before the crash);
+    then one scrape record through the recovered writer -> (engine,
+    memstore, the recovered WalManager, launches)."""
+    import torch
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.utils.metrics import registry
+    from filodb_tpu_torch.wal import WalManager
+    from filodb_tpu_torch.wal.segment import (WalRecord, list_segments,
+                                              read_records)
+    dev = torch.device("cuda", 0)
+    b = build
+    segs = list_segments(wal.dir)
+    log_bytes = sum(os.path.getsize(p) for _, p in segs)
+    committed = wal.writer.committed_seq
+    records = -(-num_series // SLAB)
+    check(committed == b["last_seq"] == records - 1,
+          f"restart-1M: committed through seq {committed}, the build "
+          f"appended through {b['last_seq']}")
+    log(f"restart-1M: the build's {records} slabs through the WAL (fsync "
+        f"{wal.writer.fsync}, {wal.writer.segment_max_bytes} B segments): "
+        f"{len(segs)} segments, {log_bytes} B of log; append (encode, "
+        f"frame, write; on the slab thread, ahead of the ingest) "
+        f"{b['append_s']:.3f} s and commit wait {b['commit_s']:.3f} s over "
+        f"the build, beside ingest_columns {b['ingest_s']:.3f} s; committed "
+        f"through seq {committed} before the ack")
+    wal.close()
+    gc.collect()
+    free_device_memory()
+    rss0 = host_rss()
+    t_boot = time.perf_counter()
+    ms = TimeSeriesMemStore(device=dev)
+    restart_points = {0: ms.meta_store.read_earliest_checkpoint(
+        "prometheus", 0)}
+    check(restart_points == {0: -1},
+          f"restart-1M: restart points {restart_points}")
+    t0 = time.perf_counter()
+    wal = WalManager(os.path.dirname(wal.dir), "prometheus")
+    recover_s = time.perf_counter() - t0
+    check(wal.writer.next_seq == committed + 1,
+          f"restart-1M: next seq {wal.writer.next_seq} after "
+          f"recover_writer_state, {committed + 1} expected")
+    # replay's ingest_columns, timed on the shard replay will use
+    sh = ms.setup("prometheus", 0)
+    ingest_s = [0.0]
+    ingest_columns = sh.ingest_columns
+
+    def timed_ingest(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return ingest_columns(*a, **kw)
+        finally:
+            ingest_s[0] += time.perf_counter() - t
+    sh.ingest_columns = timed_ingest
+    try:
+        st = wal.replay(ms, restart_points)
+    finally:
+        del sh.ingest_columns
+    want_samples = num_series * T
+    check((st.records, st.samples, st.skipped_records, st.corrupt_segments)
+          == (records, want_samples, 0, 0),
+          f"restart-1M: replay records {st.records} samples {st.samples} "
+          f"skipped {st.skipped_records} corrupt {st.corrupt_segments}, "
+          f"expected {records}, {want_samples}, 0, 0")
+    check(sh.device == dev, f"restart-1M: the replayed shard is on "
+          f"{sh.device}")
+    eng = QueryEngine("prometheus", ms)
+    start_s = START_MS // 1000
+    end_s = start_s + (T - 1) * STEP_MS // 1000
+    kernels.reset_launch_counts()
+    first_s = None
+    for q, _, op, kernel, _ in COUNTER_QUERIES:
+        times = []
+        for i in range(2):
+            n0 = kernels.LAUNCHES[kernel]
+            t0 = time.perf_counter()
+            res = eng.query_range(q, start_s + 600, 60, end_s, scan_params())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if first_s is None:
+                first_s = time.perf_counter() - t_boot
+            check(kernels.LAUNCHES[kernel] == n0 + 1,
+                  f"restart-1M: `{q}` run {i} did not launch {kernel}")
+            got, err, rel = compare(res, want[q], *KERNEL_TOL,
+                                    f"restart-1M `{q}`")
+            check(np.array_equal(got, before[q], equal_nan=True),
+                  f"restart-1M: `{q}` run {i} after the replay is not "
+                  f"bit-identical to the answer before the crash")
+        log(f"restart-1M: `{q}` via {kernel}: cold {times[0]:.4f} s (mirror "
+            f"upload included), warm {times[1]:.4f} s; both bit-identical to "
+            f"the answer before the crash; oracle max_abs_err {err} "
+            f"max_rel_err {rel}")
+    launches = dict(kernels.LAUNCHES)
+    rss = host_rss()
+    # continuity: one scrape-shaped record through the recovered writer
+    store = sh.stores["prom-counter"]
+    keys = [p.part_key for p in sh.partitions]
+    nxt = np.full((num_series, 1), START_MS + T * STEP_MS, np.int64)
+    vals = store.cols["count"][:num_series, T - 1:T] + 1.0
+    appended = registry.counter("wal_append_bytes", dataset="prometheus")
+    a0 = appended.value
+    t0 = time.perf_counter()
+    seq = wal.append_grid(0, "prom-counter", keys, nxt, {"count": vals})
+    scrape_s = time.perf_counter() - t0
+    check(seq == committed + 1,
+          f"restart-1M: the scrape after the restart got seq {seq}, "
+          f"{committed + 1} expected")
+    frame = int(appended.value - a0)
+    del keys, vals
+    log(f"restart-1M: boot: WalManager (recover_writer_state) "
+        f"{recover_s:.3f} s, replay {st.elapsed_s:.3f} s "
+        f"({st.samples_per_sec:.1f} samples/s; {st.records} records, "
+        f"{st.samples} samples, {st.skipped_records} skipped, "
+        f"{st.corrupt_segments} corrupt) of which ingest_columns "
+        f"{ingest_s[0]:.3f} s and reading, decompressing and decoding "
+        f"{st.elapsed_s - ingest_s[0]:.3f} s; boot to the first answer "
+        f"{first_s:.3f} s; launches "
+        f"{({k: v for k, v in launches.items() if v})}; host peak RSS "
+        f"{rss0} B before the boot, {rss} B after the first panels")
+    log(f"restart-1M: continuity: a [{num_series}, 1] scrape record through "
+        f"the recovered writer got seq {seq} in {scrape_s:.3f} s, frame "
+        f"{frame} B (its segment's first record inlines the "
+        f"{num_series}-key table)")
+
+    def decode_one():
+        for body in read_records(segs[0][1]):
+            return WalRecord.decode(body, {})
+    log_profile("restart-1M", None, decode_one,
+                label="reading and decoding one build record")
+    return eng, ms, wal, launches
+
+
 def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
-             general=(), general_warm=0, keep=False):
+             general=(), general_warm=0, keep=False, wal=None, boot=None):
     """Ingest, then drive each query once cold and `warm` times warm
     through QueryEngine.query_range; the launch counts are set to 0 just
-    before the first query and read just after the last.  Then, over the
-    same store, the general-path queries `general` (run_queries) ->
-    (launches, rows, general launches, kept): with `keep` the engine, its
-    memstore, the oracle's answers and the windows stay alive for later
-    phases (kept = (eng, ms, want, wends)), else they are freed (None)."""
+    before the first query and read just after the last.  With `wal`
+    the build goes through that log, and right after the queries the
+    node crashes (the engine and the memstore dropped, no flush) and
+    `boot` (boot_from_wal, timed as restart-1M) brings it back from the
+    log; its launches join the path's.  Then, over the same store (the
+    recovered one after a crash), the general-path queries `general`
+    (run_queries) -> (launches, rows, general launches, kept): with
+    `keep` the engine, its memstore, the oracle's answers, the windows
+    and the log stay alive for later phases (kept = (eng, ms, want,
+    wends, wal)), else they are freed (None)."""
     import torch
     from filodb_tpu_torch.ops import kernels
     from filodb_tpu_torch.query.engine import QueryEngine
     ragged = bool(hole_frac)
     what = f"{kind} {'ragged' if ragged else 'dense'}"
     ms, want, wends, t = build_store(kind, num_series, seed, hole_frac,
-                                     queries, general)
-    log(f"{what}: {num_series} series x {T} samples: generate "
-        f"{t['gen_s']:.3f} s, ingest_columns {t['ingest_s']:.3f} s, oracle "
+                                     queries, general, wal)
+    log(f"{what}: {num_series} series x {T} samples: waited "
+        f"{t['gen_s']:.3f} s for the slabs (made "
+        f"{'and appended ' if wal is not None else ''}ahead on a thread), "
+        f"ingest_columns {t['ingest_s']:.3f} s, oracle "
         f"{t['oracle_s']:.3f} s")
     eng = QueryEngine("prometheus", ms)
     start_s = START_MS // 1000
@@ -1020,7 +1297,7 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    rows_out = []
+    rows_out, last = [], {}
     for qi, (q, _, op, k_dense, k_ragged) in enumerate(queries):
         kernel = k_ragged if ragged else k_dense
         n0 = dict(kernels.LAUNCHES)
@@ -1044,7 +1321,7 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
         rtol, atol = tol
         checked = [compare(r, want[q], rtol, atol, f"{what} `{q}`")
                    for r in answers]
-        _, err, rel = checked[-1]
+        last[q], err, rel = checked[-1]
         check(np.array_equal(checked[-2][0], checked[-1][0], equal_nan=True),
               f"{what}: two warm answers of `{q}` differ")
         groups = want[q].shape[0]
@@ -1075,6 +1352,12 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
         f"samples scanned/query {samples}; max_memory_allocated {peak} B; "
         f"launches {({k: v for k, v in launches.items() if v})}")
     del mirror, snap, answers, res
+    if wal is not None:
+        # the crash, with the answers kept as numpy (`last`)
+        eng = ms = r = None
+        eng, ms, wal, got = boot(wal, num_series, last, want, t)
+        for k, c in got.items():
+            launches[k] += c
     general_launches = {}
     if general:
         t0 = time.perf_counter()
@@ -1084,28 +1367,30 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
         rows_out += g_rows
         log(f"general-1M {kind}: {time.perf_counter() - t0:.1f} s")
     if keep:
-        return launches, rows_out, general_launches, (eng, ms, want, wends)
+        return (launches, rows_out, general_launches,
+                (eng, ms, want, wends, wal))
     del eng, ms
     free_device_memory()
     return launches, rows_out, general_launches, None
 
 
-def log_profile(what, q, run):
+def log_profile(what, q, run, label=None):
     """Where a warm query's host time goes: one more warm run under
     cProfile (host calls that wait on the card show it), top 6 by own
-    time."""
+    time; `label` names another profiled call -> run's result."""
     prof = cProfile.Profile()
     prof.enable()
-    run()
+    out = run()
     prof.disable()
     buf = io.StringIO()
     pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(6)
     top = [ln for ln in buf.getvalue().splitlines()
            if ln.strip() and ln.lstrip()[0].isdigit()]
-    log(f"{what}: cProfile of one warm `{q}`, top 6 by own time "
-        f"(ncalls tottime percall cumtime percall function):")
+    log(f"{what}: cProfile of {label or f'one warm `{q}`'}, top 6 by own "
+        f"time (ncalls tottime percall cumtime percall function):")
     for ln in top[-6:]:
         log(f"{what}:   {ln.strip()}")
+    return out
 
 
 def free_device_memory():
@@ -1691,8 +1976,20 @@ def run_host_route_phase(eng, ms, num_series, wends, warm, dev):
     kernels.reset_launch_counts()
     rows = []
     for name, q, key, instant in H_QUERIES:
-        reps = warm if instant else 1
+        # H1's one warm run is the profiled one
+        reps = warm if instant else (0 if name == "H1" else 1)
         runs, secs = timed_runs(eng, q, reps, instant, end_s, start_s)
+        if name == "H1":
+            # the main thread's view: the host gather's worker threads
+            # show as the wait on their futures
+            t0 = time.perf_counter()
+            runs.append(log_profile(
+                "host-route-1M", q, lambda: eng.query_range(
+                    q, start_s + 600, 60, end_s, scan_params())))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            check(runs[-1].error is None,
+                  f"host-route-1M H1 profiled run: {runs[-1].error}")
         # counts are exact; the maximum within the rate tolerance
         want = orc["changes32" if key == "changes" else key]
         tol = (2e-4, 1e-3) if key == "max" else (0.0, 0.0)
@@ -1721,11 +2018,6 @@ def run_host_route_phase(eng, ms, num_series, wends, warm, dev):
             f"{host_rss()} B; warm answers bit-identical")
         rows.append(dict(query=q, cold_s=secs[0],
                          p50=float(np.percentile(secs[1:], 50))))
-        if name == "H1":
-            # the main thread's view: the host gather's worker threads
-            # show as the wait on their futures
-            log_profile("host-route-1M", q, lambda: eng.query_range(
-                q, start_s + 600, 60, end_s, scan_params()))
     # the router: ROUTER_SERIES series, under HOST_ROUTE_MAX_SAMPLES
     # when it is switched on
     v = torch.from_numpy(np.ascontiguousarray(
@@ -2222,6 +2514,9 @@ COLD_SLAB = 32_768                 # oracle rows at a time (2,160 wide)
 COMPACT_SERIES = 16_384            # compact-16k's counters
 COMPACT_GAUGES = 2_048             # its integer gauges
 COMPACT_WINDOW_MS = 3600 * 1000    # two segments over the 2 h grid
+COMPACT_FLUSH_S = 1.0              # the FlushScheduler's interval there
+COMPACT_TAIL = 30                  # scrape records past the flush (5 min)
+COMPACT_ENDED = 8                  # gauges ended, evicted, compacted away
 
 
 def one_shard_mapper():
@@ -2309,7 +2604,13 @@ def run_cold_phase(seed, warm, dev):
     all-in-memory engine's (bench.py:3669-3673); Q2 on a region that
     holds one block of the two (evictions, the booking never above it),
     and Q3 over the first segment on one below a block (the host
-    degrade) -> (launches, rows)."""
+    degrade); then the shared object-store tier: a SegmentUploader over
+    a LocalObjectStore uploads both segments (run_once),
+    restore_from_objectstore into an empty SegmentStore reproduces both
+    files byte for byte, and a stateless query node (make_query_tier
+    over a ColdSegmentCache on the card) answers Q2 bit-identically to
+    the local tier, K1 launched, booked `cold` equal to its blocks ->
+    (launches, rows)."""
     import shutil
     import tempfile
     import threading
@@ -2320,6 +2621,9 @@ def run_cold_phase(seed, warm, dev):
     from filodb_tpu_torch.core.devicecache import ColdSegmentCache
     from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
     from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.persist.objectstore import (
+        LocalObjectStore, SegmentUploader, make_query_tier,
+        restore_from_objectstore)
     from filodb_tpu_torch.persist.segments import (PersistedTier,
                                                    SegmentStore,
                                                    encode_segment)
@@ -2503,34 +2807,101 @@ def run_cold_phase(seed, warm, dev):
         samples = mem_first.stats.samples_scanned
         del eng_ref, ms_ref, sh, mem_first, ref_q1
         free_device_memory()
-        # Q2 on a fresh tier (every block decoded and uploaded again, warm
-        # code paths), then warm on the first tier
+        # Q2 on a fresh local tier (every block decoded and uploaded
+        # again, warm code paths): bench.py's cold_vs_mem
         eng2, tier2 = tiered(COLD_BUDGET)
-        q2_cold, cold_scan_s = run(eng2, q1, q2_end)
-        check(q2_cold.stats.cold_tier == "cold_paged",
-              f"cold-65k: Q2 first scan {q2_cold.stats.cold_tier}")
+        q2_fresh, fresh_scan_s = run(eng2, q1, q2_end)
+        check(q2_fresh.stats.cold_tier == "cold_paged",
+              f"cold-65k: Q2 first scan {q2_fresh.stats.cold_tier}")
         del eng2, tier2
+        # the shared object-store tier: both segments uploaded, restored
+        # byte for byte; Q2's first scan on a query-only tier over it
+        # (every block fetched, decoded and uploaded again), then warm on
+        # the first tier
+        store = LocalObjectStore(os.path.join(root, "bucket"),
+                                 name="cold-65k")
+        up = SegmentUploader(store, seg_store, "prometheus", 1)
+        up.mount()
+        t0 = time.perf_counter()
+        uploaded = up.run_once()
+        upload_s = time.perf_counter() - t0
+        check(uploaded == 2 and up.backlog_segments() == 0,
+              f"cold-65k: uploaded {uploaded}, backlog "
+              f"{up.backlog_segments()}")
+        fresh = SegmentStore(os.path.join(root, "restored"))
+        t0 = time.perf_counter()
+        rs = restore_from_objectstore(store, fresh, "prometheus", 1)
+        restore_s = time.perf_counter() - t0
+        restored = {m.start_ms: m.path for m in fresh.list("prometheus", 0)}
+        check(rs.segments_fetched == 2 and sorted(restored)
+              == sorted(m.start_ms for m in metas)
+              and all(open(m.path, "rb").read()
+                      == open(restored[m.start_ms], "rb").read()
+                      for m in metas),
+              "cold-65k: the restored segment files differ from the "
+              "written ones")
+        cache = ColdSegmentCache(COLD_BUDGET, device=dev)
+        qtier, _ = make_query_tier(store, "prometheus", 1, cold_cache=cache)
+        eng_q = QueryEngine("prometheus", TimeSeriesMemStore(), mapper,
+                            planner=PersistedClusterPlanner(
+                                "prometheus", mapper, qtier))
+        booked0 = telem.hbm_booked(dev, "cold")
+        n0 = dict(kernels.LAUNCHES)
+        q2_cold, cold_scan_s = run(eng_q, q1, q2_end)
+        check(q2_cold.stats.cold_tier == "cold_paged"
+              and set(launched(n0)) == {"fused_rate_dense"},
+              f"cold-65k: Q2 first scan on the query tier "
+              f"{q2_cold.stats.cold_tier}, launched {launched(n0)}")
+        qblocks = cache.blocks()
+        qbooked = telem.hbm_booked(dev, "cold") - booked0
+        check(len(qblocks) == 2 and qbooked == cache.bytes_booked
+              == sum(b.nbytes for b in qblocks),
+              f"cold-65k: the query tier booked {qbooked} B for "
+              f"{len(qblocks)} blocks of {sum(b.nbytes for b in qblocks)} B")
         q2_warm, _ = run(eng, q1, q2_end)
         warm_best = min(run(eng, q1, q2_end)[1] for _ in range(3))
-        same_answers(q2_cold, q2_warm, "cold-65k Q2 fresh tier")
+        same_answers(q2_fresh, q2_warm, "cold-65k Q2 fresh tier")
+        same_answers(q2_cold, q2_warm, "cold-65k Q2 object-store tier")
+        q_warm = []
+        for _ in range(3):
+            res, secs = run(eng_q, q1, q2_end)
+            same_answers(res, q2_warm, "cold-65k Q2 object-store tier warm")
+            q_warm.append(secs)
+        log(f"cold-65k: object-store tier: run_once uploaded {uploaded} "
+            f"segments, {up.upload_bytes} B, in {upload_s:.3f} s; "
+            f"restore_from_objectstore fetched {rs.segments_fetched} "
+            f"({rs.bytes_fetched} B) in {restore_s:.3f} s, the files byte "
+            f"for byte; the query-only tier (make_query_tier) Q2 first scan "
+            f"{cold_scan_s:.3f} s, warm x3 p50 "
+            f"{np.percentile(q_warm, 50):.4f} s, booked cold {qbooked} B = "
+            f"its blocks, bit-identical to the local tier's Q2")
+        cache.clear()
+        del eng_q, qtier, cache
         check(q2_warm.stats.cold_tier == "cold_hit",
               f"cold-65k: Q2 warm {q2_warm.stats.cold_tier}")
         cold_samples = q2_warm.stats.samples_scanned
         compare(q2_warm, want["sum"][:, :w2], *KERNEL_TOL, "cold-65k Q2")
+        # cold_vs_mem is the fresh local tier's first scan (decode,
+        # upload), objstore_vs_mem the query-only tier's (fetch, decode,
+        # upload)
         rates = dict(mem_first=samples / mem_first_s,
                      mem=samples / mem_best,
-                     cold_scan=cold_samples / cold_scan_s,
+                     cold_scan=cold_samples / fresh_scan_s,
+                     objstore_scan=cold_samples / cold_scan_s,
                      warm=cold_samples / warm_best)
         log(f"cold-65k: Q2 (span wholly in segments, {w2} steps): samples "
             f"scanned tiered {cold_samples}, all-in-memory {samples}; "
             f"samples/s: all-in-memory first {rates['mem_first']:.1f} "
             f"({mem_first_s:.3f} s, upload included), all-in-memory warm "
             f"{rates['mem']:.1f} ({mem_best:.4f} s best of 3), cold first "
-            f"scan {rates['cold_scan']:.1f} ({cold_scan_s:.3f} s, fresh "
-            f"tier), warm {rates['warm']:.1f} ({warm_best:.4f} s best of "
-            f"3); cold_vs_mem {rates['cold_scan'] / rates['mem_first']:.3f}"
-            f", warm_cold {rates['warm'] / rates['mem']:.3f}; all-in-memory "
-            f"ingest {ref_ingest_s:.3f} s")
+            f"scan {rates['cold_scan']:.1f} ({fresh_scan_s:.3f} s, fresh "
+            f"tier), object-store first scan {rates['objstore_scan']:.1f} "
+            f"({cold_scan_s:.3f} s, the query-only tier), warm "
+            f"{rates['warm']:.1f} ({warm_best:.4f} s best of 3); cold_vs_mem "
+            f"{rates['cold_scan'] / rates['mem_first']:.3f}, objstore_vs_mem "
+            f"{rates['objstore_scan'] / rates['mem_first']:.3f}, warm_cold "
+            f"{rates['warm'] / rates['mem']:.3f}; all-in-memory ingest "
+            f"{ref_ingest_s:.3f} s")
         # the LRU: a region that holds one block of the two (the config's
         # default, 2 GiB, holds both at this size)
         budget = est + est // 2
@@ -2588,7 +2959,9 @@ def run_cold_phase(seed, warm, dev):
             f"launches {({k: v for k, v in launches.items() if v})}")
         tier.cold_cache.clear()
         return launches, [dict(cold_s=cold_s, p50=float(np.percentile(
-            warm_s, 50)), p99=float(np.percentile(warm_s, 99)), **rates)]
+            warm_s, 50)), p99=float(np.percentile(warm_s, 99)),
+            upload_s=upload_s, restore_s=restore_s,
+            **rates)]
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2597,20 +2970,32 @@ def run_compact_phase(seed, dev):
     """compact-16k: COMPACT_SERIES counters x T with 1% missed scrapes
     (make_counter_slab's NaN gaps) and COMPACT_GAUGES integer gauges `m`
     (bench.py's longrange values), on a LocalDiskColumnStore in a
-    temporary directory: the hot panel (K3), flush_all_groups,
-    SegmentCompactor.compact_all over 1 h windows (two segments a
-    schema); the panel through PersistedClusterPlanner over the
-    segments (K3 over the merged ragged block) against the hot answer
-    (rtol 5e-4, atol 1e-4); sum(m) stitched by LongTimeRangePlanner
-    (segments | a live tail) bit-identical to the all-in-memory store;
-    a restart (a fresh memstore on the directory, recover_index) whose
-    panel pages the frames back and answers as before; and
-    SelectChunkInfosExec over the flushed chunks -> (launches, rows)."""
+    temporary directory, each slab through a WalManager there in the
+    remote-write door's sequence: the hot panel (K3); a FlushScheduler
+    (COMPACT_FLUSH_S interval, wal=the manager) flushes every group,
+    reports the persisted horizon (the earliest checkpoint) and so
+    prunes the sealed segment that holds the counters' slab, then stops
+    with a final flush; SegmentCompactor.compact_all over 1 h windows
+    (two segments a schema); the panel through PersistedClusterPlanner
+    over the segments (K3 over the merged ragged block) against the hot
+    answer (rtol 5e-4, atol 1e-4); sum(m) stitched by
+    LongTimeRangePlanner (segments | a live tail) bit-identical to the
+    all-in-memory store; COMPACT_TAIL scrape records past the flush
+    through the WAL; a restart (a fresh memstore on the directory,
+    recover_index, then WalManager.replay from the restart points in
+    LocalDiskMetaStore: the slab record left in the log skipped, exactly
+    the tail replayed) whose panel pages the frames back and answers as
+    before, and over the grid and the tail within rtol 5e-4 / atol 1e-4
+    of the f64 oracle (K3); a few gauges ended, evicted
+    (evict_ended_partitions) and compact_index: the panel the same to the
+    bit; and SelectChunkInfosExec over the flushed chunks -> (launches,
+    rows)."""
     import shutil
     import tempfile
 
     import torch
     from filodb_tpu_torch.core.devicecache import ColdSegmentCache
+    from filodb_tpu_torch.core.flush import FlushScheduler
     from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
     from filodb_tpu_torch.core.partkey import PartKey
     from filodb_tpu_torch.ops import kernels
@@ -2624,8 +3009,12 @@ def run_compact_phase(seed, dev):
     from filodb_tpu_torch.query.planners import (LongTimeRangePlanner,
                                                  PersistedClusterPlanner)
     from filodb_tpu_torch.query.rangevector import QueryContext
+    from filodb_tpu_torch.utils.metrics import registry
+    from filodb_tpu_torch.wal import WalManager
+    from filodb_tpu_torch.wal.segment import list_segments
     n = COMPACT_SERIES
-    vals = make_counter_slab(np.random.default_rng(seed), n, 0.01)
+    rng = np.random.default_rng(seed)
+    vals = make_counter_slab(rng, n, 0.01)
     ng = COMPACT_GAUGES
     gauge = (np.arange(ng)[:, None] % 97 * 10.0
              + (np.arange(T) % 11)[None, :])
@@ -2640,10 +3029,11 @@ def run_compact_phase(seed, dev):
     kernels.reset_launch_counts()
     mapper = one_shard_mapper()
 
-    def panel(eng, what, kernel, q=RATE_Q, tol=(5e-4, 1e-4), oracle=True):
+    def panel(eng, what, kernel, q=RATE_Q, tol=(5e-4, 1e-4), oracle=True,
+              end=end_s):
         n0 = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
-        res = eng.query_range(q, start_s, 60, end_s, scan_params())
+        res = eng.query_range(q, start_s, 60, end, scan_params())
         secs = time.perf_counter() - t0
         check(res.error is None, f"compact-16k {what}: {res.error}")
         check(set(launched(n0)) == {kernel},
@@ -2651,29 +3041,69 @@ def run_compact_phase(seed, dev):
               f"{kernel}")
         msg = ""
         if oracle:
-            _, err, rel = compare(res, want, *tol, f"compact-16k {what}")
+            _, err, rel = compare(res, want if end == end_s else want_tail,
+                                  *tol, f"compact-16k {what}")
             msg = f"; oracle max_abs_err {err} max_rel_err {rel}"
         log(f"compact-16k: {what}: {secs:.4f} s via {kernel}; cold tier "
             f"{res.stats.cold_tier or '-'}; samples paged "
             f"{res.stats.samples_paged}{msg}")
         return res
 
+    wal_root = os.path.join(root, "wal")
+    wal = None
     try:
         cs = LocalDiskColumnStore(root)
         ms = TimeSeriesMemStore(column_store=cs,
                                 meta_store=LocalDiskMetaStore(root))
         shard = ms.setup("prometheus", 0)
-        shard.ingest_columns("prom-counter", keys,
-                             np.broadcast_to(ts_row, (n, T)),
-                             {"count": vals}, offset=0)
-        shard.ingest_columns("gauge", gkeys, np.broadcast_to(ts_row, (ng, T)),
-                             {"value": gauge}, offset=0)
+        wal = WalManager(wal_root, "prometheus")
+
+        def door(schema, part_keys, ts, cols):
+            """One remote-write request: append, ingest at the seq, commit
+            before the ack."""
+            seq = wal.append_grid(0, schema, part_keys, ts, cols, wait=False)
+            shard.ingest_columns(schema, part_keys, ts, cols, offset=seq)
+            wal.commit(seq)
+            return seq
+        door("prom-counter", keys, np.broadcast_to(ts_row, (n, T)),
+             {"count": vals})
+        slab_seq = door("gauge", gkeys, np.broadcast_to(ts_row, (ng, T)),
+                        {"value": gauge})
+        wal_segs = list_segments(wal.dir)
         eng = QueryEngine("prometheus", ms, mapper)
         hot = panel(eng, "hot panel", "fused_rate_ragged")
+        pruned = registry.counter("wal_segments_pruned", dataset="prometheus")
+        horizon_g = registry.gauge("wal_persisted_horizon",
+                                   dataset="prometheus")
+        p0, c0 = pruned.value, shard.stats.chunks_flushed
+        sched = FlushScheduler(ms, "prometheus", interval_s=COMPACT_FLUSH_S,
+                               wal=wal)
         t0 = time.perf_counter()
-        chunks = shard.flush_all_groups()
+        sched.start()
+        # the first full rotation ends with the horizon report
+        deadline = t0 + 300
+        while horizon_g.value != slab_seq and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        rotation_s = time.perf_counter() - t0
+        sched.stop(final_flush=True)
         flush_s = time.perf_counter() - t0
+        chunks = shard.stats.chunks_flushed - c0
         check(chunks == n + ng, f"compact-16k: {chunks} chunks flushed")
+        earliest = ms.meta_store.read_earliest_checkpoint("prometheus", 0)
+        horizon = horizon_g.value
+        left = list_segments(wal.dir)
+        check(pruned.value - p0 >= 1 and horizon == earliest == slab_seq,
+              f"compact-16k: the WAL pruned {pruned.value - p0} segments "
+              f"(persisted horizon {horizon}, earliest checkpoint "
+              f"{earliest}, last slab seq {slab_seq})")
+        log(f"compact-16k: the slabs as WAL records 0-{slab_seq} in "
+            f"{len(wal_segs)} segments; FlushScheduler ({COMPACT_FLUSH_S} s "
+            f"interval, wal=the manager): the first rotation reported the "
+            f"horizon after {rotation_s:.3f} s, {sched.flushes} group "
+            f"flushes, {sched.errors} errors; wal_persisted_horizon "
+            f"{horizon} = the earliest checkpoint; "
+            f"{int(pruned.value - p0)} sealed segment(s) pruned, "
+            f"{len(left)} left")
         seg_store = SegmentStore(root)
         comp = SegmentCompactor(cs, seg_store, "prometheus", 1,
                                 window_ms=COMPACT_WINDOW_MS,
@@ -2693,8 +3123,8 @@ def run_compact_phase(seed, dev):
         seg_store.load(counter_meta)
         decode_s = time.perf_counter() - t0
         log(f"compact-16k: {n} counters (1% missed scrapes) and {ng} "
-            f"integer gauges x {T}: flush_all_groups {chunks} chunks in "
-            f"{flush_s:.3f} s; compact_all {written} segments in "
+            f"integer gauges x {T}: the scheduler and its final flush "
+            f"{chunks} chunks in {flush_s:.3f} s; compact_all {written} segments in "
             f"{compact_s:.3f} s, {seg_bytes} B; one counter segment "
             f"({counter_meta.num_series} x {counter_meta.num_steps}) "
             f"decoded in {decode_s:.3f} s")
@@ -2737,23 +3167,64 @@ def run_compact_phase(seed, dev):
         log("compact-16k: sum(m) stitched (segments | live tail) "
             "bit-identical to the all-in-memory store")
         del eng_t, ms_live, eng_p, tier
-        # a restart on the same directory
+        # scrapes past the last flush: acknowledged, in the WAL only
+        valid = ~np.isnan(vals)
+        lastv = vals[np.arange(n), T - 1 - np.argmax(valid[:, ::-1], axis=1)]
+        tail = lastv[:, None] + np.cumsum(
+            rng.exponential(10.0, size=(n, COMPACT_TAIL)), axis=1)
+        ts_tail = int(ts_row[-1]) + STEP_MS * np.arange(
+            1, COMPACT_TAIL + 1, dtype=np.int64)
+        t0 = time.perf_counter()
+        for j in range(COMPACT_TAIL):
+            tail_seq = door("prom-counter", keys,
+                            np.full((n, 1), ts_tail[j], np.int64),
+                            {"count": tail[:, j:j + 1]})
+        tail_s = time.perf_counter() - t0
+        ts_ext = np.concatenate([ts_row, ts_tail])
+        end_tail = int(ts_ext[-1]) // 1000
+        want_tail = rate_by_ns(
+            torch.from_numpy(np.concatenate([vals, tail], axis=1)).to(dev),
+            ts_ext, np.arange(start_s * 1000, int(ts_ext[-1]) + 1, 60_000))
+        # a restart on the same directory: the crash leaves the committed
+        # log and the column store
+        wal.close()
         cs.close()
+        meta2 = LocalDiskMetaStore(root)
         ms2 = TimeSeriesMemStore(column_store=LocalDiskColumnStore(root),
-                                 meta_store=LocalDiskMetaStore(root))
+                                 meta_store=meta2)
         shard2 = ms2.setup("prometheus", 0)
         t0 = time.perf_counter()
         recovered = shard2.recover_index()
         recover_s = time.perf_counter() - t0
         check(recovered == n + ng,
               f"compact-16k: recover_index found {recovered} partitions")
+        wal = WalManager(wal_root, "prometheus")
+        # the slab records still in the log (the pruned segment held the
+        # counters' record)
+        in_log = slab_seq - list_segments(wal.dir)[0][0] + 1
+        restart_points = {0: meta2.read_earliest_checkpoint("prometheus", 0)}
+        st = wal.replay(ms2, restart_points)
+        check(restart_points == {0: slab_seq}
+              and (st.records, st.samples, st.skipped_records,
+                   st.corrupt_segments, st.last_seq)
+              == (COMPACT_TAIL, COMPACT_TAIL * n, in_log, 0, tail_seq),
+              f"compact-16k: replay from {restart_points}: records "
+              f"{st.records}, samples {st.samples}, skipped "
+              f"{st.skipped_records}, corrupt {st.corrupt_segments}, last "
+              f"seq {st.last_seq}")
+        log(f"compact-16k: {COMPACT_TAIL} scrape records (seqs "
+            f"{slab_seq + 1}-{tail_seq}) past the flush in {tail_s:.3f} s; "
+            f"restart: replay from the restart point {restart_points[0]} "
+            f"skipped the {in_log} slab record(s) left in the log and "
+            f"replayed {st.records} records, {st.samples} samples, in "
+            f"{st.elapsed_s:.3f} s")
         plan = SelectChunkInfosExec(
             QueryContext(), "prometheus", 0, [], 0, 1 << 62)
         res, _ = plan._do_execute(ms2)
         tiers = {}
         for r in res.data:
             tiers[r["tier"]] = tiers.get(r["tier"], 0) + 1
-        check(tiers == {"persisted": n + ng},
+        check(tiers == {"persisted": n + ng, "dense": n},
               f"compact-16k: SelectChunkInfosExec rows by tier {tiers}")
         eng2 = QueryEngine("prometheus", ms2, mapper)
         again = panel(eng2, "panel after restart", "fused_rate_ragged")
@@ -2766,6 +3237,27 @@ def run_compact_phase(seed, dev):
         same = [(k.labels, np.asarray(v).tobytes())
                 for k, _, v in again.series()] == \
             [(k.labels, np.asarray(v).tobytes()) for k, _, v in hot.series()]
+        covered = panel(eng2, "panel over the grid and the replayed tail",
+                        "fused_rate_ragged", end=end_tail)
+        # a few gauges end; eviction tombstones them, compaction prunes
+        # the index's postings: the panel's answer stays to the bit
+        ended = [p.part_id for p in shard2.partitions
+                 if p.schema_name == "gauge"][:COMPACT_ENDED]
+        for pid in ended:
+            shard2.index.update_end_time(pid, int(ts_row[-1]))
+        evicted = shard2.evict_ended_partitions(int(ts_ext[-1]))
+        tombstones = shard2.index.tombstone_count
+        compacted = shard2.compact_index()
+        check(evicted == len(ended) == tombstones and compacted
+              and shard2.index.tombstone_count == 0,
+              f"compact-16k: evicted {evicted} of {len(ended)} ended gauges, "
+              f"tombstones {tombstones}, compact_index {compacted}")
+        after = panel(eng2, "panel after compact_index", "fused_rate_ragged",
+                      end=end_tail)
+        same_answers(after, covered, "compact-16k compact_index")
+        log(f"compact-16k: {evicted} ended gauges evicted, compact_index "
+            f"pruned {tombstones} tombstones; the panel over the tail "
+            f"bit-identical before and after")
         log(f"compact-16k: restart: recover_index {recovered} partitions "
             f"in {recover_s:.3f} s; the panel paged back "
             f"{again.stats.samples_paged} samples and answers as before "
@@ -2774,8 +3266,11 @@ def run_compact_phase(seed, dev):
             f"tier {tiers}")
         launches = dict(kernels.LAUNCHES)
         return launches, [dict(flush_s=flush_s, compact_s=compact_s,
-                               seg_bytes=seg_bytes, decode_s=decode_s)]
+                               seg_bytes=seg_bytes, decode_s=decode_s,
+                               replay_s=st.elapsed_s)]
     finally:
+        if wal is not None:
+            wal.close()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -3907,11 +4402,10 @@ def run_ops_phase(eng, api, http, built, evictions):
         f"`{job['lastError']}`, ok again after a clean rebuild; the answer "
         f"bit-identical to the one before; jobs " + json.dumps(snap))
 
-    # 6. the profiler over one warm batch
+    # 6. the profiler over one warm headline panel
     st, pay, _ = http.call("POST", "/admin/profiler/start", {"hz": "100"})
     check(st == 200, f"ops-1M: profiler start {st} {pay}")
-    st, _, prof_s = http.call("POST", "/api/v1/query_range_batch", scan,
-                              body)
+    st, _, prof_s = http.call("GET", "/api/v1/query_range", head)
     st, pay, _ = http.call("POST", "/admin/profiler/stop")
     check(st == 200 and pay["samples"] > 0,
           f"ops-1M: profiler stop {st} {pay}")
@@ -3919,7 +4413,7 @@ def run_ops_phase(eng, api, http, built, evictions):
     st, rep, _ = http.call("GET", "/admin/profiler/report", {"top": "8"},
                            text=True)
     check(st == 200 and "samples" in rep, f"ops-1M: profiler report {st}")
-    log(f"ops-1M: profiler {samples} samples over a {prof_s:.3f} s batch; "
+    log(f"ops-1M: profiler {samples} samples over a {prof_s:.3f} s panel; "
         "report:\n" + rep[:2000])
     launches = dict(kernels.LAUNCHES)
     log(f"ops-1M: launches {({k: v for k, v in launches.items() if v})}")
@@ -3947,6 +4441,133 @@ def log_ptxas(kernels):
                 f"{65536 // (regs * 32) if regs else 'n/a'}")
 
 
+def phase_timer(dev, phase_s, phase_evictions):
+    """timed(name, fn, *a, **kw): run one phase, log its seconds, the
+    padded-values cache's evictions in it (its byte budget,
+    query/execbase._fused_vals_budget, is what ops-1M prints) and the
+    kernel ledger's busy seconds on the card in it (launch through
+    readback of the fused calls; enqueue time of the mirror gathers).
+    A phase's seconds leave out a phase run inside it (restart-1M's
+    inside dense-1M's)."""
+    from filodb_tpu_torch.utils.devicetelem import telem
+    from filodb_tpu_torch.utils.metrics import registry
+    evictions = registry.counter("fused_vals_cache_evictions")
+
+    def busy():
+        return telem.snapshot(recent=0)["devices"].get(
+            str(dev), {}).get("busySeconds", 0.0)
+
+    spent = [0.0]                      # seconds of the phases that ended
+
+    def timed(name, fn, *a, **kw):
+        t, e0, b0 = time.perf_counter(), evictions.value, busy()
+        s0 = spent[0]
+        out = fn(*a, **kw)
+        total = time.perf_counter() - t
+        phase_s[name] = total - (spent[0] - s0)
+        spent[0] = s0 + total
+        phase_evictions[name] = int(evictions.value - e0)
+        b = busy() - b0
+        log(f"phase {name}: {phase_s[name]:.1f} s; fused values cache "
+            f"evictions {phase_evictions[name]}; ledger busy seconds on "
+            f"{dev} {b:.4f} ({100 * b / phase_s[name]:.2f}% of the phase)")
+        return out
+    return timed
+
+
+# ------------------------------------------------ phases in side processes
+
+# Phases that share no store with this process's run in second processes
+# on the same card, beside it: the small stores from K8 on (beside phase
+# 3's build, restart-1M and the 1M phases on its store, where the card is
+# idle nearly all the time and this process keeps one core busy), the
+# histograms once phase 3's store is gone (beside the gauges).
+SIDES = {"stores": ("flush-page-16k", "cold-65k", "compact-16k"),
+         "hist": ("hist-classic-1M", "hist-native-1M")}
+
+
+def run_side(which, args, dev, timed):
+    """Run the phases of SIDES[which], in order -> their launches each."""
+    small_warm = max(3, args.warm // 3)
+    got = []
+    if which == "stores":
+        for name, fn, a in (
+                ("flush-page-16k", run_flush_page_phase, (args.seed + 7, dev)),
+                ("cold-65k", run_cold_phase, (args.seed + 8, args.warm, dev)),
+                ("compact-16k", run_compact_phase, (args.seed + 7, dev))):
+            got.append(timed(name, fn, *a)[0])
+            free_device_memory()
+    else:
+        n = args.series // len(LES)
+        launches, _, classic_want = timed(
+            "hist-classic-1M", run_hist_path, n, args.seed + 6, small_warm,
+            dev)
+        got.append(launches)
+        got.append(timed("hist-native-1M", run_hist_native_path, n,
+                         args.seed + 6, small_warm, dev, classic_want)[0])
+    return got
+
+
+def side_worker(args) -> int:
+    """A side process: SIDES[args.side] on the card, with the libraries
+    main() built; logs to stdout as main() does, and writes
+    {"launches": ..., "phase_s": ...} to args.side_out.  It ends itself
+    when its stdin, a pipe from the process that started it, closes."""
+    import torch
+    from filodb_tpu_torch.ops import kernels
+
+    def orphaned():
+        while os.read(0, 4096):
+            pass
+        os._exit(3)
+    threading.Thread(target=orphaned, daemon=True).start()
+    warnings.simplefilter("ignore", RuntimeWarning)
+    for name in kernels.SOURCES:
+        check(kernels.library_path(name).exists(),
+              f"side {args.side}: {name} is not built")
+        kernels.library(name)
+    dev = torch.device("cuda", 0)
+    phase_s = {}
+    timed = phase_timer(dev, phase_s, {})
+    launches = {}
+    for got in run_side(args.side, args, dev, timed):
+        for name, k in got.items():
+            launches[name] = launches.get(name, 0) + k
+    with open(args.side_out, "w") as f:
+        json.dump({"launches": launches, "phase_s": phase_s}, f)
+    return 0
+
+
+def start_side(which, args, side_dir):
+    """Start the side process for SIDES[which] -> (Popen, its result
+    file).  It shares this process's stdout and stderr; its stdin is a
+    pipe this process holds open until it is joined or killed."""
+    out = os.path.join(side_dir, f"{which}.json")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--side", which,
+         "--side-out", out, "--seed", str(args.seed), "--series",
+         str(args.series), "--warm", str(args.warm)],
+        stdin=subprocess.PIPE)
+    log(f"side {which}: {', '.join(SIDES[which])} in process {proc.pid}")
+    return proc, out
+
+
+def join_side(which, side, phase_s):
+    """Wait for a side process; fail if it failed; add its phases'
+    seconds to phase_s -> its launches."""
+    proc, out = side
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    check(rc == 0 and os.path.exists(out),
+          f"side {which} failed with exit code {rc}")
+    with open(out) as f:
+        res = json.load(f)
+    phase_s.update(res["phase_s"])
+    log(f"side {which}: joined after {time.perf_counter() - t0:.1f} s of "
+        f"waiting; launches {res['launches']}")
+    return res["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3958,6 +4579,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--cells", default=",".join(AB_CELLS))
     ap.add_argument("--ab-worker", help=argparse.SUPPRESS)
+    ap.add_argument("--side", choices=tuple(SIDES), help=argparse.SUPPRESS)
+    ap.add_argument("--side-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3966,6 +4589,8 @@ def main(argv=None) -> int:
         return 2
     if args.ab_worker:
         return ab_worker(args.ab_worker, args.series, args.seed)
+    if args.side:
+        return side_worker(args)
     if args.ab:
         cells = args.cells.split(",")
         check(set(cells) <= set(AB_CELLS), f"--cells: one of {AB_CELLS}")
@@ -3999,30 +4624,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
 
     phase_s = {"build": time.perf_counter() - t0}
-    # the padded-values cache's evictions per phase (its byte budget,
-    # query/execbase._fused_vals_budget, is what ops-1M prints), and the
-    # kernel ledger's busy seconds on the card per phase (launch through
-    # readback of the fused calls; enqueue time of the mirror gathers)
-    from filodb_tpu_torch.utils.devicetelem import telem
-    from filodb_tpu_torch.utils.metrics import registry
-    evictions = registry.counter("fused_vals_cache_evictions")
     phase_evictions = {}
-
-    def busy():
-        return telem.snapshot(recent=0)["devices"].get(
-            str(dev), {}).get("busySeconds", 0.0)
-
-    def timed(name, fn, *a, **kw):
-        t, e0, b0 = time.perf_counter(), evictions.value, busy()
-        out = fn(*a, **kw)
-        phase_s[name] = time.perf_counter() - t
-        phase_evictions[name] = int(evictions.value - e0)
-        b = busy() - b0
-        log(f"phase {name}: {phase_s[name]:.1f} s; fused values cache "
-            f"evictions {phase_evictions[name]}; ledger busy seconds on "
-            f"{dev} {b:.4f} ({100 * b / phase_s[name]:.2f}% of the phase)")
-        return out
-
+    timed = phase_timer(dev, phase_s, phase_evictions)
     small_warm = max(3, args.warm // 3)
     table = timed("kernels K1-K7", run_kernel_checks, args.series, args.seed,
                   dev)
@@ -4030,89 +4633,35 @@ def main(argv=None) -> int:
                                         args.seed)
 
     launches = {name: 0 for name in table}
+    side_dir = tempfile.mkdtemp(prefix="chip-smoke-")
+    sides = {"stores": start_side("stores", args, side_dir)}
 
     def add(got):
+        """Count a phase's launches; stop here if a side process failed."""
         for name in launches:
             launches[name] += got.get(name, 0)
-    for kind, n, seed, hole, warm, queries, tol in (
-            ("counter", args.series, args.seed, 0.0, args.warm,
-             COUNTER_QUERIES, (2e-4, 1e-3)),
-            ("counter", RAGGED_SERIES, args.seed + 1, 0.01, small_warm,
-             COUNTER_QUERIES, (5e-4, 1e-4)),
-            ("gauge", args.series, args.seed + 2, 0.0, args.warm,
-             GAUGE_QUERIES, (2e-4, 1e-3)),
-            ("gauge", RAGGED_SERIES, args.seed + 3, 0.01, small_warm,
-             GAUGE_QUERIES, (5e-4, 1e-4))):
-        # the dense 1M stores also serve general-1M (G1-G5)
-        general = GENERAL_QUERIES[kind] if not hole else ()
-        name = f"{kind} {'ragged' if hole else 'dense'}" \
-            + (" + general-1M" if general else "")
-        keep = kind == "counter" and not hole
-        got, _, got_general, kept = timed(name, run_path, kind, n, seed,
-                                          hole, warm, queries, tol, general,
-                                          small_warm, keep)
-        add(got)
-        add(got_general)
-        if kept is not None:
-            # host-route-1M and promql-1M over the same dense counters
-            eng, ms, want, wends = kept
-            got, _, orc = timed("host-route-1M", run_host_route_phase, eng,
-                                ms, n, wends, small_warm, dev)
-            add(got)
-            got, _ = timed("promql-1M", run_promql_phase, eng,
-                           want[COUNTER_QUERIES[0][0]], orc, wends,
-                           small_warm, n)
-            add(got)
-            api, srv, http = start_server(eng)
-            try:
-                got, _ = timed("serve-1M", run_serve_phase, eng, api, http,
-                               want[COUNTER_QUERIES[0][0]], orc, wends, n)
-                add(got)
-                got, _ = timed("ops-1M", run_ops_phase, eng, api, http,
-                               built, dict(phase_evictions))
-                add(got)
-                got, _ = timed("planners-1M", run_planners_phase, eng, http,
-                               small_warm)
-                add(got)
-            finally:
-                srv.stop()
-            del want, orc, api, srv, http
-            got, _ = timed("live-ingest-1M", run_live_ingest_phase, eng,
-                           ms, n, seed, dev)
-            add(got)
-            del eng, ms, kept
-            free_device_memory()
-            got, _ = timed("flush-page-16k", run_flush_page_phase,
-                           args.seed + 7, dev)
-            add(got)
-            free_device_memory()
-            got, _ = timed("cold-65k", run_cold_phase, args.seed + 8,
-                           args.warm, dev)
-            add(got)
-            free_device_memory()
-            got, _ = timed("compact-16k", run_compact_phase, args.seed + 7,
-                           dev)
-            add(got)
-            free_device_memory()
-    for n, seed, hole, warm, tol in (
-            (args.series, args.seed + 4, 0.0, args.warm, (2e-4, 1e-3)),
-            (RAGGED_SERIES, args.seed + 5, 0.01, small_warm, (5e-4, 1e-4))):
-        got, _ = timed(f"raw-counter {'ragged' if hole else 'dense'}",
-                       run_raw_counter_path, n, seed, hole, warm, tol, dev)
-        add(got)
-    got, _, classic_want = timed("hist-classic-1M", run_hist_path,
-                                 args.series // len(LES), args.seed + 6,
-                                 small_warm, dev)
-    add(got)
-    got, _, _ = timed("hist-native-1M", run_hist_native_path,
-                      args.series // len(LES), args.seed + 6, small_warm,
-                      dev, classic_want)
-    add(got)
+        for which, (proc, _) in sides.items():
+            check(proc.poll() in (None, 0),
+                  f"side {which} failed with exit code {proc.returncode}")
+    try:
+        main_phases(args, dev, timed, phase_evictions, built, add, sides,
+                    side_dir)
+        for which in SIDES:
+            add(join_side(which, sides[which], phase_s))
+    finally:
+        for proc, _ in sides.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdin.close()
+        shutil.rmtree(side_dir, ignore_errors=True)
     missing = [name for name, k in launches.items() if k == 0]
     check(not missing, f"kernels of the main path never launched: {missing}")
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()})
-        + f"; total {time.perf_counter() - t0:.1f} s")
+        + f"; total {time.perf_counter() - t0:.1f} s ("
+        + "; ".join(", ".join(p) for p in SIDES.values())
+        + ": each group in a process of its own, beside this one)")
     # a group-mode entry replaces its variant's branch of _kernel; a
     # per-series one the _epilogue's per-series mode (:661)
     kernels_json = [
@@ -4141,6 +4690,80 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def main_phases(args, dev, timed, phase_evictions, built, add, sides,
+                side_dir):
+    """Phases 3-8 and the 1M phases on phase 3's store in this process;
+    the hist side starts when phase 3's store is gone."""
+    small_warm = max(3, args.warm // 3)
+    for kind, n, seed, hole, warm, queries, tol in (
+            ("counter", args.series, args.seed, 0.0, args.warm,
+             COUNTER_QUERIES, (2e-4, 1e-3)),
+            ("counter", RAGGED_SERIES, args.seed + 1, 0.01, small_warm,
+             COUNTER_QUERIES, (5e-4, 1e-4)),
+            ("gauge", args.series, args.seed + 2, 0.0, args.warm,
+             GAUGE_QUERIES, (2e-4, 1e-3)),
+            ("gauge", RAGGED_SERIES, args.seed + 3, 0.01, small_warm,
+             GAUGE_QUERIES, (5e-4, 1e-4))):
+        # the dense 1M stores also serve general-1M (G1-G5)
+        general = GENERAL_QUERIES[kind] if not hole else ()
+        name = f"{kind} {'ragged' if hole else 'dense'}" \
+            + (" + general-1M" if general else "")
+        keep = kind == "counter" and not hole
+        # restart-1M rides dense-1M: its build goes through a WAL and
+        # the recovered node serves every later 1M phase to its oracle
+        wal = open_wal(n) if keep else None
+        try:
+            got, _, got_general, kept = timed(
+                name, run_path, kind, n, seed, hole, warm, queries, tol,
+                general, small_warm, keep, wal,
+                functools.partial(timed, "restart-1M", boot_from_wal))
+            add(got)
+            add(got_general)
+            if kept is not None:
+                # host-route-1M and promql-1M over the same dense counters
+                eng, ms, want, wends, wal = kept
+                got, _, orc = timed("host-route-1M", run_host_route_phase,
+                                    eng, ms, n, wends, small_warm, dev)
+                add(got)
+                got, _ = timed("promql-1M", run_promql_phase, eng,
+                               want[COUNTER_QUERIES[0][0]], orc, wends,
+                               small_warm, n)
+                add(got)
+                api, srv, http = start_server(eng)
+                try:
+                    got, _ = timed("serve-1M", run_serve_phase, eng, api,
+                                   http, want[COUNTER_QUERIES[0][0]], orc,
+                                   wends, n)
+                    add(got)
+                    got, _ = timed("ops-1M", run_ops_phase, eng, api, http,
+                                   built, dict(phase_evictions))
+                    add(got)
+                    got, _ = timed("planners-1M", run_planners_phase, eng,
+                                   http, small_warm)
+                    add(got)
+                finally:
+                    srv.stop()
+                del want, orc, api, srv, http
+                got, _ = timed("live-ingest-1M", run_live_ingest_phase, eng,
+                               ms, n, seed, dev)
+                add(got)
+                del eng, ms, kept
+        finally:
+            if wal is not None:
+                close_wal(wal)
+        if keep:
+            # phase 3's store is gone: the histogram phases go beside the
+            # gauge and raw-counter ones
+            free_device_memory()
+            sides["hist"] = start_side("hist", args, side_dir)
+    for n, seed, hole, warm, tol in (
+            (args.series, args.seed + 4, 0.0, args.warm, (2e-4, 1e-3)),
+            (RAGGED_SERIES, args.seed + 5, 0.01, small_warm, (5e-4, 1e-4))):
+        got, _ = timed(f"raw-counter {'ragged' if hole else 'dense'}",
+                       run_raw_counter_path, n, seed, hole, warm, tol, dev)
+        add(got)
 
 
 if __name__ == "__main__":

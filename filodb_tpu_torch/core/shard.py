@@ -15,11 +15,13 @@ and `flush.persist` (utils/faults.py), where the reference fires them.
 
 Recovery: `recover_index` rebuilds the index and the partition registry
 from the column store's part keys; queries then page the flushed chunk
-frames back through demand paging.  Left out: the downsampler hook, the
-cardinality tracker, tenant quotas and usage accounting, and the stream
-replay `recover_stream` (it comes with the WAL).  The store settings the reference
-reads from its config are the constants below, at its defaults.  Host
-arrays stay numpy; the device copy is the DeviceMirror's.
+frames back through demand paging.  `recover_stream` replays a stream's
+batches past each flush group's checkpoint, and `compact_index` prunes
+the index's tombstoned postings under the write lock.  Left out: the
+downsampler hook, the cardinality tracker, tenant quotas and usage
+accounting.  The store settings the reference reads from its config are
+the constants below, at its defaults.  Host arrays stay numpy; the
+device copy is the DeviceMirror's.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import logging
 import os
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -63,6 +65,7 @@ GROUPS_PER_SHARD = 60               # flush groups
 SHARD_MEM_SIZE = 512 * 1024 * 1024
 RESIDENT_CACHE_BYTES = 256 << 20
 ACTIVE_TAIL_ROWS = 512
+MIN_FLUSH_SAMPLES = 256             # a background flush's write-buffer floor
 
 # shared flush-encode pool: chunk encoding is numpy (releases the GIL), so
 # slab-parallel encode overlaps with live ingest on the other cores.  One
@@ -1054,6 +1057,52 @@ class TimeSeriesShard:
                 self.index.update_end_time(info.part_id, rec.end_time_ms)
             n += 1
         return n
+
+    def recover_stream(self, batches: Iterable[Tuple[RecordBatch, int]]
+                       ) -> int:
+        """Replay (batch, offset) pairs, skipping each record whose flush
+        group's checkpoint is at or past the offset; returns samples
+        ingested."""
+        checkpoints = self.meta_store.read_checkpoints(self.dataset,
+                                                       self.shard_num)
+        n = 0
+        for batch, offset in batches:
+            if not checkpoints:
+                n += self.ingest(batch, offset)
+                continue
+            # the group is a pure function of the part key's hash, so the
+            # filter holds for partitions not yet recreated too
+            group_by_key = np.asarray(
+                [self.group_for(pk) for pk in batch.part_keys],
+                dtype=np.int64)
+            wm = np.full(self._groups, -1, dtype=np.int64)
+            for g, off in checkpoints.items():
+                wm[g] = off
+            keep = wm[group_by_key[batch.part_idx]] < offset
+            if keep.all():
+                n += self.ingest(batch, offset)
+            elif keep.any():
+                sub = RecordBatch(
+                    batch.schema, batch.part_keys, batch.part_idx[keep],
+                    batch.timestamps[keep],
+                    {k: v[keep] for k, v in batch.columns.items()},
+                    batch.bucket_les)
+                n += self.ingest(sub, offset)
+        return n
+
+    def compact_index(self, tombstone_threshold: int = 0) -> bool:
+        """Prune the tag index's tombstoned postings under the shard write
+        lock (compaction swaps the index's state and rewrites posting
+        containers, so it must not race ingest or eviction).  With a
+        threshold it compacts only once the backlog crossed it; returns
+        whether a compaction ran."""
+        with self._write_locked("index_compaction"):
+            if tombstone_threshold:
+                return self.index.maybe_compact(tombstone_threshold)
+            if self.index.tombstone_count == 0:
+                return False
+            self.index.compact()
+            return True
 
     # ------------------------------------------------------------ memory
 

@@ -17,9 +17,10 @@ than `retain_raw_ms` are aged out of the chunk log
 the last compaction pass started.
 
 CompactionScheduler runs compaction and retention on an interval as the
-`compaction` job of utils/jobs.py.  The reference's shared segment
-tier (its uploader, and the retention gate that waits for uploads) is
-not ported yet.
+`compaction` job of utils/jobs.py.  With a SegmentUploader
+(persist/objectstore.py) each pass uploads between compaction and
+retention, and retention never prunes past a window whose covering
+segment the shared tier has not acknowledged.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ class SegmentCompactor:
                  window_ms: int = 6 * 3600 * 1000,
                  closed_lag_ms: int = 60 * 60 * 1000,
                  schemas: Schemas = DEFAULT_SCHEMAS,
-                 tier=None):
+                 tier=None, uploader=None):
         self.column_store = column_store
         self.segment_store = segment_store
         self.dataset = dataset
@@ -57,6 +58,10 @@ class SegmentCompactor:
         self.closed_lag_ms = closed_lag_ms
         self.schemas = schemas
         self.tier = tier                 # PersistedTier (range invalidation)
+        # SegmentUploader (persist/objectstore.py): when the shared cold
+        # tier is configured, retention refuses to advance past windows
+        # whose covering segment is not yet upload-acked
+        self.uploader = uploader
         self.segments_written = 0
         self.windows_skipped = 0
         # per-shard wall time at which the last compaction pass STARTED:
@@ -252,6 +257,14 @@ class SegmentCompactor:
             ingested_before = self._last_pass_start_ms.get(shard)
             if ingested_before is None:
                 continue                # no compact pass yet this process
+            if self.uploader is not None:
+                # durability ordering: upload-acked windows only; a
+                # window whose segment has not landed in the shared tier
+                # keeps its raw frames (the gate journals
+                # retention_blocked_on_upload when it holds back)
+                cutoff = min(cutoff,
+                             self.uploader.allowed_prune_cutoff(shard,
+                                                                cutoff))
             n = self.column_store.prune_chunks_before(
                 self.dataset, shard, cutoff,
                 ingested_before_ms=ingested_before)
@@ -268,10 +281,15 @@ class CompactionScheduler:
     flush-scheduler shape, with the same loud-error stance."""
 
     def __init__(self, compactor: SegmentCompactor, interval_s: float,
-                 retain_raw_ms: int = 0):
+                 retain_raw_ms: int = 0, uploader=None):
         self.compactor = compactor
         self.interval_s = interval_s
         self.retain_raw_ms = retain_raw_ms
+        # shared-tier uploads ride the compaction pass, between compact
+        # and retention: upload before prune is the durability ordering
+        self.uploader = uploader
+        if uploader is not None and compactor.uploader is None:
+            compactor.uploader = uploader
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.passes = 0
@@ -299,6 +317,9 @@ class CompactionScheduler:
         with self.job.tick():
             self.job.set_progress("compacting")
             n = self.compactor.compact_all()
+            if self.uploader is not None:
+                self.job.set_progress("uploading")
+                self.uploader.run_once()
             pruned = 0
             if self.retain_raw_ms > 0:
                 self.job.set_progress("retention")

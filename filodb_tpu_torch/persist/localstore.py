@@ -251,6 +251,12 @@ class LocalDiskColumnStore(ColumnStore):
         self._chunk_idx: Dict[Tuple[str, int], Dict[bytes, List[_FrameRef]]] = {}
         self._pk_idx: Dict[Tuple[str, int], Dict[bytes, PartKeyRecord]] = {}
         self._files: Dict[str, object] = {}
+        # durability-ordering guards (persist/objectstore.py uploader):
+        # dataset -> fn(shard, cutoff_ms) -> allowed cutoff.  Every prune
+        # clamps through its dataset's guard, whatever code path asked:
+        # retention may only advance past windows whose covering segment
+        # is upload-acked in the shared tier's manifest
+        self.prune_guards: Dict[str, object] = {}
 
     # -- paths
     def _shard_dir(self, dataset: str, shard: int) -> str:
@@ -493,6 +499,14 @@ class LocalDiskColumnStore(ColumnStore):
         segment yet).  Atomic (tmp + rename); the in-memory index and the
         sidecar are rebuilt from the surviving frames.  Returns frames
         dropped."""
+
+        guard = self.prune_guards.get(dataset)
+        if guard is not None:
+            # refuse to prune a window whose covering segment is not yet
+            # upload-acked: a crash between prune and a future upload
+            # would lose the window (the guard journals
+            # retention_blocked_on_upload when it holds back)
+            cutoff_ms = min(cutoff_ms, guard(shard, cutoff_ms))
 
         def _doomed(r) -> bool:
             return r.end_ms < cutoff_ms and (

@@ -1094,3 +1094,60 @@ def test_cold_tier_panel_launches_k1_over_cuda_blocks(card, tmp_path):
     assert [k for k, _ in res["cpu"]] == [k for k, _ in res["cuda"]]
     for (_, x), (_, y) in zip(res["cpu"], res["cuda"]):
         np.testing.assert_allclose(y, x, rtol=2e-4, atol=1e-3)
+
+
+def test_wal_replay_onto_the_card_launches_k1_bit_identical(card, tmp_path):
+    """A node on the card writes its ingest through the WAL in the door's
+    sequence (append without waiting, ingest at the seq, one commit),
+    crashes without a flush, and a new memstore on the card replays the
+    log: the replayed panel launches K1 and is bit-identical to the
+    answer of the store that wrote the log."""
+    from filodb_tpu_torch.config import WalConfig
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.wal import WalManager
+    S, T, slab = 3000, 360, 1000
+    rng = np.random.default_rng(41)
+    t0 = 1_600_000_000_000
+    ts = np.broadcast_to(t0 + np.arange(T, dtype=np.int64) * 10_000,
+                         (slab, T))
+    q = "sum by (_ns_) (rate(request_total[5m]))"
+    start_s, end_s = t0 // 1000 + 600, t0 // 1000 + (T - 1) * 10
+    wal = WalManager(str(tmp_path), "prometheus", WalConfig())
+    ms = TimeSeriesMemStore(device=card)
+    sh = ms.setup("prometheus", 0)
+    seq = -1
+    for i0 in range(0, S, slab):
+        keys = [PartKey.make("request_total", {
+            "_ws_": "demo", "_ns_": f"App-{i % 50}",
+            "instance": f"Instance-{i}"}) for i in range(i0, i0 + slab)]
+        vals = np.cumsum(rng.integers(0, 20, size=(slab, T)),
+                         axis=1).astype(np.float64)
+        seq = wal.append_grid(0, "prom-counter", keys, ts, {"count": vals},
+                              wait=False)
+        sh.ingest_columns("prom-counter", keys, ts, {"count": vals},
+                          offset=seq)
+    wal.commit(seq)
+    before = _series_of(QueryEngine("prometheus", ms, device=card)
+                        .query_range(q, start_s, 60, end_s))
+    wal.close()
+    del ms, sh
+    ms2 = TimeSeriesMemStore(device=card)
+    wal2 = WalManager(str(tmp_path), "prometheus", WalConfig())
+    try:
+        st = wal2.replay(ms2, {0: -1})
+        assert (st.records, st.samples, st.skipped_records,
+                st.corrupt_segments) == (S // slab, S * T, 0, 0)
+        assert ms2.get_shard("prometheus", 0).device == card
+        n0 = kernels.LAUNCHES.get("fused_rate_dense", 0)
+        after = _series_of(QueryEngine("prometheus", ms2, device=card)
+                           .query_range(q, start_s, 60, end_s))
+        assert kernels.LAUNCHES["fused_rate_dense"] == n0 + 1
+        assert [k for k, _ in after] == [k for k, _ in before]
+        for (_, x), (_, y) in zip(before, after):
+            assert np.array_equal(x, y, equal_nan=True)
+        assert wal2.append_grid(0, "prom-counter", keys, ts[:, :1],
+                                {"count": vals[:, -1:] + 1}) == S // slab
+    finally:
+        wal2.close()

@@ -60,7 +60,10 @@ NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "utils.freshness", "utils.health", "utils.faults",
                "utils.profiler", "parallel.breaker", "query.planners",
                "query.exec", "persist", "persist.localstore",
-               "persist.segments", "persist.compactor")
+               "persist.segments", "persist.compactor", "utils.varint",
+               "utils.snappy", "wal", "wal.segment", "wal.writer",
+               "wal.replay", "core.flush", "ingest", "ingest.stream",
+               "persist.objectstore")
 
 
 def _bare_import(module):
@@ -79,9 +82,11 @@ def _bare_import(module):
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_general_path_module_stands_alone(module):
     """Each module of the general path, the probe, the live write path,
-    the serving stack, the operations surface, the composed planners
-    and the persisted-segment tier, imported alone in a
-    fresh interpreter, pulls in neither jax nor the reference package."""
+    the serving stack, the operations surface, the composed planners,
+    the persisted-segment tier and the durability layer (the WAL, the
+    flush scheduler, the ingestion streams and the shared object
+    store), imported alone in a fresh interpreter, pulls in neither jax
+    nor the reference package."""
     assert _bare_import("filodb_tpu_torch." + module) == []
 
 
