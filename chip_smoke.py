@@ -155,9 +155,35 @@ ops-1M.  on the serve-1M server, over the same counters: /ready 200 and
    panel.  It
    prints the padded-values cache's budget and its evictions per earlier
    phase;
-live-ingest-1M.  over the same counters (the store's values copied to
-   the card for the oracle, its first slab checked against the seed's):
-   10 scrapes (100 s at 10 s)
+write-1M.  on the serve-1M server after planners-1M, over the same
+   counters: its PromHttpApi carries gateways={"prometheus":
+   GatewayPipeline(...)} over the store (one shard, a one-shard mapper)
+   whose `wal` is the WalManager restart-1M recovered, so every 204
+   follows a group commit.  2 scrapes of every series, one sample each
+   10 s after the store's last, each counter going on by an increment
+   from the seed (no reset), labels dense-1M's; each scrape as snappy
+   prompb WriteRequests of 2,000 series (Prometheus' max_samples_per_
+   send; 525 at 1M, the last 576), encoded before the clock, POSTed to
+   /api/v1/write over localhost HTTP by 4 client threads.  Every request
+   answers 204 and the store's new column is the values sent; the
+   headline panel over the 110 steps ending at the scrape, through HTTP
+   query_range, is no result-cache hit, pays an incremental refresh (no
+   incremental error) and launches K1, runs warm bit-identical, both
+   within rtol 2e-4 / atol 1e-3 of the f64 oracle of the grown slab.
+   Then POST /api/v1/read of _ns_="App-7" over the last 10 min (every
+   sample to the bit as the read computes it, the written ones exact),
+   /api/v1/status/tsdb (1,048,576 series under _ws_=demo and
+   request_total), /api/v1/metering/cardinality (tsCount 1,048,576 for
+   ["demo"], the CardinalityTracker restart-1M attached before its
+   replay), /admin/tenants' ingestSamples grown by exactly the samples
+   sent, the WAL's seq grown by the slabs.  It prints each scrape's wall
+   seconds and samples/s, the request p50 / p99, the door's IngestStats
+   split summed over the requests (decode, admission, build_slabs,
+   wal_append, ingest, commit wait), gc seconds, the refresh and the
+   paying panel's seconds, peak host RSS and peak device memory;
+live-ingest-1M.  over the same counters (the store's values, write-1M's
+   two columns included, copied to the card for the oracle, its first
+   slab checked against the seed's): 10 scrapes (100 s at 10 s)
    through TimeSeriesShard.ingest, each one grid RecordBatch of one
    sample a series with the same key list, 1% of the series restarting
    in scrape 5; after each, the panel `sum by (_ns_) (rate(...[5m]))`
@@ -246,6 +272,19 @@ compact-16k.  16,384 counters x 720 with 1% missed scrapes and 2,048
    panel over the grid and the tail holds the f64 oracle within rtol
    5e-4 / atol 1e-4 (K3); then 8 gauges end, evict_ended_partitions
    and compact_index leave the panel the same to the bit.
+broker-16k.  the port's gateway (GatewayServer on an ephemeral port, a
+   KafkaContainerSink into a FileBackedBroker in a temporary directory)
+   takes 16,384 request counters (dense-1M's labels) x 36 scrapes (6 min
+   at 10 s) as Influx lines `request_total,<tags> counter=<v> <ts_ns>`
+   through send_lines, one connection a scrape; create_stream(
+   "filebroker", ...) under IngestionLifecycle ingests the log into a
+   memstore on the card; sum by (_ns_) (rate(request_total[5m])) at 1 m
+   steps over the 6 min launches K1 and holds its f64 oracle (rtol 2e-4,
+   atol 1e-3); then POST /influx/write of 4,096 lines of one more scrape
+   to a PromHttpApi over the same store, read back by /api/v1/read to
+   the bit.  It prints lines/s for each door.  Cut from 1M to 16,384
+   series for the time limit: the Influx parser runs per line in Python
+   on the host.
 restart-1M.  inside phase 3, at its full width: the build's 16 slabs
    go through a WalManager (WalConfig's defaults: fsync on, 64 MiB
    segments) in a tempfile.mkdtemp directory, each as the remote-write
@@ -268,12 +307,15 @@ restart-1M.  inside phase 3, at its full width: the build's 16 slabs
    bytes, and a cProfile of reading and decoding one record.  The
    recovered engine and store serve general-1M and every later 1M phase
    on phase 3's counters, each against its oracle; the directory is
-   deleted after live-ingest-1M.
-flush-page-16k, cold-65k and compact-16k run in a second process
-(`--side stores`) from K8 on, beside phase 3, restart-1M and the 1M
-phases on their store; hist-classic-1M and hist-native-1M in a third
-(`--side hist`) once that store is gone, beside phases 4-8.  A side
-process loads the libraries built here, counts its own launches from 0
+   deleted after live-ingest-1M.  A CardinalityTracker is attached to
+   the new shard before the replay (as a node attaches it before
+   recovery); the seconds its series_created takes are printed.
+flush-page-16k, cold-65k, compact-16k and broker-16k, then phases 4 and
+6-8, run in a second process (`--side stores`) from K8 on, beside phase
+3, restart-1M and the 1M phases on their store; phase 5 (with
+general-1M's gauge half), hist-classic-1M and hist-native-1M in a third
+(`--side gauge-hist`) from the end of host-route-1M on, beside
+promql-1M through live-ingest-1M.  A side process loads the libraries built here, counts its own launches from 0
 and writes them and its phases' seconds to a file read when it is
 joined; a side that fails fails the run, and one whose stdin (a pipe
 from the script) closes ends itself.
@@ -739,6 +781,19 @@ def build_store(kind, num_series, seed, hole_frac, queries, general=(),
                                  commit_s=commit_s, last_seq=seq)
 
 
+def matrix_close(got, want, rtol, atol, what):
+    """A [groups, W] answer against its oracle: the NaN pattern equal and
+    every value within tolerance -> (max abs err, max rel err)."""
+    check((np.isnan(got) == np.isnan(want)).all(),
+          f"{what}: NaN pattern differs from the oracle")
+    m = ~np.isnan(want)
+    err = np.abs(got[m] - want[m])
+    check((err <= atol + rtol * np.abs(want[m])).all(),
+          f"{what}: max abs err {err.max()} over rtol {rtol} atol {atol}")
+    return float(err.max()), float(
+        (err / np.maximum(np.abs(want[m]), 1e-300)).max())
+
+
 def compare(got_res, want, rtol, atol, what, label="_ns_"):
     """Each result series into row N of `want` by its `label` (App-N,
     Instance-N; row 0 without one), then held to it."""
@@ -748,14 +803,7 @@ def compare(got_res, want, rtol, atol, what, label="_ns_"):
         labels = dict(key.labels)
         got[int(labels[label].split("-")[1]) if label in labels else 0] = \
             row
-    check((np.isnan(got) == np.isnan(want)).all(),
-          f"{what}: NaN pattern differs from the oracle")
-    m = ~np.isnan(want)
-    err = np.abs(got[m] - want[m])
-    check((err <= atol + rtol * np.abs(want[m])).all(),
-          f"{what}: max abs err {err.max()} over rtol {rtol} atol {atol}")
-    rel = float((err / np.maximum(np.abs(want[m]), 1e-300)).max())
-    return got, float(err.max()), rel
+    return (got,) + matrix_close(got, want, rtol, atol, what)
 
 
 # --------------------------------------------------------------- timing
@@ -1130,6 +1178,8 @@ def boot_from_wal(wal, num_series, before, want, build):
     memstore, the recovered WalManager, launches)."""
     import torch
     from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.ratelimit import (CardinalityTracker,
+                                                 QuotaSource)
     from filodb_tpu_torch.ops import kernels
     from filodb_tpu_torch.query.engine import QueryEngine
     from filodb_tpu_torch.utils.metrics import registry
@@ -1170,6 +1220,22 @@ def boot_from_wal(wal, num_series, before, want, build):
           f"recover_writer_state, {committed + 1} expected")
     # replay's ingest_columns, timed on the shard replay will use
     sh = ms.setup("prometheus", 0)
+    # the cardinality tracker, attached before the replay as a node
+    # attaches it before recovery; its series_created timed
+    tracker = CardinalityTracker(
+        shard_key_len=len(ms.schemas.part.options.shard_key_columns),
+        quota_source=QuotaSource())
+    tracker_s = [0.0]
+    series_created = tracker.series_created
+
+    def timed_created(key):
+        t = time.perf_counter()
+        try:
+            return series_created(key)
+        finally:
+            tracker_s[0] += time.perf_counter() - t
+    tracker.series_created = timed_created
+    sh.cardinality_tracker = tracker
     ingest_s = [0.0]
     ingest_columns = sh.ingest_columns
 
@@ -1184,6 +1250,10 @@ def boot_from_wal(wal, num_series, before, want, build):
         st = wal.replay(ms, restart_points)
     finally:
         del sh.ingest_columns
+        del tracker.series_created
+    root = tracker.cardinality(())
+    check(root is not None and root.ts_count == num_series,
+          f"restart-1M: the tracker counted {root} after the replay")
     want_samples = num_series * T
     check((st.records, st.samples, st.skipped_records, st.corrupt_segments)
           == (records, want_samples, 0, 0),
@@ -1240,7 +1310,9 @@ def boot_from_wal(wal, num_series, before, want, build):
         f"({st.samples_per_sec:.1f} samples/s; {st.records} records, "
         f"{st.samples} samples, {st.skipped_records} skipped, "
         f"{st.corrupt_segments} corrupt) of which ingest_columns "
-        f"{ingest_s[0]:.3f} s and reading, decompressing and decoding "
+        f"{ingest_s[0]:.3f} s (the cardinality tracker's series_created "
+        f"{tracker_s[0]:.3f} s of it, {root.ts_count} series counted) and "
+        f"reading, decompressing and decoding "
         f"{st.elapsed_s - ingest_s[0]:.3f} s; boot to the first answer "
         f"{first_s:.3f} s; launches "
         f"{({k: v for k, v in launches.items() if v})}; host peak RSS "
@@ -2252,9 +2324,10 @@ def mirror_matches_full_upload(mirror, store, shard, dev):
     return secs, worst
 
 
-def run_live_ingest_phase(eng, ms, num_series, seed, dev):
+def run_live_ingest_phase(eng, ms, num_series, seed, dev, written=0):
     """live-ingest-1M over phase 3's dense counters (the store's values on
-    the card for the oracle): SCRAPES scrapes through
+    the card for the oracle, the `written` columns write-1M added after
+    its T included): SCRAPES scrapes through
     TimeSeriesShard.ingest, each one grid RecordBatch of one sample a
     series with the same key list, 1% of the series restarting in scrape
     RESET_SCRAPE; after each, the panel over the 110 steps ending at it
@@ -2269,7 +2342,7 @@ def run_live_ingest_phase(eng, ms, num_series, seed, dev):
     shard = ms.get_shard("prometheus", 0)
     store = store_rows(ms, num_series)
     mirror = store.device_mirror
-    n_t = T + SCRAPES + 1
+    n_t = T + written + SCRAPES + 1
     ts_row = START_MS + np.arange(n_t, dtype=np.int64) * STEP_MS
     t0 = time.perf_counter()
     vals = torch.full((num_series, n_t), float("nan"), dtype=torch.float64,
@@ -2279,29 +2352,34 @@ def run_live_ingest_phase(eng, ms, num_series, seed, dev):
     check(np.array_equal(first, store.cols["count"][:len(first), :T]),
           "live-ingest-1M: the first slab made again differs from the "
           "store's")
+    check(np.array_equal(store.ts[0, :T + written], ts_row[:T + written]),
+          f"live-ingest-1M: the store's first row does not hold "
+          f"{T + written} samples on the grid")
     for i0 in range(0, num_series, SLAB):
-        vals[i0:i0 + SLAB, :T] = torch.from_numpy(
-            store.cols["count"][i0:min(i0 + SLAB, num_series), :T]).to(dev)
+        vals[i0:i0 + SLAB, :T + written] = torch.from_numpy(
+            store.cols["count"][i0:min(i0 + SLAB, num_series),
+                                :T + written]).to(dev)
     regen_s = time.perf_counter() - t0
     keys = [p.part_key for p in shard.partitions]      # row i = series i
     schema = shard.schemas["prom-counter"]
     all_idx = np.arange(num_series, dtype=np.int32)
     srng = np.random.default_rng(seed + 100)
-    last = vals[:, T - 1].cpu().numpy()
+    last = vals[:, T + written - 1].cpu().numpy()
     t_cap0 = store.ts.shape[1]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     err0 = counters.get("device_mirror_incremental_errors")
     log(f"live-ingest-1M: {num_series} series on the card for the oracle "
-        f"(the store's values; its first slab made again from the seed "
-        f"matches them) in {regen_s:.3f} s; host store time capacity "
+        f"(the store's values, {written} written columns after the first "
+        f"{T}; its first slab made again from the seed matches them) in "
+        f"{regen_s:.3f} s; host store time capacity "
         f"{t_cap0}; mirror "
         f"{tuple(mirror.snapshot().ts_off.shape)}")
     paid, rows = [], []
     full_s = worst = None
     for j in range(1, SCRAPES + 2):
-        c = T - 1 + j
+        c = T + written - 1 + j
         new = last + srng.exponential(10.0, size=num_series)
         if j == RESET_SCRAPE:
             hit = srng.random(num_series) < 0.01
@@ -3404,6 +3482,482 @@ def run_planners_phase(eng, http, warm):
     return dict(kernels.LAUNCHES), rows
 
 
+# ----------------------------------------------------------- the doors
+
+WRITE_SCRAPES = 2                  # write-1M: scrapes of every series
+WRITE_BATCH = 2_000                # queue_config.max_samples_per_send
+WRITE_CLIENTS = 4                  # remote-write shards of the sender
+READ_NS = "App-7"                  # write-1M's remote-read selector
+BROKER_SERIES = 16_384             # broker-16k (host line parsing: cut)
+BROKER_SCRAPES = 36                # 6 min at 10 s
+INFLUX_HTTP_LINES = 4_096          # broker-16k's POST /influx/write
+
+
+def post_raw(port, path, body, headers=None):
+    """One POST to the localhost server -> (status, body bytes,
+    seconds)."""
+    import http.client
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        raw = resp.read()
+        return resp.status, raw, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def write_labels(i):
+    """Series i's labels as a Prometheus server sends them (dense-1M's:
+    counter_keys)."""
+    return [("__name__", "request_total"), ("_ws_", "demo"),
+            ("_ns_", f"App-{i % NUM_NS}"), ("instance", f"Instance-{i}"),
+            ("dc", f"DC{i % 2}")]
+
+
+def write_label_blobs(num_series):
+    """Each series' labels as the bytes of a prompb TimeSeries without
+    samples, made once: a scrape's request is then these bytes and one
+    Sample each (write_request)."""
+    from filodb_tpu_torch.http import remotepb
+    return [remotepb.encode_timeseries(remotepb.PromTimeSeries(
+        write_labels(i), [])) for i in range(num_series)]
+
+
+def write_request(blobs, vals, ts_ms, lo, hi):
+    """The WriteRequest bytes of series lo..hi-1, one sample each: field
+    1 (TimeSeries, length-delimited) around each series' label bytes
+    followed by its Sample field, what remotepb.encode_write_request
+    gives for the same series (checked on the first request)."""
+    from filodb_tpu_torch.http import remotepb
+    from filodb_tpu_torch.utils.varint import write_uvarint
+    out = []
+    for i in range(lo, hi):
+        ts = blobs[i] + remotepb.encode_timeseries(remotepb.PromTimeSeries(
+            [], [(float(vals[i]), ts_ms)]))
+        out.append(b"\x0a" + write_uvarint(len(ts)) + ts)
+    return b"".join(out)
+
+
+def run_write_phase(eng, ms, api, http, wal, num_series, seed, dev):
+    """write-1M on the serve-1M server over the recovered dense-1M store
+    (its gateway pipeline's WAL the recovered WalManager): WRITE_SCRAPES
+    scrapes of every series, one sample each 10 s after the store's last,
+    each series' counter going on by an increment from the seed; each
+    scrape as snappy WriteRequests of WRITE_BATCH series (encoded before
+    the clock starts), POSTed to /api/v1/write by WRITE_CLIENTS threads.
+    Every request answers 204; the store's new column is the values
+    sent; the headline panel over the 110 steps ending at the scrape,
+    through HTTP query_range, is no result-cache hit, pays an incremental
+    refresh and launches K1, runs warm bit-identical, both within rtol
+    2e-4 / atol 1e-3 of the f64 oracle of the grown slab.  Then remote
+    read of READ_NS over the last 10 min to the bit, status/tsdb,
+    metering/cardinality, the tenant panel's ingest grown by the samples
+    sent, and the WAL's seq grown by the slabs -> (launches, rows)."""
+    import torch
+    from filodb_tpu_torch.http import remotepb
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.utils import snappy
+    from filodb_tpu_torch.utils.counters import counters
+    shard = ms.get_shard("prometheus", 0)
+    store = store_rows(ms, num_series)
+    mirror = store.device_mirror
+    n_t = T + WRITE_SCRAPES
+    ts_row = START_MS + np.arange(n_t, dtype=np.int64) * STEP_MS
+    check(int(store.counts[:num_series].min()) == T
+          and int(store.counts[:num_series].max()) == T,
+          "write-1M: the store does not hold T samples a series")
+    t0 = time.perf_counter()
+    vals = torch.full((num_series, n_t), float("nan"), dtype=torch.float64,
+                      device=dev)
+    for i0 in range(0, num_series, SLAB):
+        vals[i0:i0 + SLAB, :T] = torch.from_numpy(
+            store.cols["count"][i0:min(i0 + SLAB, num_series), :T]).to(dev)
+    last = store.cols["count"][:num_series, T - 1].copy()
+    blobs = write_label_blobs(num_series)
+    prep_s = time.perf_counter() - t0
+    # the door's stage split, summed over the requests of a scrape
+    door = []
+    traced = api._remote_write_traced
+
+    def keep_stats(dataset, body, hdr, stats):
+        try:
+            return traced(dataset, body, hdr, stats)
+        finally:
+            door.append(stats)
+    api._remote_write_traced = keep_stats
+
+    def tenants():
+        """-> (tenant demo's ingestSamples, every tenant row's); the
+        accountant keeps UsageAccountant.MAX_TENANTS (ws, ns) rows and
+        books the rest under the overflow row, so demo's 1,000 _ns_ are
+        partly there."""
+        st, p, _ = http.call("GET", "/admin/tenants")
+        check(st == 200, f"write-1M: /admin/tenants answered {st}")
+        rows = p["data"]["tenants"]
+        return (sum(t["ingestSamples"] for t in rows if t["ws"] == "demo"),
+                sum(t["ingestSamples"] for t in rows))
+    demo0, all0 = tenants()
+    seq0 = wal.writer.next_seq
+    srng = np.random.default_rng(seed + 200)
+    scan = {"scanLimit": str(SCAN_LIMIT), "stats": "true"}
+    headers = {"Content-Type": "application/x-protobuf",
+               "Content-Encoding": "snappy",
+               "X-Prometheus-Remote-Write-Version": "0.1.0"}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    err0 = counters.get("device_mirror_incremental_errors")
+    log(f"write-1M: {num_series} series' values on the card for the oracle "
+        f"and their label bytes made in {prep_s:.3f} s; /admin/tenants' "
+        f"ingestSamples {all0} (demo's row {demo0}); WAL next seq {seq0}")
+    rows = []
+    slabs = 0
+    try:
+        for j in range(1, WRITE_SCRAPES + 1):
+            c = T - 1 + j
+            ts_ms = int(ts_row[c])
+            new = last + srng.exponential(10.0, size=num_series)
+            t1 = time.perf_counter()
+            bounds = [(lo, min(lo + WRITE_BATCH, num_series))
+                      for lo in range(0, num_series, WRITE_BATCH)]
+            bodies = [snappy.compress(write_request(blobs, new, ts_ms, lo,
+                                                    hi))
+                      for lo, hi in bounds]
+            enc_s = time.perf_counter() - t1
+            if j == 1:
+                lo, hi = bounds[0]
+                check(snappy.decompress(bodies[0])
+                      == remotepb.encode_write_request([
+                          remotepb.PromTimeSeries(write_labels(i),
+                                                  [(float(new[i]), ts_ms)])
+                          for i in range(lo, hi)]),
+                      "write-1M: a request's bytes differ from "
+                      "remotepb.encode_write_request")
+            del door[:]
+            lock = threading.Lock()
+            todo = iter(range(len(bodies)))
+            answers = [None] * len(bodies)
+
+            def client():
+                while True:
+                    with lock:
+                        k = next(todo, None)
+                    if k is None:
+                        return
+                    st, raw, secs = post_raw(http.port, "/api/v1/write",
+                                             bodies[k], headers)
+                    answers[k] = (st, secs, raw[:200])
+            with GcPauses() as gcp:
+                t1 = time.perf_counter()
+                threads = [threading.Thread(target=client)
+                           for _ in range(WRITE_CLIENTS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                wall = time.perf_counter() - t1
+            bad = [(k, a) for k, a in enumerate(answers)
+                   if a is None or a[0] != 204]
+            check(not bad, f"write-1M: scrape {j}: {len(bad)} requests did "
+                  f"not answer 204, first {bad[:1]}")
+            check(len(door) == len(bodies),
+                  f"write-1M: {len(door)} door stats for {len(bodies)} "
+                  f"requests")
+            check(np.array_equal(store.ts[:num_series, c],
+                                 np.full(num_series, ts_ms))
+                  and store.cols["count"][:num_series, c].tobytes()
+                  == new.tobytes(),
+                  f"write-1M: scrape {j}: the store's new column is not the "
+                  f"values sent")
+            vals[:, c] = torch.from_numpy(new).to(dev)
+            last = new
+            lat = [a[1] for a in answers]
+            split = {k: sum(getattr(s, k) for s in door) for k in (
+                "decode_s", "admission_s", "build_slabs_s", "wal_append_s",
+                "ingest_s", "wal_commit_wait_s")}
+            slabs += sum(s.slabs for s in door)
+            check(sum(s.ingested for s in door) == num_series
+                  and sum(s.dropped for s in door) == 0,
+                  f"write-1M: scrape {j} ingested "
+                  f"{sum(s.ingested for s in door)} dropped "
+                  f"{sum(s.dropped for s in door)}")
+            # the headline panel over the 110 steps ending at the scrape
+            start_s, end_s, wends = scrape_windows(ts_ms)
+            params = {"query": LIVE_QUERY, "start": start_s, "end": end_s,
+                      "step": 60, **scan}
+            incr0 = counters.get("device_mirror_incremental")
+            n0 = dict(kernels.LAUNCHES)
+            st, p1, q_s = http.call("GET", "/api/v1/query_range", params)
+            check(st == 200, f"write-1M: the panel answered {st}: "
+                  f"{p1.get('error')}")
+            launched = sorted(k for k, v in kernels.LAUNCHES.items()
+                              if v > n0.get(k, 0))
+            check(launched == ["fused_rate_dense"],
+                  f"write-1M: scrape {j}'s panel launched {launched}, not "
+                  f"K1 (fused_rate_dense)")
+            check(counters.get("device_mirror_incremental") == incr0 + 1
+                  and mirror.last_refresh_kind == "incremental",
+                  f"write-1M: scrape {j}'s refresh was "
+                  f"{mirror.last_refresh_kind}, not incremental")
+            check(counters.get("device_mirror_incremental_errors") == err0,
+                  f"write-1M: incremental errors after scrape {j}")
+            verdict = p1["stats"]["cache"]["result"]
+            check(verdict != "hit",
+                  f"write-1M: scrape {j}'s panel was a result-cache hit")
+            st, p2, warm_s = http.call("GET", "/api/v1/query_range", params)
+            check(st == 200 and series_map(p2) == series_map(p1),
+                  f"write-1M: scrape {j}'s warm panel is not bit-identical")
+            want = rate_by_ns(vals[:, :c + 1], ts_row[:c + 1], wends)
+            err, rel = matrix_close(matrix_of(p1, wends), want, *KERNEL_TOL,
+                                    f"write-1M scrape {j}")
+            log(f"write-1M: scrape {j}: {len(bodies)} requests of "
+                f"{WRITE_BATCH} series by {WRITE_CLIENTS} clients in "
+                f"{wall:.3f} s ({num_series / wall:.1f} samples/s; encoded "
+                f"before the clock in {enc_s:.3f} s, "
+                f"{sum(len(b) for b in bodies)} B); request p50 "
+                f"{np.percentile(lat, 50):.4f} s p99 "
+                f"{np.percentile(lat, 99):.4f} s; door split summed over "
+                f"the requests (s): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                + f"; {gcp}; refresh {mirror.last_refresh_kind} "
+                f"{mirror.last_refresh_s:.4f} s, {mirror.last_upload_bytes} "
+                f"B; the paying panel {q_s:.4f} s via K1 (result cache "
+                f"{verdict or 'bypass'}), warm {warm_s:.4f} s "
+                f"({p2['stats']['cache']['result'] or 'bypass'}), "
+                f"bit-identical; oracle max_abs_err {err} max_rel_err {rel}")
+            rows.append(dict(scrape=j, wall_s=wall, encode_s=enc_s,
+                             p50=float(np.percentile(lat, 50)),
+                             p99=float(np.percentile(lat, 99)), gc_s=gcp.seconds,
+                             refresh_s=mirror.last_refresh_s, query_s=q_s,
+                             **split))
+    finally:
+        del api._remote_write_traced
+    launches = dict(kernels.LAUNCHES)
+    del vals
+    # remote read: READ_NS over the last 10 min, to the bit
+    end_ms = int(ts_row[-1])
+    lo_ms = end_ms - 600_000
+    rq = snappy.compress(remotepb.encode_read_request([remotepb.PromQuery(
+        lo_ms, end_ms, [remotepb.LabelMatcher(remotepb.EQ, "_ns_",
+                                              READ_NS)])]))
+    st, raw, read_s = post_raw(http.port, "/api/v1/read", rq,
+                               {"Content-Type": "application/x-protobuf"})
+    check(st == 200, f"write-1M: remote read answered {st}: {raw[:200]}")
+    got = remotepb.decode_read_response(snappy.decompress(raw))[0]
+    want_rows = [i for i in range(num_series)
+                 if f"App-{i % NUM_NS}" == READ_NS]
+    check(len(got) == len(want_rows),
+          f"write-1M: remote read returned {len(got)} series, "
+          f"{len(want_rows)} expected")
+    # the read gathers each series' window rebased in f64 on its first
+    # gathered sample b and adds b back, as the reference's does: (v - b)
+    # + b, which is v but where v - b rounds (a reset inside the window);
+    # timestamps to the bit, values within that rounding (1e-12 of the
+    # window's largest value, as tests/test_remote_read.py holds it)
+    n_samples = n_exact = n_first = 0
+    moved = 0.0
+    for s in got:
+        i = int(dict(s.labels)["instance"].split("-")[1])
+        cnt = int(store.counts[i])
+        ts_i = store.ts[i, :cnt]
+        sel = (ts_i >= lo_ms) & (ts_i <= end_ms)
+        t_got = np.array([t for _, t in s.samples], dtype=np.int64)
+        v_got = np.array([v for v, _ in s.samples], dtype=np.float64)
+        v_store = store.cols["count"][i, :cnt][sel]
+        ok_ts = np.array_equal(t_got, ts_i[sel]) and t_got[-1] == end_ms
+        diff = np.abs(v_got - v_store) if ok_ts else np.array([np.inf])
+        check(ok_ts and (diff <= 1e-12 * max(1.0, float(np.abs(
+                  v_store).max()))).all(),
+              f"write-1M: remote read of Instance-{i} differs from the "
+              f"store: timestamps {'equal' if ok_ts else 'differ'} "
+              f"({len(t_got)} read, {int(sel.sum())} stored), max abs "
+              f"diff {float(diff.max())}; read {v_got[:4].tolist()} ... "
+              f"{v_got[-2:].tolist()}, stored {v_store[:4].tolist()} ... "
+              f"{v_store[-2:].tolist()}")
+        n_samples += len(t_got)
+        n_exact += int((v_got == v_store).sum())
+        n_first += int((v_got == (v_store - v_store[0]) + v_store[0]).sum())
+        moved = max(moved, float(diff.max()))
+    st, tsdb, tsdb_s = http.call("GET", "/api/v1/status/tsdb")
+    data = tsdb["data"]
+    check(st == 200 and data["headStats"]["numSeries"] == num_series
+          and {"name": "demo", "value": num_series}
+          in data["seriesCountByTenant"]
+          and {"name": "request_total", "value": num_series}
+          in data["seriesCountByMetricName"],
+          f"write-1M: /api/v1/status/tsdb answered {st}: "
+          f"{data.get('headStats')}")
+    st, card, card_s = http.call("GET", "/api/v1/metering/cardinality",
+                                 {"prefix": "", "k": "5"})
+    check(st == 200 and card["data"][0]["prefix"] == ["demo"]
+          and card["data"][0]["tsCount"] == num_series,
+          f"write-1M: metering/cardinality answered {st}: "
+          f"{card.get('data', [])[:1]}")
+    demo1, all1 = tenants()
+    check(all1 - all0 == WRITE_SCRAPES * num_series,
+          f"write-1M: the tenants' ingestSamples grew by {all1 - all0} "
+          f"(demo {demo1 - demo0}), {WRITE_SCRAPES * num_series} sent")
+    seq1 = wal.writer.next_seq
+    check(seq1 - seq0 == slabs and wal.writer.committed_seq == seq1 - 1,
+          f"write-1M: the WAL's seq grew by {seq1 - seq0} (committed "
+          f"{wal.writer.committed_seq}), {slabs} slabs appended")
+    log(f"write-1M: remote read of _ns_={READ_NS} over the last 10 min: "
+        f"{len(got)} series, {n_samples} samples in {read_s:.4f} s, "
+        f"timestamps to the bit; values: {n_exact} bit-identical to the "
+        f"store's, {n_first} to (v - b) + b with b the window's first "
+        f"sample, max abs diff {moved}; status/tsdb "
+        f"{data['headStats']} in {tsdb_s:.3f} s; metering/cardinality "
+        f"{card['data'][0]} in {card_s:.3f} s; /admin/tenants' "
+        f"ingestSamples +{all1 - all0} (demo's row +{demo1 - demo0}, the "
+        f"overflow row the rest); WAL seq {seq0} -> {seq1} "
+        f"({slabs} slabs, committed); peak host RSS {host_rss()} B; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+        f"launches {({k: n for k, n in launches.items() if n})}")
+    return launches, rows
+
+
+def run_broker_phase(seed, dev):
+    """broker-16k: the port's gateway (GatewayServer on an ephemeral port,
+    a KafkaContainerSink into a FileBackedBroker in a temporary
+    directory) takes BROKER_SERIES request counters x BROKER_SCRAPES
+    scrapes as Influx lines through send_lines, one connection a scrape;
+    a `filebroker` stream under IngestionLifecycle ingests the log into
+    a memstore on the card; the panel sum by (_ns_) (rate(...[5m])) at
+    1 m steps over the 6 min launches K1 and holds the f64 oracle (rtol
+    2e-4, atol 1e-3); then POST /influx/write of INFLUX_HTTP_LINES lines
+    of one more scrape to a PromHttpApi over the same store, read back by
+    /api/v1/read to the bit -> (launches, rows)."""
+    import torch
+    import filodb_tpu_torch.ingest  # noqa: F401 the stream factories
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.gateway.router import GatewayPipeline
+    from filodb_tpu_torch.gateway.server import (GatewayServer,
+                                                 KafkaContainerSink,
+                                                 send_lines)
+    from filodb_tpu_torch.http import remotepb
+    from filodb_tpu_torch.http.routes import PromHttpApi
+    from filodb_tpu_torch.http.server import FiloHttpServer
+    from filodb_tpu_torch.ingest.filebroker import FileBackedBroker
+    from filodb_tpu_torch.ingest.stream import (IngestionLifecycle,
+                                                create_stream)
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.parallel.shardmapper import SpreadProvider
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.utils import snappy
+    n, k = BROKER_SERIES, BROKER_SCRAPES
+    rng = np.random.default_rng(seed)
+    vals = np.cumsum(rng.exponential(10.0, size=(n, k + 1)), axis=1)
+    ts_row = START_MS + np.arange(k + 1, dtype=np.int64) * STEP_MS
+    tags = [f"request_total,_ws_=demo,_ns_=App-{i % NUM_NS},"
+            f"instance=Instance-{i},dc=DC{i % 2} counter=" for i in range(n)]
+
+    def lines(t, rows):
+        return [f"{tags[i]}{float(vals[i, t])!r} "
+                f"{int(ts_row[t]) * 1_000_000}" for i in rows]
+    root = tempfile.mkdtemp(prefix="broker-16k-")
+    topic = "timeseries"
+    kernels.reset_launch_counts()
+    try:
+        broker = FileBackedBroker(root)
+        sink = KafkaContainerSink(broker.produce, topic, one_shard_mapper(),
+                                  SpreadProvider(0))
+        server = GatewayServer(sink, port=0)
+        server.start()
+        try:
+            # a scrape is published whole before the next one is sent:
+            # the listener takes each connection on a thread of its own,
+            # and two scrapes' frames interleaved would arrive out of
+            # order at the store
+            t0 = time.perf_counter()
+            for t in range(k):
+                send_lines("127.0.0.1", server.port, lines(t, range(n)))
+                deadline = time.time() + 120
+                while sink.stats()["records_out"] < n * (t + 1) \
+                        and time.time() < deadline:
+                    time.sleep(0.01)
+            gw_s = time.perf_counter() - t0
+        finally:
+            server.stop()
+        stats = sink.stats()
+        check(stats["records_out"] == n * k and not stats["drops"],
+              f"broker-16k: the gateway published {stats}")
+        ms = TimeSeriesMemStore(device=dev)
+        shard = ms.setup("prometheus", 0)
+        stream = create_stream("filebroker", topic=topic, shard=0,
+                               broker_dir=root)
+        t0 = time.perf_counter()
+        got_n = IngestionLifecycle(shard, stream).start()
+        consume_s = time.perf_counter() - t0
+        stream.teardown()
+        check(got_n == n * k, f"broker-16k: the stream ingested {got_n} "
+              f"samples, {n * k} published")
+        eng = QueryEngine("prometheus", ms, device=dev)
+        start_s = int(ts_row[0]) // 1000 + 50
+        end_s = int(ts_row[k - 1]) // 1000
+        wends = np.arange(start_s * 1000, end_s * 1000 + 1, 60_000)
+        want = rate_by_ns(torch.from_numpy(
+            np.ascontiguousarray(vals[:, :k])).to(dev), ts_row[:k], wends)
+        n0 = kernels.LAUNCHES["fused_rate_dense"]
+        t0 = time.perf_counter()
+        res = eng.query_range(LIVE_QUERY, start_s, 60, end_s, scan_params())
+        q_s = time.perf_counter() - t0
+        check(kernels.LAUNCHES["fused_rate_dense"] == n0 + 1,
+              "broker-16k: the panel did not launch K1")
+        _, err, rel = compare(res, want, *KERNEL_TOL, "broker-16k")
+        # the HTTP door: one more scrape of INFLUX_HTTP_LINES series
+        gw = GatewayPipeline(ms, "prometheus", one_shard_mapper())
+        srv = FiloHttpServer(PromHttpApi({"prometheus": eng},
+                                         gateways={"prometheus": gw}),
+                             port=0)
+        srv.start()
+        try:
+            body = "\n".join(lines(k, range(INFLUX_HTTP_LINES))).encode()
+            st, raw, post_s = post_raw(srv.port, "/influx/write", body,
+                                       {"Content-Type": "text/plain"})
+            check(st == 204, f"broker-16k: /influx/write answered {st}: "
+                  f"{raw[:200]}")
+            rq = snappy.compress(remotepb.encode_read_request([
+                remotepb.PromQuery(int(ts_row[k]), int(ts_row[k]), [
+                    remotepb.LabelMatcher(remotepb.EQ, "__name__",
+                                          "request_total")])]))
+            st, raw, read_s = post_raw(srv.port, "/api/v1/read", rq,
+                                       {"Content-Type":
+                                        "application/x-protobuf"})
+            check(st == 200, f"broker-16k: remote read answered {st}")
+        finally:
+            srv.stop()
+        series = remotepb.decode_read_response(snappy.decompress(raw))[0]
+        check(len(series) == n, f"broker-16k: remote read returned "
+              f"{len(series)} series")
+        for s in series:
+            i = int(dict(s.labels)["instance"].split("-")[1])
+            want_s = ([(float(vals[i, k]), int(ts_row[k]))]
+                      if i < INFLUX_HTTP_LINES else [])
+            check([(np.float64(v).tobytes(), t) for v, t in s.samples]
+                  == [(np.float64(v).tobytes(), t) for v, t in want_s],
+                  f"broker-16k: remote read of Instance-{i} is "
+                  f"{s.samples[:2]}, {want_s} written")
+        launches = dict(kernels.LAUNCHES)
+        log(f"broker-16k: {n} counters x {k} scrapes as Influx lines: the "
+            f"gateway took and published {n * k} lines in {gw_s:.3f} s "
+            f"({n * k / gw_s:.1f} lines/s; {stats['frames_out']} frames); "
+            f"the filebroker stream under IngestionLifecycle ingested "
+            f"them into the card store in {consume_s:.3f} s "
+            f"({got_n / consume_s:.1f} samples/s); the panel over the 6 min "
+            f"at 1 m {q_s:.4f} s via K1 (mirror upload included), oracle "
+            f"max_abs_err {err} max_rel_err {rel}; POST /influx/write of "
+            f"{INFLUX_HTTP_LINES} lines {post_s:.4f} s "
+            f"({INFLUX_HTTP_LINES / post_s:.1f} lines/s), read back by "
+            f"/api/v1/read to the bit in {read_s:.4f} s; launches "
+            f"{({name: c for name, c in launches.items() if c})}")
+        return launches, dict(gateway_s=gw_s, consume_s=consume_s,
+                              query_s=q_s, post_s=post_s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ------------------------------------------------ phases 7 and 8: raw
 
 def make_raw_counters_t(gen, n, hole_frac, device):
@@ -3854,6 +4408,7 @@ class Http:
     """A JSON client of one FiloHttpServer on localhost."""
 
     def __init__(self, port):
+        self.port = port
         self.base = f"http://127.0.0.1:{port}"
 
     def call(self, method, path, params=None, body=None, text=False):
@@ -3898,16 +4453,22 @@ def matrix_of(payload, wends):
     return out
 
 
-def start_server(eng):
+def start_server(eng, ms, wal):
     """The serve-1M server: FiloHttpServer(PromHttpApi({"prometheus":
-    eng}), port=0) with the clients step's batch window, and its client
-    -> (api, srv, http).  The caller stops srv."""
+    eng}, gateways=...), port=0) with the clients step's batch window,
+    and its client -> (api, srv, http).  The gateway pipeline is over
+    `ms` with one shard and a one-shard mapper, its `wal` the node's
+    WalManager (write-1M's door).  The caller stops srv."""
     from filodb_tpu_torch.config import FilodbSettings
+    from filodb_tpu_torch.gateway.router import GatewayPipeline
     from filodb_tpu_torch.http.routes import PromHttpApi
     from filodb_tpu_torch.http.server import FiloHttpServer
     cfg = FilodbSettings()
     cfg.query.batch_window_ms = SERVE_WINDOW_MS
-    api = PromHttpApi({"prometheus": eng}, config=cfg)
+    gw = GatewayPipeline(ms, "prometheus", one_shard_mapper(), config=cfg)
+    gw.wal = wal
+    api = PromHttpApi({"prometheus": eng}, gateways={"prometheus": gw},
+                      config=cfg)
     # the coalescer waits only for the clients step (its window delays
     # every request it takes)
     api.frontends["prometheus"].coalescer.window_s = 0.0
@@ -4478,12 +5039,17 @@ def phase_timer(dev, phase_s, phase_evictions):
 # ------------------------------------------------ phases in side processes
 
 # Phases that share no store with this process's run in second processes
-# on the same card, beside it: the small stores from K8 on (beside phase
-# 3's build, restart-1M and the 1M phases on its store, where the card is
-# idle nearly all the time and this process keeps one core busy), the
-# histograms once phase 3's store is gone (beside the gauges).
-SIDES = {"stores": ("flush-page-16k", "cold-65k", "compact-16k"),
-         "hist": ("hist-classic-1M", "hist-native-1M")}
+# on the same card, beside it: the small stores from K8 on, then the
+# ragged and raw-counter phases, a few GB each (beside phase 3's build,
+# restart-1M and the 1M phases on its store, where the card is idle
+# nearly all the time and this process keeps one core busy); the dense
+# gauges and the histograms once host-route-1M is done (beside serve-1M
+# through live-ingest-1M, whose peaks, 15-33 GB, leave room for theirs).
+SIDES = {"stores": ("flush-page-16k", "cold-65k", "compact-16k",
+                    "broker-16k", "counter ragged", "gauge ragged",
+                    "raw-counter dense", "raw-counter ragged"),
+         "gauge-hist": ("gauge dense + general-1M", "hist-classic-1M",
+                        "hist-native-1M")}
 
 
 def run_side(which, args, dev, timed):
@@ -4494,10 +5060,34 @@ def run_side(which, args, dev, timed):
         for name, fn, a in (
                 ("flush-page-16k", run_flush_page_phase, (args.seed + 7, dev)),
                 ("cold-65k", run_cold_phase, (args.seed + 8, args.warm, dev)),
-                ("compact-16k", run_compact_phase, (args.seed + 7, dev))):
+                ("compact-16k", run_compact_phase, (args.seed + 7, dev)),
+                ("broker-16k", run_broker_phase, (args.seed + 9, dev))):
             got.append(timed(name, fn, *a)[0])
             free_device_memory()
+        # phases 4 and 6 to 8: stores of their own, a few GB on the card
+        for kind, seed, queries in (
+                ("counter", args.seed + 1, COUNTER_QUERIES),
+                ("gauge", args.seed + 3, GAUGE_QUERIES)):
+            got.append(timed(f"{kind} ragged", run_path, kind,
+                             RAGGED_SERIES, seed, 0.01, small_warm, queries,
+                             (5e-4, 1e-4))[0])
+            free_device_memory()
+        for n, seed, hole, warm, tol in (
+                (args.series, args.seed + 4, 0.0, args.warm, (2e-4, 1e-3)),
+                (RAGGED_SERIES, args.seed + 5, 0.01, small_warm,
+                 (5e-4, 1e-4))):
+            got.append(timed(
+                f"raw-counter {'ragged' if hole else 'dense'}",
+                run_raw_counter_path, n, seed, hole, warm, tol, dev)[0])
+            free_device_memory()
     else:
+        got_path = timed("gauge dense + general-1M", run_path, "gauge",
+                         args.series, args.seed + 2, 0.0, args.warm,
+                         GAUGE_QUERIES, (2e-4, 1e-3),
+                         GENERAL_QUERIES["gauge"], small_warm)
+        got += [got_path[0], got_path[2]]
+        del got_path
+        free_device_memory()
         n = args.series // len(LES)
         launches, _, classic_want = timed(
             "hist-classic-1M", run_hist_path, n, args.seed + 6, small_warm,
@@ -4694,76 +5284,58 @@ def main(argv=None) -> int:
 
 def main_phases(args, dev, timed, phase_evictions, built, add, sides,
                 side_dir):
-    """Phases 3-8 and the 1M phases on phase 3's store in this process;
-    the hist side starts when phase 3's store is gone."""
+    """Phase 3 and the 1M phases on its store in this process; the
+    gauge-hist side starts once host-route-1M, the main line's largest
+    device footprint, is done."""
     small_warm = max(3, args.warm // 3)
-    for kind, n, seed, hole, warm, queries, tol in (
-            ("counter", args.series, args.seed, 0.0, args.warm,
-             COUNTER_QUERIES, (2e-4, 1e-3)),
-            ("counter", RAGGED_SERIES, args.seed + 1, 0.01, small_warm,
-             COUNTER_QUERIES, (5e-4, 1e-4)),
-            ("gauge", args.series, args.seed + 2, 0.0, args.warm,
-             GAUGE_QUERIES, (2e-4, 1e-3)),
-            ("gauge", RAGGED_SERIES, args.seed + 3, 0.01, small_warm,
-             GAUGE_QUERIES, (5e-4, 1e-4))):
-        # the dense 1M stores also serve general-1M (G1-G5)
-        general = GENERAL_QUERIES[kind] if not hole else ()
-        name = f"{kind} {'ragged' if hole else 'dense'}" \
-            + (" + general-1M" if general else "")
-        keep = kind == "counter" and not hole
-        # restart-1M rides dense-1M: its build goes through a WAL and
-        # the recovered node serves every later 1M phase to its oracle
-        wal = open_wal(n) if keep else None
-        try:
-            got, _, got_general, kept = timed(
-                name, run_path, kind, n, seed, hole, warm, queries, tol,
-                general, small_warm, keep, wal,
-                functools.partial(timed, "restart-1M", boot_from_wal))
-            add(got)
-            add(got_general)
-            if kept is not None:
-                # host-route-1M and promql-1M over the same dense counters
-                eng, ms, want, wends, wal = kept
-                got, _, orc = timed("host-route-1M", run_host_route_phase,
-                                    eng, ms, n, wends, small_warm, dev)
-                add(got)
-                got, _ = timed("promql-1M", run_promql_phase, eng,
-                               want[COUNTER_QUERIES[0][0]], orc, wends,
-                               small_warm, n)
-                add(got)
-                api, srv, http = start_server(eng)
-                try:
-                    got, _ = timed("serve-1M", run_serve_phase, eng, api,
-                                   http, want[COUNTER_QUERIES[0][0]], orc,
-                                   wends, n)
-                    add(got)
-                    got, _ = timed("ops-1M", run_ops_phase, eng, api, http,
-                                   built, dict(phase_evictions))
-                    add(got)
-                    got, _ = timed("planners-1M", run_planners_phase, eng,
-                                   http, small_warm)
-                    add(got)
-                finally:
-                    srv.stop()
-                del want, orc, api, srv, http
-                got, _ = timed("live-ingest-1M", run_live_ingest_phase, eng,
-                               ms, n, seed, dev)
-                add(got)
-                del eng, ms, kept
-        finally:
-            if wal is not None:
-                close_wal(wal)
-        if keep:
-            # phase 3's store is gone: the histogram phases go beside the
-            # gauge and raw-counter ones
-            free_device_memory()
-            sides["hist"] = start_side("hist", args, side_dir)
-    for n, seed, hole, warm, tol in (
-            (args.series, args.seed + 4, 0.0, args.warm, (2e-4, 1e-3)),
-            (RAGGED_SERIES, args.seed + 5, 0.01, small_warm, (5e-4, 1e-4))):
-        got, _ = timed(f"raw-counter {'ragged' if hole else 'dense'}",
-                       run_raw_counter_path, n, seed, hole, warm, tol, dev)
+    n = args.series
+    # restart-1M rides dense-1M: its build goes through a WAL and the
+    # recovered node serves every later 1M phase to its oracle
+    wal = open_wal(n)
+    try:
+        got, _, got_general, kept = timed(
+            "counter dense + general-1M", run_path, "counter", n,
+            args.seed, 0.0, args.warm, COUNTER_QUERIES, (2e-4, 1e-3),
+            GENERAL_QUERIES["counter"], small_warm, True, wal,
+            functools.partial(timed, "restart-1M", boot_from_wal))
         add(got)
+        add(got_general)
+        # host-route-1M and promql-1M over the same dense counters
+        eng, ms, want, wends, wal = kept
+        got, _, orc = timed("host-route-1M", run_host_route_phase, eng, ms,
+                            n, wends, small_warm, dev)
+        add(got)
+        free_device_memory()
+        sides["gauge-hist"] = start_side("gauge-hist", args, side_dir)
+        got, _ = timed("promql-1M", run_promql_phase, eng,
+                       want[COUNTER_QUERIES[0][0]], orc, wends, small_warm,
+                       n)
+        add(got)
+        api, srv, http = start_server(eng, ms, wal)
+        try:
+            got, _ = timed("serve-1M", run_serve_phase, eng, api, http,
+                           want[COUNTER_QUERIES[0][0]], orc, wends, n)
+            add(got)
+            got, _ = timed("ops-1M", run_ops_phase, eng, api, http, built,
+                           dict(phase_evictions))
+            add(got)
+            got, _ = timed("planners-1M", run_planners_phase, eng, http,
+                           small_warm)
+            add(got)
+            got, _ = timed("write-1M", run_write_phase, eng, ms, api, http,
+                           wal, n, args.seed, dev)
+            add(got)
+        finally:
+            srv.stop()
+        del want, orc, api, srv, http
+        free_device_memory()
+        got, _ = timed("live-ingest-1M", run_live_ingest_phase, eng, ms, n,
+                       args.seed, dev, WRITE_SCRAPES)
+        add(got)
+        del eng, ms, kept
+    finally:
+        close_wal(wal)
+    free_device_memory()
 
 
 if __name__ == "__main__":

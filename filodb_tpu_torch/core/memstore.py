@@ -27,8 +27,12 @@ class TimeSeriesMemStore:
 
     def __init__(self, schemas: Optional[Schemas] = None,
                  column_store: Optional[ColumnStore] = None,
-                 meta_store: Optional[MetaStore] = None, device="cuda"):
+                 meta_store: Optional[MetaStore] = None, device="cuda",
+                 config=None):
+        """config: a FilodbSettings for the shards' tenant settings
+        (None: the settings() singleton)."""
         self.device = resolve_device(device)
+        self.config = config
         self.schemas = schemas if schemas is not None else DEFAULT_SCHEMAS
         self.column_store = column_store or NullColumnStore()
         self.meta_store = meta_store or InMemoryMetaStore()
@@ -44,7 +48,8 @@ class TimeSeriesMemStore:
         shard = TimeSeriesShard(dataset, shard_num, self.schemas,
                                 device=self.device,
                                 column_store=self.column_store,
-                                meta_store=self.meta_store)
+                                meta_store=self.meta_store,
+                                config=self.config)
         shards[shard_num] = shard
         return shard
 

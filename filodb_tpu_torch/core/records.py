@@ -1,6 +1,6 @@
-"""Ingest record batches (port of filodb_tpu/core/records.py: RecordBatch
-and RecordBatchBuilder; the binary wire format, to_bytes / from_bytes,
-comes with the wire).
+"""Ingest record batches (port of filodb_tpu/core/records.py: RecordBatch,
+its binary wire format `to_bytes` / `from_bytes`, byte for byte the
+reference's, and RecordBatchBuilder).
 
 A RecordBatch is columnar (SoA): one numpy array per column plus interned
 part keys, which the shard appends into its dense series store without
@@ -9,12 +9,20 @@ per-record object churn.
 from __future__ import annotations
 
 import dataclasses
+import io
+import struct
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from filodb_tpu_torch.core.partkey import PartKey
-from filodb_tpu_torch.core.schemas import Schema
+from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS, Schema, Schemas
+
+_MAGIC = b"FTRB"
+# v2: histogram columns ship as concatenated NibblePack'd BinaryHistogram
+# blobs (memory/binhist.py) instead of raw f64 matrices; v1 frames are
+# still read
+_VERSION = 2
 
 
 @dataclasses.dataclass
@@ -46,6 +54,78 @@ class RecordBatch:
                                          or self.bucket_les is None):
                 raise ValueError(f"histogram column {c.name} needs [N, B] "
                                  f"values and bucket_les")
+
+    def to_bytes(self) -> bytes:
+        buf = io.BytesIO()
+        buf.write(_MAGIC)
+        buf.write(struct.pack("<HH", _VERSION, self.schema.schema_id))
+        buf.write(struct.pack("<I", len(self.part_keys)))
+        for pk in self.part_keys:
+            blob = pk.to_bytes()
+            buf.write(struct.pack("<I", len(blob)))
+            buf.write(blob)
+        n = self.num_records
+        buf.write(struct.pack("<I", n))
+        buf.write(self.part_idx.astype(np.int32).tobytes())
+        buf.write(self.timestamps.astype(np.int64).tobytes())
+        ncols = len(self.schema.data_columns)
+        buf.write(struct.pack("<H", ncols))
+        for c in self.schema.data_columns:
+            arr = np.asarray(self.columns[c.name])
+            if c.col_type == "hist":
+                from filodb_tpu_torch.memory.binhist import \
+                    encode_blob_column
+                blobs = encode_blob_column(arr, self.bucket_les)
+                buf.write(struct.pack("<HI", arr.shape[1], len(blobs)))
+                buf.write(blobs)
+            else:
+                buf.write(struct.pack("<HI", 0, n * 8))
+                buf.write(arr.astype(np.float64).tobytes())
+        if self.bucket_les is not None:
+            buf.write(struct.pack("<H", len(self.bucket_les)))
+            buf.write(np.asarray(self.bucket_les, dtype=np.float64).tobytes())
+        else:
+            buf.write(struct.pack("<H", 0))
+        return buf.getvalue()
+
+    @staticmethod
+    def from_bytes(data: bytes,
+                   schemas: Schemas = DEFAULT_SCHEMAS) -> "RecordBatch":
+        buf = io.BytesIO(data)
+        magic = buf.read(4)
+        if magic != _MAGIC:
+            raise ValueError("bad record batch magic")
+        version, schema_id = struct.unpack("<HH", buf.read(4))
+        if version not in (1, 2):
+            raise ValueError(f"unsupported record batch version {version}")
+        schema = schemas.by_id[schema_id]
+        (npk,) = struct.unpack("<I", buf.read(4))
+        part_keys: List[PartKey] = []
+        for _ in range(npk):
+            (pk_len,) = struct.unpack("<I", buf.read(4))
+            part_keys.append(PartKey.from_bytes(buf.read(pk_len)))
+        (n,) = struct.unpack("<I", buf.read(4))
+        part_idx = np.frombuffer(buf.read(4 * n), dtype=np.int32).copy()
+        timestamps = np.frombuffer(buf.read(8 * n), dtype=np.int64).copy()
+        (ncols,) = struct.unpack("<H", buf.read(2))
+        columns: Dict[str, np.ndarray] = {}
+        for c in schema.data_columns[:ncols]:
+            nbuckets, nbytes = struct.unpack("<HI", buf.read(6))
+            if nbuckets and version >= 2:
+                from filodb_tpu_torch.memory.binhist import \
+                    decode_blob_column
+                mat, _ = decode_blob_column(buf.read(nbytes), n)
+                columns[c.name] = mat
+            else:
+                raw = np.frombuffer(buf.read(nbytes),
+                                    dtype=np.float64).copy()
+                columns[c.name] = (raw.reshape(n, nbuckets)
+                                   if nbuckets else raw)
+        (nles,) = struct.unpack("<H", buf.read(2))
+        les = (np.frombuffer(buf.read(8 * nles), dtype=np.float64).copy()
+               if nles else None)
+        return RecordBatch(schema, part_keys, part_idx, timestamps, columns,
+                           les)
 
     @classmethod
     def from_grid(cls, schema: Schema, part_keys: List[PartKey],

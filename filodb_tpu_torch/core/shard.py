@@ -8,7 +8,10 @@ flattens a slab with duplicate keys into a RecordBatch), index lookup,
 the pid->row and pid->key maps, the seqlock snapshot read, flush groups
 and their checkpoints (`flush_group`: copy and seal under the write lock,
 encode and persist outside it), the compressed resident tier, memory
-enforcement, eviction of ended series and demand paging; traced filters
+enforcement, eviction of ended series and demand paging; the admission
+pieces (the cardinality tracker's quotas at series creation, the
+per-workspace series budget `index.tenant_series_limit`) and per-tenant
+usage accounting on every ingest path (`_account_ingest`); traced filters
 (`set_traced_filters`: series matching a filter group are logged at
 creation, ingest and query lookup) and the fault points `ingest.batch`
 and `flush.persist` (utils/faults.py), where the reference fires them.
@@ -18,10 +21,13 @@ from the column store's part keys; queries then page the flushed chunk
 frames back through demand paging.  `recover_stream` replays a stream's
 batches past each flush group's checkpoint, and `compact_index` prunes
 the index's tombstoned postings under the write lock.  Left out: the
-downsampler hook, the cardinality tracker, tenant quotas and usage
-accounting.  The store settings the reference reads from its config are
-the constants below, at its defaults.  Host arrays stay numpy; the
-device copy is the DeviceMirror's.
+downsampler hook.  The store settings the reference reads from its
+config are the constants below, at its defaults; the tenant settings
+come from the config (`query.tenant_usage_enabled`,
+`index.tenant_series_limit`).  A key whose partition lives in another
+schema's store is dropped from a batch of this schema and counted in
+`stats.schema_dropped` (the reference writes it into the other store's
+row).  Host arrays stay numpy; the device copy is the DeviceMirror's.
 """
 from __future__ import annotations
 
@@ -41,6 +47,8 @@ import numpy as np
 from filodb_tpu_torch.core.blockstore import DenseSeriesStore
 from filodb_tpu_torch.core.index import MAX_TIME, ColumnFilter, PartKeyIndex
 from filodb_tpu_torch.core.partkey import PartKey
+from filodb_tpu_torch.core.ratelimit import (QuotaReachedException,
+                                             TenantBudgetExceeded)
 from filodb_tpu_torch.core.records import RecordBatch
 from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS, Schemas
 from filodb_tpu_torch.core.store import (ColumnStore, InMemoryMetaStore,
@@ -106,6 +114,9 @@ class ShardStats:
     chunks_flushed: int = 0
     flushes: int = 0
     evictions: int = 0
+    quota_dropped: int = 0          # series rejected by cardinality quota
+    tenant_rejected: int = 0        # series rejected by the per-ws budget
+    schema_dropped: int = 0         # samples for a key of another schema
 
 
 class PagedLimitExceeded(ValueError):
@@ -153,7 +164,10 @@ class TimeSeriesShard:
     def __init__(self, dataset: str, shard_num: int,
                  schemas: Schemas = DEFAULT_SCHEMAS, device=None,
                  column_store: Optional[ColumnStore] = None,
-                 meta_store: Optional[MetaStore] = None):
+                 meta_store: Optional[MetaStore] = None, config=None):
+        if config is None:
+            from filodb_tpu_torch.config import settings
+            config = settings()
         self.dataset = dataset
         self.shard_num = shard_num
         self.schemas = schemas
@@ -188,6 +202,21 @@ class TimeSeriesShard:
             RESIDENT_CACHE_BYTES,
             persistent=not isinstance(self.column_store, NullColumnStore))
         self.stats = ShardStats()
+        # per-tenant (_ws_/_ns_) ingest attribution (utils/usage.py):
+        # pid -> small tenant id resolved once at partition creation, so
+        # the ingest paths pay one vectorized bincount per batch
+        self._usage_enabled = config.query.tenant_usage_enabled
+        # per-workspace alive-series counts behind the
+        # index.tenant_series_limit budget (0 = off); internal workspaces
+        # and _ws_-less series are exempt from the gate
+        self._tenant_series_limit = config.index.tenant_series_limit
+        self._ws_series: Dict[str, int] = {}
+        self._pid_tenant = np.zeros(0, dtype=np.int32)
+        self._tenant_ids: Dict[Tuple[str, str], int] = {}
+        self._tenant_names: List[Tuple[str, str]] = []
+        # optional cardinality tracker enforcing quotas at series creation
+        # (core/ratelimit.CardinalityTracker)
+        self.cardinality_tracker = None
         self.ingested_offset = -1                   # latest ingest offset seen
         self._groups = GROUPS_PER_SHARD
         self._dirty_part_keys: set = set()          # partIds needing pk upsert
@@ -255,6 +284,25 @@ class TimeSeriesShard:
         pid = self.part_set.get(kb)
         if pid is not None:
             return self.partitions[pid]
+        if self.cardinality_tracker is not None:
+            # raises QuotaReachedException before any state is touched
+            self.cardinality_tracker.series_created(
+                self._shard_key_tuple(part_key))
+        ws = ""
+        if self._tenant_series_limit:
+            # per-tenant cardinality budget: raises before any state is
+            # touched, like the quota above
+            from filodb_tpu_torch.utils.usage import INTERNAL_WORKSPACES
+            ws = part_key.tags_dict.get("_ws_", "")
+            if ws and ws not in INTERNAL_WORKSPACES:
+                alive = self._ws_series.get(ws, 0)
+                if alive >= self._tenant_series_limit:
+                    self.stats.tenant_rejected += 1
+                    metrics_registry.counter(
+                        "tenant_series_rejected", dataset=self.dataset,
+                        ws=ws).increment()
+                    raise TenantBudgetExceeded(
+                        ws, self._tenant_series_limit, alive)
         pid = len(self.partitions)
         store = self._store_for(schema_name)
         # group from the stable partKey hash, not the partId: replay
@@ -274,11 +322,25 @@ class TimeSeriesShard:
         self._pid_schema_code[pid] = code
         self._pid_row[pid] = info.row
         self._pid_alive[pid] = True
+        self._pid_tenant = _grow_to(self._pid_tenant, n)
+        if self._usage_enabled:
+            tags = part_key.tags_dict
+            tk = (tags.get("_ws_", ""), tags.get("_ns_", ""))
+            tid = self._tenant_ids.get(tk)
+            if tid is None:
+                tid = self._tenant_ids[tk] = len(self._tenant_names)
+                self._tenant_names.append(tk)
+            self._pid_tenant[pid] = tid
         self._rv_keys.append(None)
         self._group_pids[info.group].append(pid)
         self.part_set[kb] = pid
         self.index.add_partition(pid, part_key, start_time_ms)
         self._dirty_part_keys.add(pid)
+        if self._tenant_series_limit:
+            if not ws:
+                ws = part_key.tags_dict.get("_ws_", "")
+            if ws:
+                self._ws_series[ws] = self._ws_series.get(ws, 0) + 1
         self.stats.partitions_created += 1
         if self.traced_part_filters or self._traced_groups:
             if self._trace_match(part_key):
@@ -376,9 +438,14 @@ class TimeSeriesShard:
     def _grid_rows_ok(ent: list) -> bool:
         """True when the entry's resolved pids are pairwise distinct (the
         append_grid precondition: a duplicate part key would alias two
-        rows onto one pid)."""
+        rows onto one pid).  A fully resolved table memoizes the verdict;
+        a table with quota holes (-1 slots) is checked on the kept keys
+        per batch."""
+        pids = ent[1]
+        if (pids < 0).any():
+            kept = pids[pids >= 0]
+            return bool(np.unique(kept).size == kept.size)
         if ent[4] is None:
-            pids = ent[1]
             ent[4] = bool(np.unique(pids).size == pids.size)
         return ent[4]
 
@@ -386,11 +453,30 @@ class TimeSeriesShard:
                         pids_for_key: np.ndarray, need: np.ndarray,
                         first_ts) -> None:
         """Create partitions for key indices `need` whose pid slot is -1;
-        `first_ts` maps key index -> first sample time (dict or array)."""
+        `first_ts` maps key index -> first sample time (dict or array).
+        A quota-rejected key keeps its -1 slot (its records drop and
+        count) and is retried with the next batch."""
         for k in need.tolist():
-            info = self.get_or_create_partition(
-                pk_list[k], schema_name, int(first_ts[k]))
+            try:
+                info = self.get_or_create_partition(
+                    pk_list[k], schema_name, int(first_ts[k]))
+            except QuotaReachedException:
+                self.stats.quota_dropped += 1
+                continue
             pids_for_key[k] = info.part_id
+
+    def _keep_keys(self, pids_for_key: np.ndarray,
+                   schema_name: str) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (keep, other) masks over a key table: `keep` the keys with a
+        partition in this schema's store, `other` the keys whose partition
+        lives in another schema's store (their samples are dropped: the
+        store rows of one schema mean nothing in another's)."""
+        resolved = pids_for_key >= 0
+        if not self._pid_schema_code.size:
+            return resolved, resolved
+        same = self._pid_schema_code[np.where(resolved, pids_for_key, 0)] \
+            == self._schema_code_of.get(schema_name, -1)
+        return resolved & same, resolved & ~same
 
     @staticmethod
     def _grid_samples(batch: RecordBatch) -> int:
@@ -426,6 +512,8 @@ class TimeSeriesShard:
             ts2d = batch.timestamps.reshape(-1, grid_k)
             unresolved = np.flatnonzero(pids_for_key < 0)
             if unresolved.size:
+                # first_ts is indexed by key index: hand over the full
+                # first-sample column (quota holes are a non-prefix subset)
                 self._create_missing(pk_list, batch.schema.name,
                                      pids_for_key, unresolved, ts2d[:, 0])
                 ent[4] = None
@@ -434,12 +522,21 @@ class TimeSeriesShard:
         if grid_k:
             if self._traced_pids:
                 self._trace_touch_resolved(pids_for_key, offset)
-            rows = self._pid_row[pids_for_key]
+            keep, other = self._keep_keys(pids_for_key, batch.schema.name)
             cols2d = {c: v.reshape((len(pk_list), grid_k) + v.shape[1:])
                       for c, v in batch.columns.items()}
+            if keep.all():
+                rows = self._pid_row[pids_for_key]
+            else:
+                self.stats.rows_dropped += int((~keep).sum()) * grid_k
+                self.stats.schema_dropped += int(other.sum()) * grid_k
+                rows = self._pid_row[pids_for_key[keep]]
+                ts2d = ts2d[keep]
+                cols2d = {c: v[keep] for c, v in cols2d.items()}
             n = store.append_grid(rows, ts2d, cols2d, batch.bucket_les)
             self.stats.rows_ingested += n
             self.stats.rows_dropped += ts2d.size - n
+            self._account_ingest(pids_for_key[keep], grid_k)
             if offset >= 0:
                 self.ingested_offset = offset
             return n
@@ -458,14 +555,47 @@ class TimeSeriesShard:
             if traced_touched:
                 self._trace_touch("ingest", traced_touched,
                                   extra=f" offset={offset}")
-        rows = self._pid_row[pids_for_key[batch.part_idx]]
+        keep_key, other = self._keep_keys(pids_for_key, batch.schema.name)
+        pid_sel = pids_for_key[batch.part_idx]
+        keep = keep_key[batch.part_idx]
+        if not keep.all():
+            self.stats.rows_dropped += int((~keep).sum())
+            if other.any():
+                self.stats.schema_dropped += int(other[batch.part_idx].sum())
+            pid_sel = pid_sel[keep]
+            batch = RecordBatch(batch.schema, batch.part_keys,
+                                batch.part_idx[keep], batch.timestamps[keep],
+                                {k: v[keep] for k, v in batch.columns.items()},
+                                batch.bucket_les)
+        rows = self._pid_row[pid_sel]
         n = store.append_batch(rows, batch.timestamps, batch.columns,
                                batch.bucket_les)
         self.stats.rows_ingested += n
         self.stats.rows_dropped += batch.num_records - n
+        self._account_ingest(pid_sel, 1)
         if offset >= 0:
             self.ingested_offset = offset
         return n
+
+    def _account_ingest(self, pids: np.ndarray, samples_per_key) -> None:
+        """Per-tenant ingest attribution: one bincount over the batch's
+        tenant ids.  `samples_per_key` is a scalar (grid paths: every key
+        gained k cells) or a per-entry weight array.  Counts OFFERED
+        samples on the kept keys: the tenant asked for that ingest work
+        whether or not out-of-order rows were dropped."""
+        if not self._usage_enabled or pids.size == 0 \
+                or not self._tenant_names:
+            return
+        from filodb_tpu_torch.utils.usage import usage
+        tids = self._pid_tenant[pids]
+        n_t = len(self._tenant_names)
+        if np.ndim(samples_per_key) == 0:
+            cnt = np.bincount(tids, minlength=n_t) * samples_per_key
+        else:
+            cnt = np.bincount(tids, weights=samples_per_key, minlength=n_t)
+        for tid in np.flatnonzero(cnt):
+            ws, ns = self._tenant_names[tid]
+            usage.record_ingest(ws, ns, int(cnt[tid]), dataset=self.dataset)
 
     def ingest_columns(self, schema_name: str, part_keys,
                        ts: np.ndarray, columns: Dict[str, np.ndarray],
@@ -501,10 +631,19 @@ class TimeSeriesShard:
                 return self._ingest(flat, offset)
             if self._traced_pids:
                 self._trace_touch_resolved(pids_for_key, offset)
-            rows = self._pid_row[pids_for_key]
+            keep, other = self._keep_keys(pids_for_key, schema_name)
+            if keep.all():
+                rows = self._pid_row[pids_for_key]
+            else:
+                self.stats.rows_dropped += int((~keep).sum()) * ts.shape[1]
+                self.stats.schema_dropped += int(other.sum()) * ts.shape[1]
+                rows = self._pid_row[pids_for_key[keep]]
+                ts = ts[keep]
+                columns = {c: v[keep] for c, v in columns.items()}
             n = store.append_grid(rows, ts, columns, bucket_les)
             self.stats.rows_ingested += n
             self.stats.rows_dropped += ts.size - n
+            self._account_ingest(pids_for_key[keep], ts.shape[1])
             if offset >= 0:
                 self.ingested_offset = offset
             return n
@@ -727,6 +866,9 @@ class TimeSeriesShard:
             self._group_ckpt_offset[group] = offset_snapshot
             self.meta_store.write_checkpoint(
                 self.dataset, self.shard_num, group, offset_snapshot)
+        if self.cardinality_tracker is not None:
+            # buffered cardinality updates persist with the checkpoint
+            self.cardinality_tracker.flush()
         self.stats.chunks_flushed += len(encoded)
         self.stats.flushes += 1
         return len(encoded)
@@ -1051,8 +1193,12 @@ class TimeSeriesShard:
         n = 0
         for rec in self.column_store.read_part_keys(self.dataset,
                                                     self.shard_num):
-            info = self.get_or_create_partition(
-                rec.part_key, rec.schema_name, rec.start_time_ms)
+            try:
+                info = self.get_or_create_partition(
+                    rec.part_key, rec.schema_name, rec.start_time_ms)
+            except QuotaReachedException:
+                self.stats.quota_dropped += 1
+                continue
             if rec.end_time_ms < MAX_TIME:
                 self.index.update_end_time(info.part_id, rec.end_time_ms)
             n += 1
@@ -1176,6 +1322,7 @@ class TimeSeriesShard:
                         self._pid_alive[pid] = False
                         self._evicted_tombstones.append((time.time(), pid))
                         self.resident.drop_part(pid)
+                        self._series_stopped(info.part_key)
                         evicted += 1
                         self.stats.evictions += 1
                     if evicted:
@@ -1188,6 +1335,27 @@ class TimeSeriesShard:
                         return total
         finally:
             self.eviction_in_progress = False
+
+    def _shard_key_tuple(self, part_key: PartKey) -> Tuple[str, ...]:
+        """The tracker's key: the shard-key columns' values in order."""
+        sk = part_key.shard_key(self.schemas.part)
+        return tuple(sk.get(c, "")
+                     for c in self.schemas.part.options.shard_key_columns)
+
+    def _series_stopped(self, part_key: PartKey) -> None:
+        """An evicted series leaves the tracker's active counts and its
+        workspace's series budget."""
+        if self.cardinality_tracker is not None:
+            self.cardinality_tracker.series_stopped(
+                self._shard_key_tuple(part_key))
+        if self._tenant_series_limit:
+            ws = part_key.tags_dict.get("_ws_", "")
+            if ws:
+                n = self._ws_series.get(ws, 0) - 1
+                if n > 0:
+                    self._ws_series[ws] = n
+                else:
+                    self._ws_series.pop(ws, None)
 
     def append_horizon_ms(self) -> int:
         """Largest timestamp T such that every FUTURE append lands strictly

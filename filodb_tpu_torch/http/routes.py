@@ -10,8 +10,12 @@ without binding ports.  Routes served:
   plan tree, nothing run), POST /api/v1/query_range_batch,
   /api/v1/explain (`analyze=true` runs the plan and annotates every
   node), /api/v1/labels, /api/v1/label/<name>/values, /api/v1/series,
-  /api/v1/usage, /api/v1/status/{health,buildinfo,runtimeinfo}, each
-  also under /promql/<dataset>/api/v1/...;
+  /api/v1/usage, /api/v1/status/{health,buildinfo,runtimeinfo,tsdb},
+  /api/v1/metering/cardinality, each also under
+  /promql/<dataset>/api/v1/...;
+- the write doors: POST /api/v1/write (Prometheus remote write), POST
+  /api/v1/read (remote read), POST /influx/write (Influx line protocol),
+  each over the dataset's gateway pipeline (gateway/router.py);
 - /metrics, /__health, /healthz (with the health model's phase), /ready;
 - /admin/queries (list, get, POST .../kill), /admin/slowlog,
   /admin/ingestlog, /admin/devices, /admin/jobs, /admin/breakers,
@@ -20,18 +24,19 @@ without binding ports.  Routes served:
   /admin/profiler/{start,stop,report}.
 
 Every route the reference serves that the port does not have yet (the
-remote write and read routes, status/tsdb, metering/cardinality, the
 rules and alerts routes, /cluster/<dataset>/status, /admin/shards and
-its handoff verb, /admin/federation, /admin/rules/reload, /influx/write)
-answers 501 with errorType `not_ported`; a path the reference does not
-know keeps its 404.  A QueryError("not_ported") raised below the API
-answers 501 as well.
+its handoff verb, /admin/federation, /admin/rules/reload) answers 501
+with errorType `not_ported`; a path the reference does not know keeps
+its 404.  A QueryError("not_ported") raised below the API answers 501
+as well.  The port has no replication layer yet: `replicators` stays
+empty and remote write catches WalWriteError only.
 """
 from __future__ import annotations
 
 import json
 import logging
 import re
+import struct
 from typing import Dict, List, Optional, Tuple
 
 from filodb_tpu_torch.promql.lexer import ParseError, duration_to_ms
@@ -46,28 +51,36 @@ from filodb_tpu_torch.query.rangevector import PlannerParams
 class PromHttpApi:
 
     def __init__(self, engines: Dict[str, QueryEngine],
+                 gateways: Optional[Dict[str, object]] = None,
                  shard_mappers: Optional[Dict[str, object]] = None,
                  default_dataset: Optional[str] = None,
                  batch_window_ms: Optional[float] = None,
                  config=None, health=None):
         """engines: dataset -> QueryEngine, each already on its device.
+        gateways: dataset -> GatewayPipeline (gateway/router.py), the
+        write doors' ingest path; its `wal` makes remote write durable.
         config: a FilodbSettings (None: the settings() singleton); its
         `query` section sets the frontends' knobs.  health: the node's
         HealthEvaluator (None: one of its own, already `serving`)."""
         import time as _time
         self.engines = engines
+        self.gateways = gateways or {}
         self.shard_mappers = shard_mappers or {}
         self.default_dataset = default_dataset or next(iter(engines), None)
         # the health model (utils/health.py): shard mappers feed the
-        # shard verdict; the port has no WAL yet, so every dataset
-        # reports it not enabled
+        # shard verdict; a dataset's WAL is enabled when its gateway
+        # pipeline carries one, already replayed (the port's node boots
+        # its stores from the log before it builds this API; a caller
+        # that replays later reports it with health.note_wal)
         if health is None:
             from filodb_tpu_torch.utils.health import HealthEvaluator
             health = HealthEvaluator()
         self.health = health
         self.health.shard_mappers = self.shard_mappers
         for name in engines:
-            self.health.note_wal(name, enabled=False)
+            wal = getattr(self.gateways.get(name), "wal", None)
+            self.health.note_wal(name, enabled=wal is not None,
+                                 replay_done=wal is not None)
         self._start_unix = _time.time()
         # last-config-reload status for /api/v1/status/runtimeinfo; the
         # port has no reloadable config yet
@@ -92,6 +105,12 @@ class PromHttpApi:
                           for name, eng in engines.items()}
         self.coalescers = {name: fe.coalescer
                            for name, fe in self.frontends.items()}
+        # remote_write sinks, built lazily per dataset (the WAL manager
+        # is attached to the gateway pipeline after construction)
+        self._rw_sinks: Dict[str, object] = {}
+        # per-dataset replication managers: none until replication/ is
+        # ported
+        self.replicators: Dict[str, object] = {}
 
     # ------------------------------------------------------------ dispatch
 
@@ -116,12 +135,12 @@ class PromHttpApi:
             if parts[:1] == ["promql"] and len(parts) >= 4 \
                     and parts[2] == "api" and parts[3] == "v1":
                 return self._api_v1(parts[1], parts[4:], method, params,
-                                    body, multi)
+                                    body, multi, headers)
             if parts[:2] == ["api", "v1"]:
                 if self.default_dataset is None:
                     return 404, _err("no datasets registered")
                 return self._api_v1(self.default_dataset, parts[2:], method,
-                                    params, body, multi)
+                                    params, body, multi, headers)
             if parts[:1] == ["cluster"] and len(parts) >= 3 \
                     and parts[2] == "status":
                 return _not_ported("/cluster/<dataset>/status")
@@ -165,7 +184,7 @@ class PromHttpApi:
                 return self._traced_filters(body)
             if parts[:1] == ["influx"] and len(parts) == 2 \
                     and parts[1] == "write" and method == "POST":
-                return _not_ported("/influx/write")
+                return self._influx_write_traced(params, body, headers)
             return 404, _err(f"no route for {method} {path}")
         except _BadRequest as e:
             return 400, _err(str(e))
@@ -185,12 +204,14 @@ class PromHttpApi:
 
     def _api_v1(self, dataset: str, rest: List[str], method: str,
                 params: Dict[str, str], body: bytes,
-                multi: Dict[str, List[str]]) -> Tuple[int, object]:
+                multi: Dict[str, List[str]],
+                headers: Optional[Dict[str, str]] = None
+                ) -> Tuple[int, object]:
         eng = self.engines.get(dataset)
         if eng is None:
             return 404, _err(f"dataset {dataset!r} not found")
         if rest == ["write"] and method == "POST":
-            return _not_ported("/api/v1/write (remote write)")
+            return self._remote_write_ingest(dataset, body, headers or {})
         planner_params = _planner_params(params, self._qconfig)
         if rest == ["query_range"]:
             q = params.get("query", "")
@@ -271,9 +292,9 @@ class PromHttpApi:
             return self._metadata(eng, "series", params, multi,
                                   planner_params=planner_params)
         if rest == ["metering", "cardinality"]:
-            return _not_ported("/api/v1/metering/cardinality")
+            return self._cardinality(dataset, params)
         if rest == ["read"] and method == "POST":
-            return _not_ported("/api/v1/read (remote read)")
+            return self._remote_read(eng, body, planner_params)
         if rest in (["rules"], ["alerts"]):
             return _not_ported(f"/api/v1/{rest[0]} (the rules engine)")
         if rest == ["status", "buildinfo"]:
@@ -284,7 +305,7 @@ class PromHttpApi:
             return 200, {"status": "success",
                          "data": self.health.evaluate()}
         if rest == ["status", "tsdb"]:
-            return _not_ported("/api/v1/status/tsdb")
+            return self._status_tsdb(dataset, params)
         return 404, _err(f"unknown api/v1 endpoint {'/'.join(rest)}")
 
     def _explain(self, eng: QueryEngine, q: str, start: int, step: int,
@@ -794,6 +815,363 @@ class PromHttpApi:
             return 200, {"status": "success", "data": out}
         return 404, _err(f"unknown queries action {'/'.join(rest)!r} "
                          f"({method})")
+
+    # -------------------------------------------------------- remote write
+
+    def _remote_write_ingest(self, dataset: str, body: bytes,
+                             headers: Dict[str, str]) -> Tuple[int, object]:
+        """POST /api/v1/write — the Prometheus remote_write front door
+        (snappy-compressed protobuf WriteRequest; the Cortex /
+        Thanos-receive ingest contract).  Pipeline: snappy block
+        decompress → shared prompb codec decode → per-tenant admission →
+        WAL group commit (when configured) → rectangular columnar slabs
+        into `ingest_columns` (gateway/remotewrite.RemoteWriteSink).
+        Responses: 204 on success (the Prometheus client contract is any
+        2xx), 400 on malformed payloads, 429 + Retry-After when the
+        tenant's rolling ingest window is over its limit (backpressure —
+        the client re-sends, nothing is silently dropped), 503 when the
+        WAL cannot claim durability (ack withheld, client must retry).
+
+        Write-path tracing (doc/observability.md): a W3C `traceparent`
+        request header's trace id is ACCEPTED (the client's trace
+        continues through decode → WAL → memstore), else
+        one is minted; every response — errors included — carries
+        `X-Trace-Id` plus a `traceparent` echo, the per-stage breakdown
+        lands in an IngestStats fed to the freshness histograms, and
+        batches over `ingest.slow_batch_threshold_s` land in
+        /admin/ingestlog."""
+        from filodb_tpu_torch.utils.freshness import DoorTrace
+        from filodb_tpu_torch.utils.metrics import registry, span
+        registry.counter("remote_write_requests",
+                         dataset=dataset).increment()
+        door = DoorTrace(
+            "remote_write", dataset, headers, len(body),
+            threshold_s=self._config.ingest.slow_batch_threshold_s)
+        try:
+            with door, span("remote_write", dataset=dataset):
+                status, payload = self._remote_write_traced(
+                    dataset, body, door.headers, door.stats)
+        except _BadRequest as e:
+            # a rejected payload still answers with its trace headers
+            # (the documented contract: EVERY response correlates)
+            return 400, {**_err(str(e)),
+                         "_headers": door.trace_headers()}
+        if isinstance(payload, dict):
+            payload.setdefault("_headers", {}).update(
+                door.finish(status))
+        return status, payload
+
+    def _remote_write_traced(self, dataset: str, body: bytes,
+                             hdr: Dict[str, str], stats
+                             ) -> Tuple[int, object]:
+        """The remote_write pipeline body, running under the request's
+        trace context (split out so _remote_write_ingest owns the trace
+        bookkeeping and this owns the protocol)."""
+        import time as _time
+
+        from filodb_tpu_torch.http import remotepb
+        from filodb_tpu_torch.utils import snappy
+        from filodb_tpu_torch.utils.metrics import registry, span
+        from filodb_tpu_torch.utils.usage import usage
+        from filodb_tpu_torch.gateway.remotewrite import (admit_series,
+                                                    count_samples)
+        t0 = _time.perf_counter()
+        try:
+            with span("rw_decode", dataset=dataset):
+                series = remotepb.decode_write_request(
+                    snappy.decompress(body))
+        except (ValueError, IndexError, struct.error) as e:
+            # truncated/garbled snappy or protobuf bytes: the client's
+            # fault, counted and answered 400 like any bad payload
+            registry.counter("remote_write_bad_payloads",
+                             dataset=dataset).increment()
+            raise _BadRequest(f"bad remote-write payload: {e}")
+        stats.decode_s = _time.perf_counter() - t0
+        stats.series = len(series)
+        stats.samples = count_samples(series)
+        if stats.samples == 0:
+            return 204, {}
+        org = hdr.get("x-scope-orgid")
+        if org:
+            ws, _, ns = org.partition("/")
+            stats.tenant_ws, stats.tenant_ns = ws, ns
+        elif series:
+            labels = dict(series[0].labels)
+            stats.tenant_ws = labels.get("_ws_", "")
+            stats.tenant_ns = labels.get("_ns_", "")
+        # PER-TENANT admission over every series in the request (header
+        # org = one tenant for the whole request): an over-limit tenant
+        # must not ride in behind another tenant's series
+        t_adm = _time.perf_counter()
+        with span("rw_admission", dataset=dataset):
+            admitted, retry_after, rejected = admit_series(
+                series, org, self._qconfig.tenant_ingest_samples_limit)
+        stats.admission_s = _time.perf_counter() - t_adm
+        if admitted:
+            sink = self._remote_write_sink(dataset)
+            from filodb_tpu_torch.wal import WalWriteError
+            try:
+                sink.ingest_series(admitted, stats=stats)
+            except WalWriteError as e:
+                # durability could not be claimed: withhold the ack — a
+                # compliant remote_write client retries 5xx with backoff
+                return 503, {"status": "error",
+                             "errorType": "unavailable",
+                             "error":
+                                 f"write-ahead log commit failed: {e}"}
+        if rejected:
+            # anything rejected makes the WHOLE response a 429 so the
+            # client re-sends (never a silent drop): the re-send's
+            # already-admitted samples are same-timestamp duplicates the
+            # store drops, the rejected tenant's land after Retry-After
+            registry.counter("remote_write_rejected",
+                             dataset=dataset).increment()
+            return 429, {
+                "status": "error", "errorType": "too_many_requests",
+                "error": (f"{rejected} samples over a tenant ingest "
+                          f"limit "
+                          f"({self._qconfig.tenant_ingest_samples_limit}"
+                          f" samples per {usage.window_s:g}s window) — "
+                          f"retry after the window rolls"),
+                "_headers": {"Retry-After":
+                             str(max(1, int(-(-retry_after // 1))))}}
+        return 204, {}
+
+    def _remote_write_sink(self, dataset: str):
+        """Lazily-built RemoteWriteSink per dataset, assembled from the
+        dataset's gateway pipeline (memstore/mapper/spread/schemas + the
+        WAL manager attached to it)."""
+        sink = self._rw_sinks.get(dataset)
+        if sink is None:
+            gw = self.gateways.get(dataset)
+            if gw is None:
+                raise _BadRequest(
+                    f"no ingestion pipeline for dataset {dataset!r}")
+            from filodb_tpu_torch.gateway.remotewrite import RemoteWriteSink
+            sink = RemoteWriteSink(
+                gw.memstore, dataset, mapper=gw.mapper,
+                spread_provider=gw.spread, schemas=gw.schemas,
+                wal=getattr(gw, "wal", None),
+                replicator=self.replicators.get(dataset))
+            self._rw_sinks[dataset] = sink
+        return sink
+
+    # --------------------------------------------------------- remote read
+
+    def _remote_read(self, eng: QueryEngine, body: bytes,
+                     planner_params: Optional[PlannerParams] = None
+                     ) -> Tuple[int, object]:
+        """Prometheus remote-read: snappy-compressed protobuf ReadRequest in,
+        snappy-compressed ReadResponse of raw samples out (ref:
+        PrometheusApiRoute.scala:37-62, remote/RemoteStorage.java).  A bytes
+        payload tells the server shell to send application/x-protobuf with
+        Content-Encoding: snappy.  Blocks read from the card come back
+        with on_host() before the f64 re-add of vbase."""
+        import dataclasses as _dc
+
+        import numpy as np
+
+        from filodb_tpu_torch.core.index import (Equals, EqualsRegex, NotEquals,
+                                           NotEqualsRegex)
+        from filodb_tpu_torch.http import remotepb
+        from filodb_tpu_torch.query import logical as lp
+        from filodb_tpu_torch.utils import snappy
+
+        try:
+            queries = remotepb.decode_read_request(snappy.decompress(body))
+        except (ValueError, IndexError, struct.error) as e:
+            # IndexError/struct.error: truncated snappy or protobuf bytes —
+            # still the client's fault, so a 400 like any other bad payload
+            raise _BadRequest(f"bad remote-read payload: {e}")
+        # the remote-read protobuf has NO channel for a partial flag or
+        # warnings, so degradation here would be exactly the silent
+        # partial the contract forbids: always fail hard on dead shards
+        # (timeout=/limit overrides still apply)
+        pp = planner_params if planner_params is not None else PlannerParams()
+        if pp.allow_partial_results:
+            pp = _dc.replace(pp, allow_partial_results=False)
+        matcher_map = {remotepb.EQ: Equals, remotepb.NEQ: NotEquals,
+                       remotepb.RE: EqualsRegex, remotepb.NRE: NotEqualsRegex}
+        results = []
+        for q in queries:
+            filters = []
+            for m in q.matchers:
+                cls = matcher_map.get(m.type)
+                if cls is None:
+                    raise _BadRequest(f"unsupported matcher type {m.type}")
+                name = "_metric_" if m.name == "__name__" else m.name
+                filters.append(cls(name, m.value))
+            plan = lp.RawSeries(
+                lp.IntervalSelector(q.start_timestamp_ms, q.end_timestamp_ms),
+                tuple(filters))
+            res = eng.exec_logical_plan(plan, pp)
+            if res.error:
+                raise _BadRequest(res.error)
+            series_out = []
+            for block in res.blocks:
+                block = block.on_host()
+                vals = np.asarray(block.values, dtype=np.float64)
+                if vals.ndim != 2:
+                    continue            # histogram schemas: not remote-readable
+                ts_abs = np.asarray(block.ts_off, dtype=np.int64) + block.base_ms
+                if block.vbase is not None:
+                    vals = vals + np.asarray(block.vbase, np.float64)[:, None]
+                for i, key in enumerate(block.keys):
+                    valid = (np.isfinite(vals[i])
+                             & (ts_abs[i] >= q.start_timestamp_ms)
+                             & (ts_abs[i] <= q.end_timestamp_ms))
+                    labels = [("__name__" if k == "_metric_" else k, v)
+                              for k, v in key.labels]
+                    samples = [(float(v), int(t)) for v, t in
+                               zip(vals[i][valid], ts_abs[i][valid])]
+                    series_out.append(remotepb.PromTimeSeries(labels, samples))
+            results.append(series_out)
+        payload = snappy.compress(remotepb.encode_read_response(results))
+        return 200, payload
+
+    def _cardinality(self, dataset: str,
+                     params: Dict[str, str]) -> Tuple[int, object]:
+        """Top-k child prefixes by series count, merged across shards
+        (ref: TsCardinalities logical plan / ClusterApiRoute cardinality)."""
+        eng = self.engines[dataset]
+        prefix = tuple(p for p in params.get("prefix", "").split(",") if p)
+        k = _num_param(params, "k", "10")
+        merged: Dict[Tuple[str, ...], Dict[str, int]] = {}
+        source = getattr(eng, "source", None)
+        mapper = self.shard_mappers.get(dataset)
+        shard_ids = mapper.all_shards() if mapper is not None else [0]
+        for s in shard_ids:
+            shard = source.get_shard(dataset, s) if source else None
+            tracker = getattr(shard, "cardinality_tracker", None)
+            if tracker is None:
+                continue
+            # merge FULL child lists — per-shard top-k truncation would
+            # undercount prefixes that rank differently across shards
+            for rec in tracker.children(prefix):
+                agg = merged.setdefault(rec.prefix, {"ts": 0, "active": 0,
+                                                     "children": 0})
+                agg["ts"] += rec.ts_count
+                agg["active"] += rec.active_ts_count
+                agg["children"] += rec.children_count
+        rows = [{"prefix": list(p), "tsCount": v["ts"],
+                 "activeTsCount": v["active"], "childrenCount": v["children"]}
+                for p, v in merged.items()]
+        rows.sort(key=lambda r: -r["tsCount"])
+        return 200, {"status": "success", "data": rows[:k]}
+
+    def _status_tsdb(self, dataset: str,
+                     params: Dict[str, str]) -> Tuple[int, object]:
+        """GET /api/v1/status/tsdb — the Prometheus-compatible
+        cardinality explorer, built on the tag index's alive
+        label_value_counts and merged across shards: top-k metrics,
+        label-value pairs and value counts per label name, plus
+        per-tenant (_ws_) series totals and the per-ws budget rejection
+        count (the "which tenant is exploding cardinality" runbook view,
+        doc/index.md)."""
+        eng = self.engines[dataset]
+        k = _num_param(params, "limit", "10")
+        source = getattr(eng, "source", None)
+        mapper = self.shard_mappers.get(dataset)
+        shard_ids = mapper.all_shards() if mapper is not None else [0]
+        num_series = 0
+        rejected = 0
+        by_metric: Dict[str, int] = {}
+        values_by_label: Dict[str, int] = {}
+        mem_by_label: Dict[str, int] = {}
+        by_pair: Dict[str, int] = {}
+        by_tenant: Dict[str, int] = {}
+        for s in shard_ids:
+            shard = source.get_shard(dataset, s) if source else None
+            idx = getattr(shard, "index", None)
+            if idx is None:
+                continue
+            num_series += idx.num_docs
+            rejected += shard.stats.tenant_rejected
+            for label in idx.label_names():
+                counts = idx.label_value_counts(label)
+                values_by_label[label] = (values_by_label.get(label, 0)
+                                          + len(counts))
+                mem_by_label[label] = (mem_by_label.get(label, 0)
+                                       + idx.label_memory_bytes(label))
+                for v, c in counts:
+                    if c <= 0:
+                        continue
+                    if label == "__name__":
+                        by_metric[v] = by_metric.get(v, 0) + c
+                    elif label == "_ws_":
+                        by_tenant[v] = by_tenant.get(v, 0) + c
+                    pair = f"{label}={v}"
+                    by_pair[pair] = by_pair.get(pair, 0) + c
+
+        def topk(d: Dict[str, int]) -> list:
+            rows = sorted(d.items(), key=lambda kv: (-kv[1], kv[0]))
+            return [{"name": n, "value": v} for n, v in rows[:k]]
+
+        data = {
+            "headStats": {
+                "numSeries": num_series,
+                "numLabelPairs": len(by_pair),
+                "tenantSeriesRejected": rejected,
+                "tenantSeriesLimit":
+                    self._config.index.tenant_series_limit,
+            },
+            "seriesCountByMetricName": topk(by_metric),
+            "labelValueCountByLabelName": topk(values_by_label),
+            "memoryInBytesByLabelName": topk(mem_by_label),
+            "seriesCountByLabelValuePair": topk(by_pair),
+            "seriesCountByTenant": topk(by_tenant),
+        }
+        return 200, {"status": "success", "data": data}
+
+    # -------------------------------------------------------------- influx
+
+    def _influx_write_traced(self, params, body, headers=None):
+        """Gateway-side trace context: the write path's spans collect
+        under one trace id — ACCEPTED from a W3C `traceparent` request
+        header when present, minted otherwise — returned in the
+        X-Trace-Id / traceparent response headers (Influx writes answer
+        204 with no body; ref: the ingest half of the Kamon span
+        pipeline, KamonLogger.scala:16-40).  Batches over
+        `ingest.slow_batch_threshold_s` land in /admin/ingestlog with
+        the same freshness accounting as the remote_write door."""
+        from filodb_tpu_torch.utils.freshness import DoorTrace
+        from filodb_tpu_torch.utils.metrics import span
+        door = DoorTrace(
+            "influx", params.get("db") or self.default_dataset or "",
+            headers, len(body),
+            threshold_s=self._config.ingest.slow_batch_threshold_s)
+        with door, span("influx_write"):
+            status, payload = self._influx_write(params, body,
+                                                 door.stats)
+        if isinstance(payload, dict):
+            payload.setdefault("_headers", {}).update(
+                door.finish(status))
+        return status, payload
+
+    def _influx_write(self, params: Dict[str, str],
+                      body: bytes, stats=None) -> Tuple[int, object]:
+        dataset = params.get("db") or self.default_dataset
+        gateway = self.gateways.get(dataset)
+        if gateway is None:
+            return 404, _err(f"no gateway for dataset {dataset!r}")
+        lines = body.decode("utf-8", errors="replace").splitlines()
+        n = gateway.ingest_lines(lines)
+        if stats is not None:
+            stats.series = len(lines)
+            stats.samples = n
+            stats.ingested = n
+        retry_after = gateway.last_retry_after
+        if n == 0 and retry_after is not None:
+            # every record bounced off the per-tenant ingest limit: this
+            # door HAS a reply channel, so backpressure like the
+            # remote_write front door instead of a silent drop
+            return 429, {
+                "status": "error", "errorType": "too_many_requests",
+                "error": "tenant ingest limit exceeded — retry after "
+                         "the window rolls",
+                "_headers": {"Retry-After":
+                             str(max(1, int(-(-retry_after // 1))))}}
+        return 204, {}
 
 
 class _TextPayload(str):

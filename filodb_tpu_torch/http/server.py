@@ -31,11 +31,14 @@ class FiloHttpServer:
                 params = {k: v[-1] for k, v in multi.items()}
                 length = int(self.headers.get("Content-Length") or 0)
                 body = self.rfile.read(length) if length else b""
-                # form-decode only for the API routes (/admin carries
-                # text bodies even when clients default the form
-                # content-type)
+                # form-decode only for the API routes (/admin and /influx
+                # carry text bodies even when clients default the form
+                # content-type); the binary api/v1 endpoints (remote read
+                # and write: snappy protobuf) are excluded too, since
+                # simple clients POST them with the form content-type
                 if method == "POST" and body and \
                         parsed.path.startswith(("/promql", "/api")) and \
+                        not parsed.path.endswith(("/read", "/write")) and \
                         self.headers.get("Content-Type", "").startswith(
                             "application/x-www-form-urlencoded"):
                     try:
@@ -65,7 +68,11 @@ class FiloHttpServer:
                         method, parsed.path, params, body,
                         multi_params=multi, headers=dict(self.headers))
                 extra_headers = {}
-                if isinstance(payload, str):        # text routes (/metrics)
+                if isinstance(payload, bytes):      # binary (remote read)
+                    blob = payload
+                    ctype = "application/x-protobuf"
+                    extra_headers["Content-Encoding"] = "snappy"
+                elif isinstance(payload, str):      # text routes (/metrics)
                     blob = payload.encode()
                     # routes may carry a negotiated content type (the
                     # OpenMetrics exposition); plain strings keep the

@@ -285,9 +285,11 @@ class ChunkPlan(NamedTuple):
 
 def pad_values(vals, vbase, plan: FusedPlan, device=None) -> PaddedValues:
     """Zero-padded [Sp, Tp] f32 copy of the working set (pad rows are in
-    no group; pad columns are never selected)."""
+    no group; pad columns are never selected).  `device` follows the
+    device rule: an explicit device, else the tensor's, else the card
+    (numpy values without `device=` raise without one)."""
     if device is None:
-        device = vals.device if isinstance(vals, torch.Tensor) else "cpu"
+        device = _input_device(vals, None)
     v = torch.as_tensor(vals, device=device)
     S, T = v.shape
     Sp = pad_series_count(S)

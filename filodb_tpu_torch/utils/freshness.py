@@ -1,7 +1,6 @@
 """Write-path freshness: per-batch IngestStats + the ingest SLO layer
-(port of filodb_tpu/utils/freshness.py, a JAX-free copy; nothing in
-the port feeds it until its ingest doors are ported, and the health
-model reads it all the same).
+(port of filodb_tpu/utils/freshness.py, a JAX-free copy; the write
+doors feed it through DoorTrace, and the health model reads it).
 
 "How stale is my data?" gets a measured answer (doc/observability.md):
 

@@ -17,8 +17,8 @@ breakdown.
 The write path has the same recorder: ingest batches whose door-to-ack
 wall exceeds `ingest.slow_batch_threshold_s` land in a second ring
 (`IngestSlowLog`, GET /admin/ingestlog) with tenant, byte and sample
-counts, the per-stage breakdown and the batch's trace id.  The port's
-ingest doors are not ported yet, so nothing records into it.
+counts, the per-stage breakdown and the batch's trace id; the write
+doors (remote write, /influx/write, the TCP gateway) record into it.
 """
 from __future__ import annotations
 

@@ -1151,3 +1151,70 @@ def test_wal_replay_onto_the_card_launches_k1_bit_identical(card, tmp_path):
                                 {"count": vals[:, -1:] + 1}) == S // slab
     finally:
         wal2.close()
+
+
+def test_remote_write_into_a_card_store_launches_k1(card, tmp_path):
+    """One Prometheus remote-write request through PromHttpApi's
+    /api/v1/write (a GatewayPipeline with a WAL) into a store on the
+    card: the existing counters gain the samples in their own schema, the
+    next panel pays an incremental refresh and launches K1, and its
+    answer equals the same panel over a store that ingested the same
+    values directly."""
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.gateway.router import GatewayPipeline
+    from filodb_tpu_torch.http import remotepb
+    from filodb_tpu_torch.http.routes import PromHttpApi
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.utils import snappy
+    from filodb_tpu_torch.wal import WalManager
+    S, T = 2000, 120
+    rng = np.random.default_rng(43)
+    t0 = 1_600_000_000_000
+    ts = np.broadcast_to(t0 + np.arange(T, dtype=np.int64) * 10_000, (S, T))
+    labels = [{"_ws_": "demo", "_ns_": f"App-{i % 50}",
+               "instance": f"Instance-{i}"} for i in range(S)]
+    keys = [PartKey.make("request_total", lb) for lb in labels]
+    vals = np.cumsum(rng.exponential(10.0, size=(S, T + 1)), axis=1)
+    q = "sum by (_ns_) (rate(request_total[5m]))"
+    start_s, end_s = t0 // 1000 + 600, t0 // 1000 + T * 10
+    stores = []
+    for _ in range(2):
+        ms = TimeSeriesMemStore(device=card)
+        ms.setup("prometheus", 0).ingest_columns(
+            "prom-counter", keys, ts, {"count": vals[:, :T]})
+        eng = QueryEngine("prometheus", ms, device=card)
+        eng.query_range(q, start_s, 60, end_s - 10)     # the mirror
+        stores.append((ms, eng))
+    (ms, eng), (ms2, eng2) = stores
+    ms2.get_shard("prometheus", 0).ingest_columns(
+        "prom-counter", keys, np.full((S, 1), t0 + T * 10_000),
+        {"count": vals[:, T:]})
+    wal = WalManager(str(tmp_path), "prometheus")
+    try:
+        gw = GatewayPipeline(ms, "prometheus", ShardMapper(1))
+        gw.wal = wal
+        api = PromHttpApi({"prometheus": eng}, gateways={"prometheus": gw})
+        body = snappy.compress(remotepb.encode_write_request([
+            remotepb.PromTimeSeries(
+                [("__name__", "request_total")] + sorted(lb.items()),
+                [(float(vals[i, T]), t0 + T * 10_000)])
+            for i, lb in enumerate(labels)]))
+        status, _ = api.handle("POST", "/api/v1/write", {}, body)
+        assert status == 204
+        assert wal.writer.committed_seq == 0
+        sh = ms.get_shard("prometheus", 0)
+        assert list(sh.stores) == ["prom-counter"]
+        assert sh.stores["prom-counter"].counts[:S].tolist() == [T + 1] * S
+        n0 = kernels.LAUNCHES.get("fused_rate_dense", 0)
+        got = _series_of(eng.query_range(q, start_s, 60, end_s))
+        assert kernels.LAUNCHES["fused_rate_dense"] == n0 + 1
+        assert sh.stores["prom-counter"].device_mirror.last_refresh_kind \
+            == "incremental"
+        want = _series_of(eng2.query_range(q, start_s, 60, end_s))
+        assert [k for k, _ in got] == [k for k, _ in want]
+        for (_, x), (_, y) in zip(got, want):
+            assert np.array_equal(x, y, equal_nan=True)
+    finally:
+        wal.close()

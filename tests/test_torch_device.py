@@ -24,7 +24,14 @@ def no_card(monkeypatch):
     lambda: DeviceMirror(),
     lambda: QueryEngine("prometheus", TimeSeriesMemStore(device="cpu")),
     lambda: resolve_device("cuda:0"),
-], ids=["memstore", "memstore_cuda", "mirror", "engine", "resolve"])
+    lambda: fused.pad_values(
+        np.zeros((8, 40), np.float32), np.zeros(8),
+        fused.build_plan(np.arange(40, dtype=np.int64) * 10_000,
+                         np.arange(100_000, 390_001, 30_000), 60_000)),
+    lambda: __import__("filodb_tpu_torch.core.devicecache",
+                       fromlist=["x"]).ColdSegmentCache(1 << 20),
+], ids=["memstore", "memstore_cuda", "mirror", "engine", "resolve",
+        "pad_values_numpy", "cold_cache"])
 def test_entry_points_raise_without_a_card(no_card, make):
     with pytest.raises(NoCudaDevice):
         make()

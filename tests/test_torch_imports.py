@@ -63,7 +63,11 @@ NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "persist.segments", "persist.compactor", "utils.varint",
                "utils.snappy", "wal", "wal.segment", "wal.writer",
                "wal.replay", "core.flush", "ingest", "ingest.stream",
-               "persist.objectstore")
+               "persist.objectstore", "http.remotepb", "core.ratelimit",
+               "gateway", "gateway.accounting", "gateway.influx",
+               "gateway.router", "gateway.remotewrite", "gateway.server",
+               "ingest.generator", "ingest.filebroker", "ingest.kafka_wire",
+               "ingest.kafka", "memory.binhist")
 
 
 def _bare_import(module):
@@ -83,10 +87,12 @@ def _bare_import(module):
 def test_general_path_module_stands_alone(module):
     """Each module of the general path, the probe, the live write path,
     the serving stack, the operations surface, the composed planners,
-    the persisted-segment tier and the durability layer (the WAL, the
+    the persisted-segment tier, the durability layer (the WAL, the
     flush scheduler, the ingestion streams and the shared object
-    store), imported alone in a fresh interpreter, pulls in neither jax
-    nor the reference package."""
+    store) and the write doors (the prompb codec, the cardinality
+    tracker, the gateway, the broker and Kafka streams), imported alone
+    in a fresh interpreter, pulls in neither jax nor the reference
+    package."""
     assert _bare_import("filodb_tpu_torch." + module) == []
 
 
@@ -132,3 +138,30 @@ def test_kernel_level_api_stands_alone():
                             "fused_rate_drops_ragged",
                             "fused_rate_drops_ragged_series"]
     assert (ROOT / "filodb_tpu_torch" / "csrc" / "fused_drops.cu").exists()
+
+
+def test_chip_smoke_imports_no_reference():
+    """chip_smoke.py names neither jax nor filodb_tpu on any import line,
+    and importing it (and the write doors it drives) in a fresh
+    interpreter loads neither."""
+    src = (ROOT / "chip_smoke.py").read_text().splitlines()
+    offenders = [f"chip_smoke.py:{i}: {line.strip()}"
+                 for i, line in enumerate(src, 1)
+                 if line.strip().startswith(("import ", "from "))
+                 and line.strip().split()[1].split(".")[0]
+                 in ("jax", "jaxlib", "filodb_tpu")]
+    assert offenders == []
+    probe = (
+        "import importlib, json, sys\n"
+        "sys.path.insert(0, '.')\n"
+        "importlib.import_module('chip_smoke')\n"
+        "for m in ('gateway.router', 'gateway.remotewrite', 'http.routes',"
+        " 'core.ratelimit'):\n"
+        "    importlib.import_module('filodb_tpu_torch.' + m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'filodb_tpu'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
