@@ -159,8 +159,10 @@ write-1M.  on the serve-1M server after planners-1M, over the same
    counters: its PromHttpApi carries gateways={"prometheus":
    GatewayPipeline(...)} over the store (one shard, a one-shard mapper)
    whose `wal` is the WalManager restart-1M recovered, so every 204
-   follows a group commit.  2 scrapes of every series, one sample each
-   10 s after the store's last, each counter going on by an increment
+   follows a group commit.  WRITE_SCRAPES scrapes of every series (one
+   since the rules-1M phase came: two took 288-398 s of the main line
+   and the whole script 1,068.5 s on one run, too near the 1,200 s
+   limit), one sample each 10 s after the store's last, each counter going on by an increment
    from the seed (no reset), labels dense-1M's; each scrape as snappy
    prompb WriteRequests of 2,000 series (Prometheus' max_samples_per_
    send; 525 at 1M, the last 576), encoded before the clock, POSTed to
@@ -181,8 +183,39 @@ write-1M.  on the serve-1M server after planners-1M, over the same
    split summed over the requests (decode, admission, build_slabs,
    wal_append, ingest, commit wait), gc seconds, the refresh and the
    paying panel's seconds, peak host RSS and peak device memory;
+rules-1M.  on the serve-1M server after write-1M, over the same
+   counters at full width: a Ruler over the server's frontend and a
+   MemstoreSink into the same memstore (api.ruler, as a node attaches
+   it), a WebhookNotifier posting to a stdlib receiver on localhost, one
+   group of three rules at interval 60 s evaluated by evaluate_group at
+   the store's last timestamp minus 3, 2, 1 and 0 minutes: rule 1
+   records sum by (_ws_, _ns_) (rate(request_total[5m])) (1,000
+   series), rule 2 sum by (_ws_) of rule 1's output at the same
+   timestamp, the alert ns:request_total:rate5m > T, `for: 2m`, T the
+   f64 oracle's 90th percentile of rule 1 at the first evaluation.  Rule
+   1 holds the f64 oracle of the grown slab (rtol 2e-4 / atol 1e-3) at
+   each evaluation, bit-identical to the expression through HTTP
+   /api/v1/query, and launches K1 once (the ledger shows it); rule 2 is
+   the sum of rule 1's recorded values within rtol 1e-6 (its sum runs
+   through K4 in f32); the alerts follow the state machine over the
+   namespaces above T (those within the kernel tolerance of T may go
+   either way), pending, then firing from the third evaluation; the
+   receiver gets the firing set twice (the transitions, then the resend
+   a minute later); /api/v1/rules and /api/v1/alerts show health ok and
+   those states; a second Ruler restores every alert from
+   ALERTS_FOR_STATE with its activeAt; POST /api/v1/read of the recorded
+   series returns them (ms to the bit, values within 1e-12 of the
+   largest); a TraceExporter on a file:// path under the run's temporary
+   directory holds a Zipkin span of every evaluation's trace, none
+   dropped.  Then a SelfScraper writes the metrics registry into a
+   second dataset, filodb_self, on the same memstore, served by the same
+   PromHttpApi: two scrapes 2 s apart, a counter incremented between
+   them, an HTTP query returns both values, and no wall-clock timestamp
+   enters the 1M dataset.  It prints each evaluation's seconds with the
+   rule-1 query's and the write-backs' shares, K1's ledger ms, the
+   receiver's POSTs, the exporter's spans and seconds;
 live-ingest-1M.  over the same counters (the store's values, write-1M's
-   two columns included, copied to the card for the oracle, its first
+   column included, copied to the card for the oracle, its first
    slab checked against the seed's): 10 scrapes (100 s at 10 s)
    through TimeSeriesShard.ingest, each one grid RecordBatch of one
    sample a series with the same key list, 1% of the series restarting
@@ -285,6 +318,30 @@ broker-16k.  the port's gateway (GatewayServer on an ephemeral port, a
    the bit.  It prints lines/s for each door.  Cut from 1M to 16,384
    series for the time limit: the Influx parser runs per line in Python
    on the host.
+downsample-16k.  8,192 request counters (dense-1M's labels, one reset
+   each) and 8,192 gauges (gauge-1M's) x 720 at 10 s on a
+   LocalDiskColumnStore in a temporary directory, on the card: a
+   ShardDownsampler at the default resolutions (1 m, 5 m) on the shard,
+   flush_all_groups, the drain into a DownsampledTimeSeriesStore on the
+   card (the streaming path); a DownsamplerJob over the same disk store
+   into a second LocalDiskColumnStore and a second downsample store over
+   it (refresh_index, chunks paged on demand; the batch path).  On both:
+   Q1 sum by (_ns_) (rate(request_total[5m])) at 1 m (resolution 1 m),
+   Q2 sum by (_ns_) of min/max/sum/count/avg/last_over_time(heap_usage
+   [10m]) at 5 m on windows aligned to the periods (resolution 5 m, the
+   ds-gauge column each reads), Q3 Q2's panel but last through a
+   LongTimeRangePlanner whose raw retention begins at the 60th minute
+   (the first hour downsampled, the rest raw, stitched), each cold and 3
+   times warm (bit-identical): every downsample answer against an f64
+   oracle of the store's own host arrays (rtol 2e-4 / atol 1e-3), Q2 and
+   Q3 against the raw store's answer (the same), Q1's total rate within
+   5% of the raw panel's.  It prints the flush seconds and the
+   downsampler's share, records per resolution, drain, ingest, the batch
+   job's seconds and stats, refresh_index, each query's cold and warm
+   p50 on both stores and on raw, whether the two stores answer
+   bit-identically, the mirrors' bytes and the kernels launched.  Cut
+   from 1M to 16,384 series for the time limit: flush encodes each
+   series on the host;
 restart-1M.  inside phase 3, at its full width: the build's 16 slabs
    go through a WalManager (WalConfig's defaults: fsync on, 64 MiB
    segments) in a tempfile.mkdtemp directory, each as the remote-write
@@ -310,7 +367,8 @@ restart-1M.  inside phase 3, at its full width: the build's 16 slabs
    deleted after live-ingest-1M.  A CardinalityTracker is attached to
    the new shard before the replay (as a node attaches it before
    recovery); the seconds its series_created takes are printed.
-flush-page-16k, cold-65k, compact-16k and broker-16k, then phases 4 and
+flush-page-16k, cold-65k, compact-16k, downsample-16k and broker-16k,
+then phases 4 and
 6-8, run in a second process (`--side stores`) from K8 on, beside phase
 3, restart-1M and the 1M phases on their store; phase 5 (with
 general-1M's gauge half), hist-classic-1M and hist-native-1M in a third
@@ -3484,7 +3542,7 @@ def run_planners_phase(eng, http, warm):
 
 # ----------------------------------------------------------- the doors
 
-WRITE_SCRAPES = 2                  # write-1M: scrapes of every series
+WRITE_SCRAPES = 1                  # write-1M: scrapes of every series
 WRITE_BATCH = 2_000                # queue_config.max_samples_per_send
 WRITE_CLIENTS = 4                  # remote-write shards of the sender
 READ_NS = "App-7"                  # write-1M's remote-read selector
@@ -3959,6 +4017,771 @@ def run_broker_phase(seed, dev):
 
 
 # ------------------------------------------------ phases 7 and 8: raw
+
+RULES_GROUP = "request-rates"      # rules-1M's group, interval 60 s
+RULE1 = "ns:request_total:rate5m"
+RULE1_EXPR = "sum by (_ws_, _ns_) (rate(request_total[5m]))"
+RULE2 = "ws:request_total:rate5m"
+RULE2_EXPR = f"sum by (_ws_) ({RULE1})"
+RULE_ALERT = "NamespaceRequestRateHigh"
+RULE_FOR_S = 120.0                 # the alert's `for:`
+RULE2_RTOL = 1e-6                  # rule 2's sum runs through K4 in f32
+SELF_DATASET = "filodb_self"       # selfmon's dataset on the same memstore
+
+
+class _Receiver:
+    """A stdlib webhook receiver on localhost: every POSTed JSON body."""
+
+    def __init__(self):
+        import http.server
+        posts = self.posts = []
+
+        class H(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                posts.append(json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"]))))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.srv.server_port}/alerts"
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(10)
+
+
+def vector_by_ns(payload, what):
+    """An instant-vector payload -> {App-N: value string}."""
+    check(payload["status"] == "success",
+          f"{what}: error payload {payload.get('error')}")
+    return {r["metric"]["_ns_"]: r["value"][1]
+            for r in payload["data"]["result"]}
+
+
+def expected_alerts(above, eval_s):
+    """The alert state machine (no keep_firing_for) over the namespaces
+    above the threshold at each evaluation -> per evaluation {ns:
+    (state, activeAt seconds)}."""
+    since, out = {}, []
+    for k, ts in enumerate(eval_s):
+        since = {ns: since.get(ns, ts) for ns in above[k]}
+        out.append({ns: ("firing" if ts - t0 >= RULE_FOR_S else "pending",
+                         t0) for ns, t0 in since.items()})
+    return out
+
+
+def alerts_by_ns(payload):
+    return {a["labels"]["_ns_"]: (a["state"], a["activeAt"])
+            for a in payload["alerts"]}
+
+
+def run_rules_phase(eng, ms, api, http, num_series, dev, out_dir):
+    """rules-1M (rules_phase) with its webhook receiver and span
+    exporter, both stopped whatever the outcome."""
+    from filodb_tpu_torch.utils.traceexport import TraceExporter
+    receiver = _Receiver()
+    exporter = TraceExporter(
+        f"file://{os.path.join(out_dir, 'rules-spans.jsonl')}",
+        flush_interval_s=1.0)
+    try:
+        return rules_phase(eng, ms, api, http, num_series, dev, receiver,
+                           exporter)
+    finally:
+        exporter.stop()
+        receiver.close()
+        api.ruler = None
+
+
+def rules_phase(eng, ms, api, http, num_series, dev, receiver, exporter):
+    """rules-1M on the serve-1M server over the dense 1M counters, after
+    write-1M: a Ruler over the server's frontend and a MemstoreSink into
+    the same memstore (attached as api.ruler), a WebhookNotifier posting
+    to a stdlib receiver on localhost, one group of three rules
+    evaluated at the store's last timestamp minus 3, 2, 1 and 0 minutes
+    (evaluate_group): rule 1 records sum by (_ws_, _ns_) (rate(...[5m]))
+    (1,000 series), rule 2 sums rule 1's output at the same timestamp,
+    the alert fires for `for: 2m` on rule 1 above the f64 oracle's 90th
+    percentile at the first evaluation.  The TraceExporter writes the
+    phase's spans to a file.  Then a second Ruler restores
+    the alerts from ALERTS_FOR_STATE, remote read returns the recorded
+    samples, and a SelfScraper writes the registry into a second
+    dataset of the memstore, served by the same API -> (launches, rows)."""
+    import torch
+    from filodb_tpu_torch.config import RulesConfig
+    from filodb_tpu_torch.http import remotepb
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.rules import (MemstoreSink, Rule, RuleGroup,
+                                        Ruler, WebhookNotifier)
+    from filodb_tpu_torch.rules.ruler import _iso
+    from filodb_tpu_torch.utils import snappy
+    from filodb_tpu_torch.utils.devicetelem import telem
+    from filodb_tpu_torch.utils.metrics import registry
+    t_phase = time.perf_counter()
+    shard = ms.get_shard("prometheus", 0)
+    store = store_rows(ms, num_series)
+    n_t = int(store.counts[:num_series].max())
+    check(int(store.counts[:num_series].min()) == n_t,
+          "rules-1M: the counters hold different sample counts")
+    ts_row = START_MS + np.arange(n_t, dtype=np.int64) * STEP_MS
+    last_ms = int(ts_row[-1])
+    check(int(store.ts[0, n_t - 1]) == last_ms,
+          "rules-1M: the store's last timestamp is off the grid")
+    eval_s = [last_ms // 1000 - 60 * k for k in (3, 2, 1, 0)]
+    wends = np.asarray(eval_s, dtype=np.int64) * 1000
+    t0 = time.perf_counter()
+    vals = torch.empty((num_series, n_t), dtype=torch.float64, device=dev)
+    for i0 in range(0, num_series, SLAB):
+        vals[i0:i0 + SLAB] = torch.from_numpy(
+            store.cols["count"][i0:min(i0 + SLAB, num_series), :n_t]).to(dev)
+    want1 = rate_by_ns(vals, ts_row, wends)          # [NUM_NS, 4]
+    del vals
+    oracle_s = time.perf_counter() - t0
+    check(not np.isnan(want1).any(), "rules-1M: the oracle has gaps")
+    thr = float(np.percentile(want1[:, 0], 90))
+    band = KERNEL_TOL[1] + KERNEL_TOL[0] * abs(thr)
+    above_oracle = [{f"App-{g}" for g in np.flatnonzero(want1[:, k] > thr)}
+                    for k in range(len(eval_s))]
+    ambiguous = {f"App-{g}" for g in np.flatnonzero(
+        (np.abs(want1 - thr) <= band).any(axis=1))}
+    log(f"rules-1M: f64 oracle of rule 1 at {eval_s} in {oracle_s:.3f} s; "
+        f"threshold (90th percentile at the first) {thr!r}; namespaces "
+        f"above it {[len(a) for a in above_oracle]}; within the kernel "
+        f"tolerance of it at some evaluation: {sorted(ambiguous)}")
+    mapper = one_shard_mapper()
+    sink = MemstoreSink(ms, "prometheus", mapper)
+    group = RuleGroup(RULES_GROUP, 60.0, (
+        Rule(RULE1, RULE1_EXPR, "recording"),
+        Rule(RULE2, RULE2_EXPR, "recording"),
+        Rule(RULE_ALERT, f"{RULE1} > {thr!r}", "alerting",
+             labels=(("severity", "page"),), for_s=RULE_FOR_S)))
+    cfg = RulesConfig()
+    fe = api.frontends["prometheus"]
+    notifier = WebhookNotifier(url=receiver.url)
+    ruler = Ruler(fe, sink, groups=[group], config=cfg, notifier=notifier)
+    api.ruler = ruler
+    # each evaluation's instant queries and write-backs, timed
+    calls, writes = [], []
+    query_instant, write = fe.query_instant, sink.write
+
+    def fused_s():
+        ks = telem.snapshot(recent=0)["devices"].get(str(dev), {}).get(
+            "kernels", {})
+        return sum(ks.get(k, {}).get("seconds", 0.0) for k in OPS_FUSED)
+
+    def timed_query(promql, time_s, *a, **kw):
+        n0, l0, s0 = (kernels.LAUNCHES.get("fused_rate_dense", 0),
+                      k1_ledger(dev), fused_s())
+        t = time.perf_counter()
+        res = query_instant(promql, time_s, *a, **kw)
+        calls.append(dict(q=promql, s=time.perf_counter() - t,
+                          k1=kernels.LAUNCHES.get("fused_rate_dense", 0)
+                          - n0, ledger=k1_ledger(dev) - l0,
+                          k1_s=fused_s() - s0, trace=res.trace_id))
+        return res
+
+    def timed_write(keys, ts_ms, values):
+        t = time.perf_counter()
+        n = write(keys, ts_ms, values)
+        writes.append(time.perf_counter() - t)
+        return n
+    fe.query_instant, sink.write = timed_query, timed_write
+    spans_path = exporter.url[len("file://"):]
+    dropped0 = registry.counter("trace_export_dropped").value
+    shipped0 = registry.counter("trace_export_spans").value
+    exporter.start()
+    kernels.reset_launch_counts()
+    rows, traces, above_rec, states = [], [], [], []
+    rec_vals = {}
+    try:
+        for k, ts in enumerate(eval_s):
+            del calls[:], writes[:]
+            t = time.perf_counter()
+            ok = ruler.evaluate_group(RULES_GROUP, ts)
+            secs = time.perf_counter() - t
+            errs = [r["lastError"] for g in ruler.rules_payload()["groups"]
+                    for r in g["rules"] if r["health"] != "ok"]
+            check(ok and not errs,
+                  f"rules-1M: evaluation {k + 1} failed: {errs}")
+            (r1,) = [c for c in calls if c["q"] == RULE1_EXPR]
+            check(r1["k1"] == 1 and r1["ledger"] == 1,
+                  f"rules-1M: evaluation {k + 1}: rule 1 launched K1 "
+                  f"{r1['k1']} times, the ledger shows {r1['ledger']}")
+            traces += [c["trace"] for c in calls]
+            # rule 1 through HTTP: recorded, and the expression itself
+            st, prec, _ = http.call("GET", "/api/v1/query", {
+                "query": RULE1, "time": ts})
+            rec = vector_by_ns(prec, f"rules-1M {RULE1}")
+            st, pexp, _ = http.call("GET", "/api/v1/query", {
+                "query": RULE1_EXPR, "time": ts,
+                "scanLimit": str(SCAN_LIMIT)})
+            check(rec == vector_by_ns(pexp, "rules-1M rule 1's expression"),
+                  f"rules-1M: evaluation {k + 1}: the recorded vector is not "
+                  f"bit-identical to the expression at {ts}")
+            got = np.full(NUM_NS, np.nan)
+            for ns, v in rec.items():
+                got[int(ns.split("-")[1])] = float(v)
+            err, rel = matrix_close(got[:, None], want1[:, k:k + 1],
+                                    *KERNEL_TOL, f"rules-1M rule 1 at {ts}")
+            rec_vals[ts] = got
+            st, p2, _ = http.call("GET", "/api/v1/query", {
+                "query": RULE2, "time": ts})
+            check(st == 200 and len(p2["data"]["result"]) == 1,
+                  f"rules-1M: rule 2 answered {st}: {p2.get('error')}")
+            v2 = float(p2["data"]["result"][0]["value"][1])
+            s1 = float(np.sum(got))
+            rel2 = abs(v2 - s1) / abs(s1)
+            check(rel2 <= RULE2_RTOL,
+                  f"rules-1M: rule 2 {v2!r} against the sum of rule 1's "
+                  f"recorded values {s1!r}: rel err {rel2}")
+            above = {f"App-{g}" for g in np.flatnonzero(got > thr)}
+            check(above - ambiguous == above_oracle[k] - ambiguous,
+                  f"rules-1M: evaluation {k + 1}: namespaces above the "
+                  f"threshold differ from the oracle's: "
+                  f"{sorted(above ^ above_oracle[k])[:8]}")
+            above_rec.append(above)
+            states.append(alerts_by_ns(ruler.alerts_payload()))
+            rows.append(dict(eval=k + 1, ts=ts, seconds=secs,
+                             rule1_s=r1["s"], writeback_s=sum(writes),
+                             k1_ms=r1["k1_s"] * 1000.0,
+                             max_abs_err=err, max_rel_err=rel,
+                             rule2_rel=rel2))
+            log(f"rules-1M: evaluation {k + 1} at {ts}: {secs:.4f} s "
+                f"(rule 1's query {r1['s']:.4f} s = "
+                f"{100 * r1['s'] / secs:.1f}%, the write-backs "
+                f"{sum(writes):.4f} s = {100 * sum(writes) / secs:.1f}%, "
+                f"queries {[(c['q'][:24], round(c['s'], 4)) for c in calls]}"
+                f"); K1 once, ledger {r1['k1_s'] * 1000.0:.4f} ms; rule 1 "
+                f"max_abs_err {err} max_rel_err {rel}, bit-identical to "
+                f"the expression over HTTP; rule 2 rel err {rel2:.3e}; "
+                f"alerts {len(above)} ({sum(s == 'firing' for s, _ in states[-1].values())} firing)")
+    finally:
+        fe.query_instant, sink.write = query_instant, write
+    want_states = expected_alerts(above_rec, eval_s)
+    for k, ts in enumerate(eval_s):
+        want = {ns: (st_, _iso(float(a))) for ns, (st_, a)
+                in want_states[k].items()}
+        check(states[k] == want,
+              f"rules-1M: alert states at evaluation {k + 1} differ: "
+              f"{sorted(set(states[k].items()) ^ set(want.items()))[:6]}")
+    first = above_rec[0]
+    check(all(states[k][ns][0] == ("pending" if k < 2 else "firing")
+              for ns in first & above_rec[1] & above_rec[2] & above_rec[3]
+              for k in range(4)) and first,
+          "rules-1M: the alerts present throughout are not pending, "
+          "pending, firing, firing")
+    # the receiver: one batch a firing evaluation (new firing alerts,
+    # then the resend a minute later), each the firing set
+    firing = [{ns for ns, (s, _) in st_.items() if s == "firing"}
+              for st_ in states]
+    deadline = time.time() + 60
+    while time.time() < deadline and (
+            len(notifier.snapshot()) < 2 or not notifier._queue.empty()):
+        time.sleep(0.05)
+    posted = [{a["labels"]["_ns_"] for a in p["alerts"]}
+              for p in receiver.posts]
+    check(posted == [firing[2], firing[3]] and all(
+              a["status"] == "firing" and a["labels"]["severity"] == "page"
+              for p in receiver.posts for a in p["alerts"]),
+          f"rules-1M: the receiver got {[len(p) for p in posted]} alerts in "
+          f"{len(posted)} POSTs, {[len(f) for f in firing[2:]]} firing")
+    st, prules, _ = http.call("GET", "/api/v1/rules")
+    (g,) = prules["data"]["groups"]
+    check(st == 200 and [r["health"] for r in g["rules"]] == ["ok"] * 3
+          and g["rules"][2]["state"] == "firing"
+          and len(g["rules"][2]["alerts"]) == len(states[-1]),
+          f"rules-1M: /api/v1/rules answered {st}: "
+          f"{[(r['name'], r['health']) for r in g['rules']]}")
+    st, palerts, _ = http.call("GET", "/api/v1/alerts")
+    check(st == 200 and alerts_by_ns(palerts["data"]) == states[-1],
+          f"rules-1M: /api/v1/alerts answered {st} with other states")
+    # a restart: a second ruler over the same sink restores the alerts
+    t = time.perf_counter()
+    ruler2 = Ruler(fe, sink, groups=[group], config=cfg,
+                   notifier=WebhookNotifier(sleep=lambda s: None))
+    check(ruler2.evaluate_group(RULES_GROUP, eval_s[-1]),
+          "rules-1M: the second ruler's evaluation failed")
+    restore_s = time.perf_counter() - t
+    check(alerts_by_ns(ruler2.alerts_payload()) == states[-1],
+          "rules-1M: the second ruler did not restore every alert with its "
+          "activeAt")
+    # remote read of the recorded series: ms to the bit, values to 1e-12
+    gstore = shard.stores["gauge"]
+    rq = snappy.compress(remotepb.encode_read_request([remotepb.PromQuery(
+        int(wends[0]) - 1, int(wends[-1]), [remotepb.LabelMatcher(
+            remotepb.EQ, "__name__", RULE1)])]))
+    st, raw, read_s = post_raw(http.port, "/api/v1/read", rq,
+                               {"Content-Type": "application/x-protobuf"})
+    check(st == 200, f"rules-1M: remote read answered {st}: {raw[:200]}")
+    got_series = remotepb.decode_read_response(snappy.decompress(raw))[0]
+    check(len(got_series) == NUM_NS,
+          f"rules-1M: remote read returned {len(got_series)} series")
+    worst = 0.0
+    for s in got_series:
+        g_ = int(dict(s.labels)["_ns_"].split("-")[1])
+        t_got = [t_ for _, t_ in s.samples]
+        v_got = np.array([v for v, _ in s.samples])
+        want_v = np.array([rec_vals[t_ // 1000][g_] for t_ in t_got])
+        diff = np.abs(v_got - want_v)
+        check(t_got == wends.tolist() and (
+                  diff <= 1e-12 * max(1.0, float(np.abs(want_v).max())))
+              .all(),
+              f"rules-1M: remote read of App-{g_}: {t_got} {v_got.tolist()}"
+              f", recorded {want_v.tolist()}")
+        worst = max(worst, float(diff.max()))
+    # the exporter: a span file holding every evaluation's traces
+    t = time.perf_counter()
+    exporter.stop()
+    export_s = time.perf_counter() - t
+    shipped = registry.counter("trace_export_spans").value - shipped0
+    with open(spans_path) as f:
+        spans = [json.loads(line) for line in f]
+    span_traces = {s["traceId"] for s in spans}
+    missing = {tr for tr in traces if tr.replace("-", "").lower()
+               not in span_traces}
+    check(spans and not missing and len(spans) == shipped
+          and registry.counter("trace_export_dropped").value == dropped0,
+          f"rules-1M: the span file holds {len(spans)} spans ({shipped} "
+          f"shipped), {len(missing)} evaluation traces missing, dropped "
+          f"{registry.counter('trace_export_dropped').value - dropped0}")
+    launches = dict(kernels.LAUNCHES)
+    self_s = run_selfmon_check(ms, api, http, dev, last_ms, num_series)
+    log(f"rules-1M: {len(eval_s)} evaluations, seconds "
+        f"{[round(r['seconds'], 4) for r in rows]}, K1 ms "
+        f"{[round(r['k1_ms'], 4) for r in rows]}; alerts pending/firing "
+        f"{[(sum(s == 'pending' for s, _ in x.values()), sum(s == 'firing' for s, _ in x.values())) for x in states]}"
+        f"; the receiver got {len(receiver.posts)} POSTs "
+        f"({sum(len(p['alerts']) for p in receiver.posts)} alerts); the "
+        f"second ruler restored {len(states[-1])} alerts in "
+        f"{restore_s:.4f} s; remote read of {RULE1}: {len(got_series)} "
+        f"series in {read_s:.4f} s, max abs diff {worst}; the exporter "
+        f"shipped {int(shipped)} spans of {len(set(traces))} evaluation traces, "
+        f"its stop (the final drain) {export_s:.4f} s; selfmon "
+        f"{self_s:.3f} s; phase {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {({k: n for k, n in launches.items() if n})}")
+    return launches, rows
+
+
+def run_selfmon_check(ms, api, http, dev, last_ms, num_series):
+    """selfmon inside rules-1M: a SelfScraper writes the metrics registry
+    into SELF_DATASET on the same memstore, served by the same API; two
+    scrapes 2 s apart, a counter incremented between them; an HTTP query
+    returns the registry's two values, and no wall-clock timestamp
+    entered the 1M dataset -> seconds."""
+    from filodb_tpu_torch.parallel.shardmapper import ShardEvent, ShardMapper
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.frontend import QueryFrontend
+    from filodb_tpu_torch.utils.metrics import registry
+    from filodb_tpu_torch.utils.selfmon import SelfScraper
+    t0 = time.perf_counter()
+    smapper = ShardMapper(1)
+    smapper.update_from_event(ShardEvent("IngestionStarted", SELF_DATASET,
+                                         0, "local"))
+    ms.setup(SELF_DATASET, 0)
+    seng = QueryEngine(SELF_DATASET, ms, smapper, device=dev)
+    api.engines[SELF_DATASET] = seng
+    api.frontends[SELF_DATASET] = QueryFrontend(seng, config=api._config)
+    scraper = SelfScraper(ms, SELF_DATASET, smapper, node_name="chip-smoke")
+    probe = registry.counter("chip_smoke_selfmon_probe")
+    probe.increment(3)
+    v1, n1, s1 = probe.value, scraper.scrape_once(), time.time()
+    time.sleep(2.0)
+    probe.increment(4)
+    v2, n2, s2 = probe.value, scraper.scrape_once(), time.time()
+    st, p, q_s = http.call(
+        "GET", f"/promql/{SELF_DATASET}/api/v1/query_range", {
+            "query": 'chip_smoke_selfmon_probe_total{job="filodb"}',
+            "start": int(s1) - 1, "end": int(s2) + 2, "step": 1})
+    check(st == 200 and len(p["data"]["result"]) == 1,
+          f"rules-1M selfmon: the query answered {st}: {p.get('error')}")
+    seen = sorted({float(v) for _, v in p["data"]["result"][0]["values"]})
+    check(seen == [float(v1), float(v2)],
+          f"rules-1M selfmon: the scraped counter reads {seen}, the "
+          f"registry {[v1, v2]}")
+    shard = ms.get_shard("prometheus", 0)
+    for name, store in shard.stores.items():
+        n = store.counts
+        m = n > 0
+        newest = int(store.ts[np.flatnonzero(m), n[m] - 1].max()) \
+            if m.any() else 0
+        check(newest <= last_ms,
+              f"rules-1M selfmon: the 1M dataset's {name} store has a "
+              f"sample at {newest}, after its last {last_ms}")
+    check(int(shard.stores["prom-counter"].counts[:num_series].max())
+          == (last_ms - START_MS) // STEP_MS + 1,
+          "rules-1M selfmon: the counters' grid grew")
+    log(f"rules-1M selfmon: two scrapes of {n1} and {n2} series into "
+        f"{SELF_DATASET} ({s2 - s1:.2f} s apart); the counter through "
+        f"HTTP in {q_s:.4f} s reads {seen}; the 1M dataset's stores end "
+        f"at or before {last_ms}")
+    return time.perf_counter() - t0
+
+
+DS_SERIES = 8_192                  # downsample-16k: counters, and as many gauges
+DS_RAW_FROM_MS = START_MS + 3_600_000   # Q3: raw retention from the 60th minute
+DS_GAUGE_FNS = {"min_over_time": ("min", "min"),   # fn -> (column, reduce)
+                "max_over_time": ("max", "max"),
+                "sum_over_time": ("sum", "sum"),
+                "count_over_time": ("count", "sum"),
+                "avg_over_time": ("avg", "avg"),
+                "last_over_time": ("avg", "last")}
+
+
+class DsFanout:
+    """The leaves of a `<raw>::ds::<res>` dataset read the downsample
+    store, the others the raw memstore; shards_for answers [] for the
+    downsample datasets and the raw dataset the planner may route there,
+    so the result cache bypasses them (the reference's
+    FiloServer._source)."""
+
+    def __init__(self, ms, ds_store):
+        self.ms, self.ds_store, self.device = ms, ds_store, ms.device
+
+    def get_shard(self, dataset, shard_num):
+        if "::ds::" in dataset:
+            return self.ds_store.get_shard(dataset, shard_num)
+        return self.ms.get_shard(dataset, shard_num)
+
+    def shards_for(self, dataset):
+        if "::ds::" in dataset or dataset == self.ds_store.raw_dataset:
+            return []
+        return self.ms.shards_for(dataset)
+
+
+def ds_arrays(store, res, schema, col):
+    """(ts, values, counts, group ids) of one downsample dataset's
+    schema store, the host arrays the store holds (after a query paged
+    them in)."""
+    from filodb_tpu_torch.downsample import ds_dataset_name
+    sh = store.get_shard(ds_dataset_name("prometheus", res), 0)
+    st = sh.stores[schema]
+    infos = [p for p in sh.partitions if p is not None
+             and p.schema_name == schema]
+    rows = np.array([p.row for p in infos], dtype=np.int64)
+    gids = np.array([int(p.part_key.tags_dict["_ns_"].split("-")[1])
+                     for p in infos], dtype=np.int64)
+    counts = st.counts[rows].astype(np.int64)
+    n = int(counts.max())
+    return st.ts[rows, :n], st.cols[col][rows, :n], counts, gids
+
+
+def ds_rate_oracle(ts, vals, counts, gids, wends):
+    """f64 sum by group of the Prometheus extrapolated rate over rows of
+    their own timestamps (`counts` samples each, resets corrected) ->
+    [NUM_NS, W]; NaN where a group has no row with two samples."""
+    S, n = vals.shape
+    r = np.arange(S)
+    valid = np.arange(n)[None, :] < counts[:, None]
+    v = np.where(valid, vals, np.nan)
+    prev = np.concatenate([v[:, :1], v[:, :-1]], axis=1)
+    drop = np.where(valid & (prev > v), prev, 0.0)
+    corr = v + np.cumsum(drop, axis=1)
+    tsf = np.where(valid, ts, np.iinfo(np.int64).max)
+    out = np.full((NUM_NS, len(wends)), np.nan)
+    for w, we in enumerate(wends):
+        ws = we - RANGE_MS
+        first = (tsf <= ws).sum(axis=1)
+        last = (tsf <= we).sum(axis=1) - 1
+        nv = last - first + 1
+        ok = nv >= 2
+        f, lst = np.clip(first, 0, n - 1), np.clip(last, 0, n - 1)
+        t1, t2 = ts[r, f].astype(np.float64), ts[r, lst].astype(np.float64)
+        v1, v2 = corr[r, f], corr[r, lst]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            dur_start = (t1 - ws) / 1000.0
+            dur_end = (we - t2) / 1000.0
+            sampled = (t2 - t1) / 1000.0
+            avg = sampled / (nv - 1)
+            delta = v2 - v1
+            dur_zero = sampled * (v1 / delta)
+            dur_start = np.where((delta > 0) & (v1 >= 0)
+                                 & (dur_zero < dur_start), dur_zero,
+                                 dur_start)
+            thr = avg * 1.1
+            extrap = (sampled + np.where(dur_start < thr, dur_start, avg / 2)
+                      + np.where(dur_end < thr, dur_end, avg / 2))
+            rate = delta * (extrap / sampled) / RANGE_MS * 1000.0
+        s = np.zeros(NUM_NS)
+        c = np.zeros(NUM_NS)
+        np.add.at(s, gids[ok], rate[ok])
+        np.add.at(c, gids[ok], 1.0)
+        out[:, w] = np.where(c > 0, s, np.nan)
+    return out
+
+
+def ds_gauge_oracle(ts, vals, counts, gids, wends, reduce):
+    """f64 sum by group of one reduction over each row's samples in
+    (we - 10m, we] -> [NUM_NS, W]."""
+    n = vals.shape[1]
+    valid = np.arange(n)[None, :] < counts[:, None]
+    out = np.full((NUM_NS, len(wends)), np.nan)
+    for w, we in enumerate(wends):
+        inw = valid & (ts > we - 600_000) & (ts <= we)
+        some = inw.any(axis=1)
+        x = np.where(inw, vals, np.nan)
+        with np.errstate(invalid="ignore"), warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            if reduce == "last":
+                idx = np.where(inw, np.arange(n)[None, :], -1).max(axis=1)
+                per = vals[np.arange(len(vals)), np.maximum(idx, 0)]
+            else:
+                per = {"min": np.nanmin, "max": np.nanmax, "sum": np.nansum,
+                       "avg": np.nanmean}[reduce](x, axis=1)
+        s = np.zeros(NUM_NS)
+        c = np.zeros(NUM_NS)
+        np.add.at(s, gids[some], per[some])
+        np.add.at(c, gids[some], 1.0)
+        out[:, w] = np.where(c > 0, s, np.nan)
+    return out
+
+
+def bits_equal(a, b):
+    """Two arrays (or lists of rows) equal to the bit as f64, NaN in the
+    same cells."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    na, nb = np.isnan(a), np.isnan(b)
+    return a.shape == b.shape and bool((na == nb).all()) and \
+        np.where(na, 0.0, a).tobytes() == np.where(nb, 0.0, b).tobytes()
+
+
+def ds_query(eng, q, start_s, step_s, end_s, warm):
+    """q cold then `warm` times -> (answer [NUM_NS, W], cold s, warm p50
+    s, kernels launched by the cold run); warm answers bit-identical."""
+    from filodb_tpu_torch.ops import kernels
+    n0 = dict(kernels.LAUNCHES)
+    t = time.perf_counter()
+    res = eng.query_range(q, start_s, step_s, end_s, scan_params())
+    cold = time.perf_counter() - t
+    check(res.error is None, f"downsample-16k: {q}: {res.error}")
+    ks = sorted(k for k, v in kernels.LAUNCHES.items() if v > n0.get(k, 0))
+    wends = np.arange(start_s, end_s + 1, step_s) * 1000
+    got = np.full((NUM_NS, len(wends)), np.nan)
+    for key, _, row in res.series():
+        got[int(key.labels_dict["_ns_"].split("-")[1])] = np.asarray(row)
+    secs = []
+    for _ in range(warm):
+        t = time.perf_counter()
+        again = eng.query_range(q, start_s, step_s, end_s, scan_params())
+        secs.append(time.perf_counter() - t)
+        check(again.error is None and bits_equal(
+                  [np.asarray(r) for _, _, r in again.series()],
+                  [np.asarray(r) for _, _, r in res.series()]),
+              f"downsample-16k: {q}: a warm answer differs from the cold one")
+    return got, cold, float(np.median(secs)), ks
+
+
+def run_downsample_phase(seed, dev, warm=3):
+    """downsample-16k (see the module docstring) -> (launches, rows)."""
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.downsample import (DEFAULT_RESOLUTIONS,
+                                             DownsampleClusterPlanner,
+                                             DownsampledTimeSeriesStore,
+                                             DownsamplerJob,
+                                             ShardDownsampler,
+                                             ds_dataset_name)
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.persist.localstore import (LocalDiskColumnStore,
+                                                     LocalDiskMetaStore)
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.planner import SingleClusterPlanner
+    from filodb_tpu_torch.query.planners import LongTimeRangePlanner
+    rng = np.random.default_rng(seed)
+    root = tempfile.mkdtemp(prefix="downsample-16k-")
+    rows_out = []
+    try:
+        raw_cs = LocalDiskColumnStore(os.path.join(root, "raw"))
+        ms = TimeSeriesMemStore(column_store=raw_cs, meta_store=
+                                LocalDiskMetaStore(os.path.join(root, "raw")),
+                                device=dev)
+        shard = ms.setup("prometheus", 0)
+        ts_row = START_MS + np.arange(T, dtype=np.int64) * STEP_MS
+        ts2d = np.broadcast_to(ts_row, (DS_SERIES, T))
+        shard.ingest_columns("prom-counter", counter_keys(DS_SERIES), ts2d,
+                             {"count": make_counter_slab(rng, DS_SERIES,
+                                                         0.0)})
+        shard.ingest_columns("gauge", [PartKey.make("heap_usage", {
+            "_ws_": "demo", "_ns_": f"App-{i % NUM_NS}",
+            "instance": f"Instance-{i}", "dc": f"DC{i % 2}"})
+            for i in range(DS_SERIES)], ts2d,
+            {"value": make_gauge_slab(rng, DS_SERIES, 0.0)})
+        mapper = one_shard_mapper()
+        raw_eng = QueryEngine("prometheus", ms, mapper, device=dev)
+        # the streaming path, attached as a node attaches it to each of
+        # its shards: a ShardDownsampler at the default resolutions
+        dsr = ShardDownsampler()
+        check(dsr.resolutions == (60_000, 300_000) == DEFAULT_RESOLUTIONS,
+              f"downsample-16k: resolutions {dsr.resolutions}")
+        ds_s = [0.0]
+        downsample = dsr.downsample
+
+        def timed_downsample(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return downsample(*a, **kw)
+            finally:
+                ds_s[0] += time.perf_counter() - t
+        dsr.downsample = timed_downsample
+        shard.shard_downsampler = dsr
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        chunks = shard.flush_all_groups()
+        flush_s = time.perf_counter() - t
+        t = time.perf_counter()
+        drain = dsr.result_batches()
+        drain_s = time.perf_counter() - t
+        emitted = {res: sum(b.num_records for b in bs)
+                   for res, bs in drain.items()}
+        # a period a minute (five) for every series, and one more for
+        # each counter whose reset falls inside a period
+        check(set(emitted) == {60_000, 300_000}
+              and emitted[60_000] >= 2 * DS_SERIES * (T // 6)
+              and emitted[300_000] >= 2 * DS_SERIES * (T // 30),
+              f"downsample-16k: records emitted {emitted}")
+        stream = DownsampledTimeSeriesStore("prometheus", device=dev)
+        stream.setup_shard(0)
+        t = time.perf_counter()
+        ingested = stream.ingest_downsample_batches(0, drain)
+        ingest_s = time.perf_counter() - t
+        check(ingested == sum(emitted.values()),
+              f"downsample-16k: the stream store took {ingested} records")
+        del drain
+        # the batch path over the same disk store
+        ds_cs = LocalDiskColumnStore(os.path.join(root, "ds"))
+        t = time.perf_counter()
+        stats = DownsamplerJob(raw_cs, ds_cs, "prometheus").run(
+            [0], START_MS, START_MS + T * STEP_MS)
+        job_s = time.perf_counter() - t
+        check(stats.parts_scanned == 2 * DS_SERIES
+              and stats.records_emitted == sum(emitted.values())
+              and stats.chunks_written == 4 * DS_SERIES,
+              f"downsample-16k: the batch job's stats {stats}")
+        batch = DownsampledTimeSeriesStore("prometheus", column_store=ds_cs,
+                                           device=dev)
+        batch.setup_shard(0)
+        t = time.perf_counter()
+        refreshed = batch.refresh_index(0)
+        refresh_s = time.perf_counter() - t
+        check(refreshed == 4 * DS_SERIES,
+              f"downsample-16k: refresh_index found {refreshed} part keys")
+        log(f"downsample-16k: {2 * DS_SERIES} series x {T} flushed in "
+            f"{flush_s:.3f} s ({chunks} chunks; the downsampler "
+            f"{ds_s[0]:.3f} s of it = {100 * ds_s[0] / flush_s:.1f}%); "
+            f"records emitted {emitted}; drain {drain_s:.3f} s, the stream "
+            f"store's ingest {ingest_s:.3f} s; the batch job {job_s:.3f} s "
+            f"({stats}); refresh_index {refresh_s:.3f} s "
+            f"({refreshed} part keys, chunks paged on demand)")
+        first_s = START_MS // 1000
+        last_s = int(ts_row[-1]) // 1000
+        q1 = (-(-(first_s + 600) // 60) * 60, 60, last_s // 60 * 60)
+        q2 = (-(-(first_s + 900) // 300) * 300, 300, last_s // 300 * 300)
+        check(batch.pick_resolution(60_000, RANGE_MS) == 60_000
+              and batch.pick_resolution(300_000, 600_000) == 300_000,
+              "downsample-16k: pick_resolution")
+        Q1 = "sum by (_ns_) (rate(request_total[5m]))"
+        raw_ans = {}
+        t = time.perf_counter()
+        raw_ans["Q1"], *raw_t1 = ds_query(raw_eng, Q1, *q1, warm)
+        timings = [("raw", "Q1", *raw_t1)]
+        for fn in DS_GAUGE_FNS:
+            q = f"sum by (_ns_) ({fn}(heap_usage[10m]))"
+            raw_ans[fn], *tt = ds_query(raw_eng, q, *q2, warm)
+            timings.append(("raw", fn, *tt))
+        answers = {}
+        for name, store in (("stream", stream), ("batch", batch)):
+            eng = QueryEngine("prometheus", store, mapper, device=dev,
+                              planner=DownsampleClusterPlanner(store, mapper))
+            got, *tt = ds_query(eng, Q1, *q1, warm)
+            timings.append((name, "Q1", *tt))
+            want = ds_rate_oracle(*ds_arrays(store, 60_000, "prom-counter",
+                                             "count"),
+                                  np.arange(q1[0], q1[2] + 1, 60) * 1000)
+            err, rel = check_close(got, want, *KERNEL_TOL,
+                                   f"downsample-16k {name} Q1")
+            # the total rate (every namespace's) within 5% of raw's, as
+            # tests/test_downsample.py::test_ds_counter_rate_close holds
+            # sum(rate(...)): a namespace of ~8 counters estimates its
+            # rate from 5 one-minute samples a window against 30 raw ones
+            tot, raw_tot = np.nansum(got, axis=0), np.nansum(raw_ans["Q1"],
+                                                             axis=0)
+            check(np.allclose(tot, raw_tot, rtol=0.05),
+                  f"downsample-16k: {name} Q1's total rate is not within 5% "
+                  f"of the raw panel's: max rel "
+                  f"{float(np.max(np.abs(tot / raw_tot - 1)))}")
+            cell = np.abs(got / raw_ans["Q1"] - 1)
+            answers[(name, "Q1")] = got
+            log(f"downsample-16k: {name} Q1 {Q1} at 1 m (resolution 1 m) "
+                f"launched {tt[2]}; f64 oracle of the store's arrays "
+                f"max_abs_err {err} max_rel_err {rel}; the total rate "
+                f"within {float(np.max(np.abs(tot / raw_tot - 1))):.4f} "
+                f"(rel) of raw's, a namespace's cell p50 / max rel "
+                f"{float(np.nanmedian(cell)):.4f} / {float(np.nanmax(cell)):.4f}")
+            ds_eng = LongTimeRangePlanner(
+                SingleClusterPlanner("prometheus", mapper),
+                DownsampleClusterPlanner(store, mapper),
+                lambda: DS_RAW_FROM_MS, lambda: int(ts_row[-1]))
+            stitched = QueryEngine("prometheus", DsFanout(ms, store), mapper,
+                                   device=dev, planner=ds_eng)
+            for fn, (col, red) in DS_GAUGE_FNS.items():
+                q = f"sum by (_ns_) ({fn}(heap_usage[10m]))"
+                got, *tt = ds_query(eng, q, *q2, warm)
+                timings.append((name, fn, *tt))
+                want = ds_gauge_oracle(*ds_arrays(store, 300_000, "ds-gauge",
+                                                  col),
+                                       np.arange(q2[0], q2[2] + 1, 300)
+                                       * 1000, red)
+                err, rel = check_close(got, want, *KERNEL_TOL,
+                                       f"downsample-16k {name} {fn}")
+                answers[(name, fn)] = got
+                if fn == "last_over_time":
+                    # a period's `avg` is not its last raw sample: no raw
+                    # comparison, and Q3 leaves it out
+                    log(f"downsample-16k: {name} Q2 {fn} at 5 m launched "
+                        f"{tt[2]}, oracle max_abs_err {err} max_rel_err "
+                        f"{rel}")
+                    continue
+                check_close(got, raw_ans[fn], *KERNEL_TOL,
+                            f"downsample-16k {name} {fn} against raw")
+                g3, *t3 = ds_query(stitched, q, *q2, warm)
+                timings.append((name + "+raw", fn, *t3))
+                e3, r3 = check_close(g3, raw_ans[fn], *KERNEL_TOL,
+                                     f"downsample-16k {name} Q3 {fn} "
+                                     f"against raw")
+                check_close(g3, want, *KERNEL_TOL,
+                            f"downsample-16k {name} Q3 {fn} against the "
+                            f"oracle")
+                log(f"downsample-16k: {name} Q2 {fn} at 5 m launched "
+                    f"{tt[2]}, oracle max_abs_err {err} max_rel_err {rel}; "
+                    f"Q3 (raw from minute 60) launched {t3[2]}, against "
+                    f"raw max_abs_err {e3} max_rel_err {r3}")
+        same = {k[1]: bits_equal(answers[("stream", k[1])],
+                                answers[("batch", k[1])])
+                for k in answers if k[0] == "stream"}
+        ds_bytes = sum(mirror_nbytes(s, ds_dataset_name("prometheus", r))
+                       for s in (stream, batch) for r in DEFAULT_RESOLUTIONS)
+        raw_bytes = mirror_nbytes(ms)
+        launches = dict(kernels.LAUNCHES)
+        for who, q, cold, p50, ks in timings:
+            rows_out.append(dict(store=who, query=q, cold_s=cold,
+                                 warm_p50_s=p50, kernels=ks))
+        log("downsample-16k: cold / warm p50 s: " + "; ".join(
+            f"{who} {q} {cold:.4f} / {p50:.4f}"
+            for who, q, cold, p50, _ in timings))
+        log(f"downsample-16k: the stream and batch stores answer "
+            f"bit-identically: {same}; downsample mirrors {ds_bytes} B "
+            f"(both stores), the raw mirror {raw_bytes} B; launches "
+            f"{({k: n for k, n in launches.items() if n})}")
+        return launches, rows_out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 
 def make_raw_counters_t(gen, n, hole_frac, device):
     """[n, T] f64 raw counters on the card, like make_counter_slab but with
@@ -4730,11 +5553,11 @@ def run_serve_phase(eng, api, http, want_rate, orc, wends, num_series):
 OPS_FUSED = ("fused_rate", "fused_increase", "fused_delta")  # K1's labels
 
 
-def mirror_nbytes(eng):
-    """The bytes of every device tensor of the engine's mirrors'
-    snapshots (holding no reference to them)."""
+def mirror_nbytes(memstore, dataset="prometheus"):
+    """The bytes of every device tensor of the mirrors' snapshots of a
+    dataset's shards (holding no reference to them)."""
     n = 0
-    for sh in eng.source.shards_for("prometheus"):
+    for sh in memstore.shards_for(dataset):
         for store in sh.stores.values():
             m = getattr(store, "device_mirror", None)
             snap = m.snapshot() if m is not None else None
@@ -4824,7 +5647,7 @@ def run_ops_phase(eng, api, http, built, evictions):
           f"ledger shows {disp} fused rate-family dispatches")
     check(card["busySeconds"] > d0.get(str(dev), {}).get("busySeconds", 0),
           f"ops-1M: busySeconds did not grow: {card['busySeconds']}")
-    nbytes = mirror_nbytes(eng)
+    nbytes = mirror_nbytes(eng.source)
     alloc = torch.cuda.memory_allocated(dev)
     check(card["hbm"].get("hot") == nbytes,
           f"ops-1M: booked hot {card['hbm']} != the mirror's {nbytes} B")
@@ -5046,7 +5869,8 @@ def phase_timer(dev, phase_s, phase_evictions):
 # gauges and the histograms once host-route-1M is done (beside serve-1M
 # through live-ingest-1M, whose peaks, 15-33 GB, leave room for theirs).
 SIDES = {"stores": ("flush-page-16k", "cold-65k", "compact-16k",
-                    "broker-16k", "counter ragged", "gauge ragged",
+                    "downsample-16k", "broker-16k", "counter ragged",
+                    "gauge ragged",
                     "raw-counter dense", "raw-counter ragged"),
          "gauge-hist": ("gauge dense + general-1M", "hist-classic-1M",
                         "hist-native-1M")}
@@ -5061,6 +5885,8 @@ def run_side(which, args, dev, timed):
                 ("flush-page-16k", run_flush_page_phase, (args.seed + 7, dev)),
                 ("cold-65k", run_cold_phase, (args.seed + 8, args.warm, dev)),
                 ("compact-16k", run_compact_phase, (args.seed + 7, dev)),
+                ("downsample-16k", run_downsample_phase,
+                 (args.seed + 10, dev)),
                 ("broker-16k", run_broker_phase, (args.seed + 9, dev))):
             got.append(timed(name, fn, *a)[0])
             free_device_memory()
@@ -5324,6 +6150,9 @@ def main_phases(args, dev, timed, phase_evictions, built, add, sides,
             add(got)
             got, _ = timed("write-1M", run_write_phase, eng, ms, api, http,
                            wal, n, args.seed, dev)
+            add(got)
+            got, _ = timed("rules-1M", run_rules_phase, eng, ms, api, http,
+                           n, dev, side_dir)
             add(got)
         finally:
             srv.stop()

@@ -20,8 +20,11 @@ Recovery: `recover_index` rebuilds the index and the partition registry
 from the column store's part keys; queries then page the flushed chunk
 frames back through demand paging.  `recover_stream` replays a stream's
 batches past each flush group's checkpoint, and `compact_index` prunes
-the index's tombstoned postings under the write lock.  Left out: the
-downsampler hook.  The store settings the reference reads from its
+the index's tombstoned postings under the write lock.  The downsampler
+hook: a `shard_downsampler` (downsample/shard_downsampler.py) is fed each
+flushed chunk inside the flush's persist loop, past a per-partition time
+watermark, so emission stays exactly-once across a shift-skipped seal.
+The store settings the reference reads from its
 config are the constants below, at its defaults; the tenant settings
 come from the config (`query.tenant_usage_enabled`,
 `index.tenant_series_limit`).  A key whose partition lives in another
@@ -214,6 +217,9 @@ class TimeSeriesShard:
         self._pid_tenant = np.zeros(0, dtype=np.int32)
         self._tenant_ids: Dict[Tuple[str, str], int] = {}
         self._tenant_names: List[Tuple[str, str]] = []
+        # optional streaming downsampler fed at flush (ref:
+        # ShardDownsampler.scala:103 populateDownsampleRecords at doFlushSteps)
+        self.shard_downsampler = None
         # optional cardinality tracker enforcing quotas at series creation
         # (core/ratelimit.CardinalityTracker)
         self.cardinality_tracker = None
@@ -227,6 +233,10 @@ class TimeSeriesShard:
         # flush-vs-flush mutex only: serializes flush_group calls without
         # holding the write lock across the encode + persist phase
         self._flush_lock = threading.Lock()
+        # per-partition newest-downsampled timestamp (flush-thread only,
+        # under _flush_lock): dedupes downsample emission when a
+        # shift-skipped seal makes a flush re-read an unsealed range
+        self._ds_time_wm: Dict[int, int] = {}
         # flush-group membership, maintained at creation
         self._group_pids: List[List[int]] = [[] for _ in range(self._groups)]
         # write-buffer batching state (min_samples): rounds each group
@@ -819,10 +829,25 @@ class TimeSeriesShard:
         if pending:
             faults.fire("flush.persist")
         encoded = []
-        for (pid, info, hi, _, _, _), cs in zip(pending, chunksets):
+        for (pid, info, hi, ts, cols, les), cs in zip(pending, chunksets):
             self.column_store.write_chunks(
                 self.dataset, self.shard_num, info.part_key, [cs],
                 info.schema_name)
+            if self.shard_downsampler is not None and len(ts):
+                # downsample only samples past the per-partition TIME
+                # watermark: a shift-skipped seal makes the next flush
+                # re-read the same range, and chunk rewrites are idempotent
+                # but downsample emission is NOT — without the watermark
+                # those samples would double-count downstream
+                wm = self._ds_time_wm.get(pid)
+                if wm is None or ts[-1] > wm:
+                    cut = int(np.searchsorted(ts, wm, side="right")) \
+                        if wm is not None else 0
+                    self.shard_downsampler.downsample(
+                        info.part_key, self.schemas[info.schema_name],
+                        ts[cut:], {k: v[cut:] for k, v in cols.items()},
+                        bucket_les=les)
+                    self._ds_time_wm[pid] = int(ts[-1])
             encoded.append((pid, info, hi, cs))
         dirty_pids: set = set()
         with self._write_locked("flush_seal"):

@@ -11,8 +11,8 @@ without binding ports.  Routes served:
   /api/v1/explain (`analyze=true` runs the plan and annotates every
   node), /api/v1/labels, /api/v1/label/<name>/values, /api/v1/series,
   /api/v1/usage, /api/v1/status/{health,buildinfo,runtimeinfo,tsdb},
-  /api/v1/metering/cardinality, each also under
-  /promql/<dataset>/api/v1/...;
+  /api/v1/metering/cardinality, /api/v1/rules (`type=record|alert`),
+  /api/v1/alerts, each also under /promql/<dataset>/api/v1/...;
 - the write doors: POST /api/v1/write (Prometheus remote write), POST
   /api/v1/read (remote read), POST /influx/write (Influx line protocol),
   each over the dataset's gateway pipeline (gateway/router.py);
@@ -21,11 +21,13 @@ without binding ports.  Routes served:
   /admin/ingestlog, /admin/devices, /admin/jobs, /admin/breakers,
   /admin/events, /admin/tenants, /admin/traces[/<id>], POST
   /admin/tracedfilters, POST /admin/loglevel/<logger> and
-  /admin/profiler/{start,stop,report}.
+  /admin/profiler/{start,stop,report}, POST /admin/rules/reload (the
+  rules engine's, rules/ruler.py; without a ruler the rules and alerts
+  routes answer empty lists and the reload 400, as the reference's).
 
-Every route the reference serves that the port does not have yet (the
-rules and alerts routes, /cluster/<dataset>/status, /admin/shards and
-its handoff verb, /admin/federation, /admin/rules/reload) answers 501
+Every route the reference serves that the port does not have yet
+(/cluster/<dataset>/status, /admin/shards and its handoff verb,
+/admin/federation) answers 501
 with errorType `not_ported`; a path the reference does not know keeps
 its 404.  A QueryError("not_ported") raised below the API answers 501
 as well.  The port has no replication layer yet: `replicators` stays
@@ -55,18 +57,24 @@ class PromHttpApi:
                  shard_mappers: Optional[Dict[str, object]] = None,
                  default_dataset: Optional[str] = None,
                  batch_window_ms: Optional[float] = None,
-                 config=None, health=None):
+                 config=None, ruler=None, health=None):
         """engines: dataset -> QueryEngine, each already on its device.
         gateways: dataset -> GatewayPipeline (gateway/router.py), the
         write doors' ingest path; its `wal` makes remote write durable.
         config: a FilodbSettings (None: the settings() singleton); its
-        `query` section sets the frontends' knobs.  health: the node's
-        HealthEvaluator (None: one of its own, already `serving`)."""
+        `query` section sets the frontends' knobs.  ruler: the rules
+        engine (rules/ruler.Ruler) serving /api/v1/rules, /api/v1/alerts
+        and /admin/rules/reload; an attribute a caller may set after
+        construction, since the ruler needs this API's frontends.
+        health: the node's HealthEvaluator (None: one of its own, already
+        `serving`)."""
         import time as _time
         self.engines = engines
         self.gateways = gateways or {}
         self.shard_mappers = shard_mappers or {}
         self.default_dataset = default_dataset or next(iter(engines), None)
+        # the rules engine (rules/), when this deployment runs one
+        self.ruler = ruler
         # the health model (utils/health.py): shard mappers feed the
         # shard verdict; a dataset's WAL is enabled when its gateway
         # pipeline carries one, already replayed (the port's node boots
@@ -82,8 +90,9 @@ class PromHttpApi:
             self.health.note_wal(name, enabled=wal is not None,
                                  replay_done=wal is not None)
         self._start_unix = _time.time()
-        # last-config-reload status for /api/v1/status/runtimeinfo; the
-        # port has no reloadable config yet
+        # last-config-reload status for /api/v1/status/runtimeinfo (the
+        # Prometheus reloadConfigSuccess/lastConfigTime pair); rules
+        # reloads are the live config-reload surface this server has
         self._last_reload_unix = self._start_unix
         self._last_reload_ok = True
         # query-serving frontend per dataset (query/frontend.py):
@@ -176,7 +185,7 @@ class PromHttpApi:
             if parts == ["admin", "events"] and method == "GET":
                 return self._events(params)
             if parts == ["admin", "rules", "reload"] and method == "POST":
-                return _not_ported("/admin/rules/reload")
+                return self._rules_reload()
             if parts[:2] == ["admin", "traces"] and len(parts) in (2, 3):
                 return self._traces(parts[2] if len(parts) == 3 else None,
                                     params)
@@ -295,8 +304,10 @@ class PromHttpApi:
             return self._cardinality(dataset, params)
         if rest == ["read"] and method == "POST":
             return self._remote_read(eng, body, planner_params)
-        if rest in (["rules"], ["alerts"]):
-            return _not_ported(f"/api/v1/{rest[0]} (the rules engine)")
+        if rest == ["rules"]:
+            return self._rules(params)
+        if rest == ["alerts"]:
+            return self._alerts()
         if rest == ["status", "buildinfo"]:
             return self._buildinfo()
         if rest == ["status", "runtimeinfo"]:
@@ -600,6 +611,49 @@ class PromHttpApi:
         from filodb_tpu_torch.parallel.breaker import breakers
         return 200, {"status": "success",
                      "data": {"breakers": breakers.snapshot()}}
+
+    # --------------------------------------------------------------- ruler
+
+    def _rules(self, params: Dict[str, str]) -> Tuple[int, object]:
+        """Prometheus RuleDiscovery payload (doc/recording_rules.md).
+        `?type=record|alert` filters like upstream; a deployment with no
+        ruler answers an empty group list (Grafana's alerting UI probes
+        this on every datasource)."""
+        data = (self.ruler.rules_payload() if self.ruler is not None
+                else {"groups": []})
+        want = params.get("type")
+        if want in ("record", "alert"):
+            kind = "recording" if want == "record" else "alerting"
+            data = {"groups": [
+                {**g, "rules": [r for r in g["rules"]
+                                if r["type"] == kind]}
+                for g in data["groups"]]}
+        return 200, {"status": "success", "data": data}
+
+    def _alerts(self) -> Tuple[int, object]:
+        data = (self.ruler.alerts_payload() if self.ruler is not None
+                else {"alerts": []})
+        return 200, {"status": "success", "data": data}
+
+    def _rules_reload(self) -> Tuple[int, object]:
+        """POST /admin/rules/reload: re-read the conf-tree groups + the
+        standalone rules file.  Invalid config is a 400 and the RUNNING
+        rules keep evaluating (Prometheus reload semantics)."""
+        import time as _time
+        if self.ruler is None:
+            return 400, _err("no ruler configured (rules.enabled=false)")
+        from filodb_tpu_torch.rules.config import RulesConfigError
+        try:
+            summary = self.ruler.reload()
+        except RulesConfigError as e:
+            # runtimeinfo's reloadConfigSuccess mirrors the Prometheus
+            # field: the last reload ATTEMPT failed (running rules keep
+            # evaluating on the previous config)
+            self._last_reload_ok = False
+            return 400, _err(f"rules reload rejected: {e}")
+        self._last_reload_ok = True
+        self._last_reload_unix = _time.time()
+        return 200, {"status": "success", "data": summary}
 
     def _buildinfo(self) -> Tuple[int, object]:
         """Grafana probes /api/v1/status/buildinfo on datasource setup to

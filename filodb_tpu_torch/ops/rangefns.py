@@ -550,7 +550,18 @@ def evaluate_range_function(ts_off: torch.Tensor, vals: torch.Tensor,
     """Window bounds + one range function -> [S, W] in vals' dtype on
     vals' device.  fn_name None is plain lookback sampling
     (last_over_time over range_ms).  shared_grid: all ts_off rows are the
-    same grid."""
+    same grid.
+
+    Plain lookback sampling over rebased f32 values returns f64: the
+    stored sample, the rebased value plus its f64 base.  A value far from
+    zero (a timestamp such as ALERTS_FOR_STATE's activeAt) then keeps its
+    digits; the f32 sum rounds 1.6e9 to a multiple of 128."""
+    if fn_name is None and vbase is not None and vals.ndim == 2 \
+            and vbase.ndim == 1 and vals.dtype != torch.float64:
+        ctx = make_ctx(ts_off, vals, wends, range_ms, base_ms, shared_grid,
+                       None, precorrected, dense)
+        return last_over_time(ctx).double() \
+            + vbase.to(torch.float64)[:, None]
     ctx = make_ctx(ts_off, vals, wends, range_ms, base_ms, shared_grid,
                    vbase, precorrected, dense)
     spec = RANGE_FUNCTIONS[fn_name or "last_over_time"]

@@ -40,6 +40,12 @@ A native histogram column [S, T, B] takes the fused path only as
 sum(rate|increase): its S*B bucket rows, bucket-major within a series,
 go through the same kernels with one slot per (group, bucket).
 
+A leaf over the downsample gauge schema (ds-gauge) reads the column its
+range function names and may swap the function (core/schemas.py
+DS_GAUGE_FN_SUBSTITUTION: min_over_time reads `min`, count_over_time
+becomes sum_over_time over `count`), as per-execution transformer
+overrides, so the plan stays reusable.
+
 In a dashboard batch (engine.query_range_batch, query/exprfuse.py) the
 leaf runs in three phases: prepare_fused gathers and takes the peephole
 without launching (a kernel evaluation comes back as its FusedCall), the
@@ -68,12 +74,13 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from filodb_tpu_torch.core.index import ColumnFilter
+from filodb_tpu_torch.core.schemas import DS_GAUGE_FN_SUBSTITUTION
 from filodb_tpu_torch.core.shard import PagedLimitExceeded
 from filodb_tpu_torch.ops import counter, fused, hostleaf, minmax
 from filodb_tpu_torch.ops import hist as hist_ops
@@ -123,6 +130,10 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         self.chunk_end_ms = chunk_end_ms
         self.columns = list(columns)
         self.schema = schema
+        # per-execution transformer substitutions (the ds-gauge schema's
+        # column and range-function swap, _do_execute): set, cleared and
+        # consulted per execution so the plan stays reusable
+        self._transformer_overrides: Dict[int, object] = {}
         self._fused_cache_key = None
         # phase 1 of a batch parks (data, stats, fused outcome,
         # transformers consumed) here for phase 3 (prepare_fused)
@@ -150,12 +161,14 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             if isinstance(out, FusedCall):
                 out = self._finish_or_degrade(out)
         else:
+            self._transformer_overrides = {}
             self._fused_cache_key = None
             data, stats = self._do_execute(source)
             out, start = self._try_fused(data, stats)
         if out is not None:
             data = out
-        for t in self.transformers[start:]:
+        for i, t in enumerate(self.transformers[start:], start):
+            t = self._transformer_overrides.get(i, t)
             self._check_live(type(t).__name__)
             data = t.apply(data, self.ctx, stats, source)
         return data, stats
@@ -171,6 +184,7 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         of the working set).  Errors propagate: exprfuse.compile_tree
         then resets the leaf, which runs standalone in phase 3."""
         self._prefused = None
+        self._transformer_overrides = {}
         self._fused_cache_key = None
         # this work is the leaf's own, done ahead of its node: its host
         # time and what the exec tally gathers (the mirror gather, uploads)
@@ -230,7 +244,8 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         evaluation comes back as its unlaunched FusedCall, for the
         batch to merge (not under an `@` pin: that one is finished at
         once)."""
-        ts = list(self.transformers)
+        ts = [self._transformer_overrides.get(i, t)
+              for i, t in enumerate(self.transformers)]
         repeat = None
         if len(ts) >= 3 and isinstance(ts[1], RepeatToGridMapper):
             repeat = ts.pop(1)
@@ -605,6 +620,22 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             est = check_scan_cap("after demand paging")
         schema = shard.schemas[schema_name]
         col_name = self.columns[0] if self.columns else schema.value_column
+        # schema-specific column + range-function substitution for the
+        # downsample gauge schema: min_over_time reads the `min` column,
+        # count_over_time becomes sum_over_time over `count`, etc.  Applied
+        # as per-execution overrides so the plan stays reusable
+        # (ref: MultiSchemaPartitionsExec.finalizePlan schema substitutions;
+        # Schemas DS_GAUGE_FN_SUBSTITUTION)
+        if schema.name == "ds-gauge" and not self.columns:
+            for i, t in enumerate(self.transformers):
+                if isinstance(t, PeriodicSamplesMapper):
+                    sub = DS_GAUGE_FN_SUBSTITUTION.get(t.function)
+                    if sub is not None:
+                        col_name = sub[0]
+                        if sub[1] != t.function:
+                            self._transformer_overrides[i] = \
+                                dataclasses.replace(t, function=sub[1])
+                    break
         col_def = next((c for c in schema.data_columns
                         if c.name == col_name), None)
         if col_def is None:

@@ -2,8 +2,8 @@
 filodb_tpu/query/planners.py):
 
   - LongTimeRangePlanner: raw | persisted | downsample routing by time,
-    stitched; the downsample planner is injected (None until a
-    downsample cluster exists);
+    stitched; the downsample planner is injected (downsample/store.py's
+    DownsampleClusterPlanner, or None without a downsample cluster);
   - PersistedClusterPlanner: SingleClusterPlanner whose leaves read the
     persisted-segment tier (SelectPersistedSegmentsExec);
   - HighAvailabilityPlanner + FailureProvider: a local failure window

@@ -451,6 +451,16 @@ class TraceCollector:
         self._evicted = _collections.deque(maxlen=max(4 * max_traces, 64))
         self._evicted_set: set = set()
         self._lock = threading.Lock()
+        # push-export hooks (utils/traceexport.TraceExporter): called
+        # outside the lock with every recorded event; must not block
+        self._sinks: List = []
+
+    def add_sink(self, sink) -> None:
+        self._sinks.append(sink)
+
+    def remove_sink(self, sink) -> None:
+        if sink in self._sinks:
+            self._sinks.remove(sink)
 
     def record(self, trace_id: str, event: Optional[dict]) -> None:
         """Record one span event (event=None registers the trace id in
@@ -487,6 +497,14 @@ class TraceCollector:
                 evs.append(event)
         if evicted:
             registry.counter("trace_evictions").increment(evicted)
+        if event is not None:
+            for sink in list(self._sinks):
+                # a sink that raises never blocks the recording path (the
+                # reference lets it propagate into the span's exit)
+                try:
+                    sink(trace_id, event)
+                except Exception as e:  # noqa: BLE001 — export is best-effort
+                    log_error_once("trace.sink", e)
 
     def note_origin(self, trace_id: str, origin: str) -> None:
         """Tag a trace with its door (query | rule_eval | remote_write).

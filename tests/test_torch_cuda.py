@@ -1218,3 +1218,102 @@ def test_remote_write_into_a_card_store_launches_k1(card, tmp_path):
             assert np.array_equal(x, y, equal_nan=True)
     finally:
         wal.close()
+
+
+def test_recording_rule_launches_k1_on_the_card(card):
+    """A recording rule over counters on the card: its evaluation is an
+    instant query through the frontend that launches K1 once; the
+    recorded vector is bit-identical to the same instant query and
+    equals the rule evaluated over a CPU store (rtol 2e-4 / atol 1e-3)."""
+    from filodb_tpu_torch.config import RulesConfig
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.frontend import QueryFrontend
+    from filodb_tpu_torch.rules import (MemstoreSink, Rule, RuleGroup,
+                                        Ruler, WebhookNotifier)
+    S, T = 2000, 120
+    rng = np.random.default_rng(15)
+    t0 = 1_600_000_000_000
+    ts = np.broadcast_to(t0 + np.arange(T, dtype=np.int64) * 10_000, (S, T))
+    keys = [PartKey.make("request_total", {
+        "_ws_": "demo", "_ns_": f"App-{i % 50}", "instance": f"I-{i}"})
+        for i in range(S)]
+    vals = np.cumsum(rng.exponential(10.0, size=(S, T)), axis=1)
+    expr = "sum by (_ws_, _ns_) (rate(request_total[5m]))"
+    end_s = t0 // 1000 + (T - 1) * 10
+    got = {}
+    for dev in (card, "cpu"):
+        ms = TimeSeriesMemStore(device=dev)
+        ms.setup("prometheus", 0).ingest_columns(
+            "prom-counter", keys, ts, {"count": vals})
+        fe = QueryFrontend(QueryEngine("prometheus", ms, device=dev))
+        ruler = Ruler(fe, MemstoreSink(ms, "prometheus"), groups=[
+            RuleGroup("g", 60.0, (Rule("ns:rate5m", expr, "recording"),))],
+            config=RulesConfig(),
+            notifier=WebhookNotifier(sleep=lambda s: None))
+        n0 = kernels.LAUNCHES.get("fused_rate_dense", 0)
+        assert ruler.evaluate_group("g", ts=end_s)
+        if dev is card:
+            assert kernels.LAUNCHES["fused_rate_dense"] == n0 + 1
+        rec = fe.query_instant("ns:rate5m", end_s)
+        hand = fe.query_instant(expr, end_s)
+        got[str(dev)] = {k.labels_dict["_ns_"]: float(np.asarray(v)[-1])
+                         for k, _, v in rec.series()}
+        assert got[str(dev)] == {
+            k.labels_dict["_ns_"]: float(np.asarray(v)[-1])
+            for k, _, v in hand.series()}
+    a, b = got[str(card)], got["cpu"]
+    assert a.keys() == b.keys() and len(a) == 50
+    for k in a:
+        assert abs(a[k] - b[k]) <= 1e-3 + 2e-4 * abs(b[k])
+
+
+def test_downsample_store_gauge_panel_launches_k5(card):
+    """Gauges flushed through a ShardDownsampler into a downsample store
+    on the card: a sum_over_time panel reads the ds-gauge `sum` column
+    through K5 and equals the same store built on the CPU."""
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.store import (InMemoryColumnStore,
+                                             InMemoryMetaStore)
+    from filodb_tpu_torch.downsample import (DownsampleClusterPlanner,
+                                             DownsampledTimeSeriesStore,
+                                             ShardDownsampler)
+    from filodb_tpu_torch.ingest.generator import gauge_batch
+    from filodb_tpu_torch.parallel.shardmapper import (ShardEvent,
+                                                       ShardMapper)
+    from filodb_tpu_torch.query.engine import QueryEngine
+    t0 = 1_600_000_000_000
+    mapper = ShardMapper(1)
+    mapper.update_from_event(ShardEvent("IngestionStarted", "prometheus",
+                                        0, "local"))
+    raw = TimeSeriesMemStore(column_store=InMemoryColumnStore(),
+                             meta_store=InMemoryMetaStore(), device="cpu")
+    sh = raw.setup("prometheus", 0)
+    sh.ingest(gauge_batch(512, 720, start_ms=t0))
+    dsr = ShardDownsampler(resolutions=(60_000,))
+    sh.shard_downsampler = dsr
+    sh.flush_all_groups()
+    drain = dsr.result_batches()
+    q = "sum by (_ns_) (sum_over_time(heap_usage[10m]))"
+    s0 = (t0 // 60_000) * 60 + 1260
+    got = {}
+    for dev in (card, "cpu"):
+        store = DownsampledTimeSeriesStore("prometheus", resolutions=(60_000,),
+                                           device=dev)
+        store.setup_shard(0)
+        store.ingest_downsample_batches(0, drain)
+        eng = QueryEngine("prometheus", store, mapper, device=dev,
+                          planner=DownsampleClusterPlanner(store, mapper))
+        n0 = dict(kernels.LAUNCHES)
+        res = eng.query_range(q, s0, 300, s0 + 5820)
+        assert res.error is None, res.error
+        if dev is card:
+            k5 = [k for k, v in kernels.LAUNCHES.items()
+                  if k.startswith("fused_over_time") and v > n0.get(k, 0)]
+            assert k5, "the panel launched no K5"
+        got[str(dev)] = _series_of(res)
+    a, b = got[str(card)], got["cpu"]
+    assert [k for k, _ in a] == [k for k, _ in b] and a
+    for (_, x), (_, y) in zip(a, b):
+        np.testing.assert_allclose(x, y, rtol=2e-4, atol=1e-3)

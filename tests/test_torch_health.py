@@ -340,13 +340,18 @@ def test_ready_and_health_of_a_serving_api(apis):
 
 
 NOT_PORTED = [
-    ("GET", "/api/v1/rules"),
-    ("GET", "/api/v1/alerts"),
-    ("GET", "/promql/prometheus/api/v1/rules"),
     ("GET", "/cluster/prometheus/status"),
     ("GET", "/admin/shards"),
     ("POST", "/admin/shards/0/handoff"),
     ("GET", "/admin/federation"),
+]
+
+# the rules engine's routes, ported since these cases were in NOT_PORTED:
+# over an API built without a ruler both packages give the same answer
+RULES_ROUTES = [
+    ("GET", "/api/v1/rules"),
+    ("GET", "/api/v1/alerts"),
+    ("GET", "/promql/prometheus/api/v1/rules"),
     ("POST", "/admin/rules/reload"),
 ]
 
@@ -369,6 +374,13 @@ def test_write_door_route_answers_as_the_reference(apis, method, path):
         if isinstance(p, dict):
             p = {k: v for k, v in p.items() if k != "_headers"}
         answers.append((st, p))
+    assert answers[1] == answers[0], path
+    assert answers[1][0] != 501
+
+
+@pytest.mark.parametrize("method, path", RULES_ROUTES)
+def test_rules_route_answers_as_the_reference(apis, method, path):
+    answers = [api.handle(method, path, {}, b"") for api in apis]
     assert answers[1] == answers[0], path
     assert answers[1][0] != 501
 

@@ -67,7 +67,12 @@ NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "gateway", "gateway.accounting", "gateway.influx",
                "gateway.router", "gateway.remotewrite", "gateway.server",
                "ingest.generator", "ingest.filebroker", "ingest.kafka_wire",
-               "ingest.kafka", "memory.binhist")
+               "ingest.kafka", "memory.binhist", "downsample",
+               "downsample.downsamplers", "downsample.shard_downsampler",
+               "downsample.store", "downsample.batch_job",
+               "downsample.dist_job", "rules", "rules.config",
+               "rules.notifier", "rules.ruler", "utils.selfmon",
+               "utils.traceexport")
 
 
 def _bare_import(module):
@@ -89,8 +94,9 @@ def test_general_path_module_stands_alone(module):
     the serving stack, the operations surface, the composed planners,
     the persisted-segment tier, the durability layer (the WAL, the
     flush scheduler, the ingestion streams and the shared object
-    store) and the write doors (the prompb codec, the cardinality
-    tracker, the gateway, the broker and Kafka streams), imported alone
+    store), the write doors (the prompb codec, the cardinality
+    tracker, the gateway, the broker and Kafka streams), the downsample
+    runtime and the rules engine with selfmon and span export, imported alone
     in a fresh interpreter, pulls in neither jax nor the reference
     package."""
     assert _bare_import("filodb_tpu_torch." + module) == []
