@@ -350,25 +350,45 @@ restart-1M.  inside phase 3, at its full width: the build's 16 slabs
    of the last seq before the ack); the free disk space is checked
    first.  Right after phase 3's two queries the node crashes (their
    answers kept as numpy; the engine and the memstore dropped without a
-   flush), a new TimeSeriesMemStore on the card boots from the log
-   (WalManager(dir): recover_writer_state; then replay from the meta
-   store's restart points, all -1), and a new QueryEngine answers both
-   queries, cold (the mirror upload) and warm, bit-identical to the
-   answers before the crash, K1 and K6 launched: 16 records, 1,048,576
-   x 720 samples, none skipped or corrupt.  A [1,048,576, 1] scrape
-   record through the recovered writer gets seq 16.  It prints the
-   log's bytes and segments, the append and commit-wait seconds of the
-   build, the replay's seconds, samples/s and its split (ingest_columns
-   timed on the shard; the rest reads, decompresses and decodes), boot
-   to the first answer, the host's peak RSS, the scrape record's frame
-   bytes, and a cProfile of reading and decoding one record.  The
-   recovered engine and store serve general-1M and every later 1M phase
-   on phase 3's counters, each against its oracle; the directory is
-   deleted after live-ingest-1M.  A CardinalityTracker is attached to
-   the new shard before the replay (as a node attaches it before
-   recovery); the seconds its series_created takes are printed.
-flush-page-16k, cold-65k, compact-16k, downsample-16k and broker-16k,
-then phases 4 and
+   flush), and the port's FiloServer([DatasetConfig("prometheus", 1)],
+   config=cfg, device="cuda") boots from the log, cfg.wal.enabled and
+   cfg.wal.dir the log's root (its default InMemoryColumnStore holds no
+   chunk until a flush, so no query pages from it): its constructor recovers the writer
+   (recover_writer_state), attaches a CardinalityTracker to the shard
+   and replays the log onto the card from the meta store's restart
+   points (all -1); its phases are booting, replaying_wal, booted, its
+   /ready 503 until start(background_flush=False) and 200 after it.
+   The node's engine answers both queries, cold (the mirror upload) and
+   warm, bit-identical to the answers before the crash, K1 and K6
+   launched: 16 records, 1,048,576 x 720 samples, none skipped or
+   corrupt.  What the demand-paging precheck costs at 1M once the
+   store holds chunks, as after a first flush, is timed on a swapped
+   store (paging_precheck_cost; answers bit-identical).  A
+   [1,048,576, 1] scrape record through the recovered writer gets
+   seq 16.  It prints the log's bytes and segments, the
+   append and commit-wait seconds of the build, the constructor's
+   seconds, the replay's seconds, samples/s and its split
+   (ingest_columns and the tracker's series_created timed on their
+   classes from outside the constructor; the rest reads, decompresses
+   and decodes), boot to the first answer, the host's peak RSS, the
+   scrape record's frame bytes, and a cProfile of reading and decoding
+   one record.  The node serves general-1M and every later 1M phase on
+   phase 3's counters, each against its oracle, serve-1M through
+   rules-1M through its own PromHttpApi and FiloHttpServer; it is shut
+   down before live-ingest-1M, and the directory deleted after it.
+node-16k.  on the stores side: filo-cli as users run it (run_node_phase):
+   an NPZ bundle of 16,384 request counters x 720 (one reset each)
+   through jobs.batch_io, `python -m filodb_tpu_torch.cli init` and
+   `importbundle` into a data directory, `serve --downsample 60000` as
+   a subprocess on the card, `query` and `querybatch --host` against
+   the f64 oracle (rtol 2e-4, atol 1e-3) with K1 in the server's
+   ledger, the operations commands, SIGINT and a second boot over the
+   same directory, the offline commands (on the host, --device cpu) and
+   an exportbundle equal to the bundle imported; every step's seconds and the host flush's with
+   the native host library (filodb_tpu_torch/native) loaded.  The
+   script fails when that library does not build.
+flush-page-16k, cold-65k, compact-16k, downsample-16k, broker-16k and
+node-16k, then phases 4 and
 6-8, run in a second process (`--side stores`) from K8 on, beside phase
 3, restart-1M and the 1M phases on their store; phase 5 (with
 general-1M's gauge half), hist-classic-1M and hist-native-1M in a third
@@ -397,6 +417,7 @@ unpacked with git archive) on one card in alternating rounds (run_ab).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import functools
 import gc
@@ -405,6 +426,7 @@ import json
 import os
 import pstats
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1216,30 +1238,66 @@ def open_wal(num_series):
     return WalManager(root, "prometheus")
 
 
-def close_wal(wal):
-    """Stop the log's committer and delete the directory open_wal made
-    (the manager keeps its dataset's log one level below it)."""
-    import shutil
-    wal.close()
-    shutil.rmtree(os.path.dirname(wal.dir), ignore_errors=True)
+def wal_root(wal):
+    """The directory open_wal made (the manager keeps its dataset's log
+    one level below it)."""
+    return os.path.dirname(wal.dir)
 
 
-def boot_from_wal(wal, num_series, before, want, build):
+@contextlib.contextmanager
+def timed_method(cls, name, spent, keep=None):
+    """Time every call of cls.name (for every instance) into spent[0];
+    with `keep`, append each call's result to it; restored on exit."""
+    orig = getattr(cls, name)
+
+    @functools.wraps(orig)
+    def wrapper(*a, **kw):
+        t = time.perf_counter()
+        try:
+            out = orig(*a, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t
+        if keep is not None:
+            keep.append(out)
+        return out
+    setattr(cls, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def boot_node(wal, num_series, before, want, build):
     """restart-1M after the crash (the node's engine and memstore dropped
     without a flush; what survives is the committed log): the dead
-    node's committer stopped, a new TimeSeriesMemStore on the card,
-    WalManager(dir) (recover_writer_state), replay from the restart
-    points the meta store gives (all -1: nothing was flushed), a new
-    QueryEngine; phase 3's two queries cold (the mirror upload) and
-    warm, each bit-identical to `before` (its answer before the crash);
-    then one scrape record through the recovered writer -> (engine,
-    memstore, the recovered WalManager, launches)."""
+    node's committer stopped, then the port's node as a user boots it,
+    FiloServer([DatasetConfig("prometheus", 1)], config=cfg,
+    device="cuda") with cfg.wal.enabled and cfg.wal.dir the log's root
+    (its column store the default InMemoryColumnStore, empty until a
+    flush, so no query pages from it), whose constructor recovers the
+    writer (recover_writer_state),
+    attaches a CardinalityTracker to the shard and replays the log onto
+    the card from the meta store's restart points (all -1: nothing was
+    flushed); the replay's ingest_columns, the tracker's series_created
+    and the writer's recovery timed from outside the constructor.  Its
+    phases must be booting -> replaying_wal -> booted, /ready 503 until
+    start(background_flush=False) (no flush: a 1M flush on the host
+    takes minutes), then 200 and serving; phase 3's two queries cold
+    (the mirror upload) and warm through the node's engine, each
+    bit-identical to `before` (its answer before the crash); the node's
+    engine against a bare one; paging_precheck_cost (the demand-paging
+    precheck once the store holds chunks); then one scrape record
+    through the recovered writer -> (engine, memstore,
+    node, launches).  cfg sets query.batch_window_ms to the clients
+    step's (serve-1M) and index.compaction_interval_s to 0 (no index
+    compaction loop)."""
     import torch
-    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
-    from filodb_tpu_torch.core.ratelimit import (CardinalityTracker,
-                                                 QuotaSource)
+    from filodb_tpu_torch.config import FilodbSettings
+    from filodb_tpu_torch.core.ratelimit import CardinalityTracker
+    from filodb_tpu_torch.core.shard import TimeSeriesShard
     from filodb_tpu_torch.ops import kernels
-    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.standalone import DatasetConfig, FiloServer
+    from filodb_tpu_torch.utils.events import journal
     from filodb_tpu_torch.utils.metrics import registry
     from filodb_tpu_torch.wal import WalManager
     from filodb_tpu_torch.wal.segment import (WalRecord, list_segments,
@@ -1263,115 +1321,153 @@ def boot_from_wal(wal, num_series, before, want, build):
     wal.close()
     gc.collect()
     free_device_memory()
+    cfg = FilodbSettings()
+    cfg.wal.enabled = True
+    cfg.wal.dir = wal_root(wal)
+    cfg.query.batch_window_ms = SERVE_WINDOW_MS
+    # no index compaction loop: the phases after it time their own work
+    cfg.index.compaction_interval_s = 0
+    check(cfg.wal.replay_on_start, "restart-1M: replay_on_start is off")
     rss0 = host_rss()
+    seq0 = journal.next_seq
+    recover_s, ingest_s, tracker_s, replay_s = [0.0], [0.0], [0.0], [0.0]
+    stats = []
     t_boot = time.perf_counter()
-    ms = TimeSeriesMemStore(device=dev)
-    restart_points = {0: ms.meta_store.read_earliest_checkpoint(
-        "prometheus", 0)}
-    check(restart_points == {0: -1},
-          f"restart-1M: restart points {restart_points}")
-    t0 = time.perf_counter()
-    wal = WalManager(os.path.dirname(wal.dir), "prometheus")
-    recover_s = time.perf_counter() - t0
-    check(wal.writer.next_seq == committed + 1,
-          f"restart-1M: next seq {wal.writer.next_seq} after "
-          f"recover_writer_state, {committed + 1} expected")
-    # replay's ingest_columns, timed on the shard replay will use
-    sh = ms.setup("prometheus", 0)
-    # the cardinality tracker, attached before the replay as a node
-    # attaches it before recovery; its series_created timed
-    tracker = CardinalityTracker(
-        shard_key_len=len(ms.schemas.part.options.shard_key_columns),
-        quota_source=QuotaSource())
-    tracker_s = [0.0]
-    series_created = tracker.series_created
-
-    def timed_created(key):
-        t = time.perf_counter()
-        try:
-            return series_created(key)
-        finally:
-            tracker_s[0] += time.perf_counter() - t
-    tracker.series_created = timed_created
-    sh.cardinality_tracker = tracker
-    ingest_s = [0.0]
-    ingest_columns = sh.ingest_columns
-
-    def timed_ingest(*a, **kw):
-        t = time.perf_counter()
-        try:
-            return ingest_columns(*a, **kw)
-        finally:
-            ingest_s[0] += time.perf_counter() - t
-    sh.ingest_columns = timed_ingest
+    with timed_method(WalManager, "__init__", recover_s), \
+            timed_method(WalManager, "replay", replay_s, stats), \
+            timed_method(TimeSeriesShard, "ingest_columns", ingest_s), \
+            timed_method(CardinalityTracker, "series_created", tracker_s):
+        node = FiloServer([DatasetConfig("prometheus", 1)], config=cfg,
+                          device="cuda")
+    construct_s = time.perf_counter() - t_boot
     try:
-        st = wal.replay(ms, restart_points)
-    finally:
-        del sh.ingest_columns
-        del tracker.series_created
-    root = tracker.cardinality(())
-    check(root is not None and root.ts_count == num_series,
-          f"restart-1M: the tracker counted {root} after the replay")
-    want_samples = num_series * T
-    check((st.records, st.samples, st.skipped_records, st.corrupt_segments)
-          == (records, want_samples, 0, 0),
-          f"restart-1M: replay records {st.records} samples {st.samples} "
-          f"skipped {st.skipped_records} corrupt {st.corrupt_segments}, "
-          f"expected {records}, {want_samples}, 0, 0")
-    check(sh.device == dev, f"restart-1M: the replayed shard is on "
-          f"{sh.device}")
-    eng = QueryEngine("prometheus", ms)
-    start_s = START_MS // 1000
-    end_s = start_s + (T - 1) * STEP_MS // 1000
-    kernels.reset_launch_counts()
-    first_s = None
-    for q, _, op, kernel, _ in COUNTER_QUERIES:
-        times = []
-        for i in range(2):
-            n0 = kernels.LAUNCHES[kernel]
-            t0 = time.perf_counter()
-            res = eng.query_range(q, start_s + 600, 60, end_s, scan_params())
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if first_s is None:
-                first_s = time.perf_counter() - t_boot
-            check(kernels.LAUNCHES[kernel] == n0 + 1,
-                  f"restart-1M: `{q}` run {i} did not launch {kernel}")
-            got, err, rel = compare(res, want[q], *KERNEL_TOL,
-                                    f"restart-1M `{q}`")
-            check(np.array_equal(got, before[q], equal_nan=True),
-                  f"restart-1M: `{q}` run {i} after the replay is not "
-                  f"bit-identical to the answer before the crash")
-        log(f"restart-1M: `{q}` via {kernel}: cold {times[0]:.4f} s (mirror "
-            f"upload included), warm {times[1]:.4f} s; both bit-identical to "
-            f"the answer before the crash; oracle max_abs_err {err} "
-            f"max_rel_err {rel}")
-    launches = dict(kernels.LAUNCHES)
-    rss = host_rss()
-    # continuity: one scrape-shaped record through the recovered writer
-    store = sh.stores["prom-counter"]
-    keys = [p.part_key for p in sh.partitions]
-    nxt = np.full((num_series, 1), START_MS + T * STEP_MS, np.int64)
-    vals = store.cols["count"][:num_series, T - 1:T] + 1.0
-    appended = registry.counter("wal_append_bytes", dataset="prometheus")
-    a0 = appended.value
-    t0 = time.perf_counter()
-    seq = wal.append_grid(0, "prom-counter", keys, nxt, {"count": vals})
-    scrape_s = time.perf_counter() - t0
-    check(seq == committed + 1,
-          f"restart-1M: the scrape after the restart got seq {seq}, "
-          f"{committed + 1} expected")
-    frame = int(appended.value - a0)
-    del keys, vals
-    log(f"restart-1M: boot: WalManager (recover_writer_state) "
-        f"{recover_s:.3f} s, replay {st.elapsed_s:.3f} s "
-        f"({st.samples_per_sec:.1f} samples/s; {st.records} records, "
-        f"{st.samples} samples, {st.skipped_records} skipped, "
-        f"{st.corrupt_segments} corrupt) of which ingest_columns "
-        f"{ingest_s[0]:.3f} s (the cardinality tracker's series_created "
-        f"{tracker_s[0]:.3f} s of it, {root.ts_count} series counted) and "
-        f"reading, decompressing and decoding "
-        f"{st.elapsed_s - ingest_s[0]:.3f} s; boot to the first answer "
+        phases = [(e["frm"], e["to"]) for e in
+                  journal.since(seq0 - 1, kind="phase")]
+        check(phases == [("booting", "replaying_wal"),
+                         ("replaying_wal", "booted")],
+              f"restart-1M: the node's boot phases {phases}")
+        st, ready = node.api.handle("GET", "/ready", {})
+        check(st == 503 and ready.get("reason") == "phase=booted",
+              f"restart-1M: /ready before start {st} {ready}")
+        check(node.meta_store.read_earliest_checkpoint("prometheus", 0)
+              == -1, "restart-1M: a restart point other than -1")
+        nwal = node.wals["prometheus"]
+        check(nwal.writer.next_seq == committed + 1,
+              f"restart-1M: next seq {nwal.writer.next_seq} after "
+              f"recover_writer_state, {committed + 1} expected")
+        check(len(stats) == 1, f"restart-1M: {len(stats)} replays")
+        st_ = stats[0]
+        sh = node.memstore.get_shard("prometheus", 0)
+        root = sh.cardinality_tracker.cardinality(())
+        check(root is not None and root.ts_count == num_series,
+              f"restart-1M: the tracker counted {root} after the replay")
+        want_samples = num_series * T
+        check((st_.records, st_.samples, st_.skipped_records,
+               st_.corrupt_segments) == (records, want_samples, 0, 0),
+              f"restart-1M: replay records {st_.records} samples "
+              f"{st_.samples} skipped {st_.skipped_records} corrupt "
+              f"{st_.corrupt_segments}, expected {records}, "
+              f"{want_samples}, 0, 0")
+        check(sh.device == dev, f"restart-1M: the replayed shard is on "
+              f"{sh.device}")
+        t0 = time.perf_counter()
+        node.start(background_flush=False)
+        start_s_ = time.perf_counter() - t0
+        st, ready, _ = Http(node.http.port).call("GET", "/ready")
+        check(st == 200 and ready == {"status": "ready"},
+              f"restart-1M: /ready after start {st} {ready}")
+        phases = [(e["frm"], e["to"]) for e in
+                  journal.since(seq0 - 1, kind="phase")]
+        check(phases[-1] == ("booted", "serving"),
+              f"restart-1M: phases after start {phases}")
+        eng = node.engines["prometheus"]
+        start_s = START_MS // 1000
+        end_s = start_s + (T - 1) * STEP_MS // 1000
+        kernels.reset_launch_counts()
+        first_s = None
+        for q, _, op, kernel, _ in COUNTER_QUERIES:
+            times = []
+            for i in range(2):
+                n0 = kernels.LAUNCHES[kernel]
+                t0 = time.perf_counter()
+                res = eng.query_range(q, start_s + 600, 60, end_s,
+                                      scan_params())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if first_s is None:
+                    first_s = time.perf_counter() - t_boot
+                check(kernels.LAUNCHES[kernel] == n0 + 1,
+                      f"restart-1M: `{q}` run {i} did not launch {kernel}")
+                got, err, rel = compare(res, want[q], *KERNEL_TOL,
+                                        f"restart-1M `{q}`")
+                check(np.array_equal(got, before[q], equal_nan=True),
+                      f"restart-1M: `{q}` run {i} after the replay is not "
+                      f"bit-identical to the answer before the crash")
+            log(f"restart-1M: `{q}` via {kernel} on the node's engine "
+                f"(ShardKeyRegexPlanner over SingleClusterPlanner): cold "
+                f"{times[0]:.4f} s (mirror upload included), warm "
+                f"{times[1]:.4f} s; both bit-identical to the answer before "
+                f"the crash; oracle max_abs_err {err} max_rel_err {rel}")
+        # the node's engine against a bare QueryEngine over the same store
+        # (the hand wiring this boot replaced), warm, in alternating turns
+        from filodb_tpu_torch.query.engine import QueryEngine
+        bare = QueryEngine("prometheus", node.memstore)
+        q0 = COUNTER_QUERIES[0][0]
+        turns = {"node": [], "bare": []}
+        for i in range(6):
+            order = (("node", eng), ("bare", bare)) if i % 2 == 0 \
+                else (("bare", bare), ("node", eng))
+            for name, e in order:
+                t0 = time.perf_counter()
+                res = e.query_range(q0, start_s + 600, 60, end_s,
+                                    scan_params())
+                torch.cuda.synchronize()
+                turns[name].append(time.perf_counter() - t0)
+                got, _, _ = compare(res, want[q0], *KERNEL_TOL,
+                                    f"restart-1M {name} `{q0}`")
+                check(np.array_equal(got, before[q0], equal_nan=True),
+                      f"restart-1M: the {name} engine's `{q0}` is not "
+                      f"bit-identical to the answer before the crash")
+        del bare
+        log(f"restart-1M: warm `{q0}` p50 {np.median(turns['node']):.4f} s "
+            f"on the node's engine, {np.median(turns['bare']):.4f} s on a "
+            f"bare QueryEngine over the same store (6 turns each, "
+            f"alternating; both bit-identical to the answer before the "
+            f"crash)")
+        paging_precheck_cost(eng, sh, before[q0], want[q0],
+                             np.median(turns["node"]), start_s, end_s)
+        launches = dict(kernels.LAUNCHES)
+        rss = host_rss()
+        # continuity: one scrape-shaped record through the recovered writer
+        store = sh.stores["prom-counter"]
+        keys = [p.part_key for p in sh.partitions]
+        nxt = np.full((num_series, 1), START_MS + T * STEP_MS, np.int64)
+        vals = store.cols["count"][:num_series, T - 1:T] + 1.0
+        appended = registry.counter("wal_append_bytes", dataset="prometheus")
+        a0 = appended.value
+        t0 = time.perf_counter()
+        seq = nwal.append_grid(0, "prom-counter", keys, nxt, {"count": vals})
+        scrape_s = time.perf_counter() - t0
+        check(seq == committed + 1,
+              f"restart-1M: the scrape after the restart got seq {seq}, "
+              f"{committed + 1} expected")
+        frame = int(appended.value - a0)
+        del keys, vals
+    except BaseException:
+        node.shutdown()
+        raise
+    log(f"restart-1M: boot: FiloServer(...) {construct_s:.3f} s, of which "
+        f"WalManager (recover_writer_state) {recover_s[0]:.3f} s, replay "
+        f"{st_.elapsed_s:.3f} s ({st_.samples_per_sec:.1f} samples/s; "
+        f"{st_.records} records, {st_.samples} samples, "
+        f"{st_.skipped_records} skipped, {st_.corrupt_segments} corrupt) "
+        f"of which ingest_columns {ingest_s[0]:.3f} s (the cardinality "
+        f"tracker's series_created {tracker_s[0]:.3f} s of it, "
+        f"{root.ts_count} series counted) and reading, decompressing and "
+        f"decoding {st_.elapsed_s - ingest_s[0]:.3f} s, the rest of the "
+        f"constructor {construct_s - recover_s[0] - replay_s[0]:.3f} s; "
+        f"phases {' -> '.join([phases[0][0]] + [p[1] for p in phases])}; "
+        f"start() {start_s_:.3f} s; boot to the first answer "
         f"{first_s:.3f} s; launches "
         f"{({k: v for k, v in launches.items() if v})}; host peak RSS "
         f"{rss0} B before the boot, {rss} B after the first panels")
@@ -1385,7 +1481,71 @@ def boot_from_wal(wal, num_series, before, want, build):
             return WalRecord.decode(body, {})
     log_profile("restart-1M", None, decode_one,
                 label="reading and decoding one build record")
-    return eng, ms, wal, launches
+    return eng, node.memstore, node, launches
+
+
+def paging_precheck_cost(eng, sh, before, want, own_warm_s, start_s,
+                         end_s):
+    """restart-1M: what the shard's demand-paging precheck costs at 1M
+    once its column store holds chunks, as after the node's first flush
+    (until then the node's InMemoryColumnStore holds none and no query
+    pages).  The shard's store is swapped, for these queries only, for
+    an InMemoryColumnStore that reports holding chunks but holds none of
+    this shard's series, so every answer must stay bit-identical: the
+    first panel warm (3 turns; each runs the precheck over every
+    series), then P3's query, which reaches 35 min before the data, once
+    on the node's own store and twice on the swapped one (the first
+    pages every series' range from the store, the second finds it
+    covered)."""
+    import torch
+    from filodb_tpu_torch.core.store import InMemoryColumnStore
+    from filodb_tpu_torch.query.engine import QueryEngine
+
+    class HoldsChunks(InMemoryColumnStore):
+        def holds_chunks(self, dataset, shard):
+            return True
+
+    q0 = COUNTER_QUERIES[0][0]
+    reach = f"max_over_time({q0}[30m:1m])"
+
+    def run(q):
+        t0 = time.perf_counter()
+        res = eng.query_range(q, start_s + 600, 60, end_s, scan_params())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(res.error is None, f"restart-1M: `{q}`: {res.error}")
+        return res, secs
+
+    res, own_reach_s = run(reach)
+    want_reach = QueryEngine.to_prom_matrix(res)["data"]["result"]
+    own = sh.column_store
+    sh.column_store = HoldsChunks()
+    try:
+        warm = []
+        for _ in range(3):
+            res, secs = run(q0)
+            warm.append(secs)
+            got, _, _ = compare(res, want, *KERNEL_TOL,
+                                f"restart-1M precheck `{q0}`")
+            check(np.array_equal(got, before, equal_nan=True),
+                  f"restart-1M: `{q0}` over a store that holds chunks is "
+                  f"not bit-identical to the answer before the crash")
+        reach_s = []
+        for _ in range(2):
+            res, secs = run(reach)
+            reach_s.append(secs)
+            check(QueryEngine.to_prom_matrix(res)["data"]["result"]
+                  == want_reach, f"restart-1M: `{reach}` over a store that "
+                  f"holds chunks differs from the node's own answer")
+    finally:
+        sh.column_store = own
+    log(f"restart-1M: the demand-paging precheck once the column store "
+        f"holds chunks (an InMemoryColumnStore holding none of this "
+        f"shard's series; every answer bit-identical): warm `{q0}` p50 "
+        f"{np.median(warm):.4f} s (turns {[round(x, 4) for x in warm]}; "
+        f"{own_warm_s:.4f} s on the node's own store, which holds none); "
+        f"`{reach}` {reach_s[0]:.4f} s paging every series' range, then "
+        f"{reach_s[1]:.4f} s ({own_reach_s:.4f} s on the node's own store)")
 
 
 def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
@@ -1395,13 +1555,14 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
     before the first query and read just after the last.  With `wal`
     the build goes through that log, and right after the queries the
     node crashes (the engine and the memstore dropped, no flush) and
-    `boot` (boot_from_wal, timed as restart-1M) brings it back from the
-    log; its launches join the path's.  Then, over the same store (the
-    recovered one after a crash), the general-path queries `general`
-    (run_queries) -> (launches, rows, general launches, kept): with
-    `keep` the engine, its memstore, the oracle's answers, the windows
-    and the log stay alive for later phases (kept = (eng, ms, want,
-    wends, wal)), else they are freed (None)."""
+    `boot` (boot_node, timed as restart-1M) brings it back from the log
+    as a FiloServer; its launches join the path's.  Then, over the same
+    store (the recovered node's after a crash), the general-path queries
+    `general` (run_queries) -> (launches, rows, general launches, kept):
+    with `keep` the engine, its memstore, the oracle's answers, the
+    windows and the recovered node (None without `wal`) stay alive for
+    later phases (kept = (eng, ms, want, wends, node)), else they are
+    freed (None)."""
     import torch
     from filodb_tpu_torch.ops import kernels
     from filodb_tpu_torch.query.engine import QueryEngine
@@ -1482,10 +1643,11 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
         f"samples scanned/query {samples}; max_memory_allocated {peak} B; "
         f"launches {({k: v for k, v in launches.items() if v})}")
     del mirror, snap, answers, res
+    node = None
     if wal is not None:
         # the crash, with the answers kept as numpy (`last`)
         eng = ms = r = None
-        eng, ms, wal, got = boot(wal, num_series, last, want, t)
+        eng, ms, node, got = boot(wal, num_series, last, want, t)
         for k, c in got.items():
             launches[k] += c
     general_launches = {}
@@ -1498,7 +1660,7 @@ def run_path(kind, num_series, seed, hole_frac, warm, queries, tol,
         log(f"general-1M {kind}: {time.perf_counter() - t0:.1f} s")
     if keep:
         return (launches, rows_out, general_launches,
-                (eng, ms, want, wends, wal))
+                (eng, ms, want, wends, node))
     del eng, ms
     free_device_memory()
     return launches, rows_out, general_launches, None
@@ -3425,9 +3587,12 @@ def run_planners_phase(eng, http, warm):
     PromQlRemoteExec | local), MultiPartitionPlanner (the remote
     partition owns the first hour), ShardKeyRegexPlanner (SKR_QUERY
     fanned out to 10 leaves under MultiPartitionReduceAggregateExec,
-    against SingleClusterPlanner's p50), SinglePartitionPlanner by
-    metric; explain of each; K1 launches counted per run (the server's
-    own, for the remote children, included) -> (launches, rows)."""
+    against a SingleClusterPlanner engine's p50 and answer),
+    SinglePartitionPlanner by metric; explain of each; K1 launches
+    counted per run (the server's own, for the remote children,
+    included).  The local-only answer is the node's engine's, whose
+    ShardKeyRegexPlanner also fans SKR_QUERY out to 10 leaves ->
+    (launches, rows)."""
     import torch
     from filodb_tpu_torch.ops import kernels
     from filodb_tpu_torch.promql.parser import (TimeStepParams,
@@ -3530,10 +3695,20 @@ def run_planners_phase(eng, http, warm):
                 f"a run {k1} (cold, then warm); bit-identical to the local "
                 f"answer ({res.num_series} series)")
         if name == "shard-key regex":
-            single = [run(eng, q) for _ in range(warm + 1)]
+            bare = QueryEngine("prometheus", eng.source, eng.shard_mapper,
+                               planner=local())
+            single = [run(bare, q) for _ in range(warm + 1)]
             single_s = [s for _, s, _ in single]
-            line += (f"; SingleClusterPlanner: {warm_line(single_s)}, K1 "
-                     f"launches a run {[k for _, _, k in single]}")
+            for i, (r, _, _) in enumerate(single):
+                kc = [(k.labels, np.asarray(v, np.float64).tobytes())
+                      for k, _, v in r.series()]
+                check(kc == kb, f"planners-1M: SingleClusterPlanner run {i} "
+                      f"is not bit-identical to the node's engine")
+            line += (f"; the node's engine (ShardKeyRegexPlanner over "
+                     f"SingleClusterPlanner) K1 launches {refs[q][2]}; "
+                     f"SingleClusterPlanner alone: {warm_line(single_s)}, "
+                     f"K1 launches a run {[k for _, _, k in single]}, "
+                     f"bit-identical")
         log(line)
         rows.append(dict(name=name, p50=float(np.percentile(secs[1:], 50)),
                          k1=k1))
@@ -5276,33 +5451,10 @@ def matrix_of(payload, wends):
     return out
 
 
-def start_server(eng, ms, wal):
-    """The serve-1M server: FiloHttpServer(PromHttpApi({"prometheus":
-    eng}, gateways=...), port=0) with the clients step's batch window,
-    and its client -> (api, srv, http).  The gateway pipeline is over
-    `ms` with one shard and a one-shard mapper, its `wal` the node's
-    WalManager (write-1M's door).  The caller stops srv."""
-    from filodb_tpu_torch.config import FilodbSettings
-    from filodb_tpu_torch.gateway.router import GatewayPipeline
-    from filodb_tpu_torch.http.routes import PromHttpApi
-    from filodb_tpu_torch.http.server import FiloHttpServer
-    cfg = FilodbSettings()
-    cfg.query.batch_window_ms = SERVE_WINDOW_MS
-    gw = GatewayPipeline(ms, "prometheus", one_shard_mapper(), config=cfg)
-    gw.wal = wal
-    api = PromHttpApi({"prometheus": eng}, gateways={"prometheus": gw},
-                      config=cfg)
-    # the coalescer waits only for the clients step (its window delays
-    # every request it takes)
-    api.frontends["prometheus"].coalescer.window_s = 0.0
-    srv = FiloHttpServer(api, port=0)
-    srv.start()
-    return api, srv, Http(srv.port)
-
-
 def run_serve_phase(eng, api, http, want_rate, orc, wends, num_series):
-    """serve-1M over the dense counter store, through the port's HTTP
-    stack (start_server's, driven over real HTTP from this process): the
+    """serve-1M over the dense counter store, through the recovered node's
+    HTTP stack (its FiloHttpServer, driven over real HTTP from this
+    process): the
     dashboard batch (POST /api/v1/query_range_batch, cold and
     SERVE_BATCH_WARM warm) bit for bit against each panel alone (GET
     /api/v1/query_range, exprfuse off) and against the f64 oracles;
@@ -5377,8 +5529,10 @@ def run_serve_phase(eng, api, http, want_rate, orc, wends, num_series):
         check(series_map(a) == series_map(b),
               "serve-1M: two warm batches differ")
     last = batches[-1]
-    # 2. each panel alone, exprfuse off
-    settings().query.exprfuse_enabled = False
+    # 2. each panel alone, exprfuse off (the node's engine reads its
+    # own settings)
+    qconf = (eng.config or settings()).query
+    qconf.exprfuse_enabled = False
     singles, single_s, single_gc = [], [], []
     try:
         for q in DASHBOARD:
@@ -5390,7 +5544,7 @@ def run_serve_phase(eng, api, http, want_rate, orc, wends, num_series):
             singles.append(pay)
             single_s.append(s)
     finally:
-        settings().query.exprfuse_enabled = True
+        qconf.exprfuse_enabled = True
     for q, b, s1, s in zip(DASHBOARD, last, singles, single_s):
         check(series_map(b) == series_map(s1),
               f"serve-1M: batch panel `{q}` differs from its run alone")
@@ -5617,6 +5771,25 @@ def run_ops_phase(eng, api, http, built, evictions):
     subs = health_ok("at start")
     log("ops-1M: /ready 200; /api/v1/status/health ok in "
         + ", ".join(sorted(subs)))
+    # the node's shard mapper, as the cluster routes show it
+    st, status, _ = http.call("GET", "/cluster/prometheus/status")
+    check(st == 200 and status["data"] == [
+        {"shard": 0, "status": "Active", "address": "local"}],
+        f"ops-1M: /cluster/prometheus/status {st} {status}")
+    st, shards, _ = http.call("GET", "/admin/shards")
+    ent = shards["data"]["datasets"].get("prometheus", {}) \
+        if st == 200 else {}
+    check(ent.get("numShards") == 1 and ent.get("replicationFactor") == 1
+          and [(r["shard"], r["primary"], r["status"], r["liveOwners"])
+               for r in ent.get("shards", [])] == [(0, "local", "Active", 1)]
+          and "replicaLag" not in ent,
+          f"ops-1M: /admin/shards {st} {shards}")
+    unported = {path: http.call(method, path)[0] for method, path in (
+        ("GET", "/admin/federation"), ("POST", "/admin/shards/0/handoff"))}
+    check(set(unported.values()) == {501},
+          f"ops-1M: unported routes answered {unported}")
+    log(f"ops-1M: /cluster/prometheus/status {status['data']}; "
+        f"/admin/shards {json.dumps(ent)}; 501 from {sorted(unported)}")
 
     # 2. /admin/devices over one warm dashboard batch
     st, pay, _ = http.call("POST", "/api/v1/query_range_batch", scan, body)
@@ -5825,6 +5998,324 @@ def log_ptxas(kernels):
                 f"{65536 // (regs * 32) if regs else 'n/a'}")
 
 
+NODE_SERIES = 16_384                # node-16k (host flush and page-in: cut)
+NODE_QUERY = RATE_Q                 # sum by (_ns_) (rate(request_total[5m]))
+NODE_TOTAL = "sum(rate(request_total[5m]))"
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def cli_run(*args, timeout=900):
+    """`python -m filodb_tpu_torch.cli ARGS` from the repository root ->
+    (stdout, seconds); fails the phase on a non-zero exit."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "filodb_tpu_torch.cli",
+                          *args], cwd=HERE, capture_output=True, text=True,
+                         timeout=timeout)
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0, f"node-16k: filo-cli {' '.join(args[:1])} "
+          f"exited {out.returncode}: {out.stderr[-2000:]}{out.stdout[-500:]}")
+    return out.stdout, secs
+
+
+class Serve:
+    """`python -m filodb_tpu_torch.cli serve` as a subprocess, its output
+    read on a thread; `host` once it printed its address."""
+
+    def __init__(self, data_dir, timeout_s=600):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "filodb_tpu_torch.cli", "serve",
+             "--data-dir", data_dir, "--port", "0", "--downsample", "60000"],
+            cwd=HERE, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, bufsize=1)
+        self.lines = []
+        self._ready = threading.Event()
+        threading.Thread(target=self._read, daemon=True).start()
+        if not self._ready.wait(timeout_s) or self.proc.poll() is not None:
+            self.kill()
+            raise SmokeFailure("node-16k: serve did not start: "
+                               + "".join(self.lines)[-2000:])
+        self.host = self.lines[-1].split()[-1]
+        self.up_s = time.perf_counter() - self.t0
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            if line.startswith("serving "):
+                self._ready.set()
+
+    def stop(self, timeout_s=600):
+        """SIGINT, then wait for the final flush -> seconds."""
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            rc = self.proc.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise SmokeFailure("node-16k: serve did not stop on SIGINT")
+        check(rc == 0, f"node-16k: serve exited {rc} on SIGINT: "
+              + "".join(self.lines)[-2000:])
+        return time.perf_counter() - t0
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def node_matrix(payload, wends, what):
+    check(payload.get("status") == "success", f"node-16k {what}: "
+          f"{payload.get('error')}")
+    return matrix_of(payload, wends)
+
+
+def run_node_phase(seed, dev):
+    """node-16k: filo-cli as users run it, on the card.  NODE_SERIES
+    request counters x 720 at 10 s (one reset each, _ns_ = App-{i %
+    1000}) written as an NPZ bundle through jobs.batch_io (from a host
+    memstore over a disk column store, whose flush is timed with the
+    native host library loaded); `init` and `importbundle` into a data
+    directory (a disk column store; the import flushes); `serve
+    --data-dir D --port 0 --downsample 60000` as a subprocess on the
+    card; `query` and `querybatch --host` held to the f64 oracle (rtol
+    2e-4 / atol 1e-3), K1 counted by the server's /admin/devices
+    ledger; health, jobs, devices, status, shards, tenants, cardinality
+    and events each answering; SIGINT and the final flush, then `serve`
+    again over the same directory, its panel within the same tolerance
+    (bit-identical or not, printed) and its boot to the first answer
+    timed; the offline commands list, indexnames, indexvalues,
+    topkcard, decodechunks, chunkinfos, partkey, validateSchemas and an
+    exportbundle whose arrays equal the bundle imported, series by
+    series, those that open a memstore with --device cpu (no kernel runs
+    in them) -> (launches, rows): this process launches nothing; the
+    server's K1 is counted by its ledger.  Cut from 1M to NODE_SERIES
+    for the time limit: the flush encodes and the first panel pages back
+    every series on the host."""
+    import torch
+    from filodb_tpu_torch import native
+    from filodb_tpu_torch.core.index import Equals
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.core.store import InMemoryMetaStore
+    from filodb_tpu_torch.jobs import batch_io
+    from filodb_tpu_torch.persist import LocalDiskColumnStore
+    lib = native.lib()
+    check(lib is not None, f"node-16k: no native host library: "
+          f"{native.build_error()}")
+    n = NODE_SERIES
+    rng = np.random.default_rng(seed)
+    vals = make_counter_slab(rng, n, 0.0)
+    ts_row = START_MS + np.arange(T, dtype=np.int64) * STEP_MS
+    wends = np.arange(START_MS + 600_000, int(ts_row[-1]) + 1, 60_000)
+    start_s, end_s = int(wends[0]) // 1000, int(ts_row[-1]) // 1000
+    grid = ["--start", str(start_s), "--end", str(end_s), "--step", "60"]
+    want = rate_by_ns(torch.from_numpy(vals).to(dev), ts_row, wends)
+    want_total = np.nansum(want, axis=0)
+    want_total[np.isnan(want).all(axis=0)] = np.nan
+    tmp = tempfile.mkdtemp(prefix="filodb-node-")
+    steps = {}
+    servers = []
+    try:
+        # 1. the bundle, through a host memstore whose flush is timed
+        t0 = time.perf_counter()
+        ms = TimeSeriesMemStore(
+            column_store=LocalDiskColumnStore(os.path.join(tmp, "bundle")),
+            meta_store=InMemoryMetaStore(), device="cpu")
+        keys = [PartKey.make("request_total", {
+            "_ws_": "demo", "_ns_": f"App-{i % NUM_NS}",
+            "instance": f"Instance-{i}"}) for i in range(n)]
+        ms.setup("prometheus", 0).ingest_columns(
+            "prom-counter", keys, np.broadcast_to(ts_row, (n, T)),
+            {"count": vals})
+        t1 = time.perf_counter()
+        chunks = ms.get_shard("prometheus", 0).flush_all_groups()
+        flush_s = time.perf_counter() - t1
+        bundle = os.path.join(tmp, "counters.npz")
+        exported = batch_io.export_series(
+            ms, "prometheus", [Equals("_metric_", "request_total")],
+            START_MS, int(ts_row[-1]), bundle)
+        check(exported == n, f"node-16k: the bundle holds {exported}")
+        del ms, keys
+        steps["bundle"] = time.perf_counter() - t0
+        log(f"node-16k: {n} series x {T} samples: a host flush of "
+            f"{chunks} chunks in {flush_s:.3f} s ({1e3 * flush_s / n:.3f} ms "
+            f"a series) with the native host library {lib.path} loaded; "
+            f"the bundle {os.path.getsize(bundle)} B")
+        # 2. init and importbundle into a data directory
+        d = os.path.join(tmp, "data")
+        out, steps["init"] = cli_run("init", "--data-dir", d)
+        out, steps["importbundle"] = cli_run("importbundle", "--data-dir", d,
+                                             "--bundle", bundle)
+        check(out.strip() == f"imported {n * T} samples from {bundle}",
+              f"node-16k: importbundle said {out!r}")
+        # 3. serve on the card
+        srv = Serve(d)
+        servers.append(srv)
+        steps["serve up"] = srv.up_s
+
+        def ledger():
+            out, _ = cli_run("devices", "--host", srv.host, "--raw")
+            devs = json.loads(out)["data"]["devices"]
+            ks = devs.get(str(dev), {}).get("kernels", {})
+            return sum(ks.get(k, {}).get("count", 0) for k in OPS_FUSED)
+        k0 = ledger()
+        # 4. query and querybatch over HTTP
+        out, steps["query cold"] = cli_run(
+            "query", "--host", srv.host, "--promql", NODE_QUERY, "--raw",
+            *grid)
+        first = node_matrix(json.loads(out), wends, "query")
+        err, rel = matrix_close(first, want, *KERNEL_TOL, "node-16k query")
+        out, steps["query warm"] = cli_run(
+            "query", "--host", srv.host, "--promql", NODE_QUERY, "--raw",
+            *grid)
+        warm = node_matrix(json.loads(out), wends, "warm query")
+        matrix_close(warm, want, *KERNEL_TOL, "node-16k warm query")
+        out, steps["querybatch"] = cli_run(
+            "querybatch", "--host", srv.host, "--promql", NODE_QUERY,
+            "--promql", NODE_TOTAL, "--raw", *grid)
+        batch = json.loads(out)
+        check(batch.get("status") == "success"
+              and [r["status"] for r in batch["results"]] == ["success"] * 2,
+              f"node-16k: querybatch {str(batch)[:500]}")
+        matrix_close(node_matrix(batch["results"][0], wends, "batch"),
+                     want, *KERNEL_TOL, "node-16k querybatch panel 1")
+        total = np.full(len(wends), np.nan)
+        for r in batch["results"][1]["data"]["result"]:
+            for t, v in r["values"]:
+                total[(int(round(float(t) * 1000)) - int(wends[0]))
+                      // 60_000] = float(v)
+        matrix_close(total[None, :], want_total[None, :], *KERNEL_TOL,
+                     "node-16k querybatch panel 2")
+        k1 = ledger() - k0
+        check(k1 >= 3, f"node-16k: the server's ledger shows {k1} K1 "
+              f"dispatches over the query, its warm run and the batch")
+        # 5. the operations commands
+        answers = {}
+        for cmd in ("health", "jobs", "devices", "status", "shards",
+                    "tenants", "cardinality", "events"):
+            extra = ["--raw"] if cmd in ("jobs", "devices", "shards",
+                                         "tenants", "cardinality") else []
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "filodb_tpu_torch.cli", cmd,
+                 "--host", srv.host, *extra], cwd=HERE,
+                capture_output=True, text=True, timeout=300)
+            steps[cmd] = time.perf_counter() - t0
+            if cmd == "health" and proc.returncode == 1:
+                subs = json.loads(proc.stdout)["data"]["subsystems"]
+                raise SmokeFailure("node-16k: the node is degraded: "
+                                   + json.dumps({k: v for k, v in
+                                                 subs.items()
+                                                 if v["status"] != "ok"}
+                                                )[:3000])
+            check(proc.returncode == 0,
+                  f"node-16k: {cmd} exited {proc.returncode}: "
+                  f"{proc.stdout[-1000:]}{proc.stderr[-1000:]}")
+            if cmd == "events":
+                evs = [json.loads(x) for x in proc.stdout.splitlines() if x]
+                check(any(e["kind"] == "phase" and e["to"] == "serving"
+                          for e in evs), "node-16k: no serving event")
+                answers[cmd] = f"{len(evs)} events"
+                continue
+            pay = json.loads(proc.stdout)
+            check(pay.get("status") == "success",
+                  f"node-16k: {cmd} {str(pay)[:500]}")
+            answers[cmd] = pay["data"]
+        health = answers["health"]
+        check(health["status"] == "ok" and health["phase"] == "serving",
+              f"node-16k: health {health['status']} in phase "
+              f"{health['phase']}")
+        log(f"node-16k: health {health['status']}, subsystems "
+            + json.dumps({k: v["status"] for k, v in
+                          health["subsystems"].items()}))
+        check(answers["status"] == [
+            {"shard": 0, "status": "Active", "address": "local"}],
+            f"node-16k: status {answers['status']}")
+        check(answers["cardinality"]["headStats"]["numSeries"] == n,
+              f"node-16k: cardinality {answers['cardinality']['headStats']}")
+        check(str(dev) in answers["devices"]["devices"],
+              f"node-16k: devices {sorted(answers['devices']['devices'])}")
+        # 6. SIGINT, the final flush, and a second boot
+        steps["stop"] = srv.stop()
+        servers.remove(srv)
+        t0 = time.perf_counter()
+        srv = Serve(d)
+        servers.append(srv)
+        out, _ = cli_run("query", "--host", srv.host, "--promql",
+                         NODE_QUERY, "--raw", *grid)
+        steps["reboot to first answer"] = time.perf_counter() - t0
+        again = node_matrix(json.loads(out), wends, "query after restart")
+        matrix_close(again, want, *KERNEL_TOL, "node-16k after restart")
+        same = np.array_equal(again, first, equal_nan=True)
+        steps["stop 2"] = srv.stop()
+        servers.remove(srv)
+        # 7. the offline commands over the same directory, on the host
+        # (--device cpu): they read the index and the disk store and run
+        # no kernel, so they open no CUDA context beside the main line
+        offline = {}
+        for args in (["list"], ["indexnames"],
+                     ["indexvalues", "--label", "_ns_", "--limit", "3"],
+                     ["topkcard"], ["decodechunks", "--limit", "4"],
+                     ["chunkinfos", 'request_total{_ns_="App-7"}',
+                      "--limit", "4"],
+                     ["partkey", 'request_total{_ws_="demo",_ns_="App-7",'
+                      'instance="Instance-7"}', "--num-shards", "1"],
+                     ["validateSchemas"]):
+            local = {"partkey": [], "validateSchemas": [],
+                     "list": ["--data-dir", d]}.get(
+                args[0], ["--data-dir", d, "--device", "cpu"])
+            out, steps[args[0]] = cli_run(*args, *local)
+            offline[args[0]] = out
+        check("prometheus\tshards=1" in offline["list"].splitlines(),
+              f"node-16k: list {offline['list']!r}")
+        check({"__name__", "_ns_", "_ws_", "instance"}
+              <= set(offline["indexnames"].split()),
+              f"node-16k: indexnames {offline['indexnames']!r}")
+        check(offline["topkcard"].split()[:2] == [str(n), "demo"],
+              f"node-16k: topkcard {offline['topkcard']!r}")
+        check(f"rows={T}" in offline["decodechunks"],
+              f"node-16k: decodechunks {offline['decodechunks'][:300]!r}")
+        infos = [json.loads(x) for x in offline["chunkinfos"].splitlines()]
+        check(infos and all(i["_ns_"] == "App-7" and i["numRows"] == T
+                            for i in infos),
+              f"node-16k: chunkinfos {infos[:2]}")
+        check("ingestionShard 0" in offline["partkey"]
+              and "Validation passed" in offline["validateSchemas"],
+              "node-16k: partkey or validateSchemas")
+        back = os.path.join(tmp, "back.npz")
+        out, steps["exportbundle"] = cli_run(
+            "exportbundle", "--data-dir", d, "--metric", "request_total",
+            "--start", str(START_MS), "--end", str(int(ts_row[-1])),
+            "--out", back, "--device", "cpu")
+        check(out.strip() == f"exported {n} series to {back}",
+              f"node-16k: exportbundle said {out!r}")
+
+        def by_labels(path):
+            labels, schemas, series = batch_io.load_bundle(path)
+            return {tuple(sorted(lab.items())): (sch, s) for lab, sch, s
+                    in zip(labels, schemas, series)}
+        a, b = by_labels(back), by_labels(bundle)
+        check(sorted(a) == sorted(b), "node-16k: exported series differ")
+        for k in a:
+            (sa, xa), (sb, xb) = a[k], b[k]
+            check(sa == sb and np.array_equal(xa["ts"], xb["ts"])
+                  and sorted(xa["cols"]) == sorted(xb["cols"])
+                  and all(np.array_equal(xa["cols"][c], xb["cols"][c])
+                          for c in xa["cols"]),
+                  f"node-16k: exported {k} differs from the bundle")
+    finally:
+        for srv in servers:
+            srv.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"node-16k: query oracle max_abs_err {err} max_rel_err {rel}; "
+        f"K1 dispatches in the server's ledger {k1}; after the restart "
+        f"the panel is {'' if same else 'not '}bit-identical to the first "
+        f"boot's; the server's /admin/shards "
+        f"{json.dumps(answers['shards']['datasets'])}; every step's "
+        "seconds " + json.dumps({k: round(v, 3) for k, v in steps.items()}))
+    return {}, [dict(query=NODE_QUERY, kernel="fused_rate_dense", err=err)]
+
+
 def phase_timer(dev, phase_s, phase_evictions):
     """timed(name, fn, *a, **kw): run one phase, log its seconds, the
     padded-values cache's evictions in it (its byte budget,
@@ -5869,7 +6360,8 @@ def phase_timer(dev, phase_s, phase_evictions):
 # gauges and the histograms once host-route-1M is done (beside serve-1M
 # through live-ingest-1M, whose peaks, 15-33 GB, leave room for theirs).
 SIDES = {"stores": ("flush-page-16k", "cold-65k", "compact-16k",
-                    "downsample-16k", "broker-16k", "counter ragged",
+                    "downsample-16k", "broker-16k", "node-16k",
+                    "counter ragged",
                     "gauge ragged",
                     "raw-counter dense", "raw-counter ragged"),
          "gauge-hist": ("gauge dense + general-1M", "hist-classic-1M",
@@ -5887,7 +6379,8 @@ def run_side(which, args, dev, timed):
                 ("compact-16k", run_compact_phase, (args.seed + 7, dev)),
                 ("downsample-16k", run_downsample_phase,
                  (args.seed + 10, dev)),
-                ("broker-16k", run_broker_phase, (args.seed + 9, dev))):
+                ("broker-16k", run_broker_phase, (args.seed + 9, dev)),
+                ("node-16k", run_node_phase, (args.seed + 11, dev))):
             got.append(timed(name, fn, *a)[0])
             free_device_memory()
         # phases 4 and 6 to 8: stores of their own, a few GB on the card
@@ -6036,6 +6529,12 @@ def main(argv=None) -> int:
         kernels.library(name)
     log(f"build {time.perf_counter() - t0:.2f} s "
         f"({', '.join(kernels.SOURCES)}; compiled here: {built})")
+    # the C++ host library (xxhash, NibblePack) every host path of the
+    # node loads: on this machine it must build
+    from filodb_tpu_torch import native
+    check(native.lib() is not None,
+          f"the native host library did not build: {native.build_error()}")
+    log(f"native host library {native.lib().path}")
     log_ptxas(kernels)
     dev = torch.device("cuda", 0)
 
@@ -6052,10 +6551,13 @@ def main(argv=None) -> int:
     side_dir = tempfile.mkdtemp(prefix="chip-smoke-")
     sides = {"stores": start_side("stores", args, side_dir)}
 
-    def add(got):
-        """Count a phase's launches; stop here if a side process failed."""
+    def add(got, phase):
+        """Count a phase's launches (and log them); stop here if a side
+        process failed."""
         for name in launches:
             launches[name] += got.get(name, 0)
+        log(f"main-path launches of {phase}: "
+            f"{({k: v for k, v in got.items() if v and k in launches})}")
         for which, (proc, _) in sides.items():
             check(proc.poll() in (None, 0),
                   f"side {which} failed with exit code {proc.returncode}")
@@ -6063,7 +6565,7 @@ def main(argv=None) -> int:
         main_phases(args, dev, timed, phase_evictions, built, add, sides,
                     side_dir)
         for which in SIDES:
-            add(join_side(which, sides[which], phase_s))
+            add(join_side(which, sides[which], phase_s), f"side {which}")
     finally:
         for proc, _ in sides.values():
             if proc.poll() is None:
@@ -6115,55 +6617,63 @@ def main_phases(args, dev, timed, phase_evictions, built, add, sides,
     device footprint, is done."""
     small_warm = max(3, args.warm // 3)
     n = args.series
-    # restart-1M rides dense-1M: its build goes through a WAL and the
-    # recovered node serves every later 1M phase to its oracle
+    # restart-1M rides dense-1M: its build goes through a WAL, and the
+    # node the log boots (a FiloServer) serves every later 1M phase to
+    # its oracle through its own API and HTTP server
     wal = open_wal(n)
+    root = wal_root(wal)
+    node = None
     try:
         got, _, got_general, kept = timed(
             "counter dense + general-1M", run_path, "counter", n,
             args.seed, 0.0, args.warm, COUNTER_QUERIES, (2e-4, 1e-3),
             GENERAL_QUERIES["counter"], small_warm, True, wal,
-            functools.partial(timed, "restart-1M", boot_from_wal))
-        add(got)
-        add(got_general)
+            functools.partial(timed, "restart-1M", boot_node))
+        add(got, "counter dense and restart-1M")
+        add(got_general, "general-1M counter")
         # host-route-1M and promql-1M over the same dense counters
-        eng, ms, want, wends, wal = kept
+        eng, ms, want, wends, node = kept
         got, _, orc = timed("host-route-1M", run_host_route_phase, eng, ms,
                             n, wends, small_warm, dev)
-        add(got)
+        add(got, "host-route-1M")
         free_device_memory()
         sides["gauge-hist"] = start_side("gauge-hist", args, side_dir)
         got, _ = timed("promql-1M", run_promql_phase, eng,
                        want[COUNTER_QUERIES[0][0]], orc, wends, small_warm,
                        n)
-        add(got)
-        api, srv, http = start_server(eng, ms, wal)
-        try:
-            got, _ = timed("serve-1M", run_serve_phase, eng, api, http,
-                           want[COUNTER_QUERIES[0][0]], orc, wends, n)
-            add(got)
-            got, _ = timed("ops-1M", run_ops_phase, eng, api, http, built,
-                           dict(phase_evictions))
-            add(got)
-            got, _ = timed("planners-1M", run_planners_phase, eng, http,
-                           small_warm)
-            add(got)
-            got, _ = timed("write-1M", run_write_phase, eng, ms, api, http,
-                           wal, n, args.seed, dev)
-            add(got)
-            got, _ = timed("rules-1M", run_rules_phase, eng, ms, api, http,
-                           n, dev, side_dir)
-            add(got)
-        finally:
-            srv.stop()
-        del want, orc, api, srv, http
+        add(got, "promql-1M")
+        api, http = node.api, Http(node.http.port)
+        # the coalescer waits only for the clients step (its window
+        # delays every request it takes)
+        api.frontends["prometheus"].coalescer.window_s = 0.0
+        got, _ = timed("serve-1M", run_serve_phase, eng, api, http,
+                       want[COUNTER_QUERIES[0][0]], orc, wends, n)
+        add(got, "serve-1M")
+        got, _ = timed("ops-1M", run_ops_phase, eng, api, http, built,
+                       dict(phase_evictions))
+        add(got, "ops-1M")
+        got, _ = timed("planners-1M", run_planners_phase, eng, http,
+                       small_warm)
+        add(got, "planners-1M")
+        got, _ = timed("write-1M", run_write_phase, eng, ms, api, http,
+                       node.wals["prometheus"], n, args.seed, dev)
+        add(got, "write-1M")
+        got, _ = timed("rules-1M", run_rules_phase, eng, ms, api, http,
+                       n, dev, side_dir)
+        add(got, "rules-1M")
+        node.shutdown()
+        node = None
+        del want, orc, api, http, kept
         free_device_memory()
         got, _ = timed("live-ingest-1M", run_live_ingest_phase, eng, ms, n,
                        args.seed, dev, WRITE_SCRAPES)
-        add(got)
-        del eng, ms, kept
+        add(got, "live-ingest-1M")
+        del eng, ms
     finally:
-        close_wal(wal)
+        if node is not None:
+            node.shutdown()
+        wal.close()
+        shutil.rmtree(root, ignore_errors=True)
     free_device_memory()
 
 

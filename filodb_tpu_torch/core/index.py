@@ -372,6 +372,15 @@ class PartKeyIndex:
         idx = part_id - lin.base
         return int(lin.start[idx]) if 0 <= idx < lin.start.shape[0] else 0
 
+    def earliest_start_time(self) -> Optional[int]:
+        """The earliest start time over the alive partitions (None when
+        there are none): the oldest sample the shard answers, resident
+        or paged in from its column store on demand."""
+        lin = self._lin
+        n = min(lin.start.shape[0], lin.alive.shape[0])
+        starts = lin.start[:n][lin.alive[:n].astype(bool)]
+        return int(starts.min()) if starts.size else None
+
     def end_time(self, part_id: int) -> int:
         lin = self._lin
         idx = part_id - lin.base

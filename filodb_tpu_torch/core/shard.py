@@ -1055,8 +1055,8 @@ class TimeSeriesShard:
         floor = self.resident.coverage_floor(info.part_id)
         ram_covers = (floor is not None and floor <= start_time_ms
                       and bool(chunks))
-        if not ram_covers and not isinstance(self.column_store,
-                                             NullColumnStore):
+        if not ram_covers and self.column_store.holds_chunks(
+                self.dataset, self.shard_num):
             if disk_chunks is None:
                 disk_chunks = list(self.column_store.read_chunks(
                     self.dataset, self.shard_num, info.part_key,
@@ -1064,14 +1064,22 @@ class TimeSeriesShard:
             chunks = list(disk_chunks) + chunks
         return chunks
 
+    def _may_page(self) -> bool:
+        """Whether any sealed chunk could be paged in: none can while the
+        RAM tier is empty and the column store holds no chunk of this
+        shard (a NullColumnStore, or a node restarted from its WAL
+        before its first flush)."""
+        return (self.resident.num_chunks > 0
+                or self.column_store.holds_chunks(self.dataset,
+                                                  self.shard_num))
+
     def ensure_paged_pids(self, schema_name: str, pids: np.ndarray,
                           start_time_ms: int, end_time_ms: int,
                           max_samples: Optional[int] = None) -> int:
         """Vectorized ensure_paged precheck: numpy over the whole pid
         array finds which pids need paging, and the per-partition paging
         loop runs only on that (usually empty) subset."""
-        if ((isinstance(self.column_store, NullColumnStore)
-                and self.resident.num_chunks == 0) or pids.size == 0):
+        if not self._may_page() or pids.size == 0:
             return 0
         store = self.stores[schema_name]
         rows = self._pid_row[pids]
@@ -1104,13 +1112,12 @@ class TimeSeriesShard:
         it.  Two directions: below the in-memory data (prepend) and, for
         page-only rows (no live appends), above it too.  Returns samples
         paged."""
-        if (isinstance(self.column_store, NullColumnStore)
-                and self.resident.num_chunks == 0):
+        if not self._may_page():
             return 0
         # one read_chunks_multi for every partition whose below-floor range
         # needs the column store, not a round trip per partition
         prefetch: Dict[int, list] = {}
-        if not isinstance(self.column_store, NullColumnStore):
+        if self.column_store.holds_chunks(self.dataset, self.shard_num):
             reqs, req_pids = [], []
             for info in parts:
                 store = self.stores[info.schema_name]

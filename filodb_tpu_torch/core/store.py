@@ -72,6 +72,12 @@ class ColumnStore:
     def all_part_keys(self, dataset: str, shard: int) -> List[PartKeyRecord]:
         return self.read_part_keys(dataset, shard)
 
+    def holds_chunks(self, dataset: str, shard: int) -> bool:
+        """False only when the store is known to hold no chunk of the
+        shard, so demand paging has nothing to read from it.  A store
+        that cannot tell cheaply answers True."""
+        return True
+
     def delete_part_keys(self, dataset: str, shard: int,
                          part_keys: Iterable[PartKey]) -> int:
         """Remove part keys so index bootstrap stops resurrecting them
@@ -116,6 +122,9 @@ class NullColumnStore(ColumnStore):
     def read_chunks(self, dataset, shard, part_key, start_time_ms, end_time_ms):
         return []
 
+    def holds_chunks(self, dataset, shard) -> bool:
+        return False
+
 
 class InMemoryColumnStore(ColumnStore):
     """Dict-backed store for tests/recovery tests."""
@@ -123,6 +132,8 @@ class InMemoryColumnStore(ColumnStore):
     def __init__(self):
         self._chunks: Dict[Tuple[str, int, bytes], List[Tuple[str, ChunkSet]]] = {}
         self._pks: Dict[Tuple[str, int, bytes], PartKeyRecord] = {}
+        # chunksets held per (dataset, shard): holds_chunks in O(1)
+        self._shard_chunks: Dict[Tuple[str, int], int] = {}
         self._lock = threading.Lock()
 
     def initialize(self, dataset: str, num_shards: int) -> None:
@@ -133,9 +144,16 @@ class InMemoryColumnStore(ColumnStore):
         with self._lock:
             bucket = self._chunks.setdefault(key, [])
             seen = {c.info.chunk_id for _, c in bucket}
+            n0 = len(bucket)
             # idempotent by chunk id (retried network writes, see netstore)
             bucket.extend((schema_name, cs) for cs in chunksets
                           if cs.info.chunk_id not in seen)
+            self._shard_chunks[(dataset, shard)] = \
+                self._shard_chunks.get((dataset, shard), 0) + len(bucket) - n0
+
+    def holds_chunks(self, dataset, shard) -> bool:
+        with self._lock:
+            return self._shard_chunks.get((dataset, shard), 0) > 0
 
     def write_part_keys(self, dataset, shard, records) -> None:
         with self._lock:

@@ -17,6 +17,9 @@ without binding ports.  Routes served:
   /api/v1/read (remote read), POST /influx/write (Influx line protocol),
   each over the dataset's gateway pipeline (gateway/router.py);
 - /metrics, /__health, /healthz (with the health model's phase), /ready;
+- /cluster/<dataset>/status and GET /admin/shards, from the shard mappers
+  the composition root hands the API (standalone.FiloServer); no
+  `replicaLag` table until replication is ported;
 - /admin/queries (list, get, POST .../kill), /admin/slowlog,
   /admin/ingestlog, /admin/devices, /admin/jobs, /admin/breakers,
   /admin/events, /admin/tenants, /admin/traces[/<id>], POST
@@ -26,8 +29,7 @@ without binding ports.  Routes served:
   routes answer empty lists and the reload 400, as the reference's).
 
 Every route the reference serves that the port does not have yet
-(/cluster/<dataset>/status, /admin/shards and its handoff verb,
-/admin/federation) answers 501
+(POST /admin/shards/<shard>/handoff, /admin/federation) answers 501
 with errorType `not_ported`; a path the reference does not know keeps
 its 404.  A QueryError("not_ported") raised below the API answers 501
 as well.  The port has no replication layer yet: `replicators` stays
@@ -152,7 +154,7 @@ class PromHttpApi:
                                     params, body, multi, headers)
             if parts[:1] == ["cluster"] and len(parts) >= 3 \
                     and parts[2] == "status":
-                return _not_ported("/cluster/<dataset>/status")
+                return self._cluster_status(parts[1])
             if parts[:2] == ["admin", "loglevel"] and len(parts) == 3 \
                     and method == "POST":
                 return self._loglevel(parts[2], body.decode().strip())
@@ -172,7 +174,7 @@ class PromHttpApi:
             if parts == ["admin", "federation"] and method == "GET":
                 return _not_ported("/admin/federation")
             if parts == ["admin", "shards"] and method == "GET":
-                return _not_ported("/admin/shards")
+                return self._shards(params)
             if parts[:2] == ["admin", "shards"] and len(parts) == 4 \
                     and parts[3] == "handoff" and method == "POST":
                 return _not_ported("/admin/shards/<shard>/handoff")
@@ -419,6 +421,17 @@ class PromHttpApi:
         return 200, _attach_partial_fields(
             {"status": "success", "data": merged or []}, partial, warnings)
 
+    # ------------------------------------------------------------- cluster
+
+    def _cluster_status(self, dataset: str) -> Tuple[int, object]:
+        """ref: ClusterApiRoute shard status (doc/http_api.md)."""
+        mapper = self.shard_mappers.get(dataset)
+        if mapper is None:
+            return 404, _err(f"dataset {dataset!r} not found")
+        statuses = [{"shard": i, "status": st, "address": addr}
+                    for i, (addr, st) in sorted(mapper.status_snapshot().items())]
+        return 200, {"status": "success", "data": statuses}
+
     # ------------------------------------------------------------- admin
 
     def _own_metrics(self, params: Optional[Dict[str, str]] = None
@@ -580,6 +593,32 @@ class PromHttpApi:
                                     -r["querySeconds"], r["ws"]))
         return 200, {"status": "success",
                      "data": {"count": len(out), "tenants": out}}
+
+    def _shards(self, params: Dict[str, str]) -> Tuple[int, object]:
+        """GET /admin/shards — the ShardMapper assignment table as JSON:
+        per shard the primary, its status, the ordered replica list with
+        per-replica status and live-owner count.  ?dataset= narrows to
+        one dataset (default: all registered).  The reference adds a
+        per-peer `replicaLag` table from its replication managers; the
+        port has none yet (`replicators` stays empty)."""
+        want = params.get("dataset", "")
+        datasets = {}
+        for ds, mapper in self.shard_mappers.items():
+            if want and ds != want:
+                continue
+            ent = {"numShards": mapper.num_shards,
+                   "replicationFactor": getattr(mapper,
+                                                "replication_factor", 1),
+                   "shards": (mapper.assignment_table()
+                              if hasattr(mapper, "assignment_table")
+                              else [])}
+            repl = self.replicators.get(ds)
+            if repl is not None:
+                ent["replicaLag"] = repl.snapshot()
+            datasets[ds] = ent
+        if want and not datasets:
+            return 404, _err(f"dataset {want!r} not found")
+        return 200, {"status": "success", "data": {"datasets": datasets}}
 
     def _jobs(self) -> Tuple[int, object]:
         """Unified background-job registry (utils/jobs.py): every

@@ -1,6 +1,5 @@
-"""Predictive NibblePack codec (port of filodb_tpu/memory/nibblepack.py:
-its vectorized numpy and pure-Python paths; the port loads no native
-library).
+"""Predictive NibblePack codec (port of filodb_tpu/memory/nibblepack.py,
+with its three paths).
 
 Storage scheme per the reference spec (ref: doc/compression.md:33-90,
 memory/src/main/scala/filodb.memory/format/NibblePack.scala): groups of 8
@@ -13,11 +12,12 @@ u64 values are encoded as
       (skipped when bitmask == 0)
 
 This is the host-side wire/storage codec; decoded data lives as dense
-arrays for the device.  Two interchangeable implementations, bit-exact
-with each other and with the reference's C codec:
+arrays for the device.  Three interchangeable implementations, all
+bit-exact (with each other and with the reference's):
 
+  - C (filodb_tpu_torch/native, built at first use), used when it loads;
   - vectorized NumPy (_pack_vec/_unpack_vec): group-wise uint64 ops over
-    ALL groups at once — no Python loop per group;
+    ALL groups at once — no Python loop per group — the fallback;
   - pure-Python reference (_pack_py/_unpack_py): the readable spec,
     kept as the parity oracle and for tiny inputs where NumPy dispatch
     overhead exceeds the loop cost.
@@ -30,6 +30,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+from filodb_tpu_torch import native as _native
 
 _M64 = 0xFFFFFFFFFFFFFFFF
 
@@ -82,6 +84,9 @@ def _leading_zero_nibbles(x: int) -> int:
 def pack(values: np.ndarray) -> bytes:
     """Pack an array of uint64 into NibblePack bytes.  Length is encoded by the
     caller (chunk metadata holds numRows); trailing group is zero-padded."""
+    lib = _native.lib()
+    if lib is not None:
+        return lib.nibble_pack(values)
     if len(values) < _VEC_MIN_VALUES:
         return _pack_py(values)
     return _pack_vec(values)
@@ -240,6 +245,9 @@ def _pack_vec(values: np.ndarray) -> bytes:
 
 def unpack(data: bytes, count: int) -> np.ndarray:
     """Unpack `count` uint64 values from NibblePack bytes."""
+    lib = _native.lib()
+    if lib is not None:
+        return lib.nibble_unpack(data, count)
     if count < _VEC_MIN_VALUES:
         return _unpack_py(data, count)
     return _unpack_vec(data, count)

@@ -16,14 +16,18 @@ cancellation (port of filodb_tpu/query/activequeries.py).
     (`bind_client_conn`); a background poller trips the same token when
     the peer closes mid-query (`queries_killed_total{reason=
     "disconnect"}`).
+  * Crash-durable active-query file (the Prometheus pattern): entries
+    appended at admission, tombstoned at completion; on boot, leftover
+    entries are journaled as `query_active_at_crash` events.  The
+    standalone server configures it (next to its WAL by default).
 
 The port kills locally only: the reference's kill frames to remote child
 nodes (parallel/transport.send_kill) need the wire, and no port query
-dispatches to a remote node.  The crash-durable active-query file comes
-with the standalone server, which configures it.
+dispatches to a remote node.
 """
 from __future__ import annotations
 
+import json
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -186,6 +190,10 @@ class ActiveQueryRegistry:
         self._lock = threading.Lock()
         self._by_id: Dict[str, List[ActiveQuery]] = {}
         self.enabled = True
+        # crash-durable active-query file (JSONL: {"op": "+"/"-"} pairs;
+        # unmatched "+" at boot = running at crash time)
+        self._path = ""
+        self._file = None
         # per-ws inflight/queued counts backing the live gauges, plus a
         # per-ws cache of the Gauge objects themselves: the serving hot
         # path updates both on every register/deregister, and re-keying
@@ -198,6 +206,85 @@ class ActiveQueryRegistry:
         # carries a client socket)
         self._watcher: Optional[threading.Thread] = None
         self.watch_interval_s = 0.1
+
+    # ----------------------------------------------------------- config
+
+    def configure(self, enabled: Optional[bool] = None,
+                  path: Optional[str] = None) -> "ActiveQueryRegistry":
+        with self._lock:
+            if enabled is not None:
+                self.enabled = bool(enabled)
+            if path is not None and path != self._path:
+                if self._file is not None:
+                    try:
+                        self._file.close()
+                    except OSError:
+                        pass
+                self._path = path
+                self._file = None
+        return self
+
+    @property
+    def path(self) -> str:
+        """The crash log's path ("" when none is configured)."""
+        return self._path
+
+    def replay_crash_log(self) -> int:
+        """Boot step: journal every entry the previous process left
+        unmatched in the active-query file as `query_active_at_crash`,
+        then truncate.  Returns how many were found."""
+        with self._lock:
+            path = self._path
+        if not path:
+            return 0
+        try:
+            with open(path) as f:
+                lines = f.readlines()
+        except OSError:
+            return 0
+        open_entries: Dict[str, dict] = {}
+        for line in lines:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue                     # torn tail from the crash
+            if rec.get("op") == "+":
+                open_entries[rec.get("id", "")] = rec
+            else:
+                open_entries.pop(rec.get("id", ""), None)
+        from filodb_tpu_torch.utils.events import journal
+        for qid, rec in open_entries.items():
+            journal.emit("query_active_at_crash", subsystem="query",
+                         query_id=qid, promql=rec.get("promql", ""),
+                         ws=rec.get("ws", ""), origin=rec.get("origin", ""),
+                         started_unix=rec.get("unix"))
+        try:
+            with open(path, "w"):
+                pass
+        except OSError:
+            pass
+        return len(open_entries)
+
+    def _log(self, op: str, ent: ActiveQuery) -> None:
+        """Append one crash-log line (best-effort: the registry is the
+        record; the file is the crash forensics)."""
+        if not self._path:
+            return
+        rec = {"op": op, "id": ent.query_id}
+        if op == "+":
+            rec.update(promql=ent.promql[:300], ws=ent.tenant_ws,
+                       origin=ent.origin, role=ent.role,
+                       unix=round(ent.start_unix, 3))
+        try:
+            with self._lock:
+                if self._file is None:
+                    self._file = open(self._path, "a")
+                self._file.write(json.dumps(rec, separators=(",", ":"))
+                                 + "\n")
+                self._file.flush()
+        except OSError:
+            from filodb_tpu_torch.utils.metrics import registry
+            registry.counter("active_query_log_errors").increment()
 
     # -------------------------------------------------------- lifecycle
 
@@ -218,6 +305,8 @@ class ActiveQueryRegistry:
             self._by_id.setdefault(query_id, []).append(ent)
             self._inflight[ws] = self._inflight.get(ws, 0) + 1
             self._queued[ws] = self._queued.get(ws, 0) + 1
+        if self._path:
+            self._log("+", ent)
         if conn is not None:
             self._ensure_watcher()
         return ent
@@ -241,6 +330,8 @@ class ActiveQueryRegistry:
             self._inflight[ws] = max(self._inflight.get(ws, 1) - 1, 0)
             if ent.phase == "queued":
                 self._queued[ws] = max(self._queued.get(ws, 1) - 1, 0)
+        if self._path:
+            self._log("-", ent)
         if verdict == "deadline":
             # the deadline reaper is a kill too (the metric's third
             # reason): token-flipped kills count in kill() instead

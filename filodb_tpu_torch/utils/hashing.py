@@ -5,12 +5,15 @@ memory/src/main/scala/filodb.memory/format/BinaryRegion.scala:14 `hasher32`) and
 derives shard-key hashes from label values (ref:
 core/src/main/scala/filodb.core/binaryrecord2/RecordBuilder.scala:604-619).
 These hashes route every record to a shard, so gateway, ingest and query layers
-must agree bit-for-bit.  Pure Python: the port carries no native build of
-its own for these hashes.
+must agree bit-for-bit.  The C implementation (filodb_tpu_torch/native,
+built at first use) serves xxhash32 and xxhash64 when it loads; the
+pure-Python ones below are the fallback and the reference for tests.
 """
 from __future__ import annotations
 
 import struct
+
+from filodb_tpu_torch import native as _native
 
 _PRIME32_1 = 0x9E3779B1
 _PRIME32_2 = 0x85EBCA77
@@ -40,7 +43,7 @@ def _round32(acc: int, lane: int) -> int:
     return (_rotl32(acc, 13) * _PRIME32_1) & _M32
 
 
-def xxhash32(data: bytes, seed: int = 0) -> int:
+def _py_xxhash32(data: bytes, seed: int = 0) -> int:
     """XXH32 of `data`.  Returns an unsigned 32-bit int."""
     n = len(data)
     idx = 0
@@ -88,7 +91,7 @@ def _merge64(acc: int, val: int) -> int:
     return (acc * _PRIME64_1 + _PRIME64_4) & _M64
 
 
-def xxhash64(data: bytes, seed: int = 0) -> int:
+def _py_xxhash64(data: bytes, seed: int = 0) -> int:
     """XXH64 of `data`.  Returns an unsigned 64-bit int."""
     n = len(data)
     idx = 0
@@ -133,6 +136,20 @@ def xxhash64(data: bytes, seed: int = 0) -> int:
     h = (h * _PRIME64_3) & _M64
     h ^= h >> 32
     return h
+
+
+def xxhash32(data: bytes, seed: int = 0) -> int:
+    lib = _native.lib()
+    if lib is not None:
+        return lib.xxhash32(data, seed)
+    return _py_xxhash32(data, seed)
+
+
+def xxhash64(data: bytes, seed: int = 0) -> int:
+    lib = _native.lib()
+    if lib is not None:
+        return lib.xxhash64(data, seed)
+    return _py_xxhash64(data, seed)
 
 
 def hash32_signed(data: bytes, seed: int = 0) -> int:

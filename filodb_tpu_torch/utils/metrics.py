@@ -13,9 +13,8 @@ transfers and mirror refreshes to the exec node that triggered them, so
 QueryStats.device_seconds and its per-device split reconcile with the
 kernel ledger by construction.
 
-Not carried over: span reporters and trace export, the exemplar kill
-switch and the scheduler asserts; they come with the subsystems that
-use them.
+Not carried over: span reporters and the scheduler asserts; they come
+with the subsystems that use them.
 """
 from __future__ import annotations
 
@@ -60,6 +59,17 @@ class Gauge:
 _DEFAULT_BOUNDS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 50, 100,
                    500, 1000, 5000, 10000, 60000)
 
+# process-wide exemplar kill switch (config `exemplars_enabled`): when
+# off, Histogram.record drops the exemplar argument on the floor so the
+# per-record cost is identical to the pre-exemplar code path
+EXEMPLARS_ENABLED = True
+
+
+def set_exemplars_enabled(flag: bool) -> None:
+    global EXEMPLARS_ENABLED
+    EXEMPLARS_ENABLED = bool(flag)
+
+
 class Histogram:
     __slots__ = ("bounds", "counts", "sum", "count", "max", "exemplars",
                  "_lock")
@@ -92,7 +102,7 @@ class Histogram:
             self.count += 1
             if v > self.max:
                 self.max = v
-            if exemplar:
+            if exemplar and EXEMPLARS_ENABLED:
                 if self.exemplars is None:
                     self.exemplars = {}
                 self.exemplars[i] = (str(exemplar), float(v), time.time())

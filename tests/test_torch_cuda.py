@@ -1317,3 +1317,61 @@ def test_downsample_store_gauge_panel_launches_k5(card):
     assert [k for k, _ in a] == [k for k, _ in b] and a
     for (_, x), (_, y) in zip(a, b):
         np.testing.assert_allclose(x, y, rtol=2e-4, atol=1e-3)
+
+
+def test_filoserver_warmup_and_first_panel_launch_k1(card):
+    """A FiloServer on the card with one warmup_shapes entry: start()'s
+    warmup thread builds the kernel libraries and launches K1 at that
+    shape; then the first dashboard panel over counters ingested into
+    the node launches K1 again and equals the same node on the CPU
+    (rtol 2e-4 / atol 1e-3)."""
+    from filodb_tpu_torch.config import FilodbSettings
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.standalone import DatasetConfig, FiloServer
+    from filodb_tpu_torch.utils.metrics import registry
+    S, T = 2048, 120
+    rng = np.random.default_rng(16)
+    t0 = 1_600_000_000_000
+    ts = np.broadcast_to(t0 + np.arange(T, dtype=np.int64) * 10_000, (S, T))
+    keys = [PartKey.make("request_total", {
+        "_ws_": "demo", "_ns_": f"App-{i % 40}", "instance": f"I-{i}"})
+        for i in range(S)]
+    vals = np.cumsum(rng.exponential(10.0, size=(S, T)), axis=1)
+    q = "sum by (_ns_) (rate(request_total[5m]))"
+    s0 = t0 // 1000
+    got = {}
+    for dev in (card, "cpu"):
+        cfg = FilodbSettings()
+        cfg.warmup_shapes = "4096x120x90x40" if dev is card else ""
+        srv = FiloServer([DatasetConfig("prometheus", 1)], config=cfg,
+                         device=dev)
+        try:
+            errors = registry.counter("warmup_compile_errors").value
+            n0 = kernels.LAUNCHES["fused_rate_dense"]
+            srv.start(background_flush=False)
+            if dev is card:
+                srv.warmup_thread.join(300)
+                assert not srv.warmup_thread.is_alive()
+                assert registry.counter("warmup_compile_errors").value \
+                    == errors
+                assert kernels.LAUNCHES["fused_rate_dense"] == n0 + 1
+            srv.memstore.get_shard("prometheus", 0).ingest_columns(
+                "prom-counter", keys, ts, {"count": vals})
+            n1 = kernels.LAUNCHES["fused_rate_dense"]
+            st, payload = srv.api.handle("GET", "/api/v1/query_range", {
+                "query": q, "start": str(s0 + 600), "end": str(s0 + 1190),
+                "step": "60"})
+            assert st == 200, payload
+            if dev is card:
+                assert kernels.LAUNCHES["fused_rate_dense"] == n1 + 1
+            got[str(dev)] = {
+                r["metric"]["_ns_"]: np.array([float(v) for _, v in
+                                               r["values"]])
+                for r in payload["data"]["result"]}
+        finally:
+            srv.shutdown()
+    a, b = got[str(card)], got["cpu"]
+    assert a.keys() == b.keys() and len(a) == 40
+    for k in a:
+        np.testing.assert_allclose(a[k], b[k], rtol=2e-4, atol=1e-3)
+

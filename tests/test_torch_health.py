@@ -340,10 +340,16 @@ def test_ready_and_health_of_a_serving_api(apis):
 
 
 NOT_PORTED = [
-    ("GET", "/cluster/prometheus/status"),
-    ("GET", "/admin/shards"),
     ("POST", "/admin/shards/0/handoff"),
     ("GET", "/admin/federation"),
+]
+
+# the shard mappers' routes, ported with the composition root since these
+# cases were in NOT_PORTED: over an API built without mappers both
+# packages give the same answer
+CLUSTER_ROUTES = [
+    ("GET", "/cluster/prometheus/status"),
+    ("GET", "/admin/shards"),
 ]
 
 # the rules engine's routes, ported since these cases were in NOT_PORTED:
@@ -380,6 +386,13 @@ def test_write_door_route_answers_as_the_reference(apis, method, path):
 
 @pytest.mark.parametrize("method, path", RULES_ROUTES)
 def test_rules_route_answers_as_the_reference(apis, method, path):
+    answers = [api.handle(method, path, {}, b"") for api in apis]
+    assert answers[1] == answers[0], path
+    assert answers[1][0] != 501
+
+
+@pytest.mark.parametrize("method, path", CLUSTER_ROUTES)
+def test_cluster_route_answers_as_the_reference(apis, method, path):
     answers = [api.handle(method, path, {}, b"") for api in apis]
     assert answers[1] == answers[0], path
     assert answers[1][0] != 501

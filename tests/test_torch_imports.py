@@ -72,7 +72,9 @@ NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "downsample.store", "downsample.batch_job",
                "downsample.dist_job", "rules", "rules.config",
                "rules.notifier", "rules.ruler", "utils.selfmon",
-               "utils.traceexport")
+               "utils.traceexport", "memory.intvec", "memory.utf8vec",
+               "jobs", "jobs.batch_io", "jobs.copier", "jobs.buster",
+               "native", "standalone", "cli")
 
 
 def _bare_import(module):
@@ -96,9 +98,10 @@ def test_general_path_module_stands_alone(module):
     flush scheduler, the ingestion streams and the shared object
     store), the write doors (the prompb codec, the cardinality
     tracker, the gateway, the broker and Kafka streams), the downsample
-    runtime and the rules engine with selfmon and span export, imported alone
-    in a fresh interpreter, pulls in neither jax nor the reference
-    package."""
+    runtime and the rules engine with selfmon and span export, the
+    vector codecs, the jobs, the native host library and the composition
+    roots (standalone, cli), imported alone in a fresh interpreter, pulls
+    in neither jax nor the reference package."""
     assert _bare_import("filodb_tpu_torch." + module) == []
 
 

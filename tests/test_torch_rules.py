@@ -777,14 +777,16 @@ def test_http_without_a_ruler_answers_as_the_reference():
         st, payload = api.handle("POST", "/admin/rules/reload", {})
         assert st == 400 and "no ruler configured" in payload["error"]
         assert api.handle("GET", "/promql/d/api/v1/rules", {})[0] == 200
-    # the routes still unported answer 501
-    fx = _Fix("port")
-    api = fx.p.PromHttpApi({"d": fx.eng})
+    # the shard mappers' routes answer as the reference's; federation,
+    # still unported, answers 501
+    apis = [fx.p.PromHttpApi({"d": fx.eng})
+            for fx in (_Fix(pkg) for pkg in PKGS)]
     for method, path in (("GET", "/admin/shards"),
-                         ("GET", "/admin/federation"),
                          ("GET", "/cluster/d/status")):
-        st, payload = api.handle(method, path, {})
-        assert st == 501 and payload["errorType"] == "not_ported", path
+        answers = [api.handle(method, path, {}) for api in apis]
+        assert answers[1] == answers[0] and answers[1][0] != 501, path
+    st, payload = apis[1].handle("GET", "/admin/federation", {})
+    assert st == 501 and payload["errorType"] == "not_ported"
 
 
 def test_plain_selector_returns_the_stored_sample():

@@ -1,13 +1,8 @@
 """Shared fixtures of the write-door tests (tests/test_torch_remote_write.py,
 test_torch_remote_read.py, test_torch_ratelimit.py, test_torch_gateway.py,
-test_torch_usage.py): one node per package over the same settings.
-
-The JAX package's node is its FiloServer, as its own tests build it.  The
-port has no FiloServer yet, so its node is assembled the way FiloServer's
-_setup_dataset assembles one: a CPU memstore whose shards carry a
-CardinalityTracker before index recovery, a ShardMapper with every shard
-started, a QueryEngine, a GatewayPipeline (its `wal` a WalManager when
-asked for, replayed at boot) and a PromHttpApi over them.
+test_torch_usage.py): one node per package over the same settings, each
+its package's FiloServer (the port's on the host, device="cpu"), as the
+JAX package's own tests build it.
 """
 import numpy as np
 
@@ -32,56 +27,22 @@ class Node:
         if pkg == "jax":
             from filodb_tpu.config import FilodbSettings
             from filodb_tpu.standalone import DatasetConfig, FiloServer
-            cfg = apply_settings(FilodbSettings(), settings)
-            if wal_dir is not None:
-                cfg.wal.enabled = True
-                cfg.wal.dir = str(wal_dir)
-            self.srv = FiloServer(datasets=[DatasetConfig(
-                DS, num_shards=shards)], config=cfg)
-            self.api = self.srv.api
-            self.memstore = self.srv.memstore
-            self.gateway = self.srv.gateways[DS]
-            self.wal = self.srv.wals.get(DS)
-            self.engine = self.srv.engines[DS]
-            return
-        from filodb_tpu_torch.config import FilodbSettings
-        from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
-        from filodb_tpu_torch.core.ratelimit import (CardinalityTracker,
-                                                     QuotaSource)
-        from filodb_tpu_torch.gateway.router import GatewayPipeline
-        from filodb_tpu_torch.http.routes import PromHttpApi
-        from filodb_tpu_torch.parallel.shardmapper import (ShardEvent,
-                                                           ShardMapper,
-                                                           SpreadProvider)
-        from filodb_tpu_torch.query.engine import QueryEngine
+            kw = {}
+        else:
+            from filodb_tpu_torch.config import FilodbSettings
+            from filodb_tpu_torch.standalone import DatasetConfig, FiloServer
+            kw = {"device": "cpu"}
         cfg = apply_settings(FilodbSettings(), settings)
-        self.srv = None
-        ms = TimeSeriesMemStore(device="cpu", config=cfg)
-        mapper = ShardMapper(shards)
-        spread = SpreadProvider(default_spread=cfg.spread_default)
-        quota_source = QuotaSource(cfg.quota_default)
-        for s in range(shards):
-            shard = ms.setup(DS, s)
-            shard.cardinality_tracker = CardinalityTracker(
-                shard_key_len=len(ms.schemas.part.options.shard_key_columns),
-                quota_source=quota_source)
-            shard.recover_index()
-            mapper.update_from_event(
-                ShardEvent("IngestionStarted", DS, s, "node"))
-        self.memstore = ms
-        self.engine = QueryEngine(DS, ms, mapper, spread, device="cpu",
-                                  config=cfg)
-        self.gateway = GatewayPipeline(ms, DS, mapper, spread, config=cfg)
-        self.wal = None
         if wal_dir is not None:
-            from filodb_tpu_torch.wal import WalManager
-            self.wal = WalManager(str(wal_dir), DS, config=cfg.wal)
-            self.gateway.wal = self.wal
-            self.wal.replay(ms, {s: ms.meta_store.read_earliest_checkpoint(
-                DS, s) for s in range(shards)})
-        self.api = PromHttpApi({DS: self.engine},
-                               gateways={DS: self.gateway},
-                               shard_mappers={DS: mapper}, config=cfg)
+            cfg.wal.enabled = True
+            cfg.wal.dir = str(wal_dir)
+        self.srv = FiloServer(datasets=[DatasetConfig(
+            DS, num_shards=shards)], config=cfg, **kw)
+        self.api = self.srv.api
+        self.memstore = self.srv.memstore
+        self.gateway = self.srv.gateways[DS]
+        self.wal = self.srv.wals.get(DS)
+        self.engine = self.srv.engines[DS]
 
     def post(self, path, body, headers=None, params=None):
         return self.api.handle("POST", path, params or {}, body,
@@ -91,10 +52,7 @@ class Node:
         return self.api.handle("GET", path, params or {}, b"")
 
     def close(self):
-        if self.srv is not None:
-            self.srv.shutdown()
-        elif self.wal is not None:
-            self.wal.close()
+        self.srv.shutdown()
 
 
 def usage_of(pkg):
