@@ -387,6 +387,39 @@ node-16k.  on the stores side: filo-cli as users run it (run_node_phase):
    an exportbundle equal to the bundle imported; every step's seconds and the host flush's with
    the native host library (filodb_tpu_torch/native) loaded.  The
    script fails when that library does not build.
+cluster-1M.  in the cluster side process, after cluster-e2e-4k
+   (run_cluster_phase): the wire and the cluster at full width.
+   dense-1M's 1,048,576 counters (the same seed) routed by the port's
+   shard mapper and spread into 4 shards, 2 each on two data nodes A
+   and B, each a TimeSeriesMemStore on the card behind its own
+   NodeQueryServer on loopback TCP in this process
+   (testcluster.make_fanout_cluster, fed columnar slabs through
+   ingest_columns); the coordinator a QueryEngine over an empty
+   memstore with RemoteNodeDispatchers.  sum by (_ns_) (rate(...[5m]))
+   over 110 one-minute steps pushed down (one partial a node, K1 once a
+   shard on the nodes) against the f64 oracle (rtol 2e-4, atol 1e-3),
+   cold and warm, pushdown off the same bits; the ship-everything panel
+   (ship_raw_series: [S, W] blocks streamed in CRC frames) within the
+   same tolerance; quantile by (_ns_) (0.9, ...) pushed and shipped the
+   same bits, within rtol 0.05 of the exact f64 quantile; a kill of the
+   ship-everything query once its stream flows (query_canceled); B's
+   server stopped (shard_unavailable without partial results, a flagged
+   partial answer equal to the oracle of A's series with them).  It
+   prints the wire bytes, frames, each panel's seconds and the wire's
+   split (serialize, frames, socket, assemble);
+cluster-e2e-4k.  in a side process of its own (`--side cluster`) from K8
+   on, then cluster-1M there (run_cluster_e2e_phase): a ClusterCoordinator
+   (4 shards, liveness
+   2.5 s), `python -m filodb_tpu_torch.persist.netstore` and three
+   `python -m filodb_tpu_torch.parallel.nodeapp --device cuda
+   --store-url ...` processes on the card; 4,096 counters x 90 samples
+   as Influx lines through each node's control socket; the rate panel
+   through a coordinator engine against the f64 oracle; a flush, SIGKILL
+   of an owner, failover to the standby (index from the netstore, chunks
+   paged on demand): the samples' sums within rtol 1e-9 of the ones
+   before, the rate panel within its oracle's tolerance.  Every step's
+   seconds, each node's boot to ready, and K1 launches from the nodes'
+   stats.devices as they come back over the wire;
 flush-page-16k, cold-65k, compact-16k, downsample-16k, broker-16k and
 node-16k, then phases 4 and
 6-8, run in a second process (`--side stores`) from K8 on, beside phase
@@ -6350,6 +6383,508 @@ def phase_timer(dev, phase_s, phase_evictions):
     return timed
 
 
+# ------------------------------------------ cluster-1M and cluster-e2e-4k
+
+CLUSTER_SHARDS = 4
+CLUSTER_QUERY = "sum by (_ns_) (rate(request_total[5m]))"
+CLUSTER_QUANTILE = "quantile by (_ns_) (0.9, rate(request_total[5m]))"
+E2E_SERIES, E2E_T, E2E_NS = 4096, 90, 64      # cluster-e2e-4k's counters
+
+
+def build_cluster(num_series, seed, dev):
+    """make_fanout_cluster's two data nodes "A" and "B" over CLUSTER_SHARDS
+    shards, each node a memstore on the card behind its NodeQueryServer
+    on loopback TCP, fed dense-1M's counters (the same seed, slab by
+    slab) through ingest_columns, each key routed by the shard mapper
+    and spread -> (cluster, per-series f64 rates [n, W] on the card, the
+    series' shards, wends, seconds)."""
+    import torch
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.parallel.shardmapper import SpreadProvider
+    from filodb_tpu_torch.parallel.testcluster import make_fanout_cluster
+    t0 = time.perf_counter()
+    c = make_fanout_cluster((), num_shards=CLUSTER_SHARDS, nodes=("A", "B"),
+                            device=dev)
+    spread = SpreadProvider(default_spread=1)
+    rng = np.random.default_rng(seed)
+    ts_row = START_MS + np.arange(T, dtype=np.int64) * STEP_MS
+    wends = np.arange(START_MS + 600_000, int(ts_row[-1]) + 1, 60_000)
+    rates = torch.empty((num_series, len(wends)), dtype=torch.float64,
+                        device=dev)
+    shard_of = np.empty(num_series, np.int64)
+    route_s = ingest_s = 0.0
+    for i0 in range(0, num_series, SLAB):
+        n = min(SLAB, num_series - i0)
+        vals = make_counter_slab(rng, n, 0.0)
+        keys = [PartKey.make("request_total", {
+            "_ws_": "demo", "_ns_": f"App-{i % NUM_NS}",
+            "instance": f"Instance-{i}", "dc": f"DC{i % 2}"})
+            for i in range(i0, i0 + n)]
+        t1 = time.perf_counter()
+        shards = np.asarray([c.mapper.ingestion_shard(
+            pk.shard_key_hash(), pk.partition_hash(),
+            spread.spread_for(pk.shard_key())) for pk in keys])
+        shard_of[i0:i0 + n] = shards
+        t2 = time.perf_counter()
+        for s in range(CLUSTER_SHARDS):
+            rows = np.flatnonzero(shards == s)
+            if len(rows):
+                c.stores[c.owner[s]].get_shard("prometheus", s).ingest_columns(
+                    "prom-counter", [keys[r] for r in rows],
+                    np.broadcast_to(ts_row, (len(rows), T)),
+                    {"count": vals[rows]})
+        t3 = time.perf_counter()
+        route_s += t2 - t1
+        ingest_s += t3 - t2
+        rates[i0:i0 + n] = oracle_rates_t(torch.from_numpy(vals).to(dev),
+                                          ts_row, wends)["rate"]
+    torch.cuda.synchronize()
+    log(f"cluster-1M: built {num_series} series over {CLUSTER_SHARDS} "
+        f"shards on nodes {sorted(set(c.owner.values()))} (owner "
+        f"{c.owner}; series a shard "
+        f"{np.bincount(shard_of, minlength=CLUSTER_SHARDS).tolist()}) in "
+        f"{time.perf_counter() - t0:.1f} s (routing {route_s:.1f} s, "
+        f"ingest {ingest_s:.1f} s)")
+    return c, rates, shard_of, wends, time.perf_counter() - t0
+
+
+def group_sums(rates, gids, rows=None):
+    """The f64 oracle of sum by (_ns_) over `rows` (all when None)."""
+    import torch
+    acc = GroupOracle(NUM_NS, rates.shape[1])
+    if rows is None:
+        acc.add(rates, gids)
+    else:
+        r = torch.from_numpy(rows).to(rates.device)
+        acc.add(rates[r], gids[r])
+    return acc.result("sum")
+
+
+def wire_split():
+    """A context that times the wire's parts for every query in it, both
+    sides summed (the nodes run in this process): serialize (dumps),
+    frames (stream split, CRC framing and checks), socket (frame send
+    and receive, each side's wait for the other included: the
+    coordinator's receive of a reply waits for the node's execution),
+    assemble (loads, the stream assembler or fold) -> (the context, the
+    seconds dict it fills)."""
+    from filodb_tpu_torch.parallel import serialize, streams
+    from filodb_tpu_torch.parallel import transport as tr
+    spent = {k: [0.0] for k in ("serialize", "frames", "socket",
+                                "assemble")}
+    stack = contextlib.ExitStack()
+    for obj, name, part in (
+            (serialize, "dumps", "serialize"),
+            (streams, "split_for_stream", "frames"),
+            (tr, "_pack_stream_frame", "frames"),
+            (tr, "_unpack_stream_frame", "frames"),
+            (tr, "_send_frame", "socket"),
+            (tr, "_recv_frame", "socket"),
+            (serialize, "loads", "assemble"),
+            (streams.StreamAssembler, "add", "assemble"),
+            (streams.StreamAssembler, "finish", "assemble"),
+            (streams.StreamFold, "add", "assemble")):
+        stack.enter_context(timed_method(obj, name, spent[part]))
+    return stack, spent
+
+
+def run_cluster_phase(num_series, seed, warm, dev):
+    """cluster-1M: the wire and the cluster at full width.  build_cluster's
+    two nodes over 4 shards, the coordinator a QueryEngine over an empty
+    memstore on the card with RemoteNodeDispatchers.  (1) the panel
+    CLUSTER_QUERY over 110 one-minute steps with node-level pushdown on:
+    within rtol 2e-4 / atol 1e-3 of the f64 oracle, pushdown_pushed 2,
+    K1 once a shard (4 a panel) on the nodes, cold once and `warm` times
+    warm (bit-identical), then pushdown off, the same bits; (2) the
+    ship-everything panel (ship_raw_series: [S, W] blocks streamed to
+    the coordinator, which maps and reduces them), within tolerance;
+    (3) CLUSTER_QUANTILE pushed and ship-everything, the same bits,
+    within rtol 0.05 of the exact quantile of the f64 rates; (4) a kill
+    of the ship-everything query once its stream flows: the structured
+    query_canceled; (5) B's server stopped: without partial results the
+    typed shard_unavailable, with them a result flagged partial whose
+    groups equal the f64 oracle of A's shards.  Wire bytes, frames and
+    the wire's split (wire_split) printed -> (launches, rows)."""
+    import torch
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.parallel import transport as tr
+    from filodb_tpu_torch.parallel.breaker import breakers
+    from filodb_tpu_torch.query.activequeries import active_queries
+    kernels.reset_launch_counts()
+    c, rates, shard_of, wends, build_s = build_cluster(num_series, seed, dev)
+    eng = c.engine
+    start_s, end_s = int(wends[0]) // 1000, int(wends[-1]) // 1000
+    gids = torch.from_numpy(np.arange(num_series) % NUM_NS).to(dev)
+    want = group_sums(rates, gids)
+    steps = {"build": build_s}
+
+    def panel(q, what, **kw):
+        n0 = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        res = eng.query_range(q, start_s, 60, end_s, scan_params(**kw))
+        took = time.perf_counter() - t
+        check(res.error is None, f"cluster-1M {what}: {res.error}")
+        return res, took, launched(n0)
+
+    def bits(res):
+        return {k.labels: np.asarray(v).tobytes()
+                for k, _, v in res.series()}
+    try:
+        stack, split = wire_split()
+        ledger0 = k1_ledger(dev)
+        with stack:
+            on, cold_s, k = panel(CLUSTER_QUERY, "pushed cold")
+        ledger_k1 = k1_ledger(dev) - ledger0
+        err = compare(on, want, 2e-4, 1e-3, "cluster-1M pushed")[1]
+        check(on.stats.pushdown_pushed == 2,
+              f"cluster-1M: pushdown_pushed {on.stats.pushdown_pushed}")
+        check(k.get("fused_rate_dense", 0) == CLUSTER_SHARDS
+              and ledger_k1 == CLUSTER_SHARDS,
+              f"cluster-1M: the pushed panel launched {k}, the ledger "
+              f"booked {ledger_k1} K1 dispatches")
+        pushed_split = {p: v[0] for p, v in split.items()}
+        warm_s = []
+        for _ in range(warm):
+            again, took, k = panel(CLUSTER_QUERY, "pushed warm")
+            check(bits(again) == bits(on),
+                  "cluster-1M: a warm pushed panel differs in its bits")
+            check(k.get("fused_rate_dense", 0) == CLUSTER_SHARDS,
+                  f"cluster-1M: a warm pushed panel launched {k}")
+            warm_s.append(took)
+        off, off_s, _ = panel(CLUSTER_QUERY, "pushdown off",
+                              aggregation_pushdown=False)
+        check(bits(off) == bits(on),
+              "cluster-1M: pushdown off differs in its bits from on")
+        steps.update(pushed_cold=cold_s, pushed_warm_p50=float(
+            np.median(warm_s)), pushdown_off=off_s)
+        log(f"cluster-1M pushed: cold {cold_s:.3f} s, warm p50 "
+            f"{np.median(warm_s):.4f} s over {warm} (min {min(warm_s):.4f}, "
+            f"max {max(warm_s):.4f}); wire bytes {on.stats.wire_bytes} "
+            f"(pushdown off: {off.stats.wire_bytes}, {off_s:.3f} s, the same "
+            f"bits); K1 launches a panel {CLUSTER_SHARDS} (the ledger's "
+            f"dispatches {ledger_k1}); oracle max abs "
+            f"err {err}; wire split of the cold panel "
+            + json.dumps({p: round(v, 4) for p, v in pushed_split.items()})
+            + f"; stats cpu {on.stats.cpu_seconds:.4f} device "
+            f"{on.stats.device_seconds:.4f} transfer "
+            f"{on.stats.transfer_s:.4f} s")
+        stack, split = wire_split()
+        with stack:
+            raw, raw_s, _ = panel(CLUSTER_QUERY, "ship-everything",
+                                  ship_raw_series=True)
+        raw_err = compare(raw, want, 2e-4, 1e-3,
+                          "cluster-1M ship-everything")[1]
+        check(raw.stats.streamed_frames > 2,
+              f"cluster-1M: ship-everything streamed "
+              f"{raw.stats.streamed_frames} frames")
+        steps["ship_everything"] = raw_s
+        log(f"cluster-1M ship-everything: {raw_s:.2f} s, wire bytes "
+            f"{raw.stats.wire_bytes} ({raw.stats.wire_bytes / max(on.stats.wire_bytes, 1):.1f}x "
+            f"the pushed panel's), streamed frames "
+            f"{raw.stats.streamed_frames}, oracle max abs err {raw_err}, "
+            f"the same bits as pushed: {bits(raw) == bits(on)}; wire split "
+            + json.dumps({p: round(v[0], 3) for p, v in split.items()}))
+        # quantile: the sketch, pushed and shipped whole
+        qp, qp_s, _ = panel(CLUSTER_QUANTILE, "quantile pushed")
+        qr, qr_s, _ = panel(CLUSTER_QUANTILE, "quantile ship-everything",
+                            ship_raw_series=True)
+        check(bits(qp) == bits(qr) and qp.num_series == NUM_NS,
+              "cluster-1M: quantile pushed and ship-everything differ")
+        exact = torch.stack([torch.nanquantile(rates[g::NUM_NS], 0.9, dim=0)
+                             for g in range(NUM_NS)]).cpu().numpy()
+        q_err = compare(qp, exact, 0.05, 0.0, "cluster-1M quantile")[2]
+        steps.update(quantile_pushed=qp_s, quantile_ship_everything=qr_s)
+        log(f"cluster-1M quantile: pushed {qp_s:.3f} s, ship-everything "
+            f"{qr_s:.2f} s, the same bits; max rel err against the exact "
+            f"f64 quantile {q_err:.4f} (bound 0.05); wire bytes "
+            f"{qp.stats.wire_bytes} and {qr.stats.wire_bytes}")
+        # a kill once the ship-everything stream flows
+        flowing = threading.Event()
+        real_pack = tr._pack_stream_frame
+
+        def pack(seq, body, last):
+            if seq >= 4:
+                flowing.set()
+            return real_pack(seq, body, last)
+        box = {}
+        tr._pack_stream_frame = pack
+        try:
+            th = threading.Thread(target=lambda: box.update(res=eng.query_range(
+                CLUSTER_QUERY, start_s, 60, end_s,
+                scan_params(ship_raw_series=True))), daemon=True)
+            th.start()
+            check(flowing.wait(300), "cluster-1M: the stream never flowed")
+            qids = {e.query_id for e in active_queries.entries()
+                    if e.role == "remote"}
+            check(len(qids) == 1, f"cluster-1M: remote entries {qids}")
+            t = time.perf_counter()
+            active_queries.kill(qids.pop(), reason="admin",
+                                detail="chip smoke kill mid-stream")
+            th.join(300)
+            kill_s = time.perf_counter() - t
+        finally:
+            tr._pack_stream_frame = real_pack
+        err_s = (box.get("res").error or "") if "res" in box else ""
+        check(err_s.startswith("query_canceled"),
+              f"cluster-1M: the killed query answered {err_s!r}")
+        steps["kill_to_cancel"] = kill_s
+        log(f"cluster-1M kill mid-stream: query_canceled {kill_s:.3f} s "
+            f"after the kill ({err_s[:120]})")
+        # B dies
+        c.servers["B"].stop()
+        t = time.perf_counter()
+        dead = eng.query_range(CLUSTER_QUERY, start_s, 60, end_s,
+                               scan_params())
+        dead_s = time.perf_counter() - t
+        check(dead.error is not None
+              and dead.error.startswith("shard_unavailable"),
+              f"cluster-1M: with B dead the panel answered {dead.error!r}")
+        part, part_s, _ = panel(CLUSTER_QUERY, "partial",
+                                allow_partial_results=True)
+        check(part.partial and part.stats.warnings,
+              "cluster-1M: the partial answer is not flagged partial")
+        a_rows = np.flatnonzero(np.isin(shard_of, [
+            s for s, n in c.owner.items() if n == "A"]))
+        a_err = compare(part, group_sums(rates, gids, a_rows), 2e-4, 1e-3,
+                        "cluster-1M partial (A's shards)")[1]
+        steps.update(dead_error=dead_s, partial=part_s)
+        log(f"cluster-1M B dead: shard_unavailable in {dead_s:.3f} s; "
+            f"partial in {part_s:.3f} s, flagged, {part.num_series} groups "
+            f"within tolerance of the oracle of A's "
+            f"{len(a_rows)} series (max abs err {a_err}); warnings "
+            f"{part.stats.warnings[:1]}")
+        launches = dict(kernels.LAUNCHES)
+        log("cluster-1M steps' seconds " + json.dumps(
+            {k: round(v, 4) for k, v in steps.items()}))
+    finally:
+        breakers.reset()
+        c.stop()
+    return launches, [dict(query=CLUSTER_QUERY, kernel="fused_rate_dense",
+                           err=err)]
+
+
+def e2e_lines(vals, ts_row):
+    """Influx lines of the counters [n, t] (field `counter`, so the
+    gateway lands them in prom-counter)."""
+    out = []
+    heads = [f"request_total,_ws_=demo,_ns_=App-{i % E2E_NS},"
+             f"instance=Instance-{i} counter=" for i in range(vals.shape[0])]
+    for t, col in zip(ts_row.tolist(), vals.T.tolist()):
+        tail = f" {t * 1_000_000}"
+        out.extend(f"{h}{v!r}{tail}" for h, v in zip(heads, col))
+    return out
+
+
+def run_cluster_e2e_phase(seed, dev):
+    """cluster-e2e-4k: the cluster as users deploy it.  A ClusterCoordinator
+    (4 shards, two nodes' worth, liveness 2.5 s) and a `python -m
+    filodb_tpu_torch.persist.netstore` chunk service; three `python -m
+    filodb_tpu_torch.parallel.nodeapp --device cuda --store-url ...`
+    processes on the card (two own the shards, one stands by); E2E_SERIES
+    counters x E2E_T samples at 10 s as Influx lines fed to every node's
+    control socket (each keeps its shards); CLUSTER_QUERY through a
+    coordinator engine on the card over RemoteNodeDispatchers, within
+    rtol 2e-4 / atol 1e-3 of the f64 oracle; a flush, SIGKILL of one
+    owner, the liveness check and the reassignment to the standby, which
+    recovers its index from the netstore and pages chunks on demand; the
+    answer after failover equal to the one before (rtol 1e-9).  K1
+    launches counted from the nodes' stats.devices as they come back
+    over the wire -> (launches, rows): this process launches nothing."""
+    import torch
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.parallel.cluster import (ClusterClient,
+                                                   ClusterCoordinator, _rpc)
+    from filodb_tpu_torch.parallel.shardmanager import ShardManager
+    from filodb_tpu_torch.parallel.shardmapper import SpreadProvider
+    from filodb_tpu_torch.parallel.transport import RemoteNodeDispatcher
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.planner import SingleClusterPlanner
+    steps = {}
+    rng = np.random.default_rng(seed)
+    vals = np.cumsum(rng.exponential(10.0, (E2E_SERIES, E2E_T)), axis=1)
+    r = rng.integers(E2E_T // 2, E2E_T, size=E2E_SERIES)
+    before = vals[np.arange(E2E_SERIES), r - 1][:, None]
+    vals = np.where(np.arange(E2E_T)[None, :] >= r[:, None], vals - before,
+                    vals)
+    ts_row = START_MS + np.arange(E2E_T, dtype=np.int64) * STEP_MS
+    wends = np.arange(START_MS + 300_000, int(ts_row[-1]) + 1, 60_000)
+    start_s, end_s = int(wends[0]) // 1000, int(wends[-1]) // 1000
+    acc = GroupOracle(E2E_NS, len(wends))
+    acc.add(oracle_rates_t(torch.from_numpy(vals).to(dev), ts_row,
+                           wends)["rate"],
+            torch.from_numpy(np.arange(E2E_SERIES) % E2E_NS).to(dev))
+    want = acc.result("sum")
+    lines = e2e_lines(vals, ts_row)
+    tmp = tempfile.mkdtemp(prefix="cluster-e2e-")
+    procs = []
+    coord = None
+
+    def spawn(cmd, name):
+        t = time.perf_counter()
+        err = open(os.path.join(tmp, f"{name}.stderr"), "w")
+        p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=err,
+                             text=True)
+        err.close()
+        procs.append(p)
+        return p, t
+
+    def ready(p, t, name):
+        box = {}
+        th = threading.Thread(target=lambda: box.update(
+            line=p.stdout.readline()), daemon=True)
+        th.start()
+        th.join(180)
+        if not box.get("line"):
+            with open(os.path.join(tmp, f"{name}.stderr")) as f:
+                tail = f.read()[-3000:]
+            raise SmokeFailure(f"cluster-e2e-4k: {name} did not start: "
+                               f"{tail}")
+        info = json.loads(box["line"])
+        check(info.get("ready"), f"cluster-e2e-4k: {name} said {info}")
+        return info, time.perf_counter() - t
+
+    def state_until(cli, pred, timeout_s, what):
+        t_end = time.time() + timeout_s
+        while time.time() < t_end:
+            st = cli.state()
+            if pred(st):
+                return st
+            time.sleep(0.2)
+        raise SmokeFailure(f"cluster-e2e-4k: timed out waiting for {what}: "
+                           f"{cli.state()}")
+
+    def query(cli):
+        """The rate panel against its oracle, and the stored samples'
+        sum by (_ns_) -> (rate answer, its err, seconds, K1 launches,
+        device calls, the samples' sum)."""
+        mapper, addrs = cli.mapper("prometheus")
+        planner = SingleClusterPlanner(
+            "prometheus", mapper, SpreadProvider(default_spread=1),
+            dispatcher_factory=lambda s: RemoteNodeDispatcher(
+                *addrs[mapper.node_for_shard(s)]))
+        eng = QueryEngine("prometheus", TimeSeriesMemStore(device=dev),
+                          mapper, planner=planner, device=dev)
+        t = time.perf_counter()
+        res = eng.query_range(CLUSTER_QUERY, start_s, 60, end_s)
+        took = time.perf_counter() - t
+        got, err = compare(res, want, 2e-4, 1e-3, "cluster-e2e-4k")[:2]
+        # device_calls: "device|kernel" -> [seconds, launches]
+        k1 = sum(v[1] for key, v in res.stats.device_calls.items()
+                 if key.split("|")[-1] in OPS_FUSED)
+        raw = eng.query_range("sum by (_ns_) (request_total)", start_s, 60,
+                              end_s)
+        check(raw.error is None, f"cluster-e2e-4k: {raw.error}")
+        return got, err, took, k1, res.stats.device_calls, {
+            k.labels: np.asarray(v) for k, _, v in raw.series()}
+
+    try:
+        t0 = time.perf_counter()
+        coord = ClusterCoordinator(ShardManager(reassignment_min_interval_s=0),
+                                   liveness_timeout_s=2.5,
+                                   check_interval_s=0.3).start()
+        coord.setup_dataset("prometheus", CLUSTER_SHARDS, min_num_nodes=2)
+        svc, ts = spawn([sys.executable, "-m",
+                         "filodb_tpu_torch.persist.netstore", "--root",
+                         os.path.join(tmp, "central")], "netstore")
+        svc_info, steps["netstore_ready"] = ready(svc, ts, "netstore")
+        store_url = f"127.0.0.1:{svc_info['port']}"
+        nodes = {}
+        for name in ("A", "B", "C"):
+            nodes[name] = spawn(
+                [sys.executable, "-m", "filodb_tpu_torch.parallel.nodeapp",
+                 "--name", name, "--coordinator",
+                 f"127.0.0.1:{coord.address[1]}", "--data-dir",
+                 os.path.join(tmp, name), "--device", "cuda", "--store-url",
+                 store_url, "--heartbeat-interval", "0.3"], name)
+        infos = {}
+        for name, (p, t) in nodes.items():
+            infos[name], steps[f"boot_to_ready_{name}"] = ready(p, t, name)
+        cli = ClusterClient(coord.address)
+        st = state_until(cli, lambda s: s["datasets"]["prometheus"][
+            "statuses"] == ["Active"] * CLUSTER_SHARDS, 120,
+            "every shard active")
+        owners = sorted(set(st["datasets"]["prometheus"]["nodes"]))
+        standby = sorted(set(nodes) - set(owners))
+        check(len(owners) == 2 and len(standby) == 1,
+              f"cluster-e2e-4k: owners {owners}")
+        steps["shards_active"] = time.perf_counter() - t0
+        t = time.perf_counter()
+        errs = []
+
+        def feed(name):
+            try:
+                rep = _rpc(("127.0.0.1", infos[name]["control_port"]),
+                           {"cmd": "ingest_lines", "lines": lines,
+                            "offset": 1}, timeout_s=600)
+                check(rep.get("ok"), f"{name} ingest: {rep}")
+            except Exception as e:  # noqa: BLE001 — reported below
+                errs.append(f"{name}: {e}")
+        feeders = [threading.Thread(target=feed, args=(n,)) for n in nodes]
+        for th in feeders:
+            th.start()
+        for th in feeders:
+            th.join()
+        check(not errs, f"cluster-e2e-4k: feeding failed: {errs}")
+        steps["feed"] = time.perf_counter() - t
+        got, err, steps["query_cold"], k1_cold, calls, sums = query(cli)
+        _, _, steps["query_warm"], k1_warm, _, _ = query(cli)
+        t = time.perf_counter()
+        for name in owners:
+            rep = _rpc(("127.0.0.1", infos[name]["control_port"]),
+                       {"cmd": "flush"}, timeout_s=600)
+            check(rep.get("ok"), f"cluster-e2e-4k: flush on {name}: {rep}")
+        steps["flush"] = time.perf_counter() - t
+        victim = owners[-1]
+        t = time.perf_counter()
+        nodes[victim][0].send_signal(signal.SIGKILL)
+        nodes[victim][0].wait()
+        state_until(cli, lambda s: victim not in s["members"]
+                    and set(s["datasets"]["prometheus"]["nodes"])
+                    == {owners[0], standby[0]}
+                    and s["datasets"]["prometheus"]["statuses"]
+                    == ["Active"] * CLUSTER_SHARDS, 120,
+                    f"failover of {victim} to {standby[0]}")
+        steps["failover"] = time.perf_counter() - t
+        got2, err2, steps["query_after_failover"], k1_after, _, sums2 = \
+            query(cli)
+        # the stored samples come back as they were: their sums within
+        # rtol 1e-9 (tests/test_cluster_e2e.py's bound); the rate panel,
+        # f32 sums over rows the standby's recovered index orders anew,
+        # within its oracle's tolerance, its difference printed
+        check(sorted(sums) == sorted(sums2) and all(
+            np.allclose(sums2[k], sums[k], rtol=1e-9, atol=0.0,
+                        equal_nan=True) for k in sums),
+              "cluster-e2e-4k: the samples' sums after failover differ "
+              "from the ones before the kill")
+        m = ~np.isnan(got)
+        rel = float(np.max(np.abs(got2[m] - got[m])
+                           / np.maximum(np.abs(got[m]), 1e-300))) \
+            if m.any() else 0.0
+        check(np.array_equal(np.isnan(got), np.isnan(got2)),
+              "cluster-e2e-4k: the rate panel's steps after failover differ")
+        log(f"cluster-e2e-4k: {E2E_SERIES} counters x {E2E_T} "
+            f"({len(lines)} Influx lines a node) on owners {owners} and "
+            f"standby {standby}; {victim} SIGKILLed; oracle max abs err "
+            f"before {err}, after {err2}; the rate panel after failover "
+            f"bit-identical: {np.array_equal(got, got2, equal_nan=True)}, "
+            f"max rel difference {rel}; the samples' sums within rtol 1e-9 "
+            f"of the ones before; K1 launches by the nodes' "
+            f"stats.devices: cold {k1_cold}, warm {k1_warm}, after failover "
+            f"{k1_after} (device calls of the cold query "
+            f"{json.dumps(calls)}); every step's seconds "
+            + json.dumps({k: round(v, 3) for k, v in steps.items()}))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        if coord is not None:
+            coord.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {}, [dict(query=CLUSTER_QUERY, kernel="fused_rate_dense",
+                     err=err)]
+
+
 # ------------------------------------------------ phases in side processes
 
 # Phases that share no store with this process's run in second processes
@@ -6358,12 +6893,16 @@ def phase_timer(dev, phase_s, phase_evictions):
 # restart-1M and the 1M phases on its store, where the card is idle
 # nearly all the time and this process keeps one core busy); the dense
 # gauges and the histograms once host-route-1M is done (beside serve-1M
-# through live-ingest-1M, whose peaks, 15-33 GB, leave room for theirs).
+# through live-ingest-1M, whose peaks, 15-33 GB, leave room for theirs);
+# the cluster phases from K8 on, beside phase 3's build and restart-1M
+# (cluster-1M's two nodes hold ~10 GB on the card; on the main line
+# after live-ingest-1M it took the script to 1,131 s on a slow host).
 SIDES = {"stores": ("flush-page-16k", "cold-65k", "compact-16k",
                     "downsample-16k", "broker-16k", "node-16k",
                     "counter ragged",
                     "gauge ragged",
                     "raw-counter dense", "raw-counter ragged"),
+         "cluster": ("cluster-e2e-4k", "cluster-1M"),
          "gauge-hist": ("gauge dense + general-1M", "hist-classic-1M",
                         "hist-native-1M")}
 
@@ -6399,6 +6938,12 @@ def run_side(which, args, dev, timed):
                 f"raw-counter {'ragged' if hole else 'dense'}",
                 run_raw_counter_path, n, seed, hole, warm, tol, dev)[0])
             free_device_memory()
+    elif which == "cluster":
+        got.append(timed("cluster-e2e-4k", run_cluster_e2e_phase,
+                         args.seed + 12, dev)[0])
+        free_device_memory()
+        got.append(timed("cluster-1M", run_cluster_phase, args.series,
+                         args.seed, small_warm, dev)[0])
     else:
         got_path = timed("gauge dense + general-1M", run_path, "gauge",
                          args.series, args.seed + 2, 0.0, args.warm,
@@ -6549,7 +7094,8 @@ def main(argv=None) -> int:
 
     launches = {name: 0 for name in table}
     side_dir = tempfile.mkdtemp(prefix="chip-smoke-")
-    sides = {"stores": start_side("stores", args, side_dir)}
+    sides = {"stores": start_side("stores", args, side_dir),
+             "cluster": start_side("cluster", args, side_dir)}
 
     def add(got, phase):
         """Count a phase's launches (and log them); stop here if a side

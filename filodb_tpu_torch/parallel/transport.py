@@ -1,0 +1,867 @@
+"""Cross-node query transport: dispatch serialized plan subtrees over TCP
+(port of filodb_tpu/parallel/transport.py: the same frames, so a port
+node and a JAX node serve one cluster).
+
+The reference's data plane sends Kryo'd ExecPlan subtrees to the shard's
+owning node with the Akka ask pattern and gets Kryo'd QueryResults back
+(ref: exec/PlanDispatcher.scala:31-55 ActorPlanDispatcher,
+doc/query-engine.md:90-155 scatter-gather).  Here the frame protocol is
+length-prefixed request/response over a plain TCP socket; the node side
+executes against its local memstore source, so the coordinator's
+NonLeafExecPlan scatter-gathers across machines exactly like the
+single-process path.
+
+Replies bigger than `query.stream_frame_bytes` stream as multiple
+CRC-framed row slices (parallel/streams.py): the coordinator
+merges them incrementally (preallocated assembly, or the parent's
+map+reduce fold), the query deadline applies PER frame, kills land
+between frames, and a torn stream is the typed remote_failure — see
+doc/query-engine.md "Aggregation pushdown & streaming".
+
+A data node executes on its memstore's device: the server stamps that
+device on every decoded context, and the coordinator's dispatcher puts
+the reply's arrays back on the engine's device (serialize.revive).
+"""
+from __future__ import annotations
+
+import json
+import socket
+import socketserver
+import struct
+import threading
+import zlib
+from typing import Callable, Optional, Tuple
+
+from filodb_tpu_torch.parallel import serialize
+from filodb_tpu_torch.query.execbase import PlanDispatcher
+from filodb_tpu_torch.query.rangevector import QueryStats
+
+_MAGIC = b"FQ01"
+# control-plane kill frame: payloads with this prefix carry a JSON kill
+# request ({"id", "reason"}) instead of a serialized plan — recognized
+# BEFORE serialize.loads, so a kill lands on a node whose handler
+# threads are all busy executing (ThreadingTCPServer: the kill arrives
+# on its own fresh connection)
+_KILL_MAGIC = b"FKILL1"
+# plan-request envelope: _PLAN_MAGIC + u32 flags + plan bytes.
+# Bit 0 of flags = the caller accepts a streamed (multi-frame) reply.
+# Bare payloads without the envelope remain valid requests and get the
+# legacy single-frame reply, so an old CLIENT can talk to a new server;
+# new clients always envelope, so data nodes must upgrade before
+# coordinators in a rolling deploy.
+_PLAN_MAGIC = b"FPLN2"
+_REQ_FLAG_STREAM = 1
+# control-plane liveness/identity probe: payloads with this prefix get
+# the server's `ping_info()` dict back (federation health probes read
+# cluster identity + per-dataset data tokens through it).  Handled
+# before serialize.loads, like kills, so a probe answers even while
+# every handler thread is executing plans.
+_PING_MAGIC = b"FPING1"
+# streamed-reply frame: _STREAM_MAGIC + u8 flags (bit 0 = last frame) +
+# u32 seq + u32 crc32(body) + body.  Non-last bodies carry {"begin"} /
+# {"piece"} chunks (parallel/streams.py); the last frame carries the
+# usual reply dict (ok/stats/spans or the typed error) — the per-frame
+# CRC is the WAL's torn-write stance applied to the query wire.
+_STREAM_MAGIC = b"FSTR1"
+_STREAM_FLAG_LAST = 1
+_STREAM_HDR = len(_STREAM_MAGIC) + 9
+
+
+def _pack_stream_frame(seq: int, body: bytes, last: bool) -> bytes:
+    return (_STREAM_MAGIC
+            + struct.pack("<BII", _STREAM_FLAG_LAST if last else 0,
+                          seq & 0xFFFFFFFF, zlib.crc32(body) & 0xFFFFFFFF)
+            + body)
+
+
+def _unpack_stream_frame(raw: bytes) -> Tuple[bool, int, bytes]:
+    """(last, seq, body) — raises ValueError on a short header or a CRC
+    mismatch (the caller maps that to the typed remote_failure)."""
+    if len(raw) < _STREAM_HDR:
+        raise ValueError("stream frame shorter than its header")
+    flags, seq, crc = struct.unpack_from("<BII", raw, len(_STREAM_MAGIC))
+    body = raw[_STREAM_HDR:]
+    if zlib.crc32(body) & 0xFFFFFFFF != crc:
+        raise ValueError(f"stream frame {seq} CRC mismatch")
+    return bool(flags & _STREAM_FLAG_LAST), seq, body
+
+
+def _send_frame(sock: socket.socket, payload: bytes) -> None:
+    sock.sendall(_MAGIC + struct.pack("<Q", len(payload)) + payload)
+
+
+def _attach_registration(plan, ent) -> None:
+    """Stamp the local registry entry's kill token onto EVERY ctx in a
+    dispatched subtree: serialization gives each exec node its own
+    QueryContext, and for a pushed-down group (RemoteAggregateExec) it
+    is the per-shard LEAVES whose exec-boundary cancel checks actually
+    stop the scans — a token only on the group root would let every
+    shard run to completion after a kill."""
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        node.ctx.cancel = ent.token
+        node.ctx.active = ent
+        stack.extend(getattr(node, "children", ()) or ())
+
+
+def _stamp_device(plan, device) -> None:
+    """Every context of a decoded subtree runs on this node's device (the
+    device never rides the wire)."""
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        node.ctx.device = device
+        stack.extend(getattr(node, "children", ()) or ())
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    chunks = []
+    while n > 0:
+        got = sock.recv(min(n, 1 << 20))
+        if not got:
+            raise ConnectionError("peer closed mid-frame")
+        chunks.append(got)
+        n -= len(got)
+    return b"".join(chunks)
+
+
+def _recv_frame(sock: socket.socket) -> bytes:
+    hdr = _recv_exact(sock, 12)
+    if hdr[:4] != _MAGIC:
+        raise ConnectionError(f"bad frame magic {hdr[:4]!r}")
+    (ln,) = struct.unpack("<Q", hdr[4:])
+    return _recv_exact(sock, ln)
+
+
+def send_json_frame(sock: socket.socket, obj) -> None:
+    """One JSON message as one frame — the shared control-plane encoding
+    (cluster coordination, node control sockets, the chunk service)."""
+    _send_frame(sock, json.dumps(obj).encode("utf-8"))
+
+
+def recv_json_frame(sock: socket.socket):
+    return json.loads(_recv_frame(sock).decode("utf-8"))
+
+
+class NodeQueryServer:
+    """Executes dispatched leaf plans against this node's source
+    (the QueryActor receive loop, ref: coordinator/.../QueryActor.scala:119)."""
+
+    def __init__(self, source, host: str = "127.0.0.1", port: int = 0,
+                 ping_info: Optional[Callable[[], dict]] = None):
+        self.source = source
+        # the memstore's device: decoded plans execute there
+        self.device = getattr(source, "device", None)
+        # optional identity payload for FPING probes (federation doors
+        # answer cluster name + per-dataset data tokens through this)
+        self._ping_info = ping_info
+        # live handler connections: stop() severs them so a stopped
+        # in-proc node looks EXACTLY like a SIGKILLed one to peers with
+        # pooled sockets (shutdown() alone only stops accepting; pooled
+        # dispatcher connections would keep being served by the handler
+        # threads, hiding the death from failure-domain tests)
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+        outer = self
+
+        class _Handler(socketserver.BaseRequestHandler):
+            def setup(self):
+                with outer._conns_lock:
+                    outer._conns.add(self.request)
+
+            def finish(self):
+                with outer._conns_lock:
+                    outer._conns.discard(self.request)
+
+            def handle(self):
+                try:
+                    while True:
+                        payload = _recv_frame(self.request)
+                        if payload.startswith(_KILL_MAGIC):
+                            # cross-node cooperative cancellation: flip
+                            # every token registered under the id on
+                            # THIS node (idempotent; an already-
+                            # completed child answers killed=False)
+                            _send_frame(self.request,
+                                        outer._handle_kill(payload))
+                            continue
+                        if payload.startswith(_PING_MAGIC):
+                            _send_frame(self.request,
+                                        outer._handle_ping())
+                            continue
+                        stream_ok = False
+                        ent = None
+                        verdict = "completed"
+                        plan = None
+                        try:
+                            try:
+                                from filodb_tpu_torch.query.activequeries \
+                                    import active_queries
+                                from filodb_tpu_torch.utils.metrics import (
+                                                                            collector, span, trace_context)
+                                # envelope parse INSIDE the try: a
+                                # truncated FPLN2 header answers typed
+                                # on a live connection, never a torn
+                                # socket the coordinator misreads as a
+                                # dead node
+                                if payload.startswith(_PLAN_MAGIC):
+                                    (rflags,) = struct.unpack_from(
+                                        "<I", payload, len(_PLAN_MAGIC))
+                                    stream_ok = bool(rflags
+                                                     & _REQ_FLAG_STREAM)
+                                    payload = payload[len(_PLAN_MAGIC)
+                                                      + 4:]
+                                plan = serialize.loads(payload)
+                                if outer.device is not None:
+                                    _stamp_device(plan, outer.device)
+                                tid = getattr(plan.ctx, "query_id", "")
+                                # register the dispatched subtree in the
+                                # LOCAL active-query registry under the
+                                # coordinator's query id: one id names the
+                                # whole distributed query, and a kill frame
+                                # keyed by it stops this leaf's scan
+                                if tid:
+                                    ent = active_queries.register(
+                                        tid,
+                                        promql=(f"[remote] "
+                                                f"{type(plan).__name__}"
+                                                f"({plan.args_str()})")[:300],
+                                        origin="remote", role="remote")
+                                    if ent is not None:
+                                        _attach_registration(plan, ent)
+                                        ent.set_phase("executing")
+                                # execute under the CALLER's trace id so this
+                                # node's spans stitch into the same trace; ship
+                                # them back with the reply (the Kamon-context-
+                                # over-Akka analogue, ref: ExecPlan.scala:102)
+                                with trace_context(tid), \
+                                        span("remote_exec",
+                                             plan=type(plan).__name__):
+                                    data, stats = plan.execute_internal(
+                                        outer.source)
+                                spans = collector.take(tid) if tid else []
+                            except Exception as e:  # noqa: BLE001 — errors ride the wire
+                                from filodb_tpu_torch.query.execbase import \
+                                    QueryError
+                                if isinstance(e, QueryError):
+                                    # preserve the typed code across the
+                                    # wire: a deadline expiring on THIS node
+                                    # must surface at the coordinator as
+                                    # query_timeout, not remote_failure
+                                    err = {"ok": False, "error_code": e.code,
+                                           "error": str(e)}
+                                    verdict = ("killed"
+                                               if e.code == "query_canceled"
+                                               else "deadline"
+                                               if e.code == "query_timeout"
+                                               else "error")
+                                else:
+                                    err = {"ok": False,
+                                           "error": f"{type(e).__name__}: {e}"}
+                                    verdict = "error"
+                                outer._send_error(self.request, stream_ok,
+                                                  err)
+                            else:
+                                # reply while the registration is alive:
+                                # a kill frame landing mid-STREAM must
+                                # still find this entry's token
+                                try:
+                                    verdict = outer._send_reply(
+                                        self.request, stream_ok, plan,
+                                        data, stats, spans) or verdict
+                                except (ConnectionError, OSError):
+                                    raise       # client went away
+                                except Exception as e:  # noqa: BLE001
+                                    # reply serialization failed (e.g.
+                                    # NotSerializable): answer typed —
+                                    # tearing the connection would make
+                                    # the client retry a stale socket
+                                    # and re-execute the plan
+                                    outer._send_error(
+                                        self.request, stream_ok,
+                                        {"ok": False,
+                                         "error":
+                                         f"{type(e).__name__}: {e}"})
+                                    verdict = "error"
+                        finally:
+                            if ent is not None:
+                                from filodb_tpu_torch.query.activequeries \
+                                    import active_queries
+                                active_queries.deregister(ent, verdict)
+                except (ConnectionError, OSError):
+                    return              # client went away
+
+        class _Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self._server = _Server((host, port), _Handler)
+        self._thread: Optional[threading.Thread] = None
+
+    @staticmethod
+    def _handle_kill(payload: bytes) -> bytes:
+        """Serve one kill frame: flip the tokens registered under the
+        query id and report what happened (killed=False for an unknown
+        or already-completed id — the idempotent contract)."""
+        from filodb_tpu_torch.query.activequeries import active_queries
+        try:
+            req = json.loads(payload[len(_KILL_MAGIC):].decode("utf-8"))
+            out = active_queries.kill(str(req.get("id", "")),
+                                      reason=str(req.get("reason",
+                                                         "admin")),
+                                      detail="kill frame from coordinator")
+            return serialize.dumps({"ok": True, "data": out,
+                                    "stats": None})
+        except Exception as e:  # noqa: BLE001 — a bad kill frame must not
+            return serialize.dumps(  # kill the handler connection
+                {"ok": False, "error": f"{type(e).__name__}: {e}"})
+
+    def _handle_ping(self) -> bytes:
+        """Serve one liveness/identity probe frame."""
+        try:
+            info = self._ping_info() if self._ping_info is not None else {}
+            return serialize.dumps({"ok": True, "data": info,
+                                    "stats": None})
+        except Exception as e:  # noqa: BLE001 — a bad probe must not
+            return serialize.dumps(  # kill the handler connection
+                {"ok": False, "error": f"{type(e).__name__}: {e}"})
+
+    @staticmethod
+    def _send_error(sock: socket.socket, stream_ok: bool, err: dict) -> None:
+        body = serialize.dumps(err)
+        if stream_ok:
+            _send_frame(sock, _pack_stream_frame(0, body, last=True))
+        else:
+            _send_frame(sock, body)
+
+    @staticmethod
+    def _send_reply(sock: socket.socket, stream_ok: bool, plan, data,
+                    stats, spans) -> Optional[str]:
+        """Send one success reply — single-frame (legacy / small) or a
+        chunked stream of CRC-framed row slices (parallel/streams.py)
+        when the caller accepts it and the payload is big enough.
+        Between piece frames the plan's cancellation token and deadline
+        are re-checked, so a kill or an expired budget cuts the stream
+        short with a typed error frame instead of pushing megabytes
+        nobody is waiting for.  Returns a verdict override for the
+        active-query registry ('killed'/'deadline') or None."""
+        if not stream_ok:
+            _send_frame(sock, serialize.dumps(
+                {"ok": True, "data": data, "stats": stats, "spans": spans}))
+            return None
+        from filodb_tpu_torch.config import settings
+        from filodb_tpu_torch.parallel import streams
+        frame_bytes = settings().query.stream_frame_bytes
+        split = (streams.split_for_stream(data, frame_bytes)
+                 if frame_bytes > 0 else None)
+        if split is None:
+            _send_frame(sock, _pack_stream_frame(0, serialize.dumps(
+                {"ok": True, "data": data, "stats": stats,
+                 "spans": spans}), last=True))
+            return None
+        import time as _time
+        begin, pieces = split
+        seq = 0
+        _send_frame(sock, _pack_stream_frame(
+            seq, serialize.dumps({"begin": begin}), last=False))
+        tok = getattr(plan.ctx, "cancel", None)
+        dl = getattr(plan.ctx, "deadline_unix_s", 0.0)
+        for piece in pieces:
+            code = None
+            if tok is not None and tok.cancelled:
+                code, why = "query_canceled", "query killed mid-stream"
+            elif dl and _time.time() >= dl:
+                code, why = "query_timeout", "deadline expired mid-stream"
+            if code is not None:
+                seq += 1
+                _send_frame(sock, _pack_stream_frame(seq, serialize.dumps(
+                    {"ok": False, "error_code": code,
+                     "error": f"{why} after {seq - 1} frames"}), last=True))
+                return "killed" if code == "query_canceled" else "deadline"
+            seq += 1
+            _send_frame(sock, _pack_stream_frame(
+                seq, serialize.dumps({"piece": piece}), last=False))
+        seq += 1
+        _send_frame(sock, _pack_stream_frame(seq, serialize.dumps(
+            {"ok": True, "data": None, "streamed": True, "stats": stats,
+             "spans": spans}), last=True))
+        return None
+
+    @property
+    def address(self) -> Tuple[str, int]:
+        return self._server.server_address
+
+    def start(self) -> "NodeQueryServer":
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+        with self._conns_lock:
+            conns = list(self._conns)
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                conn.close()
+            except OSError:
+                pass
+        if self._thread:
+            self._thread.join(timeout=5)
+
+
+def send_kill(host: str, port: int, query_id: str, reason: str = "admin",
+              timeout_s: float = 2.0) -> dict:
+    """Ship one kill frame to a remote node on a FRESH connection (the
+    pooled dispatcher sockets are per-thread and may be blocked inside
+    the very round-trip the kill is meant to cut short).  Returns the
+    node's kill verdict dict; raises on transport failure (the caller
+    counts propagation errors — a dead child needs no kill)."""
+    payload = _KILL_MAGIC + json.dumps(
+        {"id": query_id, "reason": reason}).encode("utf-8")
+    with socket.create_connection((host, port), timeout=timeout_s) as s:
+        s.settimeout(timeout_s)
+        _send_frame(s, payload)
+        reply = serialize.loads(_recv_frame(s))
+    if not reply.get("ok"):
+        raise ConnectionError(f"kill frame rejected: {reply.get('error')}")
+    return reply.get("data") or {}
+
+
+def send_ping(host: str, port: int, timeout_s: float = 2.0) -> dict:
+    """One FPING probe on a fresh connection: returns the server's
+    `ping_info()` dict (federation health probes carry cluster identity
+    + per-dataset data tokens in it).  Raises on transport failure."""
+    with socket.create_connection((host, port), timeout=timeout_s) as s:
+        s.settimeout(timeout_s)
+        _send_frame(s, _PING_MAGIC)
+        reply = serialize.loads(_recv_frame(s))
+    if not reply.get("ok"):
+        raise ConnectionError(f"ping rejected: {reply.get('error')}")
+    return reply.get("data") or {}
+
+
+class RemoteNodeDispatcher(PlanDispatcher):
+    """Coordinator-side dispatcher for one remote node; keeps one pooled
+    connection per thread (ref: ActorPlanDispatcher ask-pattern send).
+
+    `peer` renames the endpoint for breaker keying and error text: the
+    federation layer passes `cluster:<name>` so a remote CLUSTER's
+    breaker rows and degradation warnings carry the cluster name, not a
+    bare host:port (kill fan-out still records the raw address)."""
+
+    def __init__(self, host: str, port: int,
+                 timeout_s: Optional[float] = None,
+                 peer: Optional[str] = None):
+        self.host, self.port = host, port
+        self.peer = peer
+        from filodb_tpu_torch.config import settings
+        q = settings().query
+        if timeout_s is None:
+            # the ask-timeout knob (ref: filodb-defaults.conf
+            # query.ask-timeout; PlanDispatcher.scala:31 Akka ask)
+            timeout_s = q.ask_timeout_s
+        self.timeout_s = timeout_s
+        # fraction of the REMAINING deadline budget one hop may spend
+        # when partial results are allowed — without it a wedged peer
+        # (accepts, never replies) consumes the whole budget and the
+        # query times out even though degradation was allowed
+        self.deadline_share = q.peer_deadline_share
+        self._tls = threading.local()
+
+    def pushdown_target(self) -> "RemoteNodeDispatcher":
+        """This dispatcher IS a node address — aggregation pushdown can
+        group same-node leaves behind it (query/pushdown.py)."""
+        return self
+
+    def _sock(self, timeout_s: Optional[float] = None
+              ) -> Tuple[socket.socket, bool]:
+        """Returns (socket, fresh): `fresh` distinguishes a just-opened
+        connection from a pooled one that may have gone stale.  The
+        timeout (per-hop ask timeout shrunk to the query's remaining
+        deadline budget) applies to connect AND subsequent frame I/O."""
+        timeout_s = self.timeout_s if timeout_s is None else timeout_s
+        s = getattr(self._tls, "sock", None)
+        if s is None:
+            s = socket.create_connection((self.host, self.port),
+                                         timeout=timeout_s)
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            self._tls.sock = s
+            return s, True
+        s.settimeout(timeout_s)
+        return s, False
+
+    def _reset(self) -> None:
+        s = getattr(self._tls, "sock", None)
+        if s is not None:
+            try:
+                s.close()
+            finally:
+                self._tls.sock = None
+
+    def _roundtrip(self, sock: socket.socket, payload: bytes) -> bytes:
+        """One framed request/response, with the transport fault points:
+        `transport.send` fires before the plan frame is written (corrupt
+        plans mutate the payload the server will fail to decode), and
+        `transport.recv` fires on the raw reply bytes."""
+        from filodb_tpu_torch.utils.faults import faults
+        _send_frame(sock, faults.fire("transport.send", payload))
+        return faults.fire("transport.recv", _recv_frame(sock))
+
+    def dispatch(self, plan, source) -> tuple:
+        import time as _time
+
+        from filodb_tpu_torch.parallel.breaker import breakers
+        from filodb_tpu_torch.query.execbase import QueryError
+        addr = f"{self.host}:{self.port}"
+        # breaker key + error-text identity: the federation layer names
+        # the remote `cluster:<name>`; node fan-out keeps host:port
+        where = self.peer or addr
+        # record the child node on the query's live registry entry
+        # BEFORE any wire I/O: a kill sent while this hop is blocked
+        # in its round-trip must know where to send the kill frame (the
+        # RAW address — kill frames dial it directly)
+        act = getattr(plan.ctx, "active", None)
+        if act is not None:
+            act.note_remote(addr)
+        dl = getattr(plan.ctx, "deadline_unix_s", 0.0)
+        allow_partial = getattr(plan.ctx.planner_params,
+                                "allow_partial_results", False)
+
+        def _hop_timeout(what: str):
+            """(socket timeout, budget_bounded) for one hop: the per-hop
+            ask timeout, shrunk to the query's REMAINING deadline budget
+            — each hop of a deep scatter spends from one end-to-end
+            budget, not a fresh 120 s — and, when partial results are
+            allowed, to the deadline SHARE (query.peer_deadline_share):
+            one wedged peer may spend at most that fraction of the
+            remainder, so its expiry is a droppable dispatch_timeout
+            while the survivors still have budget.  Raises query_timeout
+            when nothing remains."""
+            t = self.timeout_s
+            bounded = False
+            remaining = dl - _time.time()
+            if remaining <= 0:
+                raise QueryError("query_timeout",
+                                 f"no budget left {what} {where}")
+            cap = remaining
+            if allow_partial and 0 < self.deadline_share < 1:
+                cap = remaining * self.deadline_share
+            if cap < t:
+                t = cap
+                bounded = True
+            return t, bounded
+
+        # effective timeout derived BEFORE the breaker so an already-
+        # expired query can never consume (and then strand) a half-open
+        # probe slot.
+        timeout_s = self.timeout_s
+        budget_bounded = False
+        if dl:
+            timeout_s, budget_bounded = _hop_timeout("before dispatch to")
+        # serialize BEFORE the breaker admits us: a NotSerializable (or
+        # any unexpected dumps failure) after allow() granted the half-
+        # open probe slot would bypass every on_success/on_failure/
+        # on_abort path and wedge the breaker half-open forever
+        from filodb_tpu_torch.config import settings as _settings
+        stream_req = _settings().query.stream_frame_bytes > 0
+        payload = (_PLAN_MAGIC
+                   + struct.pack("<I",
+                                 _REQ_FLAG_STREAM if stream_req else 0)
+                   + serialize.dumps(plan))
+        # per-peer circuit breaker: a peer that keeps failing
+        # shard_unavailable is failed FAST (microseconds, no socket) so
+        # the partial-result path engages immediately instead of every
+        # query serializing connect attempts to a dead node
+        br = breakers.get(where) if breakers.enabled() else None
+        if br is not None and not br.allow():
+            raise QueryError(
+                "shard_unavailable",
+                f"node {where} circuit open "
+                f"({br.consecutive_failures} consecutive failures; "
+                f"failing fast until the half-open probe succeeds)")
+
+        def _timeout_err(e):
+            # classified by the CLOCK, not by which cap bounded the
+            # wait: expiry at/after the global deadline IS the query's
+            # deadline expiring (query_timeout — never dropped, the
+            # budget is global); a wait the deadline SHARE cut short
+            # leaves the survivors their budget, so it is the taxonomy's
+            # droppable dispatch_timeout, exactly like an ask-bounded
+            # wait.  Neither is EVER retried: the remote may still be
+            # executing, and a re-send would run the query twice.  The
+            # breaker learns NOTHING about liveness from a timeout — but
+            # an admitted half-open probe must release its slot
+            # (on_abort), or the breaker wedges.
+            self._reset()
+            if br is not None:
+                br.on_abort()
+            if dl and _time.time() >= dl:
+                return QueryError(
+                    "query_timeout",
+                    f"node {where} gave no reply within the remaining "
+                    f"deadline budget ({timeout_s:.3f}s)")
+            return QueryError(
+                "dispatch_timeout",
+                f"node {where} gave no reply within {timeout_s:.3f}s "
+                f"(not retried: the remote may still be executing)")
+
+        def _unavailable(e, what):
+            if br is not None:
+                br.on_failure()
+            return QueryError("shard_unavailable",
+                              f"node {where} {what}: {e}")
+
+        t_wire0 = _time.perf_counter()
+        try:
+            sock, fresh = self._sock(timeout_s)
+        except socket.timeout as e:
+            # connect timeout: unreachable (same class as refused) — but
+            # a budget-bounded connect wait expired by the deadline or
+            # its share teaches the breaker nothing about liveness
+            if budget_bounded:
+                raise _timeout_err(e) from e
+            raise _unavailable(e, "unreachable") from e
+        except OSError as e:
+            # connect refused/unreachable: the owner is gone (SIGKILL,
+            # network partition) — the taxonomy's shard_unavailable
+            raise _unavailable(e, "unreachable") from e
+        try:
+            raw = self._roundtrip(sock, payload)
+        except socket.timeout as e:
+            raise _timeout_err(e) from e
+        except (ConnectionError, OSError) as e:
+            self._reset()
+            if fresh:
+                raise _unavailable(e, "died mid-dispatch") from e
+            # pooled socket had gone stale — one retry on a fresh one,
+            # counted + tagged so chaos runs can tell stale-pool churn
+            # from real peer death.  The CONNECT is classified
+            # separately: a connect timeout means the node is
+            # unreachable (shard_unavailable, same as the first-attempt
+            # path), not "accepted but silent"
+            from filodb_tpu_torch.utils.metrics import registry, span
+            registry.counter("transport_stale_socket_retries").increment()
+            # re-derive the remaining budget for the retry: the first
+            # attempt may have burned most of it before dying, and
+            # reusing the stale value could block up to 2x the deadline
+            if dl:
+                try:
+                    timeout_s, budget_bounded = _hop_timeout(
+                        "to retry stale socket to")
+                except QueryError:
+                    # release an admitted half-open probe slot before
+                    # bailing (every exit path must: a leaked slot
+                    # wedges the breaker half-open forever)
+                    if br is not None:
+                        br.on_abort()
+                    raise
+            try:
+                with span("transport_reconnect", peer=where,
+                          reason="stale_pool"):
+                    sock, _ = self._sock(timeout_s)
+            except socket.timeout as e2:
+                # same classification as the first-attempt connect: a
+                # budget-bounded connect timeout is the deadline (or its
+                # share) expiring, NOT evidence of peer death — it must
+                # not feed the breaker's failure count
+                if budget_bounded:
+                    raise _timeout_err(e2) from e2
+                raise _unavailable(e2, "unreachable") from e2
+            except OSError as e2:
+                raise _unavailable(e2, "unreachable") from e2
+            try:
+                raw = self._roundtrip(sock, payload)
+            except socket.timeout as e2:
+                raise _timeout_err(e2) from e2
+            except (ConnectionError, OSError) as e2:
+                self._reset()
+                raise _unavailable(e2, "died mid-dispatch") from e2
+        if br is not None:
+            # a reply frame arrived: the peer is alive (even a
+            # remote_failure reply resets the consecutive-failure run)
+            br.on_success()
+        total_raw = len(raw)
+        frames = 0
+        assembler = None
+        if stream_req and raw.startswith(_STREAM_MAGIC):
+            # streamed (multi-frame) reply: fold each CRC-checked row
+            # slice into the preallocated assembler as it arrives —
+            # bounded coordinator memory per child regardless of range.
+            # The deadline applies PER FRAME (a stalled peer expires by
+            # the clock like any hop) and the query's own kill token is
+            # re-checked between frames.  A torn stream is the typed
+            # remote_failure, never a hang and never a silent partial
+            # (the assembler refuses to finish() short).
+            from filodb_tpu_torch.parallel import streams
+            frames = 1
+            tok = getattr(plan.ctx, "cancel", None)
+            reply = None
+            try:
+                while True:
+                    last, _seq, body = _unpack_stream_frame(raw)
+                    msg = serialize.loads(body)
+                    if last:
+                        reply = msg
+                        break
+                    if "begin" in msg:
+                        # a parent that can merge row slices in place
+                        # (ReduceAggregateExec's map+reduce fold) gets
+                        # each piece as a mini block and the child is
+                        # NEVER materialized whole on the coordinator
+                        ff = getattr(plan, "_stream_fold", None)
+                        if ff is not None and \
+                                msg["begin"].get("type") == "ResultBlock":
+                            assembler = streams.StreamFold(msg["begin"],
+                                                           ff())
+                        else:
+                            assembler = streams.StreamAssembler(
+                                msg["begin"])
+                    elif "piece" in msg:
+                        if assembler is None:
+                            raise ValueError("stream piece before begin")
+                        assembler.add(msg["piece"])
+                    else:
+                        raise ValueError(
+                            f"unknown stream frame keys {sorted(msg)}")
+                    if tok is not None and tok.cancelled:
+                        # the stream is mid-flight: the pooled socket is
+                        # out of sync with the peer — drop it
+                        self._reset()
+                        tok.raise_if_cancelled(
+                            f"mid-stream from node {where}")
+                    if dl:
+                        left = dl - _time.time()
+                        if left <= 0:
+                            self._reset()
+                            raise QueryError(
+                                "query_timeout",
+                                f"deadline expired mid-stream from node "
+                                f"{where} ({frames} frames in)")
+                        # same share cap as the initial hop: under
+                        # partial results one stalled peer may burn at
+                        # most its deadline SHARE of the remainder per
+                        # frame wait (a droppable dispatch_timeout),
+                        # never the survivors' whole budget
+                        if allow_partial and 0 < self.deadline_share < 1:
+                            left *= self.deadline_share
+                        sock.settimeout(min(self.timeout_s, left))
+                    raw = _recv_frame(sock)
+                    frames += 1
+                    total_raw += len(raw)
+            except QueryError:
+                raise
+            except streams.FoldError as fe:
+                # application error inside the parent's fold (group-by
+                # cardinality limit, ...): the socket is out of sync
+                # mid-stream — drop it, but surface the REAL error
+                self._reset()
+                raise fe.cause
+            except socket.timeout as e:
+                self._reset()
+                if dl and _time.time() >= dl:
+                    raise QueryError(
+                        "query_timeout",
+                        f"node {where} stalled mid-stream past the "
+                        f"remaining deadline budget") from e
+                raise QueryError(
+                    "dispatch_timeout",
+                    f"node {where} stalled mid-stream (not retried: the "
+                    f"remote may still be sending)") from e
+            except (ConnectionError, OSError) as e:
+                self._reset()
+                raise QueryError(
+                    "remote_failure",
+                    f"node {where} stream torn mid-frame after {frames} "
+                    f"frames: {type(e).__name__}: {e}") from e
+            except Exception as e:  # noqa: BLE001 — CRC/decode garbage
+                self._reset()
+                raise QueryError(
+                    "remote_failure",
+                    f"node {where} sent a corrupt stream frame: "
+                    f"{type(e).__name__}: {e}") from e
+        else:
+            try:
+                reply = serialize.loads(raw)
+            except Exception as e:  # noqa: BLE001 — garbage frame, any shape
+                # corrupt reply: the stream may be out of sync — drop the
+                # pooled connection; NOT retried (the remote did execute)
+                self._reset()
+                raise QueryError(
+                    "remote_failure",
+                    f"node {where} sent a corrupt reply frame: "
+                    f"{type(e).__name__}: {e}") from e
+        if not reply["ok"]:
+            # a typed QueryError that fired ON the remote keeps its code
+            # (query_timeout stays errorType "timeout" at the HTTP edge;
+            # a nested shard_unavailable stays retry/drop-eligible) —
+            # everything else is the taxonomy's remote_failure
+            code = reply.get("error_code")
+            detail = reply["error"]
+            if code:
+                if detail.startswith(code + ":"):
+                    detail = detail[len(code) + 1:].strip()
+                raise QueryError(code, f"(via node {where}) {detail}")
+            raise QueryError("remote_failure",
+                             f"node {where} failed: {detail}")
+        # stitch the remote node's spans into the caller's trace (they
+        # arrive stamped with the remote NODE_NAME)
+        spans = reply.get("spans")
+        if spans:
+            from filodb_tpu_torch.utils.metrics import collector
+            tid = getattr(plan.ctx, "query_id", "")
+            for ev in spans:
+                if isinstance(ev, dict):
+                    collector.record(tid, ev)
+        stats = reply["stats"] or QueryStats()
+        # live-counter mirror: the remote leaf's scan work lands on the
+        # coordinator's registry entry too (its own entry on the remote
+        # node deregisters with the reply), so /admin/queries on the
+        # coordinator shows the whole distributed query's burn
+        if act is not None:
+            act.add(samples=stats.samples_scanned,
+                    paged_samples=stats.samples_paged,
+                    paged_bytes=stats.bytes_paged)
+        # resource attribution across the wire: the remote's own
+        # phase seconds arrived inside `stats`; the round trip minus the
+        # remote's busy time is serialization + network — transfer.  The
+        # whole round trip is credited as CHILD wall so the coordinator
+        # node's exclusive cpu_seconds never claims the network wait.
+        from filodb_tpu_torch.utils.metrics import exec_tally
+        wire_wall = _time.perf_counter() - t_wire0
+        exec_tally.child_wall += wire_wall
+        remote_busy = (stats.cpu_seconds + stats.device_seconds
+                       + stats.transfer_s)
+        stats.transfer_s += max(wire_wall - remote_busy, 0.0)
+        stats.bytes_transferred += len(payload) + total_raw
+        # true wire attribution: bytes_transferred above also
+        # counts host→device uploads the remote's stats brought along,
+        # so the slowlog/?stats=true wire column gets its own counter
+        stats.wire_bytes += len(payload) + total_raw
+        data_out = reply["data"]
+        if reply.get("streamed"):
+            from filodb_tpu_torch.utils.metrics import registry
+            registry.counter("transport_stream_frames").increment(frames)
+            stats.streamed_frames += frames
+            if assembler is None:
+                raise QueryError(
+                    "remote_failure",
+                    f"node {where} flagged a streamed reply without a "
+                    f"begin frame")
+            from filodb_tpu_torch.parallel import streams
+            try:
+                data_out = assembler.finish()
+            except streams.FoldError as fe:
+                raise fe.cause
+            except ValueError as e:
+                # a short stream must NEVER pass as a full result
+                raise QueryError(
+                    "remote_failure",
+                    f"node {where} stream incomplete: {e}") from e
+        return serialize.revive(data_out, plan.ctx.device), stats

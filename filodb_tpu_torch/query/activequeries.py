@@ -21,9 +21,8 @@ cancellation (port of filodb_tpu/query/activequeries.py).
     entries are journaled as `query_active_at_crash` events.  The
     standalone server configures it (next to its WAL by default).
 
-The port kills locally only: the reference's kill frames to remote child
-nodes (parallel/transport.send_kill) need the wire, and no port query
-dispatches to a remote node.
+A kill also goes, as a kill frame (parallel/transport.send_kill), to
+every remote child node the query dispatched to (`note_remote`).
 """
 from __future__ import annotations
 
@@ -120,6 +119,12 @@ class ActiveQuery:
         if phase != self.phase:
             self._registry._phase_moved(self, self.phase, phase)
             self.phase = phase
+
+    def note_remote(self, where: str) -> None:
+        """Record a remote child node at dispatch time — the kill fan-out
+        list (and the /admin/queries `remoteNodes` column)."""
+        if where not in self.remote_nodes:
+            self.remote_nodes.append(where)
 
     def add(self, samples: int = 0, paged_samples: int = 0,
             paged_bytes: int = 0, dispatches: int = 0,
@@ -383,26 +388,44 @@ class ActiveQueryRegistry:
 
     # ------------------------------------------------------------- kill
 
-    def kill(self, query_id: str, reason: str = "admin",
-             detail: str = "") -> dict:
-        """Flip every token registered under the id (locally: the port
-        sends no kill frames to remote children).  Idempotent: killing an
+    def kill(self, query_id: str, reason: str = "admin", detail: str = "",
+             propagate: bool = True) -> dict:
+        """Flip every token registered under the id; `propagate` also
+        sends kill frames to the remote child nodes the entries recorded
+        at dispatch time (so remote leaves stop scanning instead of
+        computing a result nobody will read).  Idempotent: killing an
         unknown or already-killed id reports killed=False and changes
         nothing."""
         ents = self.get(query_id)
         killed = 0
+        remotes: List[str] = []
         for ent in ents:
             if ent.token.cancel(reason, detail):
                 killed += 1
+            for where in ent.remote_nodes:
+                if where not in remotes:
+                    remotes.append(where)
         if killed:
             from filodb_tpu_torch.utils.metrics import registry
             registry.counter("queries_killed", reason=reason).increment()
             from filodb_tpu_torch.utils.events import journal
             journal.emit("query_killed", subsystem="query",
-                         query_id=query_id, reason=reason, remote_nodes="")
-        # the reference's payload shape: no remote children, no kill frames
+                         query_id=query_id, reason=reason,
+                         remote_nodes=",".join(remotes))
+        prop_errors = 0
+        if propagate and killed and remotes:
+            from filodb_tpu_torch.parallel.transport import send_kill
+            for where in remotes:
+                host, _, port = where.rpartition(":")
+                try:
+                    send_kill(host, int(port), query_id, reason=reason)
+                except Exception:  # noqa: BLE001 — a dead child needs no kill
+                    prop_errors += 1
+                    from filodb_tpu_torch.utils.metrics import registry
+                    registry.counter("queries_kill_propagation_errors"
+                                     ).increment()
         return {"killed": killed > 0, "entries": len(ents),
-                "remoteNodes": [], "propagationErrors": 0}
+                "remoteNodes": remotes, "propagationErrors": prop_errors}
 
     # ------------------------------------------- client-disconnect watch
 

@@ -5,9 +5,10 @@ compilation (query/exprfuse.py), and the Prometheus matrix and vector
 models).  Each query's context carries the frontend's admission entry
 (its id and cancellation token) and the end-to-end deadline.
 
-Not ported: the shard-failover re-plan (`replan_hook`) and the partial-
-result degrade it feeds, which are multi-node and wait for the slice
-that ports multi-GPU serving.
+With remote dispatchers (parallel/transport), a query whose shard owner
+died (`shard_unavailable`) re-plans through `replan_hook` up to
+`query.dispatch_retries` times, and past the retries degrades to a
+flagged partial result when the caller allows partial results.
 
 Takes ``device=`` (default ``"cuda"``) and raises without a card unless
 given ``device="cpu"``; the source memstore must live on the same device.
@@ -41,13 +42,18 @@ class QueryEngine:
                  spread_provider: Optional[SpreadProvider] = None,
                  planner: Optional[SingleClusterPlanner] = None,
                  device="cuda", mirror_background_rebuild: bool = True,
-                 config=None):
+                 config=None, replan_hook=None):
         """mirror_background_rebuild: after an eviction or a page-in
         rearranged a store's cells, rebuild its device mirror on a
         background thread and serve meanwhile from the host gather (the
         reference's default), or, with False, re-upload it inline.
         config: a FilodbSettings (None reads the settings() singleton at
-        each query, so a bare engine tracks changes to it)."""
+        each query, so a bare engine tracks changes to it).
+        replan_hook: () -> a planner over a FRESH shard-map snapshot.
+        When a scatter-gather fails shard_unavailable (an owner died
+        mid-query), the engine re-plans through it up to
+        query.dispatch_retries times, so after failover the new plan
+        dispatches to the reassigned owner."""
         self.device = resolve_device(device)
         self.config = config
         from filodb_tpu_torch.config import apply_torch_runtime, settings
@@ -62,6 +68,7 @@ class QueryEngine:
         self.shard_mapper = shard_mapper or _single_shard_mapper()
         self.planner = planner or SingleClusterPlanner(
             dataset, self.shard_mapper, spread_provider)
+        self.replan_hook = replan_hook
 
     def _ctx(self, planner_params: Optional[PlannerParams]) -> QueryContext:
         from filodb_tpu_torch.query.activequeries import take_admission
@@ -184,21 +191,29 @@ class QueryEngine:
             except Exception as e:  # noqa: BLE001
                 results[i] = QueryResult([], error=f"planning error: {e}")
                 continue
-            entries.append((i, ep, ctx, parse_t,
+            entries.append((i, ep, ctx, plan, parse_t,
                             _time.perf_counter() - t0))
         calls = []
         comps = {}
         if self._qconfig().exprfuse_enabled:
             with hostleaf.batch_gather_memo():
-                for i, ep, _, _, _ in entries:
+                for i, ep, _, _, _, _ in entries:
                     comp = exprfuse.compile_tree(ep, self.source)
                     if comp is not None:
                         comps[i] = comp
                         calls.extend(comp.calls)
             exprfuse.finish_prepared(calls)
-        for i, ep, ctx, parse_t, plan_t in entries:
+        for i, ep, ctx, plan, parse_t, plan_t in entries:
             res = ep.execute(self.source)
             res.trace_id = ctx.query_id
+            if res.error and res.error.startswith("shard_unavailable") \
+                    and (self.replan_hook is not None
+                         or ctx.planner_params.allow_partial_results):
+                # failover retry (and, past the retries, the partial-
+                # result degrade) for the batch path too: the retried
+                # query re-plans through exec_logical_plan (it loses this
+                # batch's fusion, which is moot — its shard owner died)
+                res = self.exec_logical_plan(plan, planner_params)
             res.stats.parse_s += parse_t
             res.stats.plan_s += plan_t
             comp = comps.get(i)
@@ -235,13 +250,31 @@ class QueryEngine:
             ent.set_phase("executing")
         if isinstance(plan, lp.MetadataQueryPlan):
             try:
-                data, stats = ep.execute_internal(self.source)
+                try:
+                    data, stats = ep.execute_internal(self.source)
+                except QueryError as e:
+                    if e.code != "shard_unavailable" or \
+                            not ctx.planner_params.allow_partial_results:
+                        raise
+                    # metadata scatters degrade like data queries: a
+                    # shard that stays down is dropped and the merged
+                    # result flagged partial
+                    try:
+                        ep = self._engage_partial_replan(plan, ctx)
+                    except QueryError:
+                        raise
+                    except Exception as e2:  # noqa: BLE001
+                        return QueryResult([], error=f"replan error: {e2}")
+                    data, stats = ep.execute_internal(self.source)
             except QueryError as e:
                 if e.code == "not_ported":
                     raise
                 return QueryResult([], error=str(e))
             stats.plan_s += plan_t
             if isinstance(data, QueryResult):
+                if data.partial:
+                    from filodb_tpu_torch.utils.metrics import registry
+                    registry.counter("query_partial_results").increment()
                 return data
             return QueryResult([], stats)
         comp = None
@@ -256,7 +289,50 @@ class QueryEngine:
             res.stats.exprfuse_degraded += comp.degraded
         res.stats.plan_s += plan_t
         res.trace_id = ctx.query_id
+        if res.error and res.error.startswith("shard_unavailable") \
+                and self.replan_hook is not None:
+            from filodb_tpu_torch.utils.metrics import registry
+            for _ in range(max(self._qconfig().dispatch_retries, 0)):
+                # a shard owner died mid-query: re-plan against a fresh
+                # shard-map snapshot and retry on the reassigned owner
+                # (only shard_unavailable — dispatch_timeout is never
+                # retried, the remote may still be executing)
+                registry.counter("query_replan_retries").increment()
+                try:
+                    self.planner = self.replan_hook()
+                    ep = self.planner.materialize(plan, ctx)
+                except Exception as e:  # noqa: BLE001
+                    return QueryResult([], error=f"replan error: {e}")
+                res = ep.execute(self.source)
+                res.trace_id = ctx.query_id
+                if not (res.error
+                        and res.error.startswith("shard_unavailable")):
+                    break
+        if res.error and res.error.startswith("shard_unavailable") \
+                and ctx.planner_params.allow_partial_results:
+            try:
+                ep = self._engage_partial_replan(plan, ctx)
+            except Exception as e:  # noqa: BLE001
+                return QueryResult([], error=f"replan error: {e}")
+            res = ep.execute(self.source)
+            res.trace_id = ctx.query_id
         return res
+
+    def _engage_partial_replan(self, plan: lp.LogicalPlan, ctx):
+        """The shard STAYED unavailable after the re-plan retries and
+        partials are allowed: degrade instead of fail — engage the
+        scatter-gather drop (partial_now) and re-materialize; with the
+        peer's breaker now open the next pass fails fast per dropped
+        child and the survivors merge into a FLAGGED partial result.
+        The dataclasses copy keeps the caller's PlannerParams
+        unmutated."""
+        import dataclasses as _dc
+
+        from filodb_tpu_torch.utils.metrics import registry
+        registry.counter("query_partial_engaged").increment()
+        ctx.planner_params = _dc.replace(ctx.planner_params,
+                                         partial_now=True)
+        return self.planner.materialize(plan, ctx)
 
     @staticmethod
     def to_prom_matrix(result: QueryResult) -> Dict:

@@ -18,7 +18,8 @@ from filodb_tpu_torch.query.metaexec import (  # noqa: F401
     LabelValuesExec, MetadataMergeExec, PartKeysExec, SelectChunkInfosExec)
 from filodb_tpu_torch.query.nonleaf import (  # noqa: F401
     BinaryJoinExec, DistConcatExec, LocalPartitionDistConcatExec,
-    ReduceAggregateExec, SetOperatorExec, StitchRvsExec, SubqueryExec)
+    ReduceAggregateExec, RemoteAggregateExec, SetOperatorExec,
+    StitchRvsExec, SubqueryExec)
 from filodb_tpu_torch.query.rangevector import (  # noqa: F401
     QueryContext, QueryResult, QueryStats, RangeVectorKey, ResultBlock,
     concat_blocks, remove_nan_series)

@@ -1,14 +1,15 @@
 """Exec-tree foundations (port of filodb_tpu/query/execbase.py): data
 shapes, the fused-leaf caches and the byte budget of the padded-values
-cache, the 3-phase aggregation finishers (the component form and the
-candidate form of topk, bottomk, quantile and count_values), and the
+cache, the 3-phase aggregation finishers (the component form, the
+quantile sketch and the candidate form of topk, bottomk and
+count_values), and the
 ExecPlan base classes: the deadline and cancellation checks at every
 node boundary, the resource tally (each node's exclusive host time, the
 device time the kernel ledger books to it, its transfers), the
 live-query tally, the plan printer behind explain (`print_tree`,
 `args_str`) and the recorder behind explain-analyze (`AnalyzeRecorder`);
-the plan dispatchers (in-process only: remote ones come with the
-transport) and EmptyResultExec.
+the in-process plan dispatcher (remote ones: parallel/transport), the
+scatter-gather with partial results, and EmptyResultExec.
 """
 from __future__ import annotations
 
@@ -16,13 +17,14 @@ import dataclasses
 import os
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from filodb_tpu_torch.memory.histogram import rebucket, union_les
 from filodb_tpu_torch.ops import agg as agg_ops
+from filodb_tpu_torch.ops import sketch as sketch_ops
 from filodb_tpu_torch.query.rangevector import (QueryContext, QueryResult,
                                                 QueryStats, RangeVectorKey,
                                                 ResultBlock, cat_values,
@@ -281,8 +283,8 @@ class ScalarResult:
 
 @dataclasses.dataclass
 class AggPartial:
-    """Partial aggregate: the [G, W, C] component form, or the candidate
-    rows (topk, bottomk, quantile, count_values)."""
+    """Partial aggregate: the [G, W, C] component form, the quantile
+    sketch, or the candidate rows (topk, bottomk, count_values)."""
     op: str
     group_keys: List[RangeVectorKey]
     wends: np.ndarray
@@ -292,6 +294,9 @@ class AggPartial:
     cand_groups: Optional[np.ndarray] = None    # int [N] -> group_keys index
     params: Tuple = ()
     bucket_les: Optional[np.ndarray] = None     # hist_sum partials
+    # quantile(): the mergeable centroid sketch [G, W, K, 2] f64
+    # (ops/sketch.py), O(groups) on the wire
+    sketch: Optional[np.ndarray] = None
     # working-set identity of the aggregated keys ("agg", op, by,
     # without, source token); value-level identity is not implied
     cache_token: Optional[Tuple] = None
@@ -314,6 +319,10 @@ def _block_empty(wends: np.ndarray) -> ResultBlock:
 
 def present_partial(p: AggPartial) -> Optional[ResultBlock]:
     """Finish an AggPartial into a ResultBlock."""
+    if p.sketch is not None:
+        out = sketch_ops.sketch_quantile(p.sketch, float(p.params[0]))
+        return ResultBlock(p.group_keys, p.wends, out,
+                           cache_token=p.cache_token)
     if p.comp is not None and p.op == "hist_sum":
         # [G, W, B+1]: the bucket sums, then the present-series count
         out = np.where(p.comp[..., -1:] > 0, p.comp[..., :-1], np.nan)
@@ -411,9 +420,16 @@ def _reduced_token(parts: List[AggPartial]) -> Optional[Tuple]:
     return ("red",) + toks if all(t is not None for t in toks) else None
 
 
-def reduce_partials(parts: List[AggPartial]) -> Optional[AggPartial]:
+def reduce_partials(parts: List[AggPartial],
+                    compress: bool = True) -> Optional[AggPartial]:
     """Inter-shard reduce (ReduceAggregateExec): merge partials by group
-    key, children in order, so the sum order is fixed."""
+    key, children in order, so the sum order is fixed.
+
+    ``compress=False`` is the node-level pushdown mode for quantile
+    sketches: the centroid axes are concatenated (zero-weight padded)
+    but not re-compressed, so the coordinator's single merge_sketches
+    over the node partials sees the same centroid multiset as a flat
+    per-shard merge would, and pushdown answers the same bits."""
     parts = [p for p in parts if p is not None]
     if not parts:
         return None
@@ -427,6 +443,25 @@ def reduce_partials(parts: List[AggPartial]) -> Optional[AggPartial]:
             if k not in gmap:
                 gmap[k] = len(gkeys)
                 gkeys.append(k)
+    if parts[0].sketch is not None:
+        # quantile sketches: concatenate the centroid axis per group
+        # (zero-weight padding where a partial lacks a group), then
+        # re-compress to K
+        W = parts[0].sketch.shape[1]
+        M = sum(p.sketch.shape[2] for p in parts)
+        cat = np.zeros((len(gkeys), W, M, 2))
+        cat[..., 0] = np.nan
+        off = 0
+        for p in parts:
+            idx = np.asarray([gmap[k] for k in p.group_keys], np.int64)
+            m = p.sketch.shape[2]
+            cat[idx, :, off:off + m] = p.sketch
+            off += m
+        return AggPartial(op, gkeys, parts[0].wends,
+                          sketch=(sketch_ops.merge_sketches(cat)
+                                  if compress else cat),
+                          params=parts[0].params,
+                          cache_token=_reduced_token(parts))
     if parts[0].comp is None:
         # candidate form: concatenate the rows, group ids remapped
         ck: List[RangeVectorKey] = []
@@ -498,8 +533,8 @@ class PlanDispatcher:
 
 
 class InProcessPlanDispatcher(PlanDispatcher):
-    """Run the subtree in this process.  The port's only dispatcher:
-    remote dispatchers come with the transport."""
+    """Run the subtree in this process (remote nodes:
+    parallel/transport.RemoteNodeDispatcher)."""
 
     def dispatch(self, plan: "ExecPlan", source):
         return plan.execute_internal(source)
@@ -633,7 +668,10 @@ class ExecPlan:
         stats.result_samples = result_samples
         stats.result_bytes = sum(int(np.asarray(b.values).nbytes)
                                  for b in blocks)
-        return QueryResult(blocks, stats)
+        if stats.partial:
+            from filodb_tpu_torch.utils.metrics import registry
+            registry.counter("query_partial_results").increment()
+        return QueryResult(blocks, stats, partial=stats.partial)
 
     # -- plan printing (the reference's ExecPlan.printTree)
 
@@ -701,11 +739,59 @@ class NonLeafExecPlan(ExecPlan):
     def children(self) -> List[ExecPlan]:
         return self._children
 
+    def child_stream_fold(self, child) -> Optional[Callable]:
+        """Factory for an incremental fold of a STREAMED child reply
+        (parallel/streams.StreamFold): when non-None, the transport
+        hands each row-slice frame to `factory().add(mini_block)` as it
+        arrives and returns `.result()` — the child's full block never
+        materializes on the coordinator.  Default: None (whole-block
+        assembly).  ReduceAggregateExec overrides with its map+reduce
+        fold."""
+        return None
+
     def _gather(self, source):
         stats = QueryStats()
         results = []
+        pp = self.ctx.planner_params
+        # shard_unavailable drops only once the ENGINE has engaged
+        # degradation (partial_now: re-plan retries exhausted) — so a
+        # transient owner death still gets routed around before any data
+        # is given up.  A peer blowing its deadline share
+        # (dispatch_timeout) drops under the gate alone: retrying cannot
+        # help inside the budget.  query_timeout NEVER drops — the
+        # budget is global, so the root propagates the structured error.
+        droppable = set()
+        if pp.allow_partial_results:
+            droppable.add("dispatch_timeout")
+            if getattr(pp, "partial_now", False):
+                droppable.add("shard_unavailable")
         for c in self._children:
-            data, st = c.dispatcher.dispatch(c, source)
+            ff = self.child_stream_fold(c)
+            if ff is not None:
+                # plain attribute, never serialized: the remote side
+                # streams row slices and THIS side folds them in place
+                c._stream_fold = ff
+            try:
+                data, st = c.dispatcher.dispatch(c, source)
+            except QueryError as e:
+                # a dead shard owner mid-query: fail the whole query with
+                # the typed error — or, when partial results are engaged,
+                # drop the child and FLAG the result (never silent
+                # partials)
+                if e.code not in droppable:
+                    raise
+                from filodb_tpu_torch.utils.metrics import registry
+                registry.counter("query_partial_children",
+                                 plan=type(self).__name__,
+                                 code=e.code).increment()
+                stats.partial = True
+                stats.warnings.append(f"shard dropped ({e})")
+                # placeholder, not skip: BinaryJoin/SetOperator split
+                # `results` positionally at n_lhs, so a dropped child
+                # keeps its slot (every compose filters by type, so None
+                # contributes nothing)
+                results.append(None)
+                continue
             stats.merge(st)
             results.append(data)
             # a child's return is a boundary too: a kill or deadline

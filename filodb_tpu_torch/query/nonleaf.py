@@ -1,6 +1,7 @@
 """Non-leaf exec plans (port of filodb_tpu/query/nonleaf.py):
 DistConcatExec and LocalPartitionDistConcatExec (the planner's
-multi-shard concat root), ReduceAggregateExec, BinaryJoinExec,
+multi-shard concat root), ReduceAggregateExec with its streamed fold,
+RemoteAggregateExec (the node-level pushdown group), BinaryJoinExec,
 SetOperatorExec, SubqueryExec and StitchRvsExec (the time stitch of the
 composed planners).  Label matching runs on the host, as in the
 reference; the values stay on their device.
@@ -15,15 +16,17 @@ import torch
 
 from filodb_tpu_torch.memory.histogram import rebucket
 from filodb_tpu_torch.ops.rangefns import evaluate_range_function
-from filodb_tpu_torch.ops.select import gather_binop
+from filodb_tpu_torch.ops.select import gather_binop, topk_keep_rows
 from filodb_tpu_torch.ops.timewindow import PAD_TS, make_window_ends
 from filodb_tpu_torch.query.execbase import (AggPartial, ExecPlan,
+                                             GroupCardinalityError,
                                              NonLeafExecPlan, RawBlock,
                                              _block_empty, _union_scheme,
                                              reduce_partials)
 from filodb_tpu_torch.query.exprfuse import join_index_maps
-from filodb_tpu_torch.query.rangevector import (RangeVectorKey, ResultBlock,
-                                                cat_values, concat_blocks,
+from filodb_tpu_torch.query.rangevector import (QueryStats, RangeVectorKey,
+                                                ResultBlock, cat_values,
+                                                concat_blocks,
                                                 device_values,
                                                 remove_nan_series)
 from filodb_tpu_torch.query.transformers import _group_ids
@@ -112,9 +115,64 @@ def _concat_raw(raws: List[RawBlock]) -> RawBlock:
                     dense=all(r.dense for r in raws))
 
 
+class _AggStreamFold:
+    """Incremental fold for a STREAMED ship-everything child: each
+    arriving row-slice mini block runs the map phase immediately and
+    merges into ONE running AggPartial — the coordinator holds a frame
+    plus a [G, W] partial, never the child's full [S, W] block.  The
+    candidate ops stay correct piecewise for the same reason they are
+    correct per shard: per-piece top-k is a superset of each group's
+    true top-k, and the present phase applies the final mask."""
+
+    def __init__(self, op, params, by, without, ctx):
+        from filodb_tpu_torch.query.transformers import AggregateMapReduce
+        self._mapper = AggregateMapReduce(op, params, by, without)
+        self._ctx = ctx
+        self._stats = QueryStats()
+        self._partial = None
+
+    def add(self, block) -> None:
+        p = self._mapper.apply(block, self._ctx, self._stats)
+        if p is None:
+            return
+        self._partial = p if self._partial is None else \
+            reduce_partials([self._partial, p])
+        # the per-slice map only sees one slice's worth of groups, so
+        # the limit must also be enforced on the MERGED partial — the
+        # streamed fold raises exactly where non-streamed compose would
+        limit = self._ctx.planner_params.group_by_cardinality_limit
+        if limit and len(self._partial.group_keys) > limit:
+            raise GroupCardinalityError(
+                f"group-by cardinality limit {limit} exceeded "
+                f"({len(self._partial.group_keys)} groups in the "
+                f"streamed fold)")
+
+    def result(self):
+        return self._partial
+
+
+# ops whose map phase may run per row slice and reduce across slices
+# without changing the presented result (quantile's sketch
+# re-compression is merge-tree-dependent — it assembles whole)
+_FOLDABLE_OPS = frozenset({"sum", "count", "avg", "min", "max", "stddev",
+                           "stdvar", "group", "topk", "bottomk",
+                           "count_values"})
+
+
 class ReduceAggregateExec(NonLeafExecPlan):
     """Reduce phase across shards: children reply with AggPartials (the
-    map phase rides the leaves), merged in child order."""
+    map phase rides the leaves), merged in child order.
+
+    With ship_raw_series (the ship-everything baseline of
+    query/pushdown.py), remote children ship their full per-series
+    ResultBlocks instead and the map phase runs HERE — by/without are
+    carried so the coordinator-side map is possible."""
+
+    # node-level reduce (RemoteAggregateExec): the composed partial is an
+    # INTERMEDIATE that another reduce will merge — quantile sketches must
+    # not re-compress here (reduce_partials compress=False) and candidate
+    # partials may prune to the node-local top-k before crossing the wire
+    node_level = False
 
     def __init__(self, ctx, children, op: str, params: Tuple = (),
                  by: Tuple[str, ...] = (), without: Tuple[str, ...] = ()):
@@ -128,8 +186,81 @@ class ReduceAggregateExec(NonLeafExecPlan):
         return f"aggrOp={self.op}, aggrParams={list(self.params)}"
 
     def compose(self, results, stats):
-        return reduce_partials([r for r in results
-                                if isinstance(r, AggPartial)])
+        from filodb_tpu_torch.query.transformers import AggregateMapReduce
+        mapper = None
+        parts = []
+        for r in results:
+            if isinstance(r, ResultBlock) and r.num_series:
+                # ship-everything child: the map phase runs here over the
+                # full shipped series block
+                if mapper is None:
+                    mapper = AggregateMapReduce(self.op, self.params,
+                                                self.by, self.without)
+                r = mapper.apply(r, self.ctx, stats)
+            if isinstance(r, AggPartial):
+                parts.append(r)
+        return reduce_partials(parts, compress=not self.node_level)
+
+    def child_stream_fold(self, child):
+        if self.op not in _FOLDABLE_OPS:
+            return None
+        return lambda: _AggStreamFold(self.op, self.params, self.by,
+                                      self.without, self.ctx)
+
+    def _do_execute(self, source):
+        results, stats = self._gather(source)
+        # plan-time pushdown verdict (query/pushdown.py): remote children
+        # this aggregation could not push
+        npn = getattr(self, "pushdown_not_pushable", 0)
+        if npn:
+            stats.pushdown_not_pushable += npn
+        return self.compose(results, stats), stats
+
+
+class RemoteAggregateExec(ReduceAggregateExec):
+    """Node-level reduce pushdown (query/pushdown.py): children are the
+    per-shard map subtrees owned by ONE data node, and the whole plan
+    serializes to that node via its PushdownDispatcher — the node runs
+    leaf scan + range function + map phase per shard, reduces locally
+    (inherited compose = reduce_partials), and replies with a single
+    [G, W] AggPartial.  Decoded on the data node the children fall back
+    to InProcessPlanDispatcher, so execution there is the ordinary
+    scatter-gather one level down.
+
+    Rank and sketch aggregations push exactly: quantile node partials
+    concatenate their shards' centroids without re-compressing
+    (node_level -> reduce_partials compress=False), so the coordinator's
+    single merge sees the flat per-shard centroid layout; topk/bottomk
+    node partials prune to the per-window node-local top-k before
+    replying (ops/select.topk_keep_rows) — rows outside every window's
+    local top-k cannot reach any global top-k."""
+
+    node_level = True
+
+    def compose(self, results, stats):
+        part = super().compose(results, stats)
+        if part is not None and part.cand_vals is not None \
+                and self.op in ("topk", "bottomk") and len(part.cand_vals):
+            vals = device_values(part.cand_vals, self.ctx)
+            keep = topk_keep_rows(
+                vals, torch.from_numpy(np.asarray(part.cand_groups,
+                                                  np.int64)).to(vals.device),
+                len(part.group_keys), int(self.params[0]),
+                largest=self.op == "topk").cpu().numpy()
+            if not keep.all():
+                rows = np.flatnonzero(keep)
+                part = dataclasses.replace(
+                    part,
+                    cand_keys=[part.cand_keys[int(r)] for r in rows],
+                    cand_vals=vals.index_select(
+                        0, torch.from_numpy(rows).to(vals.device)),
+                    cand_groups=np.asarray(part.cand_groups)[rows])
+        return part
+
+    def args_str(self):
+        shards = sorted(getattr(c, "shard", -1) for c in self._children)
+        return (f"aggrOp={self.op}, aggrParams={list(self.params)}, "
+                f"shards={shards}")
 
 
 class BinaryJoinExec(NonLeafExecPlan):

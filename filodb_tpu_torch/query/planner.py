@@ -11,9 +11,10 @@ compose those; the metadata plans (label names, label values, series
 keys) fan out to one metadata leaf per shard under MetadataMergeExec.
 Every plan node of the reference's planner is carried, and its
 dispatcher hook (`dispatcher_factory`: every leaf keeps the in-process
-dispatcher unless the factory names another); its aggregation pushdown
-is not (one process).  The chunk-metadata plan (RawChunkMeta), which the
-reference's planner refuses, fans out to SelectChunkInfosExec leaves.
+dispatcher unless the factory names another), and its node-level
+aggregation pushdown (query/pushdown.py).  The chunk-metadata plan
+(RawChunkMeta), which the reference's planner refuses, fans out to
+SelectChunkInfosExec leaves.
 """
 from __future__ import annotations
 
@@ -24,8 +25,10 @@ from filodb_tpu_torch.core.partkey import PartKey, strip_metric_suffix
 from filodb_tpu_torch.core.schemas import PartitionSchema
 from filodb_tpu_torch.parallel.shardmapper import ShardMapper, SpreadProvider
 from filodb_tpu_torch.query import logical as lp
-from filodb_tpu_torch.query.execbase import (ExecPlan, PlanDispatcher,
-                                             ScalarResult, not_ported)
+from filodb_tpu_torch.query.execbase import (ExecPlan,
+                                             InProcessPlanDispatcher,
+                                             PlanDispatcher, ScalarResult,
+                                             not_ported)
 from filodb_tpu_torch.query.leafexec import (MultiSchemaPartitionsExec,
                                              ScalarBinaryOperationExec,
                                              ScalarFixedDoubleExec,
@@ -195,13 +198,33 @@ class SingleClusterPlanner(QueryPlanner):
     # aggregates --------------------------------------------------------------
 
     def _m_Aggregate(self, p: lp.Aggregate, ctx: QueryContext) -> ExecPlan:
+        from filodb_tpu_torch.query.pushdown import plan_aggregate_pushdown
         children = self._leaves(p.vectors, ctx)
+        ship_raw = bool(getattr(ctx.planner_params, "ship_raw_series",
+                                False))
         for c in children:
-            c.add_transformer(AggregateMapReduce(
-                p.operator, tuple(p.params), tuple(p.by), tuple(p.without)))
+            # every child keeps its leaf-side map phase (per-shard
+            # dispatches reply with [G, W] partials).  The one exception
+            # is ship_raw_series, the ship-everything baseline, which
+            # makes remote leaves reply with FULL per-series blocks so
+            # the wire cost of not pushing can be measured; the map then
+            # runs on the coordinator (ReduceAggregateExec.compose).
+            # Local children always map in place.
+            if not ship_raw or isinstance(c.dispatcher,
+                                          InProcessPlanDispatcher):
+                c.add_transformer(AggregateMapReduce(
+                    p.operator, tuple(p.params), tuple(p.by),
+                    tuple(p.without)))
+        # node-level pushdown (query/pushdown.py): same-node map subtrees
+        # collapse into RemoteAggregateExec groups whose reduce runs ON
+        # the data node — only a [G, W] partial per NODE crosses the wire
+        children, not_pushable = plan_aggregate_pushdown(
+            children, p.operator, tuple(p.params), ctx)
         reducer = ReduceAggregateExec(ctx, children, p.operator,
                                       tuple(p.params), by=tuple(p.by),
                                       without=tuple(p.without))
+        if not_pushable:
+            reducer.pushdown_not_pushable = not_pushable
         reducer.add_transformer(AggregatePresenter(p.operator,
                                                    tuple(p.params)))
         return reducer

@@ -29,6 +29,7 @@ from filodb_tpu_torch.core.index import ColumnFilter, Equals
 from filodb_tpu_torch.ops import agg as agg_ops
 from filodb_tpu_torch.ops import fused
 from filodb_tpu_torch.ops import hist as hist_ops
+from filodb_tpu_torch.ops import sketch as sketch_ops
 from filodb_tpu_torch.ops.instant import INSTANT_FUNCTIONS, apply_binary_op
 from filodb_tpu_torch.ops.rangefns import evaluate_range_function
 from filodb_tpu_torch.ops.timewindow import make_window_ends
@@ -343,7 +344,7 @@ def _group_ids_cached(token, keys, by, without):
     return gids, gkeys
 
 
-_CANDIDATE_OPS = ("topk", "bottomk", "quantile", "count_values")
+_CANDIDATE_OPS = ("topk", "bottomk", "count_values")
 
 
 @dataclasses.dataclass
@@ -387,6 +388,16 @@ class AggregateMapReduce(RangeVectorTransformer):
                 comp=_hist_sum_map(vals, gids, gids_t, G),
                 params=self.params, bucket_les=data.bucket_les,
                 cache_token=agg_token("hist_sum", self.by, self.without,
+                                      data.cache_token))
+        if self.op == "quantile":
+            # the mergeable sketch, built on the host as the reference
+            # builds it (one copy of the values off the device)
+            return AggPartial(
+                self.op, gkeys, data.wends,
+                sketch=sketch_ops.sketch_from_values(
+                    host_values(vals), np.asarray(gids), G),
+                params=self.params,
+                cache_token=agg_token(self.op, self.by, self.without,
                                       data.cache_token))
         if self.op in _CANDIDATE_OPS:
             rows = np.arange(len(data.keys))

@@ -556,6 +556,18 @@ class TraceCollector:
         with self._lock:
             return list(self._traces.get(trace_id, ()))
 
+    def take(self, trace_id: str) -> List[dict]:
+        """Drain the trace's events (used by the node query server: each
+        dispatch reply carries exactly the events recorded since the last
+        one, so the coordinator's merge never duplicates)."""
+        with self._lock:
+            evs = self._traces.get(trace_id)
+            if not evs:
+                return []
+            out = list(evs)
+            evs.clear()
+            return out
+
     def trace_ids(self, origin: str = "", limit: int = 0) -> List[str]:
         """Known ids, oldest first.  `origin` filters to one door's
         traces; `limit` keeps the newest N."""

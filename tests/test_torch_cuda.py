@@ -1375,3 +1375,43 @@ def test_filoserver_warmup_and_first_panel_launch_k1(card):
     for k in a:
         np.testing.assert_allclose(a[k], b[k], rtol=2e-4, atol=1e-3)
 
+
+
+@pytest.mark.parametrize("pushdown", [True, False])
+def test_two_node_cluster_on_the_card_launches_k1_on_the_nodes(card,
+                                                               pushdown):
+    """testcluster.make_two_node_cluster on cuda:0 (two NodeQueryServers
+    on loopback TCP, two shards each): the data nodes launch K1 once a
+    shard, and the pushed answer equals the single store's within rtol
+    2e-4 / atol 1e-3, pushdown on and off the same bits."""
+    from filodb_tpu_torch.ingest.generator import counter_batch
+    from filodb_tpu_torch.parallel.shardmapper import SpreadProvider
+    from filodb_tpu_torch.parallel.testcluster import make_two_node_cluster
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.rangevector import PlannerParams
+    start = 1_600_000_020_000
+    c = make_two_node_cluster([counter_batch(512, 180, start_ms=start)],
+                              with_truth=True, device=card)
+    try:
+        truth = QueryEngine("prometheus", c.truth, c.mapper,
+                            SpreadProvider(default_spread=1), device=card)
+        q = "sum by (_ns_) (rate(request_total[5m]))"
+        s = start // 1000
+        n0 = kernels.LAUNCHES["fused_rate_dense"]
+        res = c.engine.query_range(q, s + 600, 60, s + 1790, PlannerParams(
+            aggregation_pushdown=pushdown))
+        assert res.error is None, res.error
+        assert kernels.LAUNCHES["fused_rate_dense"] == n0 + 4
+        assert res.stats.pushdown_pushed == (2 if pushdown else 0)
+        again = c.engine.query_range(q, s + 600, 60, s + 1790, PlannerParams(
+            aggregation_pushdown=not pushdown))
+        want = truth.query_range(q, s + 600, 60, s + 1790)
+        got = {k.labels: np.asarray(v) for k, _, v in res.series()}
+        other = {k.labels: np.asarray(v) for k, _, v in again.series()}
+        exp = {k.labels: np.asarray(v) for k, _, v in want.series()}
+        assert got.keys() == exp.keys() == other.keys() and got
+        for k in got:
+            assert got[k].tobytes() == other[k].tobytes()
+            np.testing.assert_allclose(got[k], exp[k], rtol=2e-4, atol=1e-3)
+    finally:
+        c.stop()

@@ -437,23 +437,40 @@ def test_quantile_agg_with_inf_sample_follows_reference_not_prometheus(
     assert not np.array_equal(got, prom)
 
 
-def test_quantile_agg_is_exact_where_the_reference_sketch_is_not():
-    """The reference's quantile() aggregates through a 64-centroid sketch
-    (filodb_tpu/ops/sketch.py), exact while a group holds at most 64
-    series; the port's quantile is the exact one at any size (ROADMAP
-    Queue 3)."""
-    from filodb_tpu.ops import sketch
+def test_quantile_agg_answers_the_reference_sketch():
+    """quantile() aggregates through the reference's 64-centroid sketch
+    (ops/sketch.py) in both packages: the port's map, reduce and present
+    phases answer the reference's bits at 64 series a group, where the
+    sketch is exact, and at 500, where it is not (ROADMAP Queue 3)."""
+    from filodb_tpu.query import exec as jexec
+    from filodb_tpu.query import rangevector as jrv
+
+    from filodb_tpu_torch.query import execbase as texec
+    from filodb_tpu_torch.query import rangevector as trv
+    from filodb_tpu_torch.query.transformers import AggregateMapReduce
     rng = np.random.default_rng(12)
+    wends = np.arange(3, dtype=np.int64) * 60_000
     for n, exact in ((64, True), (500, False)):
         v = rng.lognormal(0, 2, (n, 3))
-        gids = np.zeros(n, np.int32)
-        got = tagg.quantile_agg(torch.from_numpy(v), torch.from_numpy(gids),
-                                1, 0.9).numpy()[0]
-        np.testing.assert_allclose(got, np.quantile(v, 0.9, axis=0),
-                                   rtol=1e-12)
-        ref = sketch.sketch_quantile(sketch.sketch_from_values(v, gids, 1),
-                                     0.9)[0]
-        assert np.allclose(ref, got, rtol=1e-9) == exact
+        labels = [(("_ns_", f"a{i % 2}"), ("i", str(i))) for i in range(n)]
+        want_p = jexec.AggregateMapReduce("quantile", (0.9,), ("_ns_",)).apply(
+            jrv.ResultBlock([jrv.RangeVectorKey(k) for k in labels], wends, v),
+            jrv.QueryContext(), jrv.QueryStats())
+        got_p = AggregateMapReduce("quantile", (0.9,), ("_ns_",)).apply(
+            trv.ResultBlock([trv.RangeVectorKey(k) for k in labels], wends,
+                            torch.from_numpy(v)),
+            trv.QueryContext(), trv.QueryStats())
+        np.testing.assert_array_equal(got_p.sketch, want_p.sketch)
+        # two shards' partials merge as in the reference
+        want = jexec.present_partial(jexec.reduce_partials([want_p, want_p]))
+        got = texec.present_partial(texec.reduce_partials([got_p, got_p]))
+        np.testing.assert_array_equal(np.asarray(got.values),
+                                      np.asarray(want.values))
+        # the merged groups hold each series twice
+        exact_q = np.stack([np.quantile(np.concatenate([v[i::2]] * 2), 0.9,
+                                        axis=0) for i in range(2)])
+        assert np.allclose(np.asarray(got.values), exact_q,
+                           rtol=1e-9) == exact
 
 
 # ------------------------------------------------------------- histograms

@@ -74,7 +74,12 @@ NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "rules.notifier", "rules.ruler", "utils.selfmon",
                "utils.traceexport", "memory.intvec", "memory.utf8vec",
                "jobs", "jobs.batch_io", "jobs.copier", "jobs.buster",
-               "native", "standalone", "cli")
+               "native", "standalone", "cli", "ops.sketch",
+               "parallel.serialize", "parallel.streams",
+               "parallel.transport", "query.pushdown",
+               "parallel.shardmanager", "parallel.cluster",
+               "parallel.bootstrap", "persist.netstore", "parallel.nodeapp",
+               "parallel.testcluster")
 
 
 def _bare_import(module):
@@ -99,8 +104,11 @@ def test_general_path_module_stands_alone(module):
     store), the write doors (the prompb codec, the cardinality
     tracker, the gateway, the broker and Kafka streams), the downsample
     runtime and the rules engine with selfmon and span export, the
-    vector codecs, the jobs, the native host library and the composition
-    roots (standalone, cli), imported alone in a fresh interpreter, pulls
+    vector codecs, the jobs, the native host library, the composition
+    roots (standalone, cli), and the wire and the cluster (the quantile
+    sketch, serialize, streams, transport, pushdown, the shard manager,
+    the cluster control plane, seed discovery, the network chunk store,
+    nodeapp, testcluster), imported alone in a fresh interpreter, pulls
     in neither jax nor the reference package."""
     assert _bare_import("filodb_tpu_torch." + module) == []
 
