@@ -407,8 +407,44 @@ cluster-1M.  in the cluster side process, after cluster-e2e-4k
    partial answer equal to the oracle of A's series with them).  It
    prints the wire bytes, frames, each panel's seconds and the wire's
    split (serialize, frames, socket, assemble);
+replication-1M.  in the cluster side process, after cluster-1M
+   (run_replication_phase), cut to 524,288 series (REPL_SERIES): dense-
+   1M's counters (the same seed) in 4 shards at RF 2 over three data
+   nodes A, B and C in that process (testcluster.make_replicated_cluster:
+   a memstore on the card, a WAL under TMPDIR, a NodeQueryServer and a
+   ReplicationServer on loopback TCP each, quorum acks); the history
+   through ReplicationManager.replicate, 16 slabs a shard, with the
+   build's split from the port's spans (encoding, each peer's round
+   trips and longest append, the doors' WAL, the rest); one
+   scrape at RF 2 against one into the primaries alone; the panel
+   through failover_dispatcher_factory against the f64 oracle, cold and
+   warm; the node that is primary of the most shards killed: the panel
+   full (pushdown's per-shard fallback, query_replica_failovers risen,
+   K1 on the replicas) with the bits of the answer before; a scrape it
+   misses, its servers back over its memstore, catch-up from the
+   survivors' WAL segments filtered by shard, its shards on it alone
+   answering as the survivors; shard 0 handed live (as the handoff
+   route runs it, its WAL tail included; each state's seconds and the
+   host RSS in the snapshot and the tail) to the node that does not own
+   it under a polling client and live scrapes: no failed or partial poll, the answer after it within
+   rtol 1e-6 of before, memory_allocated and the booked `hot` bytes
+   down by at least the dropped mirror's bytes after the tombstone;
+federation-1M.  then (run_federation_phase), cut to 524,288 series
+   (FED_SERIES): two FiloServer clusters on the card, east and west
+   (testcluster.make_federated_pair booted empty), the counters with
+   region east for the first half and west for the rest (every _ns_
+   group spans both) through ingest_columns; the panel at east with
+   west's share one pushed [G, W] partial, and in series mode, against
+   the f64 oracle, K1 counted a cluster; the series-mode query killed
+   mid-stream (a cancel on both sides of the door); west's door stopped
+   (a flagged partial naming cluster:west equal to the oracle of east's
+   series, the breaker open, the door back and the full answer); a
+   cached re-poll, one scrape into west invalidating it through the
+   federation token, the next answer carrying the new sample;
 cluster-e2e-4k.  in a side process of its own (`--side cluster`) from K8
-   on, then cluster-1M there (run_cluster_e2e_phase): a ClusterCoordinator
+   on, then cluster-1M, replication-1M and federation-1M there
+   (run_cluster_e2e_phase; each node's ready line must name its
+   replication door's port): a ClusterCoordinator
    (4 shards, liveness
    2.5 s), `python -m filodb_tpu_torch.persist.netstore` and three
    `python -m filodb_tpu_torch.parallel.nodeapp --device cuda
@@ -2147,6 +2183,12 @@ def host_rss() -> int:
     """Peak resident set of this process, bytes."""
     import resource
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def rss_now() -> int:
+    """Resident set of this process now, bytes."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 
 def store_rows(ms, num_series):
@@ -5244,33 +5286,46 @@ def run_raw_counter_path(num_series, seed, hole_frac, warm, tol, dev):
 # ------------------------------------------ same-card A/B of two checkouts
 
 AB_CELLS = ("kernels", "counter", "gauge", "raw")
-# phase 2's K2 and K3 entries: (name, ragged, in-kernel drops, per series)
-AB_KERNELS = [("fused_rate_drops_dense", False, True, False),
-              ("fused_rate_drops_dense_series", False, True, True),
-              ("fused_rate_drops_ragged", True, True, False),
-              ("fused_rate_drops_ragged_series", True, True, True),
-              ("fused_rate_ragged", True, False, False),
-              ("fused_rate_ragged_series", True, False, True)]
+# every entry of phase 2's table, K1-K6: (name, kind, ragged, in-kernel
+# drops, per series); K8's three wrappers join them at the probe's shape
+AB_KERNELS = [
+    (f"{name}_{'ragged' if ragged else 'dense'}{'_series' if series else ''}",
+     kind, ragged, drops, series)
+    for (name, kind, _), drops in ([(k, False) for k in KERNELS]
+                                   + [(k, True) for k in DROPS_KERNELS])
+    for ragged in (False, True) for series in (False, True)]
 
 
 def ab_setup(cell, num_series, seed, dev):
     """One A/B cell in this process -> {panel: (clock, call)}: "kernels"
-    the K2/K3 entries at phase 2's shape (CUDA events), "counter" and
+    every kernel wrapper, K1-K6 at phase 2's shape and K8 at the probe's
+    (CUDA events), "counter" and
     "gauge" the first panel of phases 3 and 5 through
     QueryEngine.query_range (after its cold query), "raw" phase 7's
     fused_rate_groupsum(rate) and fused_leaf_agg_batch (host clock)."""
     import torch
     if cell == "kernels":
+        from filodb_tpu_torch.ops import probe
+        from filodb_tpu_torch.tools import probe_slice as ps
         fns = {}
-        for drops, ragged in ((True, False), (True, True), (False, True)):
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(seed)
-            inp = kernel_inputs(num_series, T, (NUM_NS,), ragged, gen, dev,
-                                resets=RESETS if drops else 0)
-            for name, r, d, series in AB_KERNELS:
-                if (r, d) == (ragged, drops):
-                    fns[name] = ("cuda", kernel_call(inp, "rate_family",
-                                                     ragged, series, drops))
+        for drops in (False, True):
+            for ragged in (False, True):
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(seed)
+                inp = kernel_inputs(num_series, T, (NUM_NS,), ragged, gen,
+                                    dev, resets=RESETS if drops else 0)
+                for name, kind, r, d, series in AB_KERNELS:
+                    if (r, d) == (ragged, drops):
+                        fns[name] = ("cuda", kernel_call(
+                            inp, kind, ragged, series, drops))
+        x, o, i1, i2 = ps.inputs(ps.GRID, dev)
+        W, WP = ps.W, ps.WP
+        fns.update(
+            probe_gather=("cuda", lambda: probe.probe_gather(x, i1, W, WP)),
+            probe_two_gathers=("cuda", lambda: probe.probe_two_gathers(
+                x, i1, i2, W, WP)),
+            probe_onehot_matmul=("cuda",
+                                 lambda: probe.probe_onehot_matmul(x, o)))
         return fns
     if cell == "raw":
         plan, prepared, _, _ = raw_counter_inputs(num_series, seed, 0.0, dev)
@@ -5817,12 +5872,19 @@ def run_ops_phase(eng, api, http, built, evictions):
                for r in ent.get("shards", [])] == [(0, "local", "Active", 1)]
           and "replicaLag" not in ent,
           f"ops-1M: /admin/shards {st} {shards}")
-    unported = {path: http.call(method, path)[0] for method, path in (
-        ("GET", "/admin/federation"), ("POST", "/admin/shards/0/handoff"))}
-    check(set(unported.values()) == {501},
-          f"ops-1M: unported routes answered {unported}")
+    # the replication and federation routes (once 501, before those layers
+    # were ported) answer as the reference's on a node without either
+    st_f, fed, _ = http.call("GET", "/admin/federation")
+    check(st_f == 200 and fed["data"] == {"cluster": "", "clusters": []},
+          f"ops-1M: /admin/federation {st_f} {fed}")
+    st_h, hand, _ = http.call("POST", "/admin/shards/0/handoff",
+                              {"to": "B"})
+    check(st_h == 400 and "no handoff coordinator" in hand.get("error", ""),
+          f"ops-1M: POST /admin/shards/0/handoff {st_h} {hand}")
     log(f"ops-1M: /cluster/prometheus/status {status['data']}; "
-        f"/admin/shards {json.dumps(ent)}; 501 from {sorted(unported)}")
+        f"/admin/shards {json.dumps(ent)}; /admin/federation {st_f} "
+        f"{json.dumps(fed['data'])}; the handoff route {st_h} "
+        f"({hand['error'][:60]})")
 
     # 2. /admin/devices over one warm dashboard batch
     st, pay, _ = http.call("POST", "/api/v1/query_range_batch", scan, body)
@@ -6741,6 +6803,11 @@ def run_cluster_e2e_phase(seed, dev):
                                f"{tail}")
         info = json.loads(box["line"])
         check(info.get("ready"), f"cluster-e2e-4k: {name} said {info}")
+        if name in ("A", "B", "C"):
+            check(isinstance(info.get("replication_port"), int)
+                  and info["replication_port"] > 0,
+                  f"cluster-e2e-4k: {name} opened no replication door "
+                  f"({info})")
         return info, time.perf_counter() - t
 
     def state_until(cli, pred, timeout_s, what):
@@ -6885,6 +6952,902 @@ def run_cluster_e2e_phase(seed, dev):
                      err=err)]
 
 
+# ------------------------------------------ replication-1M and federation-1M
+
+# the cuts, in the order the time limit forced them (PERF.md sets out
+# the arithmetic): the catch-up to one missed scrape, federation-1M to
+# 524,288 series, replication-1M to 524,288 series (at 1,048,576 it took
+# 683.7 s alone and 88.8 GiB of host memory at its peak)
+REPL_SERIES = 524_288              # replication-1M's series
+FED_SERIES = 524_288               # federation-1M's series
+REPL_NODES = ("A", "B", "C")
+REPL_SLABS = 16                    # replication-1M: history slabs a shard
+REPL_MISSED = 1                    # scrapes that land while A is down
+REPL_GRACE_S = 3.0                 # cutover to tombstone: polls move over
+REPL_LIVE_EVERY_S = 2.0            # live scrapes of the moving shard
+# replication.append_timeout_s of the cell: a shard's first slab makes
+# every one of its series on both owners, several shards at once, and
+# such an append takes far longer than the default 5 s (PERF.md)
+REPL_APPEND_TIMEOUT_S = 600.0
+FED_REGIONS = ("east", "west")
+
+
+def routed_counters(num_series, seed, dev, routers, region_of=None):
+    """dense-1M's counters (the same seed, slab by slab) with their part
+    keys (`region` added when region_of(i) is given), each routed by
+    routers[region] = (shard mapper, spread provider), routers[None]
+    without regions -> ({(region, shard): [series indices, keys, vals [n, T]
+    f64]}, per-series f64 rates [num_series, W] on the card, ts_row,
+    wends, the routing's seconds).  The keys are routed first, so each
+    part's values land in one array of its final size."""
+    import torch
+    from filodb_tpu_torch.core.partkey import PartKey
+    t = time.perf_counter()
+    part_of = np.empty(num_series, np.int64)
+    pos = np.empty(num_series, np.int64)
+    names, parts = {}, []
+    for i in range(num_series):
+        labels = {"_ws_": "demo", "_ns_": f"App-{i % NUM_NS}",
+                  "instance": f"Instance-{i}", "dc": f"DC{i % 2}"}
+        region = region_of(i) if region_of is not None else None
+        if region is not None:
+            labels["region"] = region
+        pk = PartKey.make("request_total", labels)
+        mapper, spread = routers[region]
+        s = mapper.ingestion_shard(
+            pk.shard_key_hash(), pk.partition_hash(),
+            spread.spread_for(pk.shard_key()))
+        p = names.setdefault((region, s), len(names))
+        if p == len(parts):
+            parts.append([[], []])
+        part_of[i] = p
+        pos[i] = len(parts[p][1])
+        parts[p][0].append(i)
+        parts[p][1].append(pk)
+    route_s = time.perf_counter() - t
+    for ent in parts:
+        ent[0] = np.asarray(ent[0])
+        ent.append(np.empty((len(ent[1]), T), np.float64))
+    rng = np.random.default_rng(seed)
+    ts_row = START_MS + np.arange(T, dtype=np.int64) * STEP_MS
+    wends = np.arange(START_MS + 600_000, int(ts_row[-1]) + 1, 60_000)
+    rates = torch.empty((num_series, len(wends)), dtype=torch.float64,
+                        device=dev)
+    for i0 in range(0, num_series, SLAB):
+        n = min(SLAB, num_series - i0)
+        vals = make_counter_slab(rng, n, 0.0)
+        po, ps = part_of[i0:i0 + n], pos[i0:i0 + n]
+        for p in np.unique(po):
+            m = po == p
+            parts[p][2][ps[m]] = vals[m]
+        rates[i0:i0 + n] = oracle_rates_t(torch.from_numpy(vals).to(dev),
+                                          ts_row, wends)["rate"]
+    torch.cuda.synchronize()
+    return ({key: parts[p] for key, p in names.items()}, rates, ts_row,
+            wends, route_s)
+
+
+def repl_feed(manager, shards, cols, ts_row, require_primary=True,
+              spent=None):
+    """One slab a shard through manager.replicate, the shards in threads
+    of their own (each shard's slabs stay in order) -> {shard: result};
+    spent[s] adds each call's seconds."""
+    out, errs = {}, []
+
+    def one(s):
+        t = time.perf_counter()
+        try:
+            _, keys, vals = shards[s]
+            k = cols.stop - cols.start
+            out[s] = manager.replicate(
+                s, "prom-counter", keys,
+                np.broadcast_to(ts_row[cols], (len(keys), k)),
+                {"count": np.ascontiguousarray(vals[:, cols])},
+                require_primary=require_primary)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errs.append(f"shard {s}: {type(e).__name__}: {e}")
+        if spent is not None:
+            spent[s] = spent.get(s, 0.0) + time.perf_counter() - t
+    th = [threading.Thread(target=one, args=(s,)) for s in shards]
+    for t in th:
+        t.start()
+    for t in th:
+        t.join()
+    check(not errs, f"replication-1M: fan-out failed: {errs}")
+    return out
+
+
+def extend_scrapes(shards, ts_row, n):
+    """Append n scrapes to every shard's history: each value its last
+    plus 5 a scrape (no reset), at the next 10 s steps."""
+    for ent in shards.values():
+        last = ent[2][:, -1:]
+        ent[2] = np.concatenate(
+            [ent[2], last + 5.0 * np.arange(1, n + 1)[None, :]], axis=1)
+    return np.concatenate(
+        [ts_row, ts_row[-1] + STEP_MS * np.arange(1, n + 1)])
+
+
+def run_replication_phase(num_series, seed, warm, dev):
+    """replication-1M: dense-1M's counters (the same seed) in 4 shards at
+    RF 2 over three data nodes A, B and C in this process
+    (testcluster.make_replicated_cluster: a memstore on the card, a WAL
+    under TMPDIR, a NodeQueryServer and a ReplicationServer on loopback
+    TCP each; quorum acks).  (1) the history through the fan-out,
+    REPL_SLABS slabs a shard of [S_shard, 45], the shards in threads;
+    (2) one scrape at RF 2 against one into the primaries alone; (3) the
+    panel through the coordinator (failover_dispatcher_factory) against
+    the f64 oracle, cold and warm; (4) A killed: the panel full (no
+    partial, pushdown's per-shard fallback, query_replica_failovers
+    risen), the bits of the answer before; (5) REPL_MISSED scrape(s) on
+    the survivors, A's servers back over its memstore, catch-up from
+    the survivors' WALs filtered by shard, A's shards on A alone
+    answering as the survivors; (6) a live handoff of shard 0 to the
+    node that does not own it under a polling client and live scrapes,
+    as the handoff route runs it (its WAL tail included, each state's
+    seconds and the host's RSS): no failed or partial query, the answer after it equal to before,
+    the old owner's card memory back after the tombstone -> (launches,
+    rows)."""
+    import torch
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.parallel.breaker import breakers
+    from filodb_tpu_torch.parallel.shardmapper import (ShardEvent,
+                                                       ShardMapper,
+                                                       SpreadProvider)
+    from filodb_tpu_torch.parallel.testcluster import make_replicated_cluster
+    from filodb_tpu_torch.parallel.transport import (NodeQueryServer,
+                                                     RemoteNodeDispatcher)
+    from filodb_tpu_torch.query import execbase
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.planner import SingleClusterPlanner
+    from filodb_tpu_torch.replication import (HandoffCoordinator,
+                                              ReplicaClient,
+                                              ReplicationManager,
+                                              ReplicationServer,
+                                              catchup_shards)
+    from filodb_tpu_torch.replication import service as rsvc
+    from filodb_tpu_torch.utils.devicetelem import telem
+    from filodb_tpu_torch.utils.events import journal
+    from filodb_tpu_torch.utils.metrics import registry
+    kernels.reset_launch_counts()
+    ds = "prometheus"
+    steps = {}
+    wal_dir = tempfile.mkdtemp(prefix="replication-1m-")
+    t0 = time.perf_counter()
+    c = make_replicated_cluster(nodes=REPL_NODES, num_shards=CLUSTER_SHARDS,
+                                replication_factor=2, ack_mode="quorum",
+                                wal_root=wal_dir,
+                                append_timeout_s=REPL_APPEND_TIMEOUT_S,
+                                device=dev)
+    try:
+        parts, rates, ts_row, wends, route_s = routed_counters(
+            num_series, seed, dev,
+            {None: (c.mapper, SpreadProvider(default_spread=1))})
+        shards = {s: parts[(None, s)] for s in range(CLUSTER_SHARDS)}
+        gids = torch.from_numpy(np.arange(num_series) % NUM_NS).to(dev)
+        want = group_sums(rates, gids)
+        steps["data"] = time.perf_counter() - t0
+        owners = {s: c.mapper.owners(s) for s in shards}
+        log(f"replication-1M: {num_series} series over {CLUSTER_SHARDS} "
+            f"shards at RF 2 on {list(REPL_NODES)}: owners {owners}, "
+            f"series a shard {[len(shards[s][1]) for s in shards]}; "
+            f"made and routed in {steps['data']:.1f} s (routing "
+            f"{route_s:.1f} s)")
+        # (1) the history through the fan-out, its split read from the
+        # port's own spans: replication_fanout, replica_append a peer,
+        # and the doors' wal_append and wal_commit_wait
+        width = T // REPL_SLABS
+
+        def span_s(name, **tags):
+            return registry.histogram(f"span_{name}_seconds", **tags)
+        rtt = {n: span_s("replica_append", peer=n) for n in REPL_NODES}
+        fan = span_s("replication_fanout", dataset=ds)
+        wal_h = (span_s("wal_append", dataset=ds),
+                 span_s("wal_commit_wait", dataset=ds))
+        rtt0 = {n: h.sum for n, h in rtt.items()}
+        fan0, wal0 = fan.sum, sum(h.sum for h in wal_h)
+        rep_s, slab_s = {}, []
+        t = time.perf_counter()
+        for j in range(REPL_SLABS):
+            t1 = time.perf_counter()
+            repl_feed(c.manager, shards, slice(j * width, (j + 1) * width),
+                      ts_row, spent=rep_s)
+            slab_s.append(time.perf_counter() - t1)
+        steps["build"] = time.perf_counter() - t
+        rt = {n: rtt[n].sum - rtt0[n] for n in REPL_NODES}
+        fan_s = fan.sum - fan0
+        wal_s = sum(h.sum for h in wal_h) - wal0
+        longest = {n: round(rtt[n].max, 3) for n in REPL_NODES}
+        steps["longest_append"] = max(longest.values())
+        log(f"replication-1M build: {REPL_SLABS} slabs a shard of "
+            f"[S_shard, {width}] through ReplicationManager.replicate "
+            f"(quorum) in {steps['build']:.1f} s (the first slab "
+            f"{slab_s[0]:.1f} s, the others p50 "
+            f"{np.median(slab_s[1:]):.2f} s); thread-seconds: replicate "
+            f"{sum(rep_s.values()):.1f} (encoding the record "
+            f"{sum(rep_s.values()) - fan_s:.1f}, the fan-out {fan_s:.1f}); "
+            f"round trips a peer " + json.dumps(
+                {n: round(v, 1) for n, v in rt.items()})
+            + f" (the longest append a peer {json.dumps(longest)}, "
+            f"append_timeout_s {REPL_APPEND_TIMEOUT_S}); the doors' WAL "
+            f"{wal_s:.1f} (append and commit wait, the three nodes); the "
+            f"rest of the round trips {sum(rt.values()) - wal_s:.1f} "
+            f"(decode, ingest and the wire)")
+        for s in shards:
+            for n in owners[s]:
+                sh = c.stores[n].get_shard(ds, s)
+                check(sh.num_partitions == len(shards[s][1]),
+                      f"replication-1M: shard {s} on {n} holds "
+                      f"{sh.num_partitions} series")
+        # (2) fan-out cost: one scrape at RF 2, one into the primaries
+        # alone (then into the replicas alone, untimed, so every copy
+        # holds it)
+        total = sum(len(v[1]) for v in shards.values())
+        ts_row = extend_scrapes(shards, ts_row, 2)
+        t = time.perf_counter()
+        repl_feed(c.manager, shards, slice(T, T + 1), ts_row)
+        rf2_s = time.perf_counter() - t
+
+        def one_owner_manager(pick):
+            m = ShardMapper(CLUSTER_SHARDS)
+            for s in shards:
+                m.update_from_event(ShardEvent("IngestionStarted", ds, s,
+                                               pick(owners[s])))
+            return ReplicationManager(ds, m, lambda n: c.repl_clients[n])
+        rf1 = one_owner_manager(lambda o: o[0])
+        t = time.perf_counter()
+        repl_feed(rf1, shards, slice(T + 1, T + 2), ts_row)
+        rf1_s = time.perf_counter() - t
+        rest = one_owner_manager(lambda o: o[1])
+        repl_feed(rest, shards, slice(T + 1, T + 2), ts_row)
+        rf1.stop()
+        rest.stop()
+        pct = 100.0 * (total / rf2_s) / (total / rf1_s)
+        steps.update(scrape_rf2=rf2_s, scrape_rf1=rf1_s)
+        log(f"replication-1M fan-out: one scrape of {total} series at RF 2 "
+            f"{rf2_s:.3f} s ({total / rf2_s:,.0f} samples/s), into the "
+            f"primaries alone {rf1_s:.3f} s ({total / rf1_s:,.0f} "
+            f"samples/s); replication_rf2_vs_rf1_pct {pct:.1f}")
+        # (3) the panel through the failover coordinator
+        eng = c.engine
+        start_s, end_s = int(wends[0]) // 1000, int(wends[-1]) // 1000
+
+        def panel(what, **kw):
+            n0 = dict(kernels.LAUNCHES)
+            t1 = time.perf_counter()
+            res = eng.query_range(CLUSTER_QUERY, start_s, 60, end_s,
+                                  scan_params(**kw))
+            took = time.perf_counter() - t1
+            check(res.error is None, f"replication-1M {what}: {res.error}")
+            check(not res.partial, f"replication-1M {what}: flagged "
+                  f"partial ({res.stats.warnings[:2]})")
+            return res, took, launched(n0)
+
+        def bits(res):
+            return {k.labels: np.asarray(v) for k, _, v in res.series()}
+        ledger0 = k1_ledger(dev)
+        base, cold_s, k = panel("cold")
+        ledger_k1 = k1_ledger(dev) - ledger0
+        err = compare(base, want, 2e-4, 1e-3, "replication-1M panel")[1]
+        check(k.get("fused_rate_dense", 0) == CLUSTER_SHARDS,
+              f"replication-1M: the panel launched {k}")
+        warm_s = []
+        for _ in range(warm):
+            again, took, _ = panel("warm")
+            check({a: b.tobytes() for a, b in bits(again).items()}
+                  == {a: b.tobytes() for a, b in bits(base).items()},
+                  "replication-1M: a warm panel differs in its bits")
+            warm_s.append(took)
+        steps.update(panel_cold=cold_s,
+                     panel_warm_p50=float(np.median(warm_s)))
+        log(f"replication-1M panel: cold {cold_s:.3f} s, warm p50 "
+            f"{np.median(warm_s):.4f} s over {warm}; K1 {CLUSTER_SHARDS} "
+            f"a panel (the ledger's dispatches {ledger_k1}); pushdown "
+            f"pushed {base.stats.pushdown_pushed}; oracle max abs err "
+            f"{err}")
+        # (4) a node dies: the one that is primary of the most shards
+        # (the placement is the shard manager's), called A below
+        victim = max(REPL_NODES, key=lambda n: (
+            sum(o[0] == n for o in owners.values()), n))
+        fo = {n: registry.counter("query_replica_failovers", peer=n).value
+              for n in REPL_NODES}
+        horizon = {n: c.repl_servers[n].wals[ds].writer
+                   .snapshot_segments()[1] for n in REPL_NODES
+                   if n != victim}
+        c.kill(victim)
+        dead, dead_s, k = panel("after A's death")
+        fo_up = {n: registry.counter("query_replica_failovers",
+                                     peer=n).value - fo[n]
+                 for n in REPL_NODES}
+        check(sum(fo_up.values()) > 0,
+              "replication-1M: no query_replica_failovers after A died")
+        check(dead.stats.pushdown_fallback >= 1,
+              f"replication-1M: after A's death pushdown fell back "
+              f"{dead.stats.pushdown_fallback} times")
+        check(k.get("fused_rate_dense", 0) == CLUSTER_SHARDS,
+              f"replication-1M: after A's death the panel launched {k}")
+        err_dead = compare(dead, want, 2e-4, 1e-3,
+                           "replication-1M after A's death")[1]
+        a, b = bits(dead), bits(base)
+        check(a.keys() == b.keys() and len(a) == NUM_NS,
+              "replication-1M: groups differ after A's death")
+        diff = max(float(np.nanmax(np.abs(a[g] - b[g]))) for g in a)
+        steps["first_full_after_kill"] = dead_s
+        log(f"replication-1M A = {victim} (primary of "
+            f"{[s for s in shards if owners[s][0] == victim]}) killed: the "
+            f"first answer full in "
+            f"{dead_s:.3f} s ({len(a)} groups, not partial, pushdown "
+            f"fallbacks {dead.stats.pushdown_fallback}, failovers "
+            f"{fo_up}); oracle max abs err {err_dead}; largest difference "
+            f"from the answer before {diff} (bit-identical: "
+            f"{all(a[g].tobytes() == b[g].tobytes() for g in a)})")
+        # (5) two scrapes on the survivors, A back, catch-up
+        ts_row = extend_scrapes(shards, ts_row, REPL_MISSED)
+        for j in range(REPL_MISSED):
+            res = repl_feed(c.manager, shards,
+                            slice(T + 2 + j, T + 3 + j), ts_row)
+            check(all(victim not in r.acked for r in res.values()),
+                  "replication-1M: a dead node acked")
+        old_q, old_r = c.query_servers[victim], c.repl_servers[victim]
+        c.query_servers[victim] = NodeQueryServer(
+            c.stores[victim], port=old_q.address[1]).start()
+        c.repl_servers[victim] = ReplicationServer(
+            c.stores[victim], node=victim, wals=old_r.wals,
+            port=old_r.address[1]).start()
+        # the node is back: its breakers close now instead of after their
+        # half-open probes
+        breakers.reset()
+        a_shards = [s for s in shards if victim in owners[s]]
+        peer_of = {s: next(n for n in owners[s] if n != victim)
+                   for s in a_shards}
+        t = time.perf_counter()
+        cstats = []
+        for peer in sorted(set(peer_of.values())):
+            mine = [s for s in a_shards if peer_of[s] == peer]
+            cstats.append(catchup_shards(
+                ReplicaClient(*c.repl_servers[peer].address), ds,
+                c.stores[victim], shards=mine,
+                since={s: horizon[peer] for s in mine}, node=victim))
+        catch_s = time.perf_counter() - t
+        c.manager.mark_repaired(victim)
+        recs = sum(st.records for st in cstats)
+        samples = sum(st.samples for st in cstats)
+        want_samples = REPL_MISSED * sum(len(shards[s][1]) for s in a_shards)
+        check(samples == want_samples,
+              f"replication-1M: catch-up replayed {samples} samples, "
+              f"{want_samples} were missed")
+        end2 = int(ts_row[-1]) // 1000
+        start2 = end2 - 60 * (len(wends) - 1)
+
+        def engine_via(route):
+            disp = {n: RemoteNodeDispatcher(*c.query_servers[n].address)
+                    for n in REPL_NODES}
+            planner = SingleClusterPlanner(
+                ds, c.mapper, SpreadProvider(default_spread=1),
+                dispatcher_factory=lambda s: disp[route(s)])
+            return QueryEngine(ds, TimeSeriesMemStore(device=dev), c.mapper,
+                               planner=planner, device=dev)
+
+        def other(s):
+            return next(n for n in owners[s] if n != victim)
+        alone = engine_via(lambda s: victim if s in a_shards else other(s))
+        survivors = engine_via(other)
+        ra = alone.query_range(CLUSTER_QUERY, start2, 60, end2,
+                               scan_params())
+        rs = survivors.query_range(CLUSTER_QUERY, start2, 60, end2,
+                                   scan_params())
+        check(ra.error is None and rs.error is None,
+              f"replication-1M after catch-up: {ra.error} {rs.error}")
+        xa, xs = bits(ra), bits(rs)
+        check(xa.keys() == xs.keys() and len(xa) == NUM_NS,
+              "replication-1M: A alone and the survivors differ in groups")
+        cdiff = max(float(np.nanmax(np.abs(xa[g] - xs[g]))) for g in xa)
+        check(all(np.allclose(xa[g], xs[g], rtol=1e-6, atol=0.0,
+                              equal_nan=True) for g in xa),
+              f"replication-1M: A alone answers {cdiff} off the survivors")
+        steps["catchup"] = catch_s
+        log(f"replication-1M catch-up: A's shards {a_shards} from "
+            f"{sorted(set(peer_of.values()))} in {catch_s:.3f} s: "
+            + "; ".join(f"records {st.records} samples {st.samples} "
+                        f"segments {st.segments} {st.samples_per_sec:,.0f} "
+                        f"samples/s {st.elapsed_s:.3f} s" for st in cstats)
+            + f"; A alone over [{start2}, {end2}] equal to the survivors "
+            f"(largest difference {cdiff}, bit-identical "
+            f"{all(xa[g].tobytes() == xs[g].tobytes() for g in xa)})")
+        # (6) live handoff of shard 0 under a polling client and scrapes
+        hs = 0
+        src = c.mapper.node_for_shard(hs)
+        target = next(n for n in REPL_NODES if n not in owners[hs])
+        before, _, _ = panel("before the handoff")
+        src_mirror = c.stores[src].get_shard(ds, hs).stores[
+            "prom-counter"].device_mirror
+        check(src_mirror is not None and src_mirror.booked_bytes > 0,
+              "replication-1M: the moving shard has no mirror")
+        stop, pause, idle = (threading.Event(), threading.Event(),
+                             threading.Event())
+        polls, live = [], [0]
+
+        def poll():
+            while not stop.is_set():
+                if pause.is_set():
+                    idle.set()
+                    time.sleep(0.01)
+                    continue
+                idle.clear()
+                t1 = time.perf_counter()
+                res = eng.query_range(CLUSTER_QUERY, start_s, 60, end_s,
+                                      scan_params(
+                                          allow_partial_results=True))
+                polls.append((res.error, res.partial,
+                              time.perf_counter() - t1))
+        moving = {hs: shards[hs]}
+        live_ts = [ts_row]
+
+        def scrape():
+            while not stop.wait(REPL_LIVE_EVERY_S):
+                if pause.is_set():
+                    continue
+                live_ts[0] = extend_scrapes(moving, live_ts[0], 1)
+                j = len(live_ts[0]) - 1
+                repl_feed(c.manager, moving, slice(j, j + 1), live_ts[0])
+                live[0] += 1
+        mem = {}
+        applied = []
+
+        class _Wrap:
+            def __init__(self, cli):
+                self.cli = cli
+
+            def __getattr__(self, name):
+                return getattr(self.cli, name)
+
+        class _Src(_Wrap):
+            def drop_shard(self, dataset, shard):
+                pause.set()
+                check(idle.wait(300), "replication-1M: the poller never "
+                      "paused for the tombstone")
+                serial = src_mirror.serial
+                mem["fused"] = sum(
+                    execbase._vals_nbytes(v) for k2, v in
+                    list(execbase._FUSED_VALS_CACHE.items())
+                    if k2[0] == serial)
+                mem["mirror"] = src_mirror.booked_bytes
+                torch.cuda.synchronize()
+                mem["alloc0"] = torch.cuda.memory_allocated(dev)
+                mem["hot0"] = telem.hbm_booked(dev, "hot")
+                out = self.cli.drop_shard(dataset, shard)
+                torch.cuda.synchronize()
+                mem["alloc1"] = torch.cuda.memory_allocated(dev)
+                mem["hot1"] = telem.hbm_booked(dev, "hot")
+                pause.clear()
+                return out
+
+        class _Dst(_Wrap):
+            def end_restore(self, dataset, shard):
+                n = self.cli.end_restore(dataset, shard)
+                applied.append(n)
+                return n
+
+        def client_for(n):
+            cli = c.repl_clients[n]
+            return _Src(cli) if n == src else _Dst(cli) \
+                if n == target else cli
+        rss = []
+
+        def sample_rss():
+            while not stop.wait(0.25):
+                rss.append((time.time(), rss_now()))
+        threads = [threading.Thread(target=poll, daemon=True),
+                   threading.Thread(target=scrape, daemon=True),
+                   threading.Thread(target=sample_rss, daemon=True)]
+        for th in threads:
+            th.start()
+        time.sleep(1.0)
+        seq0 = journal.next_seq
+        n0 = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        # as POST /admin/shards/<s>/handoff runs it: with the WAL tail
+        summary = HandoffCoordinator(ds, c.mapper, client_for,
+                                     tombstone_grace_s=REPL_GRACE_S
+                                     ).handoff(hs, target)
+        hand_s = time.perf_counter() - t
+        time.sleep(1.0)
+        stop.set()
+        for th in threads:
+            th.join(600)
+        check(summary["states"] == ["register", "stream_snapshot",
+                                    "stream_wal_tail", "cutover",
+                                    "tombstone", "done"],
+              f"replication-1M: handoff ended {summary}")
+        evs = [e for e in journal.since(seq0 - 1)
+               if e["kind"] in ("shard_handoff_started", "shard_handoff")]
+        state_s, at = {}, {}
+        for e0, e1 in zip(evs, evs[1:]):
+            state_s[e1.get("state")] = round(
+                e1["unixSeconds"] - e0["unixSeconds"], 3)
+            at[e1.get("state")] = (e0["unixSeconds"], e1["unixSeconds"])
+        snap_recs = next((e.get("records") for e in evs
+                          if e.get("state") == "stream_snapshot"), None)
+        tail_recs = next((e.get("records") for e in evs
+                          if e.get("state") == "stream_wal_tail"), None)
+        check(tail_recs is not None and tail_recs >= REPL_SLABS,
+              f"replication-1M: the WAL tail relayed {tail_recs} records")
+        gib = 2.0 ** 30
+
+        def rss_in(state):
+            lo, hi = at[state]
+            got = [r for when, r in rss if lo <= when <= hi + 0.25]
+            return max(got) / gib if got else float("nan")
+        rss_line = (f"host RSS at the handoff's start "
+                    f"{rss[0][1] / gib:.2f} GiB, highest in the snapshot "
+                    f"{rss_in('stream_snapshot'):.2f} GiB and in the WAL "
+                    f"tail {rss_in('stream_wal_tail'):.2f} GiB, the "
+                    f"process's peak so far {host_rss() / gib:.2f} GiB")
+        steps.update(handoff_snapshot=state_s["stream_snapshot"],
+                     handoff_wal_tail=state_s["stream_wal_tail"])
+        new_sh = c.stores[target].get_shard(ds, hs)
+        snap_samples = int(new_sh.stores["prom-counter"].counts[
+            :new_sh.stores["prom-counter"].num_series].sum())
+        failed = [p for p in polls if p[0] is not None]
+        partial = [p for p in polls if p[1]]
+        check(polls and not failed and not partial,
+              f"replication-1M handoff: {len(polls)} polls, failed "
+              f"{[p[0] for p in failed[:2]]}, partial {len(partial)}")
+        check(c.mapper.node_for_shard(hs) == target
+              and c.stores[src].get_shard(ds, hs) is None,
+              "replication-1M: the handoff did not move the shard")
+        after, _, k = panel("after the handoff")
+        check(new_sh.stores["prom-counter"].device_mirror is not None,
+              "replication-1M: the new owner's store has no mirror")
+        check(launched(n0).get("fused_rate_dense", 0) > 0
+              and k.get("fused_rate_dense", 0) == CLUSTER_SHARDS,
+              f"replication-1M: K1 after the handoff {k}")
+        xa, xb = bits(after), bits(before)
+        hdiff = max(float(np.nanmax(np.abs(xa[g] - xb[g])
+                                    / np.maximum(np.abs(xb[g]), 1e-300)))
+                    for g in xa)
+        identical = all(xa[g].tobytes() == xb[g].tobytes() for g in xa)
+        check(xa.keys() == xb.keys() and all(
+            np.allclose(xa[g], xb[g], rtol=1e-6, atol=0.0, equal_nan=True)
+            for g in xa),
+              f"replication-1M: the answer after the handoff is {hdiff} "
+              f"rel off the one before")
+        fell, hot_fell = (mem["alloc0"] - mem["alloc1"],
+                          mem["hot0"] - mem["hot1"])
+        check(fell >= mem["mirror"] and hot_fell >= mem["mirror"],
+              f"replication-1M: the tombstone gave back {fell} B allocated "
+              f"and {hot_fell} B booked, the mirror held {mem['mirror']}")
+        steps["handoff"] = hand_s
+        log(f"replication-1M handoff of shard {hs} ({len(shards[hs][1])} "
+            f"series) {src} -> {target} in {hand_s:.2f} s, states "
+            f"{summary['states']}, each state's seconds "
+            + json.dumps(state_s) + f"; snapshot records {snap_recs}, "
+            f"samples {snap_samples}; WAL tail records {tail_recs}; "
+            f"{rss_line}; live scrapes {live[0]}, buffered "
+            f"behind the restore window and applied at its end {applied} "
+            f"(cap {rsvc.RESTORE_BUFFER_MAX}); polls {len(polls)}, failed "
+            f"{len(failed)}, partial {len(partial)}, p50 "
+            f"{np.median([p[2] for p in polls]):.3f} s; after the cutover "
+            f"bit-identical to before: {identical} (max rel difference "
+            f"{hdiff}); tombstone: memory_allocated {mem['alloc0']} -> "
+            f"{mem['alloc1']} (-{fell}), booked hot {mem['hot0']} -> "
+            f"{mem['hot1']} (-{hot_fell}), the dropped mirror "
+            f"{mem['mirror']} B, its padded values {mem['fused']} B")
+        launches = dict(kernels.LAUNCHES)
+        log("replication-1M steps' seconds " + json.dumps(
+            {k2: round(v, 3) for k2, v in steps.items()}))
+    finally:
+        breakers.reset()
+        c.stop()
+        for srv in c.repl_servers.values():
+            for wal in srv.wals.values():
+                wal.close()
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    return launches, [dict(query=CLUSTER_QUERY, kernel="fused_rate_dense",
+                           err=err)]
+
+
+def run_federation_phase(num_series, seed, warm, dev):
+    """federation-1M: two FiloServer clusters on the card, "east" and
+    "west" (testcluster.make_federated_pair, booted empty: each a
+    memstore of 4 shards, its planner stack under a FederationPlanner,
+    its federation door on loopback TCP, `federation.clusters` splitting
+    the series by a `region` label).  dense-1M's counters (the same
+    seed) with region east for the first half and west for the rest,
+    through ingest_columns into each server's memstore: every _ns_ group
+    spans both clusters.  (1) sum by (_ns_) (rate(...)) over 110 steps
+    at east: west's share one pushed [G, W] partial, against the f64
+    oracle of all the series, cold and warm; the same panel in series
+    mode (aggregation_pushdown off) within the same tolerance; wire
+    bytes and each cluster's K1 launches; (2) the series-mode query
+    killed once west's stream flows: a structured cancel on both sides
+    of the door; (3) west's door stopped: a flagged partial naming
+    cluster:west whose groups equal the oracle of east's series, the
+    breaker open after repeated queries, then the door back and the full
+    answer; (4) a warm re-poll from the result cache, then one scrape
+    into west invalidating it through the federation token, the next
+    answer carrying the new sample -> (launches, rows)."""
+    import torch
+    from filodb_tpu_torch.federation.exec import FederatedDispatcher
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.parallel import transport as tr
+    from filodb_tpu_torch.parallel.breaker import breakers
+    from filodb_tpu_torch.parallel.testcluster import make_federated_pair
+    from filodb_tpu_torch.query.activequeries import active_queries
+    kernels.reset_launch_counts()
+    ds = "prometheus"
+    steps = {}
+    breakers.configure(failure_threshold=3, open_base_s=1.0,
+                       open_max_s=2.0, jitter=0.0)
+    breakers.reset()
+    half = num_series // 2
+    t0 = time.perf_counter()
+    pair = make_federated_pair(num_series=0, num_shards=CLUSTER_SHARDS,
+                               start=False, probe_interval_s=1.0,
+                               device=dev)
+    try:
+        srv = {"east": pair.east, "west": pair.west}
+        parts, rates, ts_row, wends, route_s = routed_counters(
+            num_series, seed, dev,
+            {r: (srv[r].mappers[ds], srv[r].spreads[ds])
+             for r in FED_REGIONS},
+            region_of=lambda i: "east" if i < half else "west")
+        t = time.perf_counter()
+        for (region, s), (_, keys, vals) in parts.items():
+            srv[region].memstore.get_shard(ds, s).ingest_columns(
+                "prom-counter", keys,
+                np.broadcast_to(ts_row, (len(keys), T)), {"count": vals})
+        ingest_s = time.perf_counter() - t
+        gids = torch.from_numpy(np.arange(num_series) % NUM_NS).to(dev)
+        want = group_sums(rates, gids)
+        want_east = group_sums(rates, gids, np.arange(half))
+        steps["build"] = time.perf_counter() - t0
+        log(f"federation-1M: {num_series} series, east {half} and west "
+            f"{num_series - half} (series a shard "
+            + json.dumps({f"{r}/{s}": len(v[1])
+                          for (r, s), v in sorted(parts.items())})
+            + f") built in {steps['build']:.1f} s (routing {route_s:.1f} "
+            f"s, ingest_columns {ingest_s:.1f} s)")
+        west_last = {key: (v[1], v[2][:, -1].copy())
+                     for key, v in parts.items() if key[0] == "west"}
+        del parts
+        eng = pair.engine
+        start_s, end_s = int(wends[0]) // 1000, int(wends[-1]) // 1000
+        west_calls = []
+
+        def west_k1():
+            return sum(v[1] for st in west_calls
+                       for key, v in st.device_calls.items()
+                       if key.split("|")[-1] in OPS_FUSED)
+
+        real_dispatch = FederatedDispatcher.dispatch
+
+        def spy(self, plan, source):
+            data, st = real_dispatch(self, plan, source)
+            west_calls.append(st)
+            return data, st
+
+        def panel(what, q=CLUSTER_QUERY, **kw):
+            west_calls.clear()
+            n0 = dict(kernels.LAUNCHES)
+            t1 = time.perf_counter()
+            res = eng.query_range(q, start_s, 60, end_s, scan_params(**kw))
+            took = time.perf_counter() - t1
+            check(res.error is None, f"federation-1M {what}: {res.error}")
+            k1 = launched(n0).get("fused_rate_dense", 0)
+            return res, took, k1 - west_k1(), west_k1()
+
+        def bits(res):
+            return {k.labels: np.asarray(v) for k, _, v in res.series()}
+        FederatedDispatcher.dispatch = spy
+        try:
+            pair.east.federation_registry.probe_once()
+            pushed, cold_s, k_east, k_west = panel("pushed cold")
+            err = compare(pushed, want, 2e-4, 1e-3,
+                          "federation-1M pushed")[1]
+            check(pushed.stats.pushdown_pushed >= 1 and not pushed.partial,
+                  f"federation-1M: pushdown_pushed "
+                  f"{pushed.stats.pushdown_pushed}")
+            check(k_east == CLUSTER_SHARDS and k_west == CLUSTER_SHARDS,
+                  f"federation-1M: K1 east {k_east}, west {k_west}")
+            warm_s = []
+            for _ in range(warm):
+                again, took, _, _ = panel("pushed warm")
+                check({a: b.tobytes() for a, b in bits(again).items()}
+                      == {a: b.tobytes() for a, b in bits(pushed).items()},
+                      "federation-1M: a warm pushed panel differs")
+                warm_s.append(took)
+            series, series_s, ks_east, ks_west = panel(
+                "series mode", aggregation_pushdown=False)
+            s_err = compare(series, want, 2e-4, 1e-3,
+                            "federation-1M series mode")[1]
+            s_warm = [panel("series mode warm",
+                            aggregation_pushdown=False)[1]
+                      for _ in range(max(1, warm // 3))]
+        finally:
+            FederatedDispatcher.dispatch = real_dispatch
+        steps.update(pushed_cold=cold_s,
+                     pushed_warm_p50=float(np.median(warm_s)),
+                     series_cold=series_s,
+                     series_warm_p50=float(np.median(s_warm)))
+        log(f"federation-1M pushed: cold {cold_s:.3f} s, warm p50 "
+            f"{np.median(warm_s):.4f} s over {warm}; wire bytes "
+            f"{pushed.stats.wire_bytes}, pushdown pushed "
+            f"{pushed.stats.pushdown_pushed}; K1 east {k_east}, west "
+            f"{k_west}; oracle max abs err {err}.  Series mode: cold "
+            f"{series_s:.3f} s, warm p50 {np.median(s_warm):.3f} s over "
+            f"{len(s_warm)}; wire bytes {series.stats.wire_bytes} "
+            f"({series.stats.wire_bytes / max(pushed.stats.wire_bytes, 1):.0f}"
+            f"x), streamed frames {series.stats.streamed_frames}, "
+            f"fallback {series.stats.pushdown_fallback}; K1 east {ks_east}, "
+            f"west {ks_west}; oracle max abs err {s_err}")
+        # (2) a kill of the series-mode query once west's stream flows
+        # west's door holds its stream at the fifth frame until the kill
+        # is sent, so the kill lands mid-stream on both sides
+        flowing, release = threading.Event(), threading.Event()
+        real_pack = tr._pack_stream_frame
+
+        def pack(seq, body, last):
+            if seq >= 4:
+                flowing.set()
+                release.wait(60)
+            return real_pack(seq, body, last)
+        box = {}
+        tr._pack_stream_frame = pack
+        try:
+            # through east's frontend, which registers the coordinator's
+            # entry; west's door registers its execution under the same id
+            th = threading.Thread(target=lambda: box.update(
+                res=pair.frontend.query_range(
+                    CLUSTER_QUERY, start_s, 60, end_s,
+                    planner_params=scan_params(
+                        aggregation_pushdown=False))),
+                daemon=True)
+            th.start()
+            check(flowing.wait(300),
+                  "federation-1M: west's stream never flowed")
+            remote = [e for e in active_queries.entries()
+                      if e.role == "remote"]
+            check(len({e.query_id for e in remote}) == 1,
+                  f"federation-1M: remote entries {remote}")
+            qid = remote[0].query_id
+            ents = active_queries.get(qid)
+            check(len({e.role for e in ents}) == 2,
+                  f"federation-1M: entries under {qid}: "
+                  f"{[e.role for e in ents]}")
+            t = time.perf_counter()
+            out = active_queries.kill(qid, reason="admin",
+                                      detail="chip smoke kill across "
+                                             "the door")
+            release.set()
+            th.join(300)
+            kill_s = time.perf_counter() - t
+            t_end = time.time() + 30
+            while active_queries.get(qid) and time.time() < t_end:
+                time.sleep(0.05)
+        finally:
+            release.set()
+            tr._pack_stream_frame = real_pack
+        err_s = (box.get("res").error or "") if "res" in box else ""
+        check(err_s.startswith("query_canceled"),
+              f"federation-1M: the killed query answered {err_s!r}")
+        check(all(e.token.cancelled and e.verdict == "killed"
+                  for e in ents) and not active_queries.get(qid),
+              f"federation-1M: after the kill "
+              f"{[(e.role, e.verdict) for e in ents]}, still registered "
+              f"{active_queries.get(qid)}")
+        steps["kill_to_cancel"] = kill_s
+        log(f"federation-1M kill across the door: query_canceled "
+            f"{kill_s:.3f} s after the kill; entries "
+            f"{[(e.role, e.verdict) for e in ents]}, kill frames to "
+            f"{out['remoteNodes']}")
+        # (3) west dies, the breaker opens, west comes back
+        pair.kill_west()
+        t = time.perf_counter()
+        part = eng.query_range(CLUSTER_QUERY, start_s, 60, end_s,
+                               scan_params(allow_partial_results=True))
+        part_s = time.perf_counter() - t
+        check(part.error is None and part.partial and any(
+            "cluster:west" in w for w in part.stats.warnings),
+              f"federation-1M: with west dead {part.error} "
+              f"{part.stats.warnings[:2]}")
+        e_err = compare(part, want_east, 2e-4, 1e-3,
+                        "federation-1M east alone")[1]
+        opened = None
+        for i in range(10):
+            t = time.perf_counter()
+            eng.query_range(CLUSTER_QUERY, start_s, 60, end_s,
+                            scan_params(allow_partial_results=True))
+            snap = {b["peer"]: b for b in breakers.snapshot()}
+            if snap.get("cluster:west", {}).get("state") == "open":
+                opened = (i + 1, time.perf_counter() - t)
+                break
+        check(opened is not None, "federation-1M: the breaker never opened")
+        t = time.perf_counter()
+        fast = eng.query_range(CLUSTER_QUERY, start_s, 60, end_s,
+                               scan_params(allow_partial_results=True))
+        fast_s = time.perf_counter() - t
+        check(fast.partial, "federation-1M: the fail-fast answer is full")
+        pair.revive_west()
+        t = time.perf_counter()
+        while True:
+            back = eng.query_range(CLUSTER_QUERY, start_s, 60, end_s,
+                                   scan_params(allow_partial_results=True))
+            if back.error is None and not back.partial:
+                break
+            check(time.perf_counter() - t < 120,
+                  "federation-1M: west never came back")
+            time.sleep(0.5)
+        back_s = time.perf_counter() - t
+        compare(back, want, 2e-4, 1e-3, "federation-1M west back")
+        steps.update(partial=part_s, fail_fast=fast_s, recovered=back_s)
+        log(f"federation-1M west down: flagged partial in {part_s:.3f} s "
+            f"naming cluster:west, east's groups within {e_err} of the "
+            f"oracle of east's series; breaker open after "
+            f"{opened[0] + 1} failed queries, the fail-fast answer in "
+            f"{fast_s:.3f} s; west back: the full answer after "
+            f"{back_s:.3f} s")
+        # (4) the result cache and the federation token
+        fe = pair.frontend
+        reg = pair.east.federation_registry
+        reg.probe_once()
+        fe.cache.clear()
+        end_x = end_s + 60
+
+        def poll(end):
+            t1 = time.perf_counter()
+            r = fe.query_range(CLUSTER_QUERY, start_s, 60, end,
+                               planner_params=scan_params())
+            check(r.error is None and not r.partial,
+                  f"federation-1M cache poll: {r.error}")
+            return r, time.perf_counter() - t1
+        p1, p1_s = poll(end_s)
+        p2, p2_s = poll(end_s)
+        check(p2.stats.result_cache == "hit",
+              f"federation-1M: the warm re-poll was a "
+              f"{p2.stats.result_cache!r}")
+        x0, _ = poll(end_x)
+        t = time.perf_counter()
+        # the extended panel's last step: the scrape lands at it
+        scrape_ts = end_x * 1000
+        check(scrape_ts > int(ts_row[-1]),
+              "federation-1M: the scrape would not be new")
+        for (_, s), (keys, last) in west_last.items():
+            sh = pair.west.memstore.get_shard(ds, s)
+            sh.ingest_columns("prom-counter", keys,
+                              np.full((len(keys), 1), scrape_ts, np.int64),
+                              {"count": (last + 5.0)[:, None]})
+        reg.probe_once()
+        scrape_s = time.perf_counter() - t
+        p3, p3_s = poll(end_s)
+        check(p3.stats.result_cache != "hit",
+              "federation-1M: a cached answer survived west's scrape")
+        x1, _ = poll(end_x)
+        a, b = bits(x1), bits(x0)
+        check(a.keys() == b.keys() and len(a) == NUM_NS,
+              "federation-1M: groups differ after the scrape")
+        check(all(a[g][:-1].tobytes() == b[g][:-1].tobytes()
+                  and a[g][-1] != b[g][-1] for g in a),
+              "federation-1M: the answer after west's scrape does not "
+              "carry the new sample in its last step alone")
+        steps.update(cache_hit=p2_s, after_scrape=p3_s)
+        log(f"federation-1M cache: miss {p1_s:.3f} s, re-poll "
+            f"{p2.stats.result_cache} {p2_s:.4f} s; one scrape into west "
+            f"({scrape_s:.3f} s with the probe) -> the next poll "
+            f"{p3.stats.result_cache} {p3_s:.3f} s, the extended panel's "
+            f"last step moved in all {len(a)} groups")
+        launches = dict(kernels.LAUNCHES)
+        log("federation-1M steps' seconds " + json.dumps(
+            {k2: round(v, 3) for k2, v in steps.items()}))
+    finally:
+        pair.stop()
+        breakers.configure()
+        breakers.reset()
+    return launches, [dict(query=CLUSTER_QUERY, kernel="fused_rate_dense",
+                           err=err)]
+
+
 # ------------------------------------------------ phases in side processes
 
 # Phases that share no store with this process's run in second processes
@@ -6902,7 +7865,8 @@ SIDES = {"stores": ("flush-page-16k", "cold-65k", "compact-16k",
                     "counter ragged",
                     "gauge ragged",
                     "raw-counter dense", "raw-counter ragged"),
-         "cluster": ("cluster-e2e-4k", "cluster-1M"),
+         "cluster": ("cluster-e2e-4k", "cluster-1M", "replication-1M",
+                     "federation-1M"),
          "gauge-hist": ("gauge dense + general-1M", "hist-classic-1M",
                         "hist-native-1M")}
 
@@ -6944,6 +7908,14 @@ def run_side(which, args, dev, timed):
         free_device_memory()
         got.append(timed("cluster-1M", run_cluster_phase, args.series,
                          args.seed, small_warm, dev)[0])
+        free_device_memory()
+        got.append(timed("replication-1M", run_replication_phase,
+                         min(args.series, REPL_SERIES), args.seed,
+                         small_warm, dev)[0])
+        free_device_memory()
+        got.append(timed("federation-1M", run_federation_phase,
+                         min(args.series, FED_SERIES), args.seed,
+                         small_warm, dev)[0])
     else:
         got_path = timed("gauge dense + general-1M", run_path, "gauge",
                          args.series, args.seed + 2, 0.0, args.warm,
@@ -6965,8 +7937,9 @@ def run_side(which, args, dev, timed):
 def side_worker(args) -> int:
     """A side process: SIDES[args.side] on the card, with the libraries
     main() built; logs to stdout as main() does, and writes
-    {"launches": ..., "phase_s": ...} to args.side_out.  It ends itself
-    when its stdin, a pipe from the process that started it, closes."""
+    {"launches": ..., "phase_s": ..., "peak_rss": bytes} to
+    args.side_out.  It ends itself when its stdin, a pipe from the
+    process that started it, closes."""
     import torch
     from filodb_tpu_torch.ops import kernels
 
@@ -6988,7 +7961,8 @@ def side_worker(args) -> int:
         for name, k in got.items():
             launches[name] = launches.get(name, 0) + k
     with open(args.side_out, "w") as f:
-        json.dump({"launches": launches, "phase_s": phase_s}, f)
+        json.dump({"launches": launches, "phase_s": phase_s,
+                   "peak_rss": host_rss()}, f)
     return 0
 
 
@@ -7018,7 +7992,8 @@ def join_side(which, side, phase_s):
         res = json.load(f)
     phase_s.update(res["phase_s"])
     log(f"side {which}: joined after {time.perf_counter() - t0:.1f} s of "
-        f"waiting; launches {res['launches']}")
+        f"waiting; peak host RSS {res['peak_rss'] / 2.0 ** 30:.2f} GiB; "
+        f"launches {res['launches']}")
     return res["launches"]
 
 
@@ -7125,7 +8100,8 @@ def main(argv=None) -> int:
         {k: round(v, 1) for k, v in phase_s.items()})
         + f"; total {time.perf_counter() - t0:.1f} s ("
         + "; ".join(", ".join(p) for p in SIDES.values())
-        + ": each group in a process of its own, beside this one)")
+        + ": each group in a process of its own, beside this one); "
+        f"this process's peak host RSS {host_rss() / 2.0 ** 30:.2f} GiB")
     # a group-mode entry replaces its variant's branch of _kernel; a
     # per-series one the _epilogue's per-series mode (:661)
     kernels_json = [

@@ -576,6 +576,17 @@ class DeviceMirror:
             t.start()
             return True
 
+    def release(self) -> int:
+        """Drop the snapshot and its `hot` booking now (a tombstoned
+        shard's copy), after any background rebuild in flight has
+        published.  A query still reading the old snapshot keeps its
+        tensors until it ends.  Returns the bytes unbooked."""
+        self.join_rebuild()
+        freed = self._booking[1]
+        self._snap = None
+        self._book(0)
+        return freed
+
     def join_rebuild(self, timeout: Optional[float] = None) -> bool:
         """Wait for a background rebuild in flight; True when none is
         running afterwards."""

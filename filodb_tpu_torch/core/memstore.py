@@ -1,7 +1,7 @@
 """TimeSeriesMemStore — per-node map of dataset -> shards (port of
 filodb_tpu/core/memstore.py: setup, lookup, ingest, the ingest stream
-with interleaved group flushes, flush_all and drop_shard; recovery comes
-with the WAL).
+with interleaved group flushes, flush_all, shard_map and drop_shard;
+recovery comes with the WAL).
 
 Takes ``device=`` (default ``"cuda"``) and raises without a card unless
 given ``device="cpu"``; every shard's DeviceMirror lives there.  A store
@@ -66,13 +66,29 @@ class TimeSeriesMemStore:
     def shards_for(self, dataset: str) -> List[TimeSeriesShard]:
         return list(self._shards.get(dataset, {}).values())
 
+    def shard_map(self) -> Dict[str, List[int]]:
+        """dataset -> sorted shard numbers held locally."""
+        return {ds: sorted(sh) for ds, sh in self._shards.items()}
+
     def drop_shard(self, dataset: str, shard_num: int) -> bool:
-        """Release a local shard copy's working set; persisted chunks stay
-        in the column store."""
+        """Tombstone a local shard copy (live-handoff completion,
+        replication/handoff.py): the in-memory working set is released;
+        persisted chunks stay in the column store for the new owner.  Its
+        device memory comes back here, not when the last reference to the
+        shard goes: each store's mirror drops its snapshot and `hot`
+        booking, and the fused caches drop the padded copies keyed by
+        that mirror (a query in flight keeps what it already holds until
+        it ends)."""
         shards = self._shards.get(dataset)
         if shards is None or shard_num not in shards:
             return False
-        shards.pop(shard_num)
+        shard = shards.pop(shard_num)
+        from filodb_tpu_torch.query.execbase import release_mirror_caches
+        for store in shard.stores.values():
+            mirror = getattr(store, "device_mirror", None)
+            if mirror is not None:
+                mirror.release()
+                release_mirror_caches(mirror.serial)
         return True
 
     def ingest(self, dataset: str, shard_num: int, batch: RecordBatch,

@@ -22,9 +22,12 @@ usage.admit_ingest BEFORE decode work is spent on slab-building; over
 the per-tenant limit the request bounces with 429 + Retry-After, never
 a silent drop.
 
-Differences from the reference: the port has no replication layer yet,
-so a sink built with a `replicator` raises QueryError("not_ported").  A
-series that already exists in the shard under another plain-double
+Replication: with a `replicator` (replication/replicator.py) every slab
+also ships to the shard's other owners; a shard that is not locally
+owned routes entirely through the fan-out (distributor mode), and its
+ack needs at least one owner's append.
+
+Differences from the reference: a series that already exists in the shard under another plain-double
 schema (a `prom-counter` or `untyped` series) lands in that schema's
 store, under its value column; the reference writes it into the gauge
 store at the other store's row, where no query reads it.  New series
@@ -68,10 +71,11 @@ class RemoteWriteSink:
         self.spread = spread_provider or SpreadProvider(0)
         self.schemas = schemas
         self.wal = wal
-        if replicator is not None:
-            from filodb_tpu_torch.query.execbase import not_ported
-            raise not_ported("remote_write replication fan-out "
-                             "(replication/)")
+        # replication fan-out (replication/replicator.py): every slab
+        # additionally ships to the shard's other owners; a shard NOT
+        # locally owned routes entirely through the fan-out (distributor
+        # mode) and the ack requires at least its primary's append
+        self.replicator = replicator
         # schema name -> its value column, for the plain-double schemas
         # an existing series may keep (see _landing_schema)
         self._value_col = {
@@ -88,7 +92,7 @@ class RemoteWriteSink:
 
         `stats` (utils/freshness.IngestStats, optional) is filled with
         the batch's per-stage breakdown — slab build, WAL append,
-        group-commit fsync wait, memstore ingest —
+        group-commit fsync wait, replication fan-out, memstore ingest —
         plus slab/shard counts and per-tenant newest sample timestamps;
         the door feeds it to the ingest slowlog and the freshness
         histograms.  Every stage runs under the caller's trace context,
@@ -114,18 +118,44 @@ class RemoteWriteSink:
                     {self._value_col[schema]: vals}, wait=False)
                 seqs.append(last_seq)
         t_wal = _time.perf_counter()
+        repl_s = 0.0
         for i, (shard_num, schema, keys, ts, vals) in enumerate(slabs):
             shard = self.memstore.get_shard(self.dataset, shard_num)
             offset = seqs[i] if self.wal is not None else -1
-            if shard is None:
+            cols = {self._value_col[schema]: vals}
+            if shard is not None:
+                got = shard.ingest_columns(schema, keys, ts, cols,
+                                           offset=offset)
+                n += got
+                dropped += ts.size - got
+            elif self.replicator is None:
                 raise ConnectionError(
                     f"remote_write: shard {shard_num} of "
                     f"{self.dataset!r} is not locally owned")
-            got = shard.ingest_columns(schema, keys, ts,
-                                       {self._value_col[schema]: vals},
-                                       offset=offset)
-            n += got
-            dropped += ts.size - got
+            # replication fan-out: the slab ships to every OTHER owner
+            # of the shard.  Locally-owned shards ack on local WAL
+            # durability (replica failures degrade to lag + catch-up);
+            # a shard owned elsewhere must land on at least one owner
+            # (require_primary) or the request bounces un-acked
+            if self.replicator is not None:
+                tr = _time.perf_counter()
+                res = self.replicator.replicate(
+                    shard_num, schema, keys, ts, cols,
+                    seq=offset, require_primary=shard is None)
+                repl_s += _time.perf_counter() - tr
+                if shard is None:
+                    # account what the shard's OWNER actually ingested
+                    # (its OOO/dup drops count as drops here, exactly
+                    # like the locally-owned path); fall back to any
+                    # acking owner when the primary's ack was missing
+                    primary = self.mapper.node_for_shard(shard_num) \
+                        if self.mapper is not None else None
+                    got = res.ingested.get(primary) if primary else None
+                    if got is None and res.ingested:
+                        got = max(res.ingested.values())
+                    got = int(got or 0)
+                    n += got
+                    dropped += int(ts.size) - got
         t_ingest = _time.perf_counter()
         if last_seq >= 0:
             self.wal.commit(last_seq)
@@ -140,7 +170,11 @@ class RemoteWriteSink:
             stats.dropped += dropped
             stats.build_slabs_s += t_slabs - t0
             stats.wal_append_s += t_wal - t_slabs
-            stats.ingest_s += t_ingest - t_wal
+            # the fan-out ran interleaved with the local ingest loop:
+            # split the loop's wall into its replication share and the
+            # memstore remainder
+            stats.replication_s += repl_s
+            stats.ingest_s += max(t_ingest - t_wal - repl_s, 0.0)
             stats.wal_commit_wait_s += t_commit - t_ingest
         return n, dropped
 

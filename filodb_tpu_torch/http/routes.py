@@ -18,8 +18,10 @@ without binding ports.  Routes served:
   each over the dataset's gateway pipeline (gateway/router.py);
 - /metrics, /__health, /healthz (with the health model's phase), /ready;
 - /cluster/<dataset>/status and GET /admin/shards, from the shard mappers
-  the composition root hands the API (standalone.FiloServer); no
-  `replicaLag` table until replication is ported;
+  the composition root hands the API (standalone.FiloServer), with each
+  replication manager's `replicaLag` table; POST
+  /admin/shards/<shard>/handoff (replication/handoff.py) and GET
+  /admin/federation (federation/registry.py);
 - /admin/queries (list, get, POST .../kill), /admin/slowlog,
   /admin/ingestlog, /admin/devices, /admin/jobs, /admin/breakers,
   /admin/events, /admin/tenants, /admin/traces[/<id>], POST
@@ -28,12 +30,10 @@ without binding ports.  Routes served:
   rules engine's, rules/ruler.py; without a ruler the rules and alerts
   routes answer empty lists and the reload 400, as the reference's).
 
-Every route the reference serves that the port does not have yet
-(POST /admin/shards/<shard>/handoff, /admin/federation) answers 501
-with errorType `not_ported`; a path the reference does not know keeps
-its 404.  A QueryError("not_ported") raised below the API answers 501
-as well.  The port has no replication layer yet: `replicators` stays
-empty and remote write catches WalWriteError only.
+A path the reference does not know keeps its 404.  A
+QueryError("not_ported") raised below the API answers 501.  Remote write
+withholds its ack (503) when the WAL commit fails or when a remotely
+owned shard's slab lands on no owner (replication/replicator.py).
 """
 from __future__ import annotations
 
@@ -119,9 +119,17 @@ class PromHttpApi:
         # remote_write sinks, built lazily per dataset (the WAL manager
         # is attached to the gateway pipeline after construction)
         self._rw_sinks: Dict[str, object] = {}
-        # per-dataset replication managers: none until replication/ is
-        # ported
+        # replication layer attachments (FiloServer/deployments wire
+        # these when replication.enabled): per-dataset ingest fan-out
+        # managers (replication/replicator.py — their lag table feeds
+        # /admin/shards) and live-handoff coordinators
+        # (replication/handoff.py — POST /admin/shards/{s}/handoff)
         self.replicators: Dict[str, object] = {}
+        self.handoffs: Dict[str, object] = {}
+        # cross-cluster federation registry (federation/registry.py),
+        # attached by FiloServer when federation.enabled — feeds
+        # GET /admin/federation (ownership + live health per cluster)
+        self.federation = None
 
     # ------------------------------------------------------------ dispatch
 
@@ -172,12 +180,12 @@ class PromHttpApi:
             if parts == ["admin", "jobs"] and method == "GET":
                 return self._jobs()
             if parts == ["admin", "federation"] and method == "GET":
-                return _not_ported("/admin/federation")
+                return self._federation()
             if parts == ["admin", "shards"] and method == "GET":
                 return self._shards(params)
             if parts[:2] == ["admin", "shards"] and len(parts) == 4 \
                     and parts[3] == "handoff" and method == "POST":
-                return _not_ported("/admin/shards/<shard>/handoff")
+                return self._shard_handoff(parts[2], params, body)
             if parts[:2] == ["admin", "queries"] and len(parts) <= 4:
                 return self._active_queries(parts[2:], params, method)
             if parts == ["admin", "tenants"] and method == "GET":
@@ -597,10 +605,9 @@ class PromHttpApi:
     def _shards(self, params: Dict[str, str]) -> Tuple[int, object]:
         """GET /admin/shards — the ShardMapper assignment table as JSON:
         per shard the primary, its status, the ordered replica list with
-        per-replica status and live-owner count.  ?dataset= narrows to
-        one dataset (default: all registered).  The reference adds a
-        per-peer `replicaLag` table from its replication managers; the
-        port has none yet (`replicators` stays empty)."""
+        per-replica status, live-owner count, and (when a replication
+        manager is attached) the per-peer fan-out lag table.  ?dataset=
+        narrows to one dataset (default: all registered)."""
         want = params.get("dataset", "")
         datasets = {}
         for ds, mapper in self.shard_mappers.items():
@@ -619,6 +626,47 @@ class PromHttpApi:
         if want and not datasets:
             return 404, _err(f"dataset {want!r} not found")
         return 200, {"status": "success", "data": {"datasets": datasets}}
+
+    def _shard_handoff(self, shard_s: str, params: Dict[str, str],
+                       body: bytes) -> Tuple[int, object]:
+        """POST /admin/shards/{s}/handoff — trigger a live handoff of
+        one shard to `to=<node>` (param or JSON body {"to": ...});
+        ?dataset= picks the dataset (default: the server's first).
+        `drain=true` additionally flips this node's /ready to 503 once
+        the move completes (the rolling-restart drain step,
+        doc/operations.md)."""
+        try:
+            shard = int(shard_s)
+        except ValueError:
+            raise _BadRequest(f"bad shard number {shard_s!r}")
+        req = {}
+        if body:
+            try:
+                req = json.loads(body.decode() or "{}")
+            except ValueError as e:
+                raise _BadRequest(f"bad handoff body: {e}")
+        to_node = params.get("to") or req.get("to")
+        if not to_node:
+            raise _BadRequest("handoff needs a target node "
+                              "(?to=<node> or body {\"to\": ...})")
+        dataset = params.get("dataset") or req.get("dataset") \
+            or self.default_dataset
+        coord = self.handoffs.get(dataset)
+        if coord is None:
+            return 400, _err(
+                f"no handoff coordinator for dataset {dataset!r} "
+                "(replication.enabled=false, or not wired)")
+        drain = str(params.get("drain", req.get("drain", ""))
+                    ).lower() in ("1", "true")
+        from filodb_tpu_torch.replication.handoff import HandoffError
+        try:
+            summary = coord.handoff(shard, to_node)
+        except HandoffError as e:
+            return 409, _err(str(e))
+        if drain:
+            self.health.draining = (f"shard {shard} handed off to "
+                                    f"{to_node}")
+        return 200, {"status": "success", "data": summary}
 
     def _jobs(self) -> Tuple[int, object]:
         """Unified background-job registry (utils/jobs.py): every
@@ -641,6 +689,21 @@ class PromHttpApi:
         return 200, {"status": "success",
                      "data": {"nextSeq": journal.next_seq,
                               "count": len(evs), "events": evs}}
+
+    def _federation(self) -> Tuple[int, object]:
+        """GET /admin/federation — every configured remote cluster's
+        ownership declaration (endpoint, label matchers, time window)
+        and live probe state (healthy, last probe/error, transition
+        count) from the FederationRegistry; the first stop of the
+        "a remote cluster is down" runbook (doc/federation.md).  A
+        server without federation answers an empty cluster list."""
+        reg = self.federation
+        if reg is None:
+            return 200, {"status": "success",
+                         "data": {"cluster": "", "clusters": []}}
+        return 200, {"status": "success",
+                     "data": {"cluster": reg.local_name,
+                              "clusters": reg.snapshot()}}
 
     def _breakers(self) -> Tuple[int, object]:
         """Per-peer circuit-breaker states (parallel/breaker.py): which
@@ -1002,6 +1065,8 @@ class PromHttpApi:
         stats.admission_s = _time.perf_counter() - t_adm
         if admitted:
             sink = self._remote_write_sink(dataset)
+            from filodb_tpu_torch.replication.replicator import \
+                ReplicationSendError
             from filodb_tpu_torch.wal import WalWriteError
             try:
                 sink.ingest_series(admitted, stats=stats)
@@ -1012,6 +1077,13 @@ class PromHttpApi:
                              "errorType": "unavailable",
                              "error":
                                  f"write-ahead log commit failed: {e}"}
+            except ReplicationSendError as e:
+                # distributor mode: a remotely-owned shard's slab landed
+                # on NO owner — same un-acked contract as a failed WAL
+                # commit (the client re-sends; dedup absorbs overlap)
+                return 503, {"status": "error",
+                             "errorType": "unavailable",
+                             "error": f"replication failed: {e}"}
         if rejected:
             # anything rejected makes the WHOLE response a 429 so the
             # client re-sends (never a silent drop): the re-send's
@@ -1282,12 +1354,6 @@ class _TextPayload(str):
 
 class _BadRequest(Exception):
     """Client-side parameter problem → HTTP 400 (internal errors stay 500)."""
-
-
-def _not_ported(what: str) -> Tuple[int, Dict[str, str]]:
-    """501 for a route the reference serves and the port does not yet."""
-    return 501, {"status": "error", "errorType": "not_ported",
-                 "error": f"not_ported: {what} is not ported yet"}
 
 
 def _num_param(params: Dict[str, str], key: str,

@@ -13,9 +13,10 @@ Run: python -m filodb_tpu_torch.parallel.nodeapp --name A \
 
 `--device` (default `cuda`) is where the node's memstore and queries
 live.  Prints one JSON line {"ready": true, "query_port": N,
-"control_port": N, "replication_port": null, "node": NAME} on stdout
-once serving; the node opens no replication door (the port has no
-replication layer yet, so `replication_port` is null).
+"control_port": N, "replication_port": N, "node": NAME} on stdout once
+serving; `replication_port` is the node's replication door
+(replication/service.py), which peers fan ingest slabs into and a
+joining replica streams WAL segments and handoff snapshots out of.
 """
 from __future__ import annotations
 
@@ -68,6 +69,11 @@ def main(argv=None) -> None:
     memstore = TimeSeriesMemStore(column_store=column_store,
                                   meta_store=meta_store, device=args.device)
     qsrv = NodeQueryServer(memstore).start()
+    # replication door (filodb_tpu_torch/replication): peers fan ingest
+    # slabs here, and a joining replica streams WAL segments / handoff
+    # snapshots out of it
+    from filodb_tpu_torch.replication import ReplicationServer
+    rsrv = ReplicationServer(memstore, node=args.name).start()
 
     def on_assign(dataset: str, shard: int) -> None:
         sh = memstore.get_shard(dataset, shard) or \
@@ -134,6 +140,7 @@ def main(argv=None) -> None:
     def _shutdown():
         agent.stop()
         qsrv.stop()
+        rsrv.stop()
         ctrl.shutdown()
         stop_evt.set()
 
@@ -142,7 +149,7 @@ def main(argv=None) -> None:
     t.start()
     print(json.dumps({"ready": True, "query_port": qsrv.address[1],
                       "control_port": ctrl.server_address[1],
-                      "replication_port": None,
+                      "replication_port": rsrv.address[1],
                       "node": args.name}), flush=True)
     try:
         stop_evt.wait()

@@ -288,6 +288,14 @@ class NodeQueryServer:
                             if ent is not None:
                                 from filodb_tpu_torch.query.activequeries \
                                     import active_queries
+                                # a kill that reached this entry is its
+                                # verdict, also when the coordinator hung
+                                # up on that kill before the next frame
+                                # could carry the cancel (the reference
+                                # records such a leaf as completed)
+                                if verdict == "completed" \
+                                        and ent.token.cancelled:
+                                    verdict = "killed"
                                 active_queries.deregister(ent, verdict)
                 except (ConnectionError, OSError):
                     return              # client went away

@@ -189,6 +189,17 @@ def _fused_vals_budget() -> int:
 _FUSED_CACHE_LOCK = threading.Lock()
 
 
+def release_mirror_caches(serial: int) -> None:
+    """Drop every fused-cache entry of one mirror (their keys start with
+    its serial): a dropped shard's padded values, min/max pads, plans
+    and groups leave the device with it, not at the next eviction."""
+    with _FUSED_CACHE_LOCK:
+        for cache in (_FUSED_PLAN_CACHE, _FUSED_VALS_CACHE,
+                      _FUSED_GROUP_CACHE, _FUSED_MINMAX_PAD_CACHE):
+            for k in [k for k in cache if k[0] == serial]:
+                del cache[k]
+
+
 class GroupCardinalityError(ValueError):
     """group-by cardinality limit exceeded — a real query error."""
 
@@ -731,6 +742,15 @@ class EmptyResultExec(LeafExecPlan):
 class NonLeafExecPlan(ExecPlan):
     """Gather over children, in order, each through its dispatcher."""
 
+    # concat/reduce plans whose children are SAME-SELECTOR per-shard
+    # leaves set this True (nonleaf.py, metaexec.py): when two children
+    # name the same shard — both owners listed during a live handoff
+    # window — only the first to answer contributes, so an aggregation
+    # can never double-count a shard's samples (replication/handoff.py
+    # dedup contract).  Positional plans (BinaryJoin/SetOperator: lhs
+    # and rhs legitimately repeat shard numbers) keep it False.
+    dedup_shard_children = False
+
     def __init__(self, ctx: QueryContext, children: Sequence[ExecPlan]):
         super().__init__(ctx)
         self._children = list(children)
@@ -738,6 +758,33 @@ class NonLeafExecPlan(ExecPlan):
     @property
     def children(self) -> List[ExecPlan]:
         return self._children
+
+    def _dedup_groups(self) -> Dict[int, Tuple]:
+        """child index -> leaf-identity key, ONLY for children that
+        appear more than once (a live-handoff window lists both owners
+        of a shard).  Within a group the first child to answer is the
+        shard's result; the rest are hot standbys.
+
+        The key is the leaf's FULL identity — plan type, dataset,
+        shard, args_str (filters/time range/columns), and the
+        transformer chain — never just the shard number: a
+        ShardKeyRegexPlanner fan-out legitimately puts two same-shard
+        leaves with DIFFERENT selectors under one concat, and deduping
+        those would silently drop a shard-key combo's data."""
+        if not self.dedup_shard_children:
+            return {}
+        by_key: Dict[Tuple, List[int]] = {}
+        for i, c in enumerate(self._children):
+            shard = getattr(c, "shard", None)
+            if shard is None:
+                continue
+            key = (type(c).__name__, getattr(c, "dataset", None), shard,
+                   c.args_str(),
+                   tuple((type(t).__name__, t.args_str())
+                         for t in c.transformers))
+            by_key.setdefault(key, []).append(i)
+        return {i: key for key, idxs in by_key.items()
+                if len(idxs) > 1 for i in idxs}
 
     def child_stream_fold(self, child) -> Optional[Callable]:
         """Factory for an incremental fold of a STREAMED child reply
@@ -765,7 +812,22 @@ class NonLeafExecPlan(ExecPlan):
             droppable.add("dispatch_timeout")
             if getattr(pp, "partial_now", False):
                 droppable.add("shard_unavailable")
-        for c in self._children:
+        # handoff-window dedup: when the planner materialized BOTH
+        # owners of a shard, the duplicates are hot standbys — only the
+        # first to answer contributes (aggregations never double-count a
+        # shard), and a standby absorbs its twin's shard_unavailable
+        # BEFORE the partial machinery is consulted
+        dedup_groups = self._dedup_groups()
+        answered: set = set()       # keys already answered
+        for i, c in enumerate(self._children):
+            key = dedup_groups.get(i)
+            if key is not None and key in answered:
+                from filodb_tpu_torch.utils.metrics import registry
+                registry.counter("query_shard_dedup").increment()
+                results.append(None)         # twin already answered
+                continue
+            has_later_twin = key is not None and any(
+                j > i for j, k in dedup_groups.items() if k == key)
             ff = self.child_stream_fold(c)
             if ff is not None:
                 # plain attribute, never serialized: the remote side
@@ -773,7 +835,15 @@ class NonLeafExecPlan(ExecPlan):
                 c._stream_fold = ff
             try:
                 data, st = c.dispatcher.dispatch(c, source)
+                if key is not None:
+                    answered.add(key)
             except QueryError as e:
+                if e.code == "shard_unavailable" and has_later_twin:
+                    # this owner is dead but its twin is still listed:
+                    # the twin becomes the shard's answer — no partial,
+                    # no error, exactly the handoff-window contract
+                    results.append(None)
+                    continue
                 # a dead shard owner mid-query: fail the whole query with
                 # the typed error — or, when partial results are engaged,
                 # drop the child and FLAG the result (never silent

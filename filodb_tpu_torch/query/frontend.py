@@ -526,7 +526,11 @@ class QueryFrontend:
     def _state(self) -> Optional[Tuple[Tuple, int]]:
         """(series-set token, append horizon ms) across the engine's local
         shards, or None when the source can't vouch for them (remote /
-        unknown sources bypass the cache)."""
+        unknown sources bypass the cache).  A federated planner folds its
+        registry's state — the participating clusters, their health
+        transitions and their doors' data tokens — into the token, so a
+        remote cluster dying, recovering or ingesting invalidates cached
+        federated answers exactly like local ingest does."""
         source = getattr(self.engine, "source", None)
         shards_for = getattr(source, "shards_for", None)
         if shards_for is None:
@@ -546,4 +550,10 @@ class QueryFrontend:
             horizon = h if horizon is None else min(horizon, h)
         if horizon is None or horizon <= NO_HORIZON_MS:
             return None
+        fed_fn = getattr(self.engine.planner, "federation_state", None)
+        if fed_fn is not None:
+            try:
+                return (tuple(token), ("federation",) + fed_fn()), horizon
+            except Exception:  # noqa: BLE001 — registry trouble: bypass
+                return None
         return tuple(token), horizon

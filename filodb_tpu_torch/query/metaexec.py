@@ -163,6 +163,9 @@ class MetadataMergeExec(NonLeafExecPlan):
     """Merge metadata results across shards: lists deduplicated in child
     order, label-value maps unioned and sorted."""
 
+    # per-shard metadata leaves: dup shards (handoff window) answer once
+    dedup_shard_children = True
+
     def compose(self, results, stats):
         merged = None
         seen = set()

@@ -36,6 +36,10 @@ from filodb_tpu_torch.utils.counters import counters
 class DistConcatExec(NonLeafExecPlan):
     """Concatenate child results."""
 
+    # children are same-selector per-shard leaves: a shard listed twice
+    # (both owners during a live handoff) must contribute exactly once
+    dedup_shard_children = True
+
     def compose(self, results, stats):
         raws = [r for r in results if isinstance(r, RawBlock)]
         if raws:
@@ -167,6 +171,10 @@ class ReduceAggregateExec(NonLeafExecPlan):
     query/pushdown.py), remote children ship their full per-series
     ResultBlocks instead and the map phase runs HERE — by/without are
     carried so the coordinator-side map is possible."""
+
+    # a duplicate shard here would double-count its samples into the
+    # aggregate — the dedup contract matters most on this plan
+    dedup_shard_children = True
 
     # node-level reduce (RemoteAggregateExec): the composed partial is an
     # INTERMEDIATE that another reduce will merge — quantile sketches must

@@ -5,18 +5,17 @@ ref: standalone/.../FiloServer.scala:39-60 — boots the coordinator, memstore,
 and HTTP server for a single node owning every shard of its datasets.  The
 standalone wires: memstore (+ optional local-disk persistence), shard mapper,
 planner stack (shard-key regex fan-out over the single-cluster planner,
-long-time-range split when downsampling or the persisted tier is on),
-gateway pipeline with its WAL, the ruler, self-monitoring, span export and
-the HTTP API.
+long-time-range split when downsampling or the persisted tier is on,
+cross-cluster federation outermost when `federation.enabled`), gateway
+pipeline with its WAL, the replication door with its fan-out and handoff
+coordinators when `replication.enabled`, the ruler, self-monitoring, span
+export and the HTTP API.
 
 Device rule: `FiloServer(..., device="cuda")` is the default; without a
 card the constructor raises unless the caller passes `device="cpu"`.  The
 memstore, its downsample stores, the cold region and every engine live on
-that device.
-
-Not ported yet: replication (filodb_tpu/replication) and federation
-(filodb_tpu/federation) need the wire; a configuration that enables
-either is refused at construction with `ConfigError("not_ported: ...")`.
+that device, and so do the leaves the federation door and the
+replication door serve.
 """
 from __future__ import annotations
 
@@ -38,6 +37,7 @@ from filodb_tpu_torch.gateway.router import GatewayPipeline
 from filodb_tpu_torch.http.routes import PromHttpApi
 from filodb_tpu_torch.http.server import FiloHttpServer
 from filodb_tpu_torch.parallel.shardmapper import (ShardEvent, ShardMapper,
+                                                   ShardStatus,
                                                    SpreadProvider)
 from filodb_tpu_torch.query.engine import QueryEngine
 from filodb_tpu_torch.query.planner import SingleClusterPlanner
@@ -124,6 +124,7 @@ class FiloServer:
                  config: Optional[FilodbSettings] = None,
                  http_host: str = "127.0.0.1", http_port: int = 0,
                  node_name: str = "local",
+                 replication_peers: Optional[Dict[str, tuple]] = None,
                  device="cuda"):
         # the device rule first: a node asked for a card that is not
         # there is refused before it touches any process-wide state
@@ -261,21 +262,38 @@ class FiloServer:
             # node trace evidence); default-named embedded servers only
             # fill an empty slot so they never clobber a real identity
             _metrics.NODE_NAME = node_name
-        # Cross-cluster federation and the replication layer need the
-        # wire (parallel/transport.py), which the port does not have
-        # yet: a configuration that enables either is refused here,
-        # where the reference builds its registry and door, before any
-        # dataset, socket or thread exists
-        if self.config.federation.enabled:
-            raise ConfigError(
-                "not_ported: federation.enabled (filodb_tpu/federation "
-                "needs the wire, not ported yet)")
-        if self.config.replication.enabled:
-            raise ConfigError(
-                "not_ported: replication.enabled (filodb_tpu/replication "
-                "needs the wire, not ported yet)")
+        # Cross-cluster federation (filodb_tpu_torch/federation; doc/
+        # federation.md): the registry parses `federation.clusters` and
+        # probes remote doors; the door is THIS cluster's dispatch
+        # endpoint.  Both exist before the dataset loop so each
+        # dataset's planner stack gains a FederationPlanner outermost
+        # and registers its inner stack at the door.
+        self.federation_registry = None
+        self.federation_door = None
+        fed = self.config.federation
+        if fed.enabled:
+            from filodb_tpu_torch.federation import (FederationDoor,
+                                                     FederationRegistry)
+            cluster = fed.cluster_name or node_name
+            self.federation_registry = FederationRegistry(
+                fed, local_name=cluster)
+            self.federation_door = FederationDoor(
+                cluster, host=fed.door_host, port=fed.door_port,
+                device=self.device)
         for dc in self.datasets:
             self._setup_dataset(dc)
+        if self.federation_door is not None:
+            # bound in __init__ (not start()) so embedders that query
+            # without start() — and the two-cluster test pair reading
+            # back an ephemeral port — see a live door immediately
+            self.federation_door.start()
+            self.health.probes["federation"] = \
+                self.federation_registry.health_probe
+            journal.emit("federation_door_open", subsystem="federation",
+                         cluster=self.federation_registry.local_name,
+                         port=self.federation_door.port,
+                         clusters=",".join(
+                             sorted(self.federation_registry.clusters)))
         if self.uploaders:
             # the `persistence` health subsystem: upload backlog age +
             # breaker state per dataset, worst-wins into the verdict
@@ -291,6 +309,8 @@ class FiloServer:
                                batch_window_ms=self.config.query
                                .batch_window_ms,
                                config=self.config, health=self.health)
+        if self.federation_registry is not None:
+            self.api.federation = self.federation_registry
         self.http = FiloHttpServer(self.api, http_host, http_port)
         # Ruler — recording & alerting rules (filodb_tpu_torch/rules):
         # standing queries evaluated through this server's QueryFrontend
@@ -335,6 +355,79 @@ class FiloServer:
                 self.memstore, sm_ds, self.mappers[sm_ds],
                 self.spreads[sm_ds], node_name=self.node_name,
                 interval_s=self.config.selfmon.interval_s)
+        # Replication layer (filodb_tpu_torch/replication;
+        # doc/replication.md): this node's replication door accepts slab
+        # appends / WAL-segment fetches / snapshot streams from peers;
+        # with a peer
+        # address book, ingest fans out through a ReplicationManager and
+        # live handoffs drive through a HandoffCoordinator (both
+        # surfaced at /admin/shards).  Single-node deployments without
+        # peers still get the door — a future replica catches up from it.
+        self.replication_server = None
+        self.replicators: Dict[str, object] = {}
+        self.handoff_coordinators: Dict[str, object] = {}
+        if self.config.replication.enabled:
+            from filodb_tpu_torch.replication import (
+                HandoffCoordinator, ReplicaClient, ReplicationManager,
+                ReplicationServer)
+            self.replication_server = ReplicationServer(
+                self.memstore, node=node_name, wals=self.wals)
+            peers = dict(replication_peers or {})
+            clients: Dict[str, ReplicaClient] = {}
+
+            def client_for(node: str) -> ReplicaClient:
+                cli = clients.get(node)
+                if cli is None:
+                    if node == node_name and node not in peers:
+                        # a handoff OFF this node dials its own door
+                        # (the from-node side of the stream)
+                        host, port = self.replication_server.address
+                    else:
+                        host, port = peers[node]
+                    clients[node] = cli = ReplicaClient(
+                        host, port,
+                        timeout_s=self.config.replication.append_timeout_s)
+                return cli
+
+            peer_names = sorted(n for n in peers if n != node_name)
+            for dc in self.datasets:
+                mapper = self.mappers[dc.name]
+                if peers:
+                    # the RF intent lands on the mapper only when peers
+                    # exist to place replicas on — a single node running
+                    # just the door must not pin the health verdict at
+                    # degraded-underReplicated forever
+                    mapper.replication_factor = \
+                        self.config.replication.factor
+                    # static placement: every shard's replica tail
+                    # fills from the peer address book, rotated by
+                    # shard so copies spread — without this the
+                    # documented conf would build a fan-out manager
+                    # whose owner lists never contain a replica (a
+                    # silent no-op pinned at degraded).  ACTIVE: a
+                    # configured peer door is the deployment's claim
+                    # that the copy serves (the cluster path flips
+                    # these from heartbeats instead).
+                    for s in range(dc.num_shards):
+                        for i in range(
+                                self.config.replication.factor - 1):
+                            if not peer_names:
+                                break
+                            peer = peer_names[(s + i) % len(peer_names)]
+                            mapper.register_replica(
+                                s, peer, status=ShardStatus.ACTIVE)
+                    self.replicators[dc.name] = ReplicationManager(
+                        dc.name, mapper, client_for,
+                        config=self.config.replication,
+                        local_node=node_name)
+                    self.handoff_coordinators[dc.name] = \
+                        HandoffCoordinator(
+                            dc.name, mapper, client_for,
+                            tombstone_grace_s=self.config.replication
+                            .handoff_tombstone_grace_s,
+                            health=self.health)
+            self.api.replicators = self.replicators
+            self.api.handoffs = self.handoff_coordinators
         # boot WAL replay: runs AFTER the API exists (the transport-
         # agnostic routes answer /healthz — and /ready with 503 — while
         # the log replays) and BEFORE start() declares the node serving;
@@ -416,6 +509,25 @@ class FiloServer:
         matcher = default_shard_key_matcher(
             label_vals, self.memstore.schemas.part.options.shard_key_columns)
         planner = ShardKeyRegexPlanner(planner, matcher)
+        if self.federation_registry is not None:
+            # federation sits OUTERMOST: local-only selectors fall
+            # straight through to the stack above; the door serves THIS
+            # cluster's share of remote coordinators' queries through
+            # the same inner stack (never the federated wrapper — a
+            # mutually-federated pair must not bounce subtrees)
+            from filodb_tpu_torch.federation import FederationPlanner
+            inner = planner
+            planner = FederationPlanner(
+                inner, self.federation_registry, dataset=dc.name,
+                config=self.config.federation)
+            store_source = self._source()
+            shards = self.memstore.shards_for(dc.name)
+            self.federation_door.register(
+                dc.name, inner, store_source,
+                token_fn=lambda sh=shards: [
+                    (s.keys_serial, s.keys_epoch, s.index.mutations,
+                     s.append_horizon_ms()) for s in sh],
+                default=(dc.name == self.datasets[0].name))
         self.mappers[dc.name] = mapper
         self.spreads[dc.name] = spread
         self.engines[dc.name] = QueryEngine(dc.name, self._source(), mapper,
@@ -586,6 +698,8 @@ class FiloServer:
         from filodb_tpu_torch.utils.devicetelem import telem
         telem.register_devices(None if self.device.type == "cuda"
                                else [self.device])
+        if self.replication_server is not None:
+            self.replication_server.start()
         self.http.start()
         self.trace_exporter = None
         if self.config.trace_export_url:
@@ -636,6 +750,8 @@ class FiloServer:
             self.ruler.start()
         if self.selfmon is not None:
             self.selfmon.start()
+        if self.federation_registry is not None:
+            self.federation_registry.start()
         # the readiness flip: phase -> serving lands in the event
         # journal, so "replayed, recovered, took traffic" is one
         # greppable sequence at /admin/events
@@ -645,6 +761,10 @@ class FiloServer:
     def shutdown(self) -> None:
         from filodb_tpu_torch.utils.health import STOPPING
         self.health.set_phase(STOPPING)
+        if self.federation_registry is not None:
+            self.federation_registry.stop()
+        if self.federation_door is not None:
+            self.federation_door.stop()
         if self.selfmon is not None:
             self.selfmon.stop()
         if self.ruler is not None:
@@ -662,6 +782,11 @@ class FiloServer:
             self.trace_exporter.stop()
             self.trace_exporter = None
         self.http.stop()
+        for repl in self.replicators.values():
+            repl.stop()
+        if self.replication_server is not None:
+            self.replication_server.stop()
+            self.replication_server = None
         for wal in self.wals.values():
             wal.close()
         self.wals.clear()

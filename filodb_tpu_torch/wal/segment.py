@@ -135,19 +135,29 @@ class WalRecord:
 
     @staticmethod
     def decode(data: bytes,
-               tables: Optional[Dict[bytes, list]] = None) -> "WalRecord":
+               tables: Optional[Dict[bytes, list]] = None,
+               key_memo: Optional[Dict[bytes, tuple]] = None
+               ) -> "WalRecord":
         """`tables` is the reader's per-segment intern dict (hash ->
         part_keys); inline records register into it, ref records resolve
-        from it.  None works for self-contained inline records."""
+        from it.  None works for self-contained inline records.
+
+        `key_memo` (hash -> (table bytes, part_keys)) is kept by a caller
+        that decodes a stream of records over the same series (the
+        replication door): an inline table whose bytes equal a memoized
+        one reuses its decoded list, skipping the per-key decode and
+        keeping the list's identity, which the shard's key resolution
+        and the WAL's key-table interning are cached on."""
         try:
-            return WalRecord._decode(data, tables)
+            return WalRecord._decode(data, tables, key_memo)
         except (struct.error, IndexError, ValueError) as e:
             if isinstance(e, WalCorruption):
                 raise
             raise WalCorruption(f"undecodable WAL record body: {e}") from e
 
     @staticmethod
-    def _decode(data: bytes, tables: Optional[Dict[bytes, list]]
+    def _decode(data: bytes, tables: Optional[Dict[bytes, list]],
+                key_memo: Optional[Dict[bytes, tuple]] = None
                 ) -> "WalRecord":
         off = 0
         seq, shard, nlen = struct.unpack_from("<QHB", data, off)
@@ -163,7 +173,14 @@ class WalRecord:
         if mode == TABLE_INLINE:
             (blob_len,) = struct.unpack_from("<I", data, off)
             off += 4
-            part_keys = _decode_key_table(data[off:off + blob_len], S)
+            blob = data[off:off + blob_len]
+            hit = key_memo.get(h) if key_memo is not None else None
+            if hit is not None and len(hit[1]) == S and hit[0] == blob:
+                part_keys = hit[1]
+            else:
+                part_keys = _decode_key_table(blob, S)
+                if key_memo is not None:
+                    key_memo[h] = (blob, part_keys)
             off += blob_len
             if tables is not None:
                 tables[h] = part_keys

@@ -248,16 +248,19 @@ def test_checkrules_prints_what_the_reference_prints(tmp_path, capsys):
 
 
 def test_http_commands_print_a_refused_route_as_the_reference(capsys):
-    """Against a server the CLI cannot reach (and, for federation, one
-    whose route answers 501) each HTTP command prints the error JSON."""
+    """Against a server the CLI cannot reach each HTTP command prints the
+    error JSON; against a server without federation `federation` prints
+    what the reference's CLI prints (the route answers an empty cluster
+    list since federation was ported)."""
     from filodb_tpu_torch.standalone import DatasetConfig, FiloServer
     srv = FiloServer([DatasetConfig("prometheus", 1)], device="cpu")
     srv.start(background_flush=False)
     host = f"127.0.0.1:{srv.http.port}"
     try:
         rc, out = _run(cli.main, ["federation", "--host", host], capsys)
-        payload = json.loads(out)
-        assert rc == 1 and payload["errorType"] == "not_ported"
+        assert (rc, out) == _run(jcli.main, ["federation", "--host", host],
+                                 capsys)
+        assert rc == 0 and "federation not configured" in out
         rc, out = _run(cli.main, ["shards", "--host", host, "--raw"], capsys)
         assert rc == 0
         assert json.loads(out)["data"]["datasets"]["prometheus"][
@@ -268,6 +271,52 @@ def test_http_commands_print_a_refused_route_as_the_reference(capsys):
         srv.shutdown()
     rc, out = _run(cli.main, ["health", "--host", host], capsys)
     assert rc == 2 and "cannot reach" in json.loads(out)["error"]
+
+
+def test_federation_and_shards_print_real_payloads(capsys):
+    """`federation` against a federated pair's east and `shards` against
+    a replicated node print the rows the reference's CLI prints for the
+    same server."""
+    from filodb_tpu_torch.parallel.breaker import breakers
+    from filodb_tpu_torch.parallel.testcluster import make_federated_pair
+    pair = make_federated_pair(device="cpu")
+    try:
+        pair.east.federation_registry.probe_once()
+        host = f"127.0.0.1:{pair.east.http.port}"
+        rc, out = _run(cli.main, ["federation", "--host", host], capsys)
+        assert (rc, out) == _run(jcli.main, ["federation", "--host", host],
+                                 capsys)
+        assert rc == 0 and "local cluster: 'east'" in out
+        assert any(line.startswith("west ") and " up " in line
+                   for line in out.splitlines())
+        pair.kill_west()
+        pair.east.federation_registry.probe_once()
+        rc, out = _run(cli.main, ["federation", "--host", host], capsys)
+        assert rc == 1 and " DOWN " in out
+    finally:
+        pair.stop()
+        breakers.reset()
+    from filodb_tpu_torch.config import FilodbSettings
+    from filodb_tpu_torch.standalone import DatasetConfig, FiloServer
+    cfg = FilodbSettings()
+    cfg.replication.enabled = True
+    peer = FiloServer([DatasetConfig("prometheus", 2)], config=cfg,
+                      node_name="B", device="cpu")
+    peer.start(background_flush=False)
+    node = FiloServer([DatasetConfig("prometheus", 2)], config=cfg,
+                      node_name="A", device="cpu",
+                      replication_peers={
+                          "B": peer.replication_server.address})
+    node.start(background_flush=False)
+    try:
+        host = f"127.0.0.1:{node.http.port}"
+        rc, out = _run(cli.main, ["shards", "--host", host], capsys)
+        assert (rc, out) == _run(jcli.main, ["shards", "--host", host],
+                                 capsys)
+        assert rc == 0 and "rf=2" in out and "B(Active)" in out
+    finally:
+        node.shutdown()
+        peer.shutdown()
 
 
 def _serve(d, timeout_s=120):

@@ -305,7 +305,8 @@ def _spawn(name, coord_port, data_dir, store_url=""):
             raise RuntimeError(f"node {name} failed to start: "
                                f"{f.read()[-2000:]}")
     info = json.loads(box["line"])
-    assert info["ready"] and info["replication_port"] is None
+    assert info["ready"] and isinstance(info["replication_port"], int)
+    assert info["replication_port"] > 0
     return proc, info
 
 

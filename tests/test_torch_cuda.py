@@ -2,7 +2,8 @@
 over raw counters, K4 last_over_time, K5 sum/avg/count_over_time, each
 also in its per-series mode K6) against their plain torch versions, on
 the card; the native histogram leaf, the host route and a plan node on
-the card against the same queries on the CPU.  Marked `cuda`: without a
+the card against the same queries on the CPU; an RF-2 cluster's failover
+and a handoff's tombstone on the card.  Marked `cuda`: without a
 card they skip.  This file imports neither jax nor filodb_tpu, so it also runs on
 a machine with only the port's dependencies:
 
@@ -1413,5 +1414,104 @@ def test_two_node_cluster_on_the_card_launches_k1_on_the_nodes(card,
         for k in got:
             assert got[k].tobytes() == other[k].tobytes()
             np.testing.assert_allclose(got[k], exp[k], rtol=2e-4, atol=1e-3)
+    finally:
+        c.stop()
+
+
+def _replicated_on_card(card, n_series=256, n_samples=180):
+    """testcluster.make_replicated_cluster on the card: three nodes, two
+    shards, RF 2, every store on cuda:0, fed with counters through the
+    quorum fan-out."""
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.parallel.testcluster import make_replicated_cluster
+    start = 1_600_000_020_000
+    c = make_replicated_cluster(nodes=("A", "B", "C"), num_shards=2,
+                                device=card)
+    ts = np.repeat(start + np.arange(n_samples, dtype=np.int64)[None, :]
+                   * 10_000, n_series, axis=0)
+    rng = np.random.default_rng(5)
+    for s in range(2):
+        keys = [PartKey.make("request_total", {
+            "_ws_": "demo", "_ns_": f"App-{i % 7}", "shard": str(s),
+            "instance": str(i)}) for i in range(n_series)]
+        vals = np.cumsum(rng.integers(0, 9, (n_series, n_samples)),
+                         axis=1).astype(np.float64)
+        c.ingest_grid(s, "prom-counter", keys, ts, {"count": vals})
+    return c, start // 1000
+
+
+def test_rf2_failover_answer_launches_k1_on_the_replica(card):
+    """Kill shard 0's primary: the panel stays full, served by the
+    replica's store on the card (K1 launches again, once a shard, and
+    query_replica_failovers rises), with the bits of the answer before
+    the kill (the replica received the same slabs in the same order)."""
+    from filodb_tpu_torch.parallel.breaker import breakers
+    from filodb_tpu_torch.query.rangevector import PlannerParams
+    from filodb_tpu_torch.utils.metrics import registry
+    breakers.reset()
+    c, s = _replicated_on_card(card)
+    try:
+        q = "sum by (_ns_) (rate(request_total[5m]))"
+        pp = PlannerParams(allow_partial_results=True)
+        before = c.engine.query_range(q, s + 600, 60, s + 1790, pp)
+        assert before.error is None and not before.partial
+        victim = c.mapper.node_for_shard(0)
+        replica = c.mapper.replicas[0][0]
+        fo = registry.counter("query_replica_failovers", peer=replica)
+        fo0, n0 = fo.value, kernels.LAUNCHES["fused_rate_dense"]
+        c.kill(victim)
+        res = c.engine.query_range(q, s + 600, 60, s + 1790, pp)
+        assert res.error is None and not res.partial
+        assert kernels.LAUNCHES["fused_rate_dense"] == n0 + 2
+        assert fo.value > fo0
+        sh = c.stores[replica].get_shard("prometheus", 0)
+        mirror = sh.stores["prom-counter"].device_mirror
+        assert mirror is not None and mirror.device.type == "cuda"
+        got = {k.labels: np.asarray(v) for k, _, v in res.series()}
+        want = {k.labels: np.asarray(v) for k, _, v in before.series()}
+        assert got.keys() == want.keys() and got
+        for k in got:
+            assert got[k].tobytes() == want[k].tobytes()
+    finally:
+        c.stop()
+        breakers.reset()
+
+
+def test_handoff_tombstone_gives_the_card_memory_back(card):
+    """After the tombstone the old owner's mirror and its padded-values
+    cache entries leave the card: torch.cuda.memory_allocated() and the
+    booked `hot` bytes fall by at least the dropped mirror's bytes."""
+    from filodb_tpu_torch.replication import HandoffCoordinator
+    from filodb_tpu_torch.utils.devicetelem import telem
+    c, s = _replicated_on_card(card, n_series=2048)
+    try:
+        q = "sum by (_ns_) (rate(request_total[5m]))"
+        res = c.engine.query_range(q, s + 600, 60, s + 1790)
+        assert res.error is None
+        src = c.mapper.node_for_shard(0)
+        mirror = c.stores[src].get_shard("prometheus", 0) \
+            .stores["prom-counter"].device_mirror
+        booked = mirror.booked_bytes
+        assert booked > 0
+        target = next(n for n in ("A", "B", "C")
+                      if n not in c.mapper.owners(0))
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated(card)
+        hot0 = telem.hbm_booked(card, "hot")
+        summary = HandoffCoordinator("prometheus", c.mapper,
+                                     lambda n: c.repl_clients[n]
+                                     ).handoff(0, target)
+        assert summary["states"][-1] == "done"
+        torch.cuda.synchronize()
+        assert alloc0 - torch.cuda.memory_allocated(card) >= booked
+        assert hot0 - telem.hbm_booked(card, "hot") >= booked
+        assert mirror.booked_bytes == 0 and mirror.snapshot() is None
+        after = c.engine.query_range(q, s + 600, 60, s + 1790)
+        assert after.error is None
+        got = {k.labels: np.asarray(v) for k, _, v in after.series()}
+        want = {k.labels: np.asarray(v) for k, _, v in res.series()}
+        assert got.keys() == want.keys()
+        for k in got:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6)
     finally:
         c.stop()

@@ -339,6 +339,9 @@ def test_ready_and_health_of_a_serving_api(apis):
         api.health.set_phase("serving")
 
 
+# the replication and federation routes, which answered 501 until those
+# layers were ported: over an API built without a handoff coordinator or
+# a federation registry both packages give the same answer
 NOT_PORTED = [
     ("POST", "/admin/shards/0/handoff"),
     ("GET", "/admin/federation"),
@@ -400,12 +403,12 @@ def test_cluster_route_answers_as_the_reference(apis, method, path):
 
 @pytest.mark.parametrize("method, path", NOT_PORTED)
 def test_unported_reference_route_is_501(apis, method, path):
-    st, p = apis[1].handle(method, path, {}, b"")
-    assert st == 501, (path, p)
-    assert p["status"] == "error" and p["errorType"] == "not_ported"
+    answers = [api.handle(method, path, {}, b"") for api in apis]
+    assert answers[1] == answers[0], path
+    st, p = answers[1]
+    assert st != 501 and p.get("errorType") != "not_ported", (path, p)
     # the reference serves it (any answer but its unknown-route 404)
-    jst, jp = apis[0].handle(method, path, {}, b"")
-    assert not (jst == 404 and "no route" in json.dumps(jp)), (path, jp)
+    assert not (st == 404 and "no route" in json.dumps(p)), (path, p)
 
 
 @pytest.mark.parametrize("method, path", [("GET", "/admin/nosuch"),

@@ -79,7 +79,11 @@ NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "parallel.transport", "query.pushdown",
                "parallel.shardmanager", "parallel.cluster",
                "parallel.bootstrap", "persist.netstore", "parallel.nodeapp",
-               "parallel.testcluster")
+               "parallel.testcluster", "replication", "replication.service",
+               "replication.replicator", "replication.catchup",
+               "replication.failover", "replication.handoff", "federation",
+               "federation.registry", "federation.exec",
+               "federation.planner", "federation.door")
 
 
 def _bare_import(module):
@@ -108,7 +112,9 @@ def test_general_path_module_stands_alone(module):
     roots (standalone, cli), and the wire and the cluster (the quantile
     sketch, serialize, streams, transport, pushdown, the shard manager,
     the cluster control plane, seed discovery, the network chunk store,
-    nodeapp, testcluster), imported alone in a fresh interpreter, pulls
+    nodeapp, testcluster), replication (the door, the fan-out, catch-up,
+    failover, handoff) and federation (the registry, the federated leaf,
+    the planner, the door), imported alone in a fresh interpreter, pulls
     in neither jax nor the reference package."""
     assert _bare_import("filodb_tpu_torch." + module) == []
 

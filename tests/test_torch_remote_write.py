@@ -334,18 +334,85 @@ def test_wal_commit_failure_withholds_ack(nodes):
     assert out["port"] == out["jax"] == (503, "unavailable", 204)
 
 
+def _attach_replica(node):
+    """A replica door of the node's own package holding a copy of every
+    shard, wired as the node's replicator (RF 2, quorum acks)."""
+    if node.pkg == "jax":
+        from filodb_tpu import replication as r
+        from filodb_tpu.core.memstore import TimeSeriesMemStore as Ms
+        from filodb_tpu.parallel.shardmapper import ShardStatus
+        kw = {}
+    else:
+        from filodb_tpu_torch import replication as r
+        from filodb_tpu_torch.core.memstore import TimeSeriesMemStore as Ms
+        from filodb_tpu_torch.parallel.shardmapper import ShardStatus
+        kw = {"device": "cpu"}
+    replica = Ms(**kw)
+    door = r.ReplicationServer(replica, node="B").start()
+    cli = r.ReplicaClient(*door.address)
+    mapper = node.srv.mappers[DS]
+    mapper.replication_factor = 2
+    for s in range(node.shards):
+        mapper.register_replica(s, "B", status=ShardStatus.ACTIVE)
+    manager = r.ReplicationManager(DS, mapper, lambda n: cli,
+                                   local_node=mapper.node_for_shard(0))
+    node.api.replicators[DS] = manager
+    return replica, door, manager
+
+
 def test_replicator_is_not_ported(nodes):
-    from filodb_tpu_torch.gateway.remotewrite import RemoteWriteSink
-    from filodb_tpu_torch.query.execbase import QueryError
-    pair = nodes(shards=1)
-    port = pair["port"]
-    with pytest.raises(QueryError) as e:
-        RemoteWriteSink(port.memstore, DS, replicator=object())
-    assert e.value.code == "not_ported"
-    port.api.replicators[DS] = object()
-    status, payload = port.post("/api/v1/write",
-                                _payload(_series(remotepb, 2, 2)))
-    assert status == 501 and payload["errorType"] == "not_ported"
+    """A sink built with a replicator fans every slab out to the shard's
+    other owner, as the reference's does: the request acks 204 after
+    the replica's append, the replica holds what the node holds, and
+    the replicas of both packages hold the same."""
+    pair = nodes(shards=2)
+    body = _payload(_series(remotepb, 8, 4))
+    replicas, doors = {}, []
+    try:
+        for pkg, node in pair.items():
+            replica, door, manager = _attach_replica(node)
+            doors.append((door, manager))
+            replicas[pkg] = replica
+            assert split_headers(*node.post("/api/v1/write", body))[0] \
+                == 204
+            assert_same_stores(node.memstore, replica)
+            snap = manager.snapshot()
+            assert [(r["peer"], r["acked"] > 0, r["lagging"])
+                    for r in snap] == [("B", True, False)]
+        assert_same_stores(replicas["port"], replicas["jax"])
+    finally:
+        for door, manager in doors:
+            manager.stop()
+            door.stop()
+
+
+def test_replicated_sink_fills_replication_seconds(nodes):
+    """The fan-out's share of the ingest loop lands in
+    IngestStats.replication_s, in both packages."""
+    pair = nodes(shards=2)
+    doors = []
+    try:
+        for pkg, node in pair.items():
+            if pkg == "jax":
+                from filodb_tpu.http import remotepb as pb
+                from filodb_tpu.utils.freshness import IngestStats
+            else:
+                pb = remotepb
+                from filodb_tpu_torch.utils.freshness import IngestStats
+            replica, door, manager = _attach_replica(node)
+            doors.append((door, manager))
+            stats = IngestStats()
+            sink = node.api._remote_write_sink(DS)
+            assert sink.replicator is manager
+            n, dropped = sink.ingest_series(_series(pb, 8, 4),
+                                            stats=stats)
+            assert (n, dropped) == (32, 0)
+            assert stats.replication_s > 0.0
+            assert stats.ingest_s >= 0.0
+    finally:
+        for door, manager in doors:
+            manager.stop()
+            door.stop()
 
 
 def test_existing_counter_series_lands_in_its_own_schema(nodes):

@@ -12,7 +12,7 @@ over the same settings:
   payloads equal to the string, stitched answers and recorded series
   within tolerance);
 - bad settings raise the reference's ConfigError; federation and
-  replication are refused with `not_ported`;
+  replication boot as the reference's do;
 - /cluster/<ds>/status and /admin/shards equal the reference's payloads;
 - without device="cpu" the constructor raises when no card is present.
 """
@@ -417,10 +417,27 @@ def test_bad_settings_raise_the_reference_config_error(settings):
 
 @pytest.mark.parametrize("section", ["federation", "replication"])
 def test_unported_layers_are_refused_at_construction(section):
-    p = _pkg("port")
-    with pytest.raises(p.config.ConfigError) as e:
-        _server("port", settings={f"{section}.enabled": True})
-    assert str(e.value).startswith("not_ported: ") and section in str(e.value)
+    """Both layers, refused until they were ported, now boot as the
+    reference's do: the federation door and registry (the planner stack
+    gains the FederationPlanner outermost) or the replication door, with
+    the same admin payloads."""
+    out = {}
+    for pkg in ("jax", "port"):
+        srv = _server(pkg, settings={f"{section}.enabled": True})
+        try:
+            if section == "federation":
+                assert srv.federation_door.port > 0
+                st, payload = srv.api.handle("GET", "/admin/federation", {})
+            else:
+                assert srv.replication_server is not None
+                assert srv.replicators == {}
+                st, payload = srv.api.handle("GET", "/admin/shards", {})
+            out[pkg] = (st, payload,
+                        type(srv.engines[DS].planner).__name__)
+        finally:
+            srv.shutdown()
+    assert out["port"] == out["jax"]
+    assert out["port"][0] == 200
 
 
 def test_no_card_refuses_the_default_device():
