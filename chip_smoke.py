@@ -408,7 +408,7 @@ cluster-1M.  in the cluster side process, after cluster-e2e-4k
    prints the wire bytes, frames, each panel's seconds and the wire's
    split (serialize, frames, socket, assemble);
 replication-1M.  in the cluster side process, after cluster-1M
-   (run_replication_phase), cut to 524,288 series (REPL_SERIES): dense-
+   (run_replication_phase), cut to 262,144 series (REPL_SERIES): dense-
    1M's counters (the same seed) in 4 shards at RF 2 over three data
    nodes A, B and C in that process (testcluster.make_replicated_cluster:
    a memstore on the card, a WAL under TMPDIR, a NodeQueryServer and a
@@ -456,16 +456,60 @@ cluster-e2e-4k.  in a side process of its own (`--side cluster`) from K8
    before, the rate panel within its oracle's tolerance.  Every step's
    seconds, each node's boot to ready, and K1 launches from the nodes'
    stats.devices as they come back over the wire;
+mesh-1M.  on the gauge-hist side after hist-native-1M (run_mesh_phase;
+   there its engine check, ~30 GB on the card, comes once the main line
+   and the cluster side are done: placed beside them, the card ran out
+   of memory), once the machine has MESH_HOST_NEED of host memory
+   available (wait_for_host_memory, at most MESH_HOST_WAIT_S; its ~20
+   GiB beside the three other processes' peaks did not fit the host),
+   at full width: dense-1M's
+   counters (the same seed) and 65,536 counters with ~1% NaN holes as a
+   second metric in a 4-shard memstore on the card, routed by a 4-shard
+   ShardMapper with spread 2; the port's MeshExecutor on a 4 x 1 and a
+   4 x 2 mesh whose slots all name the card (the second splits the 110
+   windows over two time slots), one pack serving both: the rate pack
+   (its seconds split: row gather, host f64 correction and rebase,
+   pack_shards, upload); on each mesh sum by (_ns_) (rate(...[5m])) cold
+   and --warm times warm (bit-identical; p50, p99), avg and count (K1
+   once a slot a panel; dense count is host math), max (the general mesh
+   path, no kernel), the in-process merge on the card bit-identical to
+   the host merge (its ms); on the 4 x 1 mesh run_agg_batch of four rate
+   panels (one launch a slot, equal to the panels alone) and
+   run_binop_agg sum / count; sum_over_time (K5), last_over_time (K4)
+   and the ragged metric's rate (K3) on both meshes;
+   every panel against its f64 oracle (rtol 2e-4 / atol 1e-3, the
+   ragged 5e-4 / 1e-4); then the port's QueryEngine over the same store,
+   one launch a shard, within MESH_ENGINE_TOL of the mesh.  It prints
+   the peak device memory and the host RSS;
+mesh-2proc-65k.  last on the main line, after live-ingest-1M frees
+   its 1M store (run_mesh_2proc_phase): two
+   worker processes of
+   this script (--mesh-worker) on the card join one process group over
+   localhost (gloo: they share the card), each keeping 2 of the 4
+   shards of 65,536 counters; sum by (_ns_) (rate(...[5m])) over the
+   4 x 1 global mesh, K1 on each process's two slots, the partials
+   all-reduced, against the f64 oracle (rtol 2e-4 / atol 1e-3) and
+   within 1e-12 relative of a one-process mesh over all four shards.
+   The run fails if a worker fails or outlives MESH_2PROC_TIMEOUT_S;
+multi-card.  then (run_multicard_checks), where the machine has two
+   cards or more: the engine's per-shard mirrors placed over the cards,
+   its 8 dashboard panels bit-identical to one card's, and a mesh over
+   distinct cards bit-identical to the one-card mesh; on one card one
+   line says they were not run and why;
 flush-page-16k, cold-65k, compact-16k, downsample-16k, broker-16k and
 node-16k, then phases 4 and
 6-8, run in a second process (`--side stores`) from K8 on, beside phase
 3, restart-1M and the 1M phases on their store; phase 5 (with
-general-1M's gauge half), hist-classic-1M and hist-native-1M in a third
-(`--side gauge-hist`) from the end of host-route-1M on, beside
+general-1M's gauge half), hist-classic-1M, hist-native-1M, then
+mesh-1M in a third (`--side gauge-hist`) from the end of host-route-1M
+on, beside
 promql-1M through live-ingest-1M.  A side process loads the libraries built here, counts its own launches from 0
-and writes them and its phases' seconds to a file read when it is
-joined; a side that fails fails the run, and one whose stdin (a pipe
-from the script) closes ends itself.
+and writes them, its phases' seconds and its own to a file read when it
+is joined; a side that fails fails the run, and one whose stdin (a pipe
+from the script) closes ends itself, as do the mesh workers.  A
+thread of this process samples the machine's memory in use each second
+(HostMemoryWatch) and prints its peak, the split of it by process and
+one sample a minute.
 Every query runs with PlannerParams(scan_limit=2,000,000,000), as
 bench.py raises it at this size: the default cap refuses a 1M-series
 scan.  Every phase prints its seconds (phase 3's leave out restart-1M's,
@@ -481,7 +525,9 @@ Then one JSON line with the kernel table (K1-K8), and as the last line
     python3 chip_smoke.py --ab CHECKOUT [CHECKOUT ...] [--rounds R]
 
 instead times this checkout against others (e.g. the parent commit
-unpacked with git archive) on one card in alternating rounds (run_ab).
+unpacked with git archive) on one card in alternating rounds (run_ab);
+its kernels cell also times index_select at K8's gather's own [rows,
+128] output and logs the gather's ratio to it per round.
 """
 from __future__ import annotations
 
@@ -796,9 +842,9 @@ class GroupOracle:
     """f64 group aggregates on the card of per-series values [n, W] (NaN =
     absent), accumulated slab by slab."""
 
-    def __init__(self, groups, W):
+    def __init__(self, groups, W, device=None):
         import torch
-        dev = torch.device("cuda", 0)
+        dev = device if device is not None else torch.device("cuda", 0)
 
         def full(x):
             return torch.full((groups, W), x, dtype=torch.float64,
@@ -2189,6 +2235,145 @@ def rss_now() -> int:
     """Resident set of this process now, bytes."""
     with open("/proc/self/statm") as f:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def meminfo() -> dict:
+    """The machine's /proc/meminfo, bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            out[k] = int(v.split()[0]) * 1024
+    return out
+
+
+def wait_for_host_memory(need, what, limit_s):
+    """Wait until the machine has `need` bytes available (MemAvailable),
+    at most limit_s seconds; log the wait -> seconds waited."""
+    t0 = time.perf_counter()
+    while True:
+        avail, waited = meminfo()["MemAvailable"], time.perf_counter() - t0
+        if avail >= need or waited >= limit_s:
+            break
+        time.sleep(1.0)
+    log(f"{what}: waited {waited:.1f} s for {need / 2.0 ** 30:.0f} GiB of "
+        f"host memory; {avail / 2.0 ** 30:.2f} GiB available"
+        + ("" if avail >= need else " (the wait's limit came first)"))
+    return waited
+
+
+def fs_type(path) -> str:
+    """The type of the filesystem `path` lies on, from /proc/mounts."""
+    path, best, kind = os.path.realpath(path), "", "?"
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 3:
+                continue
+            mnt = parts[1].replace("\\040", " ")
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best):
+                best, kind = mnt, parts[2]
+    return kind
+
+
+def keep_temp_files_on_disk(need=64 * 2 ** 30):
+    """Where TMPDIR lies on a filesystem in memory (tmpfs, ramfs) and the
+    checkout's does not and has `need` bytes free, point TMPDIR (this
+    process's and its children's) at a new directory under the
+    checkout's .scratch/: the 1M phases' WALs and stores, ~20 GB, would
+    otherwise count against the host's memory.  -> that directory, to
+    remove at the end, or None."""
+    tmp = tempfile.gettempdir()
+    here = os.path.dirname(os.path.abspath(__file__))
+    kinds = (fs_type(tmp), fs_type(here))
+    free = shutil.disk_usage(here).free
+    moved = (kinds[0] in ("tmpfs", "ramfs") and kinds[1] not in
+             ("tmpfs", "ramfs") and free >= need)
+    new = None
+    if moved:
+        os.makedirs(os.path.join(here, ".scratch"), exist_ok=True)
+        new = tempfile.mkdtemp(prefix="smoke-tmp-",
+                               dir=os.path.join(here, ".scratch"))
+        os.environ["TMPDIR"] = new
+        tempfile.tempdir = None
+    log(f"temporary files: TMPDIR {tmp} ({kinds[0]}), the checkout "
+        f"{here} ({kinds[1]}, {free} B free)"
+        + (f"; TMPDIR is now {new}" if moved else ""))
+    return new
+
+
+class HostMemoryWatch:
+    """A thread that samples, each second, the memory the machine has in
+    use (MemTotal - MemAvailable) and the resident sets of this script's
+    processes, each under the side process (or this one) it descends
+    from; it keeps the peak in use, when it came and the split at it, and
+    one sample a minute.  `sides` ({name: (Popen, out)}) may grow while
+    it runs."""
+
+    def __init__(self, sides):
+        self.sides, self.t0 = sides, time.perf_counter()
+        self.total = meminfo()["MemTotal"]
+        self.peak, self.peak_at, self.peak_split = 0, 0.0, {}
+        self.minutes = []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+
+    def split(self):
+        """Resident bytes of this script's processes, by the side (or
+        "main", "main's children") each descends from."""
+        page = os.sysconf("SC_PAGE_SIZE")
+        parent, rss = {}, {}
+        for d in os.listdir("/proc"):
+            if not d.isdigit():
+                continue
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+                with open(f"/proc/{d}/statm") as f:
+                    rss[int(d)] = int(f.read().split()[1]) * page
+            except (OSError, IndexError, ValueError):
+                continue
+        me = os.getpid()
+        names = {proc.pid: which for which, (proc, _) in
+                 list(self.sides.items())}
+        names[me] = "main"
+        out = {}
+        for pid, b in rss.items():
+            p = pid
+            while p not in names and p in parent and p > 1:
+                p = parent[p]
+            if p not in names:
+                continue
+            name = ("main's children" if p == me and pid != me
+                    else names[p])
+            out[name] = out.get(name, 0) + b
+        return out
+
+    def run(self):
+        while not self.stop.wait(1.0):
+            info = meminfo()
+            used = self.total - info["MemAvailable"]
+            t = time.perf_counter() - self.t0
+            if used > self.peak:
+                self.peak, self.peak_at = used, t
+                self.peak_split = self.split()
+                self.peak_split["shared memory and tmpfs"] = info["Shmem"]
+            if t >= 60 * len(self.minutes):
+                self.minutes.append(used)
+
+    def report(self):
+        self.stop.set()
+        self.thread.join()
+        gib = 2.0 ** 30
+        log(f"host memory: MemTotal {self.total / gib:.2f} GiB; peak in "
+            f"use {self.peak / gib:.2f} GiB at {self.peak_at:.0f} s after "
+            f"the sides started (resident then: " + ", ".join(
+                f"{k} {v / gib:.2f}" for k, v in
+                sorted(self.peak_split.items())) + " GiB); in use each "
+            f"minute: " + ", ".join(f"{u / gib:.1f}" for u in self.minutes)
+            + " GiB")
 
 
 def store_rows(ms, num_series):
@@ -5320,8 +5505,15 @@ def ab_setup(cell, num_series, seed, dev):
                             inp, kind, ragged, series, drops))
         x, o, i1, i2 = ps.inputs(ps.GRID, dev)
         W, WP = ps.W, ps.WP
+        # K8's gather beside index_select at its own [rows, WP] output:
+        # the same bytes written (index_select takes i1's WP entries, the
+        # W selected slots then WP - W zeros, so its last columns copy
+        # column 0 where the kernel writes zeros)
+        idx_wp = i1[:WP].long()
         fns.update(
             probe_gather=("cuda", lambda: probe.probe_gather(x, i1, W, WP)),
+            index_select_wp=("cuda",
+                             lambda: torch.index_select(x, 1, idx_wp)),
             probe_two_gathers=("cuda", lambda: probe.probe_two_gathers(
                 x, i1, i2, W, WP)),
             probe_onehot_matmul=("cuda",
@@ -5436,7 +5628,24 @@ def run_ab(others, rounds, cells, num_series, seed, reps) -> int:
                 for i in (order if k % 2 == 0 else reversed(order)):
                     send(i, op="turn", reps=reps)
                     turns[i].append(recv(i))
+            if cell == "kernels":
+                # K8's gather over index_select at equal width, per round,
+                # in each arm that times both
+                for tree, arm in zip(trees, turns):
+                    if "index_select_wp" not in arm[0]:
+                        continue
+                    r = np.asarray([np.median(t["probe_gather"])
+                                    / np.median(t["index_select_wp"])
+                                    for t in arm])
+                    log(json.dumps({"ab": cell, "tree": tree,
+                                    "probe_gather_over_index_select_wp": dict(
+                                        median=float(np.median(r)),
+                                        min=float(r.min()),
+                                        max=float(r.max()),
+                                        rounds=len(r))}))
             for panel in turns[0][0]:
+                if any(panel not in arm[0] for arm in turns):
+                    continue
                 p50 = [[float(np.median(t[panel])) for t in arm]
                        for arm in turns]
                 rows = [dict(tree=t, setup_s=s, turn_p50_ms=x,
@@ -6445,6 +6654,623 @@ def phase_timer(dev, phase_s, phase_evictions):
     return timed
 
 
+# ---------------------------------------- mesh-1M, mesh-2proc-65k, cards
+
+MESH_SHARDS = 4
+MESH_SPREAD = 2                    # tests/test_mesh.py::_mk_store's spread
+MESH_RAGGED = 65_536               # mesh-1M's NaN-holed counters (K3)
+MESH_RAGGED_METRIC = "request_ragged"
+MESH_2PROC_SERIES = 65_536         # mesh-2proc-65k
+MESH_2PROC_TIMEOUT_S = 420         # both workers, CUDA start included
+# mesh-1M's side grows by ~20 GiB of host memory (the 4-shard store and
+# its keys); it starts once the machine has that and 12 GiB besides
+# available, or after MESH_HOST_WAIT_S of waiting
+MESH_HOST_NEED = 32 * 2 ** 30
+MESH_HOST_WAIT_S = 180
+# mesh against the engine over the same store: both run K1 over each
+# shard's rows in f32 and merge the shards in f64, the mesh in its pack's
+# row order, the engine in its mirror's; over <= 1,049 positive rates a
+# group the f32 sums of two row orders differ by at most ~n * 2^-24
+# relative (n ~ 262 rows a group a shard: 1.6e-5)
+MESH_ENGINE_TOL = (2e-5, 1e-9)
+MESH_BATCH = [(("_ns_",), (), "sum"), (("_ns_",), (), "avg"),
+              (("dc",), (), "sum"), (("_ns_",), (), "count")]
+
+
+def mesh_labels(labels_of_i):
+    return {"_ws_": "demo", "_ns_": f"App-{labels_of_i % NUM_NS}",
+            "instance": f"Instance-{labels_of_i}",
+            "dc": f"DC{labels_of_i % 2}"}
+
+
+def mesh_store(num_series, seed, dev, ragged=MESH_RAGGED, shards=None,
+               oracles=("rate", "over_time")):
+    """mesh-1M's data: a TimeSeriesMemStore on the card whose MESH_SHARDS
+    shards are routed by a MESH_SHARDS-shard ShardMapper with spread 2
+    (tests/test_mesh.py::_mk_store): dense-1M's counters (the same seed,
+    slab by slab, through ingest_columns) and `ragged` counters with ~1%
+    NaN scrape holes as a second metric (MESH_RAGGED_METRIC); `shards`
+    (default all) are the ones this store keeps.  Their f64 group
+    oracles on the card, those `oracles` names: "rate" (by _ns_ and by
+    dc, and the ragged rate by _ns_), "over_time" (sum_over_time and
+    last_over_time, the slot value, by _ns_) ->
+    (memstore, mapper, {oracle: GroupOracle}, wends, seconds)."""
+    import torch
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.parallel.shardmapper import ShardEvent, ShardMapper
+    from filodb_tpu_torch.core.blockstore import DenseSeriesStore
+    t0 = time.perf_counter()
+    keep = list(range(MESH_SHARDS)) if shards is None else list(shards)
+    ms = TimeSeriesMemStore(device=dev)
+    mapper = ShardMapper(MESH_SHARDS)
+    for s in range(MESH_SHARDS):
+        mapper.update_from_event(
+            ShardEvent("IngestionStarted", "prometheus", s, "local"))
+    ts_row = START_MS + np.arange(T, dtype=np.int64) * STEP_MS
+    wends = np.arange(START_MS + 600_000, int(ts_row[-1]) + 1, 60_000)
+    W = len(wends)
+    orc = {k: GroupOracle(NUM_NS, W, dev)
+           for k in ("rate", "sum_over_time", "last_over_time", "ragged")}
+    orc["rate_dc"] = GroupOracle(2, W, dev)
+    sets = []
+    for metric, n_all, hole, rng in (
+            ("request_total", num_series, 0.0, np.random.default_rng(seed)),
+            (MESH_RAGGED_METRIC, min(ragged, num_series), 0.01,
+             np.random.default_rng(seed + 13))):
+        keys = [PartKey.make(metric, mesh_labels(i)) for i in range(n_all)]
+        to = np.asarray([mapper.ingestion_shard(
+            pk.shard_key_hash(), pk.partition_hash(), MESH_SPREAD)
+            for pk in keys], np.int64)
+        sets.append((keys, to, hole, rng))
+    per_shard = sum(np.bincount(to, minlength=MESH_SHARDS)
+                    for _, to, _, _ in sets)
+    route_s = time.perf_counter() - t0
+    # each shard's store made at its final extent (its rows, T slots)
+    # through the store's public constructor, before the first ingest:
+    # the default growth doubles a 278,000-row store to 524,288 rows and
+    # its 720 slots to 1,024 (34 GB of host arrays for 1M series, not 13)
+    for s in keep:
+        sh = ms.setup("prometheus", s)
+        sh.stores["prom-counter"] = DenseSeriesStore(
+            sh.schemas["prom-counter"], initial_series=int(per_shard[s]),
+            initial_time=T)
+    for keys, to, hole, rng in sets:
+        mesh_ingest(ms, orc, keys, to, hole, rng, keep, ts_row, wends, dev,
+                    oracles)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    log(f"mesh: built {num_series} + {min(ragged, num_series)} ragged "
+        f"series over {MESH_SHARDS} shards (spread {MESH_SPREAD}; series a "
+        f"shard {per_shard.tolist()}, kept {keep}) in {sec:.1f} s (keys and "
+        f"routing {route_s:.1f} s); host RSS {rss_now() / 2.0 ** 30:.2f} GiB")
+    return ms, mapper, orc, wends, sec
+
+
+def mesh_ingest(ms, orc, keys, to, hole, rng, keep, ts_row, wends, dev,
+                oracles):
+    """One metric of mesh_store, slab by slab: each slab's counters into
+    the kept shards through ingest_columns, and into the oracles 16,384
+    rows at a time (the over_time oracle gathers [rows, W, 30] f64; the
+    card is shared with the script's other processes)."""
+    import torch
+    for i0 in range(0, len(keys), SLAB):
+        n = min(SLAB, len(keys) - i0)
+        vals = make_counter_slab(rng, n, hole)
+        slab_to = to[i0:i0 + n]
+        for s in keep:
+            rows = np.flatnonzero(slab_to == s)
+            if len(rows):
+                ms.get_shard("prometheus", s).ingest_columns(
+                    "prom-counter", [keys[i0 + r] for r in rows],
+                    np.broadcast_to(ts_row, (len(rows), T)),
+                    {"count": vals[rows]})
+        for j in range(0, n, 16_384) if oracles else ():
+            v = torch.from_numpy(vals[j:j + 16_384]).to(dev)
+            idx = torch.arange(i0 + j, i0 + j + len(v), device=dev)
+            rates = oracle_rates_t(v, ts_row, wends)["rate"]
+            if hole:
+                orc["ragged"].add(rates, idx % NUM_NS)
+                continue
+            orc["rate"].add(rates, idx % NUM_NS)
+            orc["rate_dc"].add(rates, idx % 2)
+            if "over_time" in oracles:
+                ot = oracle_over_time_t(v, ts_row, wends)
+                orc["sum_over_time"].add(ot["sum"], idx % NUM_NS)
+                orc["last_over_time"].add(ot["last"], idx % NUM_NS)
+
+
+def oracle_of(orc, op):
+    """An oracle's [G, W] answer for a panel's aggregate."""
+    if op == "count":
+        c = orc.cnt.cpu().numpy()
+        return np.where(c > 0, c, np.nan)
+    return orc.result(op)
+
+
+def by_group(vals, labels, key, groups):
+    """A mesh answer [G, W] in the oracle's row order: App-g -> row g,
+    DCd -> row d."""
+    check(len(labels) == groups,
+          f"{len(labels)} groups by {key}, expected {groups}")
+    out = np.full((groups, vals.shape[1]), np.nan)
+    for i, d in enumerate(labels):
+        v = d[key]
+        out[int(v.split("-")[1]) if key == "_ns_" else int(v[2:])] = vals[i]
+    return out
+
+
+def run_mesh_phase(num_series, seed, warm, dev):
+    """mesh-1M: the port's MeshExecutor at full width over mesh_store's
+    4-shard memstore, on a 4 x 1 and a 4 x 2 mesh whose slots all name
+    this card (make_mesh(4, n, devices=[dev] * 4n); the 4 x 2 mesh splits
+    the 110 windows over two time slots), one pack serving both.  The
+    rate pack (its seconds split: the store's row gather, the host f64
+    reset correction and rebase, pack_shards, the upload); on each mesh
+    sum by (_ns_) (rate(...[5m])) cold and `warm` times warm
+    (bit-identical, p50), avg and count (K1 once a slot a panel; dense
+    count is host math), max (the general mesh path, no kernel), the
+    in-process merge bit-identical to the host merge (its ms); on the
+    4 x 1 mesh run_agg_batch of four rate panels (one launch a slot,
+    equal to the panels alone) and run_binop_agg sum / count; then
+    sum_over_time (K5) and last_over_time (K4) over one pack of the
+    values as stored, and the ragged metric's rate (K3), on both meshes.
+    Every panel
+    against its f64 oracle: rtol 2e-4 / atol 1e-3, the ragged 5e-4 /
+    1e-4.  Last, the port's QueryEngine over the same memstore answers
+    the rate panel within MESH_ENGINE_TOL of the mesh, one launch a
+    shard.  -> its launches."""
+    import torch
+    from filodb_tpu_torch.core.blockstore import DenseSeriesStore
+    from filodb_tpu_torch.core.index import Equals
+    from filodb_tpu_torch.ops import counter as counter_ops
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.parallel import mesh as pmesh
+    from filodb_tpu_torch.parallel.shardmapper import SpreadProvider
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.execbase import release_mirror_caches
+    from filodb_tpu_torch.utils.counters import counters
+    n0 = dict(kernels.LAUNCHES)
+    ms, mapper, orc, wends, _ = mesh_store(num_series, seed, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_lo, t_hi = int(wends[0]) - RANGE_MS, int(wends[-1])
+    total = [Equals("_metric_", "request_total")]
+    k1, k3, k4, k5 = ("fused_rate_dense", "fused_rate_ragged",
+                      "fused_last_dense", "fused_over_time_dense")
+    exs = {f"4x{n}": pmesh.MeshExecutor(
+        ms, "prometheus", pmesh.make_mesh(4, n, devices=[dev] * (4 * n)))
+        for n in (1, 2)}
+    slots = {"4x1": 4, "4x2": 8}
+    summary = {}
+
+    def pack(ex, flt, fn, what):
+        spent = {k: [0.0] for k in ("gather", "correct", "pack", "upload")}
+        with timed_method(DenseSeriesStore, "gather_rows", spent["gather"]), \
+                timed_method(counter_ops, "rebase_values", spent["correct"]), \
+                timed_method(pmesh, "pack_shards", spent["pack"]), \
+                timed_method(pmesh, "device_put_packed", spent["upload"]):
+            t = time.perf_counter()
+            pk = ex.lookup_and_pack(flt, t_lo, t_hi, by=("_ns_",),
+                                    fn_name=fn)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+        s = {k: v[0] for k, v in spent.items()}
+        nbytes = sum(a.nbytes for a in (pk.ts_off, pk.values, pk.group_ids,
+                                        pk.vbase))
+        log(f"mesh-1M {what}: pack {sec:.2f} s; thread-seconds over "
+            f"{pmesh.PACK_WORKERS} workers: row gather {s['gather']:.2f}, host "
+            f"f64 correction and rebase {s['correct']:.2f}, pack_shards "
+            f"{s['pack']:.2f}, upload {s['upload']:.2f}; {nbytes} B on the "
+            f"card; host RSS now {rss_now() / 2.0 ** 30:.2f} GiB")
+        summary.setdefault("pack_s", {})[what] = dict(total=sec, **s)
+        return pk
+
+    def panel(mk, pk, fn, op, kernel, oracle, tol, what, key="_ns_",
+              groups=NUM_NS):
+        ex = exs[mk]
+        l0 = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        out, labels = ex.run_agg(pk, wends, range_ms=RANGE_MS, fn_name=fn,
+                                 agg_op=op)
+        sec = time.perf_counter() - t
+        got = launched(l0)
+        if kernel is None:
+            check(not got, f"mesh-1M {mk} {what}: launched {got}, expected "
+                  f"no kernel")
+        else:
+            check(got == {kernel: slots[mk]},
+                  f"mesh-1M {mk} {what}: launched {got}, expected "
+                  f"{kernel} once a slot ({slots[mk]})")
+        err = check_close(by_group(out, labels, key, groups),
+                          oracle_of(orc[oracle], op), *tol,
+                          f"mesh-1M {mk} {what}")
+        log(f"mesh-1M {mk} {what}: {sec * 1e3:.1f} ms, launches {got}, max "
+            f"abs/rel err {err[0]:.3g} / {err[1]:.3g}")
+        return out, labels
+
+    def run_binop(mk, ex):
+        l0 = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        ratio, rl = ex.run_binop_agg(total, total, t_lo, t_hi, wends,
+                                     range_ms=RANGE_MS, fn_name="rate",
+                                     op="/", agg_op_l="sum",
+                                     agg_op_r="count", by=("_ns_",))
+        sec = time.perf_counter() - t
+        check(launched(l0) == {k1: slots[mk]},
+              f"mesh-1M {mk} binop: launched {launched(l0)}")
+        err = check_close(by_group(ratio, rl, "_ns_", NUM_NS),
+                          oracle_of(orc["rate"], "avg"), *KERNEL_TOL,
+                          f"mesh-1M {mk} sum / count")
+        log(f"mesh-1M {mk} run_binop_agg sum(rate) / count(rate): "
+            f"{sec * 1e3:.1f} ms, K1 {slots[mk]}, max abs/rel err "
+            f"{err[0]:.3g} / {err[1]:.3g}")
+
+    # one pack serves both meshes: every slot names this card, so the 4 x
+    # 1 executor's placed blocks are the 4 x 2 mesh's too
+    t = time.perf_counter()
+    pk = pack(exs["4x1"], total, "rate", "rate")
+    pack_s = time.perf_counter() - t
+    t = time.perf_counter()
+    check(exs["4x1"].lookup_and_pack(total, t_lo, t_hi, by=("_ns_",),
+                                     fn_name="rate") is pk,
+          "mesh-1M: the repeat lookup repacked")
+    hit_ms = 1e3 * (time.perf_counter() - t)
+    for mk in ("4x1", "4x2"):
+        ex = exs[mk]
+        t = time.perf_counter()
+        captured = []
+        orig_merge = pmesh.merge_device_partials
+
+        def capture(parts, mesh, comb="sum", collective=None):
+            captured.append((parts, mesh, comb))
+            return orig_merge(parts, mesh, comb, collective)
+        pmesh.merge_device_partials = capture
+        try:
+            sums, labels = panel(mk, pk, "rate", "sum", k1, "rate",
+                                 KERNEL_TOL, "sum by (_ns_) (rate)")
+        finally:
+            pmesh.merge_device_partials = orig_merge
+        cold = time.perf_counter() - t + (pack_s if mk == "4x1" else 0.0)
+        times = []
+        for _ in range(warm):
+            t = time.perf_counter()
+            out, _ = ex.run_agg(pk, wends, range_ms=RANGE_MS,
+                                fn_name="rate", agg_op="sum")
+            times.append(time.perf_counter() - t)
+            check(out.tobytes() == sums.tobytes(),
+                  f"mesh-1M {mk}: a warm answer differs in some bit")
+        parts, mesh, comb = captured[0]
+        host = pmesh.merge_device_partials(parts, mesh, comb,
+                                           collective=False)
+        t = time.perf_counter()
+        coll = pmesh.merge_device_partials(parts, mesh, comb,
+                                           collective=True)
+        merge_ms = 1e3 * (time.perf_counter() - t)
+        check(coll.tobytes() == host.tobytes(),
+              f"mesh-1M {mk}: the in-process merge and the host merge differ")
+        log(f"mesh-1M {mk} sum by (_ns_) (rate): cold "
+            f"{'(the pack included) ' if mk == '4x1' else ''}{cold:.2f} s, "
+            f"warm p50 {1e3 * np.median(times):.2f} ms p99 "
+            f"{1e3 * np.percentile(times, 99):.2f} ms over {warm} (the pack "
+            f"cache's hit {hit_ms:.2f} ms besides); "
+            f"K1 {slots[mk]} a panel; merge of {len(parts)} partials "
+            f"{parts[(0, 0)].shape} on the card {merge_ms:.3f} ms, "
+            f"bit-identical to the host merge")
+        summary[mk] = dict(cold_s=cold, warm_p50_ms=1e3 * np.median(times),
+                           merge_ms=merge_ms, pack_hit_ms=hit_ms,
+                           peak_gib=torch.cuda.max_memory_allocated(dev)
+                           / 2.0 ** 30)
+        avg, _ = panel(mk, pk, "rate", "avg", k1, "rate", KERNEL_TOL,
+                       "avg by (_ns_) (rate)")
+        panel(mk, pk, "rate", "count", None, "rate", KERNEL_TOL,
+              "count by (_ns_) (rate) (host math)")
+        panel(mk, pk, "rate", "max", None, "rate", KERNEL_TOL,
+              "max by (_ns_) (rate) (general path)")
+        if mk == "4x2":
+            # run_agg_batch and run_binop_agg look their pack up through
+            # the executor: the 4 x 2 one would pack the 1M series again
+            # (another 6.7 GB on the card) and group them again in Python
+            continue
+        l0 = dict(kernels.LAUNCHES)
+        b0 = counters.get("mesh_fused_batch_panels")
+        t = time.perf_counter()
+        batch = ex.run_agg_batch(total, t_lo, t_hi, wends, range_ms=RANGE_MS,
+                                 fn_name="rate", panels=MESH_BATCH)
+        sec = time.perf_counter() - t
+        check(launched(l0) == {k1: slots[mk]},
+              f"mesh-1M {mk} batch: launched {launched(l0)}")
+        check(counters.get("mesh_fused_batch_panels") - b0 == 3,
+              f"mesh-1M {mk} batch: the panels did not merge")
+        for (by, _, op), (vals, labs), alone in zip(
+                MESH_BATCH, batch, (sums, avg, None, None)):
+            key = by[0]
+            check_close(by_group(vals, labs, key, NUM_NS if key == "_ns_"
+                                 else 2),
+                        oracle_of(orc["rate" if key == "_ns_" else "rate_dc"],
+                                  op), *KERNEL_TOL,
+                        f"mesh-1M {mk} batch {op} by {key}")
+            if alone is not None:
+                check(np.allclose(vals, alone, rtol=1e-6, atol=1e-9,
+                                  equal_nan=True),
+                      f"mesh-1M {mk} batch {op} by {key}: differs from the "
+                      f"panel alone")
+        log(f"mesh-1M {mk} run_agg_batch of {len(MESH_BATCH)} rate panels: "
+            f"{sec * 1e3:.1f} ms, K1 {slots[mk]} (one launch a slot), equal "
+            f"to the panels alone")
+        run_binop(mk, ex)
+        del parts, captured
+    # each pack's card memory goes with it: the executor's cache would
+    # keep it
+    del pk
+    exs["4x1"]._pack_cache.clear()
+    # one pack each, run on both meshes; sum_over_time's pack (values not
+    # reset-corrected) also feeds last_over_time, which reads the same
+    for fns, kernels_of, oracle, tol, flt, what in (
+            (("sum_over_time", "last_over_time"), (k5, k4), None,
+             KERNEL_TOL, total, "uncorrected"),
+            (("rate",), (k3,), "ragged", (5e-4, 1e-4),
+             [Equals("_metric_", MESH_RAGGED_METRIC)], "ragged")):
+        pk = pack(exs["4x1"], flt, fns[0], what)
+        check(pk.dense is (what != "ragged"),
+              f"mesh-1M {what}: dense {pk.dense}")
+        for fn, kernel in zip(fns, kernels_of):
+            for mk in ("4x1", "4x2"):
+                panel(mk, pk, fn, "sum", kernel, oracle or fn, tol,
+                      f"sum by (_ns_) ({fn}{', ragged' if oracle else ''})")
+        del pk
+        exs["4x1"]._pack_cache.clear()
+    free_device_memory()
+    eng = QueryEngine("prometheus", ms, mapper,
+                      SpreadProvider(default_spread=MESH_SPREAD), device=dev)
+    l0 = dict(kernels.LAUNCHES)
+    t = time.perf_counter()
+    res = eng.query_range("sum by (_ns_) (rate(request_total[5m]))",
+                          int(wends[0]) // 1000, 60, int(wends[-1]) // 1000,
+                          scan_params())
+    sec = time.perf_counter() - t
+    check(res.error is None, f"mesh-1M engine: {res.error}")
+    # the ragged metric shares the counter column, whose mirror is then
+    # not certified hole-free: the engine's leaf runs K3 over the rows
+    check(launched(l0) in ({k1: MESH_SHARDS}, {k3: MESH_SHARDS}),
+          f"mesh-1M engine: launched {launched(l0)}")
+    ns = {k.labels_dict["_ns_"]: np.asarray(v, np.float64)
+          for k, _, v in res.series()}
+    eng_vals = np.stack([ns[d["_ns_"]] for d in labels])
+    err = check_close(eng_vals, sums, *MESH_ENGINE_TOL,
+                      "mesh-1M mesh against the engine")
+    log(f"mesh-1M the engine's sum by (_ns_) (rate) over the same 4-shard "
+        f"store: cold {sec:.2f} s, launches {launched(l0)}; the mesh within "
+        f"rtol {MESH_ENGINE_TOL[0]} (max abs/rel {err[0]:.3g} / "
+        f"{err[1]:.3g})")
+    for sh in ms.shards_for("prometheus"):
+        for st in sh.stores.values():
+            m = getattr(st, "device_mirror", None)
+            if m is not None:
+                m.release()
+                release_mirror_caches(m.serial)
+    del eng, res, ms, exs
+    free_device_memory()
+    log(f"mesh-1M: {json.dumps(summary)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2.0 ** 30:.2f} GiB; host "
+        f"RSS now {rss_now() / 2.0 ** 30:.2f} GiB, peak "
+        f"{host_rss() / 2.0 ** 30:.2f} GiB")
+    return launched(n0)
+
+
+def mesh_worker(args) -> int:
+    """A mesh-2proc-65k worker: rank r of 2 keeps shards 2r and 2r + 1 of
+    mesh_store's 4 (MESH_2PROC_SERIES counters, the same seed), joins the
+    process group over localhost (multihost.initialize; gloo where the
+    ranks share this card), and answers sum by (_ns_) (rate(...[5m]))
+    over the 4 x 1 global mesh (its two slots on its card) against the
+    f64 oracle (rtol 2e-4 / atol 1e-3) and against a one-process 4 x 1
+    mesh over a store of all four shards (within 1e-12 relative: the
+    merges differ only in association); writes its result to the file
+    args.mesh_worker[2]."""
+    import torch
+    from filodb_tpu_torch.core.index import Equals
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.parallel import mesh as pmesh
+    from filodb_tpu_torch.parallel import multihost
+    rank, port, out = int(args.mesh_worker[0]), int(args.mesh_worker[1]), \
+        args.mesh_worker[2]
+    exit_when_orphaned()
+    warnings.simplefilter("ignore", RuntimeWarning)
+    for name in kernels.SOURCES:
+        check(kernels.library_path(name).exists(),
+              f"mesh worker {rank}: {name} is not built")
+        kernels.library(name)
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    backend = multihost.initialize(f"127.0.0.1:{port}", num_processes=2,
+                                   process_id=rank, device=dev,
+                                   timeout_s=MESH_2PROC_TIMEOUT_S)
+    join_s = time.perf_counter() - t0
+    mine = [2 * rank, 2 * rank + 1]
+    ms, _, orc, wends, build_s = mesh_store(MESH_2PROC_SERIES, args.seed,
+                                            dev, ragged=0, shards=mine,
+                                            oracles=("rate",))
+    full, _, _, _, _ = mesh_store(MESH_2PROC_SERIES, args.seed, dev,
+                                  ragged=0, oracles=())
+    total = [Equals("_metric_", "request_total")]
+    t_lo, t_hi = int(wends[0]) - RANGE_MS, int(wends[-1])
+
+    def answer(ex):
+        n0 = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        pk = ex.lookup_and_pack(total, t_lo, t_hi, by=("_ns_",),
+                                fn_name="rate")
+        vals, labels = ex.run_agg(pk, wends, range_ms=RANGE_MS,
+                                  fn_name="rate", agg_op="sum")
+        return (by_group(vals, labels, "_ns_", NUM_NS),
+                time.perf_counter() - t, launched(n0))
+    mesh = multihost.global_mesh(n_shard=4, n_time=1, devices=[dev, dev])
+    check(mesh.local_shard_rows() == mine,
+          f"mesh worker {rank}: rows {mesh.local_shard_rows()}")
+    got, sec, l_global = answer(pmesh.MeshExecutor(ms, "prometheus", mesh))
+    one, _, l_one = answer(pmesh.MeshExecutor(
+        full, "prometheus", pmesh.make_mesh(4, 1, devices=[dev] * 4)))
+    check(l_global == {"fused_rate_dense": 2},
+          f"mesh worker {rank}: launched {l_global} on its two slots")
+    err = check_close(got, oracle_of(orc["rate"], "sum"), *KERNEL_TOL,
+                      f"mesh-2proc-65k rank {rank} against the oracle")
+    check((np.isnan(got) == np.isnan(one)).all(),
+          f"mesh-2proc-65k rank {rank}: NaN pattern differs from one process")
+    ok = ~np.isnan(one)
+    rel = float((np.abs(got[ok] - one[ok])
+                 / np.maximum(np.abs(one[ok]), 1e-300)).max())
+    check(rel <= 1e-12, f"mesh-2proc-65k rank {rank}: {rel} relative from "
+          f"the one-process mesh")
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump({"rank": rank, "backend": backend, "join_s": join_s,
+                   "build_s": build_s, "panel_s": sec,
+                   "oracle_err": err, "rel_to_one_process": rel,
+                   "launches": {k: l_global.get(k, 0) + l_one.get(k, 0)
+                                for k in set(l_global) | set(l_one)}}, f)
+    return 0
+
+
+def run_mesh_2proc_phase(seed, dev):
+    """mesh-2proc-65k: two mesh_worker processes on the card join one
+    process group over localhost (gloo: they share the card), each with
+    2 of the 4 shards; the run fails if either fails, exits other than
+    0, or outlives MESH_2PROC_TIMEOUT_S -> their launches."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="mesh-2proc-")
+    outs = [os.path.join(tmp, f"worker-{r}.json") for r in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker", str(r),
+         str(port), outs[r], "--seed", str(seed)], stdin=subprocess.PIPE)
+        for r in (0, 1)]
+    rcs = []
+    try:
+        for p in procs:
+            left = MESH_2PROC_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                rcs.append(p.wait(timeout=max(left, 1.0)))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.stdin.close()
+    check(rcs == [0, 0], f"mesh-2proc-65k: workers ended with {rcs} "
+          f"(None: killed at the {MESH_2PROC_TIMEOUT_S} s limit)")
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = {}
+    for r in res:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"mesh-2proc-65k: {time.perf_counter() - t0:.1f} s, backend "
+        f"{res[0]['backend']}; " + "; ".join(
+            f"rank {r['rank']}: joined {r['join_s']:.2f} s, built "
+            f"{r['build_s']:.1f} s, panel {r['panel_s']:.2f} s, max abs/rel "
+            f"err to the oracle {r['oracle_err'][0]:.3g} / "
+            f"{r['oracle_err'][1]:.3g}, {r['rel_to_one_process']:.3g} "
+            f"relative to one process" for r in res)
+        + f"; launches {launches}")
+    return launches
+
+
+def run_multicard_checks(seed, dev):
+    """Where this machine has two cards or more: (1) the engine over a
+    4-shard store with sharded mirrors (store.device_mirror_sharded, the
+    default) places them over the cards through the MirrorPlacer; (2) it
+    answers serve-1M's 8 dashboard panels with the bits of the engine
+    with every mirror on one card; (3) a 4 x 1 mesh over distinct cards
+    gives the bits of the one-card mesh.  On one card it prints that they
+    were not run, and why -> launches."""
+    import torch
+    from filodb_tpu_torch.config import settings
+    from filodb_tpu_torch.core.index import Equals
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.parallel import mesh as pmesh
+    from filodb_tpu_torch.parallel.shardmapper import SpreadProvider
+    from filodb_tpu_torch.query.engine import QueryEngine
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"multi-card checks: NOT RUN: this machine has {n} card "
+            f"(torch.cuda.device_count() == {n}); the placer across cards, "
+            f"the engine with sharded mirrors against one card and a mesh "
+            f"over distinct cards need two or more")
+        return {}
+    n0 = dict(kernels.LAUNCHES)
+    ms, mapper, _, wends, _ = mesh_store(MESH_2PROC_SERIES, seed, dev,
+                                         ragged=0, oracles=())
+    s0, s1 = int(wends[0]) // 1000, int(wends[-1]) // 1000
+    store_cfg = settings().store
+    was = store_cfg.device_mirror_sharded
+
+    def answers():
+        eng = QueryEngine("prometheus", ms, mapper,
+                          SpreadProvider(default_spread=MESH_SPREAD),
+                          device=dev)
+        out = {}
+        for q in DASHBOARD:
+            res = eng.query_range(q, s0, 60, s1, scan_params())
+            check(res.error is None, f"multi-card {q}: {res.error}")
+            out[q] = {k.labels: np.asarray(v).tobytes()
+                      for k, _, v in res.series()}
+        return out
+
+    def drop_mirrors():
+        devs = set()
+        for sh in ms.shards_for("prometheus"):
+            for st in sh.stores.values():
+                m = getattr(st, "device_mirror", None)
+                if m is not None:
+                    devs.add(str(m.device))
+                    m.release()
+                    st.device_mirror = None
+        free_device_memory()
+        return devs
+    try:
+        store_cfg.device_mirror_sharded = False
+        flat = answers()
+        flat_devs = drop_mirrors()
+        store_cfg.device_mirror_sharded = True
+        sharded = answers()
+        placed = drop_mirrors()
+    finally:
+        store_cfg.device_mirror_sharded = was
+    check(len(placed) >= 2, f"multi-card: mirrors on {placed} only")
+    check(sharded == flat, "multi-card: the engine with sharded mirrors "
+          "differs from the one-card engine in some bit")
+    total = [Equals("_metric_", "request_total")]
+    t_lo, t_hi = int(wends[0]) - RANGE_MS, int(wends[-1])
+    got = {}
+    for what, devs in (("one card", [dev] * 4),
+                       ("distinct cards", [torch.device("cuda", i % n)
+                                           for i in range(4)])):
+        ex = pmesh.MeshExecutor(ms, "prometheus",
+                                pmesh.make_mesh(4, 1, devices=devs))
+        pk = ex.lookup_and_pack(total, t_lo, t_hi, by=("_ns_",),
+                                fn_name="rate")
+        got[what] = ex.run_agg(pk, wends, range_ms=RANGE_MS, fn_name="rate",
+                               agg_op="sum")[0].tobytes()
+    check(got["one card"] == got["distinct cards"],
+          "multi-card: the mesh over distinct cards differs from one card")
+    log(f"multi-card checks on {n} cards: mirrors placed on "
+        f"{sorted(placed)} (one-card engine: {sorted(flat_devs)}); the 8 "
+        f"dashboard panels bit-identical; the mesh over distinct cards "
+        f"bit-identical to the one-card mesh")
+    return launched(n0)
+
+
 # ------------------------------------------ cluster-1M and cluster-e2e-4k
 
 CLUSTER_SHARDS = 4
@@ -6954,11 +7780,14 @@ def run_cluster_e2e_phase(seed, dev):
 
 # ------------------------------------------ replication-1M and federation-1M
 
-# the cuts, in the order the time limit forced them (PERF.md sets out
-# the arithmetic): the catch-up to one missed scrape, federation-1M to
-# 524,288 series, replication-1M to 524,288 series (at 1,048,576 it took
-# 683.7 s alone and 88.8 GiB of host memory at its peak)
-REPL_SERIES = 524_288              # replication-1M's series
+# the cuts, in the order the time limit and the host's memory forced
+# them (PERF.md sets out the arithmetic): the catch-up to one missed
+# scrape, federation-1M to 524,288 series, replication-1M to 524,288
+# series (at 1,048,576 it took 683.7 s alone and 88.8 GiB of host memory
+# at its peak), then to 262,144 (at 524,288 its ~38 GiB beside the
+# gauge-1M store, serve-1M's node and node-16k put the 101 GiB host at
+# 91.4 GiB in use)
+REPL_SERIES = 262_144              # replication-1M's series
 FED_SERIES = 524_288               # federation-1M's series
 REPL_NODES = ("A", "B", "C")
 REPL_SLABS = 16                    # replication-1M: history slabs a shard
@@ -7868,7 +8697,7 @@ SIDES = {"stores": ("flush-page-16k", "cold-65k", "compact-16k",
          "cluster": ("cluster-e2e-4k", "cluster-1M", "replication-1M",
                      "federation-1M"),
          "gauge-hist": ("gauge dense + general-1M", "hist-classic-1M",
-                        "hist-native-1M")}
+                        "hist-native-1M", "mesh-1M")}
 
 
 def run_side(which, args, dev, timed):
@@ -7931,7 +8760,21 @@ def run_side(which, args, dev, timed):
         got.append(launches)
         got.append(timed("hist-native-1M", run_hist_native_path, n,
                          args.seed + 6, small_warm, dev, classic_want)[0])
+        free_device_memory()
+        wait_for_host_memory(MESH_HOST_NEED, "mesh-1M", MESH_HOST_WAIT_S)
+        got.append(timed("mesh-1M", run_mesh_phase, args.series, args.seed,
+                         args.warm, dev))
     return got
+
+
+def exit_when_orphaned():
+    """End this process when its stdin, a pipe from the process that
+    started it, closes (that process ended or was killed)."""
+    def orphaned():
+        while os.read(0, 4096):
+            pass
+        os._exit(3)
+    threading.Thread(target=orphaned, daemon=True).start()
 
 
 def side_worker(args) -> int:
@@ -7943,11 +8786,7 @@ def side_worker(args) -> int:
     import torch
     from filodb_tpu_torch.ops import kernels
 
-    def orphaned():
-        while os.read(0, 4096):
-            pass
-        os._exit(3)
-    threading.Thread(target=orphaned, daemon=True).start()
+    exit_when_orphaned()
     warnings.simplefilter("ignore", RuntimeWarning)
     for name in kernels.SOURCES:
         check(kernels.library_path(name).exists(),
@@ -7957,12 +8796,14 @@ def side_worker(args) -> int:
     phase_s = {}
     timed = phase_timer(dev, phase_s, {})
     launches = {}
+    t_side = time.perf_counter()
     for got in run_side(args.side, args, dev, timed):
         for name, k in got.items():
             launches[name] = launches.get(name, 0) + k
     with open(args.side_out, "w") as f:
         json.dump({"launches": launches, "phase_s": phase_s,
-                   "peak_rss": host_rss()}, f)
+                   "peak_rss": host_rss(),
+                   "side_s": time.perf_counter() - t_side}, f)
     return 0
 
 
@@ -7991,9 +8832,9 @@ def join_side(which, side, phase_s):
     with open(out) as f:
         res = json.load(f)
     phase_s.update(res["phase_s"])
-    log(f"side {which}: joined after {time.perf_counter() - t0:.1f} s of "
-        f"waiting; peak host RSS {res['peak_rss'] / 2.0 ** 30:.2f} GiB; "
-        f"launches {res['launches']}")
+    log(f"side {which}: ran {res['side_s']:.1f} s; joined after "
+        f"{time.perf_counter() - t0:.1f} s of waiting; peak host RSS "
+        f"{res['peak_rss'] / 2.0 ** 30:.2f} GiB; launches {res['launches']}")
     return res["launches"]
 
 
@@ -8010,6 +8851,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ab-worker", help=argparse.SUPPRESS)
     ap.add_argument("--side", choices=tuple(SIDES), help=argparse.SUPPRESS)
     ap.add_argument("--side-out", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-worker", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -8020,6 +8862,8 @@ def main(argv=None) -> int:
         return ab_worker(args.ab_worker, args.series, args.seed)
     if args.side:
         return side_worker(args)
+    if args.mesh_worker:
+        return mesh_worker(args)
     if args.ab:
         cells = args.cells.split(",")
         check(set(cells) <= set(AB_CELLS), f"--cells: one of {AB_CELLS}")
@@ -8057,6 +8901,7 @@ def main(argv=None) -> int:
     log(f"native host library {native.lib().path}")
     log_ptxas(kernels)
     dev = torch.device("cuda", 0)
+    own_tmp = keep_temp_files_on_disk()
 
     phase_s = {"build": time.perf_counter() - t0}
     phase_evictions = {}
@@ -8071,10 +8916,14 @@ def main(argv=None) -> int:
     side_dir = tempfile.mkdtemp(prefix="chip-smoke-")
     sides = {"stores": start_side("stores", args, side_dir),
              "cluster": start_side("cluster", args, side_dir)}
+    watch = HostMemoryWatch(sides)
 
     def add(got, phase):
-        """Count a phase's launches (and log them); stop here if a side
-        process failed."""
+        """Count a phase's launches (and log them), give the card back
+        the blocks this process's allocator caches but no tensor holds
+        (the four processes share the card); stop here if a side process
+        failed."""
+        torch.cuda.empty_cache()
         for name in launches:
             launches[name] += got.get(name, 0)
         log(f"main-path launches of {phase}: "
@@ -8087,13 +8936,17 @@ def main(argv=None) -> int:
                     side_dir)
         for which in SIDES:
             add(join_side(which, sides[which], phase_s), f"side {which}")
+        watch.report()
     finally:
+        watch.stop.set()
         for proc, _ in sides.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             proc.stdin.close()
         shutil.rmtree(side_dir, ignore_errors=True)
+        if own_tmp:
+            shutil.rmtree(own_tmp, ignore_errors=True)
     missing = [name for name, k in launches.items() if k == 0]
     check(not missing, f"kernels of the main path never launched: {missing}")
     log("phase seconds: " + json.dumps(
@@ -8197,6 +9050,12 @@ def main_phases(args, dev, timed, phase_evictions, built, add, sides,
         wal.close()
         shutil.rmtree(root, ignore_errors=True)
     free_device_memory()
+    # last on this line, once its 1M store is gone: two more processes
+    # on the card, out of the window where the four processes peak
+    add(timed("mesh-2proc-65k", run_mesh_2proc_phase, args.seed + 14, dev),
+        "mesh-2proc-65k")
+    add(timed("multi-card", run_multicard_checks, args.seed + 15, dev),
+        "multi-card")
 
 
 if __name__ == "__main__":

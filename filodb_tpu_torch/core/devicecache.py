@@ -44,8 +44,17 @@ booked in the HBM occupancy model under region `hot`
 ColdSegmentCache is the mirror's cold region: persisted-segment blocks
 (persist/segments.ColdBlock) uploaded on demand under a byte budget and
 evicted whole, least recently used first, booked under region `cold`.
-Multi-device placement (MirrorPlacer) is not ported: blocks go to the
-cache's one device.
+
+The sharded mirror mode (store.device_mirror_sharded, with two cards or
+more): MirrorPlacer spreads a memstore's per-shard mirrors, and the
+cold region's blocks, over the cards, HBM-aware, so a multi-shard query
+runs each shard's kernel on its own card.  A placed mirror books its
+bytes with the placer (which feeds the HBM model).  The per-mirror cap
+(store.device_mirror_hbm_limit) stays each mirror's own, as without the
+placer; the placer reads it per card only to choose where a mirror goes.
+Before each upload, full or incremental, a placed mirror checks that the
+mirrors booked on its card fit the card's memory (MirrorPlacer.capacity),
+so a store that fits on one card also fits spread over several.
 """
 from __future__ import annotations
 
@@ -180,13 +189,149 @@ def snapshot_nbytes(snap: Optional[_MirrorSnapshot]) -> int:
     return int(n)
 
 
+def local_cards() -> list:
+    """The cards this process sees, as torch devices (none without
+    CUDA)."""
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+class MirrorPlacer:
+    """HBM-aware placement of shard mirrors across the local devices (the
+    sharded DeviceMirror mode): each card holds its shards' columns, so a
+    multi-shard node spreads its working set over every card's memory
+    instead of piling every mirror onto one, and the fused kernels of a
+    multi-shard query run each shard's launch on its own card.
+
+    A shard prefers its round-robin home (shard_num % n_devices); when the
+    home's booked bytes plus the incoming estimate would exceed the limit,
+    the least-booked device that fits takes it; when none fits, the
+    least-booked device takes it anyway (device_mirror_placement_overflow)
+    and serves it: the limit chooses placement and caps each mirror on its
+    own, not a card's total.  What a card's mirrors may book together is
+    its memory (capacity), which each placed mirror checks before an
+    upload (over it, MirrorCapExceeded, as a mirror over its own cap).
+    assign()
+    books the estimate on the chosen device inside the same lock, so
+    concurrent first queries see each other's bookings; the caller hands
+    it to DeviceMirror(reserved_bytes=), whose _book later adjusts it to
+    the upload's size.  Every booking is fed, with the same delta, to the
+    device telemetry's HBM model (utils/devicetelem.hbm_book).
+
+    `devices` is the device list placed over: None means the cards this
+    process sees (local_cards), or for a memstore on the host (`like` a
+    cpu device) that device alone; a test may set a list, e.g. of
+    torch.device("cuda", i), which needs no card for the bookkeeping."""
+
+    def __init__(self, devices=None):
+        self._lock = threading.Lock()
+        self._booked: Dict[torch.device, int] = {}
+        self.devices = devices
+
+    def device_list(self, like=None) -> list:
+        if self.devices is not None:
+            return list(self.devices)
+        if like is not None and torch.device(like).type == "cpu":
+            return [torch.device(like)]
+        devs = local_cards()
+        if not devs:
+            raise RuntimeError("MirrorPlacer: no card to place on")
+        return devs
+
+    def assign(self, shard_num: int, est_bytes: int, limit_bytes: int,
+               region: str = "hot", like=None) -> torch.device:
+        devs = self.device_list(like)
+        home = devs[shard_num % len(devs)]
+        overflow = False
+        with self._lock:
+            if self._booked.get(home, 0) + est_bytes <= limit_bytes:
+                chosen = home
+            else:
+                fits = [d for d in devs
+                        if self._booked.get(d, 0) + est_bytes <= limit_bytes]
+                chosen = min(fits or devs,
+                             key=lambda d: (self._booked.get(d, 0), str(d)))
+                overflow = not fits
+            self._booked[chosen] = self._booked.get(chosen, 0) + est_bytes
+            used = sum(1 for v in self._booked.values() if v > 0)
+        if overflow:
+            registry.counter("device_mirror_placement_overflow").increment()
+        registry.gauge("device_mirror_devices_used").update(used)
+        telem.hbm_book(chosen, region, est_bytes)
+        return chosen
+
+    def book(self, device, delta: int, region: str = "hot") -> None:
+        if device is None or not delta:
+            return
+        with self._lock:
+            self._booked[device] = max(self._booked.get(device, 0) + delta,
+                                       0)
+            used = sum(1 for v in self._booked.values() if v > 0)
+        registry.gauge("device_mirror_devices_used").update(used)
+        # every placer mutation feeds the HBM model the same delta, so the
+        # gauges and the placer's table reconcile by construction
+        telem.hbm_book(device, region, delta)
+
+    def booked(self, device) -> int:
+        with self._lock:
+            return self._booked.get(device, 0)
+
+    def capacity(self, device) -> Optional[int]:
+        """The bytes that mirrors may book on `device` together: a card's
+        memory, or None on the host (no device memory to overfill)."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            return None
+        return int(torch.cuda.get_device_properties(device).total_memory)
+
+    def over_capacity(self, device) -> bool:
+        cap = self.capacity(device)
+        return cap is not None and self.booked(device) > cap
+
+
+placer = MirrorPlacer()
+
+# serializes mirror creation (the check-then-set on store.device_mirror):
+# two concurrent first queries would otherwise each placer.assign, and the
+# loser's reservation would stay booked until its orphan mirror is
+# collected
+mirror_create_lock = threading.Lock()
+
+
+def _book_delta(device, delta: int, placed: bool,
+                region: str = "hot") -> None:
+    """Book device bytes: with the placer for a placed mirror or block
+    (the placer feeds the HBM model), in the HBM model directly for the
+    others."""
+    if placed:
+        placer.book(device, delta, region=region)
+    else:
+        telem.hbm_book(device, region, delta)
+
+
 def _release_booking(cell) -> None:
     """weakref.finalize target: give a collected mirror's booked bytes
-    back to the HBM model (module-level, so it does not pin the
-    mirror)."""
-    device, nbytes = cell
+    back (module-level, so it does not pin the mirror)."""
+    device, nbytes, placed = cell
     if nbytes:
-        telem.hbm_book(device, "hot", -nbytes)
+        _book_delta(device, -nbytes, placed)
+
+
+def sharded_mirrors_enabled(config_store, device=None) -> bool:
+    """Sharded placement engages when configured (device_mirror_sharded)
+    and the memstore's `device` is a card with at least one other card
+    beside it.  FILODB_TPU_FORCE_SHARDED_MIRROR=1 forces it for a memstore
+    on the host: the placer then places over its own device list (the
+    CPU tests' bookkeeping and equivalence runs)."""
+    import os
+    if not getattr(config_store, "device_mirror_sharded", True):
+        return False
+    dev = torch.device(device) if device is not None else None
+    if dev is not None and dev.type == "cpu":
+        return os.environ.get("FILODB_TPU_FORCE_SHARDED_MIRROR") == "1"
+    return len(placer.devices if placer.devices is not None
+               else local_cards()) >= 2
 
 
 class ColdSegmentCache:
@@ -208,14 +353,25 @@ class ColdSegmentCache:
       clear().
 
     Blocks go to `device` (default "cuda"; without a card it raises
-    unless the caller passes device="cpu")."""
+    unless the caller passes device="cpu"), or, with the placer on
+    (`use_placer`; None: on when `device` is a card beside another),
+    HBM-aware to a card the MirrorPlacer picks for the block's shard,
+    booked there under region `cold`."""
 
-    def __init__(self, limit_bytes: int, device="cuda"):
+    def __init__(self, limit_bytes: int, device="cuda",
+                 use_placer: Optional[bool] = None):
         self.limit_bytes = int(limit_bytes)
         self.device = resolve_device(device)
         self._lock = threading.Condition()
-        self._entries: Dict[tuple, object] = {}      # key -> block (LRU)
+        # key -> (block, placed), least recently used first
+        self._entries: Dict[tuple, tuple] = {}
         self._bytes = 0
+        self._use_placer = use_placer
+
+    def _placer_on(self) -> bool:
+        if self._use_placer is not None:
+            return self._use_placer
+        return self.device.type == "cuda" and len(local_cards()) > 1
 
     @property
     def bytes_booked(self) -> int:
@@ -225,16 +381,17 @@ class ColdSegmentCache:
     def blocks(self) -> list:
         """The resident blocks, least recently used first."""
         with self._lock:
-            return list(self._entries.values())
+            return [b for b, _ in self._entries.values()]
 
     def _evict_until(self, need: int) -> None:
         """Caller holds the lock.  Evict LRU entries until `need` more
         bytes fit under the budget."""
         while self._entries and self._bytes + need > self.limit_bytes:
-            block = self._entries.pop(next(iter(self._entries)))
+            block, placed = self._entries.pop(next(iter(self._entries)))
             nb = getattr(block, "nbytes", 0)
             self._bytes -= nb
-            telem.hbm_book(self.device, "cold", -nb)
+            _book_delta(getattr(block, "device", self.device), -nb, placed,
+                        "cold")
             registry.counter("device_mirror_cold_evictions").increment()
 
     def get(self, key: tuple, est_bytes: int, shard_num: int,
@@ -243,11 +400,11 @@ class ColdSegmentCache:
         block to the torch device it is given, or keeps it on the host
         when given the string "host" (the over-budget degrade)."""
         with self._lock:
-            block = self._entries.get(key)
-            if block is not None:
+            ent = self._entries.get(key)
+            if ent is not None:
                 self._entries[key] = self._entries.pop(key)   # LRU touch
                 registry.counter("device_mirror_cold_hits").increment()
-                return block, "cold_hit"
+                return ent[0], "cold_hit"
         if est_bytes > self.limit_bytes:
             # one block alone blows the budget: host-side segment scan,
             # uncached (the next query decodes again rather than pinning
@@ -263,18 +420,24 @@ class ColdSegmentCache:
                 self._lock.wait()
                 self._evict_until(est_bytes)
             self._bytes += est_bytes
-        telem.hbm_book(self.device, "cold", est_bytes)
+        placed = self._placer_on()
+        device = self.device
         b0 = time.perf_counter()
         try:
-            block = build(self.device)
+            if placed:
+                device = placer.assign(shard_num, est_bytes, self.limit_bytes,
+                                       region="cold", like=self.device)
+            else:
+                _book_delta(device, est_bytes, False, "cold")
+            block = build(device)
         except Exception:
             with self._lock:
                 self._bytes -= est_bytes
                 self._lock.notify_all()
-            telem.hbm_book(self.device, "cold", -est_bytes)
+            _book_delta(device, -est_bytes, placed, "cold")
             raise
         actual = getattr(block, "nbytes", est_bytes)
-        telem.record_dispatch("cold_page_in", device=self.device,
+        telem.record_dispatch("cold_page_in", device=device,
                               shape=f"seg{est_bytes >> 10}k",
                               seconds=time.perf_counter() - b0,
                               bytes_in=actual, kind="transfer", note=False)
@@ -286,18 +449,18 @@ class ColdSegmentCache:
                 # this build's reservation back
                 self._bytes -= est_bytes
                 self._entries[key] = self._entries.pop(key)
-                won = existing
+                won = existing[0]
             else:
                 # the reservation becomes the measured size (actual <=
                 # est: the estimate counts every column)
                 self._bytes += actual - est_bytes
                 self._evict_until(0)
-                self._entries[key] = block
+                self._entries[key] = (block, placed)
                 won = None
         if won is not None:
-            telem.hbm_book(self.device, "cold", -est_bytes)
+            _book_delta(device, -est_bytes, placed, "cold")
             return won, "cold_hit"
-        telem.hbm_book(self.device, "cold", actual - est_bytes)
+        _book_delta(device, actual - est_bytes, placed, "cold")
         registry.counter("device_mirror_cold_misses").increment()
         registry.gauge("device_mirror_cold_bytes").update(self.bytes_booked)
         registry.gauge("device_mirror_cold_limit_bytes").update(
@@ -306,20 +469,31 @@ class ColdSegmentCache:
 
     def clear(self) -> None:
         with self._lock:
-            freed = self._bytes
+            entries = list(self._entries.values())
             self._entries.clear()
             self._bytes = 0
-        telem.hbm_book(self.device, "cold", -freed)
+        for block, placed in entries:
+            _book_delta(getattr(block, "device", self.device),
+                        -getattr(block, "nbytes", 0), placed, "cold")
 
 
 class DeviceMirror:
-    """One mirror per DenseSeriesStore (attached lazily by the leaf)."""
+    """One mirror per DenseSeriesStore (attached lazily by the leaf).
+
+    `placed`: the device came from MirrorPlacer.assign (the sharded
+    mode), which booked `reserved_bytes` on it; the mirror's bookings then
+    go through the placer, and every upload first books its size and
+    checks that the mirrors on its card fit the card's memory
+    (MirrorPlacer.capacity).  `hbm_limit_bytes` caps this mirror alone,
+    placed or not."""
 
     def __init__(self, hbm_limit_bytes: int = DEFAULT_HBM_LIMIT_BYTES,
-                 device="cuda", shard_num: Optional[int] = None):
+                 device="cuda", shard_num: Optional[int] = None,
+                 reserved_bytes: int = 0, placed: bool = False):
         self.hbm_limit_bytes = hbm_limit_bytes
         self.device = resolve_device(device)
         self.shard_num = shard_num
+        self.placed = placed
         self._snap: Optional[_MirrorSnapshot] = None
         # process-unique identity for external caches (id() is reused)
         self.serial = next(_mirror_serial)
@@ -335,17 +509,19 @@ class DeviceMirror:
         self._bg_lock = threading.Lock()
         self._bg_thread: Optional[threading.Thread] = None
         self._bg_error: Optional[BaseException] = None
-        # the snapshot's device bytes as booked in the HBM model; the
-        # finalizer releases them when the mirror is collected
-        self._booking = [self.device, 0]
+        # the device bytes booked (a placed mirror starts with the
+        # placer's reservation); the finalizer releases them when the
+        # mirror is collected
+        self._booking = [self.device, reserved_bytes if placed else 0,
+                         placed]
         weakref.finalize(self, _release_booking, self._booking)
 
     def _book(self, nbytes: int) -> None:
-        """Book this mirror's device bytes in the HBM occupancy model
-        (region `hot`), as a delta against what it booked before."""
+        """Book this mirror's device bytes (region `hot`) as a delta
+        against what it booked before."""
         delta = nbytes - self._booking[1]
         if delta:
-            telem.hbm_book(self.device, "hot", delta)
+            _book_delta(self.device, delta, self.placed)
             self._booking[1] = nbytes
 
     @property
@@ -401,6 +577,26 @@ class DeviceMirror:
             raise MirrorCapExceeded(
                 f"device mirror needs {nbytes} bytes, over its cap of "
                 f"{self.hbm_limit_bytes} (shard {self.shard_num})")
+        if self.placed:
+            # the mirrors booked on the placed card against its memory:
+            # reserve this upload first, then read the card's total, so
+            # two concurrent refreshes of co-located mirrors cannot both
+            # pass and together overfill the card.  Release and refuse
+            # over it.
+            self._book(nbytes)
+            if placer.over_capacity(self.device):
+                from filodb_tpu_torch.utils.events import journal
+                booked = placer.booked(self.device)
+                cap = placer.capacity(self.device)
+                registry.counter("device_mirror_device_over_cap").increment()
+                journal.emit("mirror_over_cap", subsystem="mirror",
+                             scope="device", nbytes=nbytes, limit=cap)
+                self._snap = None
+                self._book(0)
+                raise MirrorCapExceeded(
+                    f"device {self.device} would hold {booked} mirror "
+                    f"bytes, over its memory of {cap} (shard "
+                    f"{self.shard_num})")
         t0 = time.perf_counter()
         dev = self.device
         s, t = store.num_series, max(store.time_used, 1)
@@ -659,8 +855,16 @@ class DeviceMirror:
         if set(n for n, a in store.cols.items() if a is not None) \
                 != set(snap.cols):
             return False                 # a column appeared (hist alloc)
-        if store_nbytes(store) > self.hbm_limit_bytes:
+        need = store_nbytes(store)
+        if need > self.hbm_limit_bytes:
             return False                 # the full path raises
+        if self.placed:
+            # reserve the grown size before the upload (co-located
+            # mirrors appending at once must see each other); over the
+            # card's memory the full path refuses
+            self._book(need)
+            if placer.over_capacity(self.device):
+                return False
         counts_new = store.counts[:s_new].astype(np.int32).copy()
         counts_old = np.zeros(s_new, dtype=np.int32)
         counts_old[:s_old] = snap.counts

@@ -174,8 +174,11 @@ class TimeSeriesShard:
         self.dataset = dataset
         self.shard_num = shard_num
         self.schemas = schemas
-        # where this shard's DeviceMirror lives (the memstore's device)
+        # the memstore's device: this shard's DeviceMirrors live there,
+        # unless the sharded mode (store_config.device_mirror_sharded)
+        # places them on another card
         self.device = device
+        self.store_config = config.store
         self.column_store = column_store or NullColumnStore()
         self.meta_store = meta_store or InMemoryMetaStore()
         self.index = PartKeyIndex()

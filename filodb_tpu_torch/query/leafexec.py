@@ -699,6 +699,34 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                                      pids.tobytes()),
                         route_host=route_host), stats
 
+    def _create_mirror(self, shard, store):
+        """The store's DeviceMirror, made once under mirror_create_lock
+        (two concurrent first queries would otherwise each reserve a
+        device with the placer).  In the sharded mode
+        (devicecache.sharded_mirrors_enabled) the mirror goes to the
+        device the MirrorPlacer assigns this shard, with the placer's
+        reservation, so a multi-shard query runs each shard's kernel on
+        its own card; otherwise to the shard's device."""
+        from filodb_tpu_torch.core.devicecache import (
+            DeviceMirror, mirror_create_lock, placer,
+            sharded_mirrors_enabled, store_nbytes)
+        cfg = shard.store_config
+        with mirror_create_lock:
+            mirror = getattr(store, "device_mirror", None)
+            if mirror is None:
+                limit = cfg.device_mirror_hbm_limit
+                device, est, placed = shard.device, 0, False
+                if sharded_mirrors_enabled(cfg, shard.device):
+                    est = store_nbytes(store)
+                    device = placer.assign(self.shard, est, limit,
+                                           like=shard.device)
+                    placed = True
+                mirror = store.device_mirror = DeviceMirror(
+                    limit, device=device, shard_num=self.shard,
+                    reserved_bytes=est, placed=placed)
+                _note_mirror_limit(mirror.hbm_limit_bytes, mirror.device)
+        return mirror
+
     def _mirror_gather(self, shard, store, rows, col_name):
         """The rows from the device mirror, or None when this query is
         served by the host gather instead.  A stale mirror is refreshed
@@ -711,16 +739,9 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         the mirror's cap or the last background rebuild failed: then it
         runs inline and its error (MirrorCapExceeded) reaches the query.
         The row gather then reads only the immutable device snapshot."""
-        from filodb_tpu_torch.core.devicecache import DeviceMirror
         mirror = getattr(store, "device_mirror", None)
         if mirror is None:
-            with shard._write_locked("mirror_create"):
-                mirror = getattr(store, "device_mirror", None)
-                if mirror is None:
-                    mirror = store.device_mirror = DeviceMirror(
-                        device=shard.device, shard_num=self.shard)
-                    _note_mirror_limit(mirror.hbm_limit_bytes,
-                                       mirror.device)
+            mirror = self._create_mirror(shard, store)
         if not mirror.is_fresh(store):
             bg = (self.ctx.mirror_background_rebuild
                   and mirror.may_rebuild_in_background(store))

@@ -18,6 +18,7 @@ from filodb_tpu_torch.query.execbase import QueryError
 from test_promql_corpus import (CORPUS_DIR, _corpus_files, build_engine,
                                 parse_corpus, run_case)
 from test_torch_engine import _port_engine
+from test_torch_ingest import _clear_compile_journal  # noqa: F401
 
 # file -> evals that raise not_ported: none since the plan nodes (sort,
 # limitk, absent, the label functions, scalar(), vector(), subqueries,

@@ -1515,3 +1515,39 @@ def test_handoff_tombstone_gives_the_card_memory_back(card):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-6)
     finally:
         c.stop()
+
+
+def test_one_card_mesh_launches_k1_once_per_slot(card):
+    """A 4 x 1 mesh whose four slots name the one card: the rate panel
+    launches K1 once per slot and equals the same mesh over the host
+    (the kernels' plain versions) within the kernel-to-plain tolerance
+    (rtol 1e-6, atol 1e-5); the in-process merge runs on the card."""
+    from filodb_tpu_torch.core.index import Equals
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.ingest.generator import counter_batch
+    from filodb_tpu_torch.ops.timewindow import make_window_ends
+    from filodb_tpu_torch.parallel.mesh import MeshExecutor, make_mesh
+    from filodb_tpu_torch.utils.counters import counters
+    start = 1_600_000_000_000
+    ms = TimeSeriesMemStore(device="cpu")
+    for s in range(4):
+        ms.setup("prometheus", s).ingest(
+            counter_batch(512, 360, start_ms=start, seed=40 + s))
+    end = start + 359 * 10_000
+    w = make_window_ends(start + 600_000, end, 60_000)
+    f = [Equals("_metric_", "request_total")]
+
+    def run(mesh):
+        ex = MeshExecutor(ms, "prometheus", mesh)
+        pk = ex.lookup_and_pack(f, start, end, by=("_ns_",), fn_name="rate")
+        return ex.run_agg(pk, w, range_ms=300_000, fn_name="rate",
+                          agg_op="sum")
+    want, wl = run(make_mesh(4, 1, devices=["cpu"] * 4))
+    n0 = kernels.LAUNCHES["fused_rate_dense"]
+    c0 = counters.get("mesh_partials_collective_merge")
+    got, gl = run(make_mesh(4, 1, devices=[card] * 4))
+    assert kernels.LAUNCHES["fused_rate_dense"] == n0 + 4
+    assert counters.get("mesh_partials_collective_merge") == c0 + 1
+    assert gl == wl and (np.isnan(got) == np.isnan(want)).all()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5,
+                               equal_nan=True)

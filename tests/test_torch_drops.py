@@ -27,6 +27,7 @@ from filodb_tpu.ops.timewindow import make_window_ends
 from filodb_tpu_torch.ops import agg as tagg
 from filodb_tpu_torch.ops import fused as tf
 from filodb_tpu_torch.ops import kernels
+from test_torch_ingest import _clear_compile_journal  # noqa: F401
 
 STEP = 10_000
 DENSE_TOL = dict(rtol=2e-5, atol=1e-4)

@@ -19,6 +19,7 @@ from filodb_tpu.ops.counter import rebase_values
 from filodb_tpu.ops.timewindow import make_window_ends
 from filodb_tpu_torch.ops import agg as tagg
 from filodb_tpu_torch.ops import fused as tf
+from test_torch_ingest import _clear_compile_journal  # noqa: F401
 
 STEP = 10_000
 

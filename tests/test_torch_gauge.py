@@ -20,6 +20,7 @@ from filodb_tpu_torch.ops import agg as tagg
 from filodb_tpu_torch.ops import fused as tf
 from filodb_tpu_torch.ops import minmax as tmm
 from filodb_tpu_torch.query import execbase
+from test_torch_ingest import _clear_compile_journal  # noqa: F401
 
 STEP = 10_000
 

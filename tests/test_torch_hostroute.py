@@ -29,6 +29,7 @@ from test_query_engine import _mk_engine
 from test_torch_engine import (END_S, START_MS, START_S, _batch, _gauges,
                                _port_engine)
 import test_torch_hist_native as hn
+from test_torch_ingest import _clear_compile_journal  # noqa: F401
 
 RTOL, ATOL = 2e-4, 1e-3
 

@@ -83,7 +83,8 @@ NEW_MODULES = ("ops.rangefns", "ops.instant", "ops.hist", "ops.select",
                "replication.replicator", "replication.catchup",
                "replication.failover", "replication.handoff", "federation",
                "federation.registry", "federation.exec",
-               "federation.planner", "federation.door")
+               "federation.planner", "federation.door", "parallel.mesh",
+               "parallel.multihost")
 
 
 def _bare_import(module):

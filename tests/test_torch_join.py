@@ -20,6 +20,7 @@ from filodb_tpu_torch.utils.counters import counters
 from test_query_engine import _mk_engine
 from test_torch_engine import (END_S, START_MS, START_S, T, _batch, _gauges,
                                _port_engine, _series)
+from test_torch_ingest import _clear_compile_journal  # noqa: F401
 
 RATE_TOL = (2e-4, 1e-3)
 OTHER_TOL = (5e-4, 5e-3)

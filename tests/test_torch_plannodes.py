@@ -32,6 +32,7 @@ from filodb_tpu_torch.query.execbase import RawBlock
 
 from test_query_engine import NUM_SAMPLES, START_MS, START_S, _mk_engine
 from test_torch_hist_native import _carry
+from test_torch_ingest import _clear_compile_journal  # noqa: F401
 
 END_S = START_S + 7200
 RATE_TOL = (2e-4, 1e-3)

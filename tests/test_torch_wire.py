@@ -25,6 +25,7 @@ from filodb_tpu_torch.parallel import streams as tstreams
 from filodb_tpu_torch.parallel import transport as ttr
 
 from test_unparse_fuzz import TSP, _vector
+from test_torch_ingest import _clear_compile_journal  # noqa: F401
 
 START = 1_600_000_020_000
 
