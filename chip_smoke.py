@@ -286,6 +286,24 @@ cold-65k.  the tier-stitched panel: 65,536 request counters x 6 h at
    from 1M series to 65,536 for the time limit: the
    segment codec and the page-in's correction run on the host
    (PERF.md §4);
+parity-65k.  after cold-65k in its process, over its segments and its
+   object store: (a) a cold-read cluster on the card (one data node, two
+   query-only NodeQueryServers, each on cuda): Q1's rate panel over the
+   segments' span four times round-robin, then twice with the data node
+   stopped, each answer bit-identical to a local query tier's and K1
+   launched; (b) objectstore.get faulted: with allow_partial_results
+   the answer is flagged partial with no error, without it the error is
+   shard_unavailable; (c) 16,384 counters flushed to an in-memory column
+   store, a store restarted over them (recover_index) and a query killed
+   while it pages history: after the one batched column-store read of
+   every partition (as in the reference), it ends query_canceled after
+   decoding 2 of 16,384 partitions, keeps those 2, and a retry answers within rtol 2e-4 /
+   atol 1e-3 of the f64 oracle; (d) a FiloServer whose config declares
+   `env-schema` and store.groups_per_shard = 7: each shard has 7 flush
+   groups, a series of the schema is ingested and answers its avg panel
+   (K5) within rtol 2e-4 / atol 1e-3 of the oracle; (e) one remote write
+   to that server whose trace holds the shard's ingest_columns span
+   stamped with the server's node name;
 compact-16k.  16,384 counters x 720 with 1% missed scrapes and 2,048
    integer gauges on a LocalDiskColumnStore in a temporary directory:
    the hot panel (K3), flush_all_groups, SegmentCompactor.compact_all
@@ -496,8 +514,8 @@ multi-card.  then (run_multicard_checks), where the machine has two
    its 8 dashboard panels bit-identical to one card's, and a mesh over
    distinct cards bit-identical to the one-card mesh; on one card one
    line says they were not run and why;
-flush-page-16k, cold-65k, compact-16k, downsample-16k, broker-16k and
-node-16k, then phases 4 and
+flush-page-16k, cold-65k, parity-65k, compact-16k, downsample-16k,
+broker-16k and node-16k, then phases 4 and
 6-8, run in a second process (`--side stores`) from K8 on, beside phase
 3, restart-1M and the 1M phases on their store; phase 5 (with
 general-1M's gauge half), hist-classic-1M, hist-native-1M, then
@@ -2570,7 +2588,7 @@ def run_host_route_phase(eng, ms, num_series, wends, warm, dev):
             f"{host_rss()} B; warm answers bit-identical")
         rows.append(dict(query=q, cold_s=secs[0],
                          p50=float(np.percentile(secs[1:], 50))))
-    # the router: ROUTER_SERIES series, under HOST_ROUTE_MAX_SAMPLES
+    # the router: ROUTER_SERIES series, under query.host_route_max_samples
     # when it is switched on
     v = torch.from_numpy(np.ascontiguousarray(
         store.cols["count"][:ROUTER_SERIES, :T])).to(dev)
@@ -3144,7 +3162,7 @@ def launched(n0):
             if v > n0.get(k, 0)}
 
 
-def run_cold_phase(seed, warm, dev):
+def run_cold_phase(seed, warm, dev, keep=None):
     """cold-65k: the tier-stitched panel over the persisted tier.
     COLD_SERIES request counters x 6 h at 10 s (make_cold_counters, from
     the seed); the first two 2 h windows written as segment files
@@ -3168,7 +3186,9 @@ def run_cold_phase(seed, warm, dev):
     files byte for byte, and a stateless query node (make_query_tier
     over a ColdSegmentCache on the card) answers Q2 bit-identically to
     the local tier, K1 launched, booked `cold` equal to its blocks ->
-    (launches, rows)."""
+    (launches, rows).  With a dict `keep`, the segments, the object
+    store and Q2's span and oracle are left in it for parity-65k, which
+    removes them."""
     import shutil
     import tempfile
     import threading
@@ -3516,12 +3536,338 @@ def run_cold_phase(seed, warm, dev):
         log(f"cold-65k: max_memory_allocated (Q1, Q1b) {peak_tier} B; "
             f"launches {({k: v for k, v in launches.items() if v})}")
         tier.cold_cache.clear()
+        if keep is not None:
+            keep.update(root=root, store=store, q_start=q1_start,
+                        q_end=q2_end, want=want["sum"][:, :w2])
         return launches, [dict(cold_s=cold_s, p50=float(np.percentile(
             warm_s, 50)), p99=float(np.percentile(warm_s, 99)),
             upload_s=upload_s, restore_s=restore_s,
             **rates)]
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if keep is None or "root" not in keep:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+PARITY_ROUNDS = 4                  # (a): round-robin rounds, all nodes up
+PARITY_KILL_AT = 2                 # (c): the partition whose read kills
+PARITY_SENSORS = 4_096             # (d): env-schema series
+PARITY_SENSOR_NS = 64              # (d): their _ns_ groups
+PARITY_SCHEMA = {"env-schema": {"columns": ["timestamp:ts", "v:double"],
+                                "value_column": "v"}}
+PARITY_NODE = "parity-65k"
+
+
+def parity_cold_cluster(cold, dev):
+    """(a): the cold-read cluster on the card against a local query tier
+    over the same object store -> its row."""
+    import torch
+    from filodb_tpu_torch.config import settings
+    from filodb_tpu_torch.core.devicecache import ColdSegmentCache
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.parallel.testcluster import make_cold_read_cluster
+    from filodb_tpu_torch.persist.objectstore import make_query_tier
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.planners import PersistedClusterPlanner
+    mapper = one_shard_mapper()
+    span = (cold["q_start"], 60, cold["q_end"])
+    qtier, _ = make_query_tier(cold["store"], "prometheus", 1,
+                               cold_cache=ColdSegmentCache(COLD_BUDGET,
+                                                           device=dev))
+    local = QueryEngine("prometheus", TimeSeriesMemStore(), mapper,
+                        planner=PersistedClusterPlanner("prometheus",
+                                                        mapper, qtier))
+    want = local.query_range(RATE_Q, *span, scan_params())
+    _, err, rel = compare(want, cold["want"], *KERNEL_TOL,
+                          "parity-65k (a) local query tier")
+    qtier.cold_cache.clear()
+    del local, qtier
+    # the cluster's shared tier takes its cold region from the setting a
+    # FiloServer reads: set it to the local tier's budget for this build
+    store_cfg = settings().store
+    limit = store_cfg.device_mirror_cold_limit_bytes
+    store_cfg.device_mirror_cold_limit_bytes = COLD_BUDGET
+    try:
+        c = make_cold_read_cluster(cold["store"], num_shards=1,
+                                   dataset="prometheus",
+                                   data_nodes=("data0",),
+                                   query_nodes=("q1", "q2"), device=dev)
+    finally:
+        store_cfg.device_mirror_cold_limit_bytes = limit
+    check(c.tier.cold_cache.limit_bytes == COLD_BUDGET,
+          f"parity-65k (a): the shared tier's cold region "
+          f"{c.tier.cold_cache.limit_bytes} bytes")
+    secs = []
+    try:
+        check(c.mapper.query_nodes == ["q1", "q2"]
+              and all(q not in c.mapper.owners(0) for q in ("q1", "q2"))
+              and all(s.device == dev for s in c.servers.values()),
+              f"parity-65k (a): query nodes {c.mapper.query_nodes}, "
+              f"owners {c.mapper.owners(0)}, devices "
+              f"{[str(s.device) for s in c.servers.values()]}")
+        for i in range(PARITY_ROUNDS + 2):
+            if i == PARITY_ROUNDS:
+                c.servers["data0"].stop()
+            n0 = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            res = c.engine.query_range(RATE_Q, *span, scan_params())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            check(res.error is None and not res.partial,
+                  f"parity-65k (a) round {i}: error {res.error}, partial "
+                  f"{res.partial}")
+            check(set(launched(n0)) == {"fused_rate_dense"},
+                  f"parity-65k (a) round {i}: launched {launched(n0)}")
+            same_answers(res, want, f"parity-65k (a) round {i} against "
+                                    f"the local query tier")
+        blocks = c.tier.cold_cache.blocks()
+        check(len(blocks) == 2 and all(b.ts_off.is_cuda for b in blocks),
+              f"parity-65k (a): the shared tier holds {len(blocks)} blocks "
+              f"on {[str(b.ts_off.device) for b in blocks]}")
+        c.tier.cold_cache.clear()
+    finally:
+        c.stop()
+    log(f"parity-65k (a): cold-read cluster on {dev} (data0, query-only "
+        f"q1 and q2, each a NodeQueryServer on the card): Q1 `{RATE_Q}` "
+        f"over the segments' span, {PARITY_ROUNDS} rounds round-robin, "
+        f"then 2 with data0 stopped; each K1 and bit-identical to the "
+        f"local query tier; the local tier against the oracle "
+        f"max_abs_err {err} max_rel_err {rel}; seconds "
+        f"{[round(x, 3) for x in secs]}")
+    return {"cluster_first_s": secs[0],
+            "cluster_p50_s": float(np.percentile(secs[1:], 50))}
+
+
+def parity_dead_store(cold, dev):
+    """(b): objectstore.get faulted under a query-only tier -> its row."""
+    from filodb_tpu_torch.core.devicecache import ColdSegmentCache
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.parallel.breaker import breakers
+    from filodb_tpu_torch.persist.objectstore import RemoteSegmentStore
+    from filodb_tpu_torch.persist.segments import PersistedTier
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.planners import PersistedClusterPlanner
+    from filodb_tpu_torch.utils.faults import faults
+    mapper = one_shard_mapper()
+
+    def engine():
+        # built before the fault arms, as a node that mounted its store
+        remote = RemoteSegmentStore(cold["store"], "prometheus", 1,
+                                    ttl_s=1_000.0)
+        remote.mount()
+        tier = PersistedTier(remote, "prometheus", 1,
+                             ColdSegmentCache(COLD_BUDGET, device=dev))
+        return QueryEngine("prometheus", TimeSeriesMemStore(), mapper,
+                           planner=PersistedClusterPlanner(
+                               "prometheus", mapper, tier))
+    lenient, strict = engine(), engine()
+    span = (cold["q_start"], 60, cold["q_end"])
+    breakers.configure(failure_threshold=2, open_base_s=0.05,
+                       open_max_s=0.1, jitter=0.0)
+    try:
+        with faults.plan("objectstore.get", "error", first_k=1_000_000):
+            t0 = time.perf_counter()
+            part = lenient.query_range(RATE_Q, *span, scan_params(
+                allow_partial_results=True))
+            part_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            err = strict.query_range(RATE_Q, *span, scan_params())
+            err_s = time.perf_counter() - t0
+    finally:
+        faults.disarm()
+        breakers.configure()
+        breakers.reset()
+    check(part.error is None and part.partial and part.num_series == 0,
+          f"parity-65k (b): with allow_partial_results error {part.error}, "
+          f"partial {part.partial}, {part.num_series} series")
+    check(err.error is not None and err.error.startswith(
+        "shard_unavailable: shard 0: cold tier unavailable"),
+          f"parity-65k (b): without allow_partial_results {err.error}")
+    log(f"parity-65k (b): objectstore.get faulted: with "
+        f"allow_partial_results flagged partial, no error, "
+        f"{part.num_series} series ({part_s:.3f} s); without it "
+        f"`{err.error[:120]}` ({err_s:.3f} s)")
+    return {"dead_partial_s": part_s, "dead_error_s": err_s}
+
+
+def parity_cancel_paging(seed, dev):
+    """(c): a query killed while it pages history, then its retry ->
+    its row."""
+    import torch
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.store import (InMemoryColumnStore,
+                                             InMemoryMetaStore)
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.query.activequeries import (active_queries,
+                                                      set_admission)
+    from filodb_tpu_torch.query.engine import QueryEngine
+    n = PAGE_SERIES
+    vals = make_counter_slab(np.random.default_rng(seed), n, 0.0)
+    keys = counter_keys(n)
+    ts_row = START_MS + np.arange(T, dtype=np.int64) * STEP_MS
+    cs, meta = InMemoryColumnStore(), InMemoryMetaStore()
+    first = TimeSeriesMemStore(column_store=cs, meta_store=meta)
+    sh = first.setup("prometheus", 0)
+    sh.ingest_columns("prom-counter", keys, np.broadcast_to(ts_row, (n, T)),
+                      {"count": vals}, offset=0)
+    t0 = time.perf_counter()
+    chunks = sh.flush_all_groups()
+    flush_s = time.perf_counter() - t0
+    del first, sh
+    ms = TimeSeriesMemStore(column_store=cs, meta_store=meta)
+    sh = ms.setup("prometheus", 0)
+    check(sh.recover_index() == n and chunks == n,
+          f"parity-65k (c): {chunks} chunks flushed, index recovered "
+          f"{sh.num_partitions} of {n}")
+    start_s, end_s = START_MS // 1000 + 600, int(ts_row[-1]) // 1000
+    wends = np.arange(start_s * 1000, int(ts_row[-1]) + 1, 60_000)
+    want = rate_by_ns(torch.from_numpy(vals).to(dev), ts_row, wends)
+    eng = QueryEngine("prometheus", ms)
+    ent = active_queries.register("parity-65k-kill", LIVE_QUERY)
+    read = sh._read_sealed_chunks
+    seen = []
+
+    def read_then_kill(info, *a, **kw):
+        seen.append(info.part_id)
+        if len(seen) == PARITY_KILL_AT:
+            active_queries.kill(ent.query_id, detail="parity-65k")
+        return read(info, *a, **kw)
+    sh._read_sealed_chunks = read_then_kill
+    set_admission(ent)
+    try:
+        t0 = time.perf_counter()
+        killed = eng.query_range(LIVE_QUERY, start_s, 60, end_s,
+                                 scan_params())
+        kill_s = time.perf_counter() - t0
+    finally:
+        del sh._read_sealed_chunks
+        set_admission(None)
+        active_queries.deregister(ent, "killed")
+    store = sh.stores["prom-counter"]
+    kept = int((store.counts[:n] > 0).sum())
+    check(killed.error is not None
+          and killed.error.startswith("query_canceled")
+          and len(seen) == PARITY_KILL_AT and kept == PARITY_KILL_AT,
+          f"parity-65k (c): killed query error {killed.error}, partitions "
+          f"decoded {len(seen)}, kept {kept} of {n}")
+    n0 = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    retry = eng.query_range(LIVE_QUERY, start_s, 60, end_s, scan_params())
+    torch.cuda.synchronize()
+    retry_s = time.perf_counter() - t0
+    _, err, rel = compare(retry, want, *KERNEL_TOL, "parity-65k (c) retry")
+    check(retry.stats.samples_paged > 0
+          and bool((store.counts[:n] > 0).all()),
+          f"parity-65k (c): the retry paged {retry.stats.samples_paged} "
+          f"samples, {int((store.counts[:n] > 0).sum())} of {n} rows hold "
+          f"samples")
+    log(f"parity-65k (c): {n} counters x {T} flushed ({chunks} chunks, "
+        f"{flush_s:.3f} s), a store restarted over them; `{LIVE_QUERY}` "
+        f"killed while paging: `{killed.error[:100]}` after the batched "
+        f"read of all {n} partitions and {len(seen)} decodes, in "
+        f"{kill_s:.3f} s, {kept} kept; "
+        f"the retry paged {retry.stats.samples_paged} samples in "
+        f"{retry_s:.3f} s, launched {launched(n0)}, oracle max_abs_err "
+        f"{err} max_rel_err {rel}")
+    return {"kill_s": kill_s, "retry_s": retry_s}
+
+
+def parity_config_server(seed, dev):
+    """(d) and (e): a FiloServer whose config declares env-schema and
+    store.groups_per_shard = 7 -> its row."""
+    import torch
+    from filodb_tpu_torch.config import FilodbSettings
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.http import remotepb
+    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.standalone import DatasetConfig, FiloServer
+    from filodb_tpu_torch.utils import metrics, snappy
+    cfg = FilodbSettings().overlay({"schemas": PARITY_SCHEMA})
+    cfg.store.groups_per_shard = 7
+    n, k = PARITY_SENSORS, T
+    rng = np.random.default_rng(seed)
+    vals = np.round(rng.uniform(15.0, 30.0, (n, k)), 2)
+    ts_row = START_MS + np.arange(k, dtype=np.int64) * STEP_MS
+    keys = [PartKey.make("room_temp", {
+        "_ws_": "demo", "_ns_": f"App-{i % PARITY_SENSOR_NS}",
+        "instance": f"Sensor-{i}"}) for i in range(n)]
+    node_before = metrics.NODE_NAME
+    srv = FiloServer([DatasetConfig("prometheus", 1)], config=cfg,
+                     node_name=PARITY_NODE)
+    try:
+        shards = srv.memstore.shards_for("prometheus")
+        groups = [s._groups for s in shards]
+        check("env-schema" in srv.memstore.schemas and groups == [7]
+              and all(s.config is cfg for s in shards),
+              f"parity-65k (d): schemas "
+              f"{sorted(srv.memstore.schemas.by_name)}, groups {groups}")
+        got = shards[0].ingest_columns(
+            "env-schema", keys, np.broadcast_to(ts_row, (n, k)), {"v": vals})
+        check(got == n * k, f"parity-65k (d): ingested {got} of {n * k}")
+        start_s, end_s = START_MS // 1000 + 600, int(ts_row[-1]) // 1000
+        wends = np.arange(start_s * 1000, int(ts_row[-1]) + 1, 60_000)
+        per = oracle_over_time_t(torch.from_numpy(vals).to(dev), ts_row,
+                                 wends)["avg"]
+        acc = GroupOracle(PARITY_SENSOR_NS, len(wends))
+        acc.add(per, torch.arange(n, device=dev) % PARITY_SENSOR_NS)
+        q = "avg by (_ns_) (avg_over_time(room_temp[5m]))"
+        n0 = dict(kernels.LAUNCHES)
+        res = srv.engines["prometheus"].query_range(q, start_s, 60, end_s,
+                                                    scan_params())
+        check(set(launched(n0)) == {"fused_over_time_dense"},
+              f"parity-65k (d): `{q}` launched {launched(n0)}")
+        _, err, rel = compare(res, acc.result("avg"), *KERNEL_TOL,
+                              "parity-65k (d) env-schema panel")
+        log(f"parity-65k (d): FiloServer on {dev} with `env-schema` from "
+            f"its config and store.groups_per_shard = 7: {groups} groups; "
+            f"{n} env-schema series x {k} ingested; `{q}` via K5, oracle "
+            f"max_abs_err {err} max_rel_err {rel}")
+        series = [remotepb.PromTimeSeries(
+            [("__name__", "parity_write_total"), ("_ws_", "demo"),
+             ("_ns_", f"App-{i % 4}"), ("instance", f"W-{i}")],
+            [(float(i + j), int(ts_row[-1]) + 10_000 * (j + 1))
+             for j in range(3)]) for i in range(8)]
+        st, pay = srv.api.handle(
+            "POST", "/api/v1/write", {},
+            snappy.compress(remotepb.encode_write_request(series)))
+        check(st == 204, f"parity-65k (e): remote write answered {st}")
+        tid = pay["_headers"]["X-Trace-Id"]
+        events = metrics.collector.trace(tid) or []
+        ingest = [e for e in events if e["span"].endswith("ingest_columns")]
+        check(ingest and all(e["node"] == PARITY_NODE for e in ingest),
+              f"parity-65k (e): trace {tid} spans "
+              f"{[(e['span'], e.get('node')) for e in events]}")
+        log(f"parity-65k (e): one remote write (8 series x 3): trace {tid} "
+            f"holds {len(events)} spans, {len(ingest)} ingest_columns "
+            f"stamped node={PARITY_NODE}: "
+            f"{sorted({e['span'].rsplit('.', 1)[-1] for e in events})}")
+    finally:
+        srv.shutdown()
+        metrics.NODE_NAME = node_before
+    return {"sensor_err": err}
+
+
+def run_parity_phase(cold, seed, dev):
+    """parity-65k: the repairs of the parity audit on the card, over
+    cold-65k's segments and object store (`cold`, left by
+    run_cold_phase(keep=...)), which it removes -> (launches, rows)."""
+    import shutil
+
+    from filodb_tpu_torch.ops import kernels
+    check("root" in cold, "parity-65k: cold-65k left no object store")
+    kernels.reset_launch_counts()
+    row = {}
+    try:
+        row.update(parity_cold_cluster(cold, dev))
+        row.update(parity_dead_store(cold, dev))
+    finally:
+        shutil.rmtree(cold.pop("root"), ignore_errors=True)
+        cold.clear()
+    row.update(parity_cancel_paging(seed, dev))
+    row.update(parity_config_server(seed, dev))
+    launches = dict(kernels.LAUNCHES)
+    log(f"parity-65k: launches {({k: v for k, v in launches.items() if v})}")
+    return launches, [row]
 
 
 def run_compact_phase(seed, dev):
@@ -8689,7 +9035,8 @@ def run_federation_phase(num_series, seed, warm, dev):
 # the cluster phases from K8 on, beside phase 3's build and restart-1M
 # (cluster-1M's two nodes hold ~10 GB on the card; on the main line
 # after live-ingest-1M it took the script to 1,131 s on a slow host).
-SIDES = {"stores": ("flush-page-16k", "cold-65k", "compact-16k",
+SIDES = {"stores": ("flush-page-16k", "cold-65k", "parity-65k",
+                    "compact-16k",
                     "downsample-16k", "broker-16k", "node-16k",
                     "counter ragged",
                     "gauge ragged",
@@ -8705,9 +9052,12 @@ def run_side(which, args, dev, timed):
     small_warm = max(3, args.warm // 3)
     got = []
     if which == "stores":
+        cold = {}
         for name, fn, a in (
                 ("flush-page-16k", run_flush_page_phase, (args.seed + 7, dev)),
-                ("cold-65k", run_cold_phase, (args.seed + 8, args.warm, dev)),
+                ("cold-65k", run_cold_phase,
+                 (args.seed + 8, args.warm, dev, cold)),
+                ("parity-65k", run_parity_phase, (cold, args.seed + 16, dev)),
                 ("compact-16k", run_compact_phase, (args.seed + 7, dev)),
                 ("downsample-16k", run_downsample_phase,
                  (args.seed + 10, dev)),

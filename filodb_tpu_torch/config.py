@@ -82,8 +82,8 @@ class QueryConfig:
     # cost-based host/device leaf routing: leaf working sets whose
     # estimated scan is at or below this many samples evaluate in host
     # numpy (ops/hostleaf) instead of paying the device's per-dispatch
-    # floor.  0 disables.  The port's leaf reads its own constant,
-    # query/leafexec.HOST_ROUTE_MAX_SAMPLES, of the same value.
+    # floor.  0 disables.  Read per query from the shard's config, only
+    # where FILODB_TPU_FORCE_HOST_ROUTE is set.
     host_route_max_samples: int = 2_000_000
     # --- query-serving frontend (query/frontend.py) ---
     # step-aligned incremental result cache (the Thanos/Cortex

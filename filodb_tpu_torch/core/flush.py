@@ -1,6 +1,6 @@
 """Background flush scheduling, ingest/persist overlap (port of
 filodb_tpu/core/flush.py; a background pass batches small partitions at
-the shard's MIN_FLUSH_SAMPLES, the reference's store default).
+the shard's `store.min_flush_samples`, read at each flush).
 
 The reference drives flushes from a dedicated stream: each shard cycles
 through its flush groups on a timer, sealing write buffers and persisting
@@ -22,8 +22,6 @@ import logging
 import threading
 import time
 from typing import Dict, Optional
-
-from filodb_tpu_torch.core.shard import MIN_FLUSH_SAMPLES
 
 _log = logging.getLogger("filodb.flush")
 
@@ -167,7 +165,8 @@ class FlushScheduler:
                             # (the write-buffer behavior); direct flush
                             # calls seal all
                             wrote += shard.flush_group(
-                                group, min_samples=MIN_FLUSH_SAMPLES)
+                                group, min_samples=shard.config.store
+                                .min_flush_samples)
                             self.flushes += 1
                             self._note_flush_ok(shard)
                     except Exception as e:  # noqa: BLE001

@@ -1,7 +1,7 @@
 """TimeSeriesMemStore — per-node map of dataset -> shards (port of
 filodb_tpu/core/memstore.py: setup, lookup, ingest, the ingest stream
-with interleaved group flushes, flush_all, shard_map and drop_shard;
-recovery comes with the WAL).
+with interleaved group flushes, flush_all, shard_map, drop_shard and the
+recovery entry points `recover_index` and `recover_stream`).
 
 Takes ``device=`` (default ``"cuda"``) and raises without a card unless
 given ``device="cpu"``; every shard's DeviceMirror lives there.  A store
@@ -9,12 +9,16 @@ on a card registers it with the device telemetry when it is constructed,
 so /admin/devices lists it before the first dispatch.  Shards
 persist flushed chunks to ``column_store`` and group checkpoints to
 ``meta_store`` (by default a NullColumnStore and an InMemoryMetaStore,
-as in the reference).
+as in the reference).  Schemas come from ``schemas=``, else from the
+config's ``schemas`` block, else the built-in ``DEFAULT_SCHEMAS``; the
+config (the ``settings()`` singleton unless one is given) is handed to
+every shard, which reads its store and tenant settings from it.
 """
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from filodb_tpu_torch.config import settings as default_settings
 from filodb_tpu_torch.core.records import RecordBatch
 from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS, Schemas
 from filodb_tpu_torch.core.shard import TimeSeriesShard
@@ -29,11 +33,12 @@ class TimeSeriesMemStore:
                  column_store: Optional[ColumnStore] = None,
                  meta_store: Optional[MetaStore] = None, device="cuda",
                  config=None):
-        """config: a FilodbSettings for the shards' tenant settings
-        (None: the settings() singleton)."""
         self.device = resolve_device(device)
-        self.config = config
-        self.schemas = schemas if schemas is not None else DEFAULT_SCHEMAS
+        self.config = config or default_settings()
+        # explicit schemas, then the config's schemas block, then the
+        # built-ins: servers and cluster nodes pick up the config's block
+        self.schemas = (schemas if schemas is not None
+                        else (self.config.schemas or DEFAULT_SCHEMAS))
         self.column_store = column_store or NullColumnStore()
         self.meta_store = meta_store or InMemoryMetaStore()
         self._shards: Dict[str, Dict[int, TimeSeriesShard]] = {}
@@ -116,6 +121,13 @@ class TimeSeriesMemStore:
                 shard.flush_group(group % shard._groups)
                 group += 1
         return total
+
+    def recover_index(self, dataset: str, shard_num: int) -> int:
+        return self.setup(dataset, shard_num).recover_index()
+
+    def recover_stream(self, dataset: str, shard_num: int,
+                       batches: Iterable[Tuple[RecordBatch, int]]) -> int:
+        return self.setup(dataset, shard_num).recover_stream(batches)
 
     def flush_all(self, dataset: str) -> int:
         return sum(s.flush_all_groups() for s in self.shards_for(dataset))

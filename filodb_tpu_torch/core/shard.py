@@ -24,9 +24,11 @@ the index's tombstoned postings under the write lock.  The downsampler
 hook: a `shard_downsampler` (downsample/shard_downsampler.py) is fed each
 flushed chunk inside the flush's persist loop, past a per-partition time
 watermark, so emission stays exactly-once across a shift-skipped seal.
-The store settings the reference reads from its
-config are the constants below, at its defaults; the tenant settings
-come from the config (`query.tenant_usage_enabled`,
+The shard keeps its config (`self.config`, the `settings()` singleton
+unless one is given) and reads from it, as the reference does, the store
+settings (`store.groups_per_shard`, `shard_mem_size`,
+`resident_cache_bytes`, `active_tail_rows`; the flush scheduler reads
+`min_flush_samples`) and the tenant settings (`query.tenant_usage_enabled`,
 `index.tenant_series_limit`).  A key whose partition lives in another
 schema's store is dropped from a batch of this schema and counted in
 `stats.schema_dropped` (the reference writes it into the other store's
@@ -62,7 +64,8 @@ from filodb_tpu_torch.memory.histogram import HistogramBuckets
 from filodb_tpu_torch.memory.resident import ResidentChunkCache
 from filodb_tpu_torch.utils.faults import faults
 from filodb_tpu_torch.utils.growable import grow_to as _grow_to
-from filodb_tpu_torch.utils.metrics import registry as metrics_registry
+from filodb_tpu_torch.utils.metrics import (registry as metrics_registry,
+                                            span as metrics_span)
 
 _log = logging.getLogger("filodb.shard")
 
@@ -70,13 +73,6 @@ NO_HORIZON_MS = -(1 << 62)               # see append_horizon_ms
 _SHARD_KEYS_SERIAL = itertools.count(1)  # see TimeSeriesShard.keys_serial
 _KEY_RESOLVE_CACHE_MAX = 4               # live key tables per shard (schemas)
 _LOOKUP_CACHE_MAX = 32                   # memoized lookup_partitions results
-
-# the reference's store settings (filodb_tpu/config.py StoreConfig)
-GROUPS_PER_SHARD = 60               # flush groups
-SHARD_MEM_SIZE = 512 * 1024 * 1024
-RESIDENT_CACHE_BYTES = 256 << 20
-ACTIVE_TAIL_ROWS = 512
-MIN_FLUSH_SAMPLES = 256             # a background flush's write-buffer floor
 
 # shared flush-encode pool: chunk encoding is numpy (releases the GIL), so
 # slab-parallel encode overlaps with live ingest on the other cores.  One
@@ -171,14 +167,14 @@ class TimeSeriesShard:
         if config is None:
             from filodb_tpu_torch.config import settings
             config = settings()
+        self.config = config
         self.dataset = dataset
         self.shard_num = shard_num
         self.schemas = schemas
         # the memstore's device: this shard's DeviceMirrors live there,
-        # unless the sharded mode (store_config.device_mirror_sharded)
+        # unless the sharded mode (store.device_mirror_sharded)
         # places them on another card
         self.device = device
-        self.store_config = config.store
         self.column_store = column_store or NullColumnStore()
         self.meta_store = meta_store or InMemoryMetaStore()
         self.index = PartKeyIndex()
@@ -205,7 +201,7 @@ class TimeSeriesShard:
         # so the dense tier holds only the active tail.  Without a column
         # store it is the only copy of sealed history, so it never evicts
         self.resident = ResidentChunkCache(
-            RESIDENT_CACHE_BYTES,
+            config.store.resident_cache_bytes,
             persistent=not isinstance(self.column_store, NullColumnStore))
         self.stats = ShardStats()
         # per-tenant (_ws_/_ns_) ingest attribution (utils/usage.py):
@@ -227,7 +223,7 @@ class TimeSeriesShard:
         # (core/ratelimit.CardinalityTracker)
         self.cardinality_tracker = None
         self.ingested_offset = -1                   # latest ingest offset seen
-        self._groups = GROUPS_PER_SHARD
+        self._groups = config.store.groups_per_shard
         self._dirty_part_keys: set = set()          # partIds needing pk upsert
         # writer mutex: ingest, flush copy/seal, paging, eviction and mirror
         # refresh serialize here; queries read through snapshot_read's
@@ -271,6 +267,9 @@ class TimeSeriesShard:
         if not self.write_lock.acquire(timeout=warn_after_s):
             _log.warning("write_lock stall: %s waited >%.0fs on shard %d",
                          what, warn_after_s, self.shard_num)
+            metrics_registry.counter(
+                "write_lock_stalls", dataset=self.dataset,
+                shard=str(self.shard_num)).increment()
             self.write_lock.acquire()
         try:
             yield
@@ -549,6 +548,7 @@ class TimeSeriesShard:
             n = store.append_grid(rows, ts2d, cols2d, batch.bucket_les)
             self.stats.rows_ingested += n
             self.stats.rows_dropped += ts2d.size - n
+            self._count_ingested(n)
             self._account_ingest(pids_for_key[keep], grid_k)
             if offset >= 0:
                 self.ingested_offset = offset
@@ -585,6 +585,7 @@ class TimeSeriesShard:
                                batch.bucket_les)
         self.stats.rows_ingested += n
         self.stats.rows_dropped += batch.num_records - n
+        self._count_ingested(n)
         self._account_ingest(pid_sel, 1)
         if offset >= 0:
             self.ingested_offset = offset
@@ -624,7 +625,10 @@ class TimeSeriesShard:
         if ts.ndim != 2 or len(part_keys) != ts.shape[0]:
             raise ValueError("ingest_columns: ts must be [num_keys, k]")
         faults.fire("ingest.batch")
-        with self._write_locked("ingest"):
+        # write-path trace: the memstore-visibility stage of an ingest
+        # batch (one span a slab, under the door's trace id)
+        with metrics_span("ingest_columns", dataset=self.dataset), \
+                self._write_locked("ingest"):
             if ts.size == 0:
                 return 0
             store = self._store_for(schema_name)
@@ -656,6 +660,7 @@ class TimeSeriesShard:
             n = store.append_grid(rows, ts, columns, bucket_les)
             self.stats.rows_ingested += n
             self.stats.rows_dropped += ts.size - n
+            self._count_ingested(n)
             self._account_ingest(pids_for_key[keep], ts.shape[1])
             if offset >= 0:
                 self.ingested_offset = offset
@@ -677,8 +682,12 @@ class TimeSeriesShard:
         # flushes serialize against EACH OTHER here; the shard write lock
         # is held only for the brief copy and seal phases
         with self._flush_lock:
-            return self._do_flush_group(group, ingestion_time_ms,
-                                        min_samples)
+            with metrics_span("flush", dataset=self.dataset):
+                written = self._do_flush_group(group, ingestion_time_ms,
+                                               min_samples)
+        metrics_registry.counter("chunks_flushed",
+                                 dataset=self.dataset).increment(written)
+        return written
 
     def _prune_tombstones(self, grace_s: float = 60.0,
                           max_prune: int = 8192) -> int:
@@ -1078,7 +1087,8 @@ class TimeSeriesShard:
 
     def ensure_paged_pids(self, schema_name: str, pids: np.ndarray,
                           start_time_ms: int, end_time_ms: int,
-                          max_samples: Optional[int] = None) -> int:
+                          max_samples: Optional[int] = None,
+                          cancel=None) -> int:
         """Vectorized ensure_paged precheck: numpy over the whole pid
         array finds which pids need paging, and the per-partition paging
         loop runs only on that (usually empty) subset."""
@@ -1104,17 +1114,19 @@ class TimeSeriesShard:
         parts = [self.partitions[p] for p in np.asarray(pids)[need].tolist()]
         with self._write_locked("demand_paging"):
             return self.ensure_paged(parts, start_time_ms, end_time_ms,
-                                     max_samples=max_samples)
+                                     max_samples=max_samples, cancel=cancel)
 
     def ensure_paged(self, parts: Sequence[PartitionInfo],
                      start_time_ms: int, end_time_ms: int,
-                     max_samples: Optional[int] = None) -> int:
+                     max_samples: Optional[int] = None,
+                     cancel=None) -> int:
         """On-demand paging: load sealed chunks not in the dense tier so
         the query sees full history.  Coverage bookkeeping lives in the
         store (per-row paged_floor/paged_ceil), so eviction invalidates
         it.  Two directions: below the in-memory data (prepend) and, for
-        page-only rows (no live appends), above it too.  Returns samples
-        paged."""
+        page-only rows (no live appends), above it too.  `cancel`, if
+        given, is called before each partition and raises to stop a
+        killed query.  Returns samples paged."""
         if not self._may_page():
             return 0
         # one read_chunks_multi for every partition whose below-floor range
@@ -1151,6 +1163,10 @@ class TimeSeriesShard:
             # scan; work already done is kept as valid cache
             if max_samples is not None and paged > max_samples:
                 raise PagedLimitExceeded(max_samples, paged, parts_paged)
+            # a killed query stops between partitions: the callable raises
+            # the caller's error; paged work is kept, as above
+            if cancel is not None:
+                cancel()
             store = self.stores[info.schema_name]
             row = info.row
             cnt = int(store.counts[row])
@@ -1218,6 +1234,17 @@ class TimeSeriesShard:
                     else:
                         store.paged_ceil[row] = end_time_ms
         return paged
+
+    def gather_series(self, parts: Sequence[PartitionInfo]):
+        """Dense-gather rows of a single-schema partition list: host numpy
+        (the device copy is the DeviceMirror's).  Returns (ts [S, T], cols
+        dict, counts [S], store), or None for no partitions."""
+        if not parts:
+            return None
+        store = self.stores[parts[0].schema_name]
+        rows = np.asarray([p.row for p in parts], dtype=np.int64)
+        ts, cols, counts = store.gather_rows(rows)
+        return ts, cols, counts, store
 
     # ---------------------------------------------------------- recovery
 
@@ -1302,13 +1329,23 @@ class TimeSeriesShard:
         stays queryable from the resident tier (RAM) or the column store
         through ensure_paged.  Returns bytes released."""
         budget = (budget_bytes if budget_bytes is not None
-                  else SHARD_MEM_SIZE)
+                  else self.config.store.shard_mem_size)
         tail = (active_tail_rows if active_tail_rows is not None
-                else ACTIVE_TAIL_ROWS)
+                else self.config.store.active_tail_rows)
         return self._enforce_memory(budget, tail)
 
+    def _count_ingested(self, n: int) -> None:
+        metrics_registry.counter("ingested_rows", dataset=self.dataset,
+                                 shard=str(self.shard_num)).increment(n)
+
+    def _note_dense_bytes(self) -> int:
+        dense = sum(s.nbytes for s in self.stores.values())
+        metrics_registry.gauge("dense_store_bytes", dataset=self.dataset,
+                               shard=str(self.shard_num)).update(dense)
+        return dense
+
     def _enforce_memory(self, budget: int, tail: int) -> int:
-        if sum(s.nbytes for s in self.stores.values()) <= budget:
+        if self._note_dense_bytes() <= budget:
             return 0
         self.eviction_in_progress = True
         try:
@@ -1325,7 +1362,14 @@ class TimeSeriesShard:
                     if excess.any():
                         store.evict_oldest(excess)
                     released += store.compact_time(slack=max(8, tail // 4))
+            self._note_dense_bytes()
+            metrics_registry.counter("memory_pressure_evictions",
+                                     dataset=self.dataset).increment()
             self.stats.evictions += 1
+            from filodb_tpu_torch.utils.events import journal
+            journal.emit("eviction_sweep", subsystem="memstore",
+                         reason="memory_pressure", dataset=self.dataset,
+                         shard=self.shard_num, bytes_released=released)
             return released
         finally:
             self.eviction_in_progress = False

@@ -8,7 +8,7 @@ Ragged and histogram sets stay on the device paths.  The formulas are
 the kernels' (same boundary indices, same extrapolation) in f64.
 
 The routing decision lives in query/leafexec.py (threshold
-HOST_ROUTE_MAX_SAMPLES) and is observable through the
+`query.host_route_max_samples`) and is observable through the
 `leaf_host_routed` counter.
 """
 from __future__ import annotations

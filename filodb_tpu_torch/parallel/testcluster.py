@@ -254,7 +254,10 @@ def make_cold_read_cluster(object_store, num_shards: int = 4,
     the per-process tier registry, so this models N stateless readers
     paging one shared tier.  Query-only nodes register on the mapper
     (`register_query_node`) and the persisted planner routes through
-    `cold_dispatcher_factory` — round-robin across all of them."""
+    `cold_dispatcher_factory` — round-robin across all of them.  The
+    shared tier's cold region on `device` holds the settings'
+    `store.device_mirror_cold_limit_bytes`, as a FiloServer's does."""
+    from filodb_tpu_torch.config import settings
     from filodb_tpu_torch.persist.objectstore import make_query_tier
     from filodb_tpu_torch.query.planners import PersistedClusterPlanner
     from filodb_tpu_torch.replication.failover import cold_dispatcher_factory
@@ -284,6 +287,8 @@ def make_cold_read_cluster(object_store, num_shards: int = 4,
     # decoded cold leaves to the most recent tier for the dataset, and
     # this in-process fixture wants that to be the object-store one
     tier, remote = make_query_tier(object_store, dataset, num_shards,
+                                   cold_limit_bytes=settings().store
+                                   .device_mirror_cold_limit_bytes,
                                    schemas=schemas, device=device)
     planner = PersistedClusterPlanner(
         dataset, mapper, tier, spread_provider=spread,

@@ -577,6 +577,18 @@ def _row_tail_state(raw: np.ndarray, corrected: np.ndarray
 
 # ------------------------------------------------------------------- tier
 
+# process-local tier registry, keyed by dataset: the tier itself (files +
+# the cold region on the node's device) is node-local and never crosses
+# the wire, so a dispatched SelectPersistedSegmentsExec encodes only its
+# dataset name and the decoder rebinds it to the receiving node's tier
+# here (parallel/serialize.py)
+_QUERY_TIERS: Dict[str, "PersistedTier"] = {}
+
+
+def query_tier(dataset: str) -> Optional["PersistedTier"]:
+    return _QUERY_TIERS.get(dataset)
+
+
 class PersistedTier:
     """The query-side face of the historical tier: segment coverage for
     the planner, cold blocks (through the byte-budgeted LRU region) for
@@ -603,6 +615,8 @@ class PersistedTier:
         # working-set-sized copy, so the LRU stays tiny
         self._merge_cache: Dict[tuple, object] = {}
         self._merge_cache_max = 2
+        # the last tier constructed for a dataset serves decoded cold leaves
+        _QUERY_TIERS[dataset] = self
 
     def covering(self, shard: int, start_ms: int, end_ms: int,
                  schema_name: Optional[str] = None) -> List[SegmentMeta]:

@@ -20,8 +20,9 @@ what is now resident.  Then its rows come from one of two places:
   rearranged (corrected as the mirror would be; counted as
   device_mirror_query_fallbacks).
 
-The router (HOST_ROUTE_MAX_SAMPLES) sends a working set of at most that
-many estimated samples to the host, only where the environment sets
+The router (the process settings' `query.host_route_max_samples`) sends a
+working set of at most that many estimated samples to the host, only
+where the environment sets
 FILODB_TPU_FORCE_HOST_ROUTE: on the card the mirror and its kernels
 answer a small set faster than the host does.
 
@@ -79,6 +80,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from filodb_tpu_torch.config import settings
 from filodb_tpu_torch.core.index import ColumnFilter
 from filodb_tpu_torch.core.schemas import DS_GAUGE_FN_SUBSTITUTION
 from filodb_tpu_torch.core.shard import PagedLimitExceeded
@@ -108,12 +110,6 @@ from filodb_tpu_torch.utils.metrics import exec_tally, trace_context
 # is_counter flag): on a counter column they read the reset-corrected
 # values the mirror holds; any other function needs the raw ones
 COUNTER_FNS = ("rate", "increase", "irate")
-
-HOST_ROUTE_MAX_SAMPLES = 2_000_000
-"""The router's threshold: a working set of at most this many estimated
-samples is gathered on the host (0 turns the router off).  The router is
-active only where the environment sets FILODB_TPU_FORCE_HOST_ROUTE."""
-
 
 class MultiSchemaPartitionsExec(LeafExecPlan):
     """Leaf: index lookup + device gather on the owning shard."""
@@ -326,6 +322,8 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                 plan = _lru_touch(_FUSED_PLAN_CACHE, plan_key)
                 padded_vals = _lru_touch(_FUSED_VALS_CACHE, key)
             groups, gkeys = _group_cache_lookup(key, t1.by, t1.without)
+            if padded_vals is not None:
+                counters.inc("leaf_fused_prep_hits")
         if plan is None:
             plan = fused.build_plan(data.shared_ts_row.astype(np.int64),
                                     eval_wends, t0.window_ms)
@@ -608,11 +606,15 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         est = check_scan_cap("resident")
         # demand paging: sealed history the dense tier dropped comes back
         # from the resident tier or the column store, at most `limit`
-        # samples of it (the work already paged is kept)
+        # samples of it (the work already paged is kept); a killed query
+        # stops paging between partitions
+        tok = getattr(self.ctx, "cancel", None)
         try:
             paged = shard.ensure_paged_pids(
                 schema_name, pids, self.chunk_start_ms, self.chunk_end_ms,
-                max_samples=limit if enforced else None)
+                max_samples=limit if enforced else None,
+                cancel=(None if tok is None else
+                        lambda: self._check_cancel("demand paging")))
         except PagedLimitExceeded as e:
             raise QueryError("paged_limit_exceeded", str(e)) from None
         if paged:
@@ -649,11 +651,12 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                 break
         # the cost-based router, on only where the environment sets
         # FILODB_TPU_FORCE_HOST_ROUTE: a working set of at most
-        # HOST_ROUTE_MAX_SAMPLES samples is gathered on the host and,
-        # where _try_fused's host route takes it, evaluated there
+        # query.host_route_max_samples samples (0: the router is off) is
+        # gathered on the host and, where _try_fused's host route takes
+        # it, evaluated there
         route_host = False
-        if HOST_ROUTE_MAX_SAMPLES > 0 \
-                and os.environ.get("FILODB_TPU_FORCE_HOST_ROUTE"):
+        route_cap = settings().query.host_route_max_samples
+        if route_cap > 0 and os.environ.get("FILODB_TPU_FORCE_HOST_ROUTE"):
             route_est = est
             if counter_col and fn_is_counter:
                 # its reset correction also reads each row's history
@@ -662,10 +665,11 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
                 p_hi = store.window_positions(self.chunk_start_ms,
                                               self.chunk_end_ms)[1]
                 route_est = int(np.minimum(store.counts[rows], p_hi).sum())
-            route_host = 0 < route_est <= HOST_ROUTE_MAX_SAMPLES
+            route_host = 0 < route_est <= route_cap
         shared_ts_row = None
         mirrored = None
-        if not route_host and (not counter_col or fn_is_counter):
+        if (not route_host and shard.config.store.device_mirror_enabled
+                and (not counter_col or fn_is_counter)):
             mirrored = self._mirror_gather(shard, store, rows, col_name)
         if mirrored is not None:
             ts_off, vals, vbase, base, counts, shared_ts_row, dense = \
@@ -710,7 +714,7 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         from filodb_tpu_torch.core.devicecache import (
             DeviceMirror, mirror_create_lock, placer,
             sharded_mirrors_enabled, store_nbytes)
-        cfg = shard.store_config
+        cfg = shard.config.store
         with mirror_create_lock:
             mirror = getattr(store, "device_mirror", None)
             if mirror is None:
@@ -735,7 +739,8 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         When cells were rearranged (eviction, paging: shift_version
         moved), the full re-upload runs on a background thread and this
         query falls back (device_mirror_query_fallbacks), unless the
-        context turns the background rebuild off, the upload would exceed
+        context or the shard's `store.mirror_background_rebuild` turns
+        the background rebuild off, the upload would exceed
         the mirror's cap or the last background rebuild failed: then it
         runs inline and its error (MirrorCapExceeded) reaches the query.
         The row gather then reads only the immutable device snapshot."""
@@ -744,6 +749,7 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
             mirror = self._create_mirror(shard, store)
         if not mirror.is_fresh(store):
             bg = (self.ctx.mirror_background_rebuild
+                  and shard.config.store.mirror_background_rebuild
                   and mirror.may_rebuild_in_background(store))
             ok = False
             if mirror.can_update_inline(store) or not bg:
@@ -960,6 +966,20 @@ class SelectPersistedSegmentsExec(MultiSchemaPartitionsExec):
                 f"{self.chunk_end_ms}), filters=[{fs}]")
 
     def _do_execute(self, source):
+        # a dead or corrupt object store under the tier is a typed
+        # shard_unavailable: the gather drops the leaf under the
+        # partial-results gate (a flagged partial), as for a dead peer
+        try:
+            return self._cold_execute(source)
+        except Exception as e:  # noqa: BLE001 - re-raise non-store errors
+            from filodb_tpu_torch.persist.objectstore import ObjectStoreError
+            if not isinstance(e, ObjectStoreError):
+                raise
+            raise QueryError(
+                "shard_unavailable",
+                f"shard {self.shard}: cold tier unavailable ({e})")
+
+    def _cold_execute(self, source):
         stats = QueryStats(shards_queried=1)
         segs = self.tier.covering(self.shard, self.chunk_start_ms,
                                   self.chunk_end_ms, self.schema)

@@ -338,6 +338,24 @@ def _group_ids_cached(token, keys, by, without):
         return ent
     gids, gkeys = _group_ids(keys, by, without)
     with _HOST_GROUP_LOCK:
+        # entries of strictly older epochs of the same shard are dead: a
+        # reclaimed pid may have been recycled for another series.  An
+        # in-flight query holding an older token evicts nothing newer and
+        # installs nothing.  Only leaf tokens carry the (serial, epoch:
+        # int, ...) shape compared here; derived tokens (agg_token) embed
+        # the leaf's, and a prune mints new ones, so theirs age out
+        # through the LRU cap
+        if len(token) > 1 and isinstance(token[1], int):
+            def _epoch(o):
+                t = o[0]
+                return (t[1] if t[0] == token[0] and len(t) > 1
+                        and isinstance(t[1], int) else None)
+            for old in [o for o in _HOST_GROUP_CACHE
+                        if _epoch(o) is not None and _epoch(o) < token[1]]:
+                del _HOST_GROUP_CACHE[old]
+            if any(_epoch(o) is not None and _epoch(o) > token[1]
+                   for o in _HOST_GROUP_CACHE):
+                return gids, gkeys
         _HOST_GROUP_CACHE[k] = (gids, gkeys)
         while len(_HOST_GROUP_CACHE) > 8:
             _HOST_GROUP_CACHE.pop(next(iter(_HOST_GROUP_CACHE)))

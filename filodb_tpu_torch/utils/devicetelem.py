@@ -43,8 +43,8 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-from filodb_tpu_torch.utils.metrics import (NODE_NAME, collector,
-                                            current_trace_id,
+from filodb_tpu_torch.utils import metrics as _metrics
+from filodb_tpu_torch.utils.metrics import (collector, current_trace_id,
                                             log_error_once,
                                             note_device_call, registry)
 
@@ -223,7 +223,7 @@ class DeviceTelemetry:
                         "span": "kernel_dispatch",
                         "dur_s": round(seconds, 6),
                         "end_unix_s": round(now, 3),
-                        "node": NODE_NAME, "device": dev,
+                        "node": _metrics.NODE_NAME, "device": dev,
                         "kernel": kernel, "shape": shape})
         except Exception as exc:  # noqa: BLE001 — never break a dispatch
             log_error_once("devicetelem.record_dispatch", exc)

@@ -13,8 +13,10 @@ transfers and mirror refreshes to the exec node that triggered them, so
 QueryStats.device_seconds and its per-device split reconcile with the
 kernel ledger by construction.
 
-Not carried over: span reporters and the scheduler asserts; they come
-with the subsystems that use them.
+Spans stamp the node's name on every collected event, feed the span
+reporters, and stop under the `set_spans_enabled(False)` kill switch;
+`FiloSchedulers` holds the thread-name assertions of the hot entry
+points.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import bisect
 import logging
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 TagTuple = Tuple[Tuple[str, str], ...]
 
@@ -427,7 +429,19 @@ def note_mirror_refresh(kind: str) -> None:
 
 # ------------------------------------------------------------------ spans
 
+SpanReporter = Callable[[str, float, Dict[str, str]], None]
+_reporters: List[SpanReporter] = []
 _active = threading.local()
+
+# process-wide span kill switch (measures the span pipeline's own cost by
+# turning it off); the exec tallies are not affected, only the
+# histogram, trace and reporter work is skipped
+SPANS_ENABLED = True
+
+
+def set_spans_enabled(flag: bool) -> None:
+    global SPANS_ENABLED
+    SPANS_ENABLED = bool(flag)
 
 # node identity stamped on every collected span event (a composition
 # root sets it at startup) so a stitched cross-node trace shows placement
@@ -649,6 +663,17 @@ def current_trace_id():
     return getattr(_active, "trace_id", None)
 
 
+def add_span_reporter(rep: SpanReporter) -> None:
+    """Call `rep(dotted_name, seconds, tags)` at the end of every span
+    (ref: KamonSpanLogReporter, KamonLogger.scala:16-40)."""
+    _reporters.append(rep)
+
+
+def remove_span_reporter(rep: SpanReporter) -> None:
+    if rep in _reporters:
+        _reporters.remove(rep)
+
+
 class span:
     """Duration-recording span (ref: Kamon.spanBuilder threaded through
     ExecPlan.execute / startODPSpan).  Nesting is tracked per thread so
@@ -659,6 +684,9 @@ class span:
         self.tags = tags
 
     def __enter__(self):
+        if not SPANS_ENABLED:
+            self._t0 = None
+            return self
         stack = getattr(_active, "stack", None)
         if stack is None:
             stack = _active.stack = []
@@ -667,6 +695,8 @@ class span:
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        if self._t0 is None:
+            return False
         elapsed = time.perf_counter() - self._t0
         stack = _active.stack
         full = ".".join(stack)
@@ -680,8 +710,33 @@ class span:
         if tid:
             collector.record(tid, {
                 "span": full, "dur_s": round(elapsed, 6),
-                "end_unix_s": round(time.time(), 3), **self.tags})
+                "end_unix_s": round(time.time(), 3),
+                "node": NODE_NAME, **self.tags})
+        for rep in _reporters:
+            rep(full, elapsed, self.tags)
         return False
+
+
+# ----------------------------------------------------- scheduler asserts
+
+
+class FiloSchedulers:
+    """Thread-name assertions on hot entry points (ref:
+    core/.../memstore/FiloSchedulers.scala:14-20, gated by
+    filodb.scheduler.enable-assertions)."""
+
+    enabled = False
+    INGEST = "ingest"
+    QUERY = "query"
+    FLUSH = "flush"
+
+    @staticmethod
+    def assert_thread_name(fragment: str) -> None:
+        if not FiloSchedulers.enabled:
+            return
+        name = threading.current_thread().name
+        assert fragment in name, \
+            f"expected thread name containing {fragment!r}, got {name!r}"
 
 
 _error_last: Dict[str, float] = {}

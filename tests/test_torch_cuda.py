@@ -3,9 +3,11 @@ over raw counters, K4 last_over_time, K5 sum/avg/count_over_time, each
 also in its per-series mode K6) against their plain torch versions, on
 the card; the native histogram leaf, the host route and a plan node on
 the card against the same queries on the CPU; an RF-2 cluster's failover
-and a handoff's tombstone on the card.  Marked `cuda`: without a
-card they skip.  This file imports neither jax nor filodb_tpu, so it also runs on
-a machine with only the port's dependencies:
+and a handoff's tombstone on the card; a cold-read cluster with
+query-only nodes and a dead object store under a query tier on the
+card.  Marked `cuda`: without a card they skip.  This file imports
+neither jax nor filodb_tpu, so it also runs on a machine with only the
+port's dependencies:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -658,7 +660,7 @@ def _series_of(res):
     ("sum by (_ns_) (changes(request_total[5m]))", None, 0),
     ("max by (_ns_) (resets(request_total[5m]))", None, 0),
     # the router, switched on for the card run: a working set under
-    # HOST_ROUTE_MAX_SAMPLES is numpy
+    # query.host_route_max_samples is numpy
     ("sum by (_ns_) (rate(request_total[5m]))", None, 1),
     ("max by (_ns_) (max_over_time(request_total[5m]))", None, 1),
     # a plan node over K1
@@ -1551,3 +1553,118 @@ def test_one_card_mesh_launches_k1_once_per_slot(card):
     assert gl == wl and (np.isnan(got) == np.isnan(want)).all()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5,
                                equal_nan=True)
+
+
+def _object_store_of_two_segments(root, S=400, seed=37):
+    """S counters x 4 h at 10 s, flushed on the host and compacted into
+    two 2 h segments, uploaded to a LocalObjectStore -> (store, the
+    panel's span)."""
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.persist.compactor import SegmentCompactor
+    from filodb_tpu_torch.persist.localstore import LocalDiskColumnStore
+    from filodb_tpu_torch.persist.objectstore import (LocalObjectStore,
+                                                      SegmentUploader)
+    from filodb_tpu_torch.persist.segments import SegmentStore
+    window = 2 * 3600 * 1000
+    t0 = 1_600_000_000_000 - 1_600_000_000_000 % window
+    T = 1440
+    rng = np.random.default_rng(seed)
+    v = np.cumsum(rng.exponential(10.0, size=(S, T)), axis=1)
+    keys = [PartKey.make("request_total", {"_ws_": "demo",
+                                           "_ns_": f"App-{i % 20}",
+                                           "instance": f"Instance-{i}"})
+            for i in range(S)]
+    ts = np.broadcast_to(t0 + np.arange(T, dtype=np.int64) * 10_000, (S, T))
+    cs = LocalDiskColumnStore(str(root))
+    sh = TimeSeriesMemStore(column_store=cs, device="cpu").setup(
+        "prometheus", 0)
+    sh.ingest_columns("prom-counter", keys, ts, {"count": v})
+    sh.flush_all_groups()
+    seg = SegmentStore(str(root))
+    assert SegmentCompactor(cs, seg, "prometheus", 1, window_ms=window,
+                            closed_lag_ms=0).compact_all(
+        now_ms=t0 + 10 * window) == 2
+    store = LocalObjectStore(str(root / "bucket"), name="card-bucket")
+    up = SegmentUploader(store, seg, "prometheus", 1)
+    up.mount()
+    assert up.run_once() == 2
+    return store, (t0 // 1000 + 600, 60, t0 // 1000 + (T - 1) * 10)
+
+
+def _query_tier_engine(store, device, **kw):
+    from filodb_tpu_torch.core.devicecache import ColdSegmentCache
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.parallel.shardmapper import ShardEvent, ShardMapper
+    from filodb_tpu_torch.persist.objectstore import RemoteSegmentStore
+    from filodb_tpu_torch.persist.segments import PersistedTier
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.planners import PersistedClusterPlanner
+    mapper = ShardMapper(1)
+    mapper.update_from_event(ShardEvent("IngestionStarted", "prometheus", 0,
+                                        "n"))
+    remote = RemoteSegmentStore(store, "prometheus", 1, **kw)
+    remote.mount()
+    tier = PersistedTier(remote, "prometheus", 1,
+                         ColdSegmentCache(1 << 30, device=device))
+    return QueryEngine("prometheus", TimeSeriesMemStore(device=device),
+                       mapper, planner=PersistedClusterPlanner(
+                           "prometheus", mapper, tier), device=device)
+
+
+def test_cold_read_cluster_on_the_card_answers_as_a_local_tier(card,
+                                                                 tmp_path):
+    """A data node and two query-only nodes on the card over one object
+    store: the cold leaves revive against the receiving node's tier on
+    the card; four rounds, then two with the data node stopped, each
+    launches K1 and is bit-identical to a local query tier's answer."""
+    from filodb_tpu_torch.parallel.testcluster import make_cold_read_cluster
+    store, span = _object_store_of_two_segments(tmp_path)
+    q = "sum by (_ns_) (rate(request_total[5m]))"
+    want = _series_of(_query_tier_engine(store, card).query_range(q, *span))
+    c = make_cold_read_cluster(store, num_shards=1, dataset="prometheus",
+                               data_nodes=("data0",),
+                               query_nodes=("q1", "q2"), device=card)
+    try:
+        for i in range(6):
+            if i == 4:
+                c.servers["data0"].stop()
+            n0 = kernels.LAUNCHES["fused_rate_dense"]
+            got = _series_of(c.engine.query_range(q, *span))
+            assert kernels.LAUNCHES["fused_rate_dense"] - n0 == 1
+            assert [k for k, _ in got] == [k for k, _ in want]
+            for (_, x), (_, y) in zip(got, want):
+                assert np.array_equal(x, y, equal_nan=True)
+        assert all(b.ts_off.is_cuda for b in c.tier.cold_cache.blocks())
+    finally:
+        c.tier.cold_cache.clear()
+        c.stop()
+
+
+@pytest.mark.parametrize("partial", [True, False])
+def test_dead_object_store_on_the_card_is_shard_unavailable(card, tmp_path,
+                                                            partial):
+    """objectstore.get faulted under a query tier on the card: a flagged
+    partial with allow_partial_results, a shard_unavailable error
+    without."""
+    from filodb_tpu_torch.parallel.breaker import breakers
+    from filodb_tpu_torch.query.rangevector import PlannerParams
+    from filodb_tpu_torch.utils.faults import faults
+    store, span = _object_store_of_two_segments(tmp_path)
+    eng = _query_tier_engine(store, card, ttl_s=1_000.0)
+    breakers.configure(failure_threshold=2, open_base_s=0.05,
+                       open_max_s=0.1, jitter=0.0)
+    try:
+        with faults.plan("objectstore.get", "error", first_k=1_000_000):
+            res = eng.query_range("sum by (_ns_) (rate(request_total[5m]))",
+                                  *span, PlannerParams(
+                                      allow_partial_results=partial))
+    finally:
+        faults.disarm()
+        breakers.configure()
+        breakers.reset()
+    if partial:
+        assert res.error is None and res.partial and res.num_series == 0
+    else:
+        assert res.error.startswith(
+            "shard_unavailable: shard 0: cold tier unavailable")

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from filodb_tpu.ingest.generator import counter_batch
+from filodb_tpu_torch.config import settings
 from filodb_tpu_torch.query import leafexec
 from filodb_tpu_torch.query.rangevector import PlannerParams
 from filodb_tpu_torch.utils.counters import counters
@@ -151,9 +152,9 @@ def test_router_threshold_and_switch(monkeypatch):
     q = "sum by (_ns_) (rate(request_total[5m]))"
     monkeypatch.setenv("FILODB_TPU_FORCE_HOST_ROUTE", "1")
     want = je.query_range(q, START_S + 600, 60, END_S)
-    for cap, routes in ((leafexec.HOST_ROUTE_MAX_SAMPLES, 1), (100, 0),
-                        (0, 0)):
-        monkeypatch.setattr(leafexec, "HOST_ROUTE_MAX_SAMPLES", cap)
+    for cap, routes in ((settings().query.host_route_max_samples, 1),
+                        (100, 0), (0, 0)):
+        monkeypatch.setattr(settings().query, "host_route_max_samples", cap)
         r0, k0 = (counters.get("leaf_host_routed"),
                   counters.get("leaf_fused_kernel"))
         _agree(want, pe.query_range(q, START_S + 600, 60, END_S))
@@ -272,7 +273,7 @@ def test_router_counts_the_history_a_routed_rate_reads(monkeypatch):
     threshold between the two only the latter routes."""
     je, pe, end_s = _reset_at_window_start_engines()
     monkeypatch.setenv("FILODB_TPU_FORCE_HOST_ROUTE", "1")
-    monkeypatch.setattr(leafexec, "HOST_ROUTE_MAX_SAMPLES", 1000)
+    monkeypatch.setattr(settings().query, "host_route_max_samples", 1000)
     for q, routes in (("sum by (_ns_) (rate(request_total[5m]))", 0),
                       ("sum by (_ns_) (max_over_time(request_total[5m]))",
                        1)):
@@ -456,7 +457,7 @@ def test_routed_rate_corrects_resets_before_its_window(monkeypatch):
     assert counters.get("leaf_host_routed") == r0 + 1
     # 20 rows x 240 samples resident; the window holds about 31 a row
     assert routed.stats.samples_scanned <= 20 * 40
-    monkeypatch.setattr(leafexec, "HOST_ROUTE_MAX_SAMPLES", 0)
+    monkeypatch.setattr(settings().query, "host_route_max_samples", 0)
     device = pe.query_instant(q, END_S)
     assert _agree(want, routed) == _agree(want, device) == 10
     _agree(device, routed)
