@@ -136,7 +136,10 @@ serve-1M.  over the same counters, through the port's HTTP stack
    memory under 8 leaf gathers; the headline panel re-polled uncached and
    cached (verdicts from stats); and max by (_ns_) (quantile_over_time(0.9,
    ...)) killed through POST /admin/queries/<id>/kill 1 s into its run,
-   answering query_canceled (the seconds from the kill printed);
+   answering query_canceled (the seconds from the kill printed); then
+   sum(rate(request_total::nosuch[5m])), a column the schema lacks,
+   answering the reference's 400, query_error and `KeyError: 'nosuch'`
+   with no kernel launched;
 ops-1M.  on the serve-1M server, over the same counters: /ready 200 and
    /api/v1/status/health ok in every subsystem; after one warm dashboard
    batch, /admin/devices shows cuda:0 with the batch's K1 launches as
@@ -465,15 +468,19 @@ cluster-e2e-4k.  in a side process of its own (`--side cluster`) from K8
    replication door's port): a ClusterCoordinator
    (4 shards, liveness
    2.5 s), `python -m filodb_tpu_torch.persist.netstore` and three
-   `python -m filodb_tpu_torch.parallel.nodeapp --device cuda
-   --store-url ...` processes on the card; 4,096 counters x 90 samples
+   `python -m filodb_tpu_torch.parallel.nodeapp --store-url ...`
+   processes on the card, A started as the reference's scripts start a
+   node (no --device: its empty --platform means the card), B and C
+   with `--device cuda`; 4,096 counters x 90 samples
    as Influx lines through each node's control socket; the rate panel
    through a coordinator engine against the f64 oracle; a flush, SIGKILL
    of an owner, failover to the standby (index from the netstore, chunks
    paged on demand): the samples' sums within rtol 1e-9 of the ones
    before, the rate panel within its oracle's tolerance.  Every step's
    seconds, each node's boot to ready, and K1 launches from the nodes'
-   stats.devices as they come back over the wire;
+   stats.devices as they come back over the wire; the panel over A's
+   shards alone (while A owns some) must show A's K1 launches under a
+   cuda device;
 mesh-1M.  on the gauge-hist side after hist-native-1M (run_mesh_phase;
    there its engine check, ~30 GB on the card, comes once the main line
    and the cluster side are done: placed beside them, the card ran out
@@ -6042,6 +6049,9 @@ SERVE_CACHE_POLLS = 5
 # G4's function over the counters: the raw values through the host
 # gather, then the general path's quantile on the card
 KILL_QUERY = "max by (_ns_) (quantile_over_time(0.9, request_total[5m]))"
+# a column the counter schema lacks: the reference answers 400
+# query_error with the KeyError of its lookup
+UNKNOWN_COLUMN_QUERY = "sum(rate(request_total::nosuch[5m]))"
 KILL_AFTER_S = 1.0
 
 
@@ -6102,7 +6112,8 @@ def run_serve_phase(eng, api, http, want_rate, orc, wends, num_series):
     SERVE_BATCH_WARM warm) bit for bit against each panel alone (GET
     /api/v1/query_range, exprfuse off) and against the f64 oracles;
     SERVE_CLIENTS clients polling the rate-only panels with the coalescer
-    on; the result cache; a kill -> (launches, rows)."""
+    on; the result cache; a kill; a column the schema lacks answering the
+    reference's 400 -> (launches, rows)."""
     import threading
 
     import torch
@@ -6341,6 +6352,19 @@ def run_serve_phase(eng, api, http, want_rate, orc, wends, num_series):
         f"{st} {pay['errorType']} {back:.4f} s after the kill: "
         f"{pay['error']}")
     rows.append(dict(query=KILL_QUERY, kill_latency_s=back))
+    # 6. a column the schema lacks: the reference's 400 and its error
+    n0 = dict(kernels.LAUNCHES)
+    st, pay, s = http.call("GET", "/api/v1/query_range",
+                           {"query": UNKNOWN_COLUMN_QUERY, **grid, **scan})
+    want_err = (400, "error", "query_error", "KeyError: 'nosuch'")
+    got_err = (st, pay.get("status"), pay.get("errorType"), pay.get("error"))
+    check(got_err == want_err, f"serve-1M: `{UNKNOWN_COLUMN_QUERY}` "
+          f"answered {got_err}, the reference {want_err}")
+    check(dict(kernels.LAUNCHES) == n0,
+          f"serve-1M: `{UNKNOWN_COLUMN_QUERY}` launched a kernel")
+    log(f"serve-1M: `{UNKNOWN_COLUMN_QUERY}` answered {st} "
+        f"{pay['errorType']} `{pay['error']}` in {s:.4f} s, as the "
+        "reference; no kernel launched")
     launches = dict(kernels.LAUNCHES)
     log(f"serve-1M: max_memory_allocated {torch.cuda.max_memory_allocated()}"
         f" B; launches {({k: v for k, v in launches.items() if v})}")
@@ -6749,7 +6773,7 @@ def run_node_phase(seed, dev):
     from filodb_tpu_torch.core.store import InMemoryMetaStore
     from filodb_tpu_torch.jobs import batch_io
     from filodb_tpu_torch.persist import LocalDiskColumnStore
-    lib = native.lib()
+    lib = native.lib
     check(lib is not None, f"node-16k: no native host library: "
           f"{native.build_error()}")
     n = NODE_SERIES
@@ -7623,6 +7647,7 @@ CLUSTER_SHARDS = 4
 CLUSTER_QUERY = "sum by (_ns_) (rate(request_total[5m]))"
 CLUSTER_QUANTILE = "quantile by (_ns_) (0.9, rate(request_total[5m]))"
 E2E_SERIES, E2E_T, E2E_NS = 4096, 90, 64      # cluster-e2e-4k's counters
+REF_FORM_NODE = "A"     # cluster-e2e-4k's node started without --device
 
 
 def build_cluster(num_series, seed, dev):
@@ -7913,8 +7938,9 @@ def run_cluster_e2e_phase(seed, dev):
     """cluster-e2e-4k: the cluster as users deploy it.  A ClusterCoordinator
     (4 shards, two nodes' worth, liveness 2.5 s) and a `python -m
     filodb_tpu_torch.persist.netstore` chunk service; three `python -m
-    filodb_tpu_torch.parallel.nodeapp --device cuda --store-url ...`
-    processes on the card (two own the shards, one stands by); E2E_SERIES
+    filodb_tpu_torch.parallel.nodeapp --store-url ...` processes on the
+    card (two own the shards, one stands by), REF_FORM_NODE started
+    without --device as the reference's scripts start it; E2E_SERIES
     counters x E2E_T samples at 10 s as Influx lines fed to every node's
     control socket (each keeps its shards); CLUSTER_QUERY through a
     coordinator engine on the card over RemoteNodeDispatchers, within
@@ -7923,13 +7949,16 @@ def run_cluster_e2e_phase(seed, dev):
     recovers its index from the netstore and pages chunks on demand; the
     answer after failover equal to the one before (rtol 1e-9).  K1
     launches counted from the nodes' stats.devices as they come back
-    over the wire -> (launches, rows): this process launches nothing."""
+    over the wire, REF_FORM_NODE's alone under a cuda device -> (launches,
+    rows): this process launches nothing."""
     import torch
     from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
     from filodb_tpu_torch.parallel.cluster import (ClusterClient,
                                                    ClusterCoordinator, _rpc)
     from filodb_tpu_torch.parallel.shardmanager import ShardManager
-    from filodb_tpu_torch.parallel.shardmapper import SpreadProvider
+    from filodb_tpu_torch.parallel.shardmapper import (ShardEvent,
+                                                       ShardMapper,
+                                                       SpreadProvider)
     from filodb_tpu_torch.parallel.transport import RemoteNodeDispatcher
     from filodb_tpu_torch.query.engine import QueryEngine
     from filodb_tpu_torch.query.planner import SingleClusterPlanner
@@ -8016,6 +8045,34 @@ def run_cluster_e2e_phase(seed, dev):
         return got, err, took, k1, res.stats.device_calls, {
             k.labels: np.asarray(v) for k, _, v in raw.series()}
 
+    def node_k1(cli, node):
+        """CLUSTER_QUERY over `node`'s shards alone (the planner's mapper
+        has only those active) -> {device: K1 launches} from that node's
+        stats.devices as they come back over the wire."""
+        mapper, addrs = cli.mapper("prometheus")
+        mine = ShardMapper(mapper.num_shards)
+        for s in mapper.shards_for_node(node):
+            mine.register_node([s], node)
+            mine.update_from_event(
+                ShardEvent("IngestionStarted", "prometheus", s, node))
+        check(mine.active_shards(), f"cluster-e2e-4k: {node} owns no shard")
+        planner = SingleClusterPlanner(
+            "prometheus", mine, SpreadProvider(default_spread=1),
+            dispatcher_factory=lambda s: RemoteNodeDispatcher(*addrs[node]))
+        eng = QueryEngine("prometheus", TimeSeriesMemStore(device=dev),
+                          mine, planner=planner, device=dev)
+        res = eng.query_range(CLUSTER_QUERY, start_s, 60, end_s)
+        check(res.error is None, f"cluster-e2e-4k: {node}: {res.error}")
+        out = {}
+        for key, (_, n) in res.stats.device_calls.items():
+            device, kern = key.rsplit("|", 1)
+            if kern in OPS_FUSED:
+                out[device] = out.get(device, 0) + n
+        check(any(d.startswith("cuda") and n > 0 for d, n in out.items()),
+              f"cluster-e2e-4k: {node}, started without --device, "
+              f"launched no K1 on the card: {res.stats.device_calls}")
+        return mine.active_shards(), out
+
     try:
         t0 = time.perf_counter()
         coord = ClusterCoordinator(ShardManager(reassignment_min_interval_s=0),
@@ -8029,11 +8086,12 @@ def run_cluster_e2e_phase(seed, dev):
         store_url = f"127.0.0.1:{svc_info['port']}"
         nodes = {}
         for name in ("A", "B", "C"):
+            where = [] if name == REF_FORM_NODE else ["--device", "cuda"]
             nodes[name] = spawn(
                 [sys.executable, "-m", "filodb_tpu_torch.parallel.nodeapp",
                  "--name", name, "--coordinator",
                  f"127.0.0.1:{coord.address[1]}", "--data-dir",
-                 os.path.join(tmp, name), "--device", "cuda", "--store-url",
+                 os.path.join(tmp, name), *where, "--store-url",
                  store_url, "--heartbeat-interval", "0.3"], name)
         infos = {}
         for name, (p, t) in nodes.items():
@@ -8067,6 +8125,9 @@ def run_cluster_e2e_phase(seed, dev):
         steps["feed"] = time.perf_counter() - t
         got, err, steps["query_cold"], k1_cold, calls, sums = query(cli)
         _, _, steps["query_warm"], k1_warm, _, _ = query(cli)
+        ref_form = None
+        if REF_FORM_NODE in owners:
+            ref_form = ("before failover",) + node_k1(cli, REF_FORM_NODE)
         t = time.perf_counter()
         for name in owners:
             rep = _rpc(("127.0.0.1", infos[name]["control_port"]),
@@ -8086,6 +8147,8 @@ def run_cluster_e2e_phase(seed, dev):
         steps["failover"] = time.perf_counter() - t
         got2, err2, steps["query_after_failover"], k1_after, _, sums2 = \
             query(cli)
+        if ref_form is None:
+            ref_form = ("after failover",) + node_k1(cli, REF_FORM_NODE)
         # the stored samples come back as they were: their sums within
         # rtol 1e-9 (tests/test_cluster_e2e.py's bound); the rate panel,
         # f32 sums over rows the standby's recovered index orders anew,
@@ -8110,7 +8173,10 @@ def run_cluster_e2e_phase(seed, dev):
             f"of the ones before; K1 launches by the nodes' "
             f"stats.devices: cold {k1_cold}, warm {k1_warm}, after failover "
             f"{k1_after} (device calls of the cold query "
-            f"{json.dumps(calls)}); every step's seconds "
+            f"{json.dumps(calls)}); {REF_FORM_NODE}, started without "
+            f"--device, {ref_form[0]} over its shards {ref_form[1]}: K1 "
+            f"launches by device {json.dumps(ref_form[2])}; every step's "
+            "seconds "
             + json.dumps({k: round(v, 3) for k, v in steps.items()}))
     finally:
         for p in procs:
@@ -9246,9 +9312,9 @@ def main(argv=None) -> int:
     # the C++ host library (xxhash, NibblePack) every host path of the
     # node loads: on this machine it must build
     from filodb_tpu_torch import native
-    check(native.lib() is not None,
+    check(native.lib is not None,
           f"the native host library did not build: {native.build_error()}")
-    log(f"native host library {native.lib().path}")
+    log(f"native host library {native.lib.path}")
     log_ptxas(kernels)
     dev = torch.device("cuda", 0)
     own_tmp = keep_temp_files_on_disk()

@@ -30,8 +30,7 @@ without binding ports.  Routes served:
   rules engine's, rules/ruler.py; without a ruler the rules and alerts
   routes answer empty lists and the reload 400, as the reference's).
 
-A path the reference does not know keeps its 404.  A
-QueryError("not_ported") raised below the API answers 501.  Remote write
+A path the reference does not know keeps its 404.  Remote write
 withholds its ack (503) when the WAL commit fails or when a remotely
 owned shard's slab lands on no owner (replication/replicator.py).
 """
@@ -48,7 +47,6 @@ from filodb_tpu_torch.query.engine import (QueryEngine,
                                            _attach_partial_fields,
                                            _prom_error_payload,
                                            _prom_labels)
-from filodb_tpu_torch.query.execbase import QueryError
 from filodb_tpu_torch.query.rangevector import PlannerParams
 
 
@@ -211,11 +209,6 @@ class PromHttpApi:
             # PromQL typos in match[] and explain parse outside the
             # engine's own error capture — still the client's fault
             return 400, _err(f"parse error: {e}")
-        except QueryError as e:
-            if e.code == "not_ported":
-                return 501, {"status": "error", "errorType": "not_ported",
-                             "error": str(e)}
-            return 500, _err(str(e))
         except Exception as e:  # noqa: BLE001 — HTTP edge turns errors into 500s
             return 500, _err(f"{type(e).__name__}: {e}")
 

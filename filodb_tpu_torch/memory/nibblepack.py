@@ -84,7 +84,7 @@ def _leading_zero_nibbles(x: int) -> int:
 def pack(values: np.ndarray) -> bytes:
     """Pack an array of uint64 into NibblePack bytes.  Length is encoded by the
     caller (chunk metadata holds numRows); trailing group is zero-padded."""
-    lib = _native.lib()
+    lib = _native.lib
     if lib is not None:
         return lib.nibble_pack(values)
     if len(values) < _VEC_MIN_VALUES:
@@ -245,7 +245,7 @@ def _pack_vec(values: np.ndarray) -> bytes:
 
 def unpack(data: bytes, count: int) -> np.ndarray:
     """Unpack `count` uint64 values from NibblePack bytes."""
-    lib = _native.lib()
+    lib = _native.lib
     if lib is not None:
         return lib.nibble_unpack(data, count)
     if count < _VEC_MIN_VALUES:

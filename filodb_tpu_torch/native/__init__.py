@@ -2,16 +2,18 @@
 xxhash64, the NibblePack codec and the single-core iterator rate, bound
 with ctypes.
 
-Nothing is built or loaded when this module is imported.  The first
-`lib()` call compiles filodb_native.cc with g++ (`$CXX` when set) into
-filodb_tpu_torch/build/ (git-ignored), under a name carrying the hash of
-the source, so an edited source rebuilds.  The compiler writes to a
-temporary name that is then moved into place with os.replace, so
-processes that build at the same time never load a half-written file.
-Without a compiler, or when the build or the load fails, `lib()` is
-None and every caller keeps its numpy and Python paths, as the
-reference does; `build_error()` says why.  Nothing is written beside
-this module, and the reference's own library is never loaded.
+`lib` is the loaded library or None, as in the reference.  Nothing is
+built or loaded when this module is imported: the first read of `lib`
+(a module __getattr__) calls `load()`, which compiles filodb_native.cc
+with g++ (`$CXX` when set) into filodb_tpu_torch/build/ (git-ignored),
+under a name carrying the hash of the source, so an edited source
+rebuilds; the answer is then kept as the module's `lib`.  The compiler
+writes to a temporary name that is then moved into place with
+os.replace, so processes that build at the same time never load a
+half-written file.  Without a compiler, or when the build or the load
+fails, `lib` is None and every caller keeps its numpy and Python paths,
+as the reference does; `build_error()` says why.  Nothing is written
+beside this module, and the reference's own library is never loaded.
 
 The hashes and the codec are bound through ctypes.PyDLL, which keeps the
 interpreter lock over the call: they take microseconds, and a call that
@@ -140,7 +142,7 @@ def _build(out: Path) -> None:
             tmp.unlink()
 
 
-def lib() -> Optional[NativeLib]:
+def load() -> Optional[NativeLib]:
     """The loaded library, building it on the first call; None when it
     cannot be built or loaded (then `build_error()` says why)."""
     global _tried, _lib, _error
@@ -160,5 +162,14 @@ def lib() -> Optional[NativeLib]:
 
 
 def build_error() -> str:
-    """Why `lib()` is None ("" when it loaded or was not asked yet)."""
+    """Why `lib` is None ("" when it loaded or was not asked yet)."""
     return _error
+
+
+def __getattr__(name: str):
+    # PEP 562: `lib` is resolved at its first read, then kept in the
+    # module's globals, so later reads never come here
+    if name == "lib":
+        globals()["lib"] = got = load()
+        return got
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -811,7 +811,7 @@ def fused_leaf_agg_batch(plan: FusedPlan, values: PaddedValues, panels,
     readback waits for the call."""
     from filodb_tpu_torch.ops import agg as agg_ops
     if fn_name in MINMAX_FNS or fn_name not in FUSABLE_FNS:
-        raise ValueError(f"not_ported: fused kernel kind {fn_name}")
+        raise ValueError(f"unsupported fused kernel kind {fn_name}")
     is_counter = fn_name in ("rate", "increase")
     is_rate = fn_name == "rate"
     # delta never corrects (pallas_fused.py:966-968)
@@ -999,7 +999,7 @@ def fused_rate_groupsum(vals, vbase, gids, plan: FusedPlan, num_groups: int,
     `device` follows the device rule (an explicit device, else the
     tensor's, else the card); with `prepared` it must match the inputs'."""
     if fn_name in MINMAX_FNS or fn_name not in FUSABLE_FNS:
-        raise ValueError(f"not_ported: fused kernel kind {fn_name}")
+        raise ValueError(f"unsupported fused kernel kind {fn_name}")
     is_counter = fn_name in ("rate", "increase")
     is_rate = fn_name == "rate"
     over_time = fn_name in OVER_TIME_FNS

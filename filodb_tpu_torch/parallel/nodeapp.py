@@ -9,12 +9,14 @@ Kafka-consumer stand-in: every node sees the full stream and ingests only
 the shards it owns).
 
 Run: python -m filodb_tpu_torch.parallel.nodeapp --name A \
-         --coordinator 127.0.0.1:9999 --data-dir DIR [--device cpu]
+         --coordinator 127.0.0.1:9999 --data-dir DIR [--platform cpu]
 
-`--device` (default `cuda`) is where the node's memstore and queries
-live.  Prints one JSON line {"ready": true, "query_port": N,
-"control_port": N, "replication_port": N, "node": NAME} on stdout once
-serving; `replication_port` is the node's replication door
+`--platform` is the reference's flag: `cpu` runs the node's memstore
+and queries on the CPU; empty (the default), `gpu` or `cuda` on the
+card.  `--device {cuda,cpu}` says the same in the port's words; given
+both, they must agree.  Prints one JSON line {"ready": true,
+"query_port": N, "control_port": N, "replication_port": N, "node":
+NAME} on stdout once serving; `replication_port` is the node's replication door
 (replication/service.py), which peers fan ingest slabs into and a
 joining replica streams WAL segments and handoff snapshots out of.
 """
@@ -26,6 +28,9 @@ import socketserver
 import sys
 import threading
 
+# --platform's values and the device each runs the node on
+PLATFORMS = {"": "cuda", "cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
@@ -36,10 +41,19 @@ def main(argv=None) -> None:
                     help="host:port of a chunk service (persist/netstore) — "
                          "the node then needs NO shared filesystem; default "
                          "is the local-disk store in --data-dir")
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="where the memstore and its queries run")
+    ap.add_argument("--platform", default="", choices=PLATFORMS,
+                    help="where the memstore and its queries run: cpu, or "
+                         "the card (empty, gpu or cuda)")
+    ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                    help="the same as --platform, in the port's words")
     ap.add_argument("--heartbeat-interval", type=float, default=0.5)
     args = ap.parse_args(argv)
+    device = PLATFORMS[args.platform]
+    if args.device is not None:
+        if args.platform and args.device != device:
+            ap.error(f"--platform {args.platform} and --device "
+                     f"{args.device} disagree")
+        device = args.device
 
     from filodb_tpu_torch.utils import metrics as _metrics
     _metrics.NODE_NAME = args.name       # stamp this node on trace spans
@@ -67,7 +81,7 @@ def main(argv=None) -> None:
         column_store = LocalDiskColumnStore(args.data_dir)
         meta_store = LocalDiskMetaStore(args.data_dir)
     memstore = TimeSeriesMemStore(column_store=column_store,
-                                  meta_store=meta_store, device=args.device)
+                                  meta_store=meta_store, device=device)
     qsrv = NodeQueryServer(memstore).start()
     # replication door (filodb_tpu_torch/replication): peers fan ingest
     # slabs here, and a joining replica streams WAL segments / handoff

@@ -110,8 +110,7 @@ class QueryEngine:
     def query_range(self, promql: str, start_s: int, step_s: int, end_s: int,
                     planner_params: Optional[PlannerParams] = None
                     ) -> QueryResult:
-        """Range query.  Errors come back in the result, except a query
-        outside the port's slice, which raises QueryError("not_ported")."""
+        """Range query.  Errors come back in the result."""
         from filodb_tpu_torch.query.activequeries import peek_admission
         from filodb_tpu_torch.utils.metrics import span
         ent = peek_admission()
@@ -267,8 +266,6 @@ class QueryEngine:
                         return QueryResult([], error=f"replan error: {e2}")
                     data, stats = ep.execute_internal(self.source)
             except QueryError as e:
-                if e.code == "not_ported":
-                    raise
                 return QueryResult([], error=str(e))
             stats.plan_s += plan_t
             if isinstance(data, QueryResult):

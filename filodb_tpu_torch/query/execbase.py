@@ -217,10 +217,7 @@ class QueryError(Exception):
           disconnect): checked at every exec-node boundary and before
           fused kernel launches.  Never retried, never cached.
       paged_limit_exceeded — demand paging would bring back more than
-          the scan limit.
-      not_ported — the query needs a function, aggregate, data shape or
-          operator the port does not carry yet; the detail names it.
-          Raised out of ExecPlan.execute, never folded into a result."""
+          the scan limit."""
 
     def __init__(self, code: str, detail: str):
         self.code = code
@@ -228,10 +225,6 @@ class QueryError(Exception):
 
     def __str__(self):
         return f"{self.code}: {super().__str__()}"
-
-
-def not_ported(what: str) -> QueryError:
-    return QueryError("not_ported", what)
 
 
 def _lru_touch(cache: Dict, key) -> object:
@@ -639,17 +632,13 @@ class ExecPlan:
     def execute(self, source) -> QueryResult:
         """Run the tree under the query's trace id (ctx.query_id), so the
         kernel ledger's entries and the spans carry it.  Query errors
-        come back in the result, as in the reference, except not_ported,
-        which is raised: a query outside the port's slice must never
-        look like an answer."""
+        come back in the result, as in the reference."""
         from filodb_tpu_torch.utils.metrics import span, trace_context
         try:
             with trace_context(self.ctx.query_id), \
                     span("execplan", plan=type(self).__name__):
                 data, stats = self.execute_internal(source)
         except QueryError as e:
-            if e.code == "not_ported":
-                raise
             return QueryResult([], QueryStats(), error=str(e))
         except Exception as e:  # noqa: BLE001 — query errors surface in result
             return QueryResult([], QueryStats(),

@@ -95,7 +95,7 @@ from filodb_tpu_torch.query.execbase import (
     _FUSED_CACHE_LOCK, _FUSED_MINMAX_PAD_CACHE, _FUSED_PLAN_CACHE,
     _FUSED_VALS_CACHE, _group_cache_insert, _group_cache_lookup, _lru_touch,
     QueryError, _note_mirror_limit, _vals_cache_insert, agg_token,
-    fold_tally, not_ported)
+    fold_tally)
 from filodb_tpu_torch.query.fusedbatch import FusedCall, finish_fused_calls
 from filodb_tpu_torch.query.rangevector import QueryContext, QueryStats
 from filodb_tpu_torch.query.transformers import (AggregateMapReduce,
@@ -641,7 +641,9 @@ class MultiSchemaPartitionsExec(LeafExecPlan):
         col_def = next((c for c in schema.data_columns
                         if c.name == col_name), None)
         if col_def is None:
-            raise not_ported(f"column {col_name} of schema {schema_name}")
+            # a column the schema lacks fails the query as the
+            # reference's gather does, on the column's lookup
+            raise KeyError(col_name)
         counter_col = col_def.detect_drops or col_def.counter
         fn_is_counter = periodic = False
         for t in self.transformers:

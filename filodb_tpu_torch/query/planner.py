@@ -12,9 +12,9 @@ keys) fan out to one metadata leaf per shard under MetadataMergeExec.
 Every plan node of the reference's planner is carried, and its
 dispatcher hook (`dispatcher_factory`: every leaf keeps the in-process
 dispatcher unless the factory names another), and its node-level
-aggregation pushdown (query/pushdown.py).  The chunk-metadata plan
-(RawChunkMeta), which the reference's planner refuses, fans out to
-SelectChunkInfosExec leaves.
+aggregation pushdown (query/pushdown.py).  A plan node it does not
+carry, the chunk-metadata plan (RawChunkMeta) among them, is refused
+as the reference refuses it.
 """
 from __future__ import annotations
 
@@ -27,15 +27,13 @@ from filodb_tpu_torch.parallel.shardmapper import ShardMapper, SpreadProvider
 from filodb_tpu_torch.query import logical as lp
 from filodb_tpu_torch.query.execbase import (ExecPlan,
                                              InProcessPlanDispatcher,
-                                             PlanDispatcher, ScalarResult,
-                                             not_ported)
+                                             PlanDispatcher, ScalarResult)
 from filodb_tpu_torch.query.leafexec import (MultiSchemaPartitionsExec,
                                              ScalarBinaryOperationExec,
                                              ScalarFixedDoubleExec,
                                              TimeScalarGeneratorExec)
 from filodb_tpu_torch.query.metaexec import (LabelValuesExec,
-                                             MetadataMergeExec, PartKeysExec,
-                                             SelectChunkInfosExec)
+                                             MetadataMergeExec, PartKeysExec)
 from filodb_tpu_torch.query.nonleaf import (BinaryJoinExec,
                                             LocalPartitionDistConcatExec,
                                             ReduceAggregateExec,
@@ -130,7 +128,7 @@ class SingleClusterPlanner(QueryPlanner):
     def _walk(self, plan: lp.LogicalPlan, ctx: QueryContext):
         m = getattr(self, "_m_" + type(plan).__name__, None)
         if m is None:
-            raise not_ported(f"plan node {type(plan).__name__}")
+            raise ValueError(f"cannot materialize {type(plan).__name__}")
         return m(plan, ctx)
 
     def _m_RawSeries(self, p: lp.RawSeries, ctx: QueryContext) -> List[ExecPlan]:
@@ -346,17 +344,6 @@ class SingleClusterPlanner(QueryPlanner):
         return MetadataMergeExec(ctx, self._with_dispatcher([
             PartKeysExec(ctx, self.dataset, s, p.filters, p.start_ms,
                          p.end_ms) for s in shards], shards))
-
-    def _m_RawChunkMeta(self, p: lp.RawChunkMeta, ctx) -> ExecPlan:
-        """The chunk-metadata debug plan: one SelectChunkInfosExec a
-        shard, their rows concatenated."""
-        shards = self.shards_from_filters(p.filters, ctx)
-        return MetadataMergeExec(ctx, self._with_dispatcher([
-            SelectChunkInfosExec(ctx, self.dataset, s, p.filters,
-                                 p.range_selector.from_ms,
-                                 p.range_selector.to_ms,
-                                 col_name=p.column or None)
-            for s in shards], shards))
 
 
 class _DeferredScalar:

@@ -139,14 +139,14 @@ def _py_xxhash64(data: bytes, seed: int = 0) -> int:
 
 
 def xxhash32(data: bytes, seed: int = 0) -> int:
-    lib = _native.lib()
+    lib = _native.lib
     if lib is not None:
         return lib.xxhash32(data, seed)
     return _py_xxhash32(data, seed)
 
 
 def xxhash64(data: bytes, seed: int = 0) -> int:
-    lib = _native.lib()
+    lib = _native.lib
     if lib is not None:
         return lib.xxhash64(data, seed)
     return _py_xxhash64(data, seed)

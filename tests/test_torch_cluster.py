@@ -11,7 +11,10 @@ back equal.  Three `python -m filodb_tpu_torch.parallel.nodeapp
 --device cpu` processes join a port coordinator (tests/test_cluster_e2e.py's
 shape), over a shared directory and over a netstore service: the
 scatter-gather answers as a single store, and after one owner is
-SIGKILLed the standby recovers its shards and answers the same.
+SIGKILLed the standby recovers its shards and answers the same.  A node
+started in the reference's form, `--platform cpu`, joins and answers
+too; an unknown platform, or a --device that disagrees, is an argparse
+error.
 """
 import json
 import os
@@ -282,12 +285,13 @@ def _lines(num_series=24, num_samples=90):
     return out
 
 
-def _spawn(name, coord_port, data_dir, store_url=""):
+def _spawn(name, coord_port, data_dir, store_url="",
+           where=("--device", "cpu")):
     os.makedirs(str(data_dir), exist_ok=True)
     errpath = os.path.join(str(data_dir), f"{name}.stderr")
     cmd = [sys.executable, "-m", "filodb_tpu_torch.parallel.nodeapp",
            "--name", name, "--coordinator", f"127.0.0.1:{coord_port}",
-           "--data-dir", str(data_dir), "--device", "cpu",
+           "--data-dir", str(data_dir), *where,
            "--heartbeat-interval", "0.3"]
     if store_url:
         cmd += ["--store-url", store_url]
@@ -429,3 +433,67 @@ def test_nodeapp_cluster_ingest_query_failover(tmp_path, backend):
         if svc is not None:
             svc.kill()
             svc.wait()
+
+
+def test_nodeapp_takes_the_reference_platform_flag(tmp_path):
+    """One node started as the reference's launch scripts start it,
+    `--platform cpu` and no --device, owns every shard and answers the
+    query as a single store."""
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.gateway.influx import influx_lines_to_batches
+    from filodb_tpu_torch.gateway.router import split_batch_by_shard
+    from filodb_tpu_torch.parallel.shardmapper import SpreadProvider
+    from filodb_tpu_torch.query.engine import QueryEngine
+    q = 'sum by (_ns_)(cluster_metric{_ws_="demo"})'
+    coord = ClusterCoordinator(tsm.ShardManager(
+        reassignment_min_interval_s=0), liveness_timeout_s=2.5,
+        check_interval_s=0.3).start()
+    coord.setup_dataset("prometheus", NUM_SHARDS, min_num_nodes=1)
+    proc = None
+    try:
+        proc, info = _spawn("P", coord.address[1], tmp_path,
+                            where=("--platform", "cpu"))
+        cli = ClusterClient(coord.address)
+        _wait_state(cli, lambda s: s["datasets"]["prometheus"][
+            "statuses"] == ["Active"] * NUM_SHARDS, 60, "shards active")
+        lines = _lines(num_series=8, num_samples=90)
+        r = _rpc(("127.0.0.1", info["control_port"]),
+                 {"cmd": "ingest_lines", "lines": lines, "offset": 1},
+                 timeout_s=120)
+        assert r["ok"] and r["ingested"] == len(lines), r
+        t_mapper, _ = cli.mapper("prometheus")
+        spread = SpreadProvider(default_spread=1)
+        truth = TimeSeriesMemStore(device="cpu")
+        for s in range(NUM_SHARDS):
+            truth.setup("prometheus", s)
+        for batch in influx_lines_to_batches(lines):
+            for s, sub in split_batch_by_shard(batch, t_mapper,
+                                               spread).items():
+                truth.get_shard("prometheus", s).ingest(sub)
+        want = {str(k): np.asarray(v) for k, _, v in QueryEngine(
+            "prometheus", truth, t_mapper, spread, device="cpu").query_range(
+            q, START // 1000 + 120, 60, START // 1000 + 880).series()}
+        got, _ = _query(cli, q)
+        assert len(want) == 4 and set(got) == set(want)
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-9,
+                                       equal_nan=True)
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+        coord.stop()
+
+
+@pytest.mark.parametrize("where, says", [
+    (["--platform", "tpu"], "choose from"),
+    (["--platform", "cpu", "--device", "cuda"], "disagree")])
+def test_nodeapp_refuses_an_unknown_or_contrary_platform(capsys, where,
+                                                         says):
+    from filodb_tpu_torch.parallel import nodeapp
+    with pytest.raises(SystemExit) as ei:
+        nodeapp.main(["--name", "X", "--coordinator", "127.0.0.1:1",
+                      "--data-dir", "unused", *where])
+    assert ei.value.code == 2
+    err = capsys.readouterr().err
+    assert says in err and "--platform" in err

@@ -3,9 +3,7 @@ port's QueryEngine(device="cpu"), with tests/test_promql_corpus.py's
 loader and checks: each file is loaded into the JAX memstore, its series
 are carried into the port's (load_reference_arrays, as
 tests/test_torch_engine.py does), and every `eval` must give the
-expected values.  NOT_PORTED pins each file's count of evals that raise
-not_ported, so a regression cannot hide among them; it is empty: the
-port answers every eval of the corpus.
+expected values: the port answers every eval of the corpus.
 histograms.test is also replayed through the native histogram schema.
 """
 import os
@@ -13,32 +11,17 @@ import os
 import numpy as np
 import pytest
 
-from filodb_tpu_torch.query.execbase import QueryError
-
 from test_promql_corpus import (CORPUS_DIR, _corpus_files, build_engine,
                                 parse_corpus, run_case)
 from test_torch_engine import _port_engine
 from test_torch_ingest import _clear_compile_journal  # noqa: F401
 
-# file -> evals that raise not_ported: none since the plan nodes (sort,
-# limitk, absent, the label functions, scalar(), vector(), subqueries,
-# `@`) are ported; the reference itself refuses no eval of the corpus
-NOT_PORTED = {}
-
-
 @pytest.mark.parametrize("fname", _corpus_files())
 def test_corpus_file_through_the_port(fname):
     step_s, series, cases = parse_corpus(os.path.join(CORPUS_DIR, fname))
     engine = _port_engine(build_engine(step_s, series), 1, "gauge", "value")
-    skipped = []
     for case in cases:
-        try:
-            run_case(engine, case)
-        except QueryError as e:
-            if e.code != "not_ported":
-                raise
-            skipped.append((case.line_no, case.expr))
-    assert len(skipped) == NOT_PORTED.get(fname, 0), skipped
+        run_case(engine, case)
 
 
 def test_classic_buckets_match_native_histogram_schema_through_the_port():

@@ -11,8 +11,8 @@ error streak, a breaker opening, a freshness breach window, a compile
 storm (10 compiles of one kernel within 120 s), sustained mirror
 over-cap degrades (3), and readiness while booting and serving.  Then
 every ported route answers the reference's status (the write doors the
-reference's whole answer), and every route the reference serves that
-the port has not yet answers 501 `not_ported`.
+reference's whole answer), and no route the reference serves answers
+501 or the reference's unknown-route 404.
 """
 import json
 import time

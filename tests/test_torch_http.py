@@ -7,9 +7,9 @@ Every ported route answers with the JAX API's status and payload shape
 (the same keys, recursively); matrix and vector values agree within the
 reference's tolerance, rtol 2e-4 / atol 1e-3 (__graft_entry__.py:221),
 with the same label sets; metadata answers are equal.  Routes the port
-does not serve answer the reference's 404 shape, and a query that raises
-QueryError("not_ported") below the API answers an error status with an
-error payload.  Both APIs also run behind a FiloHttpServer on port 0.
+does not serve answer the reference's 404 shape, and a query over a
+column its schema lacks answers the reference's 400 with its error.
+Both APIs also run behind a FiloHttpServer on port 0.
 """
 import json
 import urllib.error
@@ -186,13 +186,16 @@ def test_metrics_exposition(apis):
     assert apis[1].handle("GET", "/metrics", {"format": "x"})[0] == 400
 
 
-def test_not_ported_answers_an_error_status(apis):
-    st, p = apis[1].handle("GET", "/api/v1/query_range",
-                           {"query": "sum(rate(request_total::nosuch[5m]))",
-                            **ARGS})
-    assert st == 501
-    assert p["status"] == "error" and p["errorType"] == "not_ported"
-    assert "nosuch" in p["error"]
+def test_unknown_column_answers_the_reference_400(apis):
+    (jst, jp), (st, p) = [api.handle(
+        "GET", "/api/v1/query_range",
+        {"query": "sum(rate(request_total::nosuch[5m]))", **ARGS})
+        for api in apis]
+    assert st == jst == 400
+    for x in (p, jp):
+        x.pop("traceID", None)
+    assert p == jp == {"status": "error", "errorType": "query_error",
+                       "error": "KeyError: 'nosuch'"}
 
 
 def _get(port, path, params=None):
@@ -225,10 +228,13 @@ def test_filo_http_server_on_port_zero(apis):
             assert len(json.load(f)["results"]) == 2
         (jst, _), (st, b) = [_get(s.port, "/no/such") for s in servers]
         assert st == jst == 404 and json.loads(b)["status"] == "error"
-        st, b = _get(servers[1].port, "/api/v1/query_range",
-                     {"query": "sum(rate(request_total::nosuch[5m]))",
-                      **ARGS})
-        assert st == 501 and json.loads(b)["errorType"] == "not_ported"
+        (jst, jb), (st, b) = [_get(s.port, "/api/v1/query_range",
+                                   {"query": "sum(rate(request_total::"
+                                             "nosuch[5m]))", **ARGS})
+                              for s in servers]
+        p, jp = json.loads(b), json.loads(jb)
+        assert st == jst == 400 and p["errorType"] == jp["errorType"] \
+            == "query_error" and p["error"] == jp["error"]
     finally:
         for s in servers:
             s.stop()

@@ -24,7 +24,7 @@ pytestmark = pytest.mark.skipif(
 
 @pytest.fixture(scope="module")
 def lib():
-    got = native.lib()
+    got = native.lib
     assert got is not None, native.build_error()
     return got
 

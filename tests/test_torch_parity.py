@@ -23,12 +23,21 @@ exactly.
    the reference stamps an empty one), span reporters and the span kill
    switch work, and `FiloSchedulers` asserts thread names;
 8. the host group cache drops a shard's entries of older epochs;
+9. a column its schema lacks fails a query with the reference's error,
+   through the engine (range, instant, batch) and over HTTP (its 400);
+   both planners refuse the chunk-metadata plan with one ValueError;
+   the native host library is `lib`, the library or None, equal to the
+   reference's, and importing it builds and loads nothing;
 and the pieces that were missing: `TimeSeriesShard.gather_series`,
 `TimeSeriesMemStore.recover_index` / `recover_stream`, and the shard's
 registry metrics (`ingested_rows`, `chunks_flushed`, `dense_store_bytes`,
 `memory_pressure_evictions`, `write_lock_stalls`).
 """
+import json
+import subprocess
+import sys
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -866,3 +875,142 @@ def test_memstore_recover_index_and_recover_stream():
     assert counts["port"] == counts["jax"]
     assert counts["port"][:2] == (S, S * 30)
     assert_same_stores(stores["port"], stores["jax"])
+
+
+# ---------------------------------------- 9. the last differences
+
+
+def _two_schema_store(pkg):
+    """24 seeded counters and 24 seeded gauges on one shard -> engine."""
+    rng = np.random.default_rng(SEED)
+    S, k = 24, 240
+    ts = np.ascontiguousarray(np.broadcast_to(
+        T0 + STEP_MS * np.arange(k, dtype=np.int64), (S, k)))
+    ms = pkg["memstore"](column_store=pkg["ColStore"](),
+                         meta_store=pkg["MetaStore"]())
+    sh = ms.setup(DS, 0)
+    sh.ingest_columns("prom-counter", _keys(pkg, S, "request_total"), ts,
+                      {"count": np.cumsum(rng.uniform(0, 10, (S, k)), 1)})
+    sh.ingest_columns("gauge", _keys(pkg, S), ts,
+                      {"value": np.round(rng.uniform(0, 100, (S, k)), 3)})
+    return pkg["Engine"](DS, ms, _mapper(pkg))
+
+
+@pytest.fixture(scope="module")
+def two_schema_engines():
+    return {name: _two_schema_store(pkg) for name, pkg in BOTH.items()}
+
+
+UNKNOWN_COLUMN = {"counter": ("sum(rate(request_total::nosuch[5m]))",
+                              "request_total::nosuch"),
+                  "gauge": ("sum(heap_usage::nope)", "heap_usage::nope")}
+END_S = T0 // 1000 + 2390
+
+
+@pytest.mark.parametrize("form", ["range", "instant", "batch"])
+@pytest.mark.parametrize("schema", ["counter", "gauge"])
+def test_unknown_column_error_equals_the_reference(two_schema_engines,
+                                                   schema, form):
+    errors = {}
+    for name, eng in two_schema_engines.items():
+        for q in UNKNOWN_COLUMN[schema]:
+            if form == "range":
+                res = [eng.query_range(q, T0 // 1000 + 600, 60, END_S)]
+            elif form == "instant":
+                res = [eng.query_instant(q, END_S)]
+            else:
+                res = eng.query_range_batch([q, q], T0 // 1000 + 600, 60,
+                                            END_S)
+            errors.setdefault(name, []).extend(r.error for r in res)
+    col = "nosuch" if schema == "counter" else "nope"
+    assert errors["port"] == errors["jax"]
+    assert set(errors["port"]) == {f"KeyError: '{col}'"}
+
+
+@pytest.mark.parametrize("route", ["query_range", "query"])
+@pytest.mark.parametrize("q", [q for pair in UNKNOWN_COLUMN.values()
+                               for q in pair])
+def test_unknown_column_http_answer_equals_the_reference(two_schema_engines,
+                                                         route, q):
+    from filodb_tpu.http.routes import PromHttpApi as JApi
+    from filodb_tpu_torch.http.routes import PromHttpApi
+    params = {"query": q, "time": str(END_S)} if route == "query" else {
+        "query": q, "start": str(T0 // 1000 + 600), "end": str(END_S),
+        "step": "1m"}
+    answers = {}
+    for name, Api in (("jax", JApi), ("port", PromHttpApi)):
+        st, p = Api({DS: two_schema_engines[name]}).handle(
+            "GET", f"/api/v1/{route}", params)
+        answers[name] = (st, p["status"], p["errorType"], p["error"])
+    assert answers["port"] == answers["jax"]
+    assert answers["port"][:3] == (400, "error", "query_error")
+
+
+def test_raw_chunk_meta_plan_refused_by_both_planners():
+    from filodb_tpu.query import logical as jlp
+    from filodb_tpu.query.planner import SingleClusterPlanner as JPlanner
+    from filodb_tpu_torch.query import logical as plp
+    from filodb_tpu_torch.query.planner import SingleClusterPlanner
+    errors = {}
+    for name, lp, Planner in (("jax", jlp, JPlanner),
+                              ("port", plp, SingleClusterPlanner)):
+        pkg = BOTH[name]
+        plan = lp.RawChunkMeta(lp.IntervalSelector(0, 1 << 62),
+                               (_filter(name, "_metric_", "heap_usage"),),
+                               "value")
+        with pytest.raises(ValueError) as ei:
+            Planner(DS, _mapper(pkg)).materialize(plan,
+                                                  pkg["QueryContext"]())
+        errors[name] = str(ei.value)
+    assert errors["port"] == errors["jax"] == \
+        "cannot materialize RawChunkMeta"
+
+
+@pytest.fixture(scope="module")
+def native_libs():
+    from filodb_tpu import native as jnative
+    from filodb_tpu_torch import native as pnative
+    if jnative.lib is None or pnative.lib is None:
+        pytest.skip("a native host library did not build: "
+                    f"{pnative.build_error() or 'the reference'}")
+    return jnative.lib, pnative.lib
+
+
+@pytest.mark.parametrize("n", [0, 5, 33, 1024])
+def test_native_lib_equals_the_reference_library(native_libs, n):
+    from filodb_tpu_torch.native import lib
+    ref, port = native_libs
+    assert lib is port
+    rng = np.random.default_rng(SEED + n)
+    data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    for seed in (0, 1, 0xDEADBEEF):
+        assert port.xxhash32(data, seed) == ref.xxhash32(data, seed)
+        assert port.xxhash64(data, seed) == ref.xxhash64(data, seed)
+    vals = rng.integers(0, 2**40, n).astype(np.uint64)
+    vals[::3] = 0
+    packed = port.nibble_pack(vals)
+    assert packed == ref.nibble_pack(vals)
+    np.testing.assert_array_equal(port.nibble_unpack(packed, n), vals)
+    np.testing.assert_array_equal(ref.nibble_unpack(packed, n), vals)
+
+
+def test_importing_native_builds_and_loads_nothing():
+    """A fresh interpreter imports the package: no build, no library in
+    the process, `lib` not yet resolved; the first read resolves it and
+    keeps it in the module's globals."""
+    probe = (
+        "import json, filodb_tpu_torch.native as n\n"
+        "maps = lambda: open('/proc/self/maps').read()\n"
+        "before = {'tried': n._tried, 'kept': 'lib' in vars(n),\n"
+        "          'mapped': 'libfilodb_native' in maps()}\n"
+        "got = n.lib\n"
+        "print(json.dumps({'before': before, 'kept': vars(n).get('lib', 0)\n"
+        "                  is got, 'tried': n._tried}))\n")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=str(Path(__file__).resolve().parents[1]))
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"before": {"tried": False, "kept": False,
+                              "mapped": False},
+                   "kept": True, "tried": True}

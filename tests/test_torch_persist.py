@@ -372,29 +372,39 @@ def test_select_chunk_infos_matches_reference(tmp_path):
 
 
 def test_raw_chunk_meta_plan_fans_out_select_chunk_infos(tmp_path):
-    """The planner's RawChunkMeta: one SelectChunkInfosExec a shard under
-    MetadataMergeExec, answering the leaf's own rows (the reference's
-    planner refuses the plan; its CLI builds the leaf by hand)."""
+    """The chunk-metadata plan: both planners refuse RawChunkMeta with the
+    same ValueError, and the leaf a caller builds by hand (as the
+    reference's CLI does) answers one shard's rows, a column named."""
+    from filodb_tpu.core.index import Equals as JEquals
+    from filodb_tpu.parallel.shardmapper import ShardEvent as JEvent
+    from filodb_tpu.parallel.shardmapper import ShardMapper as JMapper
+    from filodb_tpu.query import logical as jlp
+    from filodb_tpu.query.planner import SingleClusterPlanner as JPlanner
     from filodb_tpu_torch.core.index import Equals
     from filodb_tpu_torch.query import logical as lp
     from filodb_tpu_torch.query.planner import SingleClusterPlanner
     from filodb_tpu_torch.parallel.shardmapper import ShardEvent, ShardMapper
+    errors = []
+    for port in (True, False):
+        M, E, L, P, C = ((ShardMapper, ShardEvent, lp, SingleClusterPlanner,
+                          QueryContext) if port else
+                         (JMapper, JEvent, jlp, JPlanner, JContext))
+        mapper = M(1)
+        mapper.update_from_event(E("IngestionStarted", "prometheus", 0, "n"))
+        plan = L.RawChunkMeta(L.IntervalSelector(0, 1 << 62), (), "value")
+        with pytest.raises(ValueError) as ei:
+            P("prometheus", mapper).materialize(plan, C())
+        errors.append(str(ei.value))
+    assert errors[0] == errors[1] == "cannot materialize RawChunkMeta"
     stream, out = _flushed_pair(tmp_path)
-    ms, _, _ = _recovered(out[True][1], True, stream, 2)
-    mapper = ShardMapper(1)
-    mapper.update_from_event(ShardEvent("IngestionStarted", "prometheus", 0,
-                                        "n"))
-    filters = (Equals("_metric_", "heap_usage"),)
-    plan = lp.RawChunkMeta(lp.IntervalSelector(0, 1 << 62), filters,
-                           "value")
-    ep = SingleClusterPlanner("prometheus", mapper).materialize(
-        plan, QueryContext())
-    assert ep.print_tree().splitlines() == [
-        "-E~MetadataMergeExec()",
-        "--E~SelectChunkInfosExec(shard=0, chunkMethod=TimeRangeChunkScan("
-        f"0,{1 << 62}), filters=[\"{filters[0]}\"], col=value)"]
-    data, _ = ep.execute_internal(ms)
-    leaf, _ = SelectChunkInfosExec(QueryContext(), "prometheus", 0, filters,
-                                   0, 1 << 62, col_name="value"
-                                   )._do_execute(ms)
-    assert data.data == leaf.data and len(data.data) == 12
+    rows = {}
+    for port in (True, False):
+        ms, _, _ = _recovered(out[port][1], port, stream, 2)
+        Plan, Ctx, Eq = ((SelectChunkInfosExec, QueryContext, Equals) if port
+                         else (JChunkInfos, JContext, JEquals))
+        leaf, _ = Plan(Ctx(), "prometheus", 0,
+                       (Eq("_metric_", "heap_usage"),), 0, 1 << 62,
+                       col_name="value")._do_execute(ms)
+        rows[port] = leaf.data
+    assert len(rows[True]) == 12
+    assert _rows_sans_ids(rows[True]) == _rows_sans_ids(rows[False])

@@ -3,11 +3,13 @@
 Copies the checkout into OUT (default `.scratch/parity_audit` in the
 checkout, which git ignores), rewrites `filodb_tpu` to
 `filodb_tpu_torch` in every file under the copy's `tests/` that is not
-one of the port's own (`test_torch_*`, `torch_*`), makes the copy's
-conftest resolve every device to the CPU, and runs the rewritten test
-files there with the tier-1 xdist flags.  The tests run in the copy
-with TMPDIR under OUT and bytecode caches off, so nothing is written
-outside OUT.
+one of the port's own (`test_torch_*`, `torch_*`), rewrites their
+`import jax.numpy as jnp` (at any indentation) to a shim module written
+into the copy, whose `asarray` and `array` give torch tensors of the
+numpy array, makes the copy's conftest resolve every device to the CPU,
+and runs the rewritten test files there with the tier-1 xdist flags.
+The tests run in the copy with TMPDIR under OUT and bytecode caches
+off, so nothing is written outside OUT.
 
     python tests/torch_parity_audit.py [--out DIR] [-n 6]
         [--timeout 1200] [FILE_OR_NODEID ...]
@@ -31,6 +33,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 _NAME = re.compile(r"\bfilodb_tpu\b")
+_JNP = re.compile(r"^([ \t]*)import jax\.numpy as jnp[ \t]*$", re.M)
+_JNP_SHIM = "_parity_audit_jnp"
+_JNP_SHIM_SOURCE = '''"""jax.numpy's array constructors, as the parity audit
+gives them to the reference's tests: torch tensors of the numpy array."""
+import numpy as np
+import torch
+
+
+def asarray(a, dtype=None):
+    return torch.as_tensor(np.asarray(a, dtype=dtype))
+
+
+array = asarray
+'''
 
 
 def _ignored_dirs() -> set:
@@ -89,12 +105,14 @@ def prepare(out: Path) -> list:
             continue
         text = path.read_text()
         new = _NAME.sub("filodb_tpu_torch", text)
+        new = _JNP.sub(rf"\1import {_JNP_SHIM} as jnp", new)
         if path.name == "conftest.py" and path.parent == out / "tests":
             new += "\nimport torch\n" + _FORCE_CPU
         if new != text:
             path.write_text(new)
         if path.name.startswith("test_") and path.parent == out / "tests":
             rewritten.append(str(path.relative_to(out)))
+    (out / "tests" / f"{_JNP_SHIM}.py").write_text(_JNP_SHIM_SOURCE)
     return rewritten
 
 
